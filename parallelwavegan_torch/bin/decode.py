@@ -1,0 +1,101 @@
+#!/usr/bin/env python3
+"""Decode CLI: mel features -> waveforms with a trained Parallel WaveGAN.
+
+Counterpart of the bucketed batch branch of
+``parallelwavegan_tpu/bin/decode.py``. Runs on CUDA by default
+(``--device cpu`` for the host):
+
+    python -m parallelwavegan_torch.bin.decode --dumpdir dump \
+        --checkpoint exp/generator.gckpt --outdir wav [--dtype bfloat16]
+"""
+
+from __future__ import annotations
+
+import argparse
+import logging
+import os
+import time
+
+import numpy as np
+import torch
+
+from parallelwavegan_torch.datasets.audio_mel_dataset import MelDataset
+from parallelwavegan_torch.utils.io import load_config, read_hdf5, write_wav
+from parallelwavegan_torch.utils.model_loader import load_model
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser(
+        description="Decode dumped features with a trained vocoder."
+    )
+    parser.add_argument("--dumpdir", type=str, required=True)
+    parser.add_argument("--outdir", type=str, required=True)
+    parser.add_argument("--checkpoint", type=str, required=True)
+    parser.add_argument("--config", default=None, type=str)
+    parser.add_argument("--stats", default=None, type=str)
+    parser.add_argument("--normalize-before", action="store_true")
+    parser.add_argument("--batch-size", default=8, type=int)
+    parser.add_argument(
+        "--dtype", default="float32", choices=sorted(_DTYPES),
+        help="compute dtype for synthesis",
+    )
+    parser.add_argument(
+        "--pcm16", action="store_true",
+        help="convert the waveform to 16-bit PCM on the device",
+    )
+    parser.add_argument(
+        "--device", default="cuda", choices=["cuda", "cpu"],
+        help="run on the GPU (default; fails without one) or the CPU",
+    )
+    parser.add_argument("--verbose", type=int, default=1)
+    args = parser.parse_args(argv)
+
+    logging.basicConfig(
+        level=logging.INFO if args.verbose else logging.WARN,
+        format="%(asctime)s (%(module)s:%(lineno)d) %(levelname)s: %(message)s",
+    )
+    if args.normalize_before and args.stats is None:
+        raise ValueError("--normalize-before requires --stats.")
+
+    config = load_config(
+        args.config
+        or os.path.join(os.path.dirname(args.checkpoint), "config.yml")
+    )
+    if config.get("format", "hdf5") == "hdf5":
+        dataset = MelDataset(args.dumpdir, "*.h5",
+                             lambda f: read_hdf5(f, "feats"),
+                             return_utt_id=True)
+    else:
+        dataset = MelDataset(args.dumpdir, "*-feats.npy", np.load,
+                             return_utt_id=True)
+    logging.info(f"The number of features to be decoded = {len(dataset)}.")
+
+    model = load_model(args.checkpoint, config, stats=args.stats,
+                       dtype=_DTYPES[args.dtype], pcm16=args.pcm16,
+                       device=args.device)
+    sr = config.get("sampling_rate", 22050)
+    os.makedirs(args.outdir, exist_ok=True)
+    items = [dataset[i] for i in range(len(dataset))]
+    total_t = total_audio = 0.0
+    for i in range(0, len(items), args.batch_size):
+        chunk = items[i : i + args.batch_size]
+        start = time.perf_counter()
+        waves = model.synthesize_batch(
+            [m for _, m in chunk], normalize_before=args.normalize_before
+        )
+        total_t += time.perf_counter() - start
+        total_audio += sum(len(w) for w in waves) / sr
+        for (utt_id, _), w in zip(chunk, waves):
+            write_wav(os.path.join(args.outdir, f"{utt_id}_gen.wav"),
+                      w[:, 0], sr)
+    logging.info(
+        f"Finished generation of {len(items)} utterances "
+        f"(RTF = {total_t / max(total_audio, 1e-9):.06f}, first call "
+        f"included)."
+    )
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,19 @@
+"""Model families and the config-name registry (Parallel WaveGAN so far)."""
+
+from parallelwavegan_torch.models.parallel_wavegan import (  # noqa: F401
+    ParallelWaveGANGenerator,
+)
+
+_REGISTRY = {
+    "ParallelWaveGANGenerator": ParallelWaveGANGenerator,
+}
+
+
+def get_model_class(name: str):
+    """Resolve a config model name to the port's module class."""
+    if name not in _REGISTRY:
+        raise NotImplementedError(
+            f"model family {name} is not ported yet; available: "
+            f"{sorted(_REGISTRY)}"
+        )
+    return _REGISTRY[name]

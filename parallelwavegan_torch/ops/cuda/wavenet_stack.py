@@ -1,0 +1,205 @@
+"""Fused WaveNet dilated gated residual stack: CUDA kernel and plain version.
+
+Counterpart of ``parallelwavegan_tpu/ops/pallas/wavenet_stack.py``. The
+Parallel WaveGAN generator's hot loop is 30 gated residual layers over small
+channel counts (R=64, G=128, S=64). ``wavenet_stack`` runs a group of them
+through the hand-written kernel ``csrc/wavenet_stack.cu`` (one launch per
+layer; its design and bound are in the note at the head of that file) for
+CUDA tensors, and through ``wavenet_stack_reference`` for CPU tensors.
+
+Math per layer (WaveNetResidualBlock with k=3, non-causal):
+    z    = [x[t-d] | x | x[t+d]] @ Wt + c @ Wa + bt        # (T, G)
+    g    = tanh(z[:, :R]) * sigmoid(z[:, R:])              # (T, R)
+    skip += g @ Ws + bs                                    # (T, S), f32
+    x    = (g @ Wo + bo + x) * sqrt(0.5)                   # (T, R), f32
+
+The residual state stays f32 across the layers of one call and is rounded to
+``x.dtype`` once, at the end; matmul inputs are rounded to the weight dtype
+and products accumulate in f32 (the TPU kernel's semantics, which for bf16
+differ from the JAX per-layer reference, which rounds x every layer).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import math
+from typing import Dict, Sequence, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from parallelwavegan_torch.ops.cuda.build import load_library
+
+# channel widths the CUDA kernel is compiled for (PWG v1)
+KERNEL_CHANNELS = {"residual": 64, "gate": 128, "skip": 64}
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def check_kernel_channels(residual: int, gate: int, skip: int) -> None:
+    """Raise NotImplementedError unless the kernel is built for these widths."""
+    if (residual, gate, skip) != tuple(KERNEL_CHANNELS.values()):
+        raise NotImplementedError(
+            "the CUDA kernel is built for residual/gate/skip channels "
+            f"{tuple(KERNEL_CHANNELS.values())}, got "
+            f"{(residual, gate, skip)}"
+        )
+
+
+def fuse_wavenet_stack_params(blocks: Sequence[torch.nn.Module]
+                              ) -> Dict[str, torch.Tensor]:
+    """Stack one layer group's kernels into the kernel's layout.
+
+    ``blocks`` are WaveNetResidualBlocks (folded kernels, (K, Cin, Cout)).
+    Returns w_tap (L, 3, R, G), b_tap (L, G), w_aux (L, A, G),
+    w_so (L, R, S+R) (skip|out 1x1s side by side) and b_so (L, S+R).
+    """
+    for blk in blocks:
+        if blk.conv.kernel.shape[0] != 3:
+            raise ValueError("the fused stack requires kernel_size=3")
+    return {
+        "w_tap": torch.stack([b.conv.kernel for b in blocks]),
+        "b_tap": torch.stack([b.conv.bias for b in blocks]),
+        "w_aux": torch.stack([b.conv1x1_aux.kernel[0] for b in blocks]),
+        "w_so": torch.stack([
+            torch.cat([b.conv1x1_skip.kernel[0], b.conv1x1_out.kernel[0]], -1)
+            for b in blocks
+        ]),
+        "b_so": torch.stack([
+            torch.cat([b.conv1x1_skip.bias, b.conv1x1_out.bias]) for b in blocks
+        ]),
+    }
+
+
+def _shift(x: torch.Tensor, d: int) -> torch.Tensor:
+    """s[t] = x[t - d] along axis 1, zero-filled (d < 0 shifts left)."""
+    T = x.shape[1]
+    if abs(d) >= T:
+        return torch.zeros_like(x)
+    if d > 0:
+        return F.pad(x[:, : T - d], (0, 0, d, 0))
+    return F.pad(x[:, -d:], (0, 0, 0, -d))
+
+
+def wavenet_stack_reference(
+    x: torch.Tensor, c: torch.Tensor, w: Dict[str, torch.Tensor],
+    dilations: Sequence[int],
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of the kernel: same inputs, same outputs."""
+    f32 = torch.float32
+    mm = w["w_tap"].dtype
+    R = x.shape[-1]
+    S = w["w_so"].shape[-1] - R
+    h = x.to(f32)
+    cm = c.to(mm).to(f32)
+    skip = None
+    for i, d in enumerate(dilations):
+        xm = h.to(mm).to(f32)
+        xcat = torch.cat([_shift(xm, d), xm, _shift(xm, -d)], dim=-1)
+        z = xcat @ w["w_tap"][i].reshape(3 * R, -1).to(f32)
+        z = z + cm @ w["w_aux"][i].to(f32)
+        z = z + w["b_tap"][i].to(f32)
+        g = torch.tanh(z[..., :R]) * torch.sigmoid(z[..., R:])
+        so = g.to(mm).to(f32) @ w["w_so"][i].to(f32) + w["b_so"][i].to(f32)
+        skip = so[..., :S] if skip is None else skip + so[..., :S]
+        h = (so[..., S:] + h) * math.sqrt(0.5)
+    return h.to(x.dtype), skip
+
+
+def _check_cuda_args(x, c, w, dilations):
+    B, T, R = x.shape
+    if c.dim() != 3 or c.shape[:2] != (B, T):
+        raise ValueError(f"c {tuple(c.shape)} does not match x {tuple(x.shape)}")
+    A = c.shape[-1]
+    L = len(dilations)
+    G, S = w["w_tap"].shape[-1], w["w_so"].shape[-1] - R
+    check_kernel_channels(R, G, S)
+    shapes = {
+        "w_tap": (L, 3, R, G), "b_tap": (L, G), "w_aux": (L, A, G),
+        "w_so": (L, R, S + R), "b_so": (L, S + R),
+    }
+    if x.dtype not in _DTYPE_CODES:
+        raise TypeError(f"unsupported dtype {x.dtype}")
+    if A % 4 or not 1 <= B <= 65535 or T < 1 or L < 1:
+        raise ValueError(f"unsupported shape B={B} T={T} A={A} L={L}")
+    for name, t in [("x", x), ("c", c)] + [(k, w[k]) for k in shapes]:
+        if name in shapes and tuple(t.shape) != shapes[name]:
+            raise ValueError(f"{name} {tuple(t.shape)} != {shapes[name]}")
+        if t.device != x.device:
+            raise ValueError(f"{name} is on {t.device}, x on {x.device}")
+        if t.dtype != x.dtype:
+            raise TypeError(f"{name} is {t.dtype}, x is {x.dtype}")
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{name} must be contiguous and 16-byte aligned")
+
+
+@functools.lru_cache(maxsize=None)
+def _library() -> ctypes.CDLL:
+    """The built kernel library with its C signatures declared."""
+    lib = load_library("wavenet_stack")
+    fn = lib.pwg_wavenet_stack_forward
+    fn.restype = ctypes.c_int
+    fn.argtypes = (
+        [ctypes.c_int] + [ctypes.c_void_p] * 7
+        + [ctypes.POINTER(ctypes.c_int)] + [ctypes.c_int] * 4
+        + [ctypes.c_void_p] * 5
+    )
+    lib.pwg_cuda_error_string.restype = ctypes.c_char_p
+    lib.pwg_cuda_error_string.argtypes = [ctypes.c_int]
+    return lib
+
+
+def wavenet_stack(
+    x: torch.Tensor, c: torch.Tensor, w: Dict[str, torch.Tensor],
+    dilations: Sequence[int],
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Run a fused group of WaveNet layers.
+
+    x (B, T, R) residual input and c (B, T, A) upsampled conditioning, in
+    the weights' dtype (float32 or bfloat16); ``w`` from
+    :func:`fuse_wavenet_stack_params`. Returns (x_out (B, T, R) in x.dtype,
+    skip sum (B, T, S) float32). CPU tensors take the plain version; CUDA
+    tensors launch the kernel (one launch per layer, counted in
+    ``wavenet_stack.launches``) or raise.
+    """
+    if x.device.type == "cpu":
+        return wavenet_stack_reference(x, c, w, dilations)
+    if x.device.type != "cuda":
+        raise ValueError(f"no wavenet_stack for device {x.device}")
+    _check_cuda_args(x, c, w, dilations)
+    lib = _library()
+    B, T, R = x.shape
+    L = len(dilations)
+    S = w["w_so"].shape[-1] - R
+    dil = (ctypes.c_int * L)(*[int(d) for d in dilations])
+    with torch.cuda.device(x.device):
+        # the f32 residual ping-pongs between two scratch buffers; they are
+        # freed on return, which the caching allocator orders after the
+        # launches on this stream
+        x_out = torch.empty_like(x)
+        skip = torch.empty((B, T, S), dtype=torch.float32, device=x.device)
+        bufs = [
+            torch.empty((B, T, R), dtype=torch.float32, device=x.device)
+            if L >= n else None
+            for n in (2, 3)
+        ]
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = lib.pwg_wavenet_stack_forward(
+            _DTYPE_CODES[x.dtype], x.data_ptr(), c.data_ptr(),
+            w["w_tap"].data_ptr(), w["b_tap"].data_ptr(),
+            w["w_aux"].data_ptr(), w["w_so"].data_ptr(), w["b_so"].data_ptr(),
+            dil, L, B, T, c.shape[-1], x_out.data_ptr(), skip.data_ptr(),
+            None if bufs[0] is None else bufs[0].data_ptr(),
+            None if bufs[1] is None else bufs[1].data_ptr(),
+            stream,
+        )
+    if err != 0:
+        raise RuntimeError(
+            "wavenet_stack kernel launch failed: "
+            + lib.pwg_cuda_error_string(err).decode()
+        )
+    wavenet_stack.launches += L
+    return x_out, skip
+
+
+wavenet_stack.launches = 0

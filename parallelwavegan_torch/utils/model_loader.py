@@ -1,0 +1,195 @@
+"""Public inference API: load a trained generator and synthesize waveforms.
+
+Counterpart of ``parallelwavegan_tpu/utils/model_loader.py`` for Parallel
+WaveGAN: read the config, build the generator, load ``.gckpt`` weights with
+weight norm folded, cast to the compute dtype, register mean/scale stats,
+and synthesize a list of mels as one bucketed batch. On CUDA the generator
+runs through ``pwg_fused_forward`` (the WaveNet stack kernel); on the CPU
+through its plain per-layer forward.
+
+Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
+"""
+
+from __future__ import annotations
+
+import logging
+import os
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from parallelwavegan_torch.models import get_model_class
+from parallelwavegan_torch.ops.cuda.pwg_infer import (
+    pwg_fused_forward,
+    unsupported_fused_settings,
+)
+from parallelwavegan_torch.ops.cuda.wavenet_stack import (
+    check_kernel_channels,
+    fuse_wavenet_stack_params,
+)
+from parallelwavegan_torch.utils.io import load_config, read_hdf5
+from parallelwavegan_torch.utils.params import convert_jax_params
+
+
+def resolve_device(device: Any = "cuda") -> torch.device:
+    """torch.device for ``device``; raises when CUDA is asked for and absent."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "CUDA is not available; pass device='cpu' to run on the CPU"
+        )
+    return device
+
+
+class InferenceModel:
+    """Generator (folded weights, compute dtype, on a device) + stats."""
+
+    def __init__(self, config: Dict[str, Any], variables: Dict[str, Any],
+                 dtype: Optional[torch.dtype] = None, pcm16: bool = False,
+                 device: Any = "cuda"):
+        self.device = resolve_device(device)
+        self.config = config
+        self.gen_type = config.get("generator_type", "ParallelWaveGANGenerator")
+        gen_params = dict(config.get("generator_params", {}))
+        self.generator = get_model_class(self.gen_type)(**gen_params)
+        self.generator.load_state_dict(
+            convert_jax_params(variables["params"]), strict=True
+        )
+        self.dtype = dtype or torch.float32
+        self.generator.to(device=self.device, dtype=self.dtype).eval()
+        # on CUDA the generator runs only through the stack kernel, whose
+        # weights are fused once here; settings it lacks raise
+        self.stack_params: Optional[Dict[str, torch.Tensor]] = None
+        if self.device.type == "cuda":
+            gen = self.generator
+            bad = unsupported_fused_settings(gen)
+            if bad:
+                raise NotImplementedError(
+                    f"{self.gen_type} with {', '.join(bad)} has no CUDA path"
+                )
+            check_kernel_channels(gen.residual_channels, gen.gate_channels,
+                                  gen.skip_channels)
+            with torch.no_grad():
+                self.stack_params = fuse_wavenet_stack_params(gen.conv_layers)
+        self.mean: Optional[np.ndarray] = None
+        self.scale: Optional[np.ndarray] = None
+        self.upsample_factor = self.generator.upsample_factor
+        # pcm16: convert to int16 PCM on the device (clip to [-1, 1],
+        # *32767, truncate), as utils.io.write_wav does on the host
+        self.pcm16 = bool(pcm16)
+
+    def register_stats(self, stats: str) -> None:
+        """Register mean/scale for de-normalization (h5 or npy)."""
+        if stats.endswith(".h5"):
+            self.mean = read_hdf5(stats, "mean").reshape(-1)
+            self.scale = read_hdf5(stats, "scale").reshape(-1)
+        elif stats.endswith(".npy"):
+            arr = np.load(stats)
+            self.mean = arr[0].reshape(-1)
+            self.scale = arr[1].reshape(-1)
+        else:
+            raise ValueError(f"stats must be .h5 or .npy: {stats}")
+        logging.info("Successfully registered stats.")
+
+    def _forward_fn(self) -> Callable[[torch.Tensor, torch.Tensor],
+                                      torch.Tensor]:
+        gen, w = self.generator, self.stack_params
+
+        @torch.inference_mode()
+        def fn(c: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
+            y = gen(z, c) if w is None else pwg_fused_forward(gen, z, c, w)
+            if self.pcm16:
+                # f32 before scaling: bf16's 8-bit mantissa would quantize
+                # worse than the 16-bit target format
+                y = (y.float().clamp(-1.0, 1.0) * 32767.0).to(torch.int16)
+            return y
+
+        return fn
+
+    def prepare_batch(
+        self,
+        cs: Sequence[np.ndarray],
+        normalize_before: bool = False,
+        generator: Optional[torch.Generator] = None,
+        bucket_size: int = 64,
+    ) -> Tuple[Callable, Tuple[torch.Tensor, torch.Tensor], List[int]]:
+        """Host-side prep for one batched call: normalize, edge-pad mels to
+        a shared bucket length (plus the context window), draw the noise z
+        from ``generator`` (a fresh one seeded 0 by default) and resolve the
+        forward. Returns (fn, (c, z), lengths); ``fn(c, z)`` is the device
+        call, and callers may pass their own z in its place."""
+        cs = [np.asarray(c, dtype=np.float32) for c in cs]
+        if normalize_before:
+            if self.mean is None:
+                raise ValueError("register_stats first")
+            cs = [(c - self.mean) / self.scale for c in cs]
+        lengths = [len(c) for c in cs]
+        bucket = -(-max(lengths) // bucket_size) * bucket_size
+        ctx = self.generator.aux_context_window
+        padded = np.stack([
+            np.pad(c, ((ctx, bucket - len(c) + ctx), (0, 0)), mode="edge")
+            for c in cs
+        ])
+        c = torch.from_numpy(padded).to(self.device, self.dtype)
+        if generator is None:
+            generator = torch.Generator(device=self.device).manual_seed(0)
+        z = torch.randn(
+            (len(cs), bucket * self.upsample_factor,
+             self.generator.in_channels),
+            generator=generator, device=self.device, dtype=self.dtype,
+        )
+        return self._forward_fn(), (c, z), lengths
+
+    def synthesize_batch(
+        self,
+        cs: Sequence[np.ndarray],
+        normalize_before: bool = False,
+        generator: Optional[torch.Generator] = None,
+        bucket_size: int = 64,
+    ) -> List[np.ndarray]:
+        """Batched synthesis cropped to the true lengths: float32 arrays,
+        or int16 when the model was built with pcm16=True."""
+        fn, args, lengths = self.prepare_batch(cs, normalize_before,
+                                               generator, bucket_size)
+        y = fn(*args)
+        y = (y if self.pcm16 else y.float()).cpu().numpy()
+        return [y[i, : n * self.upsample_factor] for i, n in enumerate(lengths)]
+
+    def inference(self, c: np.ndarray, normalize_before: bool = False,
+                  generator: Optional[torch.Generator] = None) -> np.ndarray:
+        """Mel (T', C) -> wave (T, out_channels), no bucket padding."""
+        return self.synthesize_batch([c], normalize_before, generator,
+                                     bucket_size=1)[0]
+
+
+def load_model(
+    checkpoint: str,
+    config: Optional[Dict[str, Any]] = None,
+    stats: Optional[str] = None,
+    dtype: Optional[torch.dtype] = None,
+    pcm16: bool = False,
+    device: Any = "cuda",
+) -> InferenceModel:
+    """Load an InferenceModel from a generator-only ``.gckpt``.
+
+    The config defaults to ``config.yml`` beside the checkpoint. Full
+    train-state ``.ckpt`` and reference ``.pkl`` files are not ported yet.
+    """
+    from parallelwavegan_torch.engine.checkpoint import (
+        load_generator_checkpoint,
+    )
+
+    if not checkpoint.endswith(".gckpt"):
+        raise NotImplementedError(
+            f"only .gckpt checkpoints are ported so far: {checkpoint}"
+        )
+    if config is None:
+        config = load_config(
+            os.path.join(os.path.dirname(checkpoint), "config.yml")
+        )
+    model = InferenceModel(config, load_generator_checkpoint(checkpoint),
+                           dtype=dtype, pcm16=pcm16, device=device)
+    if stats is not None:
+        model.register_stats(stats)
+    return model

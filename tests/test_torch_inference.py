@@ -1,0 +1,172 @@
+"""The port's serving path end to end on the CPU: load_model on a .gckpt
+written by the JAX package, bucketed synthesize_batch against the JAX
+InferenceModel on the same noise, the decode CLI, the import boundary."""
+
+import os
+import subprocess
+import sys
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from scipy.io import wavfile
+
+from parallelwavegan_tpu.engine.checkpoint import (
+    save_generator_checkpoint as jax_save_gckpt,
+)
+from parallelwavegan_tpu.models import (
+    ParallelWaveGANGenerator as FlaxGenerator,
+)
+from parallelwavegan_tpu.utils.model_loader import (
+    InferenceModel as JaxInferenceModel,
+)
+from parallelwavegan_torch.utils.model_loader import load_model, resolve_device
+from tests.torch_helpers import flax_generator_kwargs
+
+torch.set_num_threads(2)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _config(fmt="npy"):
+    kw = flax_generator_kwargs(layers=6, stacks=2)
+    return {
+        "sampling_rate": 8000, "format": fmt,
+        "generator_type": "ParallelWaveGANGenerator",
+        "generator_params": dict(kw, use_weight_norm=True),
+    }
+
+
+def _jax_checkpoint(tmp_path, config):
+    g = FlaxGenerator(**config["generator_params"])
+    v = g.init({"params": jax.random.key(0)}, jnp.zeros((1, 32, 1)),
+               jnp.zeros((1, 12, 20)))
+    rng = np.random.default_rng(0)
+    # perturb: weight-norm g starts at ||v|| and biases at zero
+    v = jax.tree.map(
+        lambda a: jnp.asarray(np.asarray(a) * (1 + 0.3 * rng.standard_normal(
+            a.shape)) + 0.05 * rng.standard_normal(a.shape), a.dtype), v)
+    path = str(tmp_path / "generator.gckpt")
+    jax_save_gckpt(path, v)
+    return path, v
+
+
+def _mels(rng, lengths, A=20):
+    return [rng.standard_normal((n, A)).astype(np.float32) for n in lengths]
+
+
+@pytest.mark.parametrize("normalize_before", [False, True])
+def test_synthesize_batch_matches_jax_inference_model(tmp_path,
+                                                      normalize_before):
+    config = _config()
+    path, v = _jax_checkpoint(tmp_path, config)
+    rng = np.random.default_rng(1)
+    stats = str(tmp_path / "stats.npy")
+    np.save(stats, np.stack([rng.standard_normal(20),
+                             rng.random(20) + 0.5]).astype(np.float32))
+    mels = _mels(rng, [13, 9])
+    ref = JaxInferenceModel(config, v)
+    ref.register_stats(stats)
+    fn, args, lengths = ref.prepare_batch(mels, normalize_before,
+                                          bucket_size=8)
+    y_ref = np.asarray(fn(*args), np.float32)
+
+    model = load_model(path, config, stats=stats, device="cpu")
+    fn_t, (c_t, z_t), lengths_t = model.prepare_batch(mels, normalize_before,
+                                                      bucket_size=8)
+    assert lengths_t == lengths and tuple(z_t.shape) == args[2].shape
+    np.testing.assert_allclose(c_t.numpy(), np.asarray(args[1]), atol=1e-6)
+    y = fn_t(c_t, torch.from_numpy(np.array(args[2]))).numpy()
+    up = model.upsample_factor
+    for i, n in enumerate(lengths):
+        np.testing.assert_allclose(y[i, : n * up], y_ref[i, : n * up],
+                                   atol=1e-4)
+    # the port's own noise: shapes and crop of synthesize_batch
+    waves = model.synthesize_batch(mels, normalize_before, bucket_size=8)
+    assert [w.shape for w in waves] == [(n * up, 1) for n in lengths]
+    assert all(w.dtype == np.float32 for w in waves)
+
+
+def test_pcm16_matches_jax_within_one_lsb(tmp_path):
+    config = _config()
+    path, v = _jax_checkpoint(tmp_path, config)
+    mels = _mels(np.random.default_rng(2), [11])
+    ref = JaxInferenceModel(config, v, pcm16=True)
+    fn, args, _ = ref.prepare_batch(mels, bucket_size=4)
+    y_ref = np.asarray(fn(*args))
+    model = load_model(path, config, pcm16=True, device="cpu")
+    fn_t, (c_t, _), _ = model.prepare_batch(mels, bucket_size=4)
+    y = fn_t(c_t, torch.from_numpy(np.array(args[2]))).numpy()
+    assert y.dtype == np.int16 and y_ref.dtype == np.int16
+    assert np.abs(y.astype(np.int32) - y_ref.astype(np.int32)).max() <= 1
+    wave = model.inference(mels[0])
+    assert wave.dtype == np.int16 and wave.shape == (11 * 4, 1)
+
+
+def test_load_model_rejects_what_the_slice_lacks(tmp_path):
+    config = _config()
+    with pytest.raises(NotImplementedError, match=".ckpt"):
+        load_model(str(tmp_path / "checkpoint-10steps.ckpt"), config,
+                   device="cpu")
+    path, _ = _jax_checkpoint(tmp_path, config)
+    other = dict(config, generator_type="MelGANGenerator")
+    with pytest.raises(NotImplementedError, match="MelGANGenerator"):
+        load_model(path, other, device="cpu")
+
+
+def test_default_device_is_cuda(tmp_path):
+    if torch.cuda.is_available():
+        assert resolve_device().type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            resolve_device()
+    assert resolve_device("cpu").type == "cpu"
+
+
+def test_decode_cli_writes_wavs(tmp_path):
+    import yaml
+
+    config = _config()
+    path, _ = _jax_checkpoint(tmp_path, config)
+    with open(tmp_path / "config.yml", "w") as f:
+        yaml.safe_dump(config, f)
+    dump = tmp_path / "dump"
+    dump.mkdir()
+    rng = np.random.default_rng(3)
+    frames = {"utt1": 10, "utt2": 7}
+    for utt, n in frames.items():
+        np.save(dump / f"{utt}-feats.npy", _mels(rng, [n])[0])
+    out = tmp_path / "wav"
+    from parallelwavegan_torch.bin.decode import main
+
+    main(["--dumpdir", str(dump), "--checkpoint", path, "--outdir", str(out),
+          "--device", "cpu", "--batch-size", "2"])
+    for utt, n in frames.items():
+        sr, wave = wavfile.read(out / f"{utt}_gen.wav")
+        assert sr == 8000 and wave.dtype == np.int16
+        assert wave.shape == (n * 4,)
+
+
+def test_port_imports_no_jax():
+    """Every module of the port and chip_smoke.py, imported in a fresh
+    interpreter, load no jax, flax or parallelwavegan_tpu module."""
+    code = (
+        "import pkgutil, importlib, sys\n"
+        "import parallelwavegan_torch as p\n"
+        "names = [m.name for m in pkgutil.walk_packages(p.__path__, "
+        "p.__name__ + '.')]\n"
+        "for n in names: importlib.import_module(n)\n"
+        "import chip_smoke\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'flax', 'parallelwavegan_tpu')]\n"
+        "assert not bad, bad\n"
+        "assert len(names) >= 15, names\n"
+        "print(len(names))\n"
+    )
+    env = dict(os.environ, PYTHONPATH=REPO)
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+
