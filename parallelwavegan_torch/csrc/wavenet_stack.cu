@@ -30,7 +30,12 @@
 //      the new residual.
 // The residual state between layers stays f32 in two global ping-pong
 // buffers that the wrapper allocates; the first layer reads x in its own
-// type and the last writes x_out in that type.
+// type and the last writes x_out in that type. For training (save_inputs in
+// the TPU kernel, wavenet_stack.py:144) each layer also writes its input,
+// rounded to the matmul type, to xs (L, B, T, R): exactly the values its
+// tap GEMM consumed, which the backward kernel (wavenet_stack_bwd.cu)
+// recomputes the gate from. Staging, the gate GEMM and the typed loads are
+// shared with that kernel through wavenet_common.cuh.
 //
 // Bound (PWG v1 at batch 32 x 131072 samples, 30 layers): 86,016 FLOP per
 // sample per layer, 1.08e13 FLOP in all, against 672 B per sample (x in and
@@ -41,76 +46,14 @@
 // device memory once per layer. Tensor cores (mma/wgmma), TMA and fusing
 // several layers per launch are the next steps.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "wavenet_common.cuh"
 
 namespace {
 
-constexpr int R = 64;        // residual channels
-constexpr int G = 128;       // gate channels (2 R)
-constexpr int S = 64;        // skip channels
-constexpr int SR = S + R;    // fused skip|out width
-constexpr int TT = 64;       // time rows per block
-constexpr int KC = 16;       // contraction rows per weight chunk
-constexpr int THREADS = 256;
-constexpr float kSqrtHalf = 0.70710678118654752f;
-
-static_assert(G == 2 * R, "gate splits G into tanh and sigmoid halves of R");
-static_assert(SR == G, "both GEMMs share one 128-column thread layout");
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-
-// round an f32 value to the matmul type, returned as f32
-template <typename T>
-__device__ __forceinline__ float round_to(float v);
-template <>
-__device__ __forceinline__ float round_to<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ float round_to<__nv_bfloat16>(float v) {
-  return __bfloat162float(__float2bfloat16_rn(v));
-}
-
-// 4 consecutive elements (16-byte aligned for f32, 8-byte for bf16)
-__device__ __forceinline__ void load4(const float* p, float v[4]) {
-  const float4 q = *reinterpret_cast<const float4*>(p);
-  v[0] = q.x; v[1] = q.y; v[2] = q.z; v[3] = q.w;
-}
-__device__ __forceinline__ void load4(const __nv_bfloat16* p, float v[4]) {
-  const __nv_bfloat162* q = reinterpret_cast<const __nv_bfloat162*>(p);
-  const float2 a = __bfloat1622float2(q[0]);
-  const float2 b = __bfloat1622float2(q[1]);
-  v[0] = a.x; v[1] = a.y; v[2] = b.x; v[3] = b.y;
-}
-__device__ __forceinline__ void store4(float* p, const float v[4]) {
-  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
-}
-__device__ __forceinline__ void store4(__nv_bfloat16* p, const float v[4]) {
-  __nv_bfloat162* q = reinterpret_cast<__nv_bfloat162*>(p);
-  q[0] = __floats2bfloat162_rn(v[0], v[1]);
-  q[1] = __floats2bfloat162_rn(v[2], v[3]);
-}
-
-__host__ __device__ constexpr int padded_k(int A) {
-  return (3 * R + A + KC - 1) / KC * KC;
-}
+using namespace pwg;
 
 __host__ __device__ constexpr size_t smem_floats(int A) {
   return (size_t)padded_k(A) * TT + (size_t)KC * G + (size_t)R * TT;
-}
-
-// acc[r][0..3] += a[r] * w0[0..3], acc[r][4..7] += a[r] * w1[0..3]
-__device__ __forceinline__ void fma_tile(float acc[4][8], const float4 a,
-                                         const float4 w0, const float4 w1) {
-  const float av[4] = {a.x, a.y, a.z, a.w};
-  const float wv[8] = {w0.x, w0.y, w0.z, w0.w, w1.x, w1.y, w1.z, w1.w};
-#pragma unroll
-  for (int r = 0; r < 4; ++r)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[r][j] = fmaf(av[r], wv[j], acc[r][j]);
 }
 
 // WT: weight / matmul type; XIN, XOUT: types of the residual read and written
@@ -120,75 +63,29 @@ __global__ void __launch_bounds__(THREADS, 2) wavenet_layer_kernel(
     const WT* __restrict__ w_tap, const WT* __restrict__ b_tap,
     const WT* __restrict__ w_aux, const WT* __restrict__ w_so,
     const WT* __restrict__ b_so, XOUT* __restrict__ x_out,
-    float* __restrict__ skip, int T, int A, int d, int first_layer) {
+    float* __restrict__ skip, WT* __restrict__ xs, int T, int A, int d,
+    int first_layer) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
-  const int K = 3 * R + A;
-  const int KP = padded_k(A);
-  float* a_s = smem;            // [KP][TT] activation tile, transposed
-  float* w_s = a_s + KP * TT;   // [KC][G] weight chunk
-  float* g_s = w_s + KC * G;    // [R][TT] gate output, transposed
+  float* a_s = smem;                     // [KP][TT] activation tile, transposed
+  float* w_s = a_s + padded_k(A) * TT;   // [KC][G] weight chunk
+  float* g_s = w_s + KC * G;             // [R][TT] gate output, transposed
 
   const int tid = threadIdx.x;
   const int t0 = blockIdx.x * TT;
   const size_t row0 = (size_t)blockIdx.y * T;  // first row of this item
 
-  // 1. activation tile: a_s[tap * R + ch][r] = x(t0 + r + (tap - 1) d)
-  for (int i = tid; i < 3 * TT * (R / 4); i += THREADS) {
-    const int ch = (i % (R / 4)) * 4;
-    const int r = (i / (R / 4)) % TT;
-    const int tap = i / (TT * (R / 4));
-    const int t = t0 + r + (tap - 1) * d;
-    float v[4] = {0.f, 0.f, 0.f, 0.f};
-    if (t >= 0 && t < T) load4(x_in + (row0 + t) * R + ch, v);
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      a_s[(tap * R + ch + j) * TT + r] = round_to<WT>(v[j]);
-  }
-  for (int i = tid; i < TT * (A / 4); i += THREADS) {
-    const int ch = (i % (A / 4)) * 4;
-    const int r = i / (A / 4);
-    const int t = t0 + r;
-    float v[4] = {0.f, 0.f, 0.f, 0.f};
-    if (t < T) load4(c + (row0 + t) * A + ch, v);
-#pragma unroll
-    for (int j = 0; j < 4; ++j) a_s[(3 * R + ch + j) * TT + r] = v[j];
-  }
-  for (int i = tid; i < (KP - K) * TT; i += THREADS) a_s[K * TT + i] = 0.f;
+  // 1. activation tile [x(t-d) | x(t) | x(t+d) | c(t)]
+  stage_activations<WT>(a_s, x_in, c, row0, t0, T, A, d, tid);
 
   // thread tile: rows rg*4..rg*4+3; columns cg*4..+3 and R + cg*4..+3
   const int rg = tid / 16;
   const int cg = tid % 16;
   float acc[4][8];
-#pragma unroll
-  for (int r = 0; r < 4; ++r)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[r][j] = 0.f;
+  zero_tile(acc);
 
   // 2. z = [taps | c] . [Wt; Wa]
-  for (int k0 = 0; k0 < KP; k0 += KC) {
-    __syncthreads();  // a_s is staged / the previous chunk is consumed
-    for (int i = tid; i < KC * G / 4; i += THREADS) {
-      const int col = (i % (G / 4)) * 4;
-      const int k = k0 + i / (G / 4);
-      float v[4] = {0.f, 0.f, 0.f, 0.f};
-      if (k < 3 * R)
-        load4(w_tap + (size_t)k * G + col, v);
-      else if (k < K)
-        load4(w_aux + (size_t)(k - 3 * R) * G + col, v);
-      store4(w_s + (i / (G / 4)) * G + col, v);
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < KC; ++kk) {
-      const float4 a = *reinterpret_cast<const float4*>(
-          a_s + (k0 + kk) * TT + rg * 4);
-      const float4 w0 = *reinterpret_cast<const float4*>(w_s + kk * G + cg * 4);
-      const float4 w1 =
-          *reinterpret_cast<const float4*>(w_s + kk * G + R + cg * 4);
-      fma_tile(acc, a, w0, w1);
-    }
-  }
+  gate_gemm<WT>(acc, a_s, w_s, w_tap, w_aux, A, tid, rg, cg);
 
   // gate, in registers: columns j (tanh half) and R + j (sigmoid half)
   float bt[8];
@@ -208,10 +105,7 @@ __global__ void __launch_bounds__(THREADS, 2) wavenet_layer_kernel(
     }
 
   // 3. so = g . [Ws | Wo]
-#pragma unroll
-  for (int r = 0; r < 4; ++r)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[r][j] = 0.f;
+  zero_tile(acc);
   for (int k0 = 0; k0 < R; k0 += KC) {
     __syncthreads();  // g_s is complete / the previous chunk is consumed
     for (int i = tid; i < KC * SR / 4; i += THREADS) {
@@ -247,6 +141,8 @@ __global__ void __launch_bounds__(THREADS, 2) wavenet_layer_kernel(
     const size_t row = row0 + t;
     float xo[4], sv[4], xn[4];
     load4(x_in + row * R + cg * 4, xo);
+    // the layer's input as its tap GEMM consumed it (rounded to WT)
+    if (xs != nullptr) store4(xs + row * R + cg * 4, xo);
     float* sp = skip + row * S + cg * 4;
     if (!first_layer) load4(sp, sv);
 #pragma unroll
@@ -271,13 +167,13 @@ cudaError_t allow_smem(size_t smem) {
 template <typename WT, typename XIN, typename XOUT>
 cudaError_t launch_layer(const void* x_in, const void* c, const WT* w_tap,
                          const WT* b_tap, const WT* w_aux, const WT* w_so,
-                         const WT* b_so, void* x_out, float* skip, int B,
-                         int T, int A, int d, int first, size_t smem,
+                         const WT* b_so, void* x_out, float* skip, WT* xs,
+                         int B, int T, int A, int d, int first, size_t smem,
                          cudaStream_t stream) {
   const dim3 grid((T + TT - 1) / TT, B);
   wavenet_layer_kernel<WT, XIN, XOUT><<<grid, THREADS, smem, stream>>>(
       static_cast<const XIN*>(x_in), static_cast<const WT*>(c), w_tap, b_tap,
-      w_aux, w_so, b_so, static_cast<XOUT*>(x_out), skip, T, A, d, first);
+      w_aux, w_so, b_so, static_cast<XOUT*>(x_out), skip, xs, T, A, d, first);
   return cudaGetLastError();
 }
 
@@ -287,12 +183,13 @@ cudaError_t run_stack(const void* x, const void* c, const void* w_tap_,
                       const void* w_so_, const void* b_so_,
                       const int* dilations, int L, int B, int T, int A,
                       void* x_out, float* skip, void* buf0, void* buf1,
-                      cudaStream_t stream) {
+                      void* xs_, cudaStream_t stream) {
   const WT* w_tap = static_cast<const WT*>(w_tap_);
   const WT* b_tap = static_cast<const WT*>(b_tap_);
   const WT* w_aux = static_cast<const WT*>(w_aux_);
   const WT* w_so = static_cast<const WT*>(w_so_);
   const WT* b_so = static_cast<const WT*>(b_so_);
+  WT* xs = static_cast<WT*>(xs_);
   // one attribute call per instantiation this stack launches
   const size_t smem = smem_floats(A) * sizeof(float);
   cudaError_t err = L == 1 ? allow_smem<WT, WT, WT>(smem)
@@ -309,20 +206,21 @@ cudaError_t run_stack(const void* x, const void* c, const void* w_tap_,
     const WT* wa = w_aux + (size_t)l * A * G;
     const WT* ws = w_so + (size_t)l * R * SR;
     const WT* bs = b_so + (size_t)l * SR;
+    WT* xl = xs == nullptr ? nullptr : xs + (size_t)l * B * T * R;
     const int d = dilations[l];
     const bool first = l == 0, last = l == L - 1;
     if (first && last)
-      err = launch_layer<WT, WT, WT>(src, c, wt, bt, wa, ws, bs, dst, skip, B,
-                                     T, A, d, 1, smem, stream);
+      err = launch_layer<WT, WT, WT>(src, c, wt, bt, wa, ws, bs, dst, skip, xl,
+                                     B, T, A, d, 1, smem, stream);
     else if (first)
       err = launch_layer<WT, WT, float>(src, c, wt, bt, wa, ws, bs, dst, skip,
-                                        B, T, A, d, 1, smem, stream);
+                                        xl, B, T, A, d, 1, smem, stream);
     else if (last)
       err = launch_layer<WT, float, WT>(src, c, wt, bt, wa, ws, bs, dst, skip,
-                                        B, T, A, d, 0, smem, stream);
+                                        xl, B, T, A, d, 0, smem, stream);
     else
       err = launch_layer<WT, float, float>(src, c, wt, bt, wa, ws, bs, dst,
-                                           skip, B, T, A, d, 0, smem,
+                                           skip, xl, B, T, A, d, 0, smem,
                                            stream);
     if (err != cudaSuccess) return err;
   }
@@ -335,26 +233,28 @@ extern "C" {
 
 // Runs L layers on `stream`; returns a cudaError_t (0 on success).
 // The Python wrapper checks shapes, types and alignment before the call.
-// dtype: 0 = float32, 1 = bfloat16 (x, c, x_out and every weight).
+// dtype: 0 = float32, 1 = bfloat16 (x, c, x_out, xs and every weight).
 // x, x_out (B, T, 64); c (B, T, A); skip (B, T, 64) f32; buf0, buf1
 // (B, T, 64) f32 scratch (buf0 needed for L >= 2, buf1 for L >= 3);
+// xs (L, B, T, 64) receives every layer's input, or is null;
 // weights as fuse_wavenet_stack_params lays them out; dilations on the host.
 int pwg_wavenet_stack_forward(int dtype, const void* x, const void* c,
                               const void* w_tap, const void* b_tap,
                               const void* w_aux, const void* w_so,
                               const void* b_so, const int* dilations, int L,
                               int B, int T, int A, void* x_out, void* skip,
-                              void* buf0, void* buf1, void* stream) {
+                              void* buf0, void* buf1, void* xs,
+                              void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* sk = static_cast<float*>(skip);
   if (dtype == 0)
     return (int)run_stack<float>(x, c, w_tap, b_tap, w_aux, w_so, b_so,
                                  dilations, L, B, T, A, x_out, sk, buf0, buf1,
-                                 s);
+                                 xs, s);
   if (dtype == 1)
     return (int)run_stack<__nv_bfloat16>(x, c, w_tap, b_tap, w_aux, w_so,
                                          b_so, dilations, L, B, T, A, x_out,
-                                         sk, buf0, buf1, s);
+                                         sk, buf0, buf1, xs, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -1,1 +1,1 @@
-"""Datasets over dumped features."""
+"""Datasets over dumped features, the batch collater and the loader."""

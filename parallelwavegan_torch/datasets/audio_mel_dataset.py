@@ -1,14 +1,16 @@
-"""Mel-only dataset over a directory of dumped features.
+"""Datasets over a directory of dumped features.
 
-Counterpart of ``MelDataset`` in
-``parallelwavegan_tpu/datasets/audio_mel_dataset.py``: ``*-feats.npy`` files
-(or ``*.h5`` with a "feats" dataset, read through a lazy ``h5py`` import).
+Counterpart of ``AudioMelDataset`` and ``MelDataset`` in
+``parallelwavegan_tpu/datasets/audio_mel_dataset.py``: ``*-wave.npy`` /
+``*-feats.npy`` files (or ``*.h5`` with "wave" / "feats" datasets, read
+through a lazy ``h5py`` import). Plain Python sequences, numpy in and out.
 """
 
 from __future__ import annotations
 
+import logging
 import os
-from typing import Callable
+from typing import Callable, Optional
 
 from parallelwavegan_torch.utils.io import find_files, read_hdf5
 
@@ -47,3 +49,65 @@ class MelDataset:
     def __getitem__(self, idx):
         mel = self.mel_load_fn(self.mel_files[idx])
         return (self.utt_ids[idx], mel) if self.return_utt_id else mel
+
+
+class AudioMelDataset:
+    """Paired (audio, mel) items, sorted by file name, with the short ones
+    filtered out at construction (each file is loaded once for that)."""
+
+    def __init__(
+        self,
+        root_dir: str,
+        audio_query: str = "*.h5",
+        mel_query: str = "*.h5",
+        audio_load_fn: Callable = lambda f: read_hdf5(f, "wave"),
+        mel_load_fn: Callable = lambda f: read_hdf5(f, "feats"),
+        audio_length_threshold: Optional[int] = None,
+        mel_length_threshold: Optional[int] = None,
+        return_utt_id: bool = False,
+        allow_cache: bool = False,
+    ):
+        audio_files = find_files(root_dir, audio_query)
+        mel_files = find_files(root_dir, mel_query)
+        for files, load_fn, threshold, what in (
+            (audio_files, audio_load_fn, audio_length_threshold, "audio"),
+            (mel_files, mel_load_fn, mel_length_threshold, "mel"),
+        ):
+            if threshold is None:
+                continue
+            keep = [i for i, f in enumerate(files)
+                    if load_fn(f).shape[0] > threshold]
+            if len(keep) != len(files):
+                logging.warning(
+                    f"Some files are filtered by {what} length threshold "
+                    f"({len(files)} -> {len(keep)})."
+                )
+            audio_files = [audio_files[i] for i in keep]
+            mel_files = [mel_files[i] for i in keep]
+        if not audio_files:
+            raise ValueError(f"No audio files in {root_dir}.")
+        if len(audio_files) != len(mel_files):
+            raise ValueError(
+                f"#audio != #mel files ({len(audio_files)} vs "
+                f"{len(mel_files)})."
+            )
+        self.audio_files, self.mel_files = audio_files, mel_files
+        self.audio_load_fn, self.mel_load_fn = audio_load_fn, mel_load_fn
+        self.return_utt_id = return_utt_id
+        self.utt_ids = [_utt_id(f) for f in audio_files]
+        # the loader prefetches with a thread, so a plain list is a safe cache
+        self.caches = [None] * len(audio_files) if allow_cache else None
+
+    def __len__(self) -> int:
+        return len(self.audio_files)
+
+    def __getitem__(self, idx):
+        if self.caches is not None and self.caches[idx] is not None:
+            return self.caches[idx]
+        item = (self.audio_load_fn(self.audio_files[idx]),
+                self.mel_load_fn(self.mel_files[idx]))
+        if self.return_utt_id:
+            item = (self.utt_ids[idx],) + item
+        if self.caches is not None:
+            self.caches[idx] = item
+        return item

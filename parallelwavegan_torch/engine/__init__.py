@@ -1,1 +1,1 @@
-"""Checkpoint IO."""
+"""Training engine: state, build, criterion, step, trainer, checkpoints."""

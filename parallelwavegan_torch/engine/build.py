@@ -1,0 +1,94 @@
+"""Build models, optimizers and the initial train state from a
+(reference-compatible) config.
+
+Counterpart of ``parallelwavegan_tpu/engine/build.py`` for Parallel WaveGAN;
+other generator types raise ``NotImplementedError``. The models are built
+in their training form (``kernel_v``/``kernel_g``), initialised from a
+seeded ``torch.Generator`` on the CPU and then moved to the device.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Tuple
+
+import numpy as np
+import torch
+
+from parallelwavegan_torch.engine.state import GANTrainState
+from parallelwavegan_torch.models import get_model_class
+from parallelwavegan_torch.optimizers import Optimizer, build_optimizer
+from parallelwavegan_torch.utils.model_loader import resolve_device
+
+
+def build_models(config: Dict[str, Any], generator: torch.Generator = None):
+    """(generator, discriminator) modules in their training form, on the
+    CPU. ``generator`` is the random source of the initializers."""
+    gen_type = config.get("generator_type", "ParallelWaveGANGenerator")
+    dis_type = config.get("discriminator_type", "ParallelWaveGANDiscriminator")
+    for name in (gen_type, dis_type):
+        if not name.startswith("ParallelWaveGAN"):
+            raise NotImplementedError(f"{name}: not ported yet")
+    gen = get_model_class(gen_type)(
+        **config.get("generator_params", {}), folded=False,
+        generator=generator,
+    )
+    dis = get_model_class(dis_type)(
+        **config.get("discriminator_params", {}), folded=False,
+        generator=generator,
+    )
+    return gen, dis
+
+
+def example_batch(config: Dict[str, Any], batch_size: int = 2
+                  ) -> Dict[str, np.ndarray]:
+    """Tiny batch with the training shapes, for dry runs."""
+    gen_type = config.get("generator_type", "ParallelWaveGANGenerator")
+    if gen_type != "ParallelWaveGANGenerator":
+        raise NotImplementedError(f"{gen_type}: not ported yet")
+    gp = config.get("generator_params", {})
+    hop = config.get("hop_size", 256)
+    steps = config.get("batch_max_steps", 8192)
+    steps -= steps % hop
+    frames = steps // hop
+    ctx = gp.get("aux_context_window", 0)
+    num_mels = config.get("num_mels", gp.get("aux_channels", 80))
+    rng = np.random.default_rng(0)
+    f32 = np.float32
+    return {
+        "y": rng.standard_normal((batch_size, steps, 1)).astype(f32) * 0.1,
+        "c": rng.standard_normal(
+            (batch_size, frames + 2 * ctx, num_mels)).astype(f32),
+        "z": rng.standard_normal(
+            (batch_size, steps, gp.get("in_channels", 1))).astype(f32),
+    }
+
+
+def _optimizer(config: Dict[str, Any], prefix: str) -> Optimizer:
+    return build_optimizer(
+        config.get(f"{prefix}_optimizer_type", "RAdam"),
+        config.get(f"{prefix}_optimizer_params", {}),
+        config.get(f"{prefix}_scheduler_type", "StepLR"),
+        config.get(f"{prefix}_scheduler_params", {}),
+        config.get(f"{prefix}_grad_norm", -1),
+    )
+
+
+def init_train_state(config: Dict[str, Any], seed: int = 0,
+                     device: Any = "cuda"
+                     ) -> Tuple[GANTrainState, Any, Any, Optimizer, Optimizer]:
+    """Initialize (state, generator, discriminator, opt_g, opt_d) on
+    ``device`` (cuda unless the caller asks for the cpu)."""
+    device = resolve_device(device)
+    generator, discriminator = build_models(
+        config, torch.Generator().manual_seed(seed))
+    generator.to(device).train()
+    discriminator.to(device).train()
+    opt_g = _optimizer(config, "generator")
+    opt_d = _optimizer(config, "discriminator")
+    state = GANTrainState(
+        steps=0, generator=generator, discriminator=discriminator,
+        opt_g=opt_g, opt_d=opt_d,
+    )
+    opt_g.init(state.params_g)
+    opt_d.init(state.params_d)
+    return state, generator, discriminator, opt_g, opt_d

@@ -1,11 +1,18 @@
-"""Generator-only ``.gckpt`` checkpoints, read and written without flax.
+"""Checkpoints read and written without flax: the generator-only
+``.gckpt`` and the train-state ``.ckpt``.
 
-Counterpart of ``save_generator_checkpoint`` / ``load_generator_checkpoint``
-in ``parallelwavegan_tpu/engine/checkpoint.py``. A ``.gckpt`` is flax's
-msgpack of the variables tree: a map of maps whose array leaves are
+Counterpart of ``parallelwavegan_tpu/engine/checkpoint.py``. Both files are
+flax's msgpack of a tree: a map of maps whose array leaves are
 ``ExtType(1, packb((shape, dtype_name, buffer)))`` (ext 3 for a numpy
 scalar). Numpy has no bfloat16, so a ``b"bfloat16"`` leaf is read as uint16
 and viewed as ``torch.bfloat16``. Leaves come back as CPU tensors.
+
+A ``.ckpt`` holds the JAX package's ``GANTrainState`` fields: ``steps``,
+``params_g`` and ``params_d`` under the flax names (``kernel_v`` /
+``kernel_g``), the empty collections ``extra_g`` / ``extra_d``, ``opt_g``
+and ``opt_d`` in the optax chain's layout (which the port's optimizers
+share, see ``optimizers``) and ``ema_g`` (none). Either package restores a
+``.ckpt`` the other wrote.
 """
 
 from __future__ import annotations
@@ -17,8 +24,14 @@ import numpy as np
 import torch
 from torch import nn
 
+from parallelwavegan_torch.engine.state import GANTrainState
 from parallelwavegan_torch.utils.msgpack_lite import ExtType, packb, unpackb
-from parallelwavegan_torch.utils.params import as_tensor
+from parallelwavegan_torch.utils.params import (
+    as_tensor,
+    convert_jax_params,
+    folded_state_dict,
+    nested,
+)
 
 _EXT_NDARRAY = 1
 _EXT_NPSCALAR = 3
@@ -56,15 +69,17 @@ def _default(obj: Any) -> Any:
 
 
 def module_variables(module: nn.Module) -> Dict[str, Any]:
-    """A module's state_dict as a flax-style {"params": nested dict}."""
-    params: Dict[str, Any] = {}
-    for key, value in module.state_dict().items():
-        *path, leaf = key.split(".")
-        node = params
-        for part in path:
-            node = node.setdefault(part, {})
-        node[leaf] = value
-    return {"params": params}
+    """A module's serving form (weight norm folded) as a flax-style
+    {"params": nested dict}."""
+    return {"params": nested(folded_state_dict(module))}
+
+
+def _write(path: str, data: bytes) -> None:
+    folder = os.path.dirname(path)
+    if folder:
+        os.makedirs(folder, exist_ok=True)
+    with open(path, "wb") as f:
+        f.write(data)
 
 
 def _prepare(tree: Any, dtype: Optional[torch.dtype]) -> Any:
@@ -85,24 +100,71 @@ def save_generator_checkpoint(
 ) -> None:
     """Inference-only checkpoint: just the generator variables.
 
-    Takes a port module (written with its folded kernels, which the JAX
-    package loads as plain ``kernel`` leaves) or a variables tree of
-    tensors / numpy arrays. ``dtype=torch.bfloat16`` halves the file.
+    Takes a port module (written with folded kernels, whichever form it
+    holds them in; the JAX package loads them as plain ``kernel`` leaves)
+    or a variables tree of tensors / numpy arrays. ``dtype=torch.bfloat16``
+    halves the file.
     """
     variables = (
         module_variables(module_or_variables)
         if isinstance(module_or_variables, nn.Module) else module_or_variables
     )
-    data = packb(_prepare(variables, dtype), default=_default)
-    folder = os.path.dirname(path)
-    if folder:
-        os.makedirs(folder, exist_ok=True)
-    with open(path, "wb") as f:
-        f.write(data)
+    _write(path, packb(_prepare(variables, dtype), default=_default))
+
+
+def _read(path: str) -> Dict[str, Any]:
+    with open(path, "rb") as f:
+        return unpackb(f.read(), ext_hook=_ext_hook)
 
 
 def load_generator_checkpoint(path: str) -> Dict[str, Any]:
     """Restore generator variables from a .gckpt as nested dicts of CPU
     tensors (bf16 leaves as torch.bfloat16)."""
-    with open(path, "rb") as f:
-        return unpackb(f.read(), ext_hook=_ext_hook)
+    return _read(path)
+
+
+def save_checkpoint(path: str, state: GANTrainState) -> None:
+    """Write the whole train state as a ``.ckpt``."""
+    tree = {
+        "steps": torch.tensor(state.steps, dtype=torch.int32),
+        "params_g": nested(state.generator.state_dict()),
+        "extra_g": {},
+        "opt_g": state.opt_g.state_dict(),
+        "params_d": nested(state.discriminator.state_dict()),
+        "extra_d": {},
+        "opt_d": state.opt_d.state_dict(),
+        "ema_g": None,
+    }
+    _write(path, packb(tree, default=_default))
+
+
+def _load_params(module: nn.Module, tree: Dict[str, Any]) -> None:
+    module.load_state_dict(convert_jax_params(tree, fold=False), strict=True)
+
+
+def load_checkpoint(path: str, state: GANTrainState) -> GANTrainState:
+    """Restore a ``.ckpt`` (of either package) into ``state``, in place:
+    parameters, optimizer states and the step counter. An EMA stream in
+    the file is dropped (EMA is not ported yet)."""
+    tree = _read(path)
+    _load_params(state.generator, tree["params_g"])
+    _load_params(state.discriminator, tree["params_d"])
+    state.opt_g.load_state_dict(tree["opt_g"])
+    state.opt_d.load_state_dict(tree["opt_d"])
+    state.steps = int(tree["steps"])
+    return state
+
+
+def load_params_only(path: str, state: GANTrainState,
+                     load_discriminator: bool = True) -> GANTrainState:
+    """``--pretrain`` semantics: restore the model parameters and keep the
+    fresh optimizers and step counter. A generator-only ``.gckpt`` (with
+    ``kernel_v``/``kernel_g`` leaves) warm-starts the generator alone."""
+    tree = _read(path)
+    if path.endswith(".gckpt"):
+        _load_params(state.generator, tree["params"])
+        return state
+    _load_params(state.generator, tree["params_g"])
+    if load_discriminator:
+        _load_params(state.discriminator, tree["params_d"])
+    return state

@@ -1,0 +1,207 @@
+"""GAN train and eval steps: the generator update, then the discriminator
+update, in one function.
+
+Counterpart of ``parallelwavegan_tpu/engine/step.py`` for Parallel WaveGAN
+on one device. Warm-up gating selects a step variant by
+(train_g, use_adv, train_d), as there. The loss arithmetic follows the JAX
+step: the STFT losses times ``lambda_aux``, plus ``lambda_adv`` times the
+adversarial loss; gradient clipping, the optimizers and the schedules live
+in ``optimizers``. Differences that PyTorch brings: the parameters are
+updated in place in the state's modules; the step takes no random key (the
+noise z arrives in the batch and nothing else on this path is random); the
+``shard_map`` data-parallel path is not ported yet.
+
+``mixed_precision: true`` runs both networks on bfloat16 copies of the
+float32 master parameters and of the batch, with explicit casts as in the
+JAX step (no ``torch.autocast``); outputs return to float32, the losses
+reduce in float32 and the gradients arrive in float32.
+"""
+
+from __future__ import annotations
+
+import functools
+from typing import Any, Callable, Dict, Tuple
+
+import torch
+from torch.func import functional_call
+
+from parallelwavegan_torch.engine.state import GANTrainState
+from parallelwavegan_torch.ops.cuda.pwg_infer import unsupported_fused_settings
+from parallelwavegan_torch.ops.cuda.wavenet_stack import check_kernel_channels
+
+Params = Dict[str, torch.Tensor]
+Batch = Dict[str, torch.Tensor]
+
+
+def make_generator_forward(config: Dict[str, Any], generator
+                           ) -> Callable[[Params, Batch], torch.Tensor]:
+    """Adapter (params, batch) -> y_hat. ``params`` are the generator's
+    named parameters or copies of them (cast, detached).
+
+    A generator on CUDA takes the fused path (the WaveNet stack kernels,
+    trainable grouping) unless ``fused_wavenet`` is false; there a config
+    the kernels lack raises, it does not fall back. On the CPU the
+    per-layer forward runs.
+    """
+    gen_type = config.get("generator_type", "ParallelWaveGANGenerator")
+    if gen_type != "ParallelWaveGANGenerator":
+        raise NotImplementedError(f"{gen_type}: not ported yet")
+    device = next(generator.parameters()).device
+    fused = (config.get("fused_wavenet", "auto") in (True, "auto", "true")
+             and device.type == "cuda")
+    if fused:
+        bad = unsupported_fused_settings(generator)
+        if bad:
+            raise NotImplementedError(
+                f"{gen_type} with {', '.join(bad)} has no fused CUDA path; "
+                "set fused_wavenet: false for the per-layer one"
+            )
+        check_kernel_channels(generator.residual_channels,
+                              generator.gate_channels,
+                              generator.skip_channels)
+
+    def forward(params: Params, batch: Batch) -> torch.Tensor:
+        return functional_call(
+            generator, params, (batch["z"], batch["c"]),
+            {"fused": fused, "trainable": fused},
+        )
+
+    return forward
+
+
+def make_discriminator_forward(config: Dict[str, Any], discriminator
+                               ) -> Callable[[Params, torch.Tensor], Any]:
+    """Adapter (params, x) -> discriminator outputs."""
+    def forward(params: Params, x: torch.Tensor):
+        return functional_call(discriminator, params, (x,))
+
+    return forward
+
+
+def _cast(tensors: Params, src: torch.dtype, dst: torch.dtype) -> Params:
+    """The tensors of dtype ``src`` among ``tensors`` cast to ``dst``."""
+    return {k: v.to(dst) if v.dtype == src else v for k, v in tensors.items()}
+
+
+def build_steps(config: Dict[str, Any], generator, discriminator,
+                criterion: Dict[str, Any], opt_g, opt_d):
+    """Return (train_step_factory, eval_step).
+
+    train_step_factory(train_g, use_adv, train_d) -> step
+      step(state, batch) -> (state, metrics); the state is updated in place
+    eval_step(state, batch, use_adv=True) -> metrics
+
+    ``batch`` holds tensors on the models' device: y (B, T, 1), c, z.
+    Metrics are detached 0-d tensors on the device.
+    """
+    gen_forward_raw = make_generator_forward(config, generator)
+    dis_forward_raw = make_discriminator_forward(config, discriminator)
+    lambda_aux = config.get("lambda_aux", 1.0)
+    lambda_adv = config.get("lambda_adv", 4.0)
+    # one pass over concat([real, fake]) instead of two: every module of the
+    # discriminator is pointwise in the batch, so the split outputs are the
+    # same numbers (held by a test)
+    fuse_rf = bool(config.get("fuse_real_fake_discriminator", True))
+    recompute = config.get("update_prediction_after_generator_update", True)
+    if float(config.get("generator_ema_decay", 0.0) or 0.0) > 0.0:
+        raise NotImplementedError("generator_ema_decay is not ported yet")
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    if config.get("mixed_precision", False):
+        def gen_forward(params: Params, batch: Batch) -> torch.Tensor:
+            return gen_forward_raw(_cast(params, f32, bf16),
+                                   _cast(batch, f32, bf16)).to(f32)
+
+        def dis_forward(params: Params, x: torch.Tensor):
+            return dis_forward_raw(_cast(params, f32, bf16),
+                                   x.to(bf16)).to(f32)
+    else:
+        gen_forward, dis_forward = gen_forward_raw, dis_forward_raw
+
+    def gen_losses(params_g: Params, params_d: Params, batch: Batch,
+                   use_adv: bool):
+        metrics = {}
+        y = batch["y"]
+        y_ = gen_forward(params_g, batch)
+        gen_loss = 0.0
+        if "stft" in criterion:
+            sc_loss, mag_loss = criterion["stft"](y_[..., 0], y[..., 0])
+            metrics["spectral_convergence_loss"] = sc_loss
+            metrics["log_stft_magnitude_loss"] = mag_loss
+            gen_loss = gen_loss + sc_loss + mag_loss
+        gen_loss = gen_loss * lambda_aux
+        if use_adv:
+            # no gradient is taken with respect to the discriminator here
+            p_ = dis_forward({k: v.detach() for k, v in params_d.items()}, y_)
+            adv_loss = criterion["gen_adv"](p_)
+            metrics["adversarial_loss"] = adv_loss
+            gen_loss = gen_loss + lambda_adv * adv_loss
+        metrics["generator_loss"] = gen_loss
+        return gen_loss, metrics, y_
+
+    def dis_losses(params_d: Params, y: torch.Tensor, y_hat: torch.Tensor):
+        y_hat = y_hat.detach()
+        if fuse_rf:
+            nb = y.shape[0]
+            p_all = dis_forward(params_d, torch.cat([y, y_hat], dim=0))
+            p, p_ = p_all[:nb], p_all[nb:]
+        else:
+            p = dis_forward(params_d, y)
+            p_ = dis_forward(params_d, y_hat)
+        real_loss, fake_loss = criterion["dis_adv"](p_, p)
+        dis_loss = real_loss + fake_loss
+        metrics = {"real_loss": real_loss, "fake_loss": fake_loss,
+                   "discriminator_loss": dis_loss}
+        return dis_loss, metrics
+
+    def _detached(metrics):
+        return {k: v.detach() for k, v in metrics.items()}
+
+    def _grads(loss: torch.Tensor, params: Params):
+        """d loss / d params; zeros for a parameter the loss does not reach
+        (the last layer's residual 1x1 feeds nothing)."""
+        grads = torch.autograd.grad(loss, list(params.values()),
+                                    allow_unused=True)
+        return [torch.zeros_like(p) if g is None else g
+                for p, g in zip(params.values(), grads)]
+
+    @functools.lru_cache(maxsize=8)
+    def train_step_factory(train_g: bool, use_adv: bool, train_d: bool):
+        def step(state: GANTrainState, batch: Batch
+                 ) -> Tuple[GANTrainState, Dict[str, torch.Tensor]]:
+            metrics: Dict[str, torch.Tensor] = {}
+            params_g, params_d = state.params_g, state.params_d
+            y_hat = None
+            if train_g:
+                gen_loss, m, y_hat = gen_losses(params_g, params_d, batch,
+                                                use_adv)
+                grads = _grads(gen_loss, params_g)
+                y_hat = y_hat.detach()
+                metrics.update(_detached(m))
+                del gen_loss, m
+                opt_g.step(params_g, grads)
+            if train_d:
+                if recompute or y_hat is None:
+                    # a second forward with the updated generator; nothing
+                    # is saved for a backward
+                    with torch.no_grad():
+                        y_hat = gen_forward(params_g, batch)
+                dis_loss, m = dis_losses(params_d, batch["y"], y_hat)
+                grads_d = _grads(dis_loss, params_d)
+                metrics.update(_detached(m))
+                opt_d.step(params_d, grads_d)
+            state.steps += 1
+            return state, metrics
+
+        return step
+
+    @torch.no_grad()
+    def eval_step(state: GANTrainState, batch: Batch, use_adv: bool = True
+                  ) -> Dict[str, torch.Tensor]:
+        _, metrics, y_hat = gen_losses(state.params_g, state.params_d, batch,
+                                       use_adv)
+        if use_adv:
+            metrics.update(dis_losses(state.params_d, batch["y"], y_hat)[1])
+        return metrics
+
+    return train_step_factory, eval_step

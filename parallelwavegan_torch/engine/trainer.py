@@ -1,0 +1,265 @@
+"""Trainer: the host-side loop around the GAN train step.
+
+Counterpart of ``parallelwavegan_tpu/engine/trainer.py``: interval-driven
+logging (TensorBoard when ``tensorboardX`` is installed), eval epochs with
+wav/plot dumps, checkpoint save and resume, warm-up gating of the G and D
+updates (which selects the step variant), and a final checkpoint on exit.
+Device work stays in ``engine.step``. Metrics accumulate on the device and
+are read back only at the log interval, so the loop does not wait for the
+card every step.
+
+Not carried over from the JAX trainer: ``dispatch_queue_depth`` and the
+``jax.profiler`` hook. Both work around that package's accelerator runtime
+(an unbounded asynchronous dispatch queue; its own trace format) and have
+no counterpart here; the CUDA runtime bounds its own launch queue.
+
+Runs on ``cuda`` unless the caller passes ``device="cpu"``.
+"""
+
+from __future__ import annotations
+
+import logging
+import os
+import time
+from collections import defaultdict
+from typing import Any, Dict, Optional
+
+import numpy as np
+import torch
+
+from parallelwavegan_torch.engine import checkpoint as ckpt_lib
+from parallelwavegan_torch.engine.build import init_train_state
+from parallelwavegan_torch.engine.criterion import build_criterion
+from parallelwavegan_torch.engine.step import (
+    build_steps,
+    make_generator_forward,
+)
+
+
+class Trainer:
+    def __init__(
+        self,
+        config: Dict[str, Any],
+        train_loader,
+        eval_loader=None,
+        seed: int = 0,
+        outdir: Optional[str] = None,
+        device: Any = "cuda",
+    ):
+        self.config = config
+        self.outdir = outdir or config.get("outdir", "exp")
+        self.train_loader = train_loader
+        self.eval_loader = eval_loader
+        (self.state, self.generator, self.discriminator, opt_g, opt_d) = (
+            init_train_state(config, seed, device)
+        )
+        self.device = next(self.generator.parameters()).device
+        self.criterion = build_criterion(config)
+        self.train_step_factory, self.eval_step = build_steps(
+            config, self.generator, self.discriminator, self.criterion,
+            opt_g, opt_d,
+        )
+        self.gen_forward = make_generator_forward(config, self.generator)
+
+        self.steps = 0
+        self.epochs = 0
+        self.finish_train = False
+        self.total_train_loss: Dict[str, Any] = defaultdict(float)
+        # the averages last logged, as floats
+        self.last_train_loss: Dict[str, float] = {}
+        self.last_eval_loss: Dict[str, float] = {}
+        self._accum_steps = 0
+        self.tic = self._log_tic = time.time()
+        self.writer = None
+        if self.outdir:
+            os.makedirs(self.outdir, exist_ok=True)
+            try:
+                from tensorboardX import SummaryWriter
+
+                self.writer = SummaryWriter(self.outdir)
+            except Exception as e:  # pragma: no cover
+                logging.warning(f"tensorboard disabled: {e}")
+
+    # ------------------------------------------------------------------
+    def _flags(self):
+        g_start = self.config.get("generator_train_start_steps", 0)
+        d_start = self.config.get("discriminator_train_start_steps", 100000)
+        train_g = self.steps > g_start
+        use_adv = self.steps > d_start
+        train_d = self.steps > d_start
+        return train_g, use_adv, train_d
+
+    def _to_device(self, batch: Dict[str, np.ndarray]
+                   ) -> Dict[str, torch.Tensor]:
+        return {k: torch.as_tensor(v).to(self.device, non_blocking=True)
+                for k, v in batch.items()}
+
+    def _train_step(self, batch):
+        train_g, use_adv, train_d = self._flags()
+        if not (train_g or train_d):
+            # warm-up step that trains nothing: only the counters move
+            self.state.steps += 1
+            self.steps += 1
+            return
+        step_fn = self.train_step_factory(train_g, use_adv, train_d)
+        self.state, metrics = step_fn(self.state, self._to_device(batch))
+        for k, v in metrics.items():
+            self.total_train_loss[f"train/{k}"] += v  # stays on the device
+        self._accum_steps += 1
+        self.steps += 1
+        self._check_log_interval()
+        self._check_eval_interval()
+        self._check_save_interval()
+        if self.steps >= self.config["train_max_steps"]:
+            self.finish_train = True
+
+    def _train_epoch(self):
+        self.train_loader.set_epoch(self.epochs)
+        n = 0
+        for n, batch in enumerate(self.train_loader, 1):
+            self._train_step(batch)
+            if self.finish_train:
+                break
+        self.epochs += 1
+        if n == 0:
+            raise RuntimeError(
+                "The training data loader produced 0 batches: dataset "
+                "smaller than batch size, or all utterances were filtered."
+            )
+        logging.info(
+            f"(Steps: {self.steps}) Finished {self.epochs} epoch training "
+            f"({n} steps per epoch)."
+        )
+
+    def run(self):
+        """Train until ``train_max_steps``; always leaves a final
+        checkpoint in ``outdir``."""
+        self.tic = self._log_tic = time.time()
+        try:
+            while not self.finish_train:
+                self._train_epoch()
+        finally:
+            self.save_checkpoint(
+                os.path.join(self.outdir, f"checkpoint-{self.steps}steps.ckpt")
+            )
+        logging.info(f"Finished training ({self.steps} steps).")
+
+    # ------------------------------------------------------------------
+    def save_checkpoint(self, path: str):
+        ckpt_lib.save_checkpoint(path, self.state)
+        logging.info(f"Successfully saved checkpoint @ {self.steps} steps.")
+
+    def load_checkpoint(self, path: str, load_only_params: bool = False):
+        if load_only_params:
+            ckpt_lib.load_params_only(path, self.state)
+        else:
+            ckpt_lib.load_checkpoint(path, self.state)
+            self.steps = self.state.steps
+
+    # ------------------------------------------------------------------
+    def _check_log_interval(self):
+        interval = self.config.get("log_interval_steps", 100)
+        if self.steps % interval == 0 and self.total_train_loss:
+            # divide by the steps that contributed: after warm-up ends or a
+            # resume lands mid-interval, fewer than `interval` accumulated
+            n_accum = max(self._accum_steps, 1)
+            for key in sorted(self.total_train_loss):
+                self.total_train_loss[key] = (
+                    float(self.total_train_loss[key]) / n_accum
+                )
+                logging.info(
+                    f"(Steps: {self.steps}) {key} = "
+                    f"{self.total_train_loss[key]:.4f}."
+                )
+            if self.writer:
+                for k, v in self.total_train_loss.items():
+                    self.writer.add_scalar(k, v, self.steps)
+                self.writer.add_scalar(
+                    "train/steps_per_sec",
+                    n_accum / max(time.time() - self._log_tic, 1e-6),
+                    self.steps,
+                )
+            self._log_tic = time.time()
+            self.last_train_loss = dict(self.total_train_loss)
+            self.total_train_loss = defaultdict(float)
+            self._accum_steps = 0
+
+    def _check_save_interval(self):
+        interval = self.config.get("save_interval_steps", 10000)
+        if self.steps % interval == 0:
+            self.save_checkpoint(
+                os.path.join(self.outdir, f"checkpoint-{self.steps}steps.ckpt")
+            )
+
+    def _check_eval_interval(self):
+        interval = self.config.get("eval_interval_steps", 1000)
+        if self.steps % interval == 0 and self.eval_loader is not None:
+            self._eval_epoch()
+
+    # ------------------------------------------------------------------
+    def _eval_epoch(self):
+        logging.info(f"(Steps: {self.steps}) Start evaluation.")
+        totals: Dict[str, Any] = defaultdict(float)
+        n_batches = 0
+        _, use_adv, _ = self._flags()
+        first_batch = None
+        for n_batches, batch in enumerate(self.eval_loader, 1):
+            batch = self._to_device(batch)
+            if first_batch is None:
+                first_batch = batch
+            metrics = self.eval_step(self.state, batch, use_adv)
+            for k, v in metrics.items():
+                totals[f"eval/{k}"] += v  # on the device; read back below
+        for k in totals:
+            totals[k] = float(totals[k]) / max(n_batches, 1)
+            logging.info(f"(Steps: {self.steps}) {k} = {totals[k]:.4f}.")
+        if self.writer:
+            for k, v in totals.items():
+                self.writer.add_scalar(k, v, self.steps)
+        self.last_eval_loss = dict(totals)
+        if first_batch is not None:
+            self._generate_and_save_intermediate_result(first_batch)
+
+    def _generate_and_save_intermediate_result(self, batch):
+        """Dump a few generated/reference wav pairs and plots."""
+        try:
+            from parallelwavegan_torch.utils.io import write_wav
+
+            with torch.no_grad():
+                y_hat = self.gen_forward(self.state.params_g, batch)
+            y_hat = y_hat.float().cpu().numpy()
+            y = batch["y"].float().cpu().numpy()
+            dirname = os.path.join(
+                self.outdir, "predictions", f"{self.steps}steps"
+            )
+            os.makedirs(dirname, exist_ok=True)
+            sr = self.config.get("sampling_rate", 22050)
+            n_dump = self.config.get("num_save_intermediate_results", 4)
+            for idx in range(min(n_dump, len(y))):
+                write_wav(os.path.join(dirname, f"{idx}_ref.wav"),
+                          y[idx, :, 0], sr)
+                write_wav(os.path.join(dirname, f"{idx}_gen.wav"),
+                          y_hat[idx, :, 0], sr)
+                self._save_plot(os.path.join(dirname, f"{idx}.png"),
+                                y[idx, :, 0], y_hat[idx, :, 0])
+        except Exception as e:  # pragma: no cover
+            logging.warning(f"intermediate dump failed: {e}")
+
+    @staticmethod
+    def _save_plot(path, y, y_hat):
+        try:
+            import matplotlib
+
+            matplotlib.use("Agg")
+            import matplotlib.pyplot as plt
+
+            fig, axes = plt.subplots(2, 1, figsize=(6, 4))
+            axes[0].plot(y)
+            axes[0].set_title("groundtruth speech")
+            axes[1].plot(y_hat)
+            axes[1].set_title("generated speech")
+            fig.tight_layout()
+            fig.savefig(path)
+            plt.close(fig)
+        except Exception:  # pragma: no cover
+            pass

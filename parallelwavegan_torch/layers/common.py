@@ -4,9 +4,13 @@ Counterpart of ``parallelwavegan_tpu/layers/common.py``. Kernels keep the
 JAX package's (K..., Cin, Cout) layout. Initializers draw from an explicit
 ``torch.Generator`` and follow the JAX package's distributions: PWG convs
 kaiming-normal (relu) with zero bias, the upsample smoothing conv a mean
-filter. The modules hold the *folded* kernel (weight norm already applied,
-see ``utils/params.py``): at initialisation weight norm sets g = ||v||, so
-the folded kernel is the initializer's sample.
+filter. A conv holds either the *folded* kernel (weight norm already
+applied, see ``utils/params.py``; the serving form) or, with
+``use_weight_norm``, the parameters ``kernel_v`` and ``kernel_g`` that the
+JAX package trains (``parallelwavegan_tpu/layers/common.py:129-147``): the
+kernel is then folded in every forward, so gradients reach v and g. At
+initialisation weight norm sets g = ||v||, so either form starts from the
+initializer's sample.
 """
 
 from __future__ import annotations
@@ -21,6 +25,7 @@ from torch import nn
 
 from parallelwavegan_torch.ops import conv as conv_ops
 from parallelwavegan_torch.ops.conv import PadLike
+from parallelwavegan_torch.utils.params import fold_weight_norm
 
 Initializer = Callable[..., torch.Tensor]
 
@@ -58,10 +63,34 @@ def get_activation(name: Optional[str], params: Optional[dict] = None):
     raise NotImplementedError(f"activation {name} is not ported yet")
 
 
-class Conv1d(nn.Module):
-    """Conv1d on (B, T, Cin) -> (B, T', Cout) with zero padding; the
-    kernel is a plain (folded) parameter. The default inits are PWG's (the
-    JAX module's default, torch's uniform init, has no caller in the port)."""
+class WeightNormedConv(nn.Module):
+    """Kernel handling shared by the convs: one ``kernel`` parameter, or
+    ``kernel_v`` and ``kernel_g`` (g of shape (1, ..., 1, Cout), the norm
+    taken over every axis but the last, per output channel)."""
+
+    def init_kernel(self, shape, kernel_init: Initializer,
+                    use_weight_norm: bool, generator) -> None:
+        kernel = kernel_init(shape, generator)
+        if use_weight_norm:
+            axes = tuple(range(kernel.dim() - 1))
+            self.kernel_v = nn.Parameter(kernel)
+            self.kernel_g = nn.Parameter(
+                torch.sqrt(torch.sum(kernel * kernel, dim=axes, keepdim=True))
+            )
+        else:
+            self.kernel = nn.Parameter(kernel)
+
+    def folded_kernel(self) -> torch.Tensor:
+        """The kernel the conv applies, differentiable in v and g."""
+        if "kernel" in self._parameters:
+            return self.kernel
+        return fold_weight_norm(self.kernel_v, self.kernel_g)
+
+
+class Conv1d(WeightNormedConv):
+    """Conv1d on (B, T, Cin) -> (B, T', Cout) with zero padding. The
+    default inits are PWG's (the JAX module's default, torch's uniform
+    init, has no caller in the port)."""
 
     def __init__(
         self,
@@ -73,18 +102,19 @@ class Conv1d(nn.Module):
         padding: PadLike = 0,
         kernel_init: Initializer = kaiming_normal_relu_init,
         bias_init: Initializer = zeros_init,
+        use_weight_norm: bool = False,
         *,
         generator: Optional[torch.Generator] = None,
     ):
         super().__init__()
         self.dilation, self.padding = dilation, padding
-        shape = (kernel_size, in_channels, features)
-        self.kernel = nn.Parameter(kernel_init(shape, generator))
+        self.init_kernel((kernel_size, in_channels, features), kernel_init,
+                         use_weight_norm, generator)
         if bias:
             self.bias = nn.Parameter(bias_init((features,), generator))
         else:
             self.register_parameter("bias", None)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return conv_ops.conv1d(x, self.kernel, self.bias, self.padding,
-                               self.dilation)
+        return conv_ops.conv1d(x, self.folded_kernel(), self.bias,
+                               self.padding, self.dilation)

@@ -2,7 +2,7 @@
 
 Counterpart of ``WaveNetResidualBlock`` in
 ``parallelwavegan_tpu/layers/residual_block.py``: the per-layer (unfused)
-forward that the plain generator runs. Non-causal, inference only.
+forward that the plain generator runs. Non-causal, no dropout.
 """
 
 from __future__ import annotations
@@ -31,6 +31,7 @@ class WaveNetResidualBlock(nn.Module):
         dilation: int = 1,
         bias: bool = True,
         use_causal_conv: bool = False,
+        use_weight_norm: bool = False,
         *,
         generator: Optional[torch.Generator] = None,
     ):
@@ -38,23 +39,25 @@ class WaveNetResidualBlock(nn.Module):
         if use_causal_conv:
             raise NotImplementedError("causal WaveNet blocks are not ported yet")
         if dropout > 0.0:
-            raise NotImplementedError("dropout waits for the training port")
+            raise NotImplementedError("dropout is not ported yet")
         if (kernel_size - 1) % 2:
             raise ValueError("kernel_size must be odd")
         gate_out = gate_channels // 2
         self.conv = Conv1d(
             residual_channels, gate_channels, kernel_size, dilation=dilation,
             bias=bias, padding=(kernel_size - 1) // 2 * dilation,
-            generator=generator,
+            use_weight_norm=use_weight_norm, generator=generator,
         )
         self.conv1x1_aux = (
             Conv1d(aux_channels, gate_channels, 1, bias=False,
-                   generator=generator)
+                   use_weight_norm=use_weight_norm, generator=generator)
             if aux_channels > 0 else None
         )
         self.conv1x1_skip = Conv1d(gate_out, skip_channels, 1, bias=bias,
+                                   use_weight_norm=use_weight_norm,
                                    generator=generator)
         self.conv1x1_out = Conv1d(gate_out, residual_channels, 1, bias=bias,
+                                  use_weight_norm=use_weight_norm,
                                   generator=generator)
 
     def forward(self, x: torch.Tensor, c: Optional[torch.Tensor] = None

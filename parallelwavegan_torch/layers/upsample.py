@@ -21,6 +21,7 @@ from torch import nn
 
 from parallelwavegan_torch.layers.common import (
     Conv1d,
+    WeightNormedConv,
     get_activation,
     mean_filter_init,
 )
@@ -47,11 +48,12 @@ def _polyphase_matrix(scale: int, kt: int, tp: int, n_taps: int,
     return M
 
 
-class _PolyphaseSmoothingConv(nn.Module):
+class _PolyphaseSmoothingConv(WeightNormedConv):
     """The reference's 1-channel smoothing Conv2d, evaluated polyphase."""
 
     def __init__(self, scale: int, freq_axis_kernel_size: int = 1,
-                 use_causal_conv: bool = False, *,
+                 use_causal_conv: bool = False,
+                 use_weight_norm: bool = False, *,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         if use_causal_conv:
@@ -59,9 +61,8 @@ class _PolyphaseSmoothingConv(nn.Module):
         self.scale = scale
         self.freq_axis_kernel_size = freq_axis_kernel_size
         kt = 2 * scale + 1
-        self.kernel = nn.Parameter(
-            mean_filter_init((freq_axis_kernel_size, kt, 1, 1), generator)
-        )
+        self.init_kernel((freq_axis_kernel_size, kt, 1, 1), mean_filter_init,
+                         use_weight_norm, generator)
         self.register_buffer(
             "phase_matrix",
             torch.from_numpy(_polyphase_matrix(scale, kt, scale, _N_TAPS,
@@ -72,7 +73,8 @@ class _PolyphaseSmoothingConv(nn.Module):
     def forward(self, c: torch.Tensor) -> torch.Tensor:
         fk, s = self.freq_axis_kernel_size, self.scale
         M = self.phase_matrix.to(c.dtype)
-        W = (self.kernel[..., 0, 0].to(c.dtype) @ M.T).reshape(fk, s, _N_TAPS)
+        kernel = self.folded_kernel()[..., 0, 0].to(c.dtype)
+        W = (kernel @ M.T).reshape(fk, s, _N_TAPS)
         B, T0, C = c.shape
         fp = (fk - 1) // 2
         cpad = F.pad(c, (fp, fp, -_J_START, _N_TAPS - 1 + _J_START))
@@ -95,6 +97,7 @@ class UpsampleNetwork(nn.Module):
         nonlinear_activation_params: Optional[dict] = None,
         freq_axis_kernel_size: int = 1,
         use_causal_conv: bool = False,
+        use_weight_norm: bool = False,
         *,
         generator: Optional[torch.Generator] = None,
     ):
@@ -109,7 +112,7 @@ class UpsampleNetwork(nn.Module):
         for i, scale in enumerate(upsample_scales):
             self.add_module(f"conv_{i}", _PolyphaseSmoothingConv(
                 scale, freq_axis_kernel_size, use_causal_conv,
-                generator=generator,
+                use_weight_norm, generator=generator,
             ))
 
     def forward(self, c: torch.Tensor) -> torch.Tensor:
@@ -136,16 +139,19 @@ class ConvInUpsampleNetwork(nn.Module):
         aux_channels: int = 80,
         aux_context_window: int = 0,
         use_causal_conv: bool = False,
+        use_weight_norm: bool = False,
         *,
         generator: Optional[torch.Generator] = None,
     ):
         super().__init__()
         self.conv_in = Conv1d(aux_channels, aux_channels,
                               2 * aux_context_window + 1, bias=False,
+                              use_weight_norm=use_weight_norm,
                               generator=generator)
         self.upsample = UpsampleNetwork(
             upsample_scales, nonlinear_activation, nonlinear_activation_params,
-            freq_axis_kernel_size, use_causal_conv, generator=generator,
+            freq_axis_kernel_size, use_causal_conv, use_weight_norm,
+            generator=generator,
         )
 
     def forward(self, c: torch.Tensor) -> torch.Tensor:

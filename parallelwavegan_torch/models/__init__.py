@@ -1,11 +1,13 @@
 """Model families and the config-name registry (Parallel WaveGAN so far)."""
 
 from parallelwavegan_torch.models.parallel_wavegan import (  # noqa: F401
+    ParallelWaveGANDiscriminator,
     ParallelWaveGANGenerator,
 )
 
 _REGISTRY = {
     "ParallelWaveGANGenerator": ParallelWaveGANGenerator,
+    "ParallelWaveGANDiscriminator": ParallelWaveGANDiscriminator,
 }
 
 

@@ -1,12 +1,22 @@
-"""Parallel WaveGAN generator, channels-last (B, T, C).
+"""Parallel WaveGAN generator and discriminator, channels-last (B, T, C).
 
-Counterpart of ``ParallelWaveGANGenerator`` in
+Counterpart of ``ParallelWaveGANGenerator`` and
+``ParallelWaveGANDiscriminator`` in
 ``parallelwavegan_tpu/models/parallel_wavegan.py``. Submodule and parameter
 names follow the JAX package's parameter tree (``upsample_net``,
-``first_conv``, ``conv_layers_<i>``, ``last_conv_0``/``_1``), so a converted
-flax tree (``utils.params.convert_jax_params``) loads with ``strict=True``.
-This forward runs every layer unfused; the serving path with the CUDA
-kernel is ``ops/cuda/pwg_infer.pwg_fused_forward``.
+``first_conv``, ``conv_layers_<i>``, ``last_conv_0``/``_1``; ``conv_<i>``,
+``last_conv``), so a converted flax tree
+(``utils.params.convert_jax_params``) loads with ``strict=True``.
+
+Each model comes in two parameter forms. ``folded=True`` (the default, the
+serving form) holds every kernel with weight norm already applied, whatever
+``use_weight_norm`` says. ``folded=False`` (the training form, what
+``engine.build.build_models`` makes) holds ``kernel_v``/``kernel_g`` where
+``use_weight_norm`` asks for them, as the JAX package trains them.
+
+The generator's plain forward runs every layer unfused; ``fused=True``
+routes it through ``ops/cuda/pwg_infer.pwg_fused_forward`` (the CUDA
+kernels).
 """
 
 from __future__ import annotations
@@ -18,7 +28,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from parallelwavegan_torch.layers.common import Conv1d
+from parallelwavegan_torch.layers.common import Conv1d, get_activation
 from parallelwavegan_torch.layers.residual_block import WaveNetResidualBlock
 from parallelwavegan_torch.layers.upsample import ConvInUpsampleNetwork
 
@@ -26,11 +36,7 @@ _DEFAULT_UPSAMPLE = {"upsample_scales": [4, 4, 4, 4]}
 
 
 class ParallelWaveGANGenerator(nn.Module):
-    """Non-causal WaveNet on noise z conditioned on upsampled mel.
-
-    ``use_weight_norm`` is accepted for config compatibility; the modules
-    hold folded kernels (inference only).
-    """
+    """Non-causal WaveNet on noise z conditioned on upsampled mel."""
 
     def __init__(
         self,
@@ -51,9 +57,11 @@ class ParallelWaveGANGenerator(nn.Module):
         upsample_net: str = "ConvInUpsampleNetwork",
         upsample_params: Optional[Dict[str, Any]] = None,
         *,
+        folded: bool = True,
         generator: Optional[torch.Generator] = None,
     ):
         super().__init__()
+        weight_norm = use_weight_norm and not folded
         if layers % stacks:
             raise ValueError("layers must be a multiple of stacks")
         self.in_channels, self.out_channels = in_channels, out_channels
@@ -76,9 +84,10 @@ class ParallelWaveGANGenerator(nn.Module):
             )
         self.upsample_net = ConvInUpsampleNetwork(
             aux_channels=aux_channels, aux_context_window=aux_context_window,
-            generator=generator, **up_params,
+            use_weight_norm=weight_norm, generator=generator, **up_params,
         )
         self.first_conv = Conv1d(in_channels, residual_channels, 1,
+                                 use_weight_norm=weight_norm,
                                  generator=generator)
         lpc = layers // stacks
         self.conv_layers: List[WaveNetResidualBlock] = []
@@ -93,13 +102,16 @@ class ParallelWaveGANGenerator(nn.Module):
                 dropout=dropout,
                 bias=bias,
                 use_causal_conv=use_causal_conv,
+                use_weight_norm=weight_norm,
                 generator=generator,
             )
             self.add_module(f"conv_layers_{layer}", block)
             self.conv_layers.append(block)
         self.last_conv_0 = Conv1d(skip_channels, skip_channels, 1,
+                                  use_weight_norm=weight_norm,
                                   generator=generator)
         self.last_conv_1 = Conv1d(skip_channels, out_channels, 1,
+                                  use_weight_norm=weight_norm,
                                   generator=generator)
 
     @property
@@ -111,12 +123,20 @@ class ParallelWaveGANGenerator(nn.Module):
         lpc = self.layers // self.stacks
         return [2 ** (i % lpc) for i in range(self.layers)]
 
-    def forward(self, z: torch.Tensor, c: Optional[torch.Tensor]
-                ) -> torch.Tensor:
+    def forward(self, z: torch.Tensor, c: Optional[torch.Tensor],
+                fused: bool = False, trainable: bool = False) -> torch.Tensor:
         """z (B, T, in_channels) noise; c (B, T'(+2*ctx), aux) mel.
 
-        Returns (B, T, out_channels).
+        Returns (B, T, out_channels). ``fused`` takes the fused path
+        (``pwg_fused_forward``, with its ``trainable`` grouping and
+        backward kernel) instead of the per-layer one below.
         """
+        if fused:
+            from parallelwavegan_torch.ops.cuda.pwg_infer import (
+                pwg_fused_forward,
+            )
+
+            return pwg_fused_forward(self, z, c, trainable=trainable)
         if c is not None:
             c = self.upsample_net(c)
             if c.shape[1] != z.shape[1]:
@@ -157,3 +177,59 @@ class ParallelWaveGANGenerator(nn.Module):
             z = torch.randn((1, T, self.in_channels), generator=generator,
                             device=c.device, dtype=c.dtype)
         return self.forward(z, c)[0]
+
+
+class ParallelWaveGANDiscriminator(nn.Module):
+    """Dilated conv stack (dilations 1, 1, 2, ..., layers - 2 with
+    ``dilation_factor`` 1, else factor ** i) with LeakyReLU(0.2) between;
+    returns (B, T, out_channels) logits."""
+
+    def __init__(
+        self,
+        in_channels: int = 1,
+        out_channels: int = 1,
+        kernel_size: int = 3,
+        layers: int = 10,
+        conv_channels: int = 64,
+        dilation_factor: int = 1,
+        nonlinear_activation: str = "LeakyReLU",
+        nonlinear_activation_params: Optional[Dict[str, Any]] = None,
+        bias: bool = True,
+        use_weight_norm: bool = True,
+        *,
+        folded: bool = True,
+        generator: Optional[torch.Generator] = None,
+    ):
+        super().__init__()
+        if (kernel_size - 1) % 2:
+            raise ValueError("kernel_size must be odd")
+        if dilation_factor <= 0:
+            raise ValueError("dilation_factor must be positive")
+        self.layers = layers
+        self.act = get_activation(
+            nonlinear_activation,
+            dict({"negative_slope": 0.2}, **(nonlinear_activation_params or {})),
+        )
+        weight_norm = use_weight_norm and not folded
+        channels = in_channels
+        for i in range(layers - 1):
+            if i == 0:
+                dilation = 1
+            else:
+                dilation = i if dilation_factor == 1 else dilation_factor ** i
+            self.add_module(f"conv_{i}", Conv1d(
+                channels, conv_channels, kernel_size, dilation=dilation,
+                bias=bias, padding=(kernel_size - 1) // 2 * dilation,
+                use_weight_norm=weight_norm, generator=generator,
+            ))
+            channels = conv_channels
+        self.last_conv = Conv1d(
+            channels, out_channels, kernel_size, bias=bias,
+            padding=(kernel_size - 1) // 2, use_weight_norm=weight_norm,
+            generator=generator,
+        )
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        for i in range(self.layers - 1):
+            x = self.act(getattr(self, f"conv_{i}")(x))
+        return self.last_conv(x)

@@ -2,11 +2,12 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled by ``nvcc``
 for ``sm_90a`` into ``_build/lib<name>-<hash>.so`` inside the package (the
-hash covers the source and the flags, so an edited source builds anew),
-then loaded with ``ctypes``. Nothing is built when a module is imported:
-the first kernel call builds its library, or a caller (``chip_smoke.py``)
-builds them all at once with :func:`build_libraries`, one ``nvcc`` process
-per source, all started together.
+hash covers the source, the shared ``csrc/*.cuh`` headers and the flags, so
+an edited source builds anew), then loaded with ``ctypes``. Nothing is built
+when a module is imported: the first kernel call builds its library, or a
+caller (``chip_smoke.py``) builds them all at once with
+:func:`build_libraries`, one ``nvcc`` process per source, all started
+together.
 """
 
 from __future__ import annotations
@@ -42,8 +43,9 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    source = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(source.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for source in [CSRC_DIR / f"{name}.cu", *sorted(CSRC_DIR.glob("*.cuh"))]:
+        digest.update(source.read_bytes())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:12]}.so"
 
 

@@ -17,6 +17,11 @@ The residual state stays f32 across the layers of one call and is rounded to
 ``x.dtype`` once, at the end; matmul inputs are rounded to the weight dtype
 and products accumulate in f32 (the TPU kernel's semantics, which for bf16
 differ from the JAX per-layer reference, which rounds x every layer).
+
+With ``save_inputs=True`` both versions also return xs (L, B, T, R): every
+layer's input rounded to the weight dtype, exactly what its tap product
+consumed. The backward kernel (``wavenet_stack_train.py``) recomputes the
+gate from it.
 """
 
 from __future__ import annotations
@@ -50,19 +55,23 @@ def fuse_wavenet_stack_params(blocks: Sequence[torch.nn.Module]
                               ) -> Dict[str, torch.Tensor]:
     """Stack one layer group's kernels into the kernel's layout.
 
-    ``blocks`` are WaveNetResidualBlocks (folded kernels, (K, Cin, Cout)).
-    Returns w_tap (L, 3, R, G), b_tap (L, G), w_aux (L, A, G),
-    w_so (L, R, S+R) (skip|out 1x1s side by side) and b_so (L, S+R).
+    ``blocks`` are WaveNetResidualBlocks (kernels (K, Cin, Cout), folded
+    here when the block holds kernel_v/kernel_g, so the result is
+    differentiable in them). Returns w_tap (L, 3, R, G), b_tap (L, G),
+    w_aux (L, A, G), w_so (L, R, S+R) (skip|out 1x1s side by side) and
+    b_so (L, S+R).
     """
-    for blk in blocks:
-        if blk.conv.kernel.shape[0] != 3:
-            raise ValueError("the fused stack requires kernel_size=3")
+    taps = [b.conv.folded_kernel() for b in blocks]
+    if any(k.shape[0] != 3 for k in taps):
+        raise ValueError("the fused stack requires kernel_size=3")
     return {
-        "w_tap": torch.stack([b.conv.kernel for b in blocks]),
+        "w_tap": torch.stack(taps),
         "b_tap": torch.stack([b.conv.bias for b in blocks]),
-        "w_aux": torch.stack([b.conv1x1_aux.kernel[0] for b in blocks]),
+        "w_aux": torch.stack([b.conv1x1_aux.folded_kernel()[0]
+                              for b in blocks]),
         "w_so": torch.stack([
-            torch.cat([b.conv1x1_skip.kernel[0], b.conv1x1_out.kernel[0]], -1)
+            torch.cat([b.conv1x1_skip.folded_kernel()[0],
+                       b.conv1x1_out.folded_kernel()[0]], -1)
             for b in blocks
         ]),
         "b_so": torch.stack([
@@ -83,9 +92,10 @@ def _shift(x: torch.Tensor, d: int) -> torch.Tensor:
 
 def wavenet_stack_reference(
     x: torch.Tensor, c: torch.Tensor, w: Dict[str, torch.Tensor],
-    dilations: Sequence[int],
-) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain PyTorch version of the kernel: same inputs, same outputs."""
+    dilations: Sequence[int], save_inputs: bool = False,
+) -> Tuple[torch.Tensor, ...]:
+    """Plain PyTorch version of the kernel: same inputs, same outputs.
+    Differentiable in x, c and w (autograd)."""
     f32 = torch.float32
     mm = w["w_tap"].dtype
     R = x.shape[-1]
@@ -93,8 +103,11 @@ def wavenet_stack_reference(
     h = x.to(f32)
     cm = c.to(mm).to(f32)
     skip = None
+    xs = []
     for i, d in enumerate(dilations):
         xm = h.to(mm).to(f32)
+        if save_inputs:
+            xs.append(xm.to(mm))
         xcat = torch.cat([_shift(xm, d), xm, _shift(xm, -d)], dim=-1)
         z = xcat @ w["w_tap"][i].reshape(3 * R, -1).to(f32)
         z = z + cm @ w["w_aux"][i].to(f32)
@@ -103,6 +116,8 @@ def wavenet_stack_reference(
         so = g.to(mm).to(f32) @ w["w_so"][i].to(f32) + w["b_so"][i].to(f32)
         skip = so[..., :S] if skip is None else skip + so[..., :S]
         h = (so[..., S:] + h) * math.sqrt(0.5)
+    if save_inputs:
+        return h.to(x.dtype), skip, torch.stack(xs)
     return h.to(x.dtype), skip
 
 
@@ -142,7 +157,7 @@ def _library() -> ctypes.CDLL:
     fn.argtypes = (
         [ctypes.c_int] + [ctypes.c_void_p] * 7
         + [ctypes.POINTER(ctypes.c_int)] + [ctypes.c_int] * 4
-        + [ctypes.c_void_p] * 5
+        + [ctypes.c_void_p] * 6
     )
     lib.pwg_cuda_error_string.restype = ctypes.c_char_p
     lib.pwg_cuda_error_string.argtypes = [ctypes.c_int]
@@ -151,19 +166,21 @@ def _library() -> ctypes.CDLL:
 
 def wavenet_stack(
     x: torch.Tensor, c: torch.Tensor, w: Dict[str, torch.Tensor],
-    dilations: Sequence[int],
-) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Run a fused group of WaveNet layers.
+    dilations: Sequence[int], save_inputs: bool = False,
+) -> Tuple[torch.Tensor, ...]:
+    """Run a fused group of WaveNet layers (forward only, no gradient:
+    the differentiable entry is ``wavenet_stack_train``).
 
     x (B, T, R) residual input and c (B, T, A) upsampled conditioning, in
     the weights' dtype (float32 or bfloat16); ``w`` from
     :func:`fuse_wavenet_stack_params`. Returns (x_out (B, T, R) in x.dtype,
-    skip sum (B, T, S) float32). CPU tensors take the plain version; CUDA
-    tensors launch the kernel (one launch per layer, counted in
-    ``wavenet_stack.launches``) or raise.
+    skip sum (B, T, S) float32) and, with ``save_inputs``, xs (L, B, T, R)
+    in x.dtype. CPU tensors take the plain version; CUDA tensors launch the
+    kernel (one launch per layer, counted in ``wavenet_stack.launches``) or
+    raise.
     """
     if x.device.type == "cpu":
-        return wavenet_stack_reference(x, c, w, dilations)
+        return wavenet_stack_reference(x, c, w, dilations, save_inputs)
     if x.device.type != "cuda":
         raise ValueError(f"no wavenet_stack for device {x.device}")
     _check_cuda_args(x, c, w, dilations)
@@ -183,6 +200,8 @@ def wavenet_stack(
             if L >= n else None
             for n in (2, 3)
         ]
+        xs = (torch.empty((L, B, T, R), dtype=x.dtype, device=x.device)
+              if save_inputs else None)
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.pwg_wavenet_stack_forward(
             _DTYPE_CODES[x.dtype], x.data_ptr(), c.data_ptr(),
@@ -191,6 +210,7 @@ def wavenet_stack(
             dil, L, B, T, c.shape[-1], x_out.data_ptr(), skip.data_ptr(),
             None if bufs[0] is None else bufs[0].data_ptr(),
             None if bufs[1] is None else bufs[1].data_ptr(),
+            None if xs is None else xs.data_ptr(),
             stream,
         )
     if err != 0:
@@ -199,6 +219,8 @@ def wavenet_stack(
             + lib.pwg_cuda_error_string(err).decode()
         )
     wavenet_stack.launches += L
+    if save_inputs:
+        return x_out, skip, xs
     return x_out, skip
 
 

@@ -1,0 +1,146 @@
+"""STFT magnitude for the spectral losses.
+
+Counterpart of ``stft_magnitude`` and its helpers in
+``parallelwavegan_tpu/ops/spectral.py``: reflect centre padding, the window
+centre-padded to ``fft_size``, power clamped before the square root
+(torch.stft semantics of the reference's loss). Two methods give the same
+numbers: "matmul" frames the signal and multiplies by a window-folded
+real-DFT basis (one large product, the GPU default), "fft" uses
+``torch.fft.rfft`` (the CPU default). The framed product is a plain matrix
+product outside any kernel and stays ``torch.matmul``; it runs in full
+float32 whatever ``torch.backends.cuda.matmul.allow_tf32`` says, in the
+backward too, as the JAX package asks for ``Precision.HIGHEST``.
+``log_mel_spectrogram`` is not ported yet.
+"""
+
+from __future__ import annotations
+
+import functools
+from typing import Optional
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+
+def hann_window(win_length: int, dtype=np.float32) -> np.ndarray:
+    """Periodic Hann window (torch.hann_window / scipy fftbins=True)."""
+    n = np.arange(win_length)
+    return (0.5 - 0.5 * np.cos(2.0 * np.pi * n / win_length)).astype(dtype)
+
+
+def get_window(window: Optional[str], win_length: int,
+               dtype=np.float32) -> np.ndarray:
+    n = np.arange(win_length)
+    if window in ("hann", "hann_window"):
+        return hann_window(win_length, dtype)
+    if window in ("hamming", "hamming_window"):
+        return (0.54 - 0.46 * np.cos(2.0 * np.pi * n / win_length)).astype(dtype)
+    if window in ("blackman", "blackman_window"):
+        x = 2.0 * np.pi * n / win_length
+        return (0.42 - 0.5 * np.cos(x) + 0.08 * np.cos(2 * x)).astype(dtype)
+    if window in ("rect", "rectangular", "ones", None):
+        return np.ones(win_length, dtype=dtype)
+    raise ValueError(f"unsupported window: {window}")
+
+
+def pad_center(window: np.ndarray, size: int) -> np.ndarray:
+    """Centre-pad a window to ``size`` (librosa.util.pad_center)."""
+    n = len(window)
+    lpad = (size - n) // 2
+    return np.pad(window, (lpad, size - n - lpad))
+
+
+@functools.lru_cache(maxsize=64)
+def _rdft_basis(fft_size: int, win_length: int, window: str) -> np.ndarray:
+    """Window-folded real-DFT basis (fft_size, 2 * (fft_size // 2 + 1)):
+    frames @ basis == [Re(STFT) | Im(STFT)]. Computed in float64."""
+    w = pad_center(get_window(window, win_length, np.float64), fft_size)
+    t = np.arange(fft_size)[:, None]
+    k = np.arange(fft_size // 2 + 1)[None, :]
+    ang = 2.0 * np.pi * t * k / fft_size
+    basis = np.concatenate([np.cos(ang), -np.sin(ang)], axis=1) * w[:, None]
+    return basis.astype(np.float32)
+
+
+@functools.lru_cache(maxsize=64)
+def _basis_on(fft_size: int, win_length: int, window: str,
+              device: torch.device, dtype: torch.dtype) -> torch.Tensor:
+    """The basis as a tensor on the device, made once: at fft_size 2048 it
+    is 16.8 MB, too much to copy from the host in every loss call."""
+    basis = torch.from_numpy(_rdft_basis(fft_size, win_length, window))
+    return basis.to(device, dtype)
+
+
+def frame_signal(x: torch.Tensor, frame_length: int, hop_size: int
+                 ) -> torch.Tensor:
+    """(..., T) -> overlapping frames (..., n_frames, frame_length)."""
+    return x.unfold(-1, frame_length, hop_size)
+
+
+class _no_tf32:
+    """Full-float32 matrix products on CUDA inside the block."""
+
+    def __enter__(self):
+        self.previous = torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = False
+
+    def __exit__(self, *exc):
+        torch.backends.cuda.matmul.allow_tf32 = self.previous
+
+
+class _MatmulHighest(torch.autograd.Function):
+    """a @ b with a constant b, never in TF32, forward or backward."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(b)
+        with _no_tf32():
+            return torch.matmul(a, b)
+
+    @staticmethod
+    def backward(ctx, grad):
+        (b,) = ctx.saved_tensors
+        with _no_tf32():
+            return torch.matmul(grad, b.t()), None
+
+
+def stft_magnitude(
+    x: torch.Tensor,
+    fft_size: int,
+    hop_size: int,
+    win_length: Optional[int] = None,
+    window: str = "hann",
+    center: bool = True,
+    pad_mode: str = "reflect",
+    power_clamp_min: float = 1e-7,
+    method: str = "auto",
+) -> torch.Tensor:
+    """Magnitude spectrogram of (..., T) -> (..., n_frames, fft_size//2+1).
+
+    method: "matmul" (framed product, the default on CUDA), "fft"
+    (``torch.fft.rfft``, the default on the CPU) or "auto".
+    """
+    if win_length is None:
+        win_length = fft_size
+    if center:
+        p = fft_size // 2
+        lead = x.shape[:-1]
+        x = F.pad(x.reshape(-1, 1, x.shape[-1]), (p, p), mode=pad_mode)
+        x = x.reshape(*lead, x.shape[-1])
+    frames = frame_signal(x, fft_size, hop_size)
+    if method == "auto":
+        method = "matmul" if x.is_cuda else "fft"
+    if method == "matmul":
+        basis = _basis_on(fft_size, win_length, window, x.device, x.dtype)
+        bins = fft_size // 2 + 1
+        proj = _MatmulHighest.apply(frames, basis)
+        power = proj[..., :bins] ** 2 + proj[..., bins:] ** 2
+    elif method == "fft":
+        w = pad_center(get_window(window, win_length, np.float32), fft_size)
+        spec = torch.fft.rfft(frames * torch.from_numpy(w).to(x.device,
+                                                              x.dtype), dim=-1)
+        power = spec.real ** 2 + spec.imag ** 2
+    else:
+        raise ValueError(f"unknown STFT method: {method}")
+    return torch.sqrt(torch.clamp(power, min=power_clamp_min))

@@ -1,8 +1,9 @@
-"""File IO for serving: feature files, 16-bit PCM WAV output, YAML configs.
+"""File IO: feature files, 16-bit PCM WAV output, YAML configs.
 
-Counterpart of the serving part of ``parallelwavegan_tpu/utils/io.py``.
-``yaml`` and ``h5py`` are imported inside the functions that need them, so
-the serving path runs where neither is installed.
+Counterpart of the serving and training part of
+``parallelwavegan_tpu/utils/io.py``. ``yaml`` and ``h5py`` are imported
+inside the functions that need them, so the port runs where neither is
+installed.
 """
 
 from __future__ import annotations
@@ -60,3 +61,14 @@ def load_config(path: str) -> Dict[str, Any]:
 
     with open(path) as f:
         return yaml.load(f, Loader=yaml.SafeLoader)
+
+
+def save_config(path: str, config: Dict[str, Any]) -> None:
+    """Dump an experiment config as YAML (config.yml beside checkpoints)."""
+    import yaml
+
+    folder = os.path.dirname(path)
+    if folder:
+        os.makedirs(folder, exist_ok=True)
+    with open(path, "w") as f:
+        yaml.dump(config, f, Dumper=yaml.SafeDumper)

@@ -1,11 +1,15 @@
 """Parameter transforms: the weight-norm fold and flax-tree conversion.
 
 ``fold_weight_norm`` is the counterpart of the JAX package's fold
-(``parallelwavegan_tpu/utils/params.py`` and
+(``parallelwavegan_tpu/utils/params.py``, ``layers/common.py:144-147`` and
 ``ops/pallas/wavenet_stack.py:55``): kernel = v * g / max(||v||, 1e-12), the
-norm taken per output channel over every axis where g has size 1.
-``convert_jax_params`` turns a flax parameter tree into a ``state_dict`` for
-the port's modules, whose parameter names are the tree's paths.
+norm taken per output channel over every axis where g has size 1. It is
+differentiable and computes in the dtype it is given; the trainable modules
+call it in their forward. ``convert_jax_params`` turns a flax parameter tree
+into a ``state_dict`` for the port's modules, whose parameter names are the
+tree's paths: folded (``...kernel``, the serving form) or, with
+``fold=False``, as it is (``...kernel_v`` / ``...kernel_g``, the training
+form). ``folded_state_dict`` makes the serving form from a trainable module.
 """
 
 from __future__ import annotations
@@ -14,6 +18,7 @@ from typing import Any, Dict, Mapping
 
 import numpy as np
 import torch
+from torch import nn
 
 
 def as_tensor(a: Any) -> torch.Tensor:
@@ -27,29 +32,34 @@ def as_tensor(a: Any) -> torch.Tensor:
 
 
 def fold_weight_norm(v: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
-    """v * g / max(||v||, 1e-12), computed in float32."""
-    v, g = v.float(), g.float()
+    """v * g / max(||v||, 1e-12), in the dtype of v."""
     axes = tuple(d for d in range(v.dim()) if g.shape[d] == 1)
     norm = torch.sqrt(torch.sum(v * v, dim=axes, keepdim=True))
     return v * (g / torch.clamp(norm, min=1e-12))
 
 
-def convert_jax_params(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+def convert_jax_params(tree: Mapping[str, Any], fold: bool = True
+                       ) -> Dict[str, torch.Tensor]:
     """Flax params tree (nested dicts of arrays, f32 or bf16, with
-    kernel_v/kernel_g or kernel) -> float32 state_dict with folded kernels.
+    kernel_v/kernel_g or kernel) -> float32 state_dict.
 
-    Pass the tree under ``"params"``: {"first_conv": {"kernel_v": ...}} ->
-    {"first_conv.kernel": ...}.
+    Pass the tree under ``"params"``. With ``fold`` (the default) weight
+    norm is folded in float32: {"first_conv": {"kernel_v": ...}} ->
+    {"first_conv.kernel": ...}, which a folded module strict-loads. With
+    ``fold=False`` the names stay (``first_conv.kernel_v``), which a
+    trainable module strict-loads.
     """
     out: Dict[str, torch.Tensor] = {}
 
     def walk(node: Mapping[str, Any], prefix: str) -> None:
-        if "kernel_v" in node and "kernel_g" in node:
+        folds = fold and "kernel_v" in node and "kernel_g" in node
+        if folds:
             out[prefix + "kernel"] = fold_weight_norm(
-                as_tensor(node["kernel_v"]), as_tensor(node["kernel_g"])
+                as_tensor(node["kernel_v"]).float(),
+                as_tensor(node["kernel_g"]).float(),
             )
         for key, sub in node.items():
-            if key in ("kernel_v", "kernel_g"):
+            if folds and key in ("kernel_v", "kernel_g"):
                 continue
             if isinstance(sub, Mapping):
                 walk(sub, f"{prefix}{key}.")
@@ -57,4 +67,37 @@ def convert_jax_params(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
                 out[prefix + key] = as_tensor(sub).float()
 
     walk(tree, "")
+    return out
+
+
+def nested(flat: Mapping[str, Any]) -> Dict[str, Any]:
+    """{"a.b.kernel": t} -> {"a": {"b": {"kernel": t}}}: a state_dict as
+    the flax tree it came from (the inverse of ``convert_jax_params``'s
+    flattening)."""
+    out: Dict[str, Any] = {}
+    for key, value in flat.items():
+        *path, leaf = key.split(".")
+        node = out
+        for part in path:
+            node = node.setdefault(part, {})
+        node[leaf] = value
+    return out
+
+
+def folded_state_dict(module: nn.Module) -> Dict[str, torch.Tensor]:
+    """A module's state_dict with every kernel_v/kernel_g pair folded into
+    ``kernel``: what the same module built in its folded form strict-loads.
+    A folded module's state_dict comes back as it is."""
+    state = module.state_dict()
+    out: Dict[str, torch.Tensor] = {}
+    for key, value in state.items():
+        if key.endswith("kernel_g"):
+            continue
+        if key.endswith("kernel_v"):
+            prefix = key[: -len("kernel_v")]
+            out[prefix + "kernel"] = fold_weight_norm(
+                value.float(), state[prefix + "kernel_g"].float()
+            ).to(value.dtype)
+        else:
+            out[key] = value
     return out

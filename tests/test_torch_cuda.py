@@ -12,11 +12,22 @@ import numpy as np
 import pytest
 import torch
 
+from parallelwavegan_torch.engine.build import (
+    example_batch,
+    init_train_state,
+)
 from parallelwavegan_torch.engine.checkpoint import save_generator_checkpoint
+from parallelwavegan_torch.engine.criterion import build_criterion
+from parallelwavegan_torch.engine.step import build_steps
 from parallelwavegan_torch.models import ParallelWaveGANGenerator
 from parallelwavegan_torch.ops.cuda.wavenet_stack import (
     wavenet_stack,
     wavenet_stack_reference,
+)
+from parallelwavegan_torch.ops.cuda.wavenet_stack_train import (
+    wavenet_stack_backward,
+    wavenet_stack_train,
+    wavenet_stack_train_reference,
 )
 from parallelwavegan_torch.utils.model_loader import load_model
 
@@ -130,3 +141,112 @@ def test_inference_model_on_card_rejects_what_the_kernel_lacks(tmp_path,
             **kwargs, generator=torch.Generator().manual_seed(0)))
         with pytest.raises(NotImplementedError, match=match):
             load_model(path, config, device=cuda_device)
+
+
+def _stack_grads(fn, x, c, w, dils, ux, us):
+    x = x.detach().requires_grad_()
+    c = c.detach().requires_grad_()
+    w = {k: v.detach().requires_grad_() for k, v in w.items()}
+    xo, sk = fn(x, c, w, dils)
+    loss = (xo.float() * ux).sum() + (sk * us).sum()
+    names = list(w)
+    grads = torch.autograd.grad(loss, [x, c] + [w[k] for k in names])
+    return dict(zip(["dx", "dc"] + names, grads))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,T,L", [(2, 1000, 6), (3, 300, 10), (1, 77, 1),
+                                   (2, 130, 2)])
+def test_backward_kernel_matches_plain(cuda_device, dtype, B, T, L):
+    """Saved inputs and every gradient (dx, dc, five weight gradients)
+    against autograd through the plain forward. The weight gradients are
+    sums over B*T rows in another order; relative to their largest entry
+    they stay inside the elementwise tolerance."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(3)
+    dils = tuple(2 ** (i % 10) for i in range(L))
+    x, c, w = _stack_inputs(rng, B, T, L, dtype, cuda_device)
+    xo, sk, xs = wavenet_stack(x, c, w, dils, save_inputs=True)
+    xo_p, sk_p, xs_p = wavenet_stack_reference(x, c, w, dils,
+                                               save_inputs=True)
+    assert xs.dtype == dtype and tuple(xs.shape) == (L, B, T, 64)
+    for a, b in ((xo, xo_p), (sk, sk_p), (xs, xs_p)):
+        _assert_close(a, b, dtype)
+    ux = torch.from_numpy(rng.standard_normal((B, T, 64)).astype(
+        np.float32)).to(cuda_device)
+    us = torch.from_numpy(rng.standard_normal((B, T, 64)).astype(
+        np.float32)).to(cuda_device)
+    fwd, bwd = wavenet_stack.launches, wavenet_stack_backward.launches
+    got = _stack_grads(wavenet_stack_train, x, c, w, dils, ux, us)
+    torch.cuda.synchronize()
+    assert wavenet_stack.launches == fwd + L
+    assert wavenet_stack_backward.launches == bwd + L
+    want = _stack_grads(wavenet_stack_train_reference, x, c, w, dils, ux, us)
+    for key in want:
+        assert got[key].dtype == want[key].dtype == dtype, key
+        _assert_close(got[key], want[key], dtype)
+
+
+@pytest.mark.cuda
+def test_backward_kernel_is_deterministic_and_skipped_without_grad(
+        cuda_device):
+    rng = np.random.default_rng(4)
+    dils = (1, 2, 4, 8)
+    x, c, w = _stack_inputs(rng, 2, 700, 4, torch.float32, cuda_device)
+    ux, us = torch.ones_like(x), torch.ones((2, 700, 64), device=cuda_device)
+    a = _stack_grads(wavenet_stack_train, x, c, w, dils, ux, us)
+    b = _stack_grads(wavenet_stack_train, x, c, w, dils, ux, us)
+    for key in a:
+        assert torch.equal(a[key], b[key]), key  # no atomics
+    bwd = wavenet_stack_backward.launches
+    with torch.no_grad():
+        xo, sk = wavenet_stack_train(x.requires_grad_(), c, w, dils)
+    assert not xo.requires_grad and wavenet_stack_backward.launches == bwd
+    with pytest.raises(ValueError, match="CUDA"):
+        wavenet_stack_backward(x.cpu()[None], c.cpu(), w, (1,), x.cpu(),
+                               x.cpu())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mixed", [False, True], ids=["f32", "mixed"])
+def test_train_step_on_card_goes_through_both_kernels(cuda_device, mixed):
+    """PWG v1 widths at 6 layers: a G+adv+D step launches the forward
+    kernel once per layer with gradients and once for the recomputed
+    prediction, the backward kernel once per layer, and its losses agree
+    with the per-layer forward (fused_wavenet: false) on the card."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    config = {
+        "hop_size": 256, "batch_max_steps": 2560, "mixed_precision": mixed,
+        "generator_params": dict(PWG_V1_KWARGS, layers=6, stacks=3),
+        "discriminator_params": {"layers": 4, "conv_channels": 16},
+        "stft_loss_params": {"fft_sizes": [256, 512], "hop_sizes": [64, 128],
+                             "win_lengths": [128, 256]},
+        "generator_grad_norm": 10, "discriminator_grad_norm": 1,
+    }
+    batch = {k: torch.from_numpy(v).to(cuda_device)
+             for k, v in example_batch(config, batch_size=2).items()}
+    losses = {}
+    for fused in (True, False):
+        cfg = dict(config, fused_wavenet=fused)
+        state, gen, dis, opt_g, opt_d = init_train_state(cfg, seed=0,
+                                                         device=cuda_device)
+        factory, _ = build_steps(cfg, gen, dis, build_criterion(cfg), opt_g,
+                                 opt_d)
+        fwd, bwd = wavenet_stack.launches, wavenet_stack_backward.launches
+        before = {k: v.detach().clone() for k, v in state.params_g.items()}
+        _, losses[fused] = factory(True, True, True)(state, batch)
+        torch.cuda.synchronize()
+        assert wavenet_stack.launches - fwd == (12 if fused else 0)
+        assert wavenet_stack_backward.launches - bwd == (6 if fused else 0)
+        moved = sum(not torch.equal(p, before[k])
+                    for k, p in state.params_g.items())
+        # the last layer's residual 1x1 (v, g, bias) feeds nothing, and
+        # first_conv's kernel_v has a zero gradient but for rounding
+        assert moved >= len(before) - 4
+    tol = 5e-2 if mixed else 1e-4
+    for key, value in losses[True].items():
+        assert torch.isfinite(value)
+        np.testing.assert_allclose(value.item(), losses[False][key].item(),
+                                   rtol=tol, err_msg=key)

@@ -150,8 +150,9 @@ def test_decode_cli_writes_wavs(tmp_path):
 
 
 def test_port_imports_no_jax():
-    """Every module of the port and chip_smoke.py, imported in a fresh
-    interpreter, load no jax, flax or parallelwavegan_tpu module."""
+    """Every module of the port (the training modules included) and
+    chip_smoke.py, imported in a fresh interpreter, load no jax, flax,
+    optax or parallelwavegan_tpu module."""
     code = (
         "import pkgutil, importlib, sys\n"
         "import parallelwavegan_torch as p\n"
@@ -160,9 +161,16 @@ def test_port_imports_no_jax():
         "for n in names: importlib.import_module(n)\n"
         "import chip_smoke\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'parallelwavegan_tpu')]\n"
+        "('jax', 'jaxlib', 'flax', 'optax', 'parallelwavegan_tpu')]\n"
         "assert not bad, bad\n"
-        "assert len(names) >= 15, names\n"
+        "want = ['bin.train', 'datasets.collater', 'datasets.loader', "
+        "'engine.build', 'engine.criterion', 'engine.state', 'engine.step', "
+        "'engine.trainer', 'losses.adversarial', 'losses.stft_loss', "
+        "'ops.spectral', 'ops.cuda.wavenet_stack_train', 'optimizers']\n"
+        "missing = [w for w in want if 'parallelwavegan_torch.' + w "
+        "not in names]\n"
+        "assert not missing, missing\n"
+        "assert len(names) >= 28, names\n"
         "print(len(names))\n"
     )
     env = dict(os.environ, PYTHONPATH=REPO)
