@@ -6,9 +6,21 @@
 1. prints the card (nvidia-smi name and power limit) and builds every CUDA
    kernel from csrc/ with nvcc (one process per source, started together);
 2. holds each kernel against its plain PyTorch version on the card (f32 and
-   bf16, small and Parallel WaveGAN v1 shapes, ragged T, dilations past T):
-   the stack forward, the forward with saved inputs, and every output of
-   the backward;
+   bf16, small and real shapes, ragged T, dilations past T): the stack
+   forward, the forward with saved inputs, every output of the backward,
+   the fused MRF stage (f32, bf16 and int8 packs) and the matmul bench
+   (int32 results bit-equal);
+2h. drives HiFi-GAN v1 serving at full width on the shipped trained
+   checkpoint (assets/quality/): (a) f32 exact mode over the 24 evaluation
+   mels, the first 8 scored (MCD, log-F0 RMSE, V/UV; host processes that
+   run beside the later phases) against the committed per-utterance
+   reference of the JAX package; (b) the fused MRF kernel in f32 against
+   (a), 28 launches; (c) the kernel with int8 packs against the int8 conv
+   chain on the same scales; (d) batch 32 x 512 frames in bf16, timed in
+   the exact mode (cuDNN), the int8 conv chain and the kernel in both
+   modes, with every stage's kernel held against its plain version and
+   timed beside it and the cuDNN chain; after the PWG serving path, the
+   stage roofline tool, whose run launches the matmul bench kernel;
 3. drives the serving path at full PWG v1 width with seeded weights written
    to and read back from a .gckpt: InferenceModel on cuda, (a) batch 1 in
    f32 against the unfused plain generator, (b) batch 32 x 512 frames in
@@ -25,26 +37,31 @@
    against the same through their plain versions, times the (G, adv, D)
    step, both kernels at the training shape and the backward's plain
    version, and prints where a step's device time goes (torch.profiler);
-7. prints a JSON line of kernels, the card line, and as the last line
-   {"ok": true, "device": {...}}.
+7. prints a JSON line of the four kernels, the card line, and as the last
+   line {"ok": true, "device": {...}}.
 
 Exits non-zero, printing no result, on any failure or without a GPU.
 """
 
 from __future__ import annotations
 
+import glob
 import json
+import multiprocessing
 import os
 import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ProcessPoolExecutor
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 # published dense peaks of an H100 SXM at 700 W (NVIDIA data sheet)
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12,
+              torch.int8: 1979e12}
 PEAK_BYTES_PER_S = 3.35e12
 HOP, SR, BENCH_BATCH, BENCH_FRAMES = 256, 22050, 32, 512
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}  # x (1 + max|plain|)
@@ -98,6 +115,34 @@ PWG_V1 = {
     "eval_interval_steps": 6,
     "log_interval_steps": 3,
 }
+# HiFi-GAN v1 as trained for the shipped checkpoint
+# (assets/quality/config.yml; a CPU test holds this dict to that file)
+REPO = os.path.dirname(os.path.abspath(__file__))
+ASSET_DIR = os.path.join(REPO, "assets", "quality")
+QUALITY_REFERENCE = os.path.join(
+    REPO, "tests", "data", "torch_hifigan_quality_reference.json")
+HIFIGAN_V1 = {
+    "sampling_rate": SR,
+    "hop_size": HOP,
+    "num_mels": 80,
+    "generator_type": "HiFiGANGenerator",
+    "generator_params": {
+        "in_channels": 80, "out_channels": 1, "channels": 512,
+        "kernel_size": 7, "upsample_scales": [8, 8, 2, 2],
+        "upsample_kernel_sizes": [16, 16, 4, 4],
+        "resblock_kernel_sizes": [3, 7, 11],
+        "resblock_dilations": [[1, 3, 5], [1, 3, 5], [1, 3, 5]],
+        "use_additional_convs": True, "bias": True,
+        "nonlinear_activation": "LeakyReLU",
+        "nonlinear_activation_params": {"negative_slope": 0.1},
+        "use_weight_norm": True,
+    },
+}
+N_SCORED = 8       # utterances scored on the host (about 20 s each)
+N_CALIB = 8        # utterances the int8 scales are calibrated on
+# the scored numbers against the committed CPU reference of the JAX package
+QUALITY_TOL = {"mcd": 0.02, "log_f0_rmse": 0.002, "vuv_error": 0.002}
+
 LOSS_NAMES = (
     "spectral_convergence_loss", "log_stft_magnitude_loss",
     "adversarial_loss", "generator_loss", "real_loss", "fake_loss",
@@ -540,21 +585,440 @@ def profile_step(trainer, batch, what: str) -> None:
               f"{name[:90]}")
 
 
+def score_utterance(job):
+    """Worker-process entry: copy-synthesis metrics of one utterance with
+    the port's numpy metrics. job = (name, wave, ground-truth wav, sr,
+    whether to score f0 too)."""
+    from parallelwavegan_torch.ops.eval_metrics import (
+        log_f0_rmse,
+        mel_cepstral_distortion,
+    )
+    from parallelwavegan_torch.utils.io import read_wav
+
+    name, wave, gt_path, sr, with_f0 = job
+    gt = read_wav(gt_path)[0]
+    out = {"mcd": mel_cepstral_distortion(wave, gt, sr)}
+    if with_f0:
+        out["log_f0_rmse"], out["vuv_error"] = log_f0_rmse(wave, gt, sr)
+    return name, out
+
+
+def mrf_inputs(rng, C, kernels, dils):
+    """Seeded weights and activation scales of one MRF stage."""
+    weights = [[(rng.standard_normal((k, C, C)).astype(np.float32)
+                 * (0.6 / np.sqrt(k * C)),
+                 rng.standard_normal(C).astype(np.float32) * 0.05)
+                for _ in range(len(dils) * 2)] for k in kernels]
+    scales = [[np.abs(rng.standard_normal(C)).astype(np.float32) * 0.02 + 0.01
+               for _ in range(len(dils) * 2)] for _ in kernels]
+    return weights, scales
+
+
+def check_mrf_and_matmul_kernels(dev) -> dict:
+    """B3 and B5 against their plain versions at small and real widths.
+    Tolerance as for the stack, tol * (1 + max |plain|) with tol 1e-4 in
+    f32 and 2e-2 in bf16; the int8 packs pin their arithmetic (exact
+    integer sums, an epilogue of two roundings), so they are held to the
+    f32 tolerance when x is f32; matmul_bench's int32 results must be
+    bit-equal. Returns the largest error seen per kernel."""
+    from parallelwavegan_torch.ops.cuda.matmul_bench import (
+        MRF_SHAPES,
+        matmul_bench,
+        matmul_bench_reference,
+    )
+    from parallelwavegan_torch.ops.cuda.mrf_stage import (
+        build_stage_pack,
+        mrf_stage,
+        mrf_stage_reference,
+    )
+    from parallelwavegan_torch.tools.int8_stage_roofline import matmul_inputs
+
+    v1 = ((3, 7, 11), (1, 3, 5))
+    cases = [  # (C, T, B, kernels, dils): ragged T, below a tile, below reach
+        (8, 300, 2, (3, 5, 7), (1, 2)), (16, 20, 1) + v1,
+        (32, 1000, 2) + v1, (64, 333, 2) + v1, (128, 129, 1) + v1,
+        (256, 260, 1) + v1, (32, 7, 3) + v1,
+    ]
+    rng = np.random.default_rng(5)
+    worst = {"mrf_stage": 0.0, "matmul_bench": 0.0}
+    for C, T, B, kernels, dils in cases:
+        weights, scales = mrf_inputs(rng, C, kernels, dils)
+        x32 = torch.from_numpy(
+            rng.standard_normal((B, T, C)).astype(np.float32)).to(dev)
+        for mode, wdtype, xdtype in (
+            ("f32", torch.float32, torch.float32),
+            ("bf16", torch.bfloat16, torch.bfloat16),
+            ("int8", None, torch.float32),
+            ("int8, bf16 x", None, torch.bfloat16),
+        ):
+            quant = wdtype is None
+            pack = build_stage_pack(weights, scales, quant=quant,
+                                    dtype=wdtype or torch.float32, device=dev)
+            x = x32.to(xdtype)
+            out = mrf_stage(x, pack, kernels=kernels, dils=dils, quant=quant)
+            torch.cuda.synchronize()
+            ref = mrf_stage_reference(x, pack, kernels=kernels, dils=dils,
+                                      quant=quant)
+            err = check(f"mrf_stage {mode} C={C} B={B} T={T} k={kernels} "
+                        f"d={dils}", out, ref, xdtype)
+            worst["mrf_stage"] = max(worst["mrf_stage"], err)
+    for M, K, N in [(m // 16, k, n) for m, k, n in MRF_SHAPES] + [(77, 50, 24)]:
+        for mode in ("int8", "bf16"):
+            a, b = matmul_inputs(M, K, N, mode, dev)
+            out = matmul_bench(a, b)
+            torch.cuda.synchronize()
+            ref = matmul_bench_reference(a, b)
+            if mode == "int8":
+                if not torch.equal(out, ref):
+                    raise AssertionError(
+                        f"matmul_bench int8 {M}x{K}x{N} is not bit-equal")
+                print(f"matmul_bench int8 M={M} K={K} N={N}: bit-equal")
+            else:
+                err = check(f"matmul_bench bf16 M={M} K={K} N={N}", out, ref,
+                            torch.float32)
+                worst["matmul_bench"] = max(worst["matmul_bench"], err)
+    return worst
+
+
+def mrf_bound_ms(rows, C, kernels, n_layers, mm_dtype, x_item) -> tuple:
+    """Least time for one MRF stage: 2 * 2 * n_layers * sum(k) * C^2
+    operations per row at the matmul type's peak vs x read once, the output
+    written once and the weights read once at the memory rate."""
+    flops = 2.0 * rows * 2 * n_layers * sum(kernels) * C * C
+    w_item = torch.empty((), dtype=mm_dtype).element_size()
+    nbytes = 2.0 * rows * C * x_item + (
+        2 * n_layers * sum(kernels) * C * C * w_item
+        + len(kernels) * 2 * n_layers * 3 * C * 4)
+    t_ops, t_bytes = flops / PEAK_FLOPS[mm_dtype], nbytes / PEAK_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
+def wave_diff(what: str, got, want, max_allowed: float) -> float:
+    """Largest |got - want| over a list of waveforms (full scale 1.0)."""
+    worst = 0.0
+    for a, b in zip(got, want):
+        if a.shape != b.shape or not np.isfinite(a).all():
+            raise AssertionError(f"{what}: bad waveform")
+        worst = max(worst, float(np.abs(a - b).max()))
+    print(f"{what}: max |waveform difference| {worst:.3e} "
+          f"(allowed {max_allowed:.1e} of a full scale of 1)")
+    if worst > max_allowed:
+        raise AssertionError(f"{what} disagrees")
+    return worst
+
+
+def hifigan_phase(dev, smi: str, pool) -> dict:
+    """Step 2h of the module docstring. Returns what the kernels line needs
+    for mrf_stage, and the pending host scores."""
+    from parallelwavegan_torch.ops.cuda.mrf_stage import (
+        mrf_stage,
+        mrf_stage_reference,
+    )
+    from parallelwavegan_torch.utils.model_loader import load_model
+
+    with open(QUALITY_REFERENCE) as f:
+        reference = json.load(f)
+    files = [os.path.join(ASSET_DIR, name)
+             for name in reference["batch_files"]]
+    if sorted(files) != sorted(glob.glob(os.path.join(ASSET_DIR,
+                                                      "*-feats.npy"))):
+        raise AssertionError("the reference does not list the asset's mels")
+    mels = [np.load(f) for f in files]
+    names = [os.path.basename(f)[: -len("-feats.npy")] for f in files]
+    scored = [names.index(f"eval_utt{i}") for i in range(N_SCORED)]
+    calib = [mels[names.index(f"eval_utt{i}")] for i in range(N_CALIB)]
+    ckpt = os.path.join(ASSET_DIR, "generator.gckpt")
+    out = {}
+
+    # (a) f32, exact mode: all 24 utterances in one bucketed batch, as the
+    # reference file was made; the first N_SCORED are scored on the host
+    model = load_model(ckpt, HIFIGAN_V1, dtype=torch.float32, device="cuda")
+    t0 = time.perf_counter()
+    exact = model.synthesize_batch(mels)
+    wall = time.perf_counter() - t0
+    for w, m in zip(exact, mels):
+        if w.shape != (len(m) * HOP, 1) or not np.isfinite(w).all():
+            raise AssertionError("bad f32 waveform")
+    print(f"hifigan (a) f32 exact, {len(mels)} utterances, "
+          f"{sum(len(m) for m in mels)} frames: synthesize_batch "
+          f"{wall * 1e3:.1f} ms wall (first call)")
+    sr = HIFIGAN_V1["sampling_rate"]
+    out["scores"] = [
+        pool.submit(score_utterance,
+                    (names[i], exact[i][:, 0], files[i].replace(
+                        "-feats.npy", "-gt.wav"), sr, True))
+        for i in scored]
+
+    # (b) the fused MRF kernel in f32 against (a): f32 sums in another
+    # order through 72 convs; 1e-4 of full scale
+    mrf_stage.launches = 0
+    model.use_mrf_kernel(quant=False)
+    t0 = time.perf_counter()
+    fused = model.synthesize_batch(mels)
+    wall = time.perf_counter() - t0
+    launches = mrf_stage.launches
+    print(f"hifigan (b) f32, use_mrf_kernel(quant=False): synthesize_batch "
+          f"{wall * 1e3:.1f} ms wall, mrf_stage launches {launches}")
+    if launches != 4 * 7:
+        raise AssertionError("four stages need 28 mrf_stage launches")
+    wave_diff("hifigan (b) kernel f32 vs exact", fused, exact, 1e-4)
+    # a stage subset: stages 2 and 3 on the kernel, 0 and 1 on cuDNN
+    mrf_stage.launches = 0
+    model.use_mrf_kernel(quant=False, stages=[2, 3])
+    subset = model.synthesize_batch(mels[:2])
+    if mrf_stage.launches != 2 * 7:
+        raise AssertionError("two stages need 14 mrf_stage launches")
+    want = load_model(ckpt, HIFIGAN_V1, device="cuda").synthesize_batch(
+        mels[:2])
+    wave_diff("hifigan (b) kernel on stages 2, 3 vs exact", subset, want, 1e-4)
+
+    # (c) int8 packs against the int8 conv chain on the MRF keys, scales
+    # calibrated on the same utterances. The chain divides by sx where the
+    # kernel multiplies by 1/sx, so a value on a rounding border may land
+    # on the neighbouring int8 step (with the chain's rounding the two are
+    # bit-equal: tests/test_torch_hifigan_serving.py). So the tolerance is
+    # in waveform units, 5e-2 of full scale at the worst sample, and the
+    # mean difference is held to a tenth of the int8 mode's own distance
+    # from the exact mode
+    model.use_mrf_kernel(quant=True, calib_mels=calib)
+    fused_q = model.synthesize_batch(mels)
+    chain = load_model(ckpt, HIFIGAN_V1, device="cuda")
+    chain.quantize_int8(calib, schedule="all")
+    chain._int8_scales = {k: v for k, v in chain._int8_scales.items()
+                          if not k.endswith("_up")}
+    chain_q = chain.synthesize_batch(mels)
+    out["int8_flip_err"] = wave_diff(
+        "hifigan (c) kernel int8 vs int8 conv chain", fused_q, chain_q, 5e-2)
+    mean_abs = float(np.mean([np.abs(a - b).mean()
+                              for a, b in zip(fused_q, chain_q)]))
+    quant_noise = float(np.mean([np.abs(a - b).mean()
+                                 for a, b in zip(chain_q, exact)]))
+    # how rare such a border case is, at the first MRF conv's input
+    with torch.inference_mode():
+        gen = chain.generator
+        c = chain._calibration_batch(calib)
+        x = F.leaky_relu(gen.upsamples[0](gen.act(gen.input_conv(c))), 0.1)
+        sx = chain._int8_weights["s0_b0_l0_c1"][2]
+        flips = (torch.round(x / sx).clamp(-127, 127)
+                 != torch.round(x * (1.0 / sx)).clamp(-127, 127))
+        rate = flips.float().mean().item()
+    print(f"  mean |difference| {mean_abs:.3e}, against {quant_noise:.3e} "
+          f"between the int8 chain and the f32 exact mode; x / sx and "
+          f"x * (1 / sx) round apart on {rate:.2e} of {flips.numel()} "
+          f"inputs of the first MRF conv")
+    if mean_abs > 0.1 * quant_noise or rate > 1e-4:
+        raise AssertionError("int8 kernel and int8 chain differ by more "
+                             "than border cases explain")
+    out["int8_scores"] = [
+        pool.submit(score_utterance,
+                    (names[i], fused_q[i][:, 0], files[i].replace(
+                        "-feats.npy", "-gt.wav"), sr, False))
+        for i in scored]
+    del model, chain, fused, fused_q, chain_q, subset, want
+
+    # (d) the timed shape: batch 32 x 512 frames, bf16; mels cut and tiled
+    # from the asset's utterances
+    frames = np.concatenate(mels)
+    need = BENCH_BATCH * BENCH_FRAMES
+    frames = np.tile(frames, (-(-need // len(frames)), 1))[:need]
+    bench_mels = list(frames.reshape(BENCH_BATCH, BENCH_FRAMES, -1))
+    audio_s = BENCH_BATCH * BENCH_FRAMES * HOP / SR
+    model = load_model(ckpt, HIFIGAN_V1, dtype=torch.bfloat16, device="cuda")
+    gen = model.generator
+
+    def forward_ms(what: str) -> float:
+        fn, (c, z), _ = model.prepare_batch(bench_mels)
+        y = fn(c, z)
+        if y.shape != (BENCH_BATCH, BENCH_FRAMES * HOP, 1) \
+                or not torch.isfinite(y.float()).all():
+            raise AssertionError(f"bad bf16 output in mode {what}")
+        ms = time_ms(lambda: fn(c, z), reps=3)
+        print(f"hifigan (d) bf16 {BENCH_BATCH} x {BENCH_FRAMES} frames, "
+              f"{what}: forward {ms:.2f} ms, "
+              f"{audio_s / (ms / 1e3):.1f} audio-s/s on {smi}")
+        return ms
+
+    out["exact_ms"] = forward_ms("exact (cuDNN)")
+    model.quantize_int8(calib, schedule="auto")
+    out["chain_auto_ms"] = forward_ms("int8 conv chain, schedule auto")
+    model.quantize_int8(calib, schedule="all")
+    out["chain_all_ms"] = forward_ms("int8 conv chain, schedule all")
+    model._int8_scales = model._int8_weights = None
+    model.use_mrf_kernel(quant=True, calib_mels=calib)
+    packs_q = model._mrf_packs
+    out["kernel_int8_ms"] = forward_ms("mrf_stage kernel, int8 packs")
+    # the counted run of this path: one forward on bf16 packs
+    model.use_mrf_kernel(quant=False)
+    packs = model._mrf_packs
+    torch.cuda.synchronize()
+    mrf_stage.launches = 0
+    waves = model.synthesize_batch(bench_mels)
+    torch.cuda.synchronize()
+    out["launches"] = mrf_stage.launches
+    print(f"hifigan (d) main path, bf16 packs: mrf_stage launches "
+          f"{out['launches']}")
+    if out["launches"] != 4 * 7 or not all(
+            w.shape == (BENCH_FRAMES * HOP, 1) and np.isfinite(w).all()
+            for w in waves):
+        raise AssertionError("the bf16 main path did not run the kernel")
+    out["kernel_bf16_ms"] = forward_ms("mrf_stage kernel, bf16 packs")
+
+    # every stage at the main path's shapes and weights: the kernel in both
+    # modes against its plain version, timed beside it and beside the cuDNN
+    # conv chain of the same stage (the library's version of the stage)
+    kernels = tuple(gen.resblock_kernel_sizes)
+    dils = tuple(gen.resblock_dilations[0])
+    _, (c, _), _ = model.prepare_batch(bench_mels)
+    totals = dict.fromkeys(("ms", "int8_ms", "plain_ms", "library_ms",
+                            "bound_ms", "int8_bound_ms"), 0.0)
+    out["err"], out["stages"] = 0.0, []
+    with torch.inference_mode():
+        from parallelwavegan_torch.ops.conv import conv1d
+
+        x = conv1d(c, gen.input_conv.folded_kernel(), gen.input_conv.bias,
+                   padding=(gen.kernel_size - 1) // 2)
+        for i, up in enumerate(gen.upsamples):
+            x = up(gen.act(x)).contiguous()
+            blocks = gen.blocks[3 * i: 3 * i + 3]
+
+            def chain_stage():
+                return (blocks[0](x) + blocks[1](x) + blocks[2](x)) / 3
+
+            rows, C = x.shape[0] * x.shape[1], x.shape[2]
+            row = {"stage": i, "C": C, "T": x.shape[1]}
+            for mode, pk, quant in (("bf16", packs[i], False),
+                                    ("int8", packs_q[i], True)):
+                got = mrf_stage(x, pk, kernels=kernels, dils=dils,
+                                quant=quant)
+                ref = mrf_stage_reference(x, pk, kernels=kernels, dils=dils,
+                                          quant=quant)
+                err = check(f"mrf_stage at the main-path shape, stage {i} "
+                            f"C={C} {mode} packs", got, ref, torch.bfloat16)
+                out["err"] = max(out["err"], err)
+                # the trained stages grow from |x| ~ 10 to ~ 1e8, so the
+                # error relative to the largest value is kept too
+                out["rel_err"] = max(out.get("rel_err", 0.0),
+                                     err / (1 + ref.float().abs().max().item()))
+                del got, ref
+                key = "ms" if mode == "bf16" else "int8_ms"
+                row[key] = time_ms(
+                    lambda: mrf_stage(x, pk, kernels=kernels, dils=dils,
+                                      quant=quant), reps=3)
+                bkey = "bound_ms" if mode == "bf16" else "int8_bound_ms"
+                row[bkey], row["bound_by"] = mrf_bound_ms(
+                    rows, C, kernels, len(dils), pk["w0"].dtype, 2)
+            row["plain_ms"] = time_ms(
+                lambda: mrf_stage_reference(x, packs[i], kernels=kernels,
+                                            dils=dils, quant=False), reps=2)
+            row["library_ms"] = time_ms(chain_stage, reps=3)
+            for key in totals:
+                totals[key] += row[key]
+            out["stages"].append(row)
+            print(f"  stage {i} C={C} T={x.shape[1]}: kernel bf16 "
+                  f"{row['ms']:.2f} ms, int8 {row['int8_ms']:.2f} ms; plain "
+                  f"{row['plain_ms']:.2f} ms; cuDNN chain "
+                  f"{row['library_ms']:.2f} ms; bound bf16 "
+                  f"{row['bound_ms']:.2f} ms, int8 "
+                  f"{row['int8_bound_ms']:.2f} ms by {row['bound_by']}")
+            x = chain_stage()
+    out.update(totals)
+    out["bound_by"] = out["stages"][0]["bound_by"]
+    print(f"mrf_stage, four stages at {BENCH_BATCH} x {BENCH_FRAMES} frames: "
+          f"kernel bf16 {out['ms']:.2f} ms, int8 {out['int8_ms']:.2f} ms, "
+          f"plain {out['plain_ms']:.2f} ms, cuDNN chain "
+          f"{out['library_ms']:.2f} ms, bound {out['bound_ms']:.2f} ms "
+          f"(int8 {out['int8_bound_ms']:.2f} ms) on {smi}")
+    del model, x, c
+    return out
+
+
+def matmul_phase(dev, smi: str) -> dict:
+    """The stage roofline tool, whose matmul measurements launch
+    matmul_bench (the counted run of that kernel's path) and which then
+    times one stage in its four modes; then matmul_bench at its five
+    shapes, int8 (and bf16 beside it): kernel, plain version, the single
+    PyTorch call, and the bound. These products take tens of microseconds,
+    so this runs after the host scoring has ended."""
+    from parallelwavegan_torch.ops.cuda.matmul_bench import (
+        MRF_SHAPES,
+        matmul_bench,
+        matmul_bench_reference,
+    )
+    from parallelwavegan_torch.tools import int8_stage_roofline
+    from parallelwavegan_torch.tools.int8_stage_roofline import (
+        library_matmul,
+        matmul_bound_ms,
+        matmul_inputs,
+    )
+
+    torch.cuda.synchronize()
+    matmul_bench.launches = 0
+    int8_stage_roofline.main(["--matmuls", "--stages", "3"])
+    out = {f"{mode}_{key}": 0.0 for mode in ("int8", "bf16")
+           for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
+    out["launches"] = matmul_bench.launches
+    print(f"int8_stage_roofline: matmul_bench launches {out['launches']}")
+    for mode in ("int8", "bf16"):
+        for M, K, N in MRF_SHAPES:
+            a, b = matmul_inputs(M, K, N, mode, dev)
+            ms = time_ms(lambda: matmul_bench(a, b), reps=50, warmup=2)
+            plain = time_ms(lambda: matmul_bench_reference(a, b), reps=5)
+            lib = time_ms(lambda: library_matmul(a, b), reps=50, warmup=2)
+            bound, by = matmul_bound_ms(M, K, N, mode)
+            print(f"matmul_bench {mode} M={M} K={K} N={N}: kernel "
+                  f"{ms * 1e3:.1f} us, plain {plain * 1e3:.1f} us, library "
+                  f"{lib * 1e3:.1f} us, bound {bound * 1e3:.1f} us by {by}")
+            for key, value in (("ms", ms), ("plain_ms", plain),
+                               ("library_ms", lib), ("bound_ms", bound)):
+                out[f"{mode}_{key}"] += value
+            out["bound_by"] = by
+    print(f"matmul_bench, five shapes: int8 kernel {out['int8_ms']:.4f} ms "
+          f"(torch._int_mm {out['int8_library_ms']:.4f} ms, bound "
+          f"{out['int8_bound_ms']:.4f} ms); bf16 kernel "
+          f"{out['bf16_ms']:.4f} ms (torch.matmul "
+          f"{out['bf16_library_ms']:.4f} ms, bound "
+          f"{out['bf16_bound_ms']:.4f} ms) on {smi}")
+    return out
+
+
+def check_quality(hifi: dict) -> None:
+    """Wait for the host scores of (a) and (c) and hold (a) to the
+    committed per-utterance reference of the JAX package."""
+    with open(QUALITY_REFERENCE) as f:
+        reference = json.load(f)
+    got = dict(job.result(timeout=900) for job in hifi["scores"])
+    int8 = dict(job.result(timeout=900) for job in hifi["int8_scores"])
+    for name, scores in got.items():
+        want = reference["utterances"][name]
+        for key, tol in QUALITY_TOL.items():
+            if not abs(scores[key] - want[key]) <= tol:
+                raise AssertionError(
+                    f"{name} {key}: {scores[key]:.4f}, reference "
+                    f"{want[key]:.4f}")
+    line = []
+    for key, tol in QUALITY_TOL.items():
+        mean = float(np.mean([s[key] for s in got.values()]))
+        want = float(np.mean([reference["utterances"][n][key] for n in got]))
+        line.append(f"{key} {mean:.4f} (reference {want:.4f}, all "
+                    f"{len(reference['utterances'])} utterances "
+                    f"{reference['mean'][key]:.4f})")
+        if not abs(mean - want) <= tol:
+            raise AssertionError(f"mean {key} {mean} vs reference {want}")
+    print(f"hifigan (a) quality, first {len(got)} utterances scored, each "
+          f"within {QUALITY_TOL} of the CPU reference: " + "; ".join(line))
+    mcd8 = float(np.mean([s["mcd"] for s in int8.values()]))
+    print(f"hifigan (c) quality, kernel with int8 packs, the same "
+          f"{len(int8)} utterances: mcd {mcd8:.4f}")
+    if not mcd8 < 1.25 * float(np.mean([s["mcd"] for s in got.values()])):
+        raise AssertionError("the int8 kernel path lost the voice")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
-    from parallelwavegan_torch.engine.checkpoint import (
-        save_generator_checkpoint,
-    )
-    from parallelwavegan_torch.models import ParallelWaveGANGenerator
     from parallelwavegan_torch.ops.cuda.build import build_libraries
-    from parallelwavegan_torch.ops.cuda.pwg_infer import _conv1x1
-    from parallelwavegan_torch.ops.cuda.wavenet_stack import (
-        wavenet_stack,
-        wavenet_stack_reference,
-    )
-    from parallelwavegan_torch.utils.model_loader import load_model
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -566,17 +1030,46 @@ def main() -> int:
 
     # 1. build
     t0 = time.perf_counter()
-    built = build_libraries(["wavenet_stack", "wavenet_stack_bwd"])
+    built = build_libraries(["wavenet_stack", "wavenet_stack_bwd",
+                             "mrf_stage", "matmul_bench"])
     print(f"build: {time.perf_counter() - t0:.1f} s wall")
     for name, info in built.items():
         print(f"  {name}: {info['seconds']:.1f} s -> {info['path']}")
         for line in str(info["log"]).splitlines():
-            if "registers" in line or "spill" in line or "smem" in line:
+            if "registers" in line or "smem" in line or (
+                    "spill" in line and "0 bytes spill stores, 0 bytes "
+                    "spill loads" not in line):
                 print(f"    {line.strip()}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
+    # the host scoring of step 2h runs in worker processes beside the
+    # device work that follows it; they are joined before the training
+    # path, whose step time depends on the host
+    pool = ProcessPoolExecutor(
+        max_workers=6, mp_context=multiprocessing.get_context("spawn"))
+    try:
+        return run_phases(dev, smi, pool)
+    finally:
+        pool.shutdown(wait=True, cancel_futures=True)
+
+
+def run_phases(dev, smi: str, pool) -> int:
+    from parallelwavegan_torch.engine.checkpoint import (
+        save_generator_checkpoint,
+    )
+    from parallelwavegan_torch.models import ParallelWaveGANGenerator
+    from parallelwavegan_torch.ops.cuda.pwg_infer import _conv1x1
+    from parallelwavegan_torch.ops.cuda.wavenet_stack import (
+        wavenet_stack,
+        wavenet_stack_reference,
+    )
+    from parallelwavegan_torch.utils.model_loader import load_model
+
     # 2. kernel against plain on the card
+    worst_new = check_mrf_and_matmul_kernels(dev)
+    # 2h. HiFi-GAN v1 serving on the shipped checkpoint
+    hifi = hifigan_phase(dev, smi, pool)
     gen = torch.Generator().manual_seed(0)
     cases = [  # (dtype, B, T, dilations)
         (torch.float32, 2, 1000, (1, 2, 4, 1, 2, 4)),
@@ -684,15 +1177,26 @@ def main() -> int:
           f"wavenet_stack {stack_ms:.2f} ms (plain {plain_ms:.2f} ms, bound "
           f"{bound_ms:.2f} ms by {bound_by}) on {smi}")
 
+    # the host scores must be in before the phases that depend on the host:
+    # the matmul bench's short products and the training path
+    check_quality(hifi)
+    mm = matmul_phase(dev, smi)
+
     # 5, 6. the training path
     train = training_phase(dev, smi)
-    if min(launches, train["fwd_launches"], train["bwd_launches"]) < 1:
+    if min(launches, train["fwd_launches"], train["bwd_launches"],
+           hifi["launches"], mm["launches"]) < 1:
         raise AssertionError("a kernel of a main path was never launched")
 
     # no single PyTorch call computes the stack or its backward: library_ms
     # is null for both. ms, plain_ms and bound_ms are at the shape of the
     # path that "launches" counts: serving for the forward (its launches and
     # times on the training path beside them), training for the backward.
+    # mrf_stage: the four stages of one bf16 forward at batch 32 x 512
+    # frames on bf16 packs (the int8 packs' times beside them); its library
+    # time is the cuDNN conv chain of the same stages. matmul_bench: the
+    # five MRF contraction shapes in int8 (bf16 beside them); its library
+    # time is torch._int_mm (torch.matmul).
     print(json.dumps({"kernels": [{
         "name": "wavenet_stack",
         "route": "cuda",
@@ -724,6 +1228,41 @@ def main() -> int:
         "bound_ms": train["bwd_bound_ms"],
         "bound_by": train["bwd_bound_by"],
         "library_ms": None,
+    }, {
+        "name": "mrf_stage",
+        "route": "cuda",
+        "source": "parallelwavegan_torch/csrc/mrf_stage.cu",
+        "replaces": "parallelwavegan_tpu/ops/pallas/mrf_stage.py:75",
+        "launches": hifi["launches"],
+        "max_abs_err": max(hifi["err"], worst_new["mrf_stage"]),
+        "main_path_max_rel_err": hifi["rel_err"],
+        "ms": hifi["ms"],
+        "plain_ms": hifi["plain_ms"],
+        "bound_ms": hifi["bound_ms"],
+        "bound_by": hifi["bound_by"],
+        "library_ms": hifi["library_ms"],
+        "int8_ms": hifi["int8_ms"],
+        "int8_bound_ms": hifi["int8_bound_ms"],
+        "stages": hifi["stages"],
+        "forward_ms": {k: hifi[k] for k in (
+            "exact_ms", "chain_auto_ms", "chain_all_ms", "kernel_bf16_ms",
+            "kernel_int8_ms")},
+    }, {
+        "name": "matmul_bench",
+        "route": "cuda",
+        "source": "parallelwavegan_torch/csrc/matmul_bench.cu",
+        "replaces": "tools/int8_stage_roofline.py:150",
+        "launches": mm["launches"],
+        "max_abs_err": worst_new["matmul_bench"],
+        "ms": mm["int8_ms"],
+        "plain_ms": mm["int8_plain_ms"],
+        "bound_ms": mm["int8_bound_ms"],
+        "bound_by": mm["bound_by"],
+        "library_ms": mm["int8_library_ms"],
+        "bf16_ms": mm["bf16_ms"],
+        "bf16_plain_ms": mm["bf16_plain_ms"],
+        "bf16_bound_ms": mm["bf16_bound_ms"],
+        "bf16_library_ms": mm["bf16_library_ms"],
     }]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

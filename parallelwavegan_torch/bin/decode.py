@@ -1,12 +1,17 @@
 #!/usr/bin/env python3
-"""Decode CLI: mel features -> waveforms with a trained Parallel WaveGAN.
+"""Decode CLI: mel features -> waveforms with a trained generator of a
+ported family (Parallel WaveGAN, HiFi-GAN).
 
 Counterpart of the bucketed batch branch of
-``parallelwavegan_tpu/bin/decode.py``. Runs on CUDA by default
-(``--device cpu`` for the host):
+``parallelwavegan_tpu/bin/decode.py``, with its int8 serving mode for
+HiFi-GAN. Runs on CUDA by default (``--device cpu`` for the host):
 
     python -m parallelwavegan_torch.bin.decode --dumpdir dump \
-        --checkpoint exp/generator.gckpt --outdir wav [--dtype bfloat16]
+        --checkpoint exp/generator.gckpt --outdir wav [--dtype bfloat16] \
+        [--int8 [--int8-calib-utts 8] [--int8-schedule auto|all]]
+
+``--feats-scp``, ``--chunk-frames``, ``--use-ema``, ``--use-f0`` and the
+other generator families are not ported yet.
 """
 
 from __future__ import annotations
@@ -38,6 +43,23 @@ def main(argv=None):
     parser.add_argument("--normalize-before", action="store_true")
     parser.add_argument("--batch-size", default=8, type=int)
     parser.add_argument(
+        "--int8", action="store_true",
+        help="int8-activation HiFi-GAN serving mode: calibrates "
+        "per-channel activation scales on the first --int8-calib-utts "
+        "mels, then runs the quantised convs with int8 activations and "
+        "weights",
+    )
+    parser.add_argument(
+        "--int8-calib-utts", default=8, type=int,
+        help="number of utterances used for int8 calibration",
+    )
+    parser.add_argument(
+        "--int8-schedule", default="auto", choices=["auto", "all"],
+        help="'auto' (default): int8 on the wide (C >= 128) MRF stages and "
+        "every upsampling conv, the compute dtype on the narrow stages; "
+        "'all': quantise every calibrated conv",
+    )
+    parser.add_argument(
         "--dtype", default="float32", choices=sorted(_DTYPES),
         help="compute dtype for synthesis",
     )
@@ -63,6 +85,20 @@ def main(argv=None):
         args.config
         or os.path.join(os.path.dirname(args.checkpoint), "config.yml")
     )
+    gen_type = config.get("generator_type", "ParallelWaveGANGenerator")
+    # fail fast, before the dataset is read and the model is built
+    if args.int8:
+        if gen_type != "HiFiGANGenerator":
+            parser.error(
+                f"--int8 supports HiFiGANGenerator checkpoints only "
+                f"(got {gen_type})"
+            )
+        if config.get("generator_params", {}).get("out_channels", 1) != 1:
+            parser.error(
+                "--int8 does not support multi-band (PQMF) generators"
+            )
+        if args.int8_calib_utts < 1:
+            parser.error("--int8-calib-utts must be >= 1")
     if config.get("format", "hdf5") == "hdf5":
         dataset = MelDataset(args.dumpdir, "*.h5",
                              lambda f: read_hdf5(f, "feats"),
@@ -78,6 +114,22 @@ def main(argv=None):
     sr = config.get("sampling_rate", 22050)
     os.makedirs(args.outdir, exist_ok=True)
     items = [dataset[i] for i in range(len(dataset))]
+    if args.int8:
+        if not items:
+            raise ValueError(
+                "--int8 calibration needs at least one utterance, but the "
+                "dataset is empty"
+            )
+        calib = []
+        for _, c in items[: args.int8_calib_utts]:
+            if args.normalize_before:
+                c = (c - model.mean) / model.scale
+            calib.append(np.asarray(c, np.float32))
+        logging.info(
+            f"Calibrating int8 activation scales on {len(calib)} utterances "
+            f"(schedule={args.int8_schedule})."
+        )
+        model.quantize_int8(calib, schedule=args.int8_schedule)
     total_t = total_audio = 0.0
     for i in range(0, len(items), args.batch_size):
         chunk = items[i : i + args.batch_size]

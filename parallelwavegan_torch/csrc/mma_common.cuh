@@ -1,0 +1,114 @@
+// Warp-level matrix-multiply pieces shared by mrf_stage.cu and
+// matmul_bench.cu: one 16 x 8 output tile per warp and call, in the three
+// matmul types the HiFi-GAN serving kernels use,
+//
+//   int8  x int8  -> int32   mma.sync m16n8k32 (tensor cores)
+//   bf16  x bf16  -> float32 mma.sync m16n8k16 (tensor cores)
+//   float x float -> float32 the same tile from shuffles and FMAs (exact
+//                            f32 products; the parity mode, not a fast one)
+//
+// All three use one fragment layout, so the code that gathers operands from
+// shared memory is written once. With g = lane / 4, t = lane % 4, KS the
+// contraction depth of one step and EPR the elements in a 32-bit register:
+//   a[0] = A[g    ][t*EPR ..]      a[2] = A[g    ][KS/2 + t*EPR ..]
+//   a[1] = A[g + 8][t*EPR ..]      a[3] = A[g + 8][KS/2 + t*EPR ..]
+//   b[0] = B[t*EPR ..][g]          b[1] = B[KS/2 + t*EPR ..][g]
+//   c[0], c[1] = C[g][2t], C[g][2t+1]   c[2], c[3] = C[g+8][2t], C[g+8][2t+1]
+// A is read row-major (k contiguous) and B as [n][k] (k contiguous), so
+// every register is one aligned 32-bit load; rows of both tiles in shared
+// memory are padded by 16 bytes, which spreads the eight rows a load
+// touches over distinct banks.
+
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace pwgmma {
+
+constexpr int ROW_PAD_BYTES = 16;  // per-row padding of shared-memory tiles
+
+template <typename MT>
+struct Traits;
+template <>
+struct Traits<int8_t> {
+  using Acc = int;
+  static constexpr int KS = 32;
+  static constexpr int EPR = 4;
+};
+template <>
+struct Traits<__nv_bfloat16> {
+  using Acc = float;
+  static constexpr int KS = 16;
+  static constexpr int EPR = 2;
+};
+template <>
+struct Traits<float> {
+  using Acc = float;
+  static constexpr int KS = 8;
+  static constexpr int EPR = 1;
+};
+
+template <typename MT>
+__device__ __forceinline__ void mma_tile(typename Traits<MT>::Acc c[4],
+                                         const uint32_t a[4],
+                                         const uint32_t b[2]);
+
+template <>
+__device__ __forceinline__ void mma_tile<int8_t>(int c[4], const uint32_t a[4],
+                                                 const uint32_t b[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+template <>
+__device__ __forceinline__ void mma_tile<__nv_bfloat16>(float c[4],
+                                                        const uint32_t a[4],
+                                                        const uint32_t b[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// f32: every lane fetches, for each of the 8 contraction indices, the two A
+// rows and two B columns of its four outputs from the lanes that hold them.
+template <>
+__device__ __forceinline__ void mma_tile<float>(float c[4], const uint32_t a[4],
+                                                const uint32_t b[2]) {
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    const int from_a = (g << 2) | (k & 3);
+    const int from_b = (t << 3) | (k & 3);  // the lane with g' = 2t
+    const float a_lo =
+        __uint_as_float(__shfl_sync(0xffffffffu, k < 4 ? a[0] : a[2], from_a));
+    const float a_hi =
+        __uint_as_float(__shfl_sync(0xffffffffu, k < 4 ? a[1] : a[3], from_a));
+    const uint32_t bk = k < 4 ? b[0] : b[1];
+    const float b_0 = __uint_as_float(__shfl_sync(0xffffffffu, bk, from_b));
+    const float b_1 = __uint_as_float(__shfl_sync(0xffffffffu, bk, from_b + 4));
+    c[0] = fmaf(a_lo, b_0, c[0]);
+    c[1] = fmaf(a_lo, b_1, c[1]);
+    c[2] = fmaf(a_hi, b_0, c[2]);
+    c[3] = fmaf(a_hi, b_1, c[3]);
+  }
+}
+
+__device__ __forceinline__ uint32_t lds32(const unsigned char* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+// clip(round_half_even(v), +-127) as the low byte of the result
+__device__ __forceinline__ uint32_t quant_byte(float v) {
+  const float q = fminf(fmaxf(rintf(v), -127.f), 127.f);
+  return (uint32_t)(uint8_t)(int8_t)(int)q;
+}
+
+}  // namespace pwgmma

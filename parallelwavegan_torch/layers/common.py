@@ -1,10 +1,11 @@
-"""Core modules: the channels-last Conv1d, initializers, activations.
+"""Core modules: the channels-last Conv1d and ConvTranspose1d,
+initializers, activations.
 
 Counterpart of ``parallelwavegan_tpu/layers/common.py``. Kernels keep the
 JAX package's (K..., Cin, Cout) layout. Initializers draw from an explicit
 ``torch.Generator`` and follow the JAX package's distributions: PWG convs
 kaiming-normal (relu) with zero bias, the upsample smoothing conv a mean
-filter. A conv holds either the *folded* kernel (weight norm already
+filter, HiFi-GAN convs N(0, 0.01) with torch's uniform bias. A conv holds either the *folded* kernel (weight norm already
 applied, see ``utils/params.py``; the serving form) or, with
 ``use_weight_norm``, the parameters ``kernel_v`` and ``kernel_g`` that the
 JAX package trains (``parallelwavegan_tpu/layers/common.py:129-147``): the
@@ -49,6 +50,25 @@ def mean_filter_init(shape, generator=None, dtype=torch.float32):
     return torch.full(shape, 1.0 / math.prod(shape[:-2]), dtype=dtype)
 
 
+def normal_init(std: float) -> Initializer:
+    """N(0, std^2): HiFi-GAN's kernel init with std 0.01."""
+    def init(shape, generator=None, dtype=torch.float32):
+        return std * torch.randn(shape, generator=generator, dtype=dtype)
+
+    return init
+
+
+def uniform_bias_init_for(kernel_shape: Sequence[int]) -> Initializer:
+    """torch's default conv bias init: U(+-1/sqrt(fan_in of the kernel))."""
+    bound = 1.0 / math.sqrt(_fan_in(kernel_shape))
+
+    def init(shape, generator=None, dtype=torch.float32):
+        return (torch.rand(shape, generator=generator, dtype=dtype) * 2 - 1) \
+            * bound
+
+    return init
+
+
 def get_activation(name: Optional[str], params: Optional[dict] = None):
     """Map a torch.nn activation class name (as configs spell it) to a
     function; the slice covers None, ReLU and LeakyReLU."""
@@ -65,14 +85,18 @@ def get_activation(name: Optional[str], params: Optional[dict] = None):
 
 class WeightNormedConv(nn.Module):
     """Kernel handling shared by the convs: one ``kernel`` parameter, or
-    ``kernel_v`` and ``kernel_g`` (g of shape (1, ..., 1, Cout), the norm
-    taken over every axis but the last, per output channel)."""
+    ``kernel_v`` and ``kernel_g``. g has size 1 on ``wn_axes``, the axes
+    the norm is taken over: by default every axis but the last (g of shape
+    (1, ..., 1, Cout), per output channel); a transposed conv passes (0, 2)
+    (g of shape (1, Cin, 1), per input channel)."""
 
     def init_kernel(self, shape, kernel_init: Initializer,
-                    use_weight_norm: bool, generator) -> None:
+                    use_weight_norm: bool, generator,
+                    wn_axes: Optional[Sequence[int]] = None) -> None:
         kernel = kernel_init(shape, generator)
         if use_weight_norm:
-            axes = tuple(range(kernel.dim() - 1))
+            axes = (tuple(range(kernel.dim() - 1)) if wn_axes is None
+                    else tuple(wn_axes))
             self.kernel_v = nn.Parameter(kernel)
             self.kernel_g = nn.Parameter(
                 torch.sqrt(torch.sum(kernel * kernel, dim=axes, keepdim=True))
@@ -118,3 +142,44 @@ class Conv1d(WeightNormedConv):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return conv_ops.conv1d(x, self.folded_kernel(), self.bias,
                                self.padding, self.dilation)
+
+
+class ConvTranspose1d(WeightNormedConv):
+    """Transposed Conv1d on (B, T, Cin) -> (B, T', Cout) with torch's
+    ConvTranspose1d length semantics. The kernel is (K, Cin, Cout); weight
+    norm is per input channel (g of shape (1, Cin, 1)), as torch's
+    ``weight_norm`` (dim 0) sees a transposed conv's (Cin, Cout, K) weight.
+    The default bias init is torch's, whose fan-in for a transposed conv is
+    K * Cout."""
+
+    def __init__(
+        self,
+        in_channels: int,
+        features: int,
+        kernel_size: int,
+        stride: int = 1,
+        padding: int = 0,
+        output_padding: int = 0,
+        bias: bool = True,
+        kernel_init: Initializer = kaiming_normal_relu_init,
+        bias_init: Optional[Initializer] = None,
+        use_weight_norm: bool = False,
+        *,
+        generator: Optional[torch.Generator] = None,
+    ):
+        super().__init__()
+        self.stride, self.padding = stride, padding
+        self.output_padding = output_padding
+        self.init_kernel((kernel_size, in_channels, features), kernel_init,
+                         use_weight_norm, generator, wn_axes=(0, 2))
+        if bias:
+            init = bias_init or uniform_bias_init_for(
+                (kernel_size, features, in_channels))
+            self.bias = nn.Parameter(init((features,), generator))
+        else:
+            self.register_parameter("bias", None)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return conv_ops.conv_transpose1d(
+            x, self.folded_kernel(), self.bias, self.stride, self.padding,
+            self.output_padding)

@@ -1,19 +1,25 @@
-"""WaveNet gated residual block, channels-last (B, T, C).
+"""Residual blocks, channels-last (B, T, C).
 
-Counterpart of ``WaveNetResidualBlock`` in
+Counterparts of ``WaveNetResidualBlock`` and ``HiFiGANResidualBlock`` in
 ``parallelwavegan_tpu/layers/residual_block.py``: the per-layer (unfused)
-forward that the plain generator runs. Non-causal, no dropout.
+forwards that the plain generators run. Non-causal, no dropout.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
 
-from parallelwavegan_torch.layers.common import Conv1d
+from parallelwavegan_torch.layers.common import (
+    Conv1d,
+    Initializer,
+    get_activation,
+    kaiming_normal_relu_init,
+    uniform_bias_init_for,
+)
 
 
 class WaveNetResidualBlock(nn.Module):
@@ -71,3 +77,60 @@ class WaveNetResidualBlock(nn.Module):
         s = self.conv1x1_skip(x)
         x = (self.conv1x1_out(x) + residual) * math.sqrt(0.5)
         return x, s
+
+
+class HiFiGANResidualBlock(nn.Module):
+    """Per dilation d: act + conv(k, d) [+ act + conv(k, 1)] + identity.
+    Submodules are named ``convs1_<i>`` / ``convs2_<i>`` as in the flax
+    tree."""
+
+    def __init__(
+        self,
+        kernel_size: int = 3,
+        channels: int = 512,
+        dilations: Sequence[int] = (1, 3, 5),
+        bias: bool = True,
+        use_additional_convs: bool = True,
+        nonlinear_activation: str = "LeakyReLU",
+        nonlinear_activation_params: Optional[dict] = None,
+        use_causal_conv: bool = False,
+        use_weight_norm: bool = False,
+        kernel_init: Initializer = kaiming_normal_relu_init,
+        *,
+        generator: Optional[torch.Generator] = None,
+    ):
+        super().__init__()
+        if use_causal_conv:
+            raise NotImplementedError(
+                "causal HiFi-GAN blocks are not ported yet")
+        if kernel_size % 2 != 1:
+            raise ValueError("kernel_size must be odd")
+        self.dilations = tuple(dilations)
+        self.act = get_activation(
+            nonlinear_activation,
+            nonlinear_activation_params or {"negative_slope": 0.1},
+        )
+        bias_init = uniform_bias_init_for((kernel_size, channels, channels))
+        self.convs1: List[Conv1d] = []
+        self.convs2: List[Conv1d] = []
+        for i, d in enumerate(self.dilations):
+            for name, dil, convs in (("convs1", d, self.convs1),
+                                     ("convs2", 1, self.convs2)):
+                if name == "convs2" and not use_additional_convs:
+                    continue
+                conv = Conv1d(
+                    channels, channels, kernel_size, dilation=dil, bias=bias,
+                    padding=(kernel_size - 1) // 2 * dil,
+                    kernel_init=kernel_init, bias_init=bias_init,
+                    use_weight_norm=use_weight_norm, generator=generator,
+                )
+                self.add_module(f"{name}_{i}", conv)
+                convs.append(conv)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        for i, conv1 in enumerate(self.convs1):
+            xt = conv1(self.act(x))
+            if self.convs2:
+                xt = self.convs2[i](self.act(xt))
+            x = xt + x
+        return x

@@ -1,11 +1,13 @@
-"""Model families and the config-name registry (Parallel WaveGAN so far)."""
+"""Model families and the config-name registry (Parallel WaveGAN, and the HiFi-GAN generator)."""
 
+from parallelwavegan_torch.models.hifigan import HiFiGANGenerator  # noqa: F401
 from parallelwavegan_torch.models.parallel_wavegan import (  # noqa: F401
     ParallelWaveGANDiscriminator,
     ParallelWaveGANGenerator,
 )
 
 _REGISTRY = {
+    "HiFiGANGenerator": HiFiGANGenerator,
     "ParallelWaveGANGenerator": ParallelWaveGANGenerator,
     "ParallelWaveGANDiscriminator": ParallelWaveGANDiscriminator,
 }

@@ -2,7 +2,9 @@
 
 Counterpart of ``parallelwavegan_tpu/ops/conv.py``. The kernel layout is the
 JAX package's (K, Cin, Cout), so converted parameters load unchanged; the
-call maps it onto ``torch.nn.functional.conv1d``'s (B, C, T) layout.
+calls map it onto ``torch.nn.functional``'s (B, C, T) layout. The polyphase
+form of the transposed conv is not ported: no layer of the JAX package
+uses it.
 """
 
 from __future__ import annotations
@@ -37,4 +39,22 @@ def conv1d(
         lo = 0
     y = F.conv1d(x.transpose(1, 2), kernel.permute(2, 1, 0), bias,
                  padding=lo, dilation=dilation)
+    return y.transpose(1, 2)
+
+
+def conv_transpose1d(
+    x: torch.Tensor,
+    kernel: torch.Tensor,
+    bias: Optional[torch.Tensor] = None,
+    stride: int = 1,
+    padding: int = 0,
+    output_padding: int = 0,
+) -> torch.Tensor:
+    """Transposed conv with torch's length semantics,
+    out = (T - 1) * stride - 2 * padding + K + output_padding:
+    x (B, T, Cin) * kernel (K, Cin, Cout) -> (B, out, Cout), with
+    y[n] = sum_t x[t] . kernel[n + padding - t * stride]."""
+    y = F.conv_transpose1d(x.transpose(1, 2), kernel.permute(1, 2, 0), bias,
+                           stride=stride, padding=padding,
+                           output_padding=output_padding)
     return y.transpose(1, 2)

@@ -1,4 +1,4 @@
-"""File IO: feature files, 16-bit PCM WAV output, YAML configs.
+"""File IO: feature files, WAV input and 16-bit PCM output, YAML configs.
 
 Counterpart of the serving and training part of
 ``parallelwavegan_tpu/utils/io.py``. ``yaml`` and ``h5py`` are imported
@@ -37,6 +37,23 @@ def read_hdf5(hdf5_name: str, hdf5_path: str) -> np.ndarray:
                 f"{hdf5_name})."
             )
         return f[hdf5_path][()]
+
+
+def read_wav(path):
+    """Read a WAV file (path or file-like) -> (wave float32 in [-1, 1),
+    sampling_rate)."""
+    from scipy.io import wavfile
+
+    sr, data = wavfile.read(path)
+    if data.dtype == np.int16:
+        data = data.astype(np.float32) / 2**15
+    elif data.dtype == np.int32:
+        data = data.astype(np.float32) / 2**31
+    elif data.dtype == np.uint8:
+        data = (data.astype(np.float32) - 128.0) / 128.0
+    else:
+        data = data.astype(np.float32)
+    return data, sr
 
 
 def write_wav(path: str, wave: np.ndarray, sampling_rate: int) -> None:

@@ -1,11 +1,15 @@
 """Public inference API: load a trained generator and synthesize waveforms.
 
-Counterpart of ``parallelwavegan_tpu/utils/model_loader.py`` for Parallel
-WaveGAN: read the config, build the generator, load ``.gckpt`` weights with
-weight norm folded, cast to the compute dtype, register mean/scale stats,
-and synthesize a list of mels as one bucketed batch. On CUDA the generator
-runs through ``pwg_fused_forward`` (the WaveNet stack kernel); on the CPU
-through its plain per-layer forward.
+Counterpart of ``parallelwavegan_tpu/utils/model_loader.py`` for the two
+ported families, Parallel WaveGAN and HiFi-GAN: read the config, build the
+generator, load ``.gckpt`` weights with weight norm folded, cast to the
+compute dtype, register mean/scale stats, and synthesize a list of mels as
+one bucketed batch. On CUDA a Parallel WaveGAN generator runs through
+``pwg_fused_forward`` (the WaveNet stack kernel), on the CPU through its
+plain per-layer forward. A HiFi-GAN generator runs its exact forward
+(``hifigan_fast_forward``); ``quantize_int8`` switches its conv chain to
+int8, and ``use_mrf_kernel`` routes its MRF stages to the fused CUDA
+kernel.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
 """
@@ -27,6 +31,15 @@ from parallelwavegan_torch.ops.cuda.pwg_infer import (
 from parallelwavegan_torch.ops.cuda.wavenet_stack import (
     check_kernel_channels,
     fuse_wavenet_stack_params,
+)
+from parallelwavegan_torch.ops.hifigan_infer import (
+    build_mrf_packs,
+    calibrate,
+    filter_scales_schedule,
+    hifigan_fast_forward,
+    quantize_weights,
+    supports_fast_inference,
+    supports_mrf_kernel,
 )
 from parallelwavegan_torch.utils.io import load_config, read_hdf5
 from parallelwavegan_torch.utils.params import convert_jax_params
@@ -52,16 +65,26 @@ class InferenceModel:
         self.config = config
         self.gen_type = config.get("generator_type", "ParallelWaveGANGenerator")
         gen_params = dict(config.get("generator_params", {}))
+        # reference back-compat: the upsample_kernal_sizes typo
+        if "upsample_kernal_sizes" in gen_params:
+            gen_params["upsample_kernel_sizes"] = gen_params.pop(
+                "upsample_kernal_sizes"
+            )
+        if self.gen_type != "ParallelWaveGANGenerator" \
+                and gen_params.get("out_channels", 1) != 1:
+            raise NotImplementedError(
+                "multi-band (PQMF) generators are not ported yet")
         self.generator = get_model_class(self.gen_type)(**gen_params)
         self.generator.load_state_dict(
             convert_jax_params(variables["params"]), strict=True
         )
         self.dtype = dtype or torch.float32
         self.generator.to(device=self.device, dtype=self.dtype).eval()
-        # on CUDA the generator runs only through the stack kernel, whose
+        # Parallel WaveGAN on CUDA runs only through the stack kernel, whose
         # weights are fused once here; settings it lacks raise
         self.stack_params: Optional[Dict[str, torch.Tensor]] = None
-        if self.device.type == "cuda":
+        if self.gen_type == "ParallelWaveGANGenerator" \
+                and self.device.type == "cuda":
             gen = self.generator
             bad = unsupported_fused_settings(gen)
             if bad:
@@ -72,6 +95,12 @@ class InferenceModel:
                                   gen.skip_channels)
             with torch.no_grad():
                 self.stack_params = fuse_wavenet_stack_params(gen.conv_layers)
+        # HiFi-GAN serving modes: int8 scales and their quantised weights
+        # (quantize_int8), per-stage packs of the fused MRF kernel
+        # (use_mrf_kernel); None = the exact forward
+        self._int8_scales: Optional[Dict[str, np.ndarray]] = None
+        self._int8_weights = None
+        self._mrf_packs: Optional[Dict[int, Dict[str, Any]]] = None
         self.mean: Optional[np.ndarray] = None
         self.scale: Optional[np.ndarray] = None
         self.upsample_factor = self.generator.upsample_factor
@@ -92,13 +121,22 @@ class InferenceModel:
             raise ValueError(f"stats must be .h5 or .npy: {stats}")
         logging.info("Successfully registered stats.")
 
-    def _forward_fn(self) -> Callable[[torch.Tensor, torch.Tensor],
-                                      torch.Tensor]:
+    def _forward_fn(self) -> Callable[[torch.Tensor,
+                                       Optional[torch.Tensor]], torch.Tensor]:
+        """fn(c, z): the device call of the current serving mode. z is the
+        noise of a Parallel WaveGAN and None for HiFi-GAN."""
         gen, w = self.generator, self.stack_params
+        scales, qweights = self._int8_scales, self._int8_weights
+        packs = self._mrf_packs
 
         @torch.inference_mode()
-        def fn(c: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
-            y = gen(z, c) if w is None else pwg_fused_forward(gen, z, c, w)
+        def fn(c: torch.Tensor, z: Optional[torch.Tensor] = None
+               ) -> torch.Tensor:
+            if self.gen_type == "ParallelWaveGANGenerator":
+                y = gen(z, c) if w is None else pwg_fused_forward(gen, z, c, w)
+            else:
+                y = hifigan_fast_forward(gen, c, scales=scales,
+                                         qweights=qweights, mrf_packs=packs)
             if self.pcm16:
                 # f32 before scaling: bf16's 8-bit mantissa would quantize
                 # worse than the 16-bit target format
@@ -107,18 +145,91 @@ class InferenceModel:
 
         return fn
 
+    def _check_hifigan_mode(self, what: str) -> None:
+        if self.gen_type != "HiFiGANGenerator":
+            raise ValueError(
+                f"{what} supports HiFiGANGenerator, not {self.gen_type}"
+            )
+        if not supports_fast_inference(self.generator):
+            raise ValueError(
+                f"{what} requires a non-causal HiFi-GAN generator"
+            )
+        if self.generator.out_channels != 1:
+            # the fast forward returns the raw generator output and never
+            # applies PQMF synthesis
+            raise ValueError(
+                f"{what} does not support multi-band (PQMF) generators"
+            )
+
+    def _calibration_batch(self, calib_mels) -> torch.Tensor:
+        cs = [np.asarray(c, np.float32) for c in calib_mels]
+        bucket = max(len(c) for c in cs)
+        batch = np.stack([
+            np.pad(c, ((0, bucket - len(c)), (0, 0)), mode="edge") for c in cs
+        ])
+        return torch.from_numpy(batch).to(self.device, self.dtype)
+
+    def quantize_int8(self, calib_mels, schedule: str = "auto") -> None:
+        """Enable the int8-activation HiFi-GAN serving mode.
+
+        One calibration pass over representative (normalized) mels records
+        the per-channel max |x| of every MRF conv and upsampling conv
+        input; later ``synthesize_batch`` / ``inference`` calls run those
+        convs with int8 activations and weights
+        (``ops/hifigan_infer.py``). schedule: 'auto' (int8 on the C >= 128
+        MRF stages and every upsampling conv) or 'all' (everything
+        calibrated); see ``filter_scales_schedule``.
+        """
+        self._check_hifigan_mode("int8 serving")
+        self._int8_scales = filter_scales_schedule(
+            calibrate(self.generator, self._calibration_batch(calib_mels)),
+            self.generator, schedule,
+        )
+        self._int8_weights = quantize_weights(self.generator,
+                                              self._int8_scales)
+
+    def use_mrf_kernel(self, quant: bool, calib_mels=None,
+                       stages: Optional[Sequence[int]] = None) -> None:
+        """Route the MRF stages (all, or ``stages``) to the fused kernel:
+        later forwards call ``hifigan_fast_forward(..., mrf_packs=packs)``.
+
+        quant=True packs int8 weights with scales calibrated on
+        ``calib_mels`` (normalized mels, as for ``quantize_int8``);
+        quant=False packs weights of the compute dtype. On a CUDA model the
+        forward then launches the kernel or raises; on a CPU model the
+        stages run the kernel's plain version.
+        """
+        self._check_hifigan_mode("the fused MRF stage")
+        if not supports_mrf_kernel(self.generator):
+            raise ValueError(
+                "the fused MRF stage needs 3 residual branches with one "
+                "shared dilation list and additional convs"
+            )
+        scales = None
+        if quant:
+            if calib_mels is None:
+                raise ValueError("quant=True needs calib_mels")
+            scales = calibrate(self.generator,
+                               self._calibration_batch(calib_mels))
+        self._mrf_packs = build_mrf_packs(
+            self.generator, scales, stages=stages, quant=quant,
+            dtype=self.dtype,
+        )
+
     def prepare_batch(
         self,
         cs: Sequence[np.ndarray],
         normalize_before: bool = False,
         generator: Optional[torch.Generator] = None,
         bucket_size: int = 64,
-    ) -> Tuple[Callable, Tuple[torch.Tensor, torch.Tensor], List[int]]:
+    ) -> Tuple[Callable, Tuple[torch.Tensor, Optional[torch.Tensor]],
+               List[int]]:
         """Host-side prep for one batched call: normalize, edge-pad mels to
-        a shared bucket length (plus the context window), draw the noise z
-        from ``generator`` (a fresh one seeded 0 by default) and resolve the
-        forward. Returns (fn, (c, z), lengths); ``fn(c, z)`` is the device
-        call, and callers may pass their own z in its place."""
+        a shared bucket length (plus, for Parallel WaveGAN, the context
+        window), draw the noise z from ``generator`` (a fresh one seeded 0
+        by default; None for HiFi-GAN, which takes no noise) and resolve
+        the forward. Returns (fn, (c, z), lengths); ``fn(c, z)`` is the
+        device call, and callers may pass their own z in its place."""
         cs = [np.asarray(c, dtype=np.float32) for c in cs]
         if normalize_before:
             if self.mean is None:
@@ -126,19 +237,22 @@ class InferenceModel:
             cs = [(c - self.mean) / self.scale for c in cs]
         lengths = [len(c) for c in cs]
         bucket = -(-max(lengths) // bucket_size) * bucket_size
-        ctx = self.generator.aux_context_window
+        pwg = self.gen_type == "ParallelWaveGANGenerator"
+        ctx = self.generator.aux_context_window if pwg else 0
         padded = np.stack([
             np.pad(c, ((ctx, bucket - len(c) + ctx), (0, 0)), mode="edge")
             for c in cs
         ])
         c = torch.from_numpy(padded).to(self.device, self.dtype)
-        if generator is None:
-            generator = torch.Generator(device=self.device).manual_seed(0)
-        z = torch.randn(
-            (len(cs), bucket * self.upsample_factor,
-             self.generator.in_channels),
-            generator=generator, device=self.device, dtype=self.dtype,
-        )
+        z = None
+        if pwg:
+            if generator is None:
+                generator = torch.Generator(device=self.device).manual_seed(0)
+            z = torch.randn(
+                (len(cs), bucket * self.upsample_factor,
+                 self.generator.in_channels),
+                generator=generator, device=self.device, dtype=self.dtype,
+            )
         return self._forward_fn(), (c, z), lengths
 
     def synthesize_batch(

@@ -44,8 +44,11 @@ def convert_jax_params(tree: Mapping[str, Any], fold: bool = True
     kernel_v/kernel_g or kernel) -> float32 state_dict.
 
     Pass the tree under ``"params"``. With ``fold`` (the default) weight
-    norm is folded in float32: {"first_conv": {"kernel_v": ...}} ->
-    {"first_conv.kernel": ...}, which a folded module strict-loads. With
+    norm is folded in the dtype the tree is stored in and the result cast
+    to float32 afterwards, as the JAX ``InferenceModel`` does (a bf16
+    ``.gckpt`` folds in bf16; a float32 tree is unaffected):
+    {"first_conv": {"kernel_v": ...}} -> {"first_conv.kernel": ...},
+    which a folded module strict-loads. With
     ``fold=False`` the names stay (``first_conv.kernel_v``), which a
     trainable module strict-loads.
     """
@@ -55,9 +58,8 @@ def convert_jax_params(tree: Mapping[str, Any], fold: bool = True
         folds = fold and "kernel_v" in node and "kernel_g" in node
         if folds:
             out[prefix + "kernel"] = fold_weight_norm(
-                as_tensor(node["kernel_v"]).float(),
-                as_tensor(node["kernel_g"]).float(),
-            )
+                as_tensor(node["kernel_v"]), as_tensor(node["kernel_g"])
+            ).float()
         for key, sub in node.items():
             if folds and key in ("kernel_v", "kernel_g"):
                 continue

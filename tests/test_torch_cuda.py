@@ -19,7 +19,20 @@ from parallelwavegan_torch.engine.build import (
 from parallelwavegan_torch.engine.checkpoint import save_generator_checkpoint
 from parallelwavegan_torch.engine.criterion import build_criterion
 from parallelwavegan_torch.engine.step import build_steps
-from parallelwavegan_torch.models import ParallelWaveGANGenerator
+from parallelwavegan_torch.models import (
+    HiFiGANGenerator,
+    ParallelWaveGANGenerator,
+)
+from parallelwavegan_torch.ops.cuda.matmul_bench import (
+    matmul_bench,
+    matmul_bench_reference,
+)
+from parallelwavegan_torch.ops.cuda.mrf_stage import (
+    build_stage_pack,
+    mrf_stage,
+    mrf_stage_reference,
+)
+from parallelwavegan_torch.ops.hifigan_infer import hifigan_fast_forward
 from parallelwavegan_torch.ops.cuda.wavenet_stack import (
     wavenet_stack,
     wavenet_stack_reference,
@@ -250,3 +263,167 @@ def test_train_step_on_card_goes_through_both_kernels(cuda_device, mixed):
         assert torch.isfinite(value)
         np.testing.assert_allclose(value.item(), losses[False][key].item(),
                                    rtol=tol, err_msg=key)
+
+
+def _rand_stage(rng, C, kernels, dils):
+    weights = [[(rng.standard_normal((k, C, C)).astype(np.float32)
+                 * (0.6 / np.sqrt(k * C)),
+                 rng.standard_normal(C).astype(np.float32) * 0.05)
+                for _ in range(len(dils) * 2)] for k in kernels]
+    scales = [[np.abs(rng.standard_normal(C)).astype(np.float32) * 0.02 + 0.01
+               for _ in range(len(dils) * 2)] for _ in kernels]
+    return weights, scales
+
+
+# (C, T, B, kernels, dils): the test widths of the JAX package and the four
+# real ones; ragged T, T below one tile and below the reach of 25 rows
+_MRF_CASES = [
+    (8, 300, 2, (3, 5, 7), (1, 2)),
+    (16, 20, 1, (3, 7, 11), (1, 3, 5)),
+    (32, 1000, 2, (3, 7, 11), (1, 3, 5)),
+    (64, 333, 2, (3, 7, 11), (1, 3, 5)),
+    (128, 129, 1, (3, 7, 11), (1, 3, 5)),
+    (256, 260, 1, (3, 7, 11), (1, 3, 5)),
+    (32, 7, 3, (3, 7, 11), (1, 3, 5)),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["f32", "bf16", "int8", "int8_bf16x"])
+@pytest.mark.parametrize("C,T,B,kernels,dils", _MRF_CASES)
+def test_mrf_stage_kernel_matches_plain(cuda_device, mode, C, T, B, kernels,
+                                        dils):
+    """f32 and bf16 packs and int8 packs (x in f32 and in bf16) against the
+    plain version. The int8 path pins its arithmetic (exact integer sums,
+    two roundings in the epilogue), so f32 tolerance holds there too."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(5)
+    weights, scales = _rand_stage(rng, C, kernels, dils)
+    quant = mode.startswith("int8")
+    wdtype = torch.bfloat16 if mode == "bf16" else torch.float32
+    xdtype = torch.bfloat16 if mode in ("bf16", "int8_bf16x") \
+        else torch.float32
+    pack = build_stage_pack(weights, scales, quant=quant, dtype=wdtype,
+                            device=cuda_device)
+    x = torch.from_numpy(rng.standard_normal((B, T, C)).astype(
+        np.float32)).to(cuda_device, xdtype)
+    before = mrf_stage.launches
+    out = mrf_stage(x, pack, kernels=kernels, dils=dils, quant=quant)
+    torch.cuda.synchronize()
+    assert mrf_stage.launches == before + 2 * len(dils) + 1
+    assert out.dtype == xdtype and out.shape == x.shape
+    ref = mrf_stage_reference(x, pack, kernels=kernels, dils=dils,
+                              quant=quant)
+    _assert_close(out, ref, xdtype if mode != "bf16" else torch.bfloat16)
+
+
+@pytest.mark.cuda
+def test_mrf_stage_kernel_rejects_what_it_was_not_built_for(cuda_device):
+    rng = np.random.default_rng(6)
+    weights, scales = _rand_stage(rng, 24, (3, 5, 7), (1, 2))
+    pack = build_stage_pack(weights, scales, quant=False,
+                            dtype=torch.float32, device=cuda_device)
+    x = torch.zeros((1, 40, 24), device=cuda_device)
+    with pytest.raises(NotImplementedError, match="channels 24"):
+        mrf_stage(x, pack, kernels=(3, 5, 7), dils=(1, 2), quant=False)
+    weights, scales = _rand_stage(rng, 8, (3, 5, 7), (1, 2))
+    pack = build_stage_pack(weights, scales, quant=False,
+                            dtype=torch.float32, device=cuda_device)
+    x = torch.zeros((1, 40, 8), device=cuda_device)
+    with pytest.raises(TypeError, match="quant"):
+        mrf_stage(x, pack, kernels=(3, 5, 7), dils=(1, 2), quant=True)
+    with pytest.raises(ValueError, match="contiguous"):
+        mrf_stage(torch.zeros((1, 8, 40), device=cuda_device).transpose(1, 2),
+                  pack, kernels=(3, 5, 7), dils=(1, 2), quant=False)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["int8", "bf16"])
+@pytest.mark.parametrize("M,K,N", [(4096, 96, 32), (4096, 352, 32),
+                                   (2048, 192, 64), (1024, 384, 128),
+                                   (1024, 128, 128), (77, 50, 24),
+                                   (1, 8, 8)])
+def test_matmul_bench_kernel_matches_plain(cuda_device, mode, M, K, N):
+    """int32 results bit-equal; bf16 -> f32 within f32 summation error."""
+    rng = np.random.default_rng(7)
+    if mode == "int8":
+        a = torch.from_numpy(rng.integers(-127, 128, (M, K)).astype(np.int8))
+        b = torch.from_numpy(rng.integers(-127, 128, (K, N)).astype(np.int8))
+    else:
+        a = torch.from_numpy(rng.standard_normal((M, K)).astype(
+            np.float32)).to(torch.bfloat16)
+        b = torch.from_numpy(rng.standard_normal((K, N)).astype(
+            np.float32)).to(torch.bfloat16)
+    a, b = a.to(cuda_device), b.to(cuda_device)
+    before = matmul_bench.launches
+    out = matmul_bench(a, b)
+    torch.cuda.synchronize()
+    assert matmul_bench.launches == before + 1
+    ref = matmul_bench_reference(a, b)
+    if mode == "int8":
+        assert out.dtype == torch.int32 and torch.equal(out, ref)
+    else:
+        assert out.dtype == torch.float32
+        _assert_close(out, ref, torch.float32)
+    with pytest.raises(NotImplementedError, match="multiple of 8"):
+        matmul_bench(a, b[:, :N - 1].contiguous())
+
+
+_SMALL_HIFIGAN = dict(
+    in_channels=12, channels=32, kernel_size=7, upsample_scales=(4, 2),
+    upsample_kernel_sizes=(8, 4), resblock_kernel_sizes=(3, 5, 7),
+    resblock_dilations=((1, 3), (1, 3), (1, 3)),
+)
+
+
+@pytest.mark.cuda
+def test_hifigan_inference_model_on_card(tmp_path, cuda_device):
+    """A small HiFi-GAN through InferenceModel on the card: the exact
+    forward against the CPU; use_mrf_kernel(quant=False) against the exact
+    forward (7 launches a stage, and 0 for a stage left out);
+    use_mrf_kernel(quant=True) against the int8 conv chain on the MRF keys
+    with the same calibration."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    config = {"generator_type": "HiFiGANGenerator",
+              "generator_params": _SMALL_HIFIGAN}
+    gen = HiFiGANGenerator(**_SMALL_HIFIGAN,
+                           generator=torch.Generator().manual_seed(0))
+    with torch.no_grad():  # a spread of magnitudes, as trained weights have
+        for p in gen.parameters():
+            p.mul_(8.0)
+    path = str(tmp_path / "g.gckpt")
+    save_generator_checkpoint(path, gen)
+    rng = np.random.default_rng(8)
+    mels = [rng.standard_normal((n, 12)).astype(np.float32) for n in (40, 23)]
+    cpu = load_model(path, config, device="cpu")
+    model = load_model(path, config, device=cuda_device)
+    want = cpu.synthesize_batch(mels, bucket_size=8)
+    exact = model.synthesize_batch(mels, bucket_size=8)
+    for a, b in zip(exact, want):
+        assert a.shape == b.shape
+        _assert_close(torch.from_numpy(a), torch.from_numpy(b),
+                      torch.float32)
+    before = mrf_stage.launches
+    model.use_mrf_kernel(quant=False)
+    fused = model.synthesize_batch(mels, bucket_size=8)
+    assert mrf_stage.launches == before + 2 * (2 * 2 + 1)
+    for a, b in zip(fused, exact):
+        _assert_close(torch.from_numpy(a), torch.from_numpy(b),
+                      torch.float32)
+    before = mrf_stage.launches
+    model.use_mrf_kernel(quant=False, stages=[1])
+    model.synthesize_batch(mels, bucket_size=8)
+    assert mrf_stage.launches == before + 5
+    model.use_mrf_kernel(quant=True, calib_mels=mels)
+    fused_q = model.synthesize_batch(mels, bucket_size=8)
+    chain = load_model(path, config, device=cuda_device)
+    chain.quantize_int8(mels, schedule="all")
+    chain._int8_scales = {k: v for k, v in chain._int8_scales.items()
+                          if not k.endswith("_up")}
+    chain_q = chain.synthesize_batch(mels, bucket_size=8)
+    for a, b in zip(fused_q, chain_q):
+        _assert_close(torch.from_numpy(a), torch.from_numpy(b),
+                      torch.float32)
+    c = torch.from_numpy(np.stack([mels[0]])).to(cuda_device)
+    assert hifigan_fast_forward(model.generator, c).shape == (1, 320, 1)

@@ -166,11 +166,14 @@ def test_port_imports_no_jax():
         "want = ['bin.train', 'datasets.collater', 'datasets.loader', "
         "'engine.build', 'engine.criterion', 'engine.state', 'engine.step', "
         "'engine.trainer', 'losses.adversarial', 'losses.stft_loss', "
-        "'ops.spectral', 'ops.cuda.wavenet_stack_train', 'optimizers']\n"
+        "'ops.spectral', 'ops.cuda.wavenet_stack_train', 'optimizers', "
+        "'models.hifigan', 'ops.hifigan_infer', 'ops.cuda.mrf_stage', "
+        "'ops.cuda.matmul_bench', 'ops.eval_metrics', 'ops.audio', "
+        "'tools.int8_stage_roofline']\n"
         "missing = [w for w in want if 'parallelwavegan_torch.' + w "
         "not in names]\n"
         "assert not missing, missing\n"
-        "assert len(names) >= 28, names\n"
+        "assert len(names) >= 36, names\n"
         "print(len(names))\n"
     )
     env = dict(os.environ, PYTHONPATH=REPO)
