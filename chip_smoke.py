@@ -8,8 +8,9 @@
 2. holds each kernel against its plain PyTorch version on the card (f32 and
    bf16, small and real shapes, ragged T, dilations past T): the stack
    forward, the forward with saved inputs, every output of the backward,
-   the fused MRF stage (f32, bf16 and int8 packs) and the matmul bench
-   (int32 results bit-equal);
+   the fused MRF stage (f32, bf16 and int8 packs), the matmul bench
+   (int32 results bit-equal) and the experiment's variant kernel (bf16
+   tanh, bf16 product gate on at most 3 layers, int8 taps);
 2h. drives HiFi-GAN v1 serving at full width on the shipped trained
    checkpoint (assets/quality/): (a) f32 exact mode over the 24 evaluation
    mels, the first 8 scored (MCD, log-F0 RMSE, V/UV; host processes that
@@ -37,7 +38,19 @@
    against the same through their plain versions, times the (G, adv, D)
    step, both kernels at the training shape and the backward's plain
    version, and prints where a step's device time goes (torch.profiler);
-7. prints a JSON line of the four kernels, the card line, and as the last
+7. runs the gate and int8 experiment (tools.int8_wavenet_experiment.main)
+   at its full shape, 10 layers at batch 32 x 512 frames, whose run launches
+   the variant kernel, prints its four lines, and holds and times each
+   variant beside its plain version at that shape;
+8. drives HiFi-GAN v1 training at full width with the recipe of the shipped
+   checkpoint (assets/quality/config.yml: multi-scale multi-period
+   discriminator, mel loss x 45, feature matching, Adam + MultiStepLR, EMA
+   0.999) at batch 16 x 8,192 on a seeded corpus: bin.train.run on cuda for
+   4 f32 steps, 2 more resumed from the .ckpt with mixed_precision (the
+   recipe's setting); finite losses, a moved u, the EMA one decay step from
+   the parameters; step time, a profile; then load_model(ckpt,
+   use_ema=True) decodes an utterance. Cut: 6 of 60,000 steps, the corpus;
+9. prints a JSON line of the five kernels, the card line, and as the last
    line {"ok": true, "device": {...}}.
 
 Exits non-zero, printing no result, on any failure or without a GPU.
@@ -138,6 +151,80 @@ HIFIGAN_V1 = {
         "use_weight_norm": True,
     },
 }
+# the recipe that trained the shipped checkpoint (same file; held to it by
+# the same CPU test), on a seeded npy corpus; the file trains 60,000 steps
+HIFIGAN_V1_TRAIN = dict(
+    HIFIGAN_V1,
+    format="npy",
+    discriminator_type="HiFiGANMultiScaleMultiPeriodDiscriminator",
+    discriminator_params={
+        "scales": 3,
+        "scale_downsample_pooling": "AvgPool1d",
+        "scale_downsample_pooling_params": {
+            "kernel_size": 4, "stride": 2, "padding": 2},
+        "scale_discriminator_params": {
+            "in_channels": 1, "out_channels": 1,
+            "kernel_sizes": [15, 41, 5, 3], "channels": 128,
+            "max_downsample_channels": 1024, "max_groups": 16, "bias": True,
+            "downsample_scales": [2, 2, 4, 4, 1],
+            "nonlinear_activation": "LeakyReLU",
+            "nonlinear_activation_params": {"negative_slope": 0.1},
+        },
+        "follow_official_norm": True,
+        "periods": [2, 3, 5, 7, 11],
+        "period_discriminator_params": {
+            "in_channels": 1, "out_channels": 1, "kernel_sizes": [5, 3],
+            "channels": 32, "downsample_scales": [3, 3, 3, 3, 1],
+            "max_downsample_channels": 1024, "bias": True,
+            "nonlinear_activation": "LeakyReLU",
+            "nonlinear_activation_params": {"negative_slope": 0.1},
+            "use_weight_norm": True, "use_spectral_norm": False,
+        },
+    },
+    use_stft_loss=False,
+    use_mel_loss=True,
+    mel_loss_params={
+        "fs": SR, "fft_size": 1024, "hop_size": HOP, "win_length": None,
+        "window": "hann", "num_mels": 80, "fmin": 0, "fmax": 11025,
+        "log_base": None,
+    },
+    use_feat_match_loss=True,
+    feat_match_loss_params={
+        "average_by_discriminators": False, "average_by_layers": False,
+        "include_final_outputs": False,
+    },
+    generator_adv_loss_params={"average_by_discriminators": False},
+    discriminator_adv_loss_params={"average_by_discriminators": False},
+    lambda_aux=45.0, lambda_adv=1.0, lambda_feat_match=2.0,
+    batch_size=16, batch_max_steps=8192,
+    remove_short_samples=False, allow_cache=True,
+    generator_optimizer_type="Adam",
+    generator_optimizer_params={"lr": 2e-4, "betas": [0.5, 0.9],
+                                "weight_decay": 0.0},
+    generator_scheduler_type="MultiStepLR",
+    generator_scheduler_params={"gamma": 0.5,
+                                "milestones": [12000, 22000, 37000]},
+    generator_grad_norm=-1,
+    discriminator_optimizer_type="Adam",
+    discriminator_optimizer_params={"lr": 2e-4, "betas": [0.5, 0.9],
+                                    "weight_decay": 0.0},
+    discriminator_scheduler_type="MultiStepLR",
+    discriminator_scheduler_params={"gamma": 0.5,
+                                    "milestones": [12000, 22000, 37000]},
+    discriminator_grad_norm=-1,
+    generator_ema_decay=0.999,
+    mixed_precision=True,
+    fuse_real_fake_discriminator=False,
+    generator_train_start_steps=1,
+    discriminator_train_start_steps=0,
+)
+# what this script sets itself: four steps, one evaluation, one checkpoint
+HIFIGAN_V1_TRAIN_CUT = dict(train_max_steps=4, save_interval_steps=4,
+                            eval_interval_steps=4, log_interval_steps=2)
+HIFIGAN_LOSS_NAMES = (
+    "mel_loss", "adversarial_loss", "feature_matching_loss",
+    "generator_loss", "real_loss", "fake_loss", "discriminator_loss",
+)
 N_SCORED = 8       # utterances scored on the host (about 20 s each)
 N_CALIB = 8        # utterances the int8 scales are calibrated on
 # the scored numbers against the committed CPU reference of the JAX package
@@ -292,12 +379,12 @@ def write_corpus(root: str, rng: np.random.Generator, n_utts: int = 8) -> None:
                 rng.standard_normal((frames, 80)).astype(np.float32))
 
 
-def check_trainer(trainer, what: str) -> None:
+def check_trainer(trainer, what: str, names=LOSS_NAMES) -> None:
     for split, losses in (("train", trainer.last_train_loss),
                           ("eval", trainer.last_eval_loss)):
         if split == "eval" and not losses:  # a run without an eval epoch
             continue
-        if sorted(losses) != sorted(f"{split}/{n}" for n in LOSS_NAMES):
+        if sorted(losses) != sorted(f"{split}/{n}" for n in names):
             raise AssertionError(f"{what}: {split} losses {sorted(losses)}")
         if not all(np.isfinite(v) for v in losses.values()):
             raise AssertionError(f"{what}: non-finite {split} loss {losses}")
@@ -680,6 +767,285 @@ def check_mrf_and_matmul_kernels(dev) -> dict:
     return worst
 
 
+VARIANTS = (("tanh", False), ("mul", False), ("tanh", True))
+# x (1 + max |plain|). int8 taps: the quantiser is pinned and the tap sums are
+# exact integers, so kernel and plain version differ only through the f32
+# sums of the aux and skip|out products taken in another order: now and then
+# one bf16 step of one g (2^-9 |w_so|, below 1e-3 at these weights) or one
+# quantisation step of one later input (act_max / 127 times a tap weight,
+# about 1e-3)
+VARIANT_TOL = {False: TOL[torch.bfloat16], True: 2e-3}
+
+
+def variant_name(gate: str, int8_taps: bool) -> str:
+    return "int8_taps" if int8_taps else f"bf16_{gate}"
+
+
+def variant_inputs(rng, B, T, L, dev):
+    """Seeded weights (float32, the tool's scales), bf16 x and c."""
+    def rnd(*shape, scale):
+        return torch.from_numpy(
+            (rng.standard_normal(shape) * scale).astype(np.float32)).to(dev)
+
+    w = {"w_tap": rnd(L, 192, 128, scale=0.08), "b_tap": rnd(L, 128, scale=0.01),
+         "w_aux": rnd(L, 80, 128, scale=0.08), "w_so": rnd(L, 64, 128, scale=0.08),
+         "b_so": rnd(L, 128, scale=0.01)}
+    return (w, rnd(B, T, 64, scale=0.3).to(torch.bfloat16),
+            rnd(B, T, 80, scale=0.5).to(torch.bfloat16))
+
+
+def check_variant(what, x, c, w, dils, gate, int8_taps) -> float:
+    """One variant of B4 against its plain version; the int8 scales come
+    from the plain bf16 variant's residual range, as the tool takes them
+    from the baseline's. Returns the larger error of x and skip."""
+    from parallelwavegan_torch.ops.cuda.wavenet_variant import (
+        quantize_taps,
+        variant_stack,
+        variant_stack_reference,
+    )
+
+    s_tap = torch.ones((len(dils), 2), device=x.device)
+    if int8_taps:
+        x_plain, _ = variant_stack_reference(x, c, w, s_tap, dils)
+        act_max = float(x_plain.float().abs().max()) * 1.05
+        w_q, s_tap = quantize_taps(w["w_tap"], act_max)
+        w = dict(w, w_tap_q=w_q)
+    got = variant_stack(x, c, w, s_tap, dils, gate=gate, int8_taps=int8_taps)
+    torch.cuda.synchronize()
+    want = variant_stack_reference(x, c, w, s_tap, dils, gate=gate,
+                                   int8_taps=int8_taps)
+    worst = 0.0
+    for name, a, b in zip(("x", "skip"), got, want):
+        err, _ = max_err(a, b, torch.bfloat16)
+        allowed = VARIANT_TOL[int8_taps] * (1 + b.float().abs().max().item())
+        print(f"variant {variant_name(gate, int8_taps)} {what} {name}: "
+              f"max_abs_err {err:.3e} (allowed {allowed:.3e}), mean "
+              f"{(a.float() - b.float()).abs().mean().item():.3e}")
+        if err > allowed:
+            raise AssertionError(
+                f"variant_stack {gate} int8={int8_taps} disagrees on {name}")
+        worst = max(worst, err)
+    return worst
+
+
+def check_variant_kernel(dev) -> float:
+    """B4 against its plain version at small shapes: the three variants
+    (the product gate on at most 3 layers, where it stays finite), ragged
+    T, T below a tile, dilations past T. Returns the largest error."""
+    rng = np.random.default_rng(11)
+    cases = [  # (B, T, dilations)
+        (2, 1000, (1, 2, 4)), (3, 333, (1, 8, 64)), (1, 7, (1, 2)),
+        (1, 130, (512, 1)), (2, 4133, tuple(2 ** i for i in range(10))),
+    ]
+    worst = 0.0
+    for B, T, dils in cases:
+        w, x, c = variant_inputs(rng, B, T, len(dils), dev)
+        for gate, int8_taps in VARIANTS:
+            if gate == "mul" and len(dils) > 3:
+                continue
+            worst = max(worst, check_variant(
+                f"B={B} T={T} L={len(dils)} max_d={max(dils)}", x, c, w,
+                dils, gate, int8_taps))
+    return worst
+
+
+def variant_bound_ms(B, T, L, int8_taps: bool) -> tuple:
+    """Least time for a variant_stack call: the tap product at the int8 or
+    the bf16 peak and the aux and skip|out products at the bf16 peak, vs
+    bytes (x and c in and x out in bf16, skip out in f32, weights)."""
+    R, G, S, A = 64, 128, 64, 80
+    rows = B * T * L
+    tap_flops = 2 * 3 * R * G * rows
+    rest_flops = 2 * (A * G + R * (S + R)) * rows
+    t_ops = (tap_flops / PEAK_FLOPS[torch.int8 if int8_taps
+                                    else torch.bfloat16]
+             + rest_flops / PEAK_FLOPS[torch.bfloat16])
+    weights = L * (3 * R * G * (1 if int8_taps else 2)
+                   + (A * G + R * (S + R)) * 2 + (G + S + R) * 4)
+    nbytes = B * T * ((2 * R + A) * 2 + S * 4) + weights
+    t_bytes = nbytes / PEAK_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
+def variant_phase(dev, smi: str) -> dict:
+    """Step 7 of the module docstring: the experiment tool at its full
+    shape (the counted run of the variant kernel's path), then every
+    variant held against its plain version at that shape (the product gate
+    on its first 3 layers) and the plain version timed."""
+    from parallelwavegan_torch.ops.cuda.wavenet_variant import (
+        variant_stack,
+        variant_stack_reference,
+    )
+    from parallelwavegan_torch.tools import int8_wavenet_experiment as tool
+
+    torch.cuda.synchronize()
+    variant_stack.launches = 0
+    t0 = time.perf_counter()
+    results = tool.main(["--batch", str(BENCH_BATCH), "--frames",
+                         str(BENCH_FRAMES)])
+    torch.cuda.synchronize()
+    out = {"launches": variant_stack.launches,
+           "tool": {r["metric"]: r["value"] for r in results},
+           "snr_db": {r["metric"]: r["vs_baseline"] for r in results}}
+    print(f"int8_wavenet_experiment: {time.perf_counter() - t0:.1f} s wall, "
+          f"variant_stack launches {out['launches']}")
+    for r in results:
+        if not np.isfinite(r["value"]) or r["value"] <= 0:
+            raise AssertionError(f"bad time for {r['metric']}")
+    snr = out["snr_db"]
+    # the bf16 variant reproduces the baseline's math; int8 taps cost SNR
+    # but must keep the signal
+    if abs(snr["wavenet_variant_bf16_ms"]
+           - snr["wavenet_bf16_baseline_ms"]) > 1.0 \
+            or not snr["wavenet_int8_taps_ms"] > 20.0:
+        raise AssertionError(f"unexpected SNR {snr}")
+
+    B, T, L = BENCH_BATCH, BENCH_FRAMES * HOP, tool.LAYERS
+    dils = tuple(2 ** i for i in range(L))
+    w, x, c = variant_inputs(np.random.default_rng(12), B, T, L, dev)
+    out["err"] = 0.0
+    with torch.inference_mode():
+        for gate, int8_taps in VARIANTS:
+            n = 3 if gate == "mul" else L
+            wn = {k: v[:n].contiguous() for k, v in w.items()}
+            out["err"] = max(out["err"], check_variant(
+                f"at the tool's shape B={B} T={T} L={n}", x, c, wn, dils[:n],
+                gate, int8_taps))
+        s_tap = torch.ones((L, 2), device=dev)
+        out["plain_ms"] = time_ms(
+            lambda: variant_stack_reference(x, c, w, s_tap, dils), reps=2)
+    out["bound_ms"], out["bound_by"] = variant_bound_ms(B, T, L, False)
+    out["int8_bound_ms"], _ = variant_bound_ms(B, T, L, True)
+    t = out["tool"]
+    print(f"variant_stack {B} x {T}, {L} layers: bf16 tanh "
+          f"{t['wavenet_variant_bf16_ms']:.2f} ms, product gate "
+          f"{t['wavenet_no_transcendental_bound_ms']:.2f} ms, int8 taps "
+          f"{t['wavenet_int8_taps_ms']:.2f} ms; serving kernel on the same "
+          f"layers {t['wavenet_bf16_baseline_ms']:.2f} ms; plain bf16 tanh "
+          f"{out['plain_ms']:.2f} ms; bound {out['bound_ms']:.2f} ms (int8 "
+          f"taps {out['int8_bound_ms']:.2f} ms) by {out['bound_by']} on {smi}")
+    return out
+
+
+def hifigan_training_phase(dev, smi: str) -> dict:
+    """Step 8 of the module docstring. No hand-written kernel is on this
+    path (the JAX train step fuses only Parallel WaveGAN). Returns the step
+    times and the peak memory."""
+    from parallelwavegan_torch.bin.train import run
+    from parallelwavegan_torch.engine.build import init_train_state
+    from parallelwavegan_torch.utils.model_loader import load_model
+
+    rng = np.random.default_rng(2)
+    f32_config = dict(HIFIGAN_V1_TRAIN, mixed_precision=False,
+                      **HIFIGAN_V1_TRAIN_CUT)
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        dump = os.path.join(tmp, "dump")
+        write_corpus(dump, rng, n_utts=16)
+        # four f32 steps: nothing at step 0 (the gates are strict), D alone
+        # at step 1, G + adv + D at steps 2 and 3, then one evaluation
+        initial, _, _, _, _ = init_train_state(f32_config, seed=0, device=dev)
+        u0 = initial.extra_d["msd.discriminators_0.layer_0.u"].clone()
+        n_g = sum(p.numel() for p in initial.generator.parameters())
+        n_d = sum(p.numel() for p in initial.discriminator.parameters())
+        del initial
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer = run(f32_config, dump, dump, os.path.join(tmp, "exp"),
+                      seed=0, device="cuda", dump_config=False)
+        torch.cuda.synchronize()
+        print(f"hifigan training f32 {f32_config['batch_size']} x "
+              f"{f32_config['batch_max_steps']} samples, G {n_g / 1e6:.2f} M "
+              f"and D {n_d / 1e6:.2f} M parameters: {trainer.steps} steps in "
+              f"{time.perf_counter() - t0:.1f} s wall (first calls)")
+        state = trainer.state
+        if trainer.steps != 4 or trainer.device.type != "cuda" \
+                or state.opt_g.count != 2 or state.opt_d.count != 3:
+            raise AssertionError("the trainer did not take 4 steps on cuda")
+        check_trainer(trainer, "hifigan training f32", HIFIGAN_LOSS_NAMES)
+        u = state.extra_d["msd.discriminators_0.layer_0.u"]
+        moved = (u - u0).abs().max().item()
+        print(f"  u of msd.discriminators_0.layer_0 moved by {moved:.3e} "
+              f"(|u| = {u.norm().item():.4f})")
+        if not moved > 1e-4 or not torch.isfinite(u).all():
+            raise AssertionError("the spectral-norm vector did not advance")
+        path = os.path.join(tmp, "exp", "checkpoint-4steps.ckpt")
+        print(f"  {os.path.basename(path)} "
+              f"({os.path.getsize(path) / 1e6:.1f} MB)")
+
+        # two more steps as the recipe runs them, in mixed precision,
+        # resumed from that checkpoint (parameters, u, EMA, optimizers)
+        mixed_config = dict(HIFIGAN_V1_TRAIN, train_max_steps=6,
+                            save_interval_steps=6, eval_interval_steps=1000,
+                            log_interval_steps=2)
+        mixed = run(mixed_config, dump, dump, os.path.join(tmp, "exp_mixed"),
+                    resume=path, seed=0, device="cuda", dump_config=False)
+        torch.cuda.synchronize()
+        print(f"hifigan training mixed precision: steps 4 -> {mixed.steps}")
+        if mixed.steps != 6 or mixed.state.opt_g.count != 4 \
+                or mixed.state.opt_d.count != 5:
+            raise AssertionError("the resumed run did not take 2 steps")
+        check_trainer(mixed, "hifigan training mixed", HIFIGAN_LOSS_NAMES)
+        for tensors in (mixed.state.params_g, mixed.state.params_d,
+                        mixed.state.extra_d, mixed.state.ema_g):
+            if any(t.dtype != torch.float32 or not torch.isfinite(t).all()
+                   for t in tensors.values()):
+                raise AssertionError("master state left finite float32")
+
+        # one more step of each: the EMA must land one decay step from the
+        # updated parameters; then the step times
+        batch = mixed._to_device(next(iter(mixed.train_loader)))
+        for what, t in (("f32", trainer), ("mixed", mixed)):
+            step = t.train_step_factory(True, True, True)
+            before = {k: v.clone() for k, v in t.state.ema_g.items()}
+            step(t.state, batch)
+            worst = 0.0
+            for key, p in t.state.params_g.items():
+                want = 0.999 * before[key] + 0.001 * p.detach()
+                worst = max(worst, (t.state.ema_g[key] - want).abs().max()
+                            .item())
+                if torch.equal(t.state.ema_g[key], p.detach()):
+                    raise AssertionError(f"ema_g equals params_g on {key}")
+            print(f"  {what}: ema_g is 0.999 ema_g + 0.001 params_g to "
+                  f"{worst:.2e}")
+            if not worst <= 1e-6:
+                raise AssertionError("the EMA step is off")
+            out[f"step_ms_{what}"] = time_ms(lambda: step(t.state, batch),
+                                             reps=3)
+        profile_step(mixed, batch, "hifigan mixed")
+        profile_step(trainer, batch, "hifigan f32")
+        torch.cuda.reset_peak_memory_stats()
+        mixed.train_step_factory(True, True, True)(mixed.state, batch)
+        torch.cuda.synchronize()
+        out["step_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        print(f"hifigan (G, adv, D) step {f32_config['batch_size']} x "
+              f"{f32_config['batch_max_steps']}: f32 "
+              f"{out['step_ms_f32']:.1f} ms "
+              f"({1e3 / out['step_ms_f32']:.2f} steps/s), mixed precision "
+              f"{out['step_ms_mixed']:.1f} ms "
+              f"({1e3 / out['step_ms_mixed']:.2f} steps/s), peak memory "
+              f"(mixed) {out['step_peak_gb']:.2f} GB on {smi}")
+
+        # serve what was trained: the EMA weights of the resumed run's .ckpt
+        final = os.path.join(tmp, "exp_mixed", "checkpoint-6steps.ckpt")
+        mel = np.load(os.path.join(dump, "utt0-feats.npy"))
+        waves = {}
+        for use_ema in (True, False):
+            model = load_model(final, mixed_config, device="cuda",
+                               use_ema=use_ema)
+            waves[use_ema] = model.synthesize_batch([mel])[0]
+            if waves[use_ema].shape != (len(mel) * HOP, 1) \
+                    or not np.isfinite(waves[use_ema]).all():
+                raise AssertionError("bad waveform from the trained .ckpt")
+        diff = float(np.abs(waves[True] - waves[False]).max())
+        print(f"load_model({os.path.basename(final)}, use_ema=True) decoded "
+              f"{len(mel)} frames on cuda; max |EMA - raw| {diff:.3e}")
+        if not diff > 0:
+            raise AssertionError("use_ema served the raw parameters")
+    return out
+
+
 def mrf_bound_ms(rows, C, kernels, n_layers, mm_dtype, x_item) -> tuple:
     """Least time for one MRF stage: 2 * 2 * n_layers * sum(k) * C^2
     operations per row at the matmul type's peak vs x read once, the output
@@ -1031,7 +1397,7 @@ def main() -> int:
     # 1. build
     t0 = time.perf_counter()
     built = build_libraries(["wavenet_stack", "wavenet_stack_bwd",
-                             "mrf_stage", "matmul_bench"])
+                             "mrf_stage", "matmul_bench", "wavenet_variant"])
     print(f"build: {time.perf_counter() - t0:.1f} s wall")
     for name, info in built.items():
         print(f"  {name}: {info['seconds']:.1f} s -> {info['path']}")
@@ -1068,6 +1434,7 @@ def run_phases(dev, smi: str, pool) -> int:
 
     # 2. kernel against plain on the card
     worst_new = check_mrf_and_matmul_kernels(dev)
+    worst_new["wavenet_variant"] = check_variant_kernel(dev)
     # 2h. HiFi-GAN v1 serving on the shipped checkpoint
     hifi = hifigan_phase(dev, smi, pool)
     gen = torch.Generator().manual_seed(0)
@@ -1184,8 +1551,11 @@ def run_phases(dev, smi: str, pool) -> int:
 
     # 5, 6. the training path
     train = training_phase(dev, smi)
+    # 7. the gate and int8 experiment; 8. HiFi-GAN v1 training
+    variant = variant_phase(dev, smi)
+    hifigan_training_phase(dev, smi)
     if min(launches, train["fwd_launches"], train["bwd_launches"],
-           hifi["launches"], mm["launches"]) < 1:
+           hifi["launches"], mm["launches"], variant["launches"]) < 1:
         raise AssertionError("a kernel of a main path was never launched")
 
     # no single PyTorch call computes the stack or its backward: library_ms
@@ -1196,7 +1566,11 @@ def run_phases(dev, smi: str, pool) -> int:
     # frames on bf16 packs (the int8 packs' times beside them); its library
     # time is the cuDNN conv chain of the same stages. matmul_bench: the
     # five MRF contraction shapes in int8 (bf16 beside them); its library
-    # time is torch._int_mm (torch.matmul).
+    # time is torch._int_mm (torch.matmul). wavenet_variant: one call of 10
+    # layers at batch 32 x 512 frames as the tool times it, ms for the bf16
+    # tanh variant (the product gate, int8 taps and the serving kernel on
+    # the same layers beside it), the plain bf16 tanh version; no single
+    # PyTorch call computes it.
     print(json.dumps({"kernels": [{
         "name": "wavenet_stack",
         "route": "cuda",
@@ -1263,6 +1637,23 @@ def run_phases(dev, smi: str, pool) -> int:
         "bf16_plain_ms": mm["bf16_plain_ms"],
         "bf16_bound_ms": mm["bf16_bound_ms"],
         "bf16_library_ms": mm["bf16_library_ms"],
+    }, {
+        "name": "wavenet_variant",
+        "route": "cuda",
+        "source": "parallelwavegan_torch/csrc/wavenet_variant.cu",
+        "replaces": "tools/int8_wavenet_experiment.py:53",
+        "launches": variant["launches"],
+        "max_abs_err": max(variant["err"], worst_new["wavenet_variant"]),
+        "ms": variant["tool"]["wavenet_variant_bf16_ms"],
+        "plain_ms": variant["plain_ms"],
+        "bound_ms": variant["bound_ms"],
+        "bound_by": variant["bound_by"],
+        "library_ms": None,
+        "gate_mul_ms": variant["tool"]["wavenet_no_transcendental_bound_ms"],
+        "int8_taps_ms": variant["tool"]["wavenet_int8_taps_ms"],
+        "int8_taps_bound_ms": variant["int8_bound_ms"],
+        "baseline_ms": variant["tool"]["wavenet_bf16_baseline_ms"],
+        "snr_db": variant["snr_db"],
     }]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -8,10 +8,13 @@ HiFi-GAN. Runs on CUDA by default (``--device cpu`` for the host):
 
     python -m parallelwavegan_torch.bin.decode --dumpdir dump \
         --checkpoint exp/generator.gckpt --outdir wav [--dtype bfloat16] \
+        [--use-ema] \
         [--int8 [--int8-calib-utts 8] [--int8-schedule auto|all]]
 
-``--feats-scp``, ``--chunk-frames``, ``--use-ema``, ``--use-f0`` and the
-other generator families are not ported yet.
+``--checkpoint`` is a generator-only ``.gckpt`` or a train-state ``.ckpt``
+(``--use-ema`` then serves its EMA weights). ``--feats-scp``,
+``--chunk-frames``, ``--use-f0`` and the other generator families are not
+ported yet.
 """
 
 from __future__ import annotations
@@ -68,6 +71,11 @@ def main(argv=None):
         help="convert the waveform to 16-bit PCM on the device",
     )
     parser.add_argument(
+        "--use-ema", action="store_true",
+        help="serve the EMA generator weights from a .ckpt trained with "
+        "generator_ema_decay",
+    )
+    parser.add_argument(
         "--device", default="cuda", choices=["cuda", "cpu"],
         help="run on the GPU (default; fails without one) or the CPU",
     )
@@ -110,7 +118,7 @@ def main(argv=None):
 
     model = load_model(args.checkpoint, config, stats=args.stats,
                        dtype=_DTYPES[args.dtype], pcm16=args.pcm16,
-                       device=args.device)
+                       device=args.device, use_ema=args.use_ema)
     sr = config.get("sampling_rate", 22050)
     os.makedirs(args.outdir, exist_ok=True)
     items = [dataset[i] for i in range(len(dataset))]

@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Training CLI: config -> datasets -> collater -> loader -> Trainer.
 
-Counterpart of ``parallelwavegan_tpu/bin/train.py`` for Parallel WaveGAN on
-one device, with ``--resume`` / ``--pretrain`` and the ``config.yml`` dump.
+Counterpart of ``parallelwavegan_tpu/bin/train.py`` for Parallel WaveGAN and
+HiFi-GAN on one device, with ``--resume`` / ``--pretrain`` and the ``config.yml`` dump.
 Runs on CUDA by default (``--device cpu`` for the host):
 
     python -m parallelwavegan_torch.bin.train --train-dumpdir dump/train \
@@ -29,15 +29,7 @@ from parallelwavegan_torch.utils.io import load_config, read_hdf5, save_config
 VERSION = "parallelwavegan_torch-0.1.0"
 
 
-def _generator_type(config: Dict[str, Any]) -> str:
-    gen_type = config.get("generator_type", "ParallelWaveGANGenerator")
-    if gen_type != "ParallelWaveGANGenerator":
-        raise NotImplementedError(f"{gen_type}: not ported yet")
-    return gen_type
-
-
 def build_dataset(config: Dict[str, Any], rootdir: str) -> AudioMelDataset:
-    _generator_type(config)
     fmt = config.get("format", "hdf5")
     if fmt == "hdf5":
         audio_query, mel_query = "*.h5", "*.h5"
@@ -64,7 +56,7 @@ def build_dataset(config: Dict[str, Any], rootdir: str) -> AudioMelDataset:
 
 
 def build_loader(config: Dict[str, Any], dataset, seed: int) -> DataLoader:
-    gen_type = _generator_type(config)
+    gen_type = config.get("generator_type", "ParallelWaveGANGenerator")
     collater = Collater(
         batch_max_steps=config["batch_max_steps"],
         hop_size=config["hop_size"],
@@ -116,7 +108,7 @@ def run(config: Dict[str, Any], train_dumpdir: str, dev_dumpdir: str,
 
 def main(argv: Optional[list] = None):
     parser = argparse.ArgumentParser(
-        description="Train a Parallel WaveGAN vocoder."
+        description="Train a Parallel WaveGAN or HiFi-GAN vocoder."
     )
     parser.add_argument("--train-dumpdir", type=str, required=True)
     parser.add_argument("--dev-dumpdir", type=str, required=True)

@@ -1,6 +1,7 @@
-// Shared pieces of the fused WaveNet stack kernels (forward and backward):
-// the compiled channel widths, the thread-tile layout and the typed 4-wide
-// loads and stores. Both wavenet_stack.cu and wavenet_stack_bwd.cu run
+// Shared pieces of the fused WaveNet stack kernels (forward, backward and the
+// experiment's variant forward): the compiled channel widths, the thread-tile
+// layout and the typed 4-wide loads and stores. wavenet_stack.cu,
+// wavenet_stack_bwd.cu and wavenet_variant.cu run
 // 256-thread blocks over tiles of TT = 64 time rows and do their products
 // as register-blocked SIMT GEMMs whose thread tile is 4 rows x 8 columns
 // (columns cg*4..+3 and 64 + cg*4..+3 of a 128-column panel).
@@ -136,6 +137,38 @@ __device__ __forceinline__ void gate_gemm(
         load4(w_tap + (size_t)k * G + col, v);
       else if (k < K)
         load4(w_aux + (size_t)(k - 3 * R) * G + col, v);
+      store4(w_s + (i / (G / 4)) * G + col, v);
+    }
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < KC; ++kk) {
+      const float4 a = *reinterpret_cast<const float4*>(
+          a_s + (k0 + kk) * TT + rg * 4);
+      const float4 w0 = *reinterpret_cast<const float4*>(w_s + kk * G + cg * 4);
+      const float4 w1 =
+          *reinterpret_cast<const float4*>(w_s + kk * G + R + cg * 4);
+      fma_tile(acc, a, w0, w1);
+    }
+  }
+}
+
+// acc += a_s[0:KP] (transposed, [k][TT]) . w[0:K] for this thread's 4 x 8
+// tile, w row-major (K, 128) in global memory, streamed through w_s in
+// chunks of KC rows; rows K..KP of w read as zeros. Begins with a barrier,
+// so a_s may have been written just before the call. (wavenet_variant.cu's
+// aux and skip|out products; wavenet_stack.cu keeps its own skip|out loop,
+// which measured 0.3 % faster than this one inlined there.)
+template <typename WT>
+__device__ __forceinline__ void panel_gemm(
+    float acc[4][8], const float* a_s, float* w_s, const WT* __restrict__ w,
+    int K, int KP, int tid, int rg, int cg) {
+  for (int k0 = 0; k0 < KP; k0 += KC) {
+    __syncthreads();  // a_s is complete / the previous chunk is consumed
+    for (int i = tid; i < KC * G / 4; i += THREADS) {
+      const int col = (i % (G / 4)) * 4;
+      const int k = k0 + i / (G / 4);
+      float v[4] = {0.f, 0.f, 0.f, 0.f};
+      if (k < K) load4(w + (size_t)k * G + col, v);
       store4(w_s + (i / (G / 4)) * G + col, v);
     }
     __syncthreads();

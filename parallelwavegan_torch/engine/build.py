@@ -1,8 +1,9 @@
 """Build models, optimizers and the initial train state from a
 (reference-compatible) config.
 
-Counterpart of ``parallelwavegan_tpu/engine/build.py`` for Parallel WaveGAN;
-other generator types raise ``NotImplementedError``. The models are built
+Counterpart of ``parallelwavegan_tpu/engine/build.py`` for Parallel WaveGAN
+and HiFi-GAN; other families raise ``NotImplementedError`` (from the model
+registry). The models are built
 in their training form (``kernel_v``/``kernel_g``), initialised from a
 seeded ``torch.Generator`` on the CPU and then moved to the device.
 """
@@ -20,17 +21,23 @@ from parallelwavegan_torch.optimizers import Optimizer, build_optimizer
 from parallelwavegan_torch.utils.model_loader import resolve_device
 
 
+_GENERATORS = ("ParallelWaveGANGenerator", "HiFiGANGenerator")
+
+
 def build_models(config: Dict[str, Any], generator: torch.Generator = None):
     """(generator, discriminator) modules in their training form, on the
     CPU. ``generator`` is the random source of the initializers."""
     gen_type = config.get("generator_type", "ParallelWaveGANGenerator")
     dis_type = config.get("discriminator_type", "ParallelWaveGANDiscriminator")
-    for name in (gen_type, dis_type):
-        if not name.startswith("ParallelWaveGAN"):
-            raise NotImplementedError(f"{name}: not ported yet")
+    if gen_type not in _GENERATORS:
+        raise NotImplementedError(f"{gen_type}: not ported yet")
+    gen_params = dict(config.get("generator_params", {}))
+    # reference back-compat: the upsample_kernal_sizes typo
+    if "upsample_kernal_sizes" in gen_params:
+        gen_params["upsample_kernel_sizes"] = gen_params.pop(
+            "upsample_kernal_sizes")
     gen = get_model_class(gen_type)(
-        **config.get("generator_params", {}), folded=False,
-        generator=generator,
+        **gen_params, folded=False, generator=generator,
     )
     dis = get_model_class(dis_type)(
         **config.get("discriminator_params", {}), folded=False,
@@ -43,7 +50,7 @@ def example_batch(config: Dict[str, Any], batch_size: int = 2
                   ) -> Dict[str, np.ndarray]:
     """Tiny batch with the training shapes, for dry runs."""
     gen_type = config.get("generator_type", "ParallelWaveGANGenerator")
-    if gen_type != "ParallelWaveGANGenerator":
+    if gen_type not in _GENERATORS:
         raise NotImplementedError(f"{gen_type}: not ported yet")
     gp = config.get("generator_params", {})
     hop = config.get("hop_size", 256)
@@ -54,13 +61,15 @@ def example_batch(config: Dict[str, Any], batch_size: int = 2
     num_mels = config.get("num_mels", gp.get("aux_channels", 80))
     rng = np.random.default_rng(0)
     f32 = np.float32
-    return {
+    batch = {
         "y": rng.standard_normal((batch_size, steps, 1)).astype(f32) * 0.1,
         "c": rng.standard_normal(
             (batch_size, frames + 2 * ctx, num_mels)).astype(f32),
-        "z": rng.standard_normal(
-            (batch_size, steps, gp.get("in_channels", 1))).astype(f32),
     }
+    if gen_type == "ParallelWaveGANGenerator":  # the others take no noise
+        batch["z"] = rng.standard_normal(
+            (batch_size, steps, gp.get("in_channels", 1))).astype(f32)
+    return batch
 
 
 def _optimizer(config: Dict[str, Any], prefix: str) -> Optimizer:
@@ -91,4 +100,8 @@ def init_train_state(config: Dict[str, Any], seed: int = 0,
     )
     opt_g.init(state.params_g)
     opt_d.init(state.params_d)
+    if float(config.get("generator_ema_decay", 0.0) or 0.0) > 0.0:
+        # real copies of the initial parameters; a resume or a legacy
+        # checkpoint reseeds them (engine.checkpoint)
+        state.seed_ema()
     return state, generator, discriminator, opt_g, opt_d

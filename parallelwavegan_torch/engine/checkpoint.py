@@ -9,10 +9,11 @@ and viewed as ``torch.bfloat16``. Leaves come back as CPU tensors.
 
 A ``.ckpt`` holds the JAX package's ``GANTrainState`` fields: ``steps``,
 ``params_g`` and ``params_d`` under the flax names (``kernel_v`` /
-``kernel_g``), the empty collections ``extra_g`` / ``extra_d``, ``opt_g``
-and ``opt_d`` in the optax chain's layout (which the port's optimizers
-share, see ``optimizers``) and ``ema_g`` (none). Either package restores a
-``.ckpt`` the other wrote.
+``kernel_g``), the collections ``extra_g`` (empty) and ``extra_d`` (the
+``spectral`` collection of a spectral-normed discriminator: its ``u``
+buffers), ``opt_g`` and ``opt_d`` in the optax chain's layout (which the
+port's optimizers share, see ``optimizers``) and ``ema_g`` (the EMA of
+``params_g``, or none). Either package restores a ``.ckpt`` the other wrote.
 """
 
 from __future__ import annotations
@@ -31,6 +32,7 @@ from parallelwavegan_torch.utils.params import (
     convert_jax_params,
     folded_state_dict,
     nested,
+    nested_buffers,
 )
 
 _EXT_NDARRAY = 1
@@ -95,20 +97,34 @@ def _prepare(tree: Any, dtype: Optional[torch.dtype]) -> Any:
 
 
 def save_generator_checkpoint(
-    path: str, module_or_variables: Union[nn.Module, Dict[str, Any]],
+    path: str,
+    source: Union[nn.Module, GANTrainState, Dict[str, Any]],
     dtype: Optional[torch.dtype] = None,
+    use_ema: bool = False,
 ) -> None:
     """Inference-only checkpoint: just the generator variables.
 
-    Takes a port module (written with folded kernels, whichever form it
-    holds them in; the JAX package loads them as plain ``kernel`` leaves)
-    or a variables tree of tensors / numpy arrays. ``dtype=torch.bfloat16``
-    halves the file.
+    Takes a port module or a train state (written with folded kernels,
+    whichever form they are held in; the JAX package loads them as plain
+    ``kernel`` leaves) or a variables tree of tensors / numpy arrays.
+    ``use_ema`` writes a train state's EMA stream instead of its
+    parameters. ``dtype=torch.bfloat16`` halves the file.
     """
-    variables = (
-        module_variables(module_or_variables)
-        if isinstance(module_or_variables, nn.Module) else module_or_variables
-    )
+    if isinstance(source, GANTrainState):
+        params = source.generator.state_dict()
+        if use_ema:
+            if source.ema_g is None:
+                raise ValueError(
+                    "use_ema=True but the train state has no EMA stream "
+                    "(set generator_ema_decay in the training config)")
+            params = source.ema_g
+        variables = {"params": nested(folded_state_dict(params))}
+    elif use_ema:
+        raise ValueError("use_ema only applies to a GANTrainState")
+    elif isinstance(source, nn.Module):
+        variables = module_variables(source)
+    else:
+        variables = source
     _write(path, packb(_prepare(variables, dtype), default=_default))
 
 
@@ -127,28 +143,50 @@ def save_checkpoint(path: str, state: GANTrainState) -> None:
     """Write the whole train state as a ``.ckpt``."""
     tree = {
         "steps": torch.tensor(state.steps, dtype=torch.int32),
-        "params_g": nested(state.generator.state_dict()),
+        "params_g": nested(state.params_g),
         "extra_g": {},
         "opt_g": state.opt_g.state_dict(),
-        "params_d": nested(state.discriminator.state_dict()),
-        "extra_d": {},
+        "params_d": nested(state.params_d),
+        "extra_d": nested_buffers(state.discriminator),
         "opt_d": state.opt_d.state_dict(),
-        "ema_g": None,
+        "ema_g": None if state.ema_g is None else nested(state.ema_g),
     }
     _write(path, packb(tree, default=_default))
 
 
-def _load_params(module: nn.Module, tree: Dict[str, Any]) -> None:
-    module.load_state_dict(convert_jax_params(tree, fold=False), strict=True)
+def _load_params(module: nn.Module, tree: Dict[str, Any],
+                 extra: Optional[Dict[str, Any]] = None) -> None:
+    module.load_state_dict(
+        convert_jax_params(tree, fold=False,
+                           spectral=(extra or {}).get("spectral")),
+        strict=True)
+
+
+def _load_ema(state: GANTrainState, tree: Dict[str, Any]) -> None:
+    """The EMA stream across format generations: a state without EMA drops
+    the file's; a file without one (a run that kept none) seeds the stream
+    from the restored generator parameters."""
+    if state.ema_g is None:
+        return
+    if tree.get("ema_g") is None:
+        state.seed_ema()
+        return
+    ema = convert_jax_params(tree["ema_g"], fold=False)
+    if sorted(ema) != sorted(state.ema_g):
+        raise ValueError("the checkpoint's ema_g does not match the generator")
+    with torch.no_grad():
+        for key, value in state.ema_g.items():
+            value.copy_(ema[key])
 
 
 def load_checkpoint(path: str, state: GANTrainState) -> GANTrainState:
     """Restore a ``.ckpt`` (of either package) into ``state``, in place:
-    parameters, optimizer states and the step counter. An EMA stream in
-    the file is dropped (EMA is not ported yet)."""
+    parameters, spectral-norm vectors, the EMA stream, optimizer states and
+    the step counter."""
     tree = _read(path)
     _load_params(state.generator, tree["params_g"])
-    _load_params(state.discriminator, tree["params_d"])
+    _load_params(state.discriminator, tree["params_d"], tree.get("extra_d"))
+    _load_ema(state, tree)
     state.opt_g.load_state_dict(tree["opt_g"])
     state.opt_d.load_state_dict(tree["opt_d"])
     state.steps = int(tree["steps"])
@@ -163,8 +201,12 @@ def load_params_only(path: str, state: GANTrainState,
     tree = _read(path)
     if path.endswith(".gckpt"):
         _load_params(state.generator, tree["params"])
+        if state.ema_g is not None:
+            state.seed_ema()
         return state
     _load_params(state.generator, tree["params_g"])
+    _load_ema(state, tree)
     if load_discriminator:
-        _load_params(state.discriminator, tree["params_d"])
+        _load_params(state.discriminator, tree["params_d"],
+                     tree.get("extra_d"))
     return state

@@ -1,16 +1,19 @@
-"""GAN training state: both networks, both optimizers, the step counter.
+"""GAN training state: both networks, both optimizers, the step counter,
+the EMA of the generator.
 
 Counterpart of ``parallelwavegan_tpu/engine/state.py``. The JAX state is an
 immutable pytree of parameter trees; here the parameters live in the two
-``nn.Module``s and the train step updates them in place. ``ema_g`` is kept
-as a field for checkpoint compatibility; the EMA update is not ported yet
-and it stays ``None``.
+``nn.Module``s and the train step updates them in place. ``extra_d`` is a
+view of the discriminator's buffers (the spectral-norm vectors ``u``, which
+flax keeps in the ``spectral`` collection). ``ema_g`` holds detached copies
+of the generator's parameters under their names when
+``generator_ema_decay`` is positive, else None.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Dict, Optional
+from typing import Dict, Optional
 
 import torch
 from torch import nn
@@ -25,7 +28,7 @@ class GANTrainState:
     discriminator: nn.Module
     opt_g: Optimizer
     opt_d: Optimizer
-    ema_g: Optional[Dict[str, Any]] = None
+    ema_g: Optional[Dict[str, torch.Tensor]] = None
 
     @property
     def params_g(self) -> Dict[str, torch.Tensor]:
@@ -34,3 +37,11 @@ class GANTrainState:
     @property
     def params_d(self) -> Dict[str, torch.Tensor]:
         return dict(self.discriminator.named_parameters())
+
+    @property
+    def extra_d(self) -> Dict[str, torch.Tensor]:
+        return dict(self.discriminator.named_buffers())
+
+    def seed_ema(self) -> None:
+        """Start the EMA stream from copies of the generator's parameters."""
+        self.ema_g = {k: v.detach().clone() for k, v in self.params_g.items()}

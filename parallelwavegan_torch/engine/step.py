@@ -2,25 +2,33 @@
 update, in one function.
 
 Counterpart of ``parallelwavegan_tpu/engine/step.py`` for Parallel WaveGAN
-on one device. Warm-up gating selects a step variant by
+and HiFi-GAN on one device. Warm-up gating selects a step variant by
 (train_g, use_adv, train_d), as there. The loss arithmetic follows the JAX
-step: the STFT losses times ``lambda_aux``, plus ``lambda_adv`` times the
-adversarial loss; gradient clipping, the optimizers and the schedules live
-in ``optimizers``. Differences that PyTorch brings: the parameters are
-updated in place in the state's modules; the step takes no random key (the
-noise z arrives in the batch and nothing else on this path is random); the
-``shard_map`` data-parallel path is not ported yet.
+step: the STFT and mel losses times ``lambda_aux``, plus ``lambda_adv``
+times the adversarial loss, to which feature matching adds
+``lambda_feat_match`` times its value; gradient clipping, the optimizers
+and the schedules live in ``optimizers``. Differences that PyTorch brings:
+the parameters are updated in place in the state's modules; the step takes
+no random key (the noise z arrives in the batch and nothing else on this
+path is random); the ``shard_map`` data-parallel path is not ported yet.
+
+A spectral-normed discriminator advances its vectors ``u`` only in the
+discriminator update (training mode), once per pass: twice a step with the
+two-pass update, the fake pass starting from the real pass's ``u``. During
+the generator update it runs in eval mode. With ``generator_ema_decay`` the
+state's ``ema_g`` follows the generator after each of its updates.
 
 ``mixed_precision: true`` runs both networks on bfloat16 copies of the
-float32 master parameters and of the batch, with explicit casts as in the
-JAX step (no ``torch.autocast``); outputs return to float32, the losses
-reduce in float32 and the gradients arrive in float32.
+float32 master parameters, of the batch and of ``u``, with explicit casts
+as in the JAX step (no ``torch.autocast``); outputs return to float32, the
+losses reduce in float32, the gradients arrive in float32, and the stored
+``u`` is the bfloat16 result widened again.
 """
 
 from __future__ import annotations
 
 import functools
-from typing import Any, Callable, Dict, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 from torch.func import functional_call
@@ -44,6 +52,12 @@ def make_generator_forward(config: Dict[str, Any], generator
     per-layer forward runs.
     """
     gen_type = config.get("generator_type", "ParallelWaveGANGenerator")
+    if gen_type == "HiFiGANGenerator":
+        # no noise input and no hand-written kernel on its training path
+        def forward_c(params: Params, batch: Batch) -> torch.Tensor:
+            return functional_call(generator, params, (batch["c"],))
+
+        return forward_c
     if gen_type != "ParallelWaveGANGenerator":
         raise NotImplementedError(f"{gen_type}: not ported yet")
     device = next(generator.parameters()).device
@@ -70,10 +84,21 @@ def make_generator_forward(config: Dict[str, Any], generator
 
 
 def make_discriminator_forward(config: Dict[str, Any], discriminator
-                               ) -> Callable[[Params, torch.Tensor], Any]:
-    """Adapter (params, x) -> discriminator outputs."""
-    def forward(params: Params, x: torch.Tensor):
-        return functional_call(discriminator, params, (x,))
+                               ) -> Callable[..., Any]:
+    """Adapter (params, x, train, buffers=None) -> discriminator outputs (a
+    tensor, or a list of lists of tensors). ``train`` selects the module's
+    mode for the call: in training mode the spectral-norm vectors advance.
+    ``buffers`` are stand-ins for the module's own buffers (read, and in
+    training mode advanced, in their place)."""
+    def forward(params: Params, x: torch.Tensor, train: bool,
+                buffers: Optional[Params] = None):
+        was_training = discriminator.training
+        discriminator.train(train)
+        try:
+            return functional_call(discriminator,
+                                   {**params, **(buffers or {})}, (x,))
+        finally:
+            discriminator.train(was_training)
 
     return forward
 
@@ -81,6 +106,13 @@ def make_discriminator_forward(config: Dict[str, Any], discriminator
 def _cast(tensors: Params, src: torch.dtype, dst: torch.dtype) -> Params:
     """The tensors of dtype ``src`` among ``tensors`` cast to ``dst``."""
     return {k: v.to(dst) if v.dtype == src else v for k, v in tensors.items()}
+
+
+def _tree_map(fn: Callable[[torch.Tensor], torch.Tensor], outputs):
+    """``fn`` over a discriminator's outputs (a tensor or nested lists)."""
+    if isinstance(outputs, (list, tuple)):
+        return [_tree_map(fn, o) for o in outputs]
+    return fn(outputs)
 
 
 def build_steps(config: Dict[str, Any], generator, discriminator,
@@ -98,13 +130,18 @@ def build_steps(config: Dict[str, Any], generator, discriminator,
     dis_forward_raw = make_discriminator_forward(config, discriminator)
     lambda_aux = config.get("lambda_aux", 1.0)
     lambda_adv = config.get("lambda_adv", 4.0)
+    lambda_fm = config.get("lambda_feat_match", 2.0)
+    dis_type = config.get("discriminator_type", "ParallelWaveGANDiscriminator")
     # one pass over concat([real, fake]) instead of two: every module of the
-    # discriminator is pointwise in the batch, so the split outputs are the
-    # same numbers (held by a test)
-    fuse_rf = bool(config.get("fuse_real_fake_discriminator", True))
+    # discriminators is pointwise in the batch, so the split outputs are the
+    # same numbers (held by a test). Off by default for the multi-scale
+    # multi-period discriminator, as in the JAX step; there the spectral
+    # norm's power iteration advances twice a step, fused only once.
+    fuse_rf = bool(config.get(
+        "fuse_real_fake_discriminator",
+        "HiFiGANMultiScaleMultiPeriod" not in dis_type))
     recompute = config.get("update_prediction_after_generator_update", True)
-    if float(config.get("generator_ema_decay", 0.0) or 0.0) > 0.0:
-        raise NotImplementedError("generator_ema_decay is not ported yet")
+    ema_decay = float(config.get("generator_ema_decay", 0.0) or 0.0)
 
     f32, bf16 = torch.float32, torch.bfloat16
     if config.get("mixed_precision", False):
@@ -112,9 +149,16 @@ def build_steps(config: Dict[str, Any], generator, discriminator,
             return gen_forward_raw(_cast(params, f32, bf16),
                                    _cast(batch, f32, bf16)).to(f32)
 
-        def dis_forward(params: Params, x: torch.Tensor):
-            return dis_forward_raw(_cast(params, f32, bf16),
-                                   x.to(bf16)).to(f32)
+        def dis_forward(params: Params, x: torch.Tensor, train: bool):
+            buffers = dict(discriminator.named_buffers())
+            half = _cast(buffers, f32, bf16)
+            outs = dis_forward_raw(_cast(params, f32, bf16), x.to(bf16),
+                                   train, half)
+            if train:  # the carried power-iteration state back to f32
+                with torch.no_grad():
+                    for key, value in buffers.items():
+                        value.copy_(half[key])
+            return _tree_map(lambda t: t.to(f32), outs)
     else:
         gen_forward, dis_forward = gen_forward_raw, dis_forward_raw
 
@@ -129,25 +173,48 @@ def build_steps(config: Dict[str, Any], generator, discriminator,
             metrics["spectral_convergence_loss"] = sc_loss
             metrics["log_stft_magnitude_loss"] = mag_loss
             gen_loss = gen_loss + sc_loss + mag_loss
+        if "mel" in criterion:
+            mel_loss = criterion["mel"](y_[..., 0], y[..., 0])
+            metrics["mel_loss"] = mel_loss
+            gen_loss = gen_loss + mel_loss
         gen_loss = gen_loss * lambda_aux
         if use_adv:
-            # no gradient is taken with respect to the discriminator here
-            p_ = dis_forward({k: v.detach() for k, v in params_d.items()}, y_)
+            # the discriminator in eval mode, and no gradient with respect
+            # to its parameters
+            fixed_d = {k: v.detach() for k, v in params_d.items()}
+            feat_match = criterion.get("feat_match")
+            p = None
+            if fuse_rf and feat_match is not None:
+                nb = y_.shape[0]
+                p_all = dis_forward(fixed_d, torch.cat([y_, y], dim=0), False)
+                p_ = _tree_map(lambda t: t[:nb], p_all)
+                p = _tree_map(lambda t: t[nb:], p_all)
+            else:
+                p_ = dis_forward(fixed_d, y_, False)
             adv_loss = criterion["gen_adv"](p_)
             metrics["adversarial_loss"] = adv_loss
+            if feat_match is not None:
+                if p is None:
+                    with torch.no_grad():  # the real features are constants
+                        p = dis_forward(fixed_d, y, False)
+                fm_loss = feat_match(p_, p)
+                metrics["feature_matching_loss"] = fm_loss
+                adv_loss = adv_loss + lambda_fm * fm_loss
             gen_loss = gen_loss + lambda_adv * adv_loss
         metrics["generator_loss"] = gen_loss
         return gen_loss, metrics, y_
 
-    def dis_losses(params_d: Params, y: torch.Tensor, y_hat: torch.Tensor):
+    def dis_losses(params_d: Params, y: torch.Tensor, y_hat: torch.Tensor,
+                   train: bool):
         y_hat = y_hat.detach()
         if fuse_rf:
             nb = y.shape[0]
-            p_all = dis_forward(params_d, torch.cat([y, y_hat], dim=0))
-            p, p_ = p_all[:nb], p_all[nb:]
+            p_all = dis_forward(params_d, torch.cat([y, y_hat], dim=0), train)
+            p = _tree_map(lambda t: t[:nb], p_all)
+            p_ = _tree_map(lambda t: t[nb:], p_all)
         else:
-            p = dis_forward(params_d, y)
-            p_ = dis_forward(params_d, y_hat)
+            p = dis_forward(params_d, y, train)
+            p_ = dis_forward(params_d, y_hat, train)
         real_loss, fake_loss = criterion["dis_adv"](p_, p)
         dis_loss = real_loss + fake_loss
         metrics = {"real_loss": real_loss, "fake_loss": fake_loss,
@@ -180,13 +247,19 @@ def build_steps(config: Dict[str, Any], generator, discriminator,
                 metrics.update(_detached(m))
                 del gen_loss, m
                 opt_g.step(params_g, grads)
+                if ema_decay > 0.0 and state.ema_g is not None:
+                    with torch.no_grad():
+                        ema = [state.ema_g[k] for k in params_g]
+                        torch._foreach_mul_(ema, ema_decay)
+                        torch._foreach_add_(ema, list(params_g.values()),
+                                            alpha=1.0 - ema_decay)
             if train_d:
                 if recompute or y_hat is None:
                     # a second forward with the updated generator; nothing
                     # is saved for a backward
                     with torch.no_grad():
                         y_hat = gen_forward(params_g, batch)
-                dis_loss, m = dis_losses(params_d, batch["y"], y_hat)
+                dis_loss, m = dis_losses(params_d, batch["y"], y_hat, True)
                 grads_d = _grads(dis_loss, params_d)
                 metrics.update(_detached(m))
                 opt_d.step(params_d, grads_d)
@@ -201,7 +274,8 @@ def build_steps(config: Dict[str, Any], generator, discriminator,
         _, metrics, y_hat = gen_losses(state.params_g, state.params_d, batch,
                                        use_adv)
         if use_adv:
-            metrics.update(dis_losses(state.params_d, batch["y"], y_hat)[1])
+            metrics.update(
+                dis_losses(state.params_d, batch["y"], y_hat, False)[1])
         return metrics
 
     return train_step_factory, eval_step

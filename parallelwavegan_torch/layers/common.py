@@ -1,24 +1,33 @@
-"""Core modules: the channels-last Conv1d and ConvTranspose1d,
+"""Core modules: the channels-last Conv1d, ConvTranspose1d and Conv2d,
 initializers, activations.
 
 Counterpart of ``parallelwavegan_tpu/layers/common.py``. Kernels keep the
 JAX package's (K..., Cin, Cout) layout. Initializers draw from an explicit
 ``torch.Generator`` and follow the JAX package's distributions: PWG convs
 kaiming-normal (relu) with zero bias, the upsample smoothing conv a mean
-filter, HiFi-GAN convs N(0, 0.01) with torch's uniform bias. A conv holds either the *folded* kernel (weight norm already
+filter, HiFi-GAN generator convs N(0, 0.01) with torch's uniform bias, the
+HiFi-GAN discriminators torch's default U(+-1/sqrt(fan_in)) for both. A
+conv holds either the *folded* kernel (weight norm already
 applied, see ``utils/params.py``; the serving form) or, with
 ``use_weight_norm``, the parameters ``kernel_v`` and ``kernel_g`` that the
 JAX package trains (``parallelwavegan_tpu/layers/common.py:129-147``): the
 kernel is then folded in every forward, so gradients reach v and g. At
 initialisation weight norm sets g = ||v||, so either form starts from the
 initializer's sample.
+
+``use_spectral_norm`` divides the kernel by its largest singular value,
+estimated by one power iteration a forward from the buffer ``u`` (flax:
+the ``spectral`` collection), written by hand as the JAX package does it
+(``layers/common.py:154-172``): ``u`` advances only in training mode and the
+kernel is divided by a *constant* sigma (no gradient flows through sigma,
+unlike ``torch.nn.utils.spectral_norm``).
 """
 
 from __future__ import annotations
 
 import math
 from functools import partial
-from typing import Callable, Optional, Sequence
+from typing import Callable, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -33,6 +42,12 @@ Initializer = Callable[..., torch.Tensor]
 
 def _fan_in(shape: Sequence[int]) -> int:
     return math.prod(shape[:-1])
+
+
+def torch_conv_default_init(shape, generator=None, dtype=torch.float32):
+    """torch's default conv kernel init: U(+-1/sqrt(fan_in))."""
+    bound = 1.0 / math.sqrt(_fan_in(shape))
+    return (torch.rand(shape, generator=generator, dtype=dtype) * 2 - 1) * bound
 
 
 def kaiming_normal_relu_init(shape, generator=None, dtype=torch.float32):
@@ -69,6 +84,23 @@ def uniform_bias_init_for(kernel_shape: Sequence[int]) -> Initializer:
     return init
 
 
+def spectral_normalize(kernel: torch.Tensor, u: torch.Tensor,
+                       update: bool) -> torch.Tensor:
+    """kernel / sigma with sigma from one power iteration started at ``u``
+    (O,), in the kernel's dtype; ``update`` stores the new u in place.
+    sigma and u carry no gradient."""
+    with torch.no_grad():
+        w = kernel.reshape(-1, kernel.shape[-1]).t()  # (O, N)
+        v = w.t() @ u
+        v = v / torch.clamp(torch.linalg.vector_norm(v), min=1e-12)
+        u_new = w @ v
+        u_new = u_new / torch.clamp(torch.linalg.vector_norm(u_new), min=1e-12)
+        sigma = u_new @ (w @ v)
+        if update:
+            u.copy_(u_new)
+    return kernel / sigma
+
+
 def get_activation(name: Optional[str], params: Optional[dict] = None):
     """Map a torch.nn activation class name (as configs spell it) to a
     function; the slice covers None, ReLU and LeakyReLU."""
@@ -88,12 +120,21 @@ class WeightNormedConv(nn.Module):
     ``kernel_v`` and ``kernel_g``. g has size 1 on ``wn_axes``, the axes
     the norm is taken over: by default every axis but the last (g of shape
     (1, ..., 1, Cout), per output channel); a transposed conv passes (0, 2)
-    (g of shape (1, Cin, 1), per input channel)."""
+    (g of shape (1, Cin, 1), per input channel). With
+    ``use_spectral_norm`` the kernel is one parameter and the buffer ``u``
+    (Cout,) starts at N(0, 1) / sqrt(Cout)."""
 
     def init_kernel(self, shape, kernel_init: Initializer,
                     use_weight_norm: bool, generator,
-                    wn_axes: Optional[Sequence[int]] = None) -> None:
+                    wn_axes: Optional[Sequence[int]] = None,
+                    use_spectral_norm: bool = False) -> None:
+        if use_weight_norm and use_spectral_norm:
+            raise ValueError("Either use use_weight_norm or use_spectral_norm.")
         kernel = kernel_init(shape, generator)
+        if use_spectral_norm:
+            self.register_buffer(
+                "u", torch.randn((shape[-1],), generator=generator)
+                / math.sqrt(shape[-1]))
         if use_weight_norm:
             axes = (tuple(range(kernel.dim() - 1)) if wn_axes is None
                     else tuple(wn_axes))
@@ -105,16 +146,20 @@ class WeightNormedConv(nn.Module):
             self.kernel = nn.Parameter(kernel)
 
     def folded_kernel(self) -> torch.Tensor:
-        """The kernel the conv applies, differentiable in v and g."""
-        if "kernel" in self._parameters:
-            return self.kernel
-        return fold_weight_norm(self.kernel_v, self.kernel_g)
+        """The kernel the conv applies, differentiable in v and g (or in
+        the spectral-normed kernel); in training mode a spectral-normed
+        conv advances ``u``."""
+        if "kernel" not in self._parameters:
+            return fold_weight_norm(self.kernel_v, self.kernel_g)
+        if "u" in self._buffers:
+            return spectral_normalize(self.kernel, self.u, self.training)
+        return self.kernel
 
 
 class Conv1d(WeightNormedConv):
     """Conv1d on (B, T, Cin) -> (B, T', Cout) with zero padding. The
-    default inits are PWG's (the JAX module's default, torch's uniform
-    init, has no caller in the port)."""
+    default inits are PWG's; ``bias_init=None`` is torch's uniform bias
+    for the kernel's fan-in (the JAX module's default)."""
 
     def __init__(
         self,
@@ -125,23 +170,66 @@ class Conv1d(WeightNormedConv):
         bias: bool = True,
         padding: PadLike = 0,
         kernel_init: Initializer = kaiming_normal_relu_init,
-        bias_init: Initializer = zeros_init,
+        bias_init: Optional[Initializer] = zeros_init,
         use_weight_norm: bool = False,
+        stride: int = 1,
+        groups: int = 1,
+        use_spectral_norm: bool = False,
         *,
         generator: Optional[torch.Generator] = None,
     ):
         super().__init__()
         self.dilation, self.padding = dilation, padding
-        self.init_kernel((kernel_size, in_channels, features), kernel_init,
-                         use_weight_norm, generator)
+        self.stride, self.groups = stride, groups
+        shape = (kernel_size, in_channels // groups, features)
+        self.init_kernel(shape, kernel_init, use_weight_norm, generator,
+                         use_spectral_norm=use_spectral_norm)
         if bias:
-            self.bias = nn.Parameter(bias_init((features,), generator))
+            init = bias_init or uniform_bias_init_for(shape)
+            self.bias = nn.Parameter(init((features,), generator))
         else:
             self.register_parameter("bias", None)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return conv_ops.conv1d(x, self.folded_kernel(), self.bias,
-                               self.padding, self.dilation)
+                               self.padding, self.dilation, self.stride,
+                               self.groups)
+
+
+class Conv2d(WeightNormedConv):
+    """Conv2d on (B, H, W, Cin) -> (B, H', W', Cout), kernel
+    (KH, KW, Cin, Cout), zero padding (rows, columns) on both sides; the
+    default inits are torch's uniform ones, as the JAX module's."""
+
+    def __init__(
+        self,
+        in_channels: int,
+        features: int,
+        kernel_size: Tuple[int, int] = (1, 1),
+        stride: Tuple[int, int] = (1, 1),
+        padding: Tuple[int, int] = (0, 0),
+        bias: bool = True,
+        kernel_init: Initializer = torch_conv_default_init,
+        bias_init: Optional[Initializer] = None,
+        use_weight_norm: bool = False,
+        use_spectral_norm: bool = False,
+        *,
+        generator: Optional[torch.Generator] = None,
+    ):
+        super().__init__()
+        self.stride, self.padding = tuple(stride), tuple(padding)
+        shape = (*kernel_size, in_channels, features)
+        self.init_kernel(shape, kernel_init, use_weight_norm, generator,
+                         use_spectral_norm=use_spectral_norm)
+        if bias:
+            init = bias_init or uniform_bias_init_for(shape)
+            self.bias = nn.Parameter(init((features,), generator))
+        else:
+            self.register_parameter("bias", None)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return conv_ops.conv2d(x, self.folded_kernel(), self.bias,
+                               self.stride, self.padding)
 
 
 class ConvTranspose1d(WeightNormedConv):

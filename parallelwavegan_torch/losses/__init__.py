@@ -1,8 +1,14 @@
-"""Training losses (the Parallel WaveGAN set so far)."""
+"""Training losses (the Parallel WaveGAN and HiFi-GAN sets)."""
 
 from parallelwavegan_torch.losses.adversarial import (  # noqa: F401
     DiscriminatorAdversarialLoss,
     GeneratorAdversarialLoss,
+)
+from parallelwavegan_torch.losses.feat_match import (  # noqa: F401
+    FeatureMatchLoss,
+)
+from parallelwavegan_torch.losses.mel_loss import (  # noqa: F401
+    MelSpectrogramLoss,
 )
 from parallelwavegan_torch.losses.stft_loss import (  # noqa: F401
     MultiResolutionSTFTLoss,

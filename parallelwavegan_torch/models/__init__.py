@@ -1,6 +1,13 @@
-"""Model families and the config-name registry (Parallel WaveGAN, and the HiFi-GAN generator)."""
+"""Model families and the config-name registry (Parallel WaveGAN, HiFi-GAN)."""
 
-from parallelwavegan_torch.models.hifigan import HiFiGANGenerator  # noqa: F401
+from parallelwavegan_torch.models.hifigan import (  # noqa: F401
+    HiFiGANGenerator,
+    HiFiGANMultiPeriodDiscriminator,
+    HiFiGANMultiScaleDiscriminator,
+    HiFiGANMultiScaleMultiPeriodDiscriminator,
+    HiFiGANPeriodDiscriminator,
+    HiFiGANScaleDiscriminator,
+)
 from parallelwavegan_torch.models.parallel_wavegan import (  # noqa: F401
     ParallelWaveGANDiscriminator,
     ParallelWaveGANGenerator,
@@ -8,6 +15,12 @@ from parallelwavegan_torch.models.parallel_wavegan import (  # noqa: F401
 
 _REGISTRY = {
     "HiFiGANGenerator": HiFiGANGenerator,
+    "HiFiGANPeriodDiscriminator": HiFiGANPeriodDiscriminator,
+    "HiFiGANMultiPeriodDiscriminator": HiFiGANMultiPeriodDiscriminator,
+    "HiFiGANScaleDiscriminator": HiFiGANScaleDiscriminator,
+    "HiFiGANMultiScaleDiscriminator": HiFiGANMultiScaleDiscriminator,
+    "HiFiGANMultiScaleMultiPeriodDiscriminator":
+        HiFiGANMultiScaleMultiPeriodDiscriminator,
     "ParallelWaveGANGenerator": ParallelWaveGANGenerator,
     "ParallelWaveGANDiscriminator": ParallelWaveGANDiscriminator,
 }

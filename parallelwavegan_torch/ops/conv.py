@@ -1,10 +1,12 @@
-"""1-D convolution primitives, channels-last (B, T, C), torch-style math.
+"""Convolution and pooling primitives, channels-last, torch-style math.
 
-Counterpart of ``parallelwavegan_tpu/ops/conv.py``. The kernel layout is the
-JAX package's (K, Cin, Cout), so converted parameters load unchanged; the
-calls map it onto ``torch.nn.functional``'s (B, C, T) layout. The polyphase
-form of the transposed conv is not ported: no layer of the JAX package
-uses it.
+Counterpart of ``parallelwavegan_tpu/ops/conv.py``, of the 2-d conv inside
+the JAX package's ``layers/common.Conv2d`` and of ``avg_pool1d`` in its
+``models/melgan.py``. The kernel layouts are the JAX package's,
+(K, Cin / groups, Cout) and (KH, KW, Cin, Cout), so converted
+parameters load unchanged; the calls map them onto
+``torch.nn.functional``'s channels-first layouts. The polyphase form of the
+transposed conv is not ported: no layer of the JAX package uses it.
 """
 
 from __future__ import annotations
@@ -17,11 +19,16 @@ import torch.nn.functional as F
 PadLike = Union[int, Tuple[int, int]]
 
 
-def pad1d(x: torch.Tensor, pad: Tuple[int, int]) -> torch.Tensor:
-    """Zero padding of the time axis of (B, T, C)."""
+def pad1d(x: torch.Tensor, pad: Tuple[int, int], mode: str = "zeros"
+          ) -> torch.Tensor:
+    """Pad the time axis of (B, T, C) with zeros or by reflection."""
     if tuple(pad) == (0, 0):
         return x
-    return F.pad(x, (0, 0, pad[0], pad[1]))
+    if mode == "zeros":
+        return F.pad(x, (0, 0, pad[0], pad[1]))
+    if mode == "reflect":
+        return F.pad(x.transpose(1, 2), tuple(pad), mode=mode).transpose(1, 2)
+    raise ValueError(f"unsupported pad mode: {mode}")
 
 
 def conv1d(
@@ -30,15 +37,40 @@ def conv1d(
     bias: Optional[torch.Tensor] = None,
     padding: PadLike = 0,
     dilation: int = 1,
+    stride: int = 1,
+    groups: int = 1,
 ) -> torch.Tensor:
-    """x (B, T, Cin) * kernel (K, Cin, Cout) -> (B, T', Cout), stride 1,
+    """x (B, T, Cin) * kernel (K, Cin / groups, Cout) -> (B, T', Cout),
     zero padding of ``padding`` frames (an int, or (left, right))."""
     lo, hi = (padding, padding) if isinstance(padding, int) else padding
     if lo != hi:
         x = pad1d(x, (lo, hi))
         lo = 0
     y = F.conv1d(x.transpose(1, 2), kernel.permute(2, 1, 0), bias,
-                 padding=lo, dilation=dilation)
+                 stride=stride, padding=lo, dilation=dilation, groups=groups)
+    return y.transpose(1, 2)
+
+
+def conv2d(
+    x: torch.Tensor,
+    kernel: torch.Tensor,
+    bias: Optional[torch.Tensor] = None,
+    stride: Tuple[int, int] = (1, 1),
+    padding: Tuple[int, int] = (0, 0),
+) -> torch.Tensor:
+    """x (B, H, W, Cin) * kernel (KH, KW, Cin, Cout) -> (B, H', W', Cout),
+    zero padding of ``padding`` = (rows, columns) on both sides."""
+    y = F.conv2d(x.permute(0, 3, 1, 2), kernel.permute(3, 2, 0, 1), bias,
+                 stride=tuple(stride), padding=tuple(padding))
+    return y.permute(0, 2, 3, 1)
+
+
+def avg_pool1d(x: torch.Tensor, kernel_size: int = 4, stride: int = 2,
+               padding: int = 1, count_include_pad: bool = False
+               ) -> torch.Tensor:
+    """torch.nn.AvgPool1d on (B, T, C)."""
+    y = F.avg_pool1d(x.transpose(1, 2), kernel_size, stride, padding,
+                     count_include_pad=count_include_pad)
     return y.transpose(1, 2)
 
 

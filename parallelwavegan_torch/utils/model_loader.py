@@ -2,7 +2,8 @@
 
 Counterpart of ``parallelwavegan_tpu/utils/model_loader.py`` for the two
 ported families, Parallel WaveGAN and HiFi-GAN: read the config, build the
-generator, load ``.gckpt`` weights with weight norm folded, cast to the
+generator, load its weights (a ``.gckpt``, or the parameters or the EMA
+stream of a train-state ``.ckpt``) with weight norm folded, cast to the
 compute dtype, register mean/scale stats, and synthesize a list of mels as
 one bucketed batch. On CUDA a Parallel WaveGAN generator runs through
 ``pwg_fused_forward`` (the WaveNet stack kernel), on the CPU through its
@@ -284,26 +285,47 @@ def load_model(
     dtype: Optional[torch.dtype] = None,
     pcm16: bool = False,
     device: Any = "cuda",
+    use_ema: bool = False,
 ) -> InferenceModel:
-    """Load an InferenceModel from a generator-only ``.gckpt``.
+    """Load an InferenceModel from a generator-only ``.gckpt`` or from a
+    train-state ``.ckpt`` of either package.
 
-    The config defaults to ``config.yml`` beside the checkpoint. Full
-    train-state ``.ckpt`` and reference ``.pkl`` files are not ported yet.
+    The config defaults to ``config.yml`` beside the checkpoint.
+    ``use_ema`` serves the EMA generator weights of a ``.ckpt`` trained
+    with ``generator_ema_decay`` (a ``.gckpt`` holds exactly the parameters
+    chosen at its export). Reference ``.pkl`` files are not ported yet.
     """
     from parallelwavegan_torch.engine.checkpoint import (
         load_generator_checkpoint,
     )
 
-    if not checkpoint.endswith(".gckpt"):
+    if checkpoint.endswith(".pkl"):
         raise NotImplementedError(
-            f"only .gckpt checkpoints are ported so far: {checkpoint}"
-        )
+            f".pkl checkpoints are not ported yet: {checkpoint}")
     if config is None:
         config = load_config(
             os.path.join(os.path.dirname(checkpoint), "config.yml")
         )
-    model = InferenceModel(config, load_generator_checkpoint(checkpoint),
-                           dtype=dtype, pcm16=pcm16, device=device)
+    tree = load_generator_checkpoint(checkpoint)
+    if checkpoint.endswith(".gckpt"):
+        if use_ema:
+            raise ValueError(
+                "use_ema applies to full train-state .ckpt files only (a "
+                ".gckpt already holds exactly the params chosen at export)")
+        variables = tree
+    else:
+        params = tree["params_g"]
+        if use_ema:
+            if float(config.get("generator_ema_decay", 0.0) or 0.0) <= 0.0:
+                raise ValueError(
+                    "use_ema=True but the checkpoint's config has no "
+                    "generator_ema_decay: this run kept no EMA stream")
+            # a file from before the run kept one: the stream starts at the
+            # parameters (the rule engine.checkpoint applies on resume)
+            params = tree.get("ema_g") or params
+        variables = {"params": params}
+    model = InferenceModel(config, variables, dtype=dtype, pcm16=pcm16,
+                           device=device)
     if stats is not None:
         model.register_stats(stats)
     return model

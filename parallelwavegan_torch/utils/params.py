@@ -9,12 +9,17 @@ call it in their forward. ``convert_jax_params`` turns a flax parameter tree
 into a ``state_dict`` for the port's modules, whose parameter names are the
 tree's paths: folded (``...kernel``, the serving form) or, with
 ``fold=False``, as it is (``...kernel_v`` / ``...kernel_g``, the training
-form). ``folded_state_dict`` makes the serving form from a trainable module.
+form). Kernels of any rank fold alike (a ``Conv2d``'s (KH, KW, Cin, Cout)
+with ``kernel_g`` (1, 1, 1, Cout)). A discriminator's flax ``spectral``
+collection (the power-iteration vectors ``u``) has the parameters' paths,
+so it converts with them into the modules' ``u`` buffers, and
+``nested_buffers`` turns those back into the collection.
+``folded_state_dict`` makes the serving form from a trainable module.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, Mapping, Optional, Union
 
 import numpy as np
 import torch
@@ -38,7 +43,8 @@ def fold_weight_norm(v: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     return v * (g / torch.clamp(norm, min=1e-12))
 
 
-def convert_jax_params(tree: Mapping[str, Any], fold: bool = True
+def convert_jax_params(tree: Mapping[str, Any], fold: bool = True,
+                       spectral: Optional[Mapping[str, Any]] = None
                        ) -> Dict[str, torch.Tensor]:
     """Flax params tree (nested dicts of arrays, f32 or bf16, with
     kernel_v/kernel_g or kernel) -> float32 state_dict.
@@ -50,7 +56,9 @@ def convert_jax_params(tree: Mapping[str, Any], fold: bool = True
     {"first_conv": {"kernel_v": ...}} -> {"first_conv.kernel": ...},
     which a folded module strict-loads. With
     ``fold=False`` the names stay (``first_conv.kernel_v``), which a
-    trainable module strict-loads.
+    trainable module strict-loads. ``spectral`` is the flax collection of
+    that name (``extra_d["spectral"]``): its ``u`` leaves join the result
+    under the same paths, where the spectral-normed convs keep their buffers.
     """
     out: Dict[str, torch.Tensor] = {}
 
@@ -69,6 +77,9 @@ def convert_jax_params(tree: Mapping[str, Any], fold: bool = True
                 out[prefix + key] = as_tensor(sub).float()
 
     walk(tree, "")
+    if spectral:
+        fold = False
+        walk(spectral, "")
     return out
 
 
@@ -86,11 +97,21 @@ def nested(flat: Mapping[str, Any]) -> Dict[str, Any]:
     return out
 
 
-def folded_state_dict(module: nn.Module) -> Dict[str, torch.Tensor]:
-    """A module's state_dict with every kernel_v/kernel_g pair folded into
-    ``kernel``: what the same module built in its folded form strict-loads.
-    A folded module's state_dict comes back as it is."""
-    state = module.state_dict()
+def nested_buffers(module: nn.Module) -> Dict[str, Any]:
+    """A module's buffers as a flax-style extra-collections dict:
+    {"spectral": tree of u} for a spectral-normed discriminator, {} for a
+    module without buffers (what flax keeps beside ``params``)."""
+    buffers = dict(module.named_buffers())
+    return {"spectral": nested(buffers)} if buffers else {}
+
+
+def folded_state_dict(module: Union[nn.Module, Mapping[str, torch.Tensor]]
+                      ) -> Dict[str, torch.Tensor]:
+    """A module's state_dict (or any flat dict of its parameters) with every
+    kernel_v/kernel_g pair folded into ``kernel``: what the same module built
+    in its folded form strict-loads. A folded module's state_dict comes back
+    as it is."""
+    state = module.state_dict() if isinstance(module, nn.Module) else module
     out: Dict[str, torch.Tensor] = {}
     for key, value in state.items():
         if key.endswith("kernel_g"):

@@ -37,6 +37,11 @@ from parallelwavegan_torch.ops.cuda.wavenet_stack import (
     wavenet_stack,
     wavenet_stack_reference,
 )
+from parallelwavegan_torch.ops.cuda.wavenet_variant import (
+    quantize_taps,
+    variant_stack,
+    variant_stack_reference,
+)
 from parallelwavegan_torch.ops.cuda.wavenet_stack_train import (
     wavenet_stack_backward,
     wavenet_stack_train,
@@ -427,3 +432,80 @@ def test_hifigan_inference_model_on_card(tmp_path, cuda_device):
                       torch.float32)
     c = torch.from_numpy(np.stack([mels[0]])).to(cuda_device)
     assert hifigan_fast_forward(model.generator, c).shape == (1, 320, 1)
+
+
+def _variant_inputs(rng, B, T, L, dev):
+    """Float32 weights at the experiment's scales, bf16 x and c."""
+    def t(*shape, scale):
+        a = rng.standard_normal(shape).astype(np.float32) * scale
+        return torch.from_numpy(a).to(dev)
+
+    w = {"w_tap": t(L, 192, 128, scale=0.08), "b_tap": t(L, 128, scale=0.01),
+         "w_aux": t(L, 80, 128, scale=0.08), "w_so": t(L, 64, 128, scale=0.08),
+         "b_so": t(L, 128, scale=0.01)}
+    return (w, t(B, T, 64, scale=0.3).to(torch.bfloat16),
+            t(B, T, 80, scale=0.5).to(torch.bfloat16))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("gate,int8_taps", [("tanh", False), ("mul", False),
+                                            ("tanh", True), ("mul", True)],
+                         ids=["bf16_tanh", "bf16_mul", "int8_taps",
+                              "int8_mul"])
+@pytest.mark.parametrize("B,T,dils", [
+    (2, 1000, (1, 2, 4)), (3, 333, (1, 8, 64)), (1, 7, (1, 2)),
+    (1, 130, (512, 1)), (2, 2117, tuple(2 ** i for i in range(10)))],
+    ids=["even", "ragged", "below_a_tile", "d_past_T", "one_cycle"])
+def test_variant_kernel_matches_plain(cuda_device, gate, int8_taps, B, T,
+                                      dils):
+    """The experiment's variant kernel against its plain version: 2e-2
+    (1 + max |plain|) with bf16 taps, as for the serving stack; 2e-3 with
+    int8 taps, whose quantiser is pinned and whose tap sums are exact (what
+    is left is one bf16 step of one g, or one quantisation step of one
+    later input, where f32 sums in another order cross a rounding border).
+    The product gate is held on at most three layers, where it stays
+    finite (ten layers of products overflow; they are only timed)."""
+    if gate == "mul":
+        dils = dils[:3]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(0)
+    w, x, c = _variant_inputs(rng, B, T, len(dils), cuda_device)
+    s_tap = torch.ones((len(dils), 2), device=cuda_device)
+    if int8_taps:
+        x_plain, _ = variant_stack_reference(x, c, w, s_tap, dils)
+        w_q, s_tap = quantize_taps(
+            w["w_tap"], float(x_plain.float().abs().max()) * 1.05)
+        w = dict(w, w_tap_q=w_q)
+    before = variant_stack.launches
+    xo, sk = variant_stack(x, c, w, s_tap, dils, gate=gate,
+                           int8_taps=int8_taps)
+    torch.cuda.synchronize()
+    assert variant_stack.launches == before + len(dils)
+    assert xo.dtype == torch.bfloat16 and sk.dtype == torch.float32
+    xo_p, sk_p = variant_stack_reference(x, c, w, s_tap, dils, gate=gate,
+                                         int8_taps=int8_taps)
+    tol = 2e-3 if int8_taps else TOL[torch.bfloat16]
+    for a, b in ((xo, xo_p), (sk, sk_p)):
+        a, b = a.float(), b.float()
+        assert torch.isfinite(a).all()
+        err = (a - b).abs().max().item()
+        assert err <= tol * (1 + b.abs().max().item()), err
+
+
+@pytest.mark.cuda
+def test_variant_kernel_rejects_what_it_was_not_built_for(cuda_device):
+    rng = np.random.default_rng(1)
+    w, x, c = _variant_inputs(rng, 1, 64, 2, cuda_device)
+    s_tap = torch.ones((2, 2), device=cuda_device)
+    with pytest.raises(TypeError, match="bfloat16"):
+        variant_stack(x.float(), c, w, s_tap, (1, 2))
+    with pytest.raises(NotImplementedError, match="channels"):
+        variant_stack(x[..., :32].contiguous(), c,
+                      dict(w, w_tap=w["w_tap"][:, :96].contiguous()), s_tap,
+                      (1, 2))
+    with pytest.raises(ValueError, match="contiguous"):
+        variant_stack(x, torch.cat([c, c], -1)[..., :80], w, s_tap, (1, 2))
+    with pytest.raises(ValueError, match="s_tap"):
+        variant_stack(x, c, w, s_tap[:1], (1, 2))
+    with pytest.raises(KeyError, match="w_tap_q"):
+        variant_stack(x, c, w, s_tap, (1, 2), int8_taps=True)

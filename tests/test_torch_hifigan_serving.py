@@ -66,6 +66,21 @@ def test_smoke_config_is_the_assets_config():
         assert chip_smoke.HIFIGAN_V1[key] == config[key], key
     assert chip_smoke.HIFIGAN_V1["generator_params"] == \
         config["generator_params"]
+    # the training recipe: every key but the data format (a seeded npy
+    # corpus) says what the file says; the file's other keys are the
+    # corpus, the run's length and intervals (which the script cuts and
+    # names in HIFIGAN_V1_TRAIN_CUT), feature extraction and bookkeeping
+    train = chip_smoke.HIFIGAN_V1_TRAIN
+    for key, value in train.items():
+        if key != "format":
+            assert config[key] == value, key
+    assert train["format"] == "npy"
+    recipe = [k for k in config if k.startswith((
+        "generator_", "discriminator_", "lambda_", "use_", "mel_loss",
+        "feat_match", "batch_", "mixed_", "fuse_"))]
+    assert sorted(set(recipe) - set(train)) == ["use_f0"]
+    assert not set(chip_smoke.HIFIGAN_V1_TRAIN_CUT) & set(train)
+    assert set(chip_smoke.HIFIGAN_V1_TRAIN_CUT) <= set(config)
 
 
 def test_shipped_asset_matches_jax_on_a_40_frame_cut(asset_model):

@@ -1,5 +1,6 @@
-"""The port's Conv1d, upsample networks and residual block against their
-flax modules on the same converted parameters (f32, CPU)."""
+"""The port's Conv1d, Conv2d, conv and pooling primitives, spectral norm,
+upsample networks and residual block against their flax modules on the
+same converted parameters (f32, CPU)."""
 
 import jax
 import jax.numpy as jnp
@@ -9,8 +10,11 @@ import torch
 
 from parallelwavegan_tpu.layers.common import (
     Conv1d as FlaxConv1d,
+    Conv2d as FlaxConv2d,
     kaiming_normal_relu_init as flax_kaiming,
 )
+from parallelwavegan_tpu.models.melgan import avg_pool1d as jax_avg_pool1d
+from parallelwavegan_tpu.ops import conv as jax_conv_ops
 from parallelwavegan_tpu.layers.residual_block import (
     WaveNetResidualBlock as FlaxBlock,
 )
@@ -19,7 +23,13 @@ from parallelwavegan_tpu.layers.upsample import (
     UpsampleNetwork as FlaxUpsample,
 )
 from parallelwavegan_tpu.utils.params import fold_weight_norm as jax_fold
-from parallelwavegan_torch.layers.common import Conv1d, get_activation
+from parallelwavegan_torch.layers.common import (
+    Conv1d,
+    Conv2d,
+    get_activation,
+    torch_conv_default_init,
+)
+from parallelwavegan_torch.ops import conv as conv_ops
 from parallelwavegan_torch.layers.residual_block import WaveNetResidualBlock
 from parallelwavegan_torch.layers.upsample import (
     ConvInUpsampleNetwork,
@@ -147,3 +157,167 @@ def test_get_activation_covers_the_slice():
         [-0.4, 0.5])
     with pytest.raises(NotImplementedError, match="ELU"):
         get_activation("ELU")
+
+
+@pytest.mark.parametrize("stride,groups,kernel_size,padding", [
+    (2, 4, 41, 20), (4, 16, 41, 20), (1, 1, 15, 7), (3, 2, 5, 0)])
+def test_strided_grouped_conv1d_matches_flax(stride, groups, kernel_size,
+                                             padding):
+    """The scale discriminator's convs: weight-normed, strided, grouped."""
+    rng = np.random.default_rng(5)
+    x = rng.standard_normal((2, 131, 16)).astype(np.float32)
+    flax_conv = FlaxConv1d(32, kernel_size, stride=stride, groups=groups,
+                           padding=padding, use_weight_norm=True)
+    v = _perturb(flax_conv.init(jax.random.key(0), jnp.asarray(x)), 6)
+    y_ref = np.asarray(flax_conv.apply(v, jnp.asarray(x)))
+    conv = Conv1d(16, 32, kernel_size, stride=stride, groups=groups,
+                  padding=padding, use_weight_norm=True,
+                  kernel_init=torch_conv_default_init, bias_init=None)
+    assert conv.kernel_v.shape == (kernel_size, 16 // groups, 32)
+    conv.load_state_dict(convert_jax_params(
+        jax.tree.map(np.asarray, v["params"]), fold=False), strict=True)
+    y = conv(torch.from_numpy(x)).detach().numpy()
+    assert y.shape == y_ref.shape
+    np.testing.assert_allclose(y, y_ref, atol=2e-5)
+
+
+@pytest.mark.parametrize("kernel_size,stride,padding,weight_norm", [
+    ((5, 1), (3, 1), (2, 0), True), ((2, 1), (1, 1), (1, 0), True),
+    ((3, 3), (2, 1), (1, 1), False)])
+def test_conv2d_matches_flax(kernel_size, stride, padding, weight_norm):
+    """The period discriminator's (k, 1) convs on (B, T / p, p, C), with a
+    4-d kernel_v and kernel_g of shape (1, 1, 1, Cout); forward and the
+    gradients on every parameter."""
+    rng = np.random.default_rng(7)
+    x = rng.standard_normal((2, 23, 3, 4)).astype(np.float32)
+    flax_conv = FlaxConv2d(6, kernel_size, stride=stride, padding=padding,
+                           use_weight_norm=weight_norm)
+    v = _perturb(flax_conv.init(jax.random.key(0), jnp.asarray(x)), 8)
+    y_ref, g_ref = jax.value_and_grad(
+        lambda v: jnp.sum(flax_conv.apply(v, jnp.asarray(x)) ** 2))(v)
+    conv = Conv2d(4, 6, kernel_size, stride=stride, padding=padding,
+                  use_weight_norm=weight_norm)
+    conv.load_state_dict(convert_jax_params(
+        jax.tree.map(np.asarray, v["params"]), fold=False), strict=True)
+    if weight_norm:
+        assert conv.kernel_g.shape == (1, 1, 1, 6)
+    y = conv(torch.from_numpy(x))
+    np.testing.assert_allclose(
+        y.detach().numpy(), np.asarray(flax_conv.apply(v, jnp.asarray(x))),
+        atol=2e-5)
+    names = [n for n, _ in conv.named_parameters()]
+    grads = torch.autograd.grad((y ** 2).sum(), list(conv.parameters()))
+    want = convert_jax_params(jax.tree.map(np.asarray, g_ref["params"]),
+                              fold=False)
+    for name, grad in zip(names, grads):
+        b = want[name].numpy()
+        assert np.abs(grad.numpy() - b).max() <= 2e-5 * (1 + np.abs(b).max())
+    # the folded form loads the folded tree
+    folded = Conv2d(4, 6, kernel_size, stride=stride, padding=padding)
+    folded.load_state_dict(convert_jax_params(
+        jax.tree.map(np.asarray, v["params"])), strict=True)
+    np.testing.assert_allclose(folded(torch.from_numpy(x)).detach().numpy(),
+                               y.detach().numpy(), atol=1e-5)
+
+
+def test_conv2d_init_is_torchs_uniform():
+    conv = Conv2d(8, 16, (5, 1), generator=torch.Generator().manual_seed(1))
+    bound = 1 / np.sqrt(5 * 8)
+    assert conv.kernel.shape == (5, 1, 8, 16)
+    assert conv.kernel.abs().max() <= bound and conv.bias.abs().max() <= bound
+    assert conv.kernel.abs().max() > 0.9 * bound
+
+
+@pytest.mark.parametrize("kernel_size,stride,padding,include", [
+    (4, 2, 2, True), (4, 2, 1, False), (3, 1, 1, False), (4, 4, 0, True)])
+def test_avg_pool1d_matches_jax(kernel_size, stride, padding, include):
+    rng = np.random.default_rng(9)
+    x = rng.standard_normal((2, 37, 3)).astype(np.float32)
+    want = jax_avg_pool1d(jnp.asarray(x), kernel_size, stride, padding,
+                          include)
+    got = conv_ops.avg_pool1d(torch.from_numpy(x), kernel_size, stride,
+                              padding, include)
+    assert got.shape == want.shape
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-6)
+
+
+@pytest.mark.parametrize("mode", ["zeros", "reflect"])
+def test_pad1d_modes_match_jax(mode):
+    rng = np.random.default_rng(10)
+    x = rng.standard_normal((2, 11, 3)).astype(np.float32)
+    for pad in ((0, 4), (3, 2), (0, 0)):
+        want = jax_conv_ops.pad1d(jnp.asarray(x), pad, mode)
+        got = conv_ops.pad1d(torch.from_numpy(x), pad, mode)
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    with pytest.raises(ValueError, match="pad mode"):
+        conv_ops.pad1d(torch.from_numpy(x), (1, 1), "replicate")
+
+
+@pytest.mark.parametrize("conv_type", ["conv1d", "conv2d"])
+def test_spectral_norm_conv_matches_flax(conv_type):
+    """Forward, the advanced u and the gradient of a spectral-normed conv
+    against flax: one power iteration from the stored u, u stored only in
+    training mode, and the kernel divided by a constant sigma. A spectral
+    norm that differentiates through sigma (torch.nn.utils.spectral_norm)
+    fails the gradient check: it is held to 2e-5 of the largest entry, and
+    the term through sigma is of the gradient's own size."""
+    rng = np.random.default_rng(11)
+    if conv_type == "conv1d":
+        x = rng.standard_normal((2, 50, 6)).astype(np.float32)
+        flax_conv = FlaxConv1d(8, 5, padding=2, use_spectral_norm=True)
+        conv = Conv1d(6, 8, 5, padding=2, use_spectral_norm=True,
+                      kernel_init=torch_conv_default_init, bias_init=None,
+                      generator=torch.Generator().manual_seed(0))
+    else:
+        x = rng.standard_normal((2, 20, 3, 6)).astype(np.float32)
+        flax_conv = FlaxConv2d(8, (5, 1), stride=(3, 1), padding=(2, 0),
+                               use_spectral_norm=True)
+        conv = Conv2d(6, 8, (5, 1), stride=(3, 1), padding=(2, 0),
+                      use_spectral_norm=True,
+                      generator=torch.Generator().manual_seed(0))
+    # the buffer starts at N(0, 1) / sqrt(Cout) from the generator
+    assert conv.u.shape == (8,) and 0.05 < conv.u.std() < 1.0
+    v = flax_conv.init(jax.random.key(0), jnp.asarray(x))
+    v = {"params": _perturb({"params": v["params"]}, 12)["params"],
+         "spectral": {"u": jnp.asarray(
+             rng.standard_normal(8).astype(np.float32))}}
+    conv.load_state_dict(convert_jax_params(
+        jax.tree.map(np.asarray, v["params"]), fold=False,
+        spectral=jax.tree.map(np.asarray, v["spectral"])), strict=True)
+    assert sorted(conv.state_dict()) == ["bias", "kernel", "u"]
+    xt = torch.from_numpy(x)
+
+    # eval mode: u stays
+    y_ref = flax_conv.apply(v, jnp.asarray(x), True)
+    conv.eval()
+    y = conv(xt)
+    np.testing.assert_allclose(y.detach().numpy(), np.asarray(y_ref),
+                               atol=2e-5)
+    np.testing.assert_array_equal(conv.u.numpy(), np.asarray(
+        v["spectral"]["u"]))
+
+    # training mode: two passes, u advances twice; gradient of the second
+    conv.train()
+    for _ in range(2):
+        def loss(params, v=v):
+            out, updated = flax_conv.apply(
+                {"params": params, "spectral": v["spectral"]},
+                jnp.asarray(x), False, mutable=["spectral"])
+            return jnp.sum(out ** 2), (out, updated)
+
+        (_, (y_ref, updated)), g_ref = jax.value_and_grad(
+            loss, has_aux=True)(v["params"])
+        y = conv(xt)
+        grads = torch.autograd.grad((y ** 2).sum(), [conv.kernel, conv.bias])
+        v = {"params": v["params"], "spectral": updated["spectral"]}
+        np.testing.assert_allclose(y.detach().numpy(), np.asarray(y_ref),
+                                   atol=2e-5)
+        np.testing.assert_allclose(conv.u.numpy(),
+                                   np.asarray(v["spectral"]["u"]), atol=1e-6)
+        for grad, name in zip(grads, ("kernel", "bias")):
+            b = np.asarray(g_ref[name])
+            err = np.abs(grad.numpy() - b).max()
+            assert err <= 2e-5 * (1 + np.abs(b).max()), (name, err)
+    assert not conv.u.requires_grad
+    with pytest.raises(ValueError, match="use_weight_norm or"):
+        Conv1d(6, 8, 5, use_weight_norm=True, use_spectral_norm=True)

@@ -1,5 +1,6 @@
-"""The port's STFT, spectral and adversarial losses and the Parallel WaveGAN
-discriminator against the JAX package's, on the same numpy inputs."""
+"""The port's STFT, mel-spectrogram, feature-matching and adversarial losses
+and the Parallel WaveGAN discriminator against the JAX package's, on the
+same numpy inputs."""
 
 import jax
 import jax.numpy as jnp
@@ -9,17 +10,22 @@ import torch
 
 from parallelwavegan_tpu.losses import (
     DiscriminatorAdversarialLoss as JaxDisAdv,
+    FeatureMatchLoss as JaxFeatureMatchLoss,
     GeneratorAdversarialLoss as JaxGenAdv,
+    MelSpectrogramLoss as JaxMelSpectrogramLoss,
     MultiResolutionSTFTLoss as JaxMRSTFT,
     STFTLoss as JaxSTFTLoss,
 )
 from parallelwavegan_tpu.models import (
     ParallelWaveGANDiscriminator as FlaxDiscriminator,
 )
+from parallelwavegan_tpu.ops import mel as jax_mel
 from parallelwavegan_tpu.ops import spectral as jax_spectral
 from parallelwavegan_torch.losses import (
     DiscriminatorAdversarialLoss,
+    FeatureMatchLoss,
     GeneratorAdversarialLoss,
+    MelSpectrogramLoss,
     MultiResolutionSTFTLoss,
     STFTLoss,
 )
@@ -27,7 +33,7 @@ from parallelwavegan_torch.models import (
     ParallelWaveGANDiscriminator,
     get_model_class,
 )
-from parallelwavegan_torch.ops import spectral
+from parallelwavegan_torch.ops import mel, spectral
 from parallelwavegan_torch.utils.params import convert_jax_params
 
 torch.set_num_threads(2)
@@ -196,3 +202,84 @@ def test_discriminator_matches_flax(kwargs):
         convert_jax_params(jax.tree.map(np.asarray, v["params"])), strict=True)
     np.testing.assert_allclose(folded(torch.from_numpy(x)).detach().numpy(),
                                y.detach().numpy(), atol=1e-5)
+
+
+@pytest.mark.parametrize("args", [(22050, 1024, 80, 0.0, 11025.0),
+                                  (16000, 128, 16, 80.0, 7600.0),
+                                  (24000, 2048, 80, 0.0, None)])
+def test_mel_filter_bank_is_the_jax_packages(args):
+    np.testing.assert_array_equal(mel.mel_filter_bank(*args),
+                                  jax_mel.mel_filter_bank(*args))
+
+
+@pytest.mark.parametrize("method", ["fft", "matmul"])
+@pytest.mark.parametrize("clamp,log_base", [(True, None), (False, 10.0),
+                                            (True, 2.0)])
+def test_log_mel_spectrogram_matches_jax(method, clamp, log_base):
+    """Log-mel to 2e-5 absolute (natural log of energies down to the clamp;
+    the f32 FFTs of the two packages differ in the last bits)."""
+    x, _ = _signals(5)
+    kwargs = dict(fft_size=128, hop_size=32, win_length=96, num_mels=16,
+                  fmin=50, fmax=3800, log_base=log_base,
+                  clamp_amplitude=clamp, method=method)
+    want = jax_spectral.log_mel_spectrogram(jnp.asarray(x), 8000, **kwargs)
+    got = spectral.log_mel_spectrogram(torch.from_numpy(x), 8000, **kwargs)
+    assert got.shape == want.shape == (3, 700 // 32 + 1, 16)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-5)
+
+
+def test_mel_loss_and_its_gradient_match_jax():
+    """The loss to 1e-5 relative, its gradient with respect to the
+    generated signal to 1e-4 of the largest entry (an L1 of logs: the
+    gradient divides by the mel energy)."""
+    x, y = _signals(6)
+    kwargs = dict(fs=8000, fft_size=128, hop_size=32, win_length=128,
+                  num_mels=16, fmin=0, fmax=4000, log_base=None)
+    ref_loss, ref_grad = jax.value_and_grad(
+        lambda x: JaxMelSpectrogramLoss(**kwargs)(x, jnp.asarray(y)))(
+            jnp.asarray(x))
+    xt = torch.from_numpy(x).requires_grad_()
+    loss = MelSpectrogramLoss(**kwargs)(xt, torch.from_numpy(y))
+    (grad,) = torch.autograd.grad(loss, xt)
+    np.testing.assert_allclose(loss.item(), float(ref_loss), rtol=1e-5)
+    ref_grad = np.asarray(ref_grad)
+    assert np.abs(grad.numpy() - ref_grad).max() <= 1e-4 * np.abs(
+        ref_grad).max()
+    # (B, C, T) flattens to (B * C, T)
+    m3 = MelSpectrogramLoss(**kwargs).mel(torch.from_numpy(x)[:, None])
+    assert m3.shape == (3, 700 // 32 + 1, 16)
+    with pytest.raises(ValueError, match="one-sided"):
+        MelSpectrogramLoss(normalized=True)
+
+
+@pytest.mark.parametrize("by_layers", [True, False])
+@pytest.mark.parametrize("by_discriminators", [True, False])
+@pytest.mark.parametrize("include_final", [True, False])
+def test_feature_match_loss_matches_jax(by_layers, by_discriminators,
+                                        include_final):
+    rng = np.random.default_rng(7)
+    shapes = [[(2, 40, 4), (2, 20, 8), (2, 20, 1)],
+              [(2, 13, 3, 4), (2, 5, 3, 8), (2, 15)]]
+    fake = [[rng.standard_normal(s).astype(np.float32) for s in d]
+            for d in shapes]
+    real = [[rng.standard_normal(s).astype(np.float32) for s in d]
+            for d in shapes]
+    flags = (by_layers, by_discriminators, include_final)
+    ref, ref_grads = jax.value_and_grad(
+        lambda f, r: JaxFeatureMatchLoss(*flags)(f, r), argnums=(0, 1))(
+            jax.tree.map(jnp.asarray, fake), jax.tree.map(jnp.asarray, real))
+    t_fake = [[torch.from_numpy(a).requires_grad_() for a in d] for d in fake]
+    t_real = [[torch.from_numpy(a).requires_grad_() for a in d] for d in real]
+    loss = FeatureMatchLoss(*flags)(t_fake, t_real)
+    np.testing.assert_allclose(loss.item(), float(ref), rtol=1e-6)
+    loss.backward()
+    # the real features are constants: no gradient reaches them
+    assert all(a.grad is None for d in t_real for a in d)
+    assert all(not np.asarray(g).any() for d in ref_grads[1] for g in d)
+    for d, d_ref in zip(t_fake, ref_grads[0]):
+        for a, g in zip(d, d_ref):
+            if a.grad is None:  # the logits, when they are left out
+                assert not include_final and not np.asarray(g).any()
+            else:
+                np.testing.assert_allclose(a.grad.numpy(), np.asarray(g),
+                                           atol=1e-7)

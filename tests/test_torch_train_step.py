@@ -20,10 +20,6 @@ from parallelwavegan_tpu.engine.build import (
     example_batch as jax_example_batch,
     init_train_state as jax_init_train_state,
 )
-from parallelwavegan_tpu.engine.criterion import (
-    build_criterion as jax_build_criterion,
-)
-from parallelwavegan_tpu.engine.step import build_steps as jax_build_steps
 from parallelwavegan_torch.bin import train as train_cli
 from parallelwavegan_torch.datasets.audio_mel_dataset import AudioMelDataset
 from parallelwavegan_torch.datasets.collater import Collater
@@ -38,7 +34,17 @@ from parallelwavegan_torch.engine.criterion import build_criterion
 from parallelwavegan_torch.engine.step import build_steps
 from parallelwavegan_torch.engine.trainer import Trainer
 from parallelwavegan_torch.utils.model_loader import load_model
-from parallelwavegan_torch.utils.params import convert_jax_params, nested
+from parallelwavegan_torch.utils.params import nested
+from tests.torch_helpers import (
+    as_torch,
+    assert_first_moment,
+    assert_losses,
+    assert_params,
+    assert_tensors,
+    both_train_states,
+    sine_batch,
+    small_hifigan_train_config,
+)
 
 torch.set_num_threads(2)
 
@@ -60,90 +66,6 @@ def _config(**overrides):
     return config
 
 
-def _perturbed(tree, rng):
-    """Weight-norm g starts at ||v|| and the biases at zero: move them."""
-    return jax.tree.map(
-        lambda a: jnp.asarray(np.asarray(a) * (1 + 0.2 * rng.standard_normal(
-            a.shape)) + 0.02 * rng.standard_normal(a.shape), a.dtype), tree)
-
-
-def _both(config, seed=0):
-    """The JAX state and steps, and the port's on the same parameters."""
-    rng = np.random.default_rng(seed)
-    state, gen, dis, opt_g, opt_d = jax_init_train_state(
-        config, jax.random.key(seed))
-    params_g = _perturbed(state.params_g, rng)
-    params_d = _perturbed(state.params_d, rng)
-    state = state.replace(params_g=params_g, opt_g=opt_g.init(params_g),
-                          params_d=params_d, opt_d=opt_d.init(params_d))
-    jax_steps = jax_build_steps(config, gen, dis, jax_build_criterion(config),
-                                opt_g, opt_d)
-    t_state, t_gen, t_dis, t_opt_g, t_opt_d = init_train_state(
-        config, seed, device="cpu")
-    t_gen.load_state_dict(convert_jax_params(
-        jax.tree.map(np.asarray, params_g), fold=False), strict=True)
-    t_dis.load_state_dict(convert_jax_params(
-        jax.tree.map(np.asarray, params_d), fold=False), strict=True)
-    steps = build_steps(config, t_gen, t_dis, build_criterion(config),
-                        t_opt_g, t_opt_d)
-    return state, jax_steps, t_state, steps
-
-
-def _batch(config, seed=1):
-    batch = jax_example_batch(config, batch_size=config["batch_size"])
-    rng = np.random.default_rng(seed)
-    t = np.arange(batch["y"].shape[1]) / config["sampling_rate"]
-    batch["y"] = np.stack([
-        0.3 * np.sin(2 * np.pi * (300 + 200 * i) * t)
-        + 0.02 * rng.standard_normal(t.shape)
-        for i in range(config["batch_size"])
-    ]).astype(np.float32)[..., None]
-    return batch
-
-
-def _as_torch(batch):
-    return {k: torch.from_numpy(np.array(v)) for k, v in batch.items()}
-
-
-def _flat(tree):
-    return {k: v.numpy() for k, v in convert_jax_params(
-        jax.tree.map(np.asarray, tree), fold=False).items()}
-
-
-def _assert_losses(metrics, ref, names, rtol):
-    assert sorted(metrics) == sorted(ref) == sorted(names)
-    for name in names:
-        np.testing.assert_allclose(float(metrics[name]), float(ref[name]),
-                                   rtol=rtol, err_msg=name)
-
-
-def _assert_params(module, tree, atol, what):
-    want = _flat(tree)
-    got = {k: v.detach().numpy() for k, v in module.named_parameters()}
-    assert sorted(got) == sorted(want)
-    for key in want:
-        np.testing.assert_allclose(got[key], want[key], atol=atol,
-                                   err_msg=f"{what} {key}")
-
-
-def _assert_first_moment(opt, jax_opt_state, what):
-    """After the first update mu = (1 - b1) * clipped gradient, so this
-    holds the gradients themselves: each to 1e-3 of its largest entry plus
-    1e-6 of the largest gradient in the network. The gradients of
-    kernel_v are differences of nearly equal terms (the kernel does not
-    change along v), and first_conv's is zero but for rounding; they go
-    through a log and a division by small STFT magnitudes in f32."""
-    got = opt.state_dict()["1"]["0"]["mu"]
-    want = _flat(jax_opt_state[1][0].mu)
-    got = {k: v.numpy() for k, v in convert_jax_params(got, fold=False).items()}
-    assert sorted(got) == sorted(want)
-    largest = max(np.abs(b).max() for b in want.values())
-    assert largest > 0
-    for key, b in want.items():
-        err = np.abs(got[key] - b).max()
-        assert err <= 1e-3 * np.abs(b).max() + 1e-6 * largest, (what, key, err)
-
-
 @pytest.mark.parametrize("flags", [(True, False, False), (True, True, True),
                                    (False, False, True)],
                          ids=["g_only", "g_adv_d", "d_only"])
@@ -153,13 +75,13 @@ def test_train_step_matches_jax(flags):
     parameters to 1e-6 absolute (rates 1e-4 and 5e-5, so this holds the
     update's size, the moments its direction)."""
     config = _config()
-    state, (factory, _), t_state, (t_factory, _) = _both(config)
-    batch = _batch(config)
+    state, (factory, _), t_state, (t_factory, _) = both_train_states(config)
+    batch = sine_batch(config)
     train_g, use_adv, train_d = flags
     new_state, ref = factory(*flags)(
         state, {k: jnp.asarray(v) for k, v in batch.items()},
         jax.random.key(0))
-    out_state, metrics = t_factory(*flags)(t_state, _as_torch(batch))
+    out_state, metrics = t_factory(*flags)(t_state, as_torch(batch))
     names = []
     if train_g:
         names += LOSS_NAMES[:2] + LOSS_NAMES[3:4]
@@ -167,14 +89,14 @@ def test_train_step_matches_jax(flags):
         names += LOSS_NAMES[2:3]
     if train_d:
         names += LOSS_NAMES[4:]
-    _assert_losses(metrics, ref, names, rtol=1e-5)
+    assert_losses(metrics, ref, names, rtol=1e-5)
     assert out_state is t_state and t_state.steps == int(new_state.steps) == 1
-    _assert_params(t_state.generator, new_state.params_g, 1e-6, "G")
-    _assert_params(t_state.discriminator, new_state.params_d, 1e-6, "D")
+    assert_params(t_state.generator, new_state.params_g, 1e-6, "G")
+    assert_params(t_state.discriminator, new_state.params_d, 1e-6, "D")
     if train_g:
-        _assert_first_moment(t_state.opt_g, new_state.opt_g, "G")
+        assert_first_moment(t_state.opt_g, new_state.opt_g, "G")
     if train_d:
-        _assert_first_moment(t_state.opt_d, new_state.opt_d, "D")
+        assert_first_moment(t_state.opt_d, new_state.opt_d, "D")
     assert all(m.dim() == 0 and not m.requires_grad for m in metrics.values())
 
 
@@ -183,24 +105,24 @@ def test_several_steps_and_eval_step_match_jax():
     optimizer state), then eval_step with and without the adversarial
     terms. Losses 1e-4 relative after the updates compound."""
     config = _config()
-    state, (factory, eval_step), t_state, (t_factory, t_eval) = _both(config)
+    state, (factory, eval_step), t_state, (t_factory, t_eval) = both_train_states(config)
     step, t_step = factory(True, True, True), t_factory(True, True, True)
     for i in range(4):
-        batch = _batch(config, seed=10 + i)
+        batch = sine_batch(config, seed=10 + i)
         state, ref = step(state, {k: jnp.asarray(v) for k, v in batch.items()},
                           jax.random.key(0))
-        _, metrics = t_step(t_state, _as_torch(batch))
-        _assert_losses(metrics, ref, LOSS_NAMES, rtol=1e-4)
-    _assert_params(t_state.generator, state.params_g, 2e-6, "G")
-    _assert_params(t_state.discriminator, state.params_d, 2e-6, "D")
-    batch = _batch(config, seed=20)
+        _, metrics = t_step(t_state, as_torch(batch))
+        assert_losses(metrics, ref, LOSS_NAMES, rtol=1e-4)
+    assert_params(t_state.generator, state.params_g, 2e-6, "G")
+    assert_params(t_state.discriminator, state.params_d, 2e-6, "D")
+    batch = sine_batch(config, seed=20)
     jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
     before = copy.deepcopy(t_state.generator.state_dict())
     for use_adv, names in ((True, LOSS_NAMES),
                            (False, LOSS_NAMES[:2] + LOSS_NAMES[3:4])):
         ref = eval_step(state, jbatch, jax.random.key(0), use_adv)
-        metrics = t_eval(t_state, _as_torch(batch), use_adv)
-        _assert_losses(metrics, ref, names, rtol=1e-4)
+        metrics = t_eval(t_state, as_torch(batch), use_adv)
+        assert_losses(metrics, ref, names, rtol=1e-4)
     assert t_state.steps == 4
     for key, value in t_state.generator.state_dict().items():
         assert torch.equal(value, before[key]), key
@@ -214,13 +136,13 @@ def test_step_options_follow_jax(option):
     generator update. Each setting is held to the JAX step."""
     for value in (True, False):
         config = _config(**{option: value})
-        state, (factory, _), t_state, (t_factory, _) = _both(config)
-        batch = _batch(config)
+        state, (factory, _), t_state, (t_factory, _) = both_train_states(config)
+        batch = sine_batch(config)
         _, ref = factory(True, True, True)(
             state, {k: jnp.asarray(v) for k, v in batch.items()},
             jax.random.key(0))
-        _, metrics = t_factory(True, True, True)(t_state, _as_torch(batch))
-        _assert_losses(metrics, ref, LOSS_NAMES, rtol=1e-5)
+        _, metrics = t_factory(True, True, True)(t_state, as_torch(batch))
+        assert_losses(metrics, ref, LOSS_NAMES, rtol=1e-5)
 
 
 def test_mixed_precision_step():
@@ -230,14 +152,14 @@ def test_mixed_precision_step():
     (5e-2 relative: 8 bits of mantissa through 6 layers, and the two
     frameworks round at different places)."""
     config = _config(mixed_precision=True)
-    state, (factory, _), t_state, (t_factory, _) = _both(config)
-    batch = _batch(config)
+    state, (factory, _), t_state, (t_factory, _) = both_train_states(config)
+    batch = sine_batch(config)
     before = {k: v.detach().clone() for k, v in t_state.params_g.items()}
     _, ref = factory(True, True, True)(
         state, {k: jnp.asarray(v) for k, v in batch.items()},
         jax.random.key(0))
-    _, metrics = t_factory(True, True, True)(t_state, _as_torch(batch))
-    _assert_losses(metrics, ref, LOSS_NAMES, rtol=5e-2)
+    _, metrics = t_factory(True, True, True)(t_state, as_torch(batch))
+    assert_losses(metrics, ref, LOSS_NAMES, rtol=5e-2)
     assert all(m.dtype == torch.float32 for m in metrics.values())
     moved = 0
     for key, p in t_state.params_g.items():
@@ -249,19 +171,49 @@ def test_mixed_precision_step():
         assert leaf.dtype in (torch.float32, torch.int32)
 
 
-def test_ckpt_params_exchange_both_ways(tmp_path):
+HIFIGAN_LOSS_NAMES = [
+    "mel_loss", "adversarial_loss", "feature_matching_loss", "generator_loss",
+    "real_loss", "fake_loss", "discriminator_loss",
+]
+
+
+def _assert_extras(t_state, state, atol, what):
+    """The spectral-norm vectors and the EMA stream, where the config has
+    them, against the JAX state's."""
+    if t_state.extra_d:
+        assert_tensors(t_state.extra_d, state.extra_d["spectral"], atol,
+                       f"{what} u")
+    else:
+        assert not state.extra_d
+    if t_state.ema_g is not None:
+        assert_tensors(t_state.ema_g, state.ema_g, atol, f"{what} ema_g")
+    else:
+        assert state.ema_g is None
+
+
+@pytest.mark.parametrize("family", ["pwg", "hifigan"])
+def test_ckpt_params_exchange_both_ways(tmp_path, family):
     """A .ckpt of either package restores into the other: parameters with
     load_params_only (fresh optimizers), and the whole state (optimizer
-    moments and counts) with load_checkpoint, after which both continue
-    on the same trajectory."""
-    config = _config()
-    state, (factory, _), t_state, (t_factory, _) = _both(config)
+    moments and counts, and for HiFi-GAN the spectral-norm vectors u and
+    the EMA stream) with load_checkpoint, after which both continue on the
+    same trajectory. After the steps the parameters agree to 2e-6 for PWG
+    (rates 1e-4 and 5e-5) and to 1e-5 for HiFi-GAN (rate 2e-4: a twentieth
+    of one update, whose gradients pass a log of mel energies near the
+    clamp)."""
+    if family == "pwg":
+        config, names, atol = _config(), LOSS_NAMES, 2e-6
+    else:
+        config, names = small_hifigan_train_config(), HIFIGAN_LOSS_NAMES
+        atol = 1e-5
+    state, (factory, _), t_state, (t_factory, _) = both_train_states(config)
     step, t_step = factory(True, True, True), t_factory(True, True, True)
-    batches = [_batch(config, seed=30 + i) for i in range(4)]
+    batches = [sine_batch(config, seed=30 + i) for i in range(4)]
     for batch in batches[:2]:
         state, _ = step(state, {k: jnp.asarray(v) for k, v in batch.items()},
                         jax.random.key(0))
-        t_step(t_state, _as_torch(batch))
+        t_step(t_state, as_torch(batch))
+    _assert_extras(t_state, state, atol, "after two steps")
 
     # JAX -> port
     jax_path = str(tmp_path / "jax-2steps.ckpt")
@@ -269,12 +221,14 @@ def test_ckpt_params_exchange_both_ways(tmp_path):
     fresh, _, _, _, _ = init_train_state(config, seed=5, device="cpu")
     ckpt.load_params_only(jax_path, fresh)
     assert fresh.steps == 0 and fresh.opt_g.count == 0
-    _assert_params(fresh.generator, state.params_g, 0, "G")
-    _assert_params(fresh.discriminator, state.params_d, 0, "D")
+    assert_params(fresh.generator, state.params_g, 0, "G")
+    assert_params(fresh.discriminator, state.params_d, 0, "D")
+    _assert_extras(fresh, state, 0, "params only")
     resumed, gen, dis, opt_g, opt_d = init_train_state(config, seed=6,
                                                        device="cpu")
     ckpt.load_checkpoint(jax_path, resumed)
     assert resumed.steps == 2 and resumed.opt_g.count == 2
+    _assert_extras(resumed, state, 0, "resumed")
     r_step = build_steps(config, gen, dis, build_criterion(config), opt_g,
                          opt_d)[0](True, True, True)
 
@@ -283,25 +237,29 @@ def test_ckpt_params_exchange_both_ways(tmp_path):
     ckpt.save_checkpoint(port_path, t_state)
     template = jax_init_train_state(config, jax.random.key(7))[0]
     only = jax_ckpt.load_params_only(port_path, template)
-    _assert_params(t_state.generator, only.params_g, 0, "G")
-    _assert_params(t_state.discriminator, only.params_d, 0, "D")
+    assert_params(t_state.generator, only.params_g, 0, "G")
+    assert_params(t_state.discriminator, only.params_d, 0, "D")
+    _assert_extras(t_state, only, 0, "JAX params only")
     assert int(only.steps) == 0
     j_resumed = jax_ckpt.load_checkpoint(port_path, template)
     assert int(j_resumed.steps) == 2
+    _assert_extras(t_state, j_resumed, 0, "JAX resumed")
 
     # every copy takes the same two further steps
     for batch in batches[2:]:
         jb = {k: jnp.asarray(v) for k, v in batch.items()}
         state, ref = step(state, jb, jax.random.key(0))
         j_resumed, ref2 = step(j_resumed, jb, jax.random.key(0))
-        _, m1 = t_step(t_state, _as_torch(batch))
-        _, m2 = r_step(resumed, _as_torch(batch))
-        _assert_losses(m1, ref, LOSS_NAMES, rtol=1e-4)
-        _assert_losses(m2, ref, LOSS_NAMES, rtol=1e-4)
-        _assert_losses(ref2, ref, LOSS_NAMES, rtol=1e-4)
-    _assert_params(resumed.generator, state.params_g, 2e-6, "G")
-    _assert_params(t_state.generator, j_resumed.params_g, 2e-6, "G")
-    _assert_params(resumed.discriminator, j_resumed.params_d, 2e-6, "D")
+        _, m1 = t_step(t_state, as_torch(batch))
+        _, m2 = r_step(resumed, as_torch(batch))
+        assert_losses(m1, ref, names, rtol=1e-4)
+        assert_losses(m2, ref, names, rtol=1e-4)
+        assert_losses(ref2, ref, names, rtol=1e-4)
+    assert_params(resumed.generator, state.params_g, atol, "G")
+    assert_params(t_state.generator, j_resumed.params_g, atol, "G")
+    assert_params(resumed.discriminator, j_resumed.params_d, atol, "D")
+    _assert_extras(resumed, state, atol, "resumed, two more steps")
+    _assert_extras(t_state, j_resumed, atol, "JAX resumed, two more steps")
 
 
 def _write_corpus(root, n_utts, num_mels, hop, seed=0):
@@ -392,7 +350,7 @@ def test_trainer_cli_runs_ten_steps_across_the_warm_up(tmp_path):
     template = jax_init_train_state(config, jax.random.key(0))[0]
     restored = jax_ckpt.load_params_only(
         os.path.join(outdir, "checkpoint-10steps.ckpt"), template)
-    _assert_params(trainer.generator, restored.params_g, 0, "G")
+    assert_params(trainer.generator, restored.params_g, 0, "G")
     # resume continues from the saved step; pretrain starts from 0
     config["train_max_steps"] = 9
     resumed = train_cli.run(config, root, root, str(tmp_path / "exp2"),
@@ -426,7 +384,7 @@ def test_train_state_generator_serves_through_a_gckpt(tmp_path):
     model = load_model(path, config, device="cpu")
     assert all(k.endswith(("kernel", "bias"))
                for k in model.generator.state_dict())
-    batch = _as_torch(example_batch(config, batch_size=1))
+    batch = as_torch(example_batch(config, batch_size=1))
     with torch.no_grad():
         want = state.generator(batch["z"], batch["c"])
         got = model.generator(batch["z"], batch["c"])
@@ -443,25 +401,43 @@ def test_train_state_generator_serves_through_a_gckpt(tmp_path):
 
 def test_build_names_what_is_not_ported():
     config = _config()
-    a, b = example_batch(config), jax_example_batch(config)
-    assert sorted(a) == sorted(b)
-    for key in a:
-        np.testing.assert_array_equal(a[key], b[key])
+    hifigan = small_hifigan_train_config()
+    for cfg in (config, hifigan):
+        a, b = example_batch(cfg), jax_example_batch(cfg)
+        assert sorted(a) == sorted(b)
+        for key in a:
+            np.testing.assert_array_equal(a[key], b[key])
+    assert "z" not in example_batch(hifigan)
     gen, dis = build_models(config, torch.Generator().manual_seed(0))
     assert any(k.endswith("kernel_g") for k in gen.state_dict())
     assert any(k.endswith("kernel_v") for k in dis.state_dict())
-    for key, value in (("generator_type", "HiFiGANGenerator"),
+    gen_h, dis_h = build_models(hifigan, torch.Generator().manual_seed(0))
+    assert any(k.endswith("kernel_g") for k in gen_h.state_dict())
+    # follow_official_norm: scale 0 spectral-normed, the others weight-normed
+    keys = list(dis_h.state_dict())
+    assert "msd.discriminators_0.layer_0.u" in keys
+    assert "msd.discriminators_0.layer_0.kernel" in keys
+    assert "msd.discriminators_1.layer_0.kernel_v" in keys
+    assert "mpd.discriminators_1.convs_0.kernel_g" in keys
+    for key, value in (("generator_type", "MelGANGenerator"),
                        ("discriminator_type",
                         "ResidualParallelWaveGANDiscriminator")):
         with pytest.raises(NotImplementedError, match="not ported yet"):
             build_models(dict(config, **{key: value}))
     with pytest.raises(NotImplementedError, match="not ported yet"):
         example_batch(dict(config, generator_type="MelGANGenerator"))
-    with pytest.raises(NotImplementedError, match="use_mel_loss"):
-        build_criterion(dict(config, use_mel_loss=True))
-    with pytest.raises(NotImplementedError, match="generator_ema_decay"):
-        build_steps(dict(config, generator_ema_decay=0.999), gen, dis, {},
-                    None, None)
+    with pytest.raises(NotImplementedError, match="use_subband_stft_loss"):
+        build_criterion(dict(config, use_subband_stft_loss=True))
+    assert sorted(build_criterion(hifigan)) == [
+        "dis_adv", "feat_match", "gen_adv", "mel"]
+    # an EMA run keeps real copies of the initial parameters
+    state, _, _, _, _ = init_train_state(hifigan, seed=0, device="cpu")
+    assert sorted(state.ema_g) == sorted(state.params_g)
+    for key, value in state.params_g.items():
+        assert torch.equal(state.ema_g[key], value)
+        assert state.ema_g[key].data_ptr() != value.data_ptr()
+        assert not state.ema_g[key].requires_grad
+    assert init_train_state(config, device="cpu")[0].ema_g is None
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             init_train_state(config)

@@ -1,4 +1,8 @@
-"""Shared pieces of the port's JAX-side tests (tests/test_torch_*.py)."""
+"""Shared pieces of the port's JAX-side tests (tests/test_torch_*.py): model
+widths, the small HiFi-GAN train recipe, and the helpers that put one train
+state into both packages and compare what a step did to each."""
+
+import numpy as np
 
 
 def flax_generator_kwargs(**overrides):
@@ -17,3 +21,226 @@ PWG_V1_KWARGS = dict(
     skip_channels=64, aux_channels=80, aux_context_window=2,
     upsample_params={"upsample_scales": [4, 4, 4, 4]},
 )
+
+
+def small_hifigan_train_config(**overrides):
+    """The small HiFi-GAN v1 recipe of tests/test_trainer.py
+    (test_hifigan_training_with_msmpd) with the optimizers, losses and EMA
+    of assets/quality/config.yml: both sides of the HiFi-GAN step tests
+    build from this one dict. One departure: Adam's eps is 1e-3, not the
+    default 1e-8, so that an update stays a continuous function of the
+    gradient where the gradient is rounding noise (with 1e-8 the first
+    update is lr * sign(g), and the two packages' parameters part by 2 lr
+    wherever a near-zero gradient rounds to another sign)."""
+    config = {
+        "sampling_rate": 16000, "hop_size": 64, "num_mels": 16,
+        "batch_max_steps": 512, "batch_size": 3, "format": "npy",
+        "generator_type": "HiFiGANGenerator",
+        "generator_params": {
+            "in_channels": 16, "channels": 32, "upsample_scales": (4, 4, 4),
+            "upsample_kernel_sizes": (8, 8, 8),
+            "resblock_kernel_sizes": (3,), "resblock_dilations": ((1, 3),),
+        },
+        "discriminator_type": "HiFiGANMultiScaleMultiPeriodDiscriminator",
+        "discriminator_params": {
+            "scales": 2,
+            "scale_discriminator_params": {
+                "channels": 8, "downsample_scales": (2, 2), "max_groups": 4,
+                "max_downsample_channels": 32,
+            },
+            "follow_official_norm": True,
+            "periods": (2, 3),
+            "period_discriminator_params": {
+                "channels": 4, "downsample_scales": (3, 1),
+                "max_downsample_channels": 16,
+            },
+        },
+        "use_stft_loss": False,
+        "use_mel_loss": True,
+        "mel_loss_params": {
+            "fs": 16000, "fft_size": 128, "hop_size": 32, "win_length": 128,
+            "num_mels": 16, "fmin": 0, "fmax": 8000, "log_base": None,
+        },
+        "use_feat_match_loss": True,
+        "feat_match_loss_params": {
+            "average_by_discriminators": False, "average_by_layers": False,
+            "include_final_outputs": False,
+        },
+        "generator_adv_loss_params": {"average_by_discriminators": False},
+        "discriminator_adv_loss_params": {"average_by_discriminators": False},
+        "lambda_aux": 45.0, "lambda_adv": 1.0, "lambda_feat_match": 2.0,
+        "generator_optimizer_type": "Adam",
+        "generator_optimizer_params": {"lr": 2e-4, "betas": (0.5, 0.9),
+                                       "eps": 1e-3, "weight_decay": 0.0},
+        "generator_scheduler_type": "MultiStepLR",
+        "generator_scheduler_params": {"gamma": 0.5, "milestones": [3, 6]},
+        "generator_grad_norm": -1,
+        "discriminator_optimizer_type": "Adam",
+        "discriminator_optimizer_params": {"lr": 2e-4, "betas": (0.5, 0.9),
+                                           "eps": 1e-3, "weight_decay": 0.0},
+        "discriminator_scheduler_type": "MultiStepLR",
+        "discriminator_scheduler_params": {"gamma": 0.5,
+                                           "milestones": [3, 6]},
+        "discriminator_grad_norm": -1,
+        "generator_ema_decay": 0.999,
+        "generator_train_start_steps": 1,
+        "discriminator_train_start_steps": 0,
+    }
+    config.update(overrides)
+    return config
+
+
+def perturbed(tree, rng):
+    """Weight-norm g starts at ||v|| and the biases at zero: move them."""
+    import jax
+    import jax.numpy as jnp
+
+    return jax.tree.map(
+        lambda a: jnp.asarray(np.asarray(a) * (1 + 0.2 * rng.standard_normal(
+            a.shape)) + 0.02 * rng.standard_normal(a.shape), a.dtype), tree)
+
+
+def load_jax_state(state, generator, discriminator):
+    """Load a JAX train state's parameters (and spectral-norm vectors) into
+    the port's trainable modules, strictly."""
+    import jax
+
+    from parallelwavegan_torch.utils.params import convert_jax_params
+
+    as_np = lambda tree: jax.tree.map(np.asarray, tree)  # noqa: E731
+    generator.load_state_dict(
+        convert_jax_params(as_np(state.params_g), fold=False), strict=True)
+    discriminator.load_state_dict(
+        convert_jax_params(as_np(state.params_d), fold=False,
+                           spectral=as_np(state.extra_d).get("spectral")),
+        strict=True)
+
+
+def both_train_states(config, seed=0):
+    """(JAX state, JAX (factory, eval_step), port state, port (factory,
+    eval_step)) on the same perturbed parameters; the port on the CPU."""
+    import jax
+
+    from parallelwavegan_tpu.engine.build import (
+        init_train_state as jax_init_train_state,
+    )
+    from parallelwavegan_tpu.engine.criterion import (
+        build_criterion as jax_build_criterion,
+    )
+    from parallelwavegan_tpu.engine.step import build_steps as jax_build_steps
+    from parallelwavegan_torch.engine.build import init_train_state
+    from parallelwavegan_torch.engine.criterion import build_criterion
+    from parallelwavegan_torch.engine.step import build_steps
+
+    rng = np.random.default_rng(seed)
+    state, gen, dis, opt_g, opt_d = jax_init_train_state(
+        config, jax.random.key(seed))
+    params_g = perturbed(state.params_g, rng)
+    params_d = perturbed(state.params_d, rng)
+    state = state.replace(params_g=params_g, opt_g=opt_g.init(params_g),
+                          params_d=params_d, opt_d=opt_d.init(params_d))
+    if state.ema_g is not None:
+        state = state.replace(ema_g=jax.tree.map(lambda a: a + 0, params_g))
+    jax_steps = jax_build_steps(config, gen, dis, jax_build_criterion(config),
+                                opt_g, opt_d)
+    t_state, t_gen, t_dis, t_opt_g, t_opt_d = init_train_state(
+        config, seed, device="cpu")
+    load_jax_state(state, t_gen, t_dis)
+    if t_state.ema_g is not None:
+        t_state.seed_ema()
+    steps = build_steps(config, t_gen, t_dis, build_criterion(config),
+                        t_opt_g, t_opt_d)
+    return state, jax_steps, t_state, steps
+
+
+def sine_batch(config, seed=1):
+    """The JAX package's example batch with sines plus noise as y."""
+    from parallelwavegan_tpu.engine.build import example_batch
+
+    batch = example_batch(config, batch_size=config["batch_size"])
+    rng = np.random.default_rng(seed)
+    t = np.arange(batch["y"].shape[1]) / config["sampling_rate"]
+    batch["y"] = np.stack([
+        0.3 * np.sin(2 * np.pi * (300 + 200 * i) * t)
+        + 0.02 * rng.standard_normal(t.shape)
+        for i in range(config["batch_size"])
+    ]).astype(np.float32)[..., None]
+    return batch
+
+
+def as_jax(batch):
+    import jax.numpy as jnp
+
+    return {k: jnp.asarray(v) for k, v in batch.items()}
+
+
+def as_torch(batch):
+    import torch
+
+    return {k: torch.from_numpy(np.array(v)) for k, v in batch.items()}
+
+
+def flat_jax(tree):
+    """A flax parameter tree as {dotted name: numpy array}."""
+    import jax
+
+    from parallelwavegan_torch.utils.params import convert_jax_params
+
+    return {k: v.numpy() for k, v in convert_jax_params(
+        jax.tree.map(np.asarray, tree), fold=False).items()}
+
+
+def assert_losses(metrics, ref, names, rtol):
+    assert sorted(metrics) == sorted(ref) == sorted(names)
+    for name in names:
+        np.testing.assert_allclose(float(metrics[name]), float(ref[name]),
+                                   rtol=rtol, err_msg=name)
+
+
+def assert_tensors(got, tree, atol, what):
+    """{name: tensor} against a flax tree of the same names."""
+    want = flat_jax(tree)
+    got = {k: v.detach().numpy() for k, v in got.items()}
+    assert sorted(got) == sorted(want)
+    for key in want:
+        np.testing.assert_allclose(got[key], want[key], atol=atol,
+                                   err_msg=f"{what} {key}")
+
+
+def assert_params(module, tree, atol, what):
+    assert_tensors(dict(module.named_parameters()), tree, atol, what)
+
+
+def assert_first_moment(opt, jax_opt_state, what, rel=1e-3, floor=1e-6):
+    """After the first update mu = (1 - b1) * clipped gradient, so this
+    holds the gradients themselves: each to ``rel`` of its largest entry
+    plus ``floor`` of the largest gradient in the network. The gradients of
+    kernel_v are differences of nearly equal terms (the kernel does not
+    change along v), and they go through a log and a division by small
+    spectral magnitudes in f32."""
+    from parallelwavegan_torch.utils.params import convert_jax_params
+
+    def find_mu(node):
+        """The first moments, wherever the chain keeps them (its layout
+        depends on whether the gradients are clipped)."""
+        if hasattr(node, "mu"):
+            return node.mu
+        if isinstance(node, dict) and "mu" in node:
+            return node["mu"]
+        children = node.values() if isinstance(node, dict) else (
+            node if isinstance(node, (tuple, list)) else ())
+        for child in children:
+            found = find_mu(child)
+            if found is not None:
+                return found
+        return None
+
+    got = find_mu(opt.state_dict())
+    want = flat_jax(find_mu(jax_opt_state))
+    got = {k: v.numpy() for k, v in convert_jax_params(got, fold=False).items()}
+    assert sorted(got) == sorted(want)
+    largest = max(np.abs(b).max() for b in want.values())
+    assert largest > 0
+    for key, b in want.items():
+        err = np.abs(got[key] - b).max()
+        assert err <= rel * np.abs(b).max() + floor * largest, (what, key, err)
