@@ -14,20 +14,26 @@
 2h. drives HiFi-GAN v1 serving at full width on the shipped trained
    checkpoint (assets/quality/): (a) f32 exact mode over the 24 evaluation
    mels, the first 8 scored (MCD, log-F0 RMSE, V/UV; host processes that
-   run beside the later phases) against the committed per-utterance
-   reference of the JAX package; (b) the fused MRF kernel in f32 against
+   run beside the PWG checks of step 3 and are waited for before step 4
+   times anything) against the committed per-utterance reference of the
+   JAX package; (b) the fused MRF kernel in f32 against
    (a), 28 launches; (c) the kernel with int8 packs against the int8 conv
    chain on the same scales; (d) batch 32 x 512 frames in bf16, timed in
    the exact mode (cuDNN), the int8 conv chain and the kernel in both
    modes, with every stage's kernel held against its plain version and
    timed beside it and the cuDNN chain; after the PWG serving path, the
-   stage roofline tool, whose run launches the matmul bench kernel;
+   stage roofline tool, whose run launches the matmul bench kernel, then
+   the matmul bench at the five MRF shapes beside torch._int_mm and
+   torch.matmul, as back-to-back launches and as CUDA-graph replays
+   (device time alone), with the GB/s it reaches;
 3. drives the serving path at full PWG v1 width with seeded weights written
    to and read back from a .gckpt: InferenceModel on cuda, (a) batch 1 in
    f32 against the unfused plain generator, (b) batch 32 x 512 frames in
-   bf16, whose run must launch the forward kernel 30 times;
-4. times the forward, the stack kernel and its plain version with CUDA
-   events;
+   bf16, whose run must launch the forward kernel as often as its launch
+   plan says (one launch per layer: 30);
+4. times the forward, the stack kernel (bf16: the tensor-core layer body)
+   and its plain version with CUDA events, and prints the TFLOP/s reached,
+   the launch plan and the byte floor of one launch per layer;
 5. drives the training path at full PWG v1 width: a seeded corpus of npy
    dumps, bin.train.run on cuda for 6 steps across the discriminator's
    start (batch 6 x 25,600 samples, f32), whose run must launch the forward
@@ -36,8 +42,9 @@
    loads back; then two resumed steps with mixed_precision;
 6. holds one generator loss and gradient at that shape through the kernels
    against the same through their plain versions, times the (G, adv, D)
-   step, both kernels at the training shape and the backward's plain
-   version, and prints where a step's device time goes (torch.profiler);
+   step, both kernels at the training shape (the f32 forward on its SIMT
+   body beside the backward) and the backward's plain version, and prints
+   where a step's device time goes (torch.profiler);
 7. runs the gate and int8 experiment (tools.int8_wavenet_experiment.main)
    at its full shape, 10 layers at batch 32 x 512 frames, whose run launches
    the variant kernel, prints its four lines, and holds and times each
@@ -336,13 +343,25 @@ def stack_bound_ms(B, T, L, dtype) -> tuple:
     """Least time for the stack call: operations at the type's peak vs
     bytes (x, c in; x out; skip out f32; weights) at the memory rate."""
     R, G, S, A = 64, 128, 64, 80
-    flops = 2 * (3 * R * G + A * G + R * (S + R)) * B * T * L
+    flops = stack_flops(B, T, L)
     item = torch.finfo(dtype).bits // 8
     weights = L * (3 * R * G + G + A * G + R * (S + R) + S + R) * item
     nbytes = B * T * ((2 * R + A) * item + S * 4) + weights
     t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / PEAK_BYTES_PER_S
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
                                        else "bytes")
+
+
+def stack_flops(B, T, L) -> float:
+    R, G, S, A = 64, 128, 64, 80
+    return 2.0 * (3 * R * G + A * G + R * (S + R)) * B * T * L
+
+
+def layer_bytes_floor_ms(B, T, L) -> float:
+    """Least time of the stack as one launch per layer: each launch reads x
+    (f32, 256 B a row), c (bf16, 160 B) and skip (f32, 256 B) and writes x
+    and skip (512 B), 1,184 B a row, at the memory rate."""
+    return 1184.0 * B * T * L / PEAK_BYTES_PER_S * 1e3
 
 
 def backward_bound_ms(B, T, L, A, dtype) -> tuple:
@@ -400,6 +419,7 @@ def training_phase(dev, smi: str) -> dict:
     from parallelwavegan_torch.engine.build import init_train_state
     from parallelwavegan_torch.ops.cuda import pwg_infer
     from parallelwavegan_torch.ops.cuda.wavenet_stack import (
+        stack_launch_plan,
         wavenet_stack,
         wavenet_stack_reference,
     )
@@ -411,6 +431,12 @@ def training_phase(dev, smi: str) -> dict:
 
     rng = np.random.default_rng(1)
     L = PWG_V1["generator_params"]["layers"]
+    # the step runs the stack as three groups of ten layers; the forward
+    # kernel's launches per forward follow its plan in each precision
+    launches_per_forward = {
+        dtype: 3 * stack_launch_plan(TRAIN_BATCH, TRAIN_SAMPLES, 80, L // 3,
+                                     dtype)["launches"]
+        for dtype in (torch.float32, torch.bfloat16)}
     out = {}
     with tempfile.TemporaryDirectory() as tmp:
         dump = os.path.join(tmp, "dump")
@@ -437,7 +463,8 @@ def training_phase(dev, smi: str) -> dict:
               f"launches {out['bwd_launches']}")
         if trainer.steps != 6 or trainer.device.type != "cuda":
             raise AssertionError("the trainer did not take 6 steps on cuda")
-        if out["fwd_launches"] != L * (g_updates + d_updates + eval_forwards):
+        if out["fwd_launches"] != launches_per_forward[torch.float32] * (
+                g_updates + d_updates + eval_forwards):
             raise AssertionError("unexpected forward kernel launches")
         if out["bwd_launches"] != L * g_updates:
             raise AssertionError("unexpected backward kernel launches")
@@ -482,7 +509,9 @@ def training_phase(dev, smi: str) -> dict:
         print(f"training path mixed precision: steps 6 -> {mixed.steps}, "
               f"wavenet_stack launches {wavenet_stack.launches}, backward "
               f"launches {wavenet_stack_backward.launches}")
-        if mixed.steps != 8 or wavenet_stack.launches != 4 * L \
+        if mixed.steps != 8 \
+                or wavenet_stack.launches != 4 * launches_per_forward[
+                    torch.bfloat16] \
                 or wavenet_stack_backward.launches != 2 * L:
             raise AssertionError("unexpected launches in mixed precision")
         check_trainer(mixed, "training path mixed")
@@ -640,6 +669,9 @@ def training_phase(dev, smi: str) -> dict:
           f"{out['fwd_train_ms']:.2f} ms, without "
           f"{out['fwd_infer_ms']:.2f} ms (plain {out['fwd_plain_ms']:.2f} "
           f"ms, bound {out['fwd_bound_ms']:.2f} ms) on {smi}")
+    print(f"training shape f32, the SIMT forward beside the backward: "
+          f"wavenet_stack {out['fwd_train_ms']:.2f} ms with saved inputs, "
+          f"wavenet_stack_backward {out['bwd_ms']:.2f} ms on {smi}")
     return out
 
 
@@ -749,7 +781,8 @@ def check_mrf_and_matmul_kernels(dev) -> dict:
             err = check(f"mrf_stage {mode} C={C} B={B} T={T} k={kernels} "
                         f"d={dils}", out, ref, xdtype)
             worst["mrf_stage"] = max(worst["mrf_stage"], err)
-    for M, K, N in [(m // 16, k, n) for m, k, n in MRF_SHAPES] + [(77, 50, 24)]:
+    for M, K, N in [(m // 16, k, n) for m, k, n in MRF_SHAPES] + [
+            (77, 50, 24), (1000, 96, 8), (999, 40, 16), (4097, 72, 24)]:
         for mode in ("int8", "bf16"):
             a, b = matmul_inputs(M, K, N, mode, dev)
             out = matmul_bench(a, b)
@@ -1299,13 +1332,28 @@ def hifigan_phase(dev, smi: str, pool) -> dict:
     return out
 
 
+def graph_ms(fn, reps: int = 20) -> float:
+    """Device time of one call of ``fn``: ``reps`` calls captured in a CUDA
+    graph and the graph replayed, so the host's launch path drops out (the
+    kernels of a product of tens of microseconds can finish faster than
+    the host launches them)."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    return time_ms(graph.replay, reps=3) / reps
+
+
 def matmul_phase(dev, smi: str) -> dict:
     """The stage roofline tool, whose matmul measurements launch
     matmul_bench (the counted run of that kernel's path) and which then
     times one stage in its four modes; then matmul_bench at its five
     shapes, int8 (and bf16 beside it): kernel, plain version, the single
-    PyTorch call, and the bound. These products take tens of microseconds,
-    so this runs after the host scoring has ended."""
+    PyTorch call, and the bound; kernel and library both as back-to-back
+    launches and as graph replays (device time alone). These products take
+    tens of microseconds, so this runs after the host scoring has ended."""
     from parallelwavegan_torch.ops.cuda.matmul_bench import (
         MRF_SHAPES,
         matmul_bench,
@@ -1322,29 +1370,42 @@ def matmul_phase(dev, smi: str) -> dict:
     matmul_bench.launches = 0
     int8_stage_roofline.main(["--matmuls", "--stages", "3"])
     out = {f"{mode}_{key}": 0.0 for mode in ("int8", "bf16")
-           for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
+           for key in ("ms", "plain_ms", "library_ms", "bound_ms",
+                       "graph_ms", "library_graph_ms")}
     out["launches"] = matmul_bench.launches
     print(f"int8_stage_roofline: matmul_bench launches {out['launches']}")
     for mode in ("int8", "bf16"):
+        nbytes = 0
         for M, K, N in MRF_SHAPES:
             a, b = matmul_inputs(M, K, N, mode, dev)
             ms = time_ms(lambda: matmul_bench(a, b), reps=50, warmup=2)
             plain = time_ms(lambda: matmul_bench_reference(a, b), reps=5)
             lib = time_ms(lambda: library_matmul(a, b), reps=50, warmup=2)
+            g_ms = graph_ms(lambda: matmul_bench(a, b))
+            g_lib = graph_ms(lambda: library_matmul(a, b))
             bound, by = matmul_bound_ms(M, K, N, mode)
+            moved = (M * K + K * N) * a.element_size() + M * N * 4
+            nbytes += moved
             print(f"matmul_bench {mode} M={M} K={K} N={N}: kernel "
                   f"{ms * 1e3:.1f} us, plain {plain * 1e3:.1f} us, library "
-                  f"{lib * 1e3:.1f} us, bound {bound * 1e3:.1f} us by {by}")
+                  f"{lib * 1e3:.1f} us; graph replay: kernel "
+                  f"{g_ms * 1e3:.1f} us = {moved / g_ms / 1e6:.0f} GB/s, "
+                  f"library {g_lib * 1e3:.1f} us; bound {bound * 1e3:.1f} "
+                  f"us by {by}")
             for key, value in (("ms", ms), ("plain_ms", plain),
-                               ("library_ms", lib), ("bound_ms", bound)):
+                               ("library_ms", lib), ("bound_ms", bound),
+                               ("graph_ms", g_ms),
+                               ("library_graph_ms", g_lib)):
                 out[f"{mode}_{key}"] += value
             out["bound_by"] = by
-    print(f"matmul_bench, five shapes: int8 kernel {out['int8_ms']:.4f} ms "
-          f"(torch._int_mm {out['int8_library_ms']:.4f} ms, bound "
-          f"{out['int8_bound_ms']:.4f} ms); bf16 kernel "
-          f"{out['bf16_ms']:.4f} ms (torch.matmul "
-          f"{out['bf16_library_ms']:.4f} ms, bound "
-          f"{out['bf16_bound_ms']:.4f} ms) on {smi}")
+        out[f"{mode}_gb_per_s"] = nbytes / out[f"{mode}_graph_ms"] / 1e6
+    for mode, lib in (("int8", "torch._int_mm"), ("bf16", "torch.matmul")):
+        print(f"matmul_bench, five shapes {mode}: kernel "
+              f"{out[mode + '_ms']:.4f} ms ({lib} {out[mode + '_library_ms']:.4f}"
+              f" ms); graph replay: kernel {out[mode + '_graph_ms']:.4f} ms "
+              f"= {out[mode + '_gb_per_s']:.0f} GB/s ({lib} "
+              f"{out[mode + '_library_graph_ms']:.4f} ms); bound "
+              f"{out[mode + '_bound_ms']:.4f} ms on {smi}")
     return out
 
 
@@ -1427,6 +1488,7 @@ def run_phases(dev, smi: str, pool) -> int:
     from parallelwavegan_torch.models import ParallelWaveGANGenerator
     from parallelwavegan_torch.ops.cuda.pwg_infer import _conv1x1
     from parallelwavegan_torch.ops.cuda.wavenet_stack import (
+        stack_launch_plan,
         wavenet_stack,
         wavenet_stack_reference,
     )
@@ -1445,6 +1507,9 @@ def run_phases(dev, smi: str, pool) -> int:
         (torch.bfloat16, 2, 4133, tuple(2 ** (i % 10) for i in range(30))),
         (torch.float32, 1, 77, (3,)),
         (torch.bfloat16, 1, 130, (512, 1)),
+        (torch.bfloat16, 1, 40, (1,)),
+        (torch.bfloat16, 2, 50, (64, 2)),
+        (torch.bfloat16, 1, 4133, (1, 32, 63, 64, 65, 512)),
     ]
     for dtype, B, T, dils in cases:
         x, c, w = stack_inputs(gen, B, T, len(dils), dtype, dev)
@@ -1508,11 +1573,21 @@ def run_phases(dev, smi: str, pool) -> int:
     print(f"main path (b) bf16 {BENCH_BATCH} x {BENCH_FRAMES} frames: "
           f"synthesize_batch {wall * 1e3:.1f} ms wall (first call), "
           f"wavenet_stack launches {launches}")
-    if launches != model16.generator.layers:
-        raise AssertionError(f"expected {model16.generator.layers} launches")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    plan = stack_launch_plan(BENCH_BATCH, BENCH_FRAMES * HOP,
+                             PWG_V1["num_mels"], model16.generator.layers,
+                             torch.bfloat16, sms)
+    print(f"  launch plan: {plan}")
+    if launches != plan["launches"]:
+        raise AssertionError(f"expected {plan['launches']} launches")
     for w in waves:
         if w.shape != (BENCH_FRAMES * HOP, 1) or not np.isfinite(w).all():
             raise AssertionError("bad bf16 output")
+
+    # the host scores must be in before the timed phases: the forward's
+    # launch path, the matmul bench's short products and the training path
+    # all run on the host beside the device
+    check_quality(hifi)
 
     # 4. timing at the main path's shapes
     fn, (c, z), _ = model16.prepare_batch(mels)
@@ -1539,14 +1614,16 @@ def run_phases(dev, smi: str, pool) -> int:
     B, T = x0.shape[:2]
     bound_ms, bound_by = stack_bound_ms(B, T, len(dils), torch.bfloat16)
     audio_s = BENCH_BATCH * BENCH_FRAMES * HOP / SR
+    floor_ms = layer_bytes_floor_ms(B, T, len(dils))
     print(f"forward bf16 {BENCH_BATCH} x {BENCH_FRAMES} frames: "
           f"{fwd_ms:.2f} ms, {audio_s / (fwd_ms / 1e3):.1f} audio-s/s; "
-          f"wavenet_stack {stack_ms:.2f} ms (plain {plain_ms:.2f} ms, bound "
-          f"{bound_ms:.2f} ms by {bound_by}) on {smi}")
+          f"wavenet_stack {stack_ms:.2f} ms = "
+          f"{stack_flops(B, T, len(dils)) / stack_ms / 1e9:.1f} TFLOP/s on "
+          f"the {plan['body']} body, {plan['launches']} launches of "
+          f"{plan['blocks']} blocks (plain {plain_ms:.2f} ms, bound "
+          f"{bound_ms:.2f} ms by {bound_by}, per-layer-launch byte floor "
+          f"{floor_ms:.2f} ms) on {smi}")
 
-    # the host scores must be in before the phases that depend on the host:
-    # the matmul bench's short products and the training path
-    check_quality(hifi)
     mm = matmul_phase(dev, smi)
 
     # 5, 6. the training path
@@ -1584,6 +1661,8 @@ def run_phases(dev, smi: str, pool) -> int:
         "bound_ms": bound_ms,
         "bound_by": bound_by,
         "library_ms": None,
+        "tflop_per_s": stack_flops(B, T, len(dils)) / stack_ms / 1e9,
+        "plan": plan,
         "train_launches": train["fwd_launches"],
         "train_ms": train["fwd_train_ms"],
         "train_plain_ms": train["fwd_plain_ms"],
@@ -1633,10 +1712,16 @@ def run_phases(dev, smi: str, pool) -> int:
         "bound_ms": mm["int8_bound_ms"],
         "bound_by": mm["bound_by"],
         "library_ms": mm["int8_library_ms"],
+        "graph_ms": mm["int8_graph_ms"],
+        "library_graph_ms": mm["int8_library_graph_ms"],
+        "gb_per_s": mm["int8_gb_per_s"],
         "bf16_ms": mm["bf16_ms"],
         "bf16_plain_ms": mm["bf16_plain_ms"],
         "bf16_bound_ms": mm["bf16_bound_ms"],
         "bf16_library_ms": mm["bf16_library_ms"],
+        "bf16_graph_ms": mm["bf16_graph_ms"],
+        "bf16_library_graph_ms": mm["bf16_library_graph_ms"],
+        "bf16_gb_per_s": mm["bf16_gb_per_s"],
     }, {
         "name": "wavenet_variant",
         "route": "cuda",

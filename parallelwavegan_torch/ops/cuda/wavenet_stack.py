@@ -3,9 +3,11 @@
 Counterpart of ``parallelwavegan_tpu/ops/pallas/wavenet_stack.py``. The
 Parallel WaveGAN generator's hot loop is 30 gated residual layers over small
 channel counts (R=64, G=128, S=64). ``wavenet_stack`` runs a group of them
-through the hand-written kernel ``csrc/wavenet_stack.cu`` (one launch per
-layer; its design and bound are in the note at the head of that file) for
-CUDA tensors, and through ``wavenet_stack_reference`` for CPU tensors.
+through the hand-written kernel ``csrc/wavenet_stack.cu`` for CUDA tensors
+(one launch per layer, as :func:`stack_launch_plan` lays out: bf16 on a
+tensor-core layer body over persistent blocks, f32 on a SIMT body; the
+design and bound are in the note at the head of that file), and through
+``wavenet_stack_reference`` for CPU tensors.
 
 Math per layer (WaveNetResidualBlock with k=3, non-causal):
     z    = [x[t-d] | x | x[t+d]] @ Wt + c @ Wa + bt        # (T, G)
@@ -39,6 +41,53 @@ from parallelwavegan_torch.ops.cuda.build import load_library
 # channel widths the CUDA kernel is compiled for (PWG v1)
 KERNEL_CHANNELS = {"residual": 64, "gate": 128, "skip": 64}
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_SMEM_LIMIT = 232448  # bytes of shared memory one block may use (sm_90)
+_SMEM_PER_SM = 233472
+_TILE_ROWS = 64       # time rows of one tile (both layer bodies)
+_TC_STAGES = 2        # ring of activation tiles (tensor-core body)
+
+
+def tc_smem_bytes(A: int, x_dtype: torch.dtype) -> int:
+    """Shared memory of one launch of the bf16 tensor-core layer body, as
+    ``tc_smem_bytes`` in ``csrc/wavenet_stack.cu`` lays it out: the layer's
+    weights [3R + A padded to 16 + R][G] in bf16, both biases in f32, the
+    gate of one tile in bf16, and a ring of two activation tiles, each three
+    x windows (rows of 64 channels in x's type, padded) and one c window
+    (bf16, padded)."""
+    R, G = KERNEL_CHANNELS["residual"], KERNEL_CHANNELS["gate"]
+    aux = -(-A // 16) * 16
+    x_row = R * 4 + 32 if x_dtype == torch.float32 else R * 2 + 16
+    stage = 3 * _TILE_ROWS * x_row + _TILE_ROWS * (aux * 2 + 16)
+    return ((3 * R + aux + R) * G * 2 + 2 * G * 4 + _TILE_ROWS * R * 2
+            + _TC_STAGES * stage)
+
+
+def stack_launch_plan(B: int, T: int, A: int, L: int, dtype: torch.dtype,
+                      sms: int = 132) -> dict:
+    """How one ``wavenet_stack`` call runs on the card: one launch per
+    layer (``launches``, the exact count the wrapper adds to
+    ``wavenet_stack.launches``) over ``tiles`` tiles of 64 time rows.
+
+    float32 runs the SIMT layer body, one block per tile. bfloat16 runs
+    the tensor-core body on ``blocks`` persistent blocks (as many as fit
+    ``sms`` SMs at once, at most one per tile), each holding the layer's
+    weights and a ring of tiles in ``smem`` bytes of shared memory (the
+    largest of the layer's instantiations: the first layer reads bf16 x,
+    the others the f32 residual). Raises NotImplementedError where that
+    exceeds a block's shared memory."""
+    tiles = B * -(-T // _TILE_ROWS)
+    if dtype != torch.bfloat16:
+        return {"body": "simt", "launches": L, "tiles": tiles,
+                "blocks": tiles}
+    smem = max(tc_smem_bytes(A, torch.bfloat16),
+               tc_smem_bytes(A, torch.float32) if L > 1 else 0)
+    if smem > _SMEM_LIMIT:
+        raise NotImplementedError(
+            f"aux channels {A} need {smem} bytes of shared memory a block, "
+            f"more than {_SMEM_LIMIT}")
+    per_sm = max(1, _SMEM_PER_SM // (smem + 1024))
+    return {"body": "tensor_cores", "launches": L, "tiles": tiles,
+            "blocks": min(tiles, per_sm * sms), "smem": smem}
 
 
 def check_kernel_channels(residual: int, gate: int, skip: int) -> None:
@@ -157,8 +206,10 @@ def _library() -> ctypes.CDLL:
     fn.argtypes = (
         [ctypes.c_int] + [ctypes.c_void_p] * 7
         + [ctypes.POINTER(ctypes.c_int)] + [ctypes.c_int] * 4
-        + [ctypes.c_void_p] * 6
+        + [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_void_p]
     )
+    lib.pwg_wavenet_stack_tc_smem.restype = ctypes.c_size_t
+    lib.pwg_wavenet_stack_tc_smem.argtypes = [ctypes.c_int, ctypes.c_int]
     lib.pwg_cuda_error_string.restype = ctypes.c_char_p
     lib.pwg_cuda_error_string.argtypes = [ctypes.c_int]
     return lib
@@ -184,10 +235,12 @@ def wavenet_stack(
     if x.device.type != "cuda":
         raise ValueError(f"no wavenet_stack for device {x.device}")
     _check_cuda_args(x, c, w, dilations)
-    lib = _library()
     B, T, R = x.shape
     L = len(dilations)
     S = w["w_so"].shape[-1] - R
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    plan = stack_launch_plan(B, T, c.shape[-1], L, x.dtype, sms)
+    lib = _library()
     dil = (ctypes.c_int * L)(*[int(d) for d in dilations])
     with torch.cuda.device(x.device):
         # the f32 residual ping-pongs between two scratch buffers; they are
@@ -211,14 +264,14 @@ def wavenet_stack(
             None if bufs[0] is None else bufs[0].data_ptr(),
             None if bufs[1] is None else bufs[1].data_ptr(),
             None if xs is None else xs.data_ptr(),
-            stream,
+            plan["blocks"], stream,
         )
     if err != 0:
         raise RuntimeError(
             "wavenet_stack kernel launch failed: "
             + lib.pwg_cuda_error_string(err).decode()
         )
-    wavenet_stack.launches += L
+    wavenet_stack.launches += plan["launches"]
     if save_inputs:
         return x_out, skip, xs
     return x_out, skip

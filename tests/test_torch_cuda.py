@@ -107,6 +107,77 @@ def test_stack_kernel_matches_plain(cuda_device, dtype, B, T, L):
     _assert_close(sk, sk_p, dtype)
 
 
+# the tensor-core body's edges: T not a multiple of the 64-row tile, T below
+# one tile, d >= T, (512, 1), L = 1 and L = 2 (both ping-pong buffers
+# unused / one used), B = 1, the halo'd window (d < 64) and the separate
+# windows (d >= 64) in one stack
+_TC_CASES = [
+    (3, 1000, (1, 2, 4)), (1, 40, (1,)), (2, 50, (64, 2)), (1, 130, (512, 1)),
+    (2, 64, (1,)), (2, 300, (1, 2)), (1, 4133, (1, 32, 63, 64, 65, 512)),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,dils", _TC_CASES)
+def test_stack_tensor_core_body_matches_plain(cuda_device, B, T, dils):
+    """bf16 x, skip and the saved inputs against the plain version, then the
+    backward kernel in bf16 on those saved inputs against autograd through
+    the plain forward."""
+    rng = np.random.default_rng(8)
+    dtype = torch.bfloat16
+    x, c, w = _stack_inputs(rng, B, T, len(dils), dtype, cuda_device)
+    before = wavenet_stack.launches
+    got = wavenet_stack(x, c, w, dils, save_inputs=True)
+    torch.cuda.synchronize()
+    assert wavenet_stack.launches == before + len(dils)
+    want = wavenet_stack_reference(x, c, w, dils, save_inputs=True)
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype
+        _assert_close(a, b, dtype)
+    ux = torch.from_numpy(rng.standard_normal((B, T, 64)).astype(
+        np.float32)).to(cuda_device)
+    us = torch.from_numpy(rng.standard_normal((B, T, 64)).astype(
+        np.float32)).to(cuda_device)
+    grads = _stack_grads(wavenet_stack_train, x, c, w, dils, ux, us)
+    torch.cuda.synchronize()
+    plain = _stack_grads(wavenet_stack_train_reference, x, c, w, dils, ux, us)
+    for key in plain:
+        _assert_close(grads[key], plain[key], dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("A", [16, 36, 80], ids=["A16", "A36", "A80"])
+def test_stack_tensor_core_body_aux_widths(cuda_device, A):
+    """c rows staged in 16-byte pieces (A a multiple of 8) or in 8-byte
+    pieces (A = 36), and aux channels padded to the mma depth of 16."""
+    rng = np.random.default_rng(9)
+    x, c, w = _stack_inputs(rng, 2, 333, 3, torch.bfloat16, cuda_device, A=A)
+    got = wavenet_stack(x, c, w, (1, 64, 2))
+    torch.cuda.synchronize()
+    want = wavenet_stack_reference(x, c, w, (1, 64, 2))
+    for a, b in zip(got, want):
+        _assert_close(a, b, torch.bfloat16)
+
+
+@pytest.mark.cuda
+def test_stack_launch_plan_matches_the_kernel(cuda_device):
+    """The wrapper's shared-memory count is the kernel's own, and fits."""
+    from parallelwavegan_torch.ops.cuda.wavenet_stack import (
+        _library,
+        stack_launch_plan,
+        tc_smem_bytes,
+    )
+
+    lib = _library()
+    for A in (16, 80, 96):
+        for is_bf16, dtype in ((1, torch.bfloat16), (0, torch.float32)):
+            assert lib.pwg_wavenet_stack_tc_smem(is_bf16, A) == \
+                tc_smem_bytes(A, dtype)
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    plan = stack_launch_plan(32, 131072, 80, 30, torch.bfloat16, sms)
+    assert plan["smem"] <= 232448 and plan["blocks"] == sms
+
+
 @pytest.mark.cuda
 def test_stack_kernel_rejects_what_it_was_not_built_for(cuda_device):
     rng = np.random.default_rng(1)
@@ -347,9 +418,16 @@ def test_mrf_stage_kernel_rejects_what_it_was_not_built_for(cuda_device):
 @pytest.mark.parametrize("M,K,N", [(4096, 96, 32), (4096, 352, 32),
                                    (2048, 192, 64), (1024, 384, 128),
                                    (1024, 128, 128), (77, 50, 24),
-                                   (1, 8, 8)])
+                                   (1, 8, 8), (1000, 96, 8), (999, 40, 16),
+                                   (4097, 72, 24), (333, 200, 128),
+                                   (131072, 96, 32), (131072, 352, 32),
+                                   (65536, 192, 64), (32768, 384, 128),
+                                   (32768, 128, 128)])
 def test_matmul_bench_kernel_matches_plain(cuda_device, mode, M, K, N):
-    """int32 results bit-equal; bf16 -> f32 within f32 summation error."""
+    """int32 results bit-equal; bf16 -> f32 within f32 summation error.
+    N of 8, 16 and 24; K off the mma depth (40, 72, 200; 50 is also off
+    the 16-byte rows, staged synchronously); ragged M; the five MRF shapes
+    at full size."""
     rng = np.random.default_rng(7)
     if mode == "int8":
         a = torch.from_numpy(rng.integers(-127, 128, (M, K)).astype(np.int8))

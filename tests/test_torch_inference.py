@@ -171,7 +171,7 @@ def test_port_imports_no_jax():
         "'ops.cuda.matmul_bench', 'ops.eval_metrics', 'ops.audio', "
         "'tools.int8_stage_roofline', 'tools.int8_wavenet_experiment', "
         "'ops.cuda.wavenet_variant', 'ops.mel', 'losses.mel_loss', "
-        "'losses.feat_match']\n"
+        "'losses.feat_match', 'tools.wavenet_stack_ablation']\n"
         "missing = [w for w in want if 'parallelwavegan_torch.' + w "
         "not in names]\n"
         "assert not missing, missing\n"
