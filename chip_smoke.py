@@ -17,11 +17,16 @@
    run beside the PWG checks of step 3 and are waited for before step 4
    times anything) against the committed per-utterance reference of the
    JAX package; (b) the fused MRF kernel in f32 against
-   (a), 28 launches; (c) the kernel with int8 packs against the int8 conv
-   chain on the same scales; (d) batch 32 x 512 frames in bf16, timed in
-   the exact mode (cuDNN), the int8 conv chain and the kernel in both
-   modes, with every stage's kernel held against its plain version and
-   timed beside it and the cuDNN chain; after the PWG serving path, the
+   (a), as many launches as the stages' plans say (mrf_stage_plan: the
+   per-conv body, 7 a stage); (c) the kernel with int8 packs against the
+   int8 conv chain on the same scales; (d) batch 32 x 512 frames in bf16,
+   timed in the exact mode (cuDNN), the int8 conv chain and the kernel in
+   both modes (bf16 and int8 packs: the fused-pair body, 4 launches a
+   stage), every stage's plan printed and its kernel held against its
+   plain version and timed beside it and beside the exact forward's own
+   conv chain of that stage (mrf_chain_stage, the median of 5 calls and
+   their spread),
+   whose four-stage sum must not exceed the exact forward; after the PWG serving path, the
    stage roofline tool, whose run launches the matmul bench kernel, then
    the matmul bench at the five MRF shapes beside torch._int_mm and
    torch.matmul, as back-to-back launches and as CUDA-graph replays
@@ -258,12 +263,36 @@ def time_ms(fn, reps: int, warmup: int = 1) -> float:
     return start.elapsed_time(end) / reps
 
 
-def max_err(a: torch.Tensor, b: torch.Tensor, dtype) -> tuple:
-    """(max |a - b|, allowed) with allowed = tol * (1 + max |b|)."""
+# kernel name -> the largest max |a - b| / (1 + max |plain|) of the checks
+# that make up its max_abs_err: the quantity the tolerances hold
+REL_ERR: dict = {}
+
+
+def time_each_ms(fn, reps: int, warmup: int = 1) -> list:
+    """Device ms of each of ``reps`` calls (CUDA events around each)."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    events = [(torch.cuda.Event(enable_timing=True),
+               torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
+    for start, end in events:
+        start.record()
+        fn()
+        end.record()
+    torch.cuda.synchronize()
+    return [start.elapsed_time(end) for start, end in events]
+
+
+def max_err(a: torch.Tensor, b: torch.Tensor, dtype, kernel=None) -> tuple:
+    """(max |a - b|, allowed) with allowed = tol * (1 + max |b|); the
+    relative error is kept under ``kernel`` where one is named."""
     a, b = a.float(), b.float()
     if not (torch.isfinite(a).all() and torch.isfinite(b).all()):
         raise AssertionError("non-finite values")
-    return (a - b).abs().max().item(), TOL[dtype] * (1 + b.abs().max().item())
+    err, scale = (a - b).abs().max().item(), 1 + b.abs().max().item()
+    if kernel is not None:
+        REL_ERR[kernel] = max(REL_ERR.get(kernel, 0.0), err / scale)
+    return err, TOL[dtype] * scale
 
 
 def stack_inputs(gen: torch.Generator, B, T, L, dtype, dev):
@@ -276,9 +305,10 @@ def stack_inputs(gen: torch.Generator, B, T, L, dtype, dev):
     return rnd(B, T, 64), rnd(B, T, 80), w
 
 
-def check(what: str, got: torch.Tensor, want: torch.Tensor, dtype) -> float:
+def check(what: str, got: torch.Tensor, want: torch.Tensor, dtype,
+          kernel=None) -> float:
     """Print and enforce max |got - want| <= TOL[dtype] * (1 + max |want|)."""
-    err, allowed = max_err(got, want, dtype)
+    err, allowed = max_err(got, want, dtype, kernel)
     print(f"{what}: max_abs_err {err:.3e} (allowed {allowed:.3e})")
     if err > allowed:
         raise AssertionError(f"{what} disagrees with its plain version")
@@ -323,7 +353,8 @@ def check_training_kernels(gen: torch.Generator, dev, cases) -> dict:
         torch.cuda.synchronize()
         plain = wavenet_stack_reference(x, c, w, dils, save_inputs=True)
         for what, a, b in zip(("x", "skip", "xs"), (xo, sk, xs), plain):
-            err = check(f"stack+save_inputs {tag} {what}", a, b, dtype)
+            err = check(f"stack+save_inputs {tag} {what}", a, b, dtype,
+                        "wavenet_stack")
             worst["wavenet_stack"] = max(worst["wavenet_stack"], err)
         ux = torch.randn(xo.shape, generator=gen).to(dev)
         us = torch.randn(sk.shape, generator=gen).to(dev)
@@ -333,7 +364,7 @@ def check_training_kernels(gen: torch.Generator, dev, cases) -> dict:
                            us)
         for what in want:
             err = check(f"stack backward {tag} {what}", got[what],
-                        want[what], dtype)
+                        want[what], dtype, "wavenet_stack_backward")
             worst["wavenet_stack_backward"] = max(
                 worst["wavenet_stack_backward"], err)
     return worst
@@ -599,7 +630,7 @@ def training_phase(dev, smi: str) -> dict:
             want = wavenet_stack_reference(x0, c_up, wg, dg, save_inputs=True)
         out["fwd_err"] = max(
             check(f"stack+save_inputs at the training shape f32 {k}", a, b,
-                  torch.float32)
+                  torch.float32, "wavenet_stack")
             for k, a, b in zip(("x", "skip", "xs"), got, want))
         xs = got[2]
         got = stack_grads(wavenet_stack_train, x0, c_up, wg, dg, ux, us)
@@ -607,7 +638,8 @@ def training_phase(dev, smi: str) -> dict:
                            ux, us)
         out["bwd_err"] = max(
             check(f"stack backward at the training shape f32 {k}", got[k],
-                  want[k], torch.float32) for k in want)
+                  want[k], torch.float32, "wavenet_stack_backward")
+            for k in want)
         del got, want
 
         def forward_groups(save):
@@ -756,7 +788,9 @@ def check_mrf_and_matmul_kernels(dev) -> dict:
     cases = [  # (C, T, B, kernels, dils): ragged T, below a tile, below reach
         (8, 300, 2, (3, 5, 7), (1, 2)), (16, 20, 1) + v1,
         (32, 1000, 2) + v1, (64, 333, 2) + v1, (128, 129, 1) + v1,
-        (256, 260, 1) + v1, (32, 7, 3) + v1,
+        (256, 260, 1) + v1, (32, 7, 3) + v1, (32, 300, 2, (3, 5, 7), (1, 2)),
+        # one row past the fused body's second tile of the k = 11 branch
+        (256, 237, 1) + v1, (32, 1005, 1) + v1,
     ]
     rng = np.random.default_rng(5)
     worst = {"mrf_stage": 0.0, "matmul_bench": 0.0}
@@ -779,7 +813,7 @@ def check_mrf_and_matmul_kernels(dev) -> dict:
             ref = mrf_stage_reference(x, pack, kernels=kernels, dils=dils,
                                       quant=quant)
             err = check(f"mrf_stage {mode} C={C} B={B} T={T} k={kernels} "
-                        f"d={dils}", out, ref, xdtype)
+                        f"d={dils}", out, ref, xdtype, "mrf_stage")
             worst["mrf_stage"] = max(worst["mrf_stage"], err)
     for M, K, N in [(m // 16, k, n) for m, k, n in MRF_SHAPES] + [
             (77, 50, 24), (1000, 96, 8), (999, 40, 16), (4097, 72, 24)]:
@@ -795,7 +829,7 @@ def check_mrf_and_matmul_kernels(dev) -> dict:
                 print(f"matmul_bench int8 M={M} K={K} N={N}: bit-equal")
             else:
                 err = check(f"matmul_bench bf16 M={M} K={K} N={N}", out, ref,
-                            torch.float32)
+                            torch.float32, "matmul_bench")
                 worst["matmul_bench"] = max(worst["matmul_bench"], err)
     return worst
 
@@ -849,7 +883,7 @@ def check_variant(what, x, c, w, dils, gate, int8_taps) -> float:
                                    int8_taps=int8_taps)
     worst = 0.0
     for name, a, b in zip(("x", "skip"), got, want):
-        err, _ = max_err(a, b, torch.bfloat16)
+        err, _ = max_err(a, b, torch.bfloat16, "wavenet_variant")
         allowed = VARIANT_TOL[int8_taps] * (1 + b.float().abs().max().item())
         print(f"variant {variant_name(gate, int8_taps)} {what} {name}: "
               f"max_abs_err {err:.3e} (allowed {allowed:.3e}), mean "
@@ -1112,9 +1146,25 @@ def hifigan_phase(dev, smi: str, pool) -> dict:
     for mrf_stage, and the pending host scores."""
     from parallelwavegan_torch.ops.cuda.mrf_stage import (
         mrf_stage,
+        mrf_stage_plan,
         mrf_stage_reference,
     )
+    from parallelwavegan_torch.ops.hifigan_infer import mrf_chain_stage
     from parallelwavegan_torch.utils.model_loader import load_model
+
+    def stage_launches(model, stages, B, frames) -> int:
+        """What the plans of the MRF stages routed to the kernel launch."""
+        gen = model.generator
+        kernels = tuple(gen.resblock_kernel_sizes)
+        dils = tuple(gen.resblock_dilations[0])
+        total, T = 0, frames
+        for i, s_up in enumerate(gen.upsample_scales):
+            T *= s_up
+            if i in stages:
+                pack = model._mrf_packs[i]
+                total += mrf_stage_plan(B, T, pack["w0"].shape[-1], kernels,
+                                        dils, pack["w0"].dtype)["launches"]
+        return total
 
     with open(QUALITY_REFERENCE) as f:
         reference = json.load(f)
@@ -1151,6 +1201,7 @@ def hifigan_phase(dev, smi: str, pool) -> dict:
 
     # (b) the fused MRF kernel in f32 against (a): f32 sums in another
     # order through 72 convs; 1e-4 of full scale
+    bucket = -(-max(len(m) for m in mels) // 64) * 64
     mrf_stage.launches = 0
     model.use_mrf_kernel(quant=False)
     t0 = time.perf_counter()
@@ -1159,15 +1210,19 @@ def hifigan_phase(dev, smi: str, pool) -> dict:
     launches = mrf_stage.launches
     print(f"hifigan (b) f32, use_mrf_kernel(quant=False): synthesize_batch "
           f"{wall * 1e3:.1f} ms wall, mrf_stage launches {launches}")
-    if launches != 4 * 7:
-        raise AssertionError("four stages need 28 mrf_stage launches")
+    want_launches = stage_launches(model, range(4), len(mels), bucket)
+    if launches != want_launches:
+        raise AssertionError(f"the plans of four f32 stages launch "
+                             f"{want_launches} times, not {launches}")
     wave_diff("hifigan (b) kernel f32 vs exact", fused, exact, 1e-4)
     # a stage subset: stages 2 and 3 on the kernel, 0 and 1 on cuDNN
     mrf_stage.launches = 0
     model.use_mrf_kernel(quant=False, stages=[2, 3])
     subset = model.synthesize_batch(mels[:2])
-    if mrf_stage.launches != 2 * 7:
-        raise AssertionError("two stages need 14 mrf_stage launches")
+    want_launches = stage_launches(
+        model, (2, 3), 2, -(-max(len(m) for m in mels[:2]) // 64) * 64)
+    if mrf_stage.launches != want_launches:
+        raise AssertionError(f"stages 2, 3 launch {want_launches} times")
     want = load_model(ckpt, HIFIGAN_V1, device="cuda").synthesize_batch(
         mels[:2])
     wave_diff("hifigan (b) kernel on stages 2, 3 vs exact", subset, want, 1e-4)
@@ -1255,19 +1310,22 @@ def hifigan_phase(dev, smi: str, pool) -> dict:
     waves = model.synthesize_batch(bench_mels)
     torch.cuda.synchronize()
     out["launches"] = mrf_stage.launches
+    want_launches = stage_launches(model, range(4), BENCH_BATCH, BENCH_FRAMES)
     print(f"hifigan (d) main path, bf16 packs: mrf_stage launches "
-          f"{out['launches']}")
-    if out["launches"] != 4 * 7 or not all(
+          f"{out['launches']} (the stages' plans: {want_launches})")
+    if out["launches"] != want_launches or not all(
             w.shape == (BENCH_FRAMES * HOP, 1) and np.isfinite(w).all()
             for w in waves):
         raise AssertionError("the bf16 main path did not run the kernel")
     out["kernel_bf16_ms"] = forward_ms("mrf_stage kernel, bf16 packs")
 
     # every stage at the main path's shapes and weights: the kernel in both
-    # modes against its plain version, timed beside it and beside the cuDNN
-    # conv chain of the same stage (the library's version of the stage)
+    # modes against its plain version, timed beside it and beside the
+    # exact forward's own conv chain of the same stage (mrf_chain_stage,
+    # cuDNN: the library's version of the stage)
     kernels = tuple(gen.resblock_kernel_sizes)
     dils = tuple(gen.resblock_dilations[0])
+    slope = gen.nonlinear_activation_params.get("negative_slope", 0.1)
     _, (c, _), _ = model.prepare_batch(bench_mels)
     totals = dict.fromkeys(("ms", "int8_ms", "plain_ms", "library_ms",
                             "bound_ms", "int8_bound_ms"), 0.0)
@@ -1278,57 +1336,75 @@ def hifigan_phase(dev, smi: str, pool) -> dict:
         x = conv1d(c, gen.input_conv.folded_kernel(), gen.input_conv.bias,
                    padding=(gen.kernel_size - 1) // 2)
         for i, up in enumerate(gen.upsamples):
-            x = up(gen.act(x)).contiguous()
-            blocks = gen.blocks[3 * i: 3 * i + 3]
+            # x as the forward holds it, (B, C, T) memory seen as (B, T, C),
+            # for the conv chain; the kernel takes it contiguous in (B, T,
+            # C), a copy the kernel mode's forward makes too
+            x = up(gen.act(x))
+            xk = x.contiguous()
 
             def chain_stage():
-                return (blocks[0](x) + blocks[1](x) + blocks[2](x)) / 3
+                return mrf_chain_stage(gen, i, x, slope)
 
             rows, C = x.shape[0] * x.shape[1], x.shape[2]
             row = {"stage": i, "C": C, "T": x.shape[1]}
+            for mode, pk in (("bf16", packs[i]), ("int8", packs_q[i])):
+                row[f"{mode}_plan"] = mrf_stage_plan(
+                    x.shape[0], x.shape[1], C, kernels, dils, pk["w0"].dtype)
+                print(f"  stage {i} plan, {mode} packs: "
+                      f"{row[f'{mode}_plan']}")
             for mode, pk, quant in (("bf16", packs[i], False),
                                     ("int8", packs_q[i], True)):
-                got = mrf_stage(x, pk, kernels=kernels, dils=dils,
+                got = mrf_stage(xk, pk, kernels=kernels, dils=dils,
                                 quant=quant)
-                ref = mrf_stage_reference(x, pk, kernels=kernels, dils=dils,
+                ref = mrf_stage_reference(xk, pk, kernels=kernels, dils=dils,
                                           quant=quant)
+                # the trained stages grow from |x| ~ 10 to ~ 1e8: the error
+                # relative to the largest value is the one to read
                 err = check(f"mrf_stage at the main-path shape, stage {i} "
-                            f"C={C} {mode} packs", got, ref, torch.bfloat16)
+                            f"C={C} {mode} packs", got, ref, torch.bfloat16,
+                            "mrf_stage")
                 out["err"] = max(out["err"], err)
-                # the trained stages grow from |x| ~ 10 to ~ 1e8, so the
-                # error relative to the largest value is kept too
-                out["rel_err"] = max(out.get("rel_err", 0.0),
-                                     err / (1 + ref.float().abs().max().item()))
                 del got, ref
                 key = "ms" if mode == "bf16" else "int8_ms"
+                mrf_stage.launches = 0
                 row[key] = time_ms(
-                    lambda: mrf_stage(x, pk, kernels=kernels, dils=dils,
+                    lambda: mrf_stage(xk, pk, kernels=kernels, dils=dils,
                                       quant=quant), reps=3)
+                if mrf_stage.launches != 4 * row[f"{mode}_plan"]["launches"]:
+                    raise AssertionError("the stage did not launch its plan")
                 bkey = "bound_ms" if mode == "bf16" else "int8_bound_ms"
                 row[bkey], row["bound_by"] = mrf_bound_ms(
                     rows, C, kernels, len(dils), pk["w0"].dtype, 2)
             row["plain_ms"] = time_ms(
-                lambda: mrf_stage_reference(x, packs[i], kernels=kernels,
+                lambda: mrf_stage_reference(xk, packs[i], kernels=kernels,
                                             dils=dils, quant=False), reps=2)
-            row["library_ms"] = time_ms(chain_stage, reps=3)
+            # the median of 5 single calls: one call in a run can take
+            # several times the others
+            each = sorted(time_each_ms(chain_stage, reps=5))
+            row["library_ms"] = each[len(each) // 2]
+            row["library_spread_ms"] = [each[0], each[-1]]
             for key in totals:
                 totals[key] += row[key]
             out["stages"].append(row)
             print(f"  stage {i} C={C} T={x.shape[1]}: kernel bf16 "
                   f"{row['ms']:.2f} ms, int8 {row['int8_ms']:.2f} ms; plain "
-                  f"{row['plain_ms']:.2f} ms; cuDNN chain "
-                  f"{row['library_ms']:.2f} ms; bound bf16 "
-                  f"{row['bound_ms']:.2f} ms, int8 "
-                  f"{row['int8_bound_ms']:.2f} ms by {row['bound_by']}")
+                  f"{row['plain_ms']:.2f} ms; the forward's cuDNN chain "
+                  f"{row['library_ms']:.2f} ms (median of 5, {each[0]:.2f} "
+                  f"to {each[-1]:.2f}); bound bf16 {row['bound_ms']:.2f} ms, "
+                  f"int8 {row['int8_bound_ms']:.2f} ms by {row['bound_by']}")
             x = chain_stage()
     out.update(totals)
     out["bound_by"] = out["stages"][0]["bound_by"]
     print(f"mrf_stage, four stages at {BENCH_BATCH} x {BENCH_FRAMES} frames: "
           f"kernel bf16 {out['ms']:.2f} ms, int8 {out['int8_ms']:.2f} ms, "
-          f"plain {out['plain_ms']:.2f} ms, cuDNN chain "
-          f"{out['library_ms']:.2f} ms, bound {out['bound_ms']:.2f} ms "
+          f"plain {out['plain_ms']:.2f} ms, the forward's cuDNN chain "
+          f"{out['library_ms']:.2f} ms (the whole exact forward "
+          f"{out['exact_ms']:.2f} ms), bound {out['bound_ms']:.2f} ms "
           f"(int8 {out['int8_bound_ms']:.2f} ms) on {smi}")
-    del model, x, c
+    if out["library_ms"] > out["exact_ms"]:
+        raise AssertionError("the stages' conv chains take longer than the "
+                             "exact forward that runs them")
+    del model, x, xk, c
     return out
 
 
@@ -1600,7 +1676,7 @@ def run_phases(dev, smi: str, pool) -> int:
         dils = g16.dilations
         xo, sk = wavenet_stack(x0, c_up, w, dils)
         xo_p, sk_p = wavenet_stack_reference(x0, c_up, w, dils)
-        errs = [max_err(a, b, torch.bfloat16) for a, b in
+        errs = [max_err(a, b, torch.bfloat16, "wavenet_stack") for a, b in
                 ((xo, xo_p), (sk, sk_p))]
         del xo, sk, xo_p, sk_p
         stack_ms = time_ms(lambda: wavenet_stack(x0, c_up, w, dils), reps=3)
@@ -1641,7 +1717,9 @@ def run_phases(dev, smi: str, pool) -> int:
     # times on the training path beside them), training for the backward.
     # mrf_stage: the four stages of one bf16 forward at batch 32 x 512
     # frames on bf16 packs (the int8 packs' times beside them); its library
-    # time is the cuDNN conv chain of the same stages. matmul_bench: the
+    # time is the exact forward's own cuDNN conv chain of the same stages
+    # (mrf_chain_stage). max_rel_err: max |a - b| / (1 + max |plain|), the
+    # quantity the tolerances hold, over the checks of max_abs_err. matmul_bench: the
     # five MRF contraction shapes in int8 (bf16 beside them); its library
     # time is torch._int_mm (torch.matmul). wavenet_variant: one call of 10
     # layers at batch 32 x 512 frames as the tool times it, ms for the bf16
@@ -1656,6 +1734,7 @@ def run_phases(dev, smi: str, pool) -> int:
         "launches": launches,
         "max_abs_err": max(max(e for e, _ in errs), worst["wavenet_stack"],
                            train["fwd_err"]),
+        "max_rel_err": REL_ERR.get("wavenet_stack", 0.0),
         "ms": stack_ms,
         "plain_ms": plain_ms,
         "bound_ms": bound_ms,
@@ -1676,6 +1755,7 @@ def run_phases(dev, smi: str, pool) -> int:
         "launches": train["bwd_launches"],
         "max_abs_err": max(train["bwd_err"],
                            worst["wavenet_stack_backward"]),
+        "max_rel_err": REL_ERR.get("wavenet_stack_backward", 0.0),
         "ms": train["bwd_ms"],
         "plain_ms": train["bwd_plain_ms"],
         "bound_ms": train["bwd_bound_ms"],
@@ -1688,7 +1768,7 @@ def run_phases(dev, smi: str, pool) -> int:
         "replaces": "parallelwavegan_tpu/ops/pallas/mrf_stage.py:75",
         "launches": hifi["launches"],
         "max_abs_err": max(hifi["err"], worst_new["mrf_stage"]),
-        "main_path_max_rel_err": hifi["rel_err"],
+        "max_rel_err": REL_ERR.get("mrf_stage", 0.0),
         "ms": hifi["ms"],
         "plain_ms": hifi["plain_ms"],
         "bound_ms": hifi["bound_ms"],
@@ -1707,6 +1787,7 @@ def run_phases(dev, smi: str, pool) -> int:
         "replaces": "tools/int8_stage_roofline.py:150",
         "launches": mm["launches"],
         "max_abs_err": worst_new["matmul_bench"],
+        "max_rel_err": REL_ERR.get("matmul_bench", 0.0),
         "ms": mm["int8_ms"],
         "plain_ms": mm["int8_plain_ms"],
         "bound_ms": mm["int8_bound_ms"],
@@ -1729,6 +1810,7 @@ def run_phases(dev, smi: str, pool) -> int:
         "replaces": "tools/int8_wavenet_experiment.py:53",
         "launches": variant["launches"],
         "max_abs_err": max(variant["err"], worst_new["wavenet_variant"]),
+        "max_rel_err": REL_ERR.get("wavenet_variant", 0.0),
         "ms": variant["tool"]["wavenet_variant_bf16_ms"],
         "plain_ms": variant["plain_ms"],
         "bound_ms": variant["bound_ms"],

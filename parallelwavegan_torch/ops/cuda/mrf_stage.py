@@ -9,8 +9,10 @@ the generator's multi-receptive-field fusion, x (B, T, C) -> (B, T, C):
     out = mean over branches
 
 ``mrf_stage`` runs it through the hand-written kernel ``csrc/mrf_stage.cu``
-(2 * layers + 1 launches; its design and bound are in the note at the head
-of that file) for CUDA tensors and through ``mrf_stage_reference`` for CPU
+(on the body :func:`mrf_stage_plan` picks: layers + 1 launches with the
+conv pair fused on chip for bf16 and int8 packs at C 32 to 256, else
+2 * layers + 1; the design and bound are in the note at the head of that
+file) for CUDA tensors and through ``mrf_stage_reference`` for CPU
 tensors. Each conv is one contraction of depth k_b * C over the tap-shifted
 input, int8 x int8 -> int32 with the per-input-channel activation scales of
 ``ops/hifigan_infer.py`` folded into the weights (``quant=True``), or in the
@@ -176,9 +178,41 @@ def mrf_stage_reference(
     return (acc / n).to(x.dtype)
 
 
-def unsupported_shape(C: int, kernels: Sequence[int], dils: Sequence[int],
-                      mm_dtype: torch.dtype) -> Optional[str]:
-    """Why the CUDA kernel cannot run this stage (None if it can)."""
+# the fused-pair body's instantiation for each width, C -> (warps along the
+# rows WM and the columns WN, 16-row m-tiles per warp MI); a block computes
+# all C columns, its tile has WM * 16 * MI rows, its block WM * WN warps
+# (csrc/mrf_stage.cu, run_pair_c)
+_FUSED_CONFIG = {32: (8, 1, 2), 64: (8, 1, 2), 128: (4, 2, 2), 256: (4, 2, 2)}
+_FUSED_STAGES = 3       # weight ring slots
+_CHUNK_BYTES = 128      # weight bytes per output row and ring chunk
+_ROW_PAD = 16           # per-row padding of shared-memory tiles
+_PER_CONV_ROWS = 128    # the per-conv body's time tile
+
+
+def _item(mm_dtype: torch.dtype) -> int:
+    return torch.empty((), dtype=mm_dtype).element_size()
+
+
+def fused_smem_bytes(C: int, kernels: Sequence[int], d: int,
+                     mm_dtype: torch.dtype) -> int:
+    """Shared memory of one fused-pair launch with dilation d: the window
+    (rows + (kmax - 1) d rows; y1 goes over it) and the weight ring."""
+    wm, _, mi = _FUSED_CONFIG[C]
+    rows = wm * 16 * mi
+    win = (rows + (max(kernels) - 1) * d) * (C * _item(mm_dtype) + _ROW_PAD)
+    return win + _FUSED_STAGES * C * (_CHUNK_BYTES + _ROW_PAD)
+
+
+def _per_conv_smem_bytes(C: int, kernels: Sequence[int], dils: Sequence[int],
+                         mm_dtype: torch.dtype) -> int:
+    # a weight chunk of min(C, 64) rows of 128 + 16 bytes and a window of
+    # 128 + (k - 1) d rows of C elements + 16
+    return min(C, 64) * (_CHUNK_BYTES + _ROW_PAD) + (
+        _PER_CONV_ROWS + (max(kernels) - 1) * max(dils)) * (
+        C * _item(mm_dtype) + _ROW_PAD)
+
+
+def _generic_reason(C, kernels, dils, mm_dtype) -> Optional[str]:
     if C < 8 or C > 256 or C & (C - 1):
         return f"channels {C} (a power of two from 8 to 256 is needed)"
     if not 1 <= len(kernels) <= MAX_BRANCHES:
@@ -189,15 +223,72 @@ def unsupported_shape(C: int, kernels: Sequence[int], dils: Sequence[int],
         return f"dilations {tuple(dils)}"
     if mm_dtype not in _MM_CODES:
         return f"weights of type {mm_dtype}"
-    # the kernel's shared memory: a weight chunk of min(C, 64) rows of
-    # 128 + 16 bytes and a window of 128 + (k - 1) d rows of C elements + 16
-    item = torch.empty((), dtype=mm_dtype).element_size()
-    smem = min(C, 64) * 144 + (128 + (max(kernels) - 1) * max(dils)) * (
-        C * item + 16)
+    return None
+
+
+def _fused_fits(C, kernels, dils, mm_dtype) -> bool:
+    if mm_dtype not in (torch.bfloat16, torch.int8) or C not in _FUSED_CONFIG:
+        return False
+    wm, _, mi = _FUSED_CONFIG[C]
+    return (wm * 16 * mi - (max(kernels) - 1) >= 16
+            and fused_smem_bytes(C, kernels, max(dils), mm_dtype)
+            <= _SMEM_LIMIT)
+
+
+def unsupported_shape(C: int, kernels: Sequence[int], dils: Sequence[int],
+                      mm_dtype: torch.dtype) -> Optional[str]:
+    """Why neither body of the CUDA kernel can run this stage (None if one
+    can)."""
+    bad = _generic_reason(C, kernels, dils, mm_dtype)
+    if bad or _fused_fits(C, kernels, dils, mm_dtype):
+        return bad
+    smem = _per_conv_smem_bytes(C, kernels, dils, mm_dtype)
     if smem > _SMEM_LIMIT:
         return (f"a window of {smem} bytes of shared memory (C={C}, "
                 f"k={max(kernels)}, d={max(dils)}, {mm_dtype})")
     return None
+
+
+def mrf_stage_plan(B: int, T: int, C: int, kernels: Sequence[int],
+                   dils: Sequence[int], mm_dtype: torch.dtype
+                   ) -> Dict[str, object]:
+    """How ``mrf_stage`` runs a stage on the card, from the shape and types
+    alone: {"body", "launches", "tile", "blocks", "threads", "smem"}, and
+    for the fused body "ring_stages".
+
+    "fused_pair" (bf16 and int8 weights, C 32 to 256, where the window, y1
+    and the weight ring fit a block): one launch per layer and the mean.
+    "per_conv" (float32 weights, C 8 and 16, or what the fused body cannot
+    hold): one launch per conv and the mean. "tile" is the time rows a
+    block computes ("out_rows" per branch for the fused body, whose conv
+    pair spends k - 1 of them on the halo), "blocks" the grid of one conv
+    launch, "smem" its largest dynamic shared memory. Raises
+    NotImplementedError for what neither body takes."""
+    bad = unsupported_shape(C, kernels, dils, mm_dtype)
+    if bad:
+        raise NotImplementedError(
+            f"the mrf_stage kernel does not support {bad}")
+    n_b, n_l = len(kernels), len(dils)
+    if _fused_fits(C, kernels, dils, mm_dtype):
+        wm, wn, mi = _FUSED_CONFIG[C]
+        rows = wm * 16 * mi
+        out_rows = [rows - (k - 1) for k in kernels]
+        return {
+            "body": "fused_pair", "launches": n_l + 1,
+            "tile": {"rows": rows, "out_rows": out_rows, "columns": C,
+                     "warps": (wm, wn), "m_tiles_per_warp": mi},
+            "blocks": B * sum(-(-T // tt) for tt in out_rows),
+            "threads": wm * wn * 32, "ring_stages": _FUSED_STAGES,
+            "smem": fused_smem_bytes(C, kernels, max(dils), mm_dtype),
+        }
+    nt = min(C, 64)
+    return {
+        "body": "per_conv", "launches": 2 * n_l + 1,
+        "tile": {"rows": _PER_CONV_ROWS, "columns": nt},
+        "blocks": -(-T // _PER_CONV_ROWS) * B * n_b * (C // nt),
+        "threads": 128,
+        "smem": _per_conv_smem_bytes(C, kernels, dils, mm_dtype),
+    }
 
 
 @functools.lru_cache(maxsize=None)
@@ -207,7 +298,7 @@ def _library() -> ctypes.CDLL:
     fn = lib.pwg_mrf_stage_forward
     fn.restype = ctypes.c_int
     fn.argtypes = (
-        [ctypes.c_int] * 2 + [ctypes.c_void_p] * 2
+        [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2
         + [ctypes.POINTER(ctypes.c_void_p)] * 2
         + [ctypes.POINTER(ctypes.c_int)] * 2 + [ctypes.c_int] * 5
         + [ctypes.c_float] + [ctypes.c_void_p] * 3
@@ -232,9 +323,10 @@ def mrf_stage(
     ``pack`` comes from :func:`build_stage_pack` (on x's device); x is
     float32 or bfloat16. ``chunk`` is the JAX kernel's time-chunk size (a
     memory budget of that kernel) and is accepted and ignored. CPU tensors
-    take the plain version; CUDA tensors launch the kernel
-    (2 * len(dils) + 1 launches, counted in ``mrf_stage.launches``) or
-    raise: a shape the kernel lacks is never rerouted.
+    take the plain version; CUDA tensors launch the kernel on the body
+    that :func:`mrf_stage_plan` chooses (its "launches", counted in
+    ``mrf_stage.launches``) or raise: a shape the kernel lacks is never
+    rerouted.
     """
     del chunk
     if x.device.type == "cpu":
@@ -247,9 +339,7 @@ def mrf_stage(
     B, T, C = x.shape
     n_b, n_l = len(kernels), len(dils)
     mm_dtype = pack["w0"].dtype
-    bad = unsupported_shape(C, kernels, dils, mm_dtype)
-    if bad:
-        raise NotImplementedError(f"the mrf_stage kernel does not support {bad}")
+    plan = mrf_stage_plan(B, T, C, kernels, dils, mm_dtype)
     if (mm_dtype == torch.int8) != bool(quant):
         raise TypeError(f"quant={quant} with weights of type {mm_dtype}")
     if x.dtype not in (torch.float32, torch.bfloat16):
@@ -280,12 +370,14 @@ def mrf_stage(
     lib = _library()
     with torch.cuda.device(x.device):
         out = torch.empty_like(x)
-        # the f32 residual of every branch and the first conv's output;
-        # freed on return, which the caching allocator orders after the
-        # launches on this stream
+        # f32 scratch, one plane per branch: the residual and y1 (per-conv
+        # body) or the residual's ping-pong pair (fused body); freed on
+        # return, which the caching allocator orders after the launches on
+        # this stream
         xb = torch.empty((n_b, B, T, C), dtype=torch.float32, device=x.device)
         y1 = torch.empty_like(xb)
         err = lib.pwg_mrf_stage_forward(
+            int(plan["body"] == "fused_pair"),
             int(x.dtype == torch.bfloat16), _MM_CODES[mm_dtype],
             x.data_ptr(), out.data_ptr(),
             (ctypes.c_void_p * n_b)(*[t.data_ptr() for t in wts]),
@@ -300,7 +392,7 @@ def mrf_stage(
             "mrf_stage kernel launch failed: "
             + lib.pwg_mrf_cuda_error_string(err).decode()
         )
-    mrf_stage.launches += 2 * n_l + 1
+    mrf_stage.launches += plan["launches"]
     return out
 
 

@@ -157,6 +157,67 @@ def _quantizable_convs(gen) -> Dict[str, Any]:
     return convs
 
 
+def _record(stats: Optional[Dict[str, torch.Tensor]], key: str,
+            x: torch.Tensor) -> None:
+    if stats is not None:
+        stats[key] = x.abs().amax(dim=(0, 1)).float()
+
+
+def _epilogue(y_int, sw, b, like):
+    y = y_int.float() * sw
+    if b is not None:
+        y = y + b
+    return y.to(like.dtype)
+
+
+def _qconv(x, key, conv, k, d, scales, qweights, stats):
+    _record(stats, key, x)
+    w, b = conv.folded_kernel(), conv.bias
+    if scales is None or key not in scales:
+        return conv1d(x, w.to(x.dtype), b, padding=(k - 1) // 2 * d,
+                      dilation=d)
+    wq, sw, sx = qweights[key]
+    # the activation is divided by sx in the compute dtype, as in the JAX
+    # chain
+    y = int8_conv1d(_quant_x(x, sx.to(x.dtype)), wq, (k - 1) // 2 * d, d)
+    return _epilogue(y, sw, b, x)
+
+
+def mrf_chain_stage(
+    gen,
+    i: int,
+    x: torch.Tensor,
+    slope: float,
+    *,
+    scales: Optional[Dict[str, np.ndarray]] = None,
+    qweights: Optional[QuantWeights] = None,
+    stats: Optional[Dict[str, torch.Tensor]] = None,
+) -> torch.Tensor:
+    """MRF stage ``i`` of :func:`hifigan_fast_forward` as a conv chain: per
+    branch, LeakyReLU and conv (dilated, then 1-dilation) per layer plus
+    the residual, then the mean over branches. The convs whose keys
+    ``scales`` holds run in int8 (``qweights`` from
+    :func:`quantize_weights`), the others in x's dtype (cuDNN on CUDA).
+    ``stats``, where given, receives every conv input's per-channel max
+    |x| under its calibration key."""
+    num_blocks = len(gen.resblock_kernel_sizes)
+    acc = 0.0
+    for j, (k_res, dils) in enumerate(zip(gen.resblock_kernel_sizes,
+                                          gen.resblock_dilations)):
+        block = gen.blocks[i * num_blocks + j]
+        xb = x
+        for li, d in enumerate(dils):
+            xt = _qconv(F.leaky_relu(xb, slope), f"s{i}_b{j}_l{li}_c1",
+                        block.convs1[li], k_res, d, scales, qweights, stats)
+            if gen.use_additional_convs:
+                xt = _qconv(F.leaky_relu(xt, slope), f"s{i}_b{j}_l{li}_c2",
+                            block.convs2[li], k_res, 1, scales, qweights,
+                            stats)
+            xb = xt + xb
+        acc = acc + xb
+    return acc / num_blocks
+
+
 def hifigan_fast_forward(
     gen,
     c: torch.Tensor,
@@ -186,34 +247,12 @@ def hifigan_fast_forward(
             "dilation list per residual kernel size")
     slope = gen.nonlinear_activation_params.get("negative_slope", 0.1)
     dtype = c.dtype
-    stats: Dict[str, torch.Tensor] = {}
+    stats: Optional[Dict[str, torch.Tensor]] = {} if collect_stats else None
     if scales is not None and qweights is None:
         qweights = quantize_weights(gen, scales)
 
-    def record(key, x):
-        if collect_stats:
-            stats[key] = x.abs().amax(dim=(0, 1)).float()
-
-    def epilogue(y_int, sw, b, like):
-        y = y_int.float() * sw
-        if b is not None:
-            y = y + b
-        return y.to(like.dtype)
-
-    def qconv(x, key, conv, k, d):
-        record(key, x)
-        w, b = conv.folded_kernel(), conv.bias
-        if scales is None or key not in scales:
-            return conv1d(x, w.to(x.dtype), b, padding=(k - 1) // 2 * d,
-                          dilation=d)
-        wq, sw, sx = qweights[key]
-        # the activation is divided by sx in the compute dtype, as in the
-        # JAX chain
-        y = int8_conv1d(_quant_x(x, sx.to(x.dtype)), wq, (k - 1) // 2 * d, d)
-        return epilogue(y, sw, b, x)
-
     def qdeconv(x, key, conv, s_up):
-        record(key, x)
+        _record(stats, key, x)
         w, b = conv.folded_kernel(), conv.bias
         kw = dict(stride=s_up, padding=s_up // 2 + s_up % 2,
                   output_padding=s_up % 2)
@@ -221,12 +260,11 @@ def hifigan_fast_forward(
             return conv_transpose1d(x, w.to(x.dtype), b, **kw)
         wq, sw, sx = qweights[key]
         y = int8_conv_transpose1d(_quant_x(x, sx.to(x.dtype)), wq, **kw)
-        return epilogue(y, sw, b, x)
+        return _epilogue(y, sw, b, x)
 
     pad = (gen.kernel_size - 1) // 2
     x = conv1d(c, gen.input_conv.folded_kernel().to(dtype),
                gen.input_conv.bias, padding=pad)
-    num_blocks = len(gen.resblock_kernel_sizes)
     for i, s_up in enumerate(gen.upsample_scales):
         x = qdeconv(F.leaky_relu(x, slope), f"s{i}_up", gen.upsamples[i],
                     s_up)
@@ -239,20 +277,8 @@ def hifigan_fast_forward(
                 chunk=pack["chunk"], quant=pack["quant"], slope=slope,
             )
             continue
-        acc = 0.0
-        for j, (k_res, dils) in enumerate(zip(gen.resblock_kernel_sizes,
-                                              gen.resblock_dilations)):
-            block = gen.blocks[i * num_blocks + j]
-            xb = x
-            for li, d in enumerate(dils):
-                xt = qconv(F.leaky_relu(xb, slope), f"s{i}_b{j}_l{li}_c1",
-                           block.convs1[li], k_res, d)
-                if gen.use_additional_convs:
-                    xt = qconv(F.leaky_relu(xt, slope), f"s{i}_b{j}_l{li}_c2",
-                               block.convs2[li], k_res, 1)
-                xb = xt + xb
-            acc = acc + xb
-        x = acc / num_blocks
+        x = mrf_chain_stage(gen, i, x, slope, scales=scales,
+                            qweights=qweights, stats=stats)
     # the official implementation uses the default slope (0.01) here
     x = F.leaky_relu(x, 0.01)
     y = torch.tanh(conv1d(x, gen.output_conv.folded_kernel().to(dtype),

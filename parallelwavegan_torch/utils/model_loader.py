@@ -7,8 +7,9 @@ stream of a train-state ``.ckpt``) with weight norm folded, cast to the
 compute dtype, register mean/scale stats, and synthesize a list of mels as
 one bucketed batch. On CUDA a Parallel WaveGAN generator runs through
 ``pwg_fused_forward`` (the WaveNet stack kernel), on the CPU through its
-plain per-layer forward. A HiFi-GAN generator runs its exact forward
-(``hifigan_fast_forward``); ``quantize_int8`` switches its conv chain to
+plain per-layer forward; the config's ``inference_fused_wavenet`` can ask
+for either on any device (:func:`fused_wavenet`). A HiFi-GAN generator
+runs its exact forward (``hifigan_fast_forward``); ``quantize_int8`` switches its conv chain to
 int8, and ``use_mrf_kernel`` routes its MRF stages to the fused CUDA
 kernel.
 
@@ -56,6 +57,20 @@ def resolve_device(device: Any = "cuda") -> torch.device:
     return device
 
 
+def fused_wavenet(config: Dict[str, Any], device: torch.device) -> bool:
+    """Whether a Parallel WaveGAN serves through ``pwg_fused_forward``:
+    the config's ``inference_fused_wavenet`` (true, false or "auto", the
+    default: fused on CUDA only)."""
+    setting = config.get("inference_fused_wavenet", "auto")
+    if setting == "auto":
+        return device.type == "cuda"
+    if isinstance(setting, bool):
+        return setting
+    raise ValueError(
+        f"inference_fused_wavenet must be true, false or 'auto', not "
+        f"{setting!r}")
+
+
 class InferenceModel:
     """Generator (folded weights, compute dtype, on a device) + stats."""
 
@@ -81,19 +96,23 @@ class InferenceModel:
         )
         self.dtype = dtype or torch.float32
         self.generator.to(device=self.device, dtype=self.dtype).eval()
-        # Parallel WaveGAN on CUDA runs only through the stack kernel, whose
-        # weights are fused once here; settings it lacks raise
+        # Parallel WaveGAN: inference_fused_wavenet picks the forward, as in
+        # the JAX package ("auto": fused on CUDA, the module forward on the
+        # CPU; true: fused on any device, the kernel on CUDA and the stack's
+        # plain version on the CPU; false: gen(z, c) everywhere). The fused
+        # weights are made once here; settings the fused path lacks raise
         self.stack_params: Optional[Dict[str, torch.Tensor]] = None
         if self.gen_type == "ParallelWaveGANGenerator" \
-                and self.device.type == "cuda":
+                and fused_wavenet(config, self.device):
             gen = self.generator
             bad = unsupported_fused_settings(gen)
             if bad:
                 raise NotImplementedError(
-                    f"{self.gen_type} with {', '.join(bad)} has no CUDA path"
+                    f"{self.gen_type} with {', '.join(bad)} has no fused path"
                 )
-            check_kernel_channels(gen.residual_channels, gen.gate_channels,
-                                  gen.skip_channels)
+            if self.device.type == "cuda":
+                check_kernel_channels(gen.residual_channels,
+                                      gen.gate_channels, gen.skip_channels)
             with torch.no_grad():
                 self.stack_params = fuse_wavenet_stack_params(gen.conv_layers)
         # HiFi-GAN serving modes: int8 scales and their quantised weights

@@ -30,6 +30,7 @@ from parallelwavegan_torch.ops.cuda.matmul_bench import (
 from parallelwavegan_torch.ops.cuda.mrf_stage import (
     build_stage_pack,
     mrf_stage,
+    mrf_stage_plan,
     mrf_stage_reference,
 )
 from parallelwavegan_torch.ops.hifigan_infer import hifigan_fast_forward
@@ -217,6 +218,35 @@ def test_inference_model_on_card_uses_kernel(tmp_path, cuda_device):
 
 
 @pytest.mark.cuda
+def test_inference_model_on_card_honours_fused_false(tmp_path, cuda_device):
+    """inference_fused_wavenet: false serves gen(z, c) on the card too: no
+    stack weights, no wavenet_stack launch, the fused forward's output."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    kwargs = dict(PWG_V1_KWARGS, layers=6, stacks=2)
+    config = {"generator_type": "ParallelWaveGANGenerator",
+              "generator_params": kwargs}
+    path = str(tmp_path / "g.gckpt")
+    save_generator_checkpoint(path, ParallelWaveGANGenerator(
+        **kwargs, generator=torch.Generator().manual_seed(0)))
+    plain = load_model(path, dict(config, inference_fused_wavenet=False),
+                       device=cuda_device)
+    fused = load_model(path, config, device=cuda_device)
+    assert plain.stack_params is None and fused.stack_params is not None
+    mels = [np.random.default_rng(3).standard_normal((12, 80)).astype(
+        np.float32)]
+    fn, (c, z), _ = plain.prepare_batch(mels, bucket_size=4)
+    before = wavenet_stack.launches
+    y = fn(c, z)
+    torch.cuda.synchronize()
+    assert wavenet_stack.launches == before
+    fn_f, _, _ = fused.prepare_batch(mels, bucket_size=4)
+    y_f = fn_f(c, z)
+    assert wavenet_stack.launches == before + 6
+    _assert_close(y, y_f, torch.float32)
+
+
+@pytest.mark.cuda
 def test_inference_model_on_card_rejects_what_the_kernel_lacks(tmp_path,
                                                                cuda_device):
     """No plain fallback on the card: other widths or kernel sizes raise."""
@@ -351,8 +381,20 @@ def _rand_stage(rng, C, kernels, dils):
     return weights, scales
 
 
+_V1 = ((3, 7, 11), (1, 3, 5))
+
+
+def _tile_edges(C):
+    """T one row either side of the fused body's second tile boundary of
+    the k = 11 branch (the plan's tile: pure Python, the same on every
+    machine)."""
+    tt = mrf_stage_plan(1, 1, C, *_V1, torch.bfloat16)["tile"]["out_rows"]
+    return [(C, 2 * tt[-1] + s, 1) + _V1 for s in (-1, 1)]
+
+
 # (C, T, B, kernels, dils): the test widths of the JAX package and the four
-# real ones; ragged T, T below one tile and below the reach of 25 rows
+# real ones; ragged T, T below one tile and below the reach of 60 rows, T
+# one row either side of a tile boundary; the JAX test geometry at C 32
 _MRF_CASES = [
     (8, 300, 2, (3, 5, 7), (1, 2)),
     (16, 20, 1, (3, 7, 11), (1, 3, 5)),
@@ -361,7 +403,8 @@ _MRF_CASES = [
     (128, 129, 1, (3, 7, 11), (1, 3, 5)),
     (256, 260, 1, (3, 7, 11), (1, 3, 5)),
     (32, 7, 3, (3, 7, 11), (1, 3, 5)),
-]
+    (32, 300, 2, (3, 5, 7), (1, 2)),
+] + [case for C in (32, 64, 128, 256) for case in _tile_edges(C)]
 
 
 @pytest.mark.cuda
@@ -386,11 +429,36 @@ def test_mrf_stage_kernel_matches_plain(cuda_device, mode, C, T, B, kernels,
     before = mrf_stage.launches
     out = mrf_stage(x, pack, kernels=kernels, dils=dils, quant=quant)
     torch.cuda.synchronize()
-    assert mrf_stage.launches == before + 2 * len(dils) + 1
+    plan = mrf_stage_plan(B, T, C, kernels, dils, pack["w0"].dtype)
+    assert mrf_stage.launches == before + plan["launches"]
     assert out.dtype == xdtype and out.shape == x.shape
     ref = mrf_stage_reference(x, pack, kernels=kernels, dils=dils,
                               quant=quant)
     _assert_close(out, ref, xdtype if mode != "bf16" else torch.bfloat16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["f32", "bf16", "int8"])
+def test_mrf_stage_launches_follow_the_plan(cuda_device, mode):
+    """At every v1 width a call launches what its plan says: the fused
+    conv pair (4 launches) for bf16 and int8 packs, the per-conv body (7)
+    for f32 packs."""
+    rng = np.random.default_rng(9)
+    for C in (32, 64, 128, 256):
+        weights, scales = _rand_stage(rng, C, *_V1)
+        pack = build_stage_pack(
+            weights, scales, quant=mode == "int8",
+            dtype=torch.bfloat16 if mode == "bf16" else torch.float32,
+            device=cuda_device)
+        x = torch.zeros((2, 50, C), device=cuda_device)
+        plan = mrf_stage_plan(2, 50, C, *_V1, pack["w0"].dtype)
+        assert plan["launches"] == (7 if mode == "f32" else 4)
+        before = mrf_stage.launches
+        out = mrf_stage(x, pack, kernels=_V1[0], dils=_V1[1],
+                        quant=mode == "int8")
+        torch.cuda.synchronize()
+        assert mrf_stage.launches - before == plan["launches"]
+        assert torch.isfinite(out).all()
 
 
 @pytest.mark.cuda
@@ -463,7 +531,7 @@ _SMALL_HIFIGAN = dict(
 def test_hifigan_inference_model_on_card(tmp_path, cuda_device):
     """A small HiFi-GAN through InferenceModel on the card: the exact
     forward against the CPU; use_mrf_kernel(quant=False) against the exact
-    forward (7 launches a stage, and 0 for a stage left out);
+    forward (the plan's launches a stage, and 0 for a stage left out);
     use_mrf_kernel(quant=True) against the int8 conv chain on the MRF keys
     with the same calibration."""
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -487,17 +555,20 @@ def test_hifigan_inference_model_on_card(tmp_path, cuda_device):
         assert a.shape == b.shape
         _assert_close(torch.from_numpy(a), torch.from_numpy(b),
                       torch.float32)
+    # the two stages (C 16 and 8) at a bucket of 40 frames
+    plans = [mrf_stage_plan(2, 40 * 4 * 2 ** i, C, (3, 5, 7), (1, 3),
+                            torch.float32) for i, C in enumerate((16, 8))]
     before = mrf_stage.launches
     model.use_mrf_kernel(quant=False)
     fused = model.synthesize_batch(mels, bucket_size=8)
-    assert mrf_stage.launches == before + 2 * (2 * 2 + 1)
+    assert mrf_stage.launches == before + sum(p["launches"] for p in plans)
     for a, b in zip(fused, exact):
         _assert_close(torch.from_numpy(a), torch.from_numpy(b),
                       torch.float32)
     before = mrf_stage.launches
     model.use_mrf_kernel(quant=False, stages=[1])
     model.synthesize_batch(mels, bucket_size=8)
-    assert mrf_stage.launches == before + 5
+    assert mrf_stage.launches == before + plans[1]["launches"]
     model.use_mrf_kernel(quant=True, calib_mels=mels)
     fused_q = model.synthesize_batch(mels, bucket_size=8)
     chain = load_model(path, config, device=cuda_device)

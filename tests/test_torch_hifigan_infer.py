@@ -228,6 +228,88 @@ def test_supports_mrf_kernel():
             assert mrf.unsupported_shape(C, (3, 7, 11), (1, 3, 5), dt) is None
 
 
+V1 = ((3, 7, 11), (1, 3, 5))
+
+
+@pytest.mark.parametrize("C,T", [(256, 4096), (128, 32768), (64, 65536),
+                                 (32, 131072)])
+@pytest.mark.parametrize("dt", [torch.bfloat16, torch.int8])
+def test_plan_fuses_the_conv_pair_at_the_v1_stages(C, T, dt):
+    """HiFi-GAN v1's four stages at batch 32 x 512 frames in bf16 and int8:
+    the fused-pair body, one launch a layer and the mean, a block's window,
+    y1 and three-slot ring within 227 KB, every weight byte feeding at
+    least 128 rows."""
+    plan = mrf.mrf_stage_plan(32, T, C, *V1, dt)
+    assert plan["body"] == "fused_pair" and plan["launches"] == 4
+    assert plan["smem"] <= 232448 and plan["ring_stages"] >= 3
+    rows = plan["tile"]["rows"]
+    assert rows >= 128 and plan["tile"]["out_rows"] == [rows - 2, rows - 6,
+                                                        rows - 10]
+    assert plan["blocks"] == 32 * sum(-(-T // n)
+                                      for n in plan["tile"]["out_rows"])
+    assert plan["smem"] == mrf.fused_smem_bytes(C, V1[0], 5, dt)
+    wm, wn = plan["tile"]["warps"]
+    assert plan["threads"] == 32 * wm * wn == 256
+    assert plan["tile"]["columns"] == C
+
+
+@pytest.mark.parametrize("C,dt,kernels,dils", [
+    (8, torch.bfloat16) + V1, (16, torch.int8) + V1,
+    (8, torch.float32, (3, 5, 7), (1, 2)), (16, torch.bfloat16, (3, 5, 7),
+                                            (1, 2)),
+    (32, torch.float32) + V1, (256, torch.float32) + V1,
+])
+def test_plan_keeps_the_per_conv_body_for_f32_and_narrow_widths(
+        C, dt, kernels, dils):
+    """f32 packs (the parity mode) and C 8 and 16 keep the per-conv body:
+    two launches a layer and the mean."""
+    plan = mrf.mrf_stage_plan(2, 300, C, kernels, dils, dt)
+    assert plan["body"] == "per_conv"
+    assert plan["launches"] == 2 * len(dils) + 1
+    assert plan["smem"] <= 232448
+
+
+def test_plan_refuses_what_neither_body_takes():
+    """Neither body takes C 512 or an even kernel size; a dilation too wide
+    for the fused window falls to the per-conv body only where that fits."""
+    for args in ((512,) + V1 + (torch.bfloat16,),
+                 (64, (3, 4), (1,), torch.int8)):
+        with pytest.raises(NotImplementedError, match="does not support"):
+            mrf.mrf_stage_plan(1, 100, *args)
+    wide = mrf.mrf_stage_plan(1, 100, 64, (3, 7, 11), (1, 260), torch.int8)
+    assert wide["body"] == "per_conv"
+    assert mrf.fused_smem_bytes(64, (3, 7, 11), 260, torch.int8) > 232448
+    with pytest.raises(NotImplementedError, match="shared memory"):
+        mrf.mrf_stage_plan(1, 100, 256, (3, 7, 11), (1, 40), torch.bfloat16)
+
+
+def test_ablation_tool_variants_still_apply_to_the_kernel_source():
+    """Every text the MRF ablation tool replaces is in csrc/mrf_stage.cu
+    exactly once, so each variant takes out what its name says."""
+    from parallelwavegan_torch.ops.cuda.build import CSRC_DIR
+    from parallelwavegan_torch.tools.mrf_stage_ablation import VARIANTS
+
+    source = (CSRC_DIR / "mrf_stage.cu").read_text()
+    assert VARIANTS["base"] == []
+    for name, edits in VARIANTS.items():
+        for old, new in edits:
+            assert source.count(old) == 1, (name, old)
+            assert old != new
+
+
+def test_mrf_chain_stage_is_the_residual_blocks(small):
+    """The factored conv chain of one stage (the forward's own, timed as
+    the library yardstick on the card) equals the mean of the stage's
+    HiFiGANResidualBlock modules."""
+    _, _, gen, c = small
+    x = torch.from_numpy(np.random.default_rng(3).standard_normal(
+        (2, 50, 16)).astype(np.float32))
+    got = infer.mrf_chain_stage(gen, 0, x, 0.1)
+    blocks = gen.blocks[0:3]
+    want = (blocks[0](x) + blocks[1](x) + blocks[2](x)) / 3
+    torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
+
+
 # ragged T, T below one chunk of the JAX kernel, T below the reach
 @pytest.mark.parametrize("T", [300, 64, 20, 7])
 @pytest.mark.parametrize("quant", [False, True])

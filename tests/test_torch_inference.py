@@ -22,6 +22,7 @@ from parallelwavegan_tpu.models import (
 from parallelwavegan_tpu.utils.model_loader import (
     InferenceModel as JaxInferenceModel,
 )
+from parallelwavegan_torch.utils import model_loader as port_loader
 from parallelwavegan_torch.utils.model_loader import load_model, resolve_device
 from tests.torch_helpers import flax_generator_kwargs
 
@@ -87,6 +88,64 @@ def test_synthesize_batch_matches_jax_inference_model(tmp_path,
     waves = model.synthesize_batch(mels, normalize_before, bucket_size=8)
     assert [w.shape for w in waves] == [(n * up, 1) for n in lengths]
     assert all(w.dtype == np.float32 for w in waves)
+
+
+@pytest.mark.parametrize("setting", ["auto", True, False])
+def test_inference_fused_wavenet_picks_the_path_like_jax(tmp_path,
+                                                        monkeypatch, setting):
+    """inference_fused_wavenet on the CPU: "auto" and false serve gen(z, c),
+    true the fused forward (the stack's plain version); each against the
+    JAX InferenceModel under the same config, whose Pallas stack runs in
+    interpret mode as the JAX package's own CPU tests run it."""
+    from parallelwavegan_tpu.ops.pallas import pwg_infer as jax_pwg
+
+    stack = jax_pwg.wavenet_stack
+    monkeypatch.setattr(jax_pwg, "wavenet_stack",
+                        lambda *a, **k: stack(*a, **dict(k, interpret=True)))
+    config = dict(_config(), inference_fused_wavenet=setting)
+    path, v = _jax_checkpoint(tmp_path, config)
+    mels = _mels(np.random.default_rng(4), [10, 7])
+    ref = JaxInferenceModel(config, v)
+    fn, args, lengths = ref.prepare_batch(mels, bucket_size=8)
+    y_ref = np.asarray(fn(*args), np.float32)
+
+    calls = []
+    fused = port_loader.pwg_fused_forward
+    monkeypatch.setattr(port_loader, "pwg_fused_forward",
+                        lambda *a, **k: calls.append(1) or fused(*a, **k))
+    model = load_model(path, config, device="cpu")
+    assert (model.stack_params is not None) == (setting is True)
+    assert port_loader.fused_wavenet(config, torch.device("cpu")) == (
+        setting is True)
+    assert port_loader.fused_wavenet(config, torch.device("cuda")) == (
+        setting is not False)
+    fn_t, (c_t, _), _ = model.prepare_batch(mels, bucket_size=8)
+    y = fn_t(c_t, torch.from_numpy(np.array(args[2]))).numpy()
+    assert len(calls) == (1 if setting is True else 0)
+    up = model.upsample_factor
+    for i, n in enumerate(lengths):
+        np.testing.assert_allclose(y[i, : n * up], y_ref[i, : n * up],
+                                   atol=1e-4)
+
+
+def test_inference_fused_wavenet_rejects_what_the_fused_path_lacks(tmp_path):
+    """true keeps the no-fallback rule on any device; false serves a
+    generator the fused path lacks; other values are refused."""
+    config = _config()
+    config["generator_params"] = dict(config["generator_params"],
+                                      kernel_size=5)
+    path, _ = _jax_checkpoint(tmp_path, config)
+    with pytest.raises(NotImplementedError, match="kernel_size=5"):
+        load_model(path, dict(config, inference_fused_wavenet=True),
+                   device="cpu")
+    model = load_model(path, dict(config, inference_fused_wavenet=False),
+                       device="cpu")
+    assert model.stack_params is None
+    wave = model.inference(_mels(np.random.default_rng(5), [6])[0])
+    assert wave.shape == (6 * 4, 1) and np.isfinite(wave).all()
+    with pytest.raises(ValueError, match="inference_fused_wavenet"):
+        load_model(path, dict(config, inference_fused_wavenet="yes"),
+                   device="cpu")
 
 
 def test_pcm16_matches_jax_within_one_lsb(tmp_path):
@@ -171,7 +230,8 @@ def test_port_imports_no_jax():
         "'ops.cuda.matmul_bench', 'ops.eval_metrics', 'ops.audio', "
         "'tools.int8_stage_roofline', 'tools.int8_wavenet_experiment', "
         "'ops.cuda.wavenet_variant', 'ops.mel', 'losses.mel_loss', "
-        "'losses.feat_match', 'tools.wavenet_stack_ablation']\n"
+        "'losses.feat_match', 'tools.wavenet_stack_ablation', "
+        "'tools.mrf_stage_ablation']\n"
         "missing = [w for w in want if 'parallelwavegan_torch.' + w "
         "not in names]\n"
         "assert not missing, missing\n"
