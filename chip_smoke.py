@@ -48,8 +48,11 @@
 6. holds one generator loss and gradient at that shape through the kernels
    against the same through their plain versions, times the (G, adv, D)
    step, both kernels at the training shape (the f32 forward on its SIMT
-   body beside the backward) and the backward's plain version, and prints
-   where a step's device time goes (torch.profiler);
+   body beside the backward on the body its launch plan names, f32 on
+   split-TF32 tensor cores) and the backward's plain version, the bf16
+   backward body (SIMT) alone at the same shape, the backward's bound on
+   its body and its two-launch byte floor, and prints where a step's
+   device time goes (torch.profiler);
 7. runs the gate and int8 experiment (tools.int8_wavenet_experiment.main)
    at its full shape, 10 layers at batch 32 x 512 frames, whose run launches
    the variant kernel, prints its four lines, and holds and times each
@@ -88,6 +91,7 @@ import torch.nn.functional as F
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12,
               torch.int8: 1979e12}
 PEAK_BYTES_PER_S = 3.35e12
+PEAK_TF32_FLOPS = 495e12
 HOP, SR, BENCH_BATCH, BENCH_FRAMES = 256, 22050, 32, 512
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}  # x (1 + max|plain|)
 
@@ -395,22 +399,40 @@ def layer_bytes_floor_ms(B, T, L) -> float:
     return 1184.0 * B * T * L / PEAK_BYTES_PER_S * 1e3
 
 
-def backward_bound_ms(B, T, L, A, dtype) -> tuple:
-    """Least time for the stack backward: 3 (3R + A) G + 2 R (S + R) MAC per
-    row and layer at the type's peak vs the bytes that must move (xs, c and
-    the cotangents in, dx and dc out, weights in, their gradients out). The
-    gate product is recomputed and then transposed twice (dz . W^T and
-    in^T . dz); the skip/out 1x1 is only transposed twice (dg = dso . Wso^T,
-    dWso = g^T . dso): its forward output is never needed again."""
+def backward_bound_ms(B, T, L, A, dtype, body: str) -> tuple:
+    """Least time for the stack backward on the body its launch plan names:
+    3 (3R + A) G + 2 R (S + R) MAC per row and layer at the body's peak vs
+    the bytes that must move (xs, c and the cotangents in, dx and dc out,
+    weights in, their gradients out). The gate product is recomputed and
+    then transposed twice (dz . W^T and in^T . dz); the skip/out 1x1 is only
+    transposed twice (dg = dso . Wso^T, dWso = g^T . dso): its forward
+    output is never needed again. The f32 tensor-core body
+    (``tensor_cores_tf32x3``) does every product as three TF32 products,
+    so its peak is the TF32 rate over three; otherwise the type's peak."""
     R, G, S = 64, 128, 64
     flops = 2 * (3 * (3 * R + A) * G + 2 * R * (S + R)) * B * T * L
     item = torch.finfo(dtype).bits // 8
     weights = L * (3 * R * G + G + A * G + R * (S + R) + S + R) * item
     nbytes = (B * T * (L * R * item + A * item + S * 4 + 2 * R * item
                        + A * item) + 2 * weights)
-    t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / PEAK_BYTES_PER_S
+    peak = (PEAK_TF32_FLOPS / 3 if body == "tensor_cores_tf32x3"
+            else PEAK_FLOPS[dtype])
+    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES_PER_S
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
                                        else "bytes")
+
+
+def bwd_bytes_floor_ms(B, T, L, A, dtype) -> float:
+    """Least time of the backward as two launches a layer, at the memory
+    rate. Per row and layer the data launch reads xs and c (in the matmul
+    type), D and writes it back (512 B), reads the three tap rows of the
+    layer above (768 B), writes its own taps (768 B), dz (512 B) and g
+    (256 B) and reads and writes dc (8 A B); the weight launch reads xs, c,
+    g, dz and dso (dskip and D, 512 B) once each."""
+    item = torch.finfo(dtype).bits // 8
+    data = (64 + A) * item + 512 + 768 + 768 + 512 + 256 + 8 * A
+    weight = (64 + A) * item + 256 + 512 + 512
+    return (data + weight) * B * T * L / PEAK_BYTES_PER_S * 1e3
 
 
 def write_corpus(root: str, rng: np.random.Generator, n_utts: int = 8) -> None:
@@ -455,6 +477,7 @@ def training_phase(dev, smi: str) -> dict:
         wavenet_stack_reference,
     )
     from parallelwavegan_torch.ops.cuda.wavenet_stack_train import (
+        backward_launch_plan,
         wavenet_stack_backward,
         wavenet_stack_train,
         wavenet_stack_train_reference,
@@ -462,6 +485,12 @@ def training_phase(dev, smi: str) -> dict:
 
     rng = np.random.default_rng(1)
     L = PWG_V1["generator_params"]["layers"]
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    # the backward's plan for one group of ten layers in each precision
+    bwd_plans = {dtype: backward_launch_plan(TRAIN_BATCH, TRAIN_SAMPLES, 80,
+                                             L // 3, dtype, sms)
+                 for dtype in (torch.float32, torch.bfloat16)}
+    print(f"backward launch plans per group: {bwd_plans}")
     # the step runs the stack as three groups of ten layers; the forward
     # kernel's launches per forward follow its plan in each precision
     launches_per_forward = {
@@ -497,7 +526,8 @@ def training_phase(dev, smi: str) -> dict:
         if out["fwd_launches"] != launches_per_forward[torch.float32] * (
                 g_updates + d_updates + eval_forwards):
             raise AssertionError("unexpected forward kernel launches")
-        if out["bwd_launches"] != L * g_updates:
+        if out["bwd_launches"] != 3 * bwd_plans[torch.float32][
+                "launches"] * g_updates:
             raise AssertionError("unexpected backward kernel launches")
         check_trainer(trainer, "training path f32")
         for name, module, start in (
@@ -543,7 +573,8 @@ def training_phase(dev, smi: str) -> dict:
         if mixed.steps != 8 \
                 or wavenet_stack.launches != 4 * launches_per_forward[
                     torch.bfloat16] \
-                or wavenet_stack_backward.launches != 2 * L:
+                or wavenet_stack_backward.launches != 2 * 3 * bwd_plans[
+                    torch.bfloat16]["launches"]:
             raise AssertionError("unexpected launches in mixed precision")
         check_trainer(mixed, "training path mixed")
         if any(p.dtype != torch.float32 for p in mixed.generator.parameters()):
@@ -690,14 +721,42 @@ def training_phase(dev, smi: str) -> dict:
 
         plain_backward_ms()  # warm-up
         out["bwd_plain_ms"] = sum(plain_backward_ms() for _ in range(2)) / 2
+        del plain, xr, cr
+
+        # the bf16 body (SIMT) alone at the same shape, on the same inputs
+        # and weights rounded to bf16, as the mixed step runs it
+        bf = torch.bfloat16
+        groups16 = [({k: v.to(bf) for k, v in wg.items()}, dg)
+                    for wg, dg in groups]
+        c16 = c_up.to(bf)
+        xs16 = wavenet_stack(x0.to(bf), c16, groups16[0][0], groups16[0][1],
+                             save_inputs=True)[2]
+
+        def backward_groups_bf16():
+            for wg, dg in groups16:
+                wavenet_stack_backward(xs16, c16, wg, dg, ux, us)
+
+        out["bwd_bf16_ms"] = time_ms(backward_groups_bf16, reps=3)
+        del xs16, groups16, c16
     B, T = x0.shape[:2]
+    A = c_up.shape[-1]
+    out["bwd_plan"] = bwd_plans[torch.float32]
+    out["bwd_bf16_plan"] = bwd_plans[torch.bfloat16]
     out["bwd_bound_ms"], out["bwd_bound_by"] = backward_bound_ms(
-        B, T, L, c_up.shape[-1], torch.float32)
+        B, T, L, A, torch.float32, out["bwd_plan"]["body"])
+    out["bwd_bf16_bound_ms"], _ = backward_bound_ms(
+        B, T, L, A, torch.bfloat16, out["bwd_bf16_plan"]["body"])
+    out["bwd_bytes_floor_ms"] = bwd_bytes_floor_ms(B, T, L, A, torch.float32)
     out["fwd_bound_ms"], _ = stack_bound_ms(B, T, L, torch.float32)
     print(f"training shape f32 {B} x {T}, {L} layers in 3 groups: backward "
-          f"kernel {out['bwd_ms']:.2f} ms (plain {out['bwd_plain_ms']:.2f} "
+          f"kernel {out['bwd_ms']:.2f} ms on the "
+          f"{out['bwd_plan']['body']} body (plain {out['bwd_plain_ms']:.2f} "
           f"ms, bound {out['bwd_bound_ms']:.2f} ms by "
-          f"{out['bwd_bound_by']}); forward kernel with saved inputs "
+          f"{out['bwd_bound_by']}, two-launch byte floor "
+          f"{out['bwd_bytes_floor_ms']:.2f} ms; the bf16 "
+          f"{out['bwd_bf16_plan']['body']} body {out['bwd_bf16_ms']:.2f} ms, "
+          f"bound {out['bwd_bf16_bound_ms']:.2f} ms); forward kernel with "
+          f"saved inputs "
           f"{out['fwd_train_ms']:.2f} ms, without "
           f"{out['fwd_infer_ms']:.2f} ms (plain {out['fwd_plain_ms']:.2f} "
           f"ms, bound {out['fwd_bound_ms']:.2f} ms) on {smi}")
@@ -1761,6 +1820,14 @@ def run_phases(dev, smi: str, pool) -> int:
         "bound_ms": train["bwd_bound_ms"],
         "bound_by": train["bwd_bound_by"],
         "library_ms": None,
+        "plan": train["bwd_plan"],
+        "bound_peak": ("TF32 tensor cores / 3"
+                       if train["bwd_plan"]["body"] == "tensor_cores_tf32x3"
+                       else "f32 CUDA cores"),
+        "bytes_floor_ms": train["bwd_bytes_floor_ms"],
+        "bf16_ms": train["bwd_bf16_ms"],
+        "bf16_plan": train["bwd_bf16_plan"],
+        "bf16_bound_ms": train["bwd_bf16_bound_ms"],
     }, {
         "name": "mrf_stage",
         "route": "cuda",

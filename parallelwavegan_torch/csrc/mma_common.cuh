@@ -1,6 +1,6 @@
-// Warp-level matrix-multiply pieces shared by mrf_stage.cu and
-// matmul_bench.cu: one 16 x 8 output tile per warp and call, in the three
-// matmul types the HiFi-GAN serving kernels use,
+// Warp-level matrix-multiply pieces shared by mrf_stage.cu,
+// matmul_bench.cu and wavenet_stack_bwd.cu: one 16 x 8 output tile per warp
+// and call, in the three matmul types the HiFi-GAN serving kernels use,
 //
 //   int8  x int8  -> int32   mma.sync m16n8k32 (tensor cores)
 //   bf16  x bf16  -> float32 mma.sync m16n8k16 (tensor cores)
@@ -109,6 +109,33 @@ __device__ __forceinline__ uint32_t lds32(const unsigned char* p) {
 __device__ __forceinline__ uint32_t quant_byte(float v) {
   const float q = fminf(fmaxf(rintf(v), -127.f), 127.f);
   return (uint32_t)(uint8_t)(int8_t)(int)q;
+}
+
+// f32 products on the TF32 tensor cores at f32 accuracy (the backward's f32
+// body): mma.sync m16n8k8 tf32 -> f32 has the fragment layout above with
+// KS = 8, EPR = 1, and reads only the sign, exponent and top 10 mantissa
+// bits of each 32-bit operand (the low 13 are ignored: truncation). Each
+// operand x splits as hi = x rounded to TF32 (to nearest, ties away, by
+// integer arithmetic on its bits: cvt.rna.tf32.f32 gives the same bits but
+// issues at a quarter of the rate) and lo = x - hi (exact in f32, truncated
+// to TF32 by the tensor core); a . b is taken as lo_a . hi_b + hi_a . lo_b +
+// hi_a . hi_b, the small terms first. The dropped lo_a . lo_b and the
+// truncation of lo leave a relative error near 2^-21 per product, against
+// about 2^-11 for one TF32 product. The caller issues the three mma_tf32
+// calls (wavenet_stack_bwd.cu interleaves them over independent
+// accumulators).
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
+  lo = __float_as_uint(x - __uint_as_float(hi));
+}
+
+__device__ __forceinline__ void mma_tf32(float c[4], const uint32_t a[4],
+                                         const uint32_t b[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
 }  // namespace pwgmma

@@ -25,6 +25,9 @@ The weight gradients are sums over all B*T rows: the kernel writes one f32
 partial per slab of rows and the wrapper adds the slabs with one
 ``torch.sum``, which is deterministic. xs is allocated once per call and
 freed with the autograd graph after the backward.
+
+:func:`backward_launch_plan` says which body runs: float32 on tensor cores
+with split-TF32 products, bfloat16 on the SIMT body.
 """
 
 from __future__ import annotations
@@ -38,15 +41,92 @@ import torch
 from parallelwavegan_torch.ops.cuda.build import load_library
 from parallelwavegan_torch.ops.cuda.wavenet_stack import (
     _DTYPE_CODES,
+    _SMEM_LIMIT,
+    _TILE_ROWS,
+    KERNEL_CHANNELS,
     wavenet_stack,
     wavenet_stack_reference,
 )
 
 _WEIGHT_KEYS = ("w_tap", "b_tap", "w_aux", "w_so", "b_so")
-# slabs of rows the weight-gradient launch splits B*T into: enough blocks
-# (slabs x 6 output tiles) to fill 132 SMs twice over at the training shape
-_MAX_SLABS = 64
+_BODY_CODES = {"simt": 0, "tensor_cores_tf32x3": 1}
+# slabs of rows the weight-gradient launch splits B*T into. SIMT body: up
+# to 64 (x 6 output tiles fills 132 SMs about three times over at the
+# training shape); tensor-core body: as many as keep every block of the
+# launch resident at once (two a SM), so the launch is one wave
+_SIMT_MAX_SLABS = 64
 _MIN_ROWS_PER_SLAB = 256
+# the tensor-core body's layout, as the constants of namespace tc in
+# csrc/wavenet_stack_bwd.cu set it (f32 words)
+_TC_STAGES, _TC_CHUNK = 3, 32   # data launch: ring slots, rows of a chunk
+_TC_ROW_STAGES = 4              # weight launch: ring slots
+_ROW_CHUNK = 32  # rows of a weight-launch chunk, both bodies (slabs round up)
+_TC_BLOCKS_PER_SM = 2
+
+
+def backward_smem_bytes(A: int, body: str) -> Dict[str, int]:
+    """Shared memory of the data and the weight launch of one layer.
+
+    simt: the activation tile [3R + A padded to 16][64], a weight chunk
+    [16][128] and the dso tile [128][64] (dynamic); the weight launch's
+    [32][64 + 128] row chunk (static). tensor_cores_tf32x3: a ring of three
+    chunks, each 32 weight rows of 128 columns (padded to 136) and the
+    matching 32 activation columns of 64 rows (padded to 36), beside the
+    dso / dz tile [64][132]; the weight launch's ring of four 32-row chunks
+    of [64 | 128] columns (padded to 72 and 136). Neither tensor-core
+    launch grows with A: activations and weights stream in chunks."""
+    R, G = KERNEL_CHANNELS["residual"], KERNEL_CHANNELS["gate"]
+    S, T = KERNEL_CHANNELS["skip"], _TILE_ROWS
+    if body == "simt":
+        kp = -(-(3 * R + A) // 16) * 16
+        return {"data": 4 * (kp * T + 16 * G + (S + R) * T),
+                "weight": 4 * _ROW_CHUNK * (64 + G)}
+    stage = _TC_CHUNK * (G + 8) + T * (_TC_CHUNK + 4)
+    return {"data": 4 * (_TC_STAGES * stage + T * (G + 4)),
+            "weight": 4 * _TC_ROW_STAGES * _ROW_CHUNK * (64 + 8 + G + 8)}
+
+
+def backward_launch_plan(B: int, T: int, A: int, L: int, dtype: torch.dtype,
+                         sms: int = 132) -> dict:
+    """How one ``wavenet_stack_backward`` call runs on the card.
+
+    The body follows from dtype alone: float32 runs
+    ``tensor_cores_tf32x3`` (every product as three TF32 mma.sync products,
+    f32 accuracy), bfloat16 runs ``simt``. Each layer is a data launch
+    over ``data_grid`` (64-row tiles x items) and a weight launch over
+    ``weight_grid`` (slabs of rows x output tiles); one last launch forms
+    dx. ``launches`` is the count the wrapper adds to
+    ``wavenet_stack_backward.launches`` (one a layer). Raises
+    NotImplementedError where a launch would need more shared memory than
+    a block may have, or where A is not a multiple of 4 (the kernels move
+    c in 4-channel pieces)."""
+    if dtype not in _DTYPE_CODES:
+        raise NotImplementedError(f"no backward body for {dtype}")
+    if A % 4:
+        raise NotImplementedError(
+            f"aux channels must be a multiple of 4, got {A}")
+    body = "tensor_cores_tf32x3" if dtype == torch.float32 else "simt"
+    smem = backward_smem_bytes(A, body)
+    if max(smem.values()) > _SMEM_LIMIT:
+        raise NotImplementedError(
+            f"aux channels {A} need {max(smem.values())} bytes of shared "
+            f"memory a block on the {body} body, more than {_SMEM_LIMIT}")
+    rows = B * T
+    n_tiles = 3 + -(-A // 64) + 1
+    cap = (_TC_BLOCKS_PER_SM * sms) // n_tiles if body != "simt" \
+        else _SIMT_MAX_SLABS
+    slabs = max(1, min(cap, rows // _MIN_ROWS_PER_SLAB))
+    per_slab = -(-rows // slabs)
+    return {"body": body, "launches": L, "launches_per_layer": 2,
+            "data_grid": (-(-T // _TILE_ROWS), B),
+            "weight_grid": (slabs, n_tiles), "slabs": slabs,
+            "rows_per_slab": -(-per_slab // _ROW_CHUNK) * _ROW_CHUNK,
+            "data_smem": smem["data"], "weight_smem": smem["weight"]}
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def wavenet_stack_train_reference(
@@ -64,7 +144,7 @@ def _library() -> ctypes.CDLL:
     fn.restype = ctypes.c_int
     fn.argtypes = (
         [ctypes.c_int] + [ctypes.c_void_p] * 16
-        + [ctypes.POINTER(ctypes.c_int)] + [ctypes.c_int] * 5
+        + [ctypes.POINTER(ctypes.c_int)] + [ctypes.c_int] * 6
         + [ctypes.c_void_p]
     )
     lib.pwg_cuda_error_string.restype = ctypes.c_char_p
@@ -107,9 +187,9 @@ def wavenet_stack_backward(
             if not t.is_contiguous() or t.data_ptr() % 16:
                 raise ValueError(
                     f"{name} must be contiguous and 16-byte aligned")
-        n_slabs = max(1, min(_MAX_SLABS, B * T // _MIN_ROWS_PER_SLAB))
-        n_tiles = 3 + -(-A // 64) + 1
         dev = xs.device
+        plan = backward_launch_plan(B, T, A, L, dt, _sm_count(dev.index))
+        n_slabs, n_tiles = plan["weight_grid"]
         # D starts as the cotangent of x_out and carries dL/dx_l downwards
         D = dx_out.to(f32).contiguous().clone()
         dskip = dskip.to(f32).contiguous()
@@ -130,6 +210,7 @@ def wavenet_stack_backward(
             dskip.data_ptr(), D.data_ptr(), taps[0].data_ptr(),
             taps[1].data_ptr(), dc.data_ptr(), dz.data_ptr(), g.data_ptr(),
             partial.data_ptr(), dx.data_ptr(), dil, L, B, T, A, n_slabs,
+            _BODY_CODES[plan["body"]],
             torch.cuda.current_stream(dev).cuda_stream,
         )
         if err != 0:

@@ -44,6 +44,7 @@ from parallelwavegan_torch.ops.cuda.wavenet_variant import (
     variant_stack_reference,
 )
 from parallelwavegan_torch.ops.cuda.wavenet_stack_train import (
+    backward_launch_plan,
     wavenet_stack_backward,
     wavenet_stack_train,
     wavenet_stack_train_reference,
@@ -307,6 +308,47 @@ def test_backward_kernel_matches_plain(cuda_device, dtype, B, T, L):
         _assert_close(got[key], want[key], dtype)
 
 
+# the f32 tensor-core body's edges: T one row either side of the 64-row
+# tile, T below one tile, a dilation above T, B*T not a multiple of a slab's
+# rows (999 rows in 3 slabs of 352), one slab, and the aux widths of B1's
+# card tests (c in 4-channel pieces; A = 16 and 36 leave most of the second
+# c tile and the last taps panel empty)
+_TC_BWD_CASES = [
+    (1, 63, (1, 2), 80), (2, 65, (1, 2), 80), (1, 40, (1,), 80),
+    (1, 130, (512, 1), 80), (3, 333, (1, 64, 2), 80), (1, 77, (3,), 80),
+    (2, 333, (1, 64, 2), 16), (2, 333, (1, 64, 2), 36),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,dils,A", _TC_BWD_CASES)
+def test_backward_tensor_core_body_matches_plain(cuda_device, B, T, dils, A):
+    """Every f32 gradient of the split-TF32 body against autograd through
+    the plain forward, within f32's 1e-4 (1 + max |plain|)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    plan = backward_launch_plan(B, T, A, len(dils), torch.float32)
+    assert plan["body"] == "tensor_cores_tf32x3"
+    if (B, T) == (3, 333):
+        assert plan["slabs"] == 3 and B * T % plan["rows_per_slab"]
+    if (B, T) == (1, 77):
+        assert plan["slabs"] == 1
+    rng = np.random.default_rng(11)
+    x, c, w = _stack_inputs(rng, B, T, len(dils), torch.float32, cuda_device,
+                            A=A)
+    ux = torch.from_numpy(rng.standard_normal((B, T, 64)).astype(
+        np.float32)).to(cuda_device)
+    us = torch.from_numpy(rng.standard_normal((B, T, 64)).astype(
+        np.float32)).to(cuda_device)
+    bwd = wavenet_stack_backward.launches
+    got = _stack_grads(wavenet_stack_train, x, c, w, dils, ux, us)
+    torch.cuda.synchronize()
+    assert wavenet_stack_backward.launches == bwd + plan["launches"]
+    want = _stack_grads(wavenet_stack_train_reference, x, c, w, dils, ux, us)
+    for key in want:
+        assert got[key].dtype == torch.float32, key
+        _assert_close(got[key], want[key], torch.float32)
+
+
 @pytest.mark.cuda
 def test_backward_kernel_is_deterministic_and_skipped_without_grad(
         cuda_device):
@@ -369,6 +411,35 @@ def test_train_step_on_card_goes_through_both_kernels(cuda_device, mixed):
         assert torch.isfinite(value)
         np.testing.assert_allclose(value.item(), losses[False][key].item(),
                                    rtol=tol, err_msg=key)
+
+
+@pytest.mark.cuda
+def test_f32_train_step_backward_launches_follow_the_plan(cuda_device):
+    """An f32 (G, adv, D) step at PWG v1 widths (6 layers in 3 stacks) runs
+    the backward kernel on the tensor-core body, as many launches as the
+    plan of each layer group says."""
+    config = {
+        "hop_size": 256, "batch_max_steps": 2560,
+        "generator_params": dict(PWG_V1_KWARGS, layers=6, stacks=3),
+        "discriminator_params": {"layers": 4, "conv_channels": 16},
+        "stft_loss_params": {"fft_sizes": [256, 512], "hop_sizes": [64, 128],
+                             "win_lengths": [128, 256]},
+    }
+    batch = {k: torch.from_numpy(v).to(cuda_device)
+             for k, v in example_batch(config, batch_size=2).items()}
+    state, gen, dis, opt_g, opt_d = init_train_state(config, seed=0,
+                                                     device=cuda_device)
+    factory, _ = build_steps(config, gen, dis, build_criterion(config),
+                             opt_g, opt_d)
+    group = min(gen.layers // gen.stacks, 10)
+    plans = [backward_launch_plan(2, 2560, 80, group, torch.float32)
+             for _ in range(gen.layers // group)]
+    assert {p["body"] for p in plans} == {"tensor_cores_tf32x3"}
+    bwd = wavenet_stack_backward.launches
+    factory(True, True, True)(state, batch)
+    torch.cuda.synchronize()
+    assert wavenet_stack_backward.launches - bwd == sum(
+        p["launches"] for p in plans) == 6
 
 
 def _rand_stage(rng, C, kernels, dils):

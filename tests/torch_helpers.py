@@ -244,3 +244,30 @@ def assert_first_moment(opt, jax_opt_state, what, rel=1e-3, floor=1e-6):
     for key, b in want.items():
         err = np.abs(got[key] - b).max()
         assert err <= rel * np.abs(b).max() + floor * largest, (what, key, err)
+
+
+def tf32_round(x):
+    """x rounded to TF32 as ``cvt.rna.tf32.f32`` does: to nearest, ties away
+    from zero, keeping 10 of f32's 23 mantissa bits (float32 in and out)."""
+    bits = np.asarray(x, dtype=np.float32).view(np.uint32)
+    return ((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(
+        np.float32)
+
+
+def tf32x3_matmul(a, b):
+    """a @ b as the backward's f32 tensor-core body forms it: each operand
+    split as hi = tf32(x) and lo = x - hi, which the tensor core truncates
+    to TF32 (it ignores the low 13 bits), and lo_a hi_b + hi_a lo_b +
+    hi_a hi_b summed (here in float64)."""
+    a, b = np.asarray(a, np.float32), np.asarray(b, np.float32)
+    a_hi, b_hi = tf32_round(a), tf32_round(b)
+    a_lo, b_lo = tf32_truncate(a - a_hi), tf32_truncate(b - b_hi)
+    f = lambda v: v.astype(np.float64)  # noqa: E731
+    return (f(a_lo) @ f(b_hi) + f(a_hi) @ f(b_lo)) + f(a_hi) @ f(b_hi)
+
+
+def tf32_truncate(x):
+    """x with its low 13 mantissa bits cleared: how a TF32 tensor-core
+    product reads an f32 operand."""
+    bits = np.asarray(x, dtype=np.float32).view(np.uint32)
+    return (bits & np.uint32(0xFFFFE000)).view(np.float32)
