@@ -34,11 +34,15 @@
 3. drives the serving path at full PWG v1 width with seeded weights written
    to and read back from a .gckpt: InferenceModel on cuda, (a) batch 1 in
    f32 against the unfused plain generator, (b) batch 32 x 512 frames in
-   bf16, whose run must launch the forward kernel as often as its launch
-   plan says (one launch per layer: 30);
-4. times the forward, the stack kernel (bf16: the tensor-core layer body)
-   and its plain version with CUDA events, and prints the TFLOP/s reached,
-   the launch plan and the byte floor of one launch per layer;
+   bf16 and (c) the same batch in f32 (decode's default dtype), each run
+   launching the forward kernel as often as its launch plan says (one
+   launch per layer: 30; bf16 on the tensor-core body, f32 on the
+   split-TF32 body);
+4. times the forward, the stack kernel and its plain version in both
+   dtypes at that shape with CUDA events, holds the kernel against its
+   plain version there, and prints the TFLOP/s reached, the launch plan,
+   the bound on the plan's body and the byte floor of one launch per
+   layer;
 5. drives the training path at full PWG v1 width: a seeded corpus of npy
    dumps, bin.train.run on cuda for 6 steps across the discriminator's
    start (batch 6 x 25,600 samples, f32), whose run must launch the forward
@@ -47,12 +51,11 @@
    loads back; then two resumed steps with mixed_precision;
 6. holds one generator loss and gradient at that shape through the kernels
    against the same through their plain versions, times the (G, adv, D)
-   step, both kernels at the training shape (the f32 forward on its SIMT
-   body beside the backward on the body its launch plan names, f32 on
-   split-TF32 tensor cores) and the backward's plain version, the bf16
-   backward body (SIMT) alone at the same shape, the backward's bound on
-   its body and its two-launch byte floor, and prints where a step's
-   device time goes (torch.profiler);
+   step, both kernels at the training shape (each on the body its launch
+   plan names, in f32 both on split-TF32 tensor cores) and the backward's
+   plain version, the bf16 backward body (SIMT) alone at the same shape,
+   the backward's bound on its body and its two-launch byte floor, and
+   prints where a step's device time goes (torch.profiler);
 7. runs the gate and int8 experiment (tools.int8_wavenet_experiment.main)
    at its full shape, 10 layers at batch 32 x 512 frames, whose run launches
    the variant kernel, prints its four lines, and holds and times each
@@ -374,15 +377,20 @@ def check_training_kernels(gen: torch.Generator, dev, cases) -> dict:
     return worst
 
 
-def stack_bound_ms(B, T, L, dtype) -> tuple:
-    """Least time for the stack call: operations at the type's peak vs
-    bytes (x, c in; x out; skip out f32; weights) at the memory rate."""
+def stack_bound_ms(B, T, L, dtype, body: str) -> tuple:
+    """Least time for the stack call on the body its launch plan names:
+    operations at the body's peak vs bytes (x, c in; x out; skip out f32;
+    weights) at the memory rate. The f32 body (``tensor_cores_tf32x3``)
+    does every product as three TF32 products, so its peak is the TF32 rate
+    over three; otherwise the type's peak."""
     R, G, S, A = 64, 128, 64, 80
     flops = stack_flops(B, T, L)
     item = torch.finfo(dtype).bits // 8
     weights = L * (3 * R * G + G + A * G + R * (S + R) + S + R) * item
     nbytes = B * T * ((2 * R + A) * item + S * 4) + weights
-    t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / PEAK_BYTES_PER_S
+    peak = (PEAK_TF32_FLOPS / 3 if body == "tensor_cores_tf32x3"
+            else PEAK_FLOPS[dtype])
+    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES_PER_S
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
                                        else "bytes")
 
@@ -392,11 +400,13 @@ def stack_flops(B, T, L) -> float:
     return 2.0 * (3 * R * G + A * G + R * (S + R)) * B * T * L
 
 
-def layer_bytes_floor_ms(B, T, L) -> float:
+def layer_bytes_floor_ms(B, T, L, dtype) -> float:
     """Least time of the stack as one launch per layer: each launch reads x
-    (f32, 256 B a row), c (bf16, 160 B) and skip (f32, 256 B) and writes x
-    and skip (512 B), 1,184 B a row, at the memory rate."""
-    return 1184.0 * B * T * L / PEAK_BYTES_PER_S * 1e3
+    (f32, 256 B a row), c (80 channels in ``dtype``: 160 B in bf16, 320 B
+    in f32) and skip (f32, 256 B) and writes x and skip (512 B), 1,184 B a
+    row in bf16 and 1,344 B in f32, at the memory rate."""
+    row = 1024 + 80 * (torch.finfo(dtype).bits // 8)
+    return row * B * T * L / PEAK_BYTES_PER_S * 1e3
 
 
 def backward_bound_ms(B, T, L, A, dtype, body: str) -> tuple:
@@ -663,6 +673,23 @@ def training_phase(dev, smi: str) -> dict:
             check(f"stack+save_inputs at the training shape f32 {k}", a, b,
                   torch.float32, "wavenet_stack")
             for k, a, b in zip(("x", "skip", "xs"), got, want))
+        # both against float64: the kernel's split-TF32 sums must stay as
+        # close to the exact stack as the plain version's f32 sums (the
+        # gradients through the STFT loss below amplify the forward's error)
+        with torch.no_grad():
+            exact = wavenet_stack_reference(
+                x0.double(), c_up.double(),
+                {k: v.double() for k, v in wg.items()}, dg)
+        for k, a, b, e in zip(("x", "skip"), got, want, exact):
+            scale = 1 + e.abs().max().item()
+            ka = (a.double() - e).abs().max().item() / scale
+            pa = (b.double() - e).abs().max().item() / scale
+            print(f"stack at the training shape f32 {k} against float64: "
+                  f"kernel {ka:.3e}, plain {pa:.3e} of 1 + max")
+            if ka > 2 * pa:
+                raise AssertionError(f"wavenet_stack is less accurate than "
+                                     f"its plain version on {k}")
+        del exact
         xs = got[2]
         got = stack_grads(wavenet_stack_train, x0, c_up, wg, dg, ux, us)
         want = stack_grads(wavenet_stack_train_reference, x0, c_up, wg, dg,
@@ -747,7 +774,9 @@ def training_phase(dev, smi: str) -> dict:
     out["bwd_bf16_bound_ms"], _ = backward_bound_ms(
         B, T, L, A, torch.bfloat16, out["bwd_bf16_plan"]["body"])
     out["bwd_bytes_floor_ms"] = bwd_bytes_floor_ms(B, T, L, A, torch.float32)
-    out["fwd_bound_ms"], _ = stack_bound_ms(B, T, L, torch.float32)
+    out["fwd_plan"] = stack_launch_plan(B, T, A, L // 3, torch.float32, sms)
+    out["fwd_bound_ms"], _ = stack_bound_ms(B, T, L, torch.float32,
+                                            out["fwd_plan"]["body"])
     print(f"training shape f32 {B} x {T}, {L} layers in 3 groups: backward "
           f"kernel {out['bwd_ms']:.2f} ms on the "
           f"{out['bwd_plan']['body']} body (plain {out['bwd_plain_ms']:.2f} "
@@ -760,7 +789,8 @@ def training_phase(dev, smi: str) -> dict:
           f"{out['fwd_train_ms']:.2f} ms, without "
           f"{out['fwd_infer_ms']:.2f} ms (plain {out['fwd_plain_ms']:.2f} "
           f"ms, bound {out['fwd_bound_ms']:.2f} ms) on {smi}")
-    print(f"training shape f32, the SIMT forward beside the backward: "
+    print(f"training shape f32, the forward on the "
+          f"{out['fwd_plan']['body']} body beside the backward: "
           f"wavenet_stack {out['fwd_train_ms']:.2f} ms with saved inputs, "
           f"wavenet_stack_backward {out['bwd_ms']:.2f} ms on {smi}")
     return out
@@ -1576,6 +1606,60 @@ def check_quality(hifi: dict) -> None:
         raise AssertionError("the int8 kernel path lost the voice")
 
 
+def serving_timing(model, mels, dtype, sms: int, smi: str) -> dict:
+    """Step 4 for one dtype: the PWG forward and the stack kernel at the
+    bench shape (CUDA events), the kernel held against its plain version
+    on the forward's own stack inputs, its plan, bound and byte floor."""
+    from parallelwavegan_torch.ops.cuda.pwg_infer import _conv1x1
+    from parallelwavegan_torch.ops.cuda.wavenet_stack import (
+        stack_launch_plan,
+        wavenet_stack,
+        wavenet_stack_reference,
+    )
+
+    fn, (c, z), _ = model.prepare_batch(mels)
+    out = {"forward_ms": time_ms(lambda: fn(c, z), reps=3)}
+    gen = model.generator
+    with torch.inference_mode():
+        c_up = gen.upsample_net(c).contiguous()
+        x0 = _conv1x1(gen.first_conv, z).contiguous()
+        w, dils = model.stack_params, gen.dilations
+        xo, sk = wavenet_stack(x0, c_up, w, dils)
+        xo_p, sk_p = wavenet_stack_reference(x0, c_up, w, dils)
+        errs = [max_err(a, b, dtype, "wavenet_stack") for a, b in
+                ((xo, xo_p), (sk, sk_p))]
+        del xo, sk, xo_p, sk_p
+        out["ms"] = time_ms(lambda: wavenet_stack(x0, c_up, w, dils), reps=3)
+        out["plain_ms"] = time_ms(
+            lambda: wavenet_stack_reference(x0, c_up, w, dils), reps=2)
+    name = str(dtype)[6:]
+    for what, (err, allowed) in zip(("x", "skip"), errs):
+        print(f"stack at main-path shape {name} {what}: max_abs_err "
+              f"{err:.3e} (allowed {allowed:.3e})")
+        if err > allowed:
+            raise AssertionError(f"wavenet_stack disagrees on {what}")
+    out["err"] = max(e for e, _ in errs)
+    B, T = x0.shape[:2]
+    L = len(dils)
+    plan = stack_launch_plan(B, T, c_up.shape[-1], L, dtype, sms)
+    out["plan"] = plan
+    out["bound_ms"], out["bound_by"] = stack_bound_ms(B, T, L, dtype,
+                                                      plan["body"])
+    out["bytes_floor_ms"] = layer_bytes_floor_ms(B, T, L, dtype)
+    out["tflop_per_s"] = stack_flops(B, T, L) / out["ms"] / 1e9
+    audio_s = BENCH_BATCH * BENCH_FRAMES * HOP / SR
+    print(f"forward {name} {BENCH_BATCH} x {BENCH_FRAMES} frames: "
+          f"{out['forward_ms']:.2f} ms, "
+          f"{audio_s / (out['forward_ms'] / 1e3):.1f} audio-s/s; "
+          f"wavenet_stack {out['ms']:.2f} ms = {out['tflop_per_s']:.1f} "
+          f"TFLOP/s on the {plan['body']} body, {plan['launches']} launches "
+          f"of {plan['blocks']} blocks (plain {out['plain_ms']:.2f} ms, "
+          f"bound {out['bound_ms']:.2f} ms by {out['bound_by']}, "
+          f"per-layer-launch byte floor {out['bytes_floor_ms']:.2f} ms) on "
+          f"{smi}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1621,7 +1705,6 @@ def run_phases(dev, smi: str, pool) -> int:
         save_generator_checkpoint,
     )
     from parallelwavegan_torch.models import ParallelWaveGANGenerator
-    from parallelwavegan_torch.ops.cuda.pwg_infer import _conv1x1
     from parallelwavegan_torch.ops.cuda.wavenet_stack import (
         stack_launch_plan,
         wavenet_stack,
@@ -1719,45 +1802,39 @@ def run_phases(dev, smi: str, pool) -> int:
         if w.shape != (BENCH_FRAMES * HOP, 1) or not np.isfinite(w).all():
             raise AssertionError("bad bf16 output")
 
+    # (c) bench shape, f32 (decode's default dtype): the counted run of the
+    # f32 body
+    torch.cuda.synchronize()
+    wavenet_stack.launches = 0
+    t0 = time.perf_counter()
+    waves = model32.synthesize_batch(mels)
+    wall = time.perf_counter() - t0
+    launches32 = wavenet_stack.launches
+    plan32 = stack_launch_plan(BENCH_BATCH, BENCH_FRAMES * HOP,
+                               PWG_V1["num_mels"], model32.generator.layers,
+                               torch.float32, sms)
+    print(f"main path (c) f32 {BENCH_BATCH} x {BENCH_FRAMES} frames: "
+          f"synthesize_batch {wall * 1e3:.1f} ms wall (first call), "
+          f"wavenet_stack launches {launches32}; launch plan: {plan32}")
+    if launches32 != plan32["launches"] \
+            or plan32["body"] != "tensor_cores_tf32x3":
+        raise AssertionError(f"expected {plan32['launches']} launches on "
+                             f"the split-TF32 body")
+    for w in waves:
+        if w.shape != (BENCH_FRAMES * HOP, 1) or not np.isfinite(w).all():
+            raise AssertionError("bad f32 output")
+    del waves
+
     # the host scores must be in before the timed phases: the forward's
     # launch path, the matmul bench's short products and the training path
     # all run on the host beside the device
     check_quality(hifi)
 
-    # 4. timing at the main path's shapes
-    fn, (c, z), _ = model16.prepare_batch(mels)
-    fwd_ms = time_ms(lambda: fn(c, z), reps=3)
-    g16 = model16.generator
-    with torch.inference_mode():
-        c_up = g16.upsample_net(c).contiguous()
-        x0 = _conv1x1(g16.first_conv, z).contiguous()
-        w = model16.stack_params
-        dils = g16.dilations
-        xo, sk = wavenet_stack(x0, c_up, w, dils)
-        xo_p, sk_p = wavenet_stack_reference(x0, c_up, w, dils)
-        errs = [max_err(a, b, torch.bfloat16, "wavenet_stack") for a, b in
-                ((xo, xo_p), (sk, sk_p))]
-        del xo, sk, xo_p, sk_p
-        stack_ms = time_ms(lambda: wavenet_stack(x0, c_up, w, dils), reps=3)
-        plain_ms = time_ms(lambda: wavenet_stack_reference(x0, c_up, w, dils),
-                           reps=2)
-    for what, (err, allowed) in zip(("x", "skip"), errs):
-        print(f"stack at main-path shape bf16 {what}: max_abs_err {err:.3e} "
-              f"(allowed {allowed:.3e})")
-        if err > allowed:
-            raise AssertionError(f"wavenet_stack disagrees on {what}")
-    B, T = x0.shape[:2]
-    bound_ms, bound_by = stack_bound_ms(B, T, len(dils), torch.bfloat16)
-    audio_s = BENCH_BATCH * BENCH_FRAMES * HOP / SR
-    floor_ms = layer_bytes_floor_ms(B, T, len(dils))
-    print(f"forward bf16 {BENCH_BATCH} x {BENCH_FRAMES} frames: "
-          f"{fwd_ms:.2f} ms, {audio_s / (fwd_ms / 1e3):.1f} audio-s/s; "
-          f"wavenet_stack {stack_ms:.2f} ms = "
-          f"{stack_flops(B, T, len(dils)) / stack_ms / 1e9:.1f} TFLOP/s on "
-          f"the {plan['body']} body, {plan['launches']} launches of "
-          f"{plan['blocks']} blocks (plain {plain_ms:.2f} ms, bound "
-          f"{bound_ms:.2f} ms by {bound_by}, per-layer-launch byte floor "
-          f"{floor_ms:.2f} ms) on {smi}")
+    # 4. timing at the main path's shapes, in both serving dtypes
+    serving = {dtype: serving_timing(model, mels, dtype, sms, smi)
+               for dtype, model in ((torch.bfloat16, model16),
+                                    (torch.float32, model32))}
+    s16, s32 = serving[torch.bfloat16], serving[torch.float32]
 
     mm = matmul_phase(dev, smi)
 
@@ -1766,14 +1843,15 @@ def run_phases(dev, smi: str, pool) -> int:
     # 7. the gate and int8 experiment; 8. HiFi-GAN v1 training
     variant = variant_phase(dev, smi)
     hifigan_training_phase(dev, smi)
-    if min(launches, train["fwd_launches"], train["bwd_launches"],
+    if min(launches, launches32, train["fwd_launches"], train["bwd_launches"],
            hifi["launches"], mm["launches"], variant["launches"]) < 1:
         raise AssertionError("a kernel of a main path was never launched")
 
     # no single PyTorch call computes the stack or its backward: library_ms
     # is null for both. ms, plain_ms and bound_ms are at the shape of the
-    # path that "launches" counts: serving for the forward (its launches and
-    # times on the training path beside them), training for the backward.
+    # path that "launches" counts: bf16 serving for the forward (f32
+    # serving, counted in its own run, and the training path beside it),
+    # training for the backward.
     # mrf_stage: the four stages of one bf16 forward at batch 32 x 512
     # frames on bf16 packs (the int8 packs' times beside them); its library
     # time is the exact forward's own cuDNN conv chain of the same stages
@@ -1791,20 +1869,30 @@ def run_phases(dev, smi: str, pool) -> int:
         "source": "parallelwavegan_torch/csrc/wavenet_stack.cu",
         "replaces": "parallelwavegan_tpu/ops/pallas/wavenet_stack.py:113",
         "launches": launches,
-        "max_abs_err": max(max(e for e, _ in errs), worst["wavenet_stack"],
+        "max_abs_err": max(s16["err"], s32["err"], worst["wavenet_stack"],
                            train["fwd_err"]),
         "max_rel_err": REL_ERR.get("wavenet_stack", 0.0),
-        "ms": stack_ms,
-        "plain_ms": plain_ms,
-        "bound_ms": bound_ms,
-        "bound_by": bound_by,
+        "ms": s16["ms"],
+        "plain_ms": s16["plain_ms"],
+        "bound_ms": s16["bound_ms"],
+        "bound_by": s16["bound_by"],
         "library_ms": None,
-        "tflop_per_s": stack_flops(B, T, len(dils)) / stack_ms / 1e9,
-        "plan": plan,
+        "tflop_per_s": s16["tflop_per_s"],
+        "plan": s16["plan"],
+        "f32_launches": launches32,
+        "f32_ms": s32["ms"],
+        "f32_plain_ms": s32["plain_ms"],
+        "f32_bound_ms": s32["bound_ms"],
+        "f32_bound_by": s32["bound_by"],
+        "f32_bytes_floor_ms": s32["bytes_floor_ms"],
+        "f32_tflop_per_s": s32["tflop_per_s"],
+        "f32_plan": s32["plan"],
+        "forward_ms": {"bf16": s16["forward_ms"], "f32": s32["forward_ms"]},
         "train_launches": train["fwd_launches"],
         "train_ms": train["fwd_train_ms"],
         "train_plain_ms": train["fwd_plain_ms"],
         "train_bound_ms": train["fwd_bound_ms"],
+        "train_plan": train["fwd_plan"],
     }, {
         "name": "wavenet_stack_backward",
         "route": "cuda",

@@ -1,6 +1,7 @@
 // Warp-level matrix-multiply pieces shared by mrf_stage.cu,
-// matmul_bench.cu and wavenet_stack_bwd.cu: one 16 x 8 output tile per warp
-// and call, in the three matmul types the HiFi-GAN serving kernels use,
+// matmul_bench.cu, wavenet_stack.cu and wavenet_stack_bwd.cu: one 16 x 8
+// output tile per warp and call, in the three matmul types the HiFi-GAN
+// serving kernels use,
 //
 //   int8  x int8  -> int32   mma.sync m16n8k32 (tensor cores)
 //   bf16  x bf16  -> float32 mma.sync m16n8k16 (tensor cores)
@@ -121,9 +122,9 @@ __device__ __forceinline__ uint32_t quant_byte(float v) {
 // to TF32 by the tensor core); a . b is taken as lo_a . hi_b + hi_a . lo_b +
 // hi_a . hi_b, the small terms first. The dropped lo_a . lo_b and the
 // truncation of lo leave a relative error near 2^-21 per product, against
-// about 2^-11 for one TF32 product. The caller issues the three mma_tf32
-// calls (wavenet_stack_bwd.cu interleaves them over independent
-// accumulators).
+// about 2^-11 for one TF32 product. mma_tiles below issues the three
+// products for a warp's tiles; the f32 bodies of wavenet_stack.cu and
+// wavenet_stack_bwd.cu take their products from it.
 __device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
                                            uint32_t& lo) {
   hi = (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
@@ -136,6 +137,65 @@ __device__ __forceinline__ void mma_tf32(float c[4], const uint32_t a[4],
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// A fragment of rows row0..row0+15, k0..k0+7 from a row-major [row][k] tile,
+// split into its TF32 hi and lo parts
+__device__ __forceinline__ void load_a_split(uint32_t hi[4], uint32_t lo[4],
+                                             const float* a, int lda, int gq,
+                                             int tq) {
+  const float v[4] = {a[gq * lda + tq], a[(gq + 8) * lda + tq],
+                      a[gq * lda + tq + 4], a[(gq + 8) * lda + tq + 4]};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) split_tf32(v[i], hi[i], lo[i]);
+}
+
+// c[i][j] += A_i . B_j for MT m-tiles i (the split A fragments) and NT
+// n-tiles j < n_valid, B_j the [k][n] tile at b + col(j) (row k0, column
+// n0). The three products are issued pass by pass (lo . hi, then hi . lo,
+// then hi . hi), so MT x NT independent accumulator chains overlap in the
+// tensor pipe. The tensor core truncates the low bits of what it adds into
+// its accumulator, so a deep contraction summed in place drifts by about
+// one unit in the last place of the running sum per call. With FRESH, the
+// k-step's three products go to a zeroed tile that is then added to c in
+// f32 (rounded to nearest): the truncation is taken against that k-step's
+// own partial sum, and the running sum rounds as f32 FMAs would (the
+// forward's 272-deep gate product needs it: summed in place, the stack's
+// output lies 6 x further from float64; wavenet_stack.cu's head note).
+template <int MT, int NT, bool FRESH = false, typename ColFn>
+__device__ __forceinline__ void mma_tiles(float (*c)[NT][4],
+                                          uint32_t (*a_hi)[4],
+                                          uint32_t (*a_lo)[4],
+                                          const float* b, int ldb, ColFn col,
+                                          int gq, int tq, int n_valid = NT) {
+  uint32_t b_hi[NT][2], b_lo[NT][2];
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+    const float* p = b + col(j);
+    split_tf32(p[tq * ldb + gq], b_hi[j][0], b_lo[j][0]);
+    split_tf32(p[(tq + 4) * ldb + gq], b_hi[j][1], b_lo[j][1]);
+  }
+  float fresh[FRESH ? MT : 1][NT][4] = {};
+  auto acc = [&](int ij) -> float* {
+    if constexpr (FRESH) return fresh[ij / NT][ij % NT];
+    return c[ij / NT][ij % NT];
+  };
+  // the three products pass by pass over the MT x NT accumulators
+#pragma unroll
+  for (int ij = 0; ij < MT * NT; ++ij)
+    if (ij % NT < n_valid) mma_tf32(acc(ij), a_lo[ij / NT], b_hi[ij % NT]);
+#pragma unroll
+  for (int ij = 0; ij < MT * NT; ++ij)
+    if (ij % NT < n_valid) mma_tf32(acc(ij), a_hi[ij / NT], b_lo[ij % NT]);
+#pragma unroll
+  for (int ij = 0; ij < MT * NT; ++ij)
+    if (ij % NT < n_valid) mma_tf32(acc(ij), a_hi[ij / NT], b_hi[ij % NT]);
+  if constexpr (FRESH) {
+#pragma unroll
+    for (int ij = 0; ij < MT * NT; ++ij)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) c[ij / NT][ij % NT][e] += acc(ij)[e];
+  }
 }
 
 }  // namespace pwgmma

@@ -1,11 +1,12 @@
 // Shared pieces of the fused WaveNet stack kernels (forward, backward and the
 // experiment's variant forward): the compiled channel widths, the thread-tile
-// layout and the typed 4-wide loads and stores. wavenet_stack.cu's f32 body,
-// wavenet_stack_bwd.cu and wavenet_variant.cu run
-// 256-thread blocks over tiles of TT = 64 time rows and do their products
-// as register-blocked SIMT GEMMs whose thread tile is 4 rows x 8 columns
-// (columns cg*4..+3 and 64 + cg*4..+3 of a 128-column panel); the bf16 body
-// of wavenet_stack.cu takes only the widths and TT from here.
+// layout and the typed 2- and 4-wide loads and stores. The bf16 body of
+// wavenet_stack_bwd.cu and wavenet_variant.cu run 256-thread blocks over
+// tiles of TT = 64 time rows and do their products as register-blocked SIMT
+// GEMMs whose thread tile is 4 rows x 8 columns (columns cg*4..+3 and
+// 64 + cg*4..+3 of a 128-column panel); the tensor-core bodies of
+// wavenet_stack.cu and wavenet_stack_bwd.cu take only the constants and
+// the small loads and stores from here.
 
 #pragma once
 
@@ -60,6 +61,11 @@ __device__ __forceinline__ void store4(__nv_bfloat16* p, const float v[4]) {
   __nv_bfloat162* q = reinterpret_cast<__nv_bfloat162*>(p);
   q[0] = __floats2bfloat162_rn(v[0], v[1]);
   q[1] = __floats2bfloat162_rn(v[2], v[3]);
+}
+
+// 2 consecutive f32 (8-byte aligned)
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
 }
 
 // contraction length of the gate GEMM, padded to whole weight chunks
@@ -156,9 +162,8 @@ __device__ __forceinline__ void gate_gemm(
 // acc += a_s[0:KP] (transposed, [k][TT]) . w[0:K] for this thread's 4 x 8
 // tile, w row-major (K, 128) in global memory, streamed through w_s in
 // chunks of KC rows; rows K..KP of w read as zeros. Begins with a barrier,
-// so a_s may have been written just before the call. (wavenet_variant.cu's
-// aux and skip|out products; wavenet_stack.cu keeps its own skip|out loop,
-// which measured 0.3 % faster than this one inlined there.)
+// so a_s may have been written just before the call (wavenet_variant.cu's
+// aux and skip|out products).
 template <typename WT>
 __device__ __forceinline__ void panel_gemm(
     float acc[4][8], const float* a_s, float* w_s, const WT* __restrict__ w,

@@ -71,9 +71,9 @@
 //     32-row chunks of both sides through a four-slot ring, one slab per
 //     block, as many slabs as keep every block resident (one wave).
 //   bfloat16: simt (bwd_data_kernel, bwd_weight_kernel). The same products
-//     as register-blocked f32 FMAs on the CUDA cores, with the forward's
-//     staging and gate GEMM (wavenet_common.cuh) and weights staged
-//     synchronously in chunks of 16 rows.
+//     as register-blocked f32 FMAs on the CUDA cores, with the staging and
+//     gate GEMM of wavenet_common.cuh and weights staged synchronously in
+//     chunks of 16 rows.
 //
 // Bound (PWG v1 training batch 6 x 25,600 samples, 30 layers): per row and
 // layer 3 (3R + A) G + 2 R (S + R) = 120,832 MAC = 241,664 FLOP (the gate
@@ -98,7 +98,9 @@
 namespace {
 
 using namespace pwg;
+using pwgmma::load_a_split;
 using pwgmma::mma_tf32;
+using pwgmma::mma_tiles;
 using pwgmma::split_tf32;
 
 constexpr int KR = 32;  // rows per chunk of the weight-gradient contraction
@@ -450,18 +452,8 @@ constexpr int RHS_LD = G + 8;     // [row][128] right-hand chunk
 constexpr int WSTAGE_FLOATS = KR * (LHS_LD + RHS_LD);
 constexpr int WEIGHT_SMEM = WSTAGES * WSTAGE_FLOATS * 4;
 
-// A fragment of rows row0..row0+15, k0..k0+7 from a row-major [row][k] tile,
-// split into its TF32 hi and lo parts
-__device__ __forceinline__ void load_a_split(uint32_t hi[4], uint32_t lo[4],
-                                             const float* a, int lda, int gq,
-                                             int tq) {
-  const float v[4] = {a[gq * lda + tq], a[(gq + 8) * lda + tq],
-                      a[gq * lda + tq + 4], a[(gq + 8) * lda + tq + 4]};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) split_tf32(v[i], hi[i], lo[i]);
-}
-
-// the same from a [k][row] tile (the transposed left-hand side)
+// load_a_split (mma_common.cuh) from a [k][row] tile: the transposed
+// left-hand side
 __device__ __forceinline__ void load_at_split(uint32_t hi[4], uint32_t lo[4],
                                               const float* a, int lda, int gq,
                                               int tq) {
@@ -469,43 +461,6 @@ __device__ __forceinline__ void load_at_split(uint32_t hi[4], uint32_t lo[4],
                       a[(tq + 4) * lda + gq], a[(tq + 4) * lda + gq + 8]};
 #pragma unroll
   for (int i = 0; i < 4; ++i) split_tf32(v[i], hi[i], lo[i]);
-}
-
-// c[i][j] += A_i . B_j for MT m-tiles i (the split A fragments) and NT
-// n-tiles j < n_valid, B_j the [k][n] tile at b + col(j) (row k0, column
-// n0). The three products are issued pass by pass (lo . hi, then hi . lo,
-// then hi . hi), so MT x NT independent accumulator chains overlap in the
-// tensor pipe.
-template <int MT, int NT, typename ColFn>
-__device__ __forceinline__ void mma_tiles(float (*c)[NT][4],
-                                          uint32_t (*a_hi)[4],
-                                          uint32_t (*a_lo)[4],
-                                          const float* b, int ldb, ColFn col,
-                                          int gq, int tq, int n_valid = NT) {
-  uint32_t b_hi[NT][2], b_lo[NT][2];
-#pragma unroll
-  for (int j = 0; j < NT; ++j) {
-    const float* p = b + col(j);
-    split_tf32(p[tq * ldb + gq], b_hi[j][0], b_lo[j][0]);
-    split_tf32(p[(tq + 4) * ldb + gq], b_hi[j][1], b_lo[j][1]);
-  }
-  // the three products pass by pass over the MT x NT accumulators
-#pragma unroll
-  for (int ij = 0; ij < MT * NT; ++ij)
-    if (ij % NT < n_valid)
-      mma_tf32(c[ij / NT][ij % NT], a_lo[ij / NT], b_hi[ij % NT]);
-#pragma unroll
-  for (int ij = 0; ij < MT * NT; ++ij)
-    if (ij % NT < n_valid)
-      mma_tf32(c[ij / NT][ij % NT], a_hi[ij / NT], b_lo[ij % NT]);
-#pragma unroll
-  for (int ij = 0; ij < MT * NT; ++ij)
-    if (ij % NT < n_valid)
-      mma_tf32(c[ij / NT][ij % NT], a_hi[ij / NT], b_hi[ij % NT]);
-}
-
-__device__ __forceinline__ void store2(float* p, float a, float b) {
-  *reinterpret_cast<float2*>(p) = make_float2(a, b);
 }
 
 }  // namespace tc

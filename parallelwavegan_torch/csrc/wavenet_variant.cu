@@ -19,12 +19,13 @@
 // int8, the biases and s_tap f32.
 //
 // Design. The kernel answers how much of the serving layer (wavenet_stack.cu)
-// is the gate and what int8 tap products buy, so it keeps that kernel's
-// shape, to compare like with like: 64-row tiles, 256 threads, the f32
-// residual in two global ping-pong buffers, every thread a 4 x 8 tile of a
-// register-blocked SIMT GEMM, with staging, the gate GEMM and the thread
-// tile taken from wavenet_common.cuh. The variants are template parameters
-// of that one layer body; wavenet_stack.cu itself is untouched.
+// is the gate and what int8 tap products buy, so it keeps the shape that
+// layer had when the tool was ported (a SIMT body, since replaced there by
+// tensor-core bodies), to compare like with like: 64-row tiles, 256
+// threads, the f32 residual in two global ping-pong buffers, every thread a
+// 4 x 8 tile of a register-blocked SIMT GEMM, with staging, the gate GEMM
+// and the thread tile taken from wavenet_common.cuh. The variants are
+// template parameters of that one layer body.
 //
 // The int8 product uses __dp4a (four int8 MACs per lane at a time into an
 // int32 accumulator) and not mma.sync.m16n8k32: dp4a drops into the same
@@ -43,8 +44,8 @@
 // Bound (tool shape, batch 32 x 131072 samples, 10 layers): 86,016 FLOP per
 // sample per layer, 3.6e12 in all, against 672 B per sample moved once:
 // bound by operations, 3.65 ms at the bf16 tensor-core peak; with int8 taps
-// 57 % of the MACs run at the int8 rate (2.6 ms). As in wavenet_stack.cu the
-// arithmetic here is on the CUDA cores, so the kernel is no faster than
+// 57 % of the MACs run at the int8 rate (2.6 ms). The arithmetic here is
+// on the CUDA cores, so the kernel is no faster than
 // about 54 ms, and the f32 state and skip round-trip device memory once per
 // layer.
 

@@ -4,9 +4,10 @@ Counterpart of ``parallelwavegan_tpu/ops/pallas/wavenet_stack.py``. The
 Parallel WaveGAN generator's hot loop is 30 gated residual layers over small
 channel counts (R=64, G=128, S=64). ``wavenet_stack`` runs a group of them
 through the hand-written kernel ``csrc/wavenet_stack.cu`` for CUDA tensors
-(one launch per layer, as :func:`stack_launch_plan` lays out: bf16 on a
-tensor-core layer body over persistent blocks, f32 on a SIMT body; the
-design and bound are in the note at the head of that file), and through
+(one launch per layer, on the body :func:`stack_launch_plan` names: bf16 on
+tensor cores over persistent blocks, f32 on tensor cores in three TF32
+products per product, one block per 64-row tile; the design and bound are
+in the note at the head of that file), and through
 ``wavenet_stack_reference`` for CPU tensors.
 
 Math per layer (WaveNetResidualBlock with k=3, non-causal):
@@ -41,10 +42,13 @@ from parallelwavegan_torch.ops.cuda.build import load_library
 # channel widths the CUDA kernel is compiled for (PWG v1)
 KERNEL_CHANNELS = {"residual": 64, "gate": 128, "skip": 64}
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# layer bodies of csrc/wavenet_stack.cu, as its C entry point numbers them
+_BODY_CODES = {"tensor_cores": 0, "tensor_cores_tf32x3": 1}
 _SMEM_LIMIT = 232448  # bytes of shared memory one block may use (sm_90)
 _SMEM_PER_SM = 233472
 _TILE_ROWS = 64       # time rows of one tile (both layer bodies)
-_TC_STAGES = 2        # ring of activation tiles (tensor-core body)
+_TC_STAGES = 2        # ring of activation tiles (bf16 tensor-core body)
+_TF32_STAGES, _TF32_CHUNK = 3, 32  # split-TF32 body: ring slots, chunk rows
 
 
 def tc_smem_bytes(A: int, x_dtype: torch.dtype) -> int:
@@ -62,32 +66,51 @@ def tc_smem_bytes(A: int, x_dtype: torch.dtype) -> int:
             + _TC_STAGES * stage)
 
 
+def tf32_smem_bytes() -> int:
+    """Shared memory of one launch of the f32 split-TF32 layer body, as
+    namespace ``tf32`` in ``csrc/wavenet_stack.cu`` lays it out: a ring of
+    three chunks, each 32 weight rows of 128 f32 columns (padded to 136)
+    and the matching 32 activation columns of the tile's 64 rows (padded to
+    36), then the tile's centre rows x(t) and its gate g, each [64][64] f32
+    (padded to 68). Nothing grows with A: weights and c stream in
+    chunks."""
+    R, G, T = KERNEL_CHANNELS["residual"], KERNEL_CHANNELS["gate"], _TILE_ROWS
+    stage = _TF32_CHUNK * (G + 8) + T * (_TF32_CHUNK + 4)
+    return 4 * (_TF32_STAGES * stage + 2 * T * (R + 4))
+
+
 def stack_launch_plan(B: int, T: int, A: int, L: int, dtype: torch.dtype,
                       sms: int = 132) -> dict:
     """How one ``wavenet_stack`` call runs on the card: one launch per
     layer (``launches``, the exact count the wrapper adds to
-    ``wavenet_stack.launches``) over ``tiles`` tiles of 64 time rows.
+    ``wavenet_stack.launches``) over ``tiles`` tiles of ``tile_rows`` time
+    rows, on the layer body ``body``, which the kernel's C entry point is
+    told to run.
 
-    float32 runs the SIMT layer body, one block per tile. bfloat16 runs
-    the tensor-core body on ``blocks`` persistent blocks (as many as fit
-    ``sms`` SMs at once, at most one per tile), each holding the layer's
-    weights and a ring of tiles in ``smem`` bytes of shared memory (the
-    largest of the layer's instantiations: the first layer reads bf16 x,
-    the others the f32 residual). Raises NotImplementedError where that
-    exceeds a block's shared memory."""
+    float32 runs ``tensor_cores_tf32x3``: every product as three TF32
+    mma.sync products (f32 accuracy), one block of ``smem`` bytes per
+    64-row tile (128-row tiles were slower at both main-path shapes).
+    bfloat16 runs ``tensor_cores`` on ``blocks`` persistent blocks (as many
+    as fit ``sms`` SMs at once, at most one per tile), each holding the
+    layer's weights and a ring of tiles in ``smem`` bytes of shared memory
+    (the largest of the layer's instantiations: the first layer reads bf16
+    x, the others the f32 residual). Raises NotImplementedError where a
+    launch would exceed a block's shared memory."""
     tiles = B * -(-T // _TILE_ROWS)
-    if dtype != torch.bfloat16:
-        return {"body": "simt", "launches": L, "tiles": tiles,
-                "blocks": tiles}
-    smem = max(tc_smem_bytes(A, torch.bfloat16),
-               tc_smem_bytes(A, torch.float32) if L > 1 else 0)
+    if dtype == torch.float32:
+        body, smem, blocks = "tensor_cores_tf32x3", tf32_smem_bytes(), tiles
+    else:
+        body = "tensor_cores"
+        smem = max(tc_smem_bytes(A, torch.bfloat16),
+                   tc_smem_bytes(A, torch.float32) if L > 1 else 0)
+        per_sm = max(1, _SMEM_PER_SM // (smem + 1024))
+        blocks = min(tiles, per_sm * sms)
     if smem > _SMEM_LIMIT:
         raise NotImplementedError(
-            f"aux channels {A} need {smem} bytes of shared memory a block, "
-            f"more than {_SMEM_LIMIT}")
-    per_sm = max(1, _SMEM_PER_SM // (smem + 1024))
-    return {"body": "tensor_cores", "launches": L, "tiles": tiles,
-            "blocks": min(tiles, per_sm * sms), "smem": smem}
+            f"aux channels {A} need {smem} bytes of shared memory a block on "
+            f"the {body} body, more than {_SMEM_LIMIT}")
+    return {"body": body, "launches": L, "tiles": tiles, "blocks": blocks,
+            "smem": smem, "tile_rows": _TILE_ROWS}
 
 
 def check_kernel_channels(residual: int, gate: int, skip: int) -> None:
@@ -144,25 +167,27 @@ def wavenet_stack_reference(
     dilations: Sequence[int], save_inputs: bool = False,
 ) -> Tuple[torch.Tensor, ...]:
     """Plain PyTorch version of the kernel: same inputs, same outputs.
-    Differentiable in x, c and w (autograd)."""
-    f32 = torch.float32
+    Differentiable in x, c and w (autograd). Sums are f32, as in the
+    kernel; float64 inputs and weights run the same math in float64 (the
+    yardstick of the kernel's accuracy)."""
     mm = w["w_tap"].dtype
+    acc = torch.promote_types(torch.float32, mm)
     R = x.shape[-1]
     S = w["w_so"].shape[-1] - R
-    h = x.to(f32)
-    cm = c.to(mm).to(f32)
+    h = x.to(acc)
+    cm = c.to(mm).to(acc)
     skip = None
     xs = []
     for i, d in enumerate(dilations):
-        xm = h.to(mm).to(f32)
+        xm = h.to(mm).to(acc)
         if save_inputs:
             xs.append(xm.to(mm))
         xcat = torch.cat([_shift(xm, d), xm, _shift(xm, -d)], dim=-1)
-        z = xcat @ w["w_tap"][i].reshape(3 * R, -1).to(f32)
-        z = z + cm @ w["w_aux"][i].to(f32)
-        z = z + w["b_tap"][i].to(f32)
+        z = xcat @ w["w_tap"][i].reshape(3 * R, -1).to(acc)
+        z = z + cm @ w["w_aux"][i].to(acc)
+        z = z + w["b_tap"][i].to(acc)
         g = torch.tanh(z[..., :R]) * torch.sigmoid(z[..., R:])
-        so = g.to(mm).to(f32) @ w["w_so"][i].to(f32) + w["b_so"][i].to(f32)
+        so = g.to(mm).to(acc) @ w["w_so"][i].to(acc) + w["b_so"][i].to(acc)
         skip = so[..., :S] if skip is None else skip + so[..., :S]
         h = (so[..., S:] + h) * math.sqrt(0.5)
     if save_inputs:
@@ -204,12 +229,14 @@ def _library() -> ctypes.CDLL:
     fn = lib.pwg_wavenet_stack_forward
     fn.restype = ctypes.c_int
     fn.argtypes = (
-        [ctypes.c_int] + [ctypes.c_void_p] * 7
+        [ctypes.c_int] * 2 + [ctypes.c_void_p] * 7
         + [ctypes.POINTER(ctypes.c_int)] + [ctypes.c_int] * 4
         + [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_void_p]
     )
     lib.pwg_wavenet_stack_tc_smem.restype = ctypes.c_size_t
     lib.pwg_wavenet_stack_tc_smem.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.pwg_wavenet_stack_tf32_smem.restype = ctypes.c_size_t
+    lib.pwg_wavenet_stack_tf32_smem.argtypes = []
     lib.pwg_cuda_error_string.restype = ctypes.c_char_p
     lib.pwg_cuda_error_string.argtypes = [ctypes.c_int]
     return lib
@@ -257,8 +284,8 @@ def wavenet_stack(
               if save_inputs else None)
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.pwg_wavenet_stack_forward(
-            _DTYPE_CODES[x.dtype], x.data_ptr(), c.data_ptr(),
-            w["w_tap"].data_ptr(), w["b_tap"].data_ptr(),
+            _DTYPE_CODES[x.dtype], _BODY_CODES[plan["body"]], x.data_ptr(),
+            c.data_ptr(), w["w_tap"].data_ptr(), w["b_tap"].data_ptr(),
             w["w_aux"].data_ptr(), w["w_so"].data_ptr(), w["b_so"].data_ptr(),
             dil, L, B, T, c.shape[-1], x_out.data_ptr(), skip.data_ptr(),
             None if bufs[0] is None else bufs[0].data_ptr(),

@@ -1,10 +1,10 @@
 #!/usr/bin/env python3
-"""What binds the bf16 layer body of ``csrc/wavenet_stack.cu``: ablations.
+"""What binds the layer bodies of ``csrc/wavenet_stack.cu``: ablations.
 
-Builds variants of the kernel source, each with one part of the tensor-core
-layer body taken out, and times each over the PWG v1 serving stack (30
-layers, dilations 2^(i mod 10), batch 32 x 512 frames x hop 256, bf16,
-seeded weights):
+Builds variants of the kernel source, each with one part of a layer body
+taken out, and times each over the PWG v1 serving stack (30 layers,
+dilations 2^(i mod 10), batch 32 x 512 frames x hop 256, seeded weights).
+The bf16 tensor-core body (``--dtype bfloat16``, the default):
 
     base          the kernel as it is
     gate_product  tanh(a) sigmoid(b) replaced by a * b: no transcendentals
@@ -15,11 +15,26 @@ seeded weights):
     no_epilogue   nothing written back: no skip, x or xs traffic
     no_skip_read  skip written but not read: a third of the epilogue's bytes
 
-A variant computes the wrong function; only its time means something. Each
-variant's time below the base's is what that part costs (they overlap, so
-the parts do not add up to the whole).
+The f32 split-TF32 body (``--dtype float32``):
 
-    python -m parallelwavegan_torch.tools.wavenet_stack_ablation [--reps 3]
+    base          the kernel as it is
+    gate_product  tanh(a) sigmoid(b) replaced by a * b
+    one_product   one TF32 product (hi . hi) a k-step instead of three:
+                  what the split's two extra products and lo parts cost
+    no_epilogue   nothing written back: no skip or x traffic
+    in_place      each k-step's products added straight into the running
+                  sums, where the tensor core truncates what it adds: the
+                  same function, less accurately
+
+Each variant's time below the base's is what that part costs (they
+overlap, so the parts do not add up to the whole). Every variant is also
+held against the float64 stack on a cut of the inputs (2 items x 20,000
+samples): max |a - b| / (1 + max |b|) of x, for the variants that compute
+the layer's function (base, in_place) its accuracy, for the others only a
+sign of what was taken out.
+
+    python -m parallelwavegan_torch.tools.wavenet_stack_ablation \
+        [--dtype float32] [--reps 3]
 
 Needs a GPU and nvcc. Prints one JSON line per variant with the card's name
 and power limit; the variants are built under ``_build/ablation/``.
@@ -61,23 +76,70 @@ VARIANTS: Dict[str, List[Tuple[str, str]]] = {
                       "if (half == 0 && !first_layer && t < 0)")],
 }
 
+_ONE_PRODUCT = """
+template <int MT, int NT, typename ColFn>
+__device__ __forceinline__ void mma_tiles_hi(float (*c)[NT][4],
+                                             uint32_t (*a_hi)[4],
+                                             uint32_t (*)[4], const float* b,
+                                             int ldb, ColFn col, int gq,
+                                             int tq) {
+  uint32_t b_hi[NT][2], lo;
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+    pwgmma::split_tf32(b[col(j) + tq * ldb + gq], b_hi[j][0], lo);
+    pwgmma::split_tf32(b[col(j) + (tq + 4) * ldb + gq], b_hi[j][1], lo);
+  }
+#pragma unroll
+  for (int ij = 0; ij < MT * NT; ++ij) {
+    float t[4] = {};
+    pwgmma::mma_tf32(t, a_hi[ij / NT], b_hi[ij % NT]);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) c[ij / NT][ij % NT][e] += t[e];
+  }
+}
 
-def build_variants(names) -> Dict[str, str]:
-    """Write and compile every variant in parallel; {name: library path}."""
+}  // namespace tf32"""
+F32_VARIANTS: Dict[str, List[Tuple[str, str]]] = {
+    "base": [],
+    "gate_product": [(
+        "          gv[e] = tanhf(za) * (1.f / (1.f + expf(-zb)));",
+        "          gv[e] = za * zb;")],
+    "one_product": [
+        ("}  // namespace tf32", _ONE_PRODUCT),
+        ("      mma_tiles<2, 4, true>(\n          acc,",
+         "      mma_tiles_hi<2, 4>(\n          acc,"),
+        ("      mma_tiles<2, 4, true>(acc,", "      mma_tiles_hi<2, 4>(acc,"),
+    ],
+    "no_epilogue": [(
+        "        if (t >= T) continue;\n        const size_t row = row0 + t;",
+        "        if (t >= 0) continue;\n        const size_t row = row0 + t;")],
+    "in_place": [
+        ("      mma_tiles<2, 4, true>(\n          acc,",
+         "      mma_tiles<2, 4>(\n          acc,"),
+        ("      mma_tiles<2, 4, true>(acc,", "      mma_tiles<2, 4>(acc,"),
+    ],
+}
+BODY_VARIANTS = {torch.bfloat16: VARIANTS, torch.float32: F32_VARIANTS}
+
+
+def build_variants(names, dtype=torch.bfloat16) -> Dict[str, str]:
+    """Write and compile every variant of the body that runs ``dtype`` in
+    parallel; {name: library path}."""
     source = (build.CSRC_DIR / "wavenet_stack.cu").read_text()
     out_dir = build.BUILD_DIR / "ablation"
     out_dir.mkdir(parents=True, exist_ok=True)
+    tag = str(dtype)[6:]
     procs = {}
     for name in names:
         text = source
-        for old, new in VARIANTS[name]:
+        for old, new in BODY_VARIANTS[dtype][name]:
             if old not in text:
                 raise RuntimeError(f"variant {name}: the source no longer "
                                    f"holds {old!r}")
             text = text.replace(old, new)
-        src = out_dir / f"wavenet_stack_{name}.cu"
+        src = out_dir / f"wavenet_stack_{tag}_{name}.cu"
         src.write_text(text)
-        lib = out_dir / f"libwavenet_stack_{name}.so"
+        lib = out_dir / f"libwavenet_stack_{tag}_{name}.so"
         cmd = [build._nvcc(), *build.NVCC_FLAGS, "-I", str(build.CSRC_DIR),
                "-o", str(lib), str(src)]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
@@ -92,12 +154,12 @@ def build_variants(names) -> Dict[str, str]:
     return libs
 
 
-def serving_inputs(device, B=32, T=131072, L=30, A=80, seed=0):
+def serving_inputs(device, dtype=torch.bfloat16, B=32, T=131072, L=30, A=80,
+                   seed=0):
     gen = torch.Generator().manual_seed(seed)
 
     def rnd(*shape, scale=1.0):
-        return (torch.randn(shape, generator=gen) * scale).to(
-            device, torch.bfloat16)
+        return (torch.randn(shape, generator=gen) * scale).to(device, dtype)
 
     w = {"w_tap": rnd(L, 3, 64, 128, scale=0.1),
          "b_tap": rnd(L, 128, scale=0.1), "w_aux": rnd(L, A, 128, scale=0.1),
@@ -122,17 +184,28 @@ def time_ms(fn, reps: int) -> float:
 @torch.inference_mode()
 def main(argv=None) -> List[dict]:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--dtype", choices=("bfloat16", "float32"),
+                    default="bfloat16")
     ap.add_argument("--reps", type=int, default=3)
-    ap.add_argument("--variants", default=",".join(VARIANTS))
+    ap.add_argument("--variants", default=None,
+                    help="comma-separated (default: every variant of the "
+                         "body)")
     args = ap.parse_args(argv)
+    dtype = getattr(torch, args.dtype)
+    names = (args.variants.split(",") if args.variants
+             else list(BODY_VARIANTS[dtype]))
     if not torch.cuda.is_available():
         raise SystemExit("wavenet_stack_ablation needs a CUDA device")
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
-    libs = build_variants(args.variants.split(","))
-    x, c, w, dils = serving_inputs(torch.device("cuda", 0))
+    libs = build_variants(names, dtype)
+    x, c, w, dils = serving_inputs(torch.device("cuda", 0), dtype)
+    x_cut, c_cut = x[:2, :20000].contiguous(), c[:2, :20000].contiguous()
+    exact = ws.wavenet_stack_reference(
+        x_cut.double(), c_cut.double(),
+        {k: v.double() for k, v in w.items()}, dils)[0]
     kept = ws.load_library
     results = []
     try:
@@ -140,7 +213,12 @@ def main(argv=None) -> List[dict]:
             ws.load_library = lambda _name, p=path: ctypes.CDLL(p)
             ws._library.cache_clear()
             ms = time_ms(lambda: ws.wavenet_stack(x, c, w, dils), args.reps)
-            results.append({"variant": name, "ms": ms, "layers": len(dils),
+            got = ws.wavenet_stack(x_cut, c_cut, w, dils)[0].double()
+            err = ((got - exact).abs().max()
+                   / (1 + exact.abs().max())).item()
+            results.append({"variant": name, "dtype": args.dtype, "ms": ms,
+                            "x_rel_err_vs_float64": err,
+                            "layers": len(dils),
                             "batch": x.shape[0], "samples": x.shape[1],
                             "card": card})
             print(json.dumps(results[-1]))

@@ -109,7 +109,7 @@ def test_stack_kernel_matches_plain(cuda_device, dtype, B, T, L):
     _assert_close(sk, sk_p, dtype)
 
 
-# the tensor-core body's edges: T not a multiple of the 64-row tile, T below
+# the tensor-core bodies' edges: T not a multiple of the 64-row tile, T below
 # one tile, d >= T, (512, 1), L = 1 and L = 2 (both ping-pong buffers
 # unused / one used), B = 1, the halo'd window (d < 64) and the separate
 # windows (d >= 64) in one stack
@@ -120,13 +120,15 @@ _TC_CASES = [
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
 @pytest.mark.parametrize("B,T,dils", _TC_CASES)
-def test_stack_tensor_core_body_matches_plain(cuda_device, B, T, dils):
-    """bf16 x, skip and the saved inputs against the plain version, then the
-    backward kernel in bf16 on those saved inputs against autograd through
-    the plain forward."""
+def test_stack_tensor_core_body_matches_plain(cuda_device, B, T, dils, dtype):
+    """x, skip and the saved inputs against the plain version (bf16 on the
+    tensor-core body, f32 on the split-TF32 body), then the backward kernel
+    on those saved inputs against autograd through the plain forward."""
+    torch.backends.cuda.matmul.allow_tf32 = False
     rng = np.random.default_rng(8)
-    dtype = torch.bfloat16
     x, c, w = _stack_inputs(rng, B, T, len(dils), dtype, cuda_device)
     before = wavenet_stack.launches
     got = wavenet_stack(x, c, w, dils, save_inputs=True)
@@ -148,26 +150,53 @@ def test_stack_tensor_core_body_matches_plain(cuda_device, B, T, dils):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
 @pytest.mark.parametrize("A", [16, 36, 80], ids=["A16", "A36", "A80"])
-def test_stack_tensor_core_body_aux_widths(cuda_device, A):
+def test_stack_tensor_core_body_aux_widths(cuda_device, A, dtype):
     """c rows staged in 16-byte pieces (A a multiple of 8) or in 8-byte
-    pieces (A = 36), and aux channels padded to the mma depth of 16."""
+    pieces (A = 36), aux channels padded to the mma depth of 16 (bf16); c
+    in 4-channel pieces and a last chunk of the gate contraction cut short
+    (f32)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
     rng = np.random.default_rng(9)
-    x, c, w = _stack_inputs(rng, 2, 333, 3, torch.bfloat16, cuda_device, A=A)
+    x, c, w = _stack_inputs(rng, 2, 333, 3, dtype, cuda_device, A=A)
     got = wavenet_stack(x, c, w, (1, 64, 2))
     torch.cuda.synchronize()
     want = wavenet_stack_reference(x, c, w, (1, 64, 2))
     for a, b in zip(got, want):
-        _assert_close(a, b, torch.bfloat16)
+        _assert_close(a, b, dtype)
+
+
+@pytest.mark.cuda
+def test_stack_f32_saves_each_layer_input_and_is_deterministic(cuda_device):
+    """In f32, xs is bit-equal to each layer's input (the input itself,
+    then the output of the layers before it), and two calls give bit-equal
+    outputs."""
+    rng = np.random.default_rng(10)
+    dils = (1, 64, 2, 512)
+    x, c, w = _stack_inputs(rng, 2, 1000, len(dils), torch.float32,
+                            cuda_device)
+    got = wavenet_stack(x, c, w, dils, save_inputs=True)
+    again = wavenet_stack(x, c, w, dils, save_inputs=True)
+    torch.cuda.synchronize()
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+    xs = got[2]
+    assert torch.equal(xs[0], x)
+    for n in range(1, len(dils)):
+        head = {k: v[:n].contiguous() for k, v in w.items()}
+        assert torch.equal(xs[n], wavenet_stack(x, c, head, dils[:n])[0]), n
 
 
 @pytest.mark.cuda
 def test_stack_launch_plan_matches_the_kernel(cuda_device):
-    """The wrapper's shared-memory count is the kernel's own, and fits."""
+    """The wrapper's shared-memory counts are the kernel's own, and fit."""
     from parallelwavegan_torch.ops.cuda.wavenet_stack import (
         _library,
         stack_launch_plan,
         tc_smem_bytes,
+        tf32_smem_bytes,
     )
 
     lib = _library()
@@ -175,9 +204,13 @@ def test_stack_launch_plan_matches_the_kernel(cuda_device):
         for is_bf16, dtype in ((1, torch.bfloat16), (0, torch.float32)):
             assert lib.pwg_wavenet_stack_tc_smem(is_bf16, A) == \
                 tc_smem_bytes(A, dtype)
+    assert lib.pwg_wavenet_stack_tf32_smem() == tf32_smem_bytes()
     sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
     plan = stack_launch_plan(32, 131072, 80, 30, torch.bfloat16, sms)
     assert plan["smem"] <= 232448 and plan["blocks"] == sms
+    plan = stack_launch_plan(32, 131072, 80, 30, torch.float32, sms)
+    assert plan["body"] == "tensor_cores_tf32x3"
+    assert plan["smem"] == lib.pwg_wavenet_stack_tf32_smem() <= 232448
 
 
 @pytest.mark.cuda
@@ -440,6 +473,38 @@ def test_f32_train_step_backward_launches_follow_the_plan(cuda_device):
     torch.cuda.synchronize()
     assert wavenet_stack_backward.launches - bwd == sum(
         p["launches"] for p in plans) == 6
+
+
+@pytest.mark.cuda
+def test_f32_train_step_profile_names_the_tf32_forward(cuda_device):
+    """An f32 (G, adv, D) step at PWG v1 widths runs the forward on the
+    split-TF32 body: the profiler sees wavenet_layer_tf32_kernel, and no
+    other layer body of the forward."""
+    from torch.profiler import ProfilerActivity, profile
+
+    config = {
+        "hop_size": 256, "batch_max_steps": 2560,
+        "generator_params": dict(PWG_V1_KWARGS, layers=6, stacks=3),
+        "discriminator_params": {"layers": 4, "conv_channels": 16},
+        "stft_loss_params": {"fft_sizes": [256, 512], "hop_sizes": [64, 128],
+                             "win_lengths": [128, 256]},
+    }
+    batch = {k: torch.from_numpy(v).to(cuda_device)
+             for k, v in example_batch(config, batch_size=2).items()}
+    state, gen, dis, opt_g, opt_d = init_train_state(config, seed=0,
+                                                     device=cuda_device)
+    factory, _ = build_steps(config, gen, dis, build_criterion(config),
+                             opt_g, opt_d)
+    step = factory(True, True, True)
+    step(state, batch)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step(state, batch)
+        torch.cuda.synchronize()
+    names = [e.key for e in prof.key_averages()]
+    assert any("wavenet_layer_tf32_kernel" in n for n in names), names
+    assert not any("wavenet_layer_tc_kernel" in n for n in names)
 
 
 def _rand_stage(rng, C, kernels, dils):

@@ -255,7 +255,7 @@ def tf32_round(x):
 
 
 def tf32x3_matmul(a, b):
-    """a @ b as the backward's f32 tensor-core body forms it: each operand
+    """a @ b as the f32 tensor-core bodies form it: each operand
     split as hi = tf32(x) and lo = x - hi, which the tensor core truncates
     to TF32 (it ignores the low 13 bits), and lo_a hi_b + hi_a lo_b +
     hi_a hi_b summed (here in float64)."""
