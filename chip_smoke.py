@@ -7,7 +7,9 @@
    kernel from csrc/ with nvcc (one process per source, started together);
 2. holds each kernel against its plain PyTorch version on the card (f32 and
    bf16, small and real shapes, ragged T, dilations past T): the stack
-   forward, the forward with saved inputs, every output of the backward,
+   forward, the forward with saved inputs, every output of the backward
+   (both tensor-core bodies: against its explicit plain version on the
+   same saved inputs and, through autograd, against the plain forward),
    the fused MRF stage (f32, bf16 and int8 packs), the matmul bench
    (int32 results bit-equal) and the experiment's variant kernel (bf16
    tanh, bf16 product gate on at most 3 layers, int8 taps);
@@ -48,14 +50,18 @@
    start (batch 6 x 25,600 samples, f32), whose run must launch the forward
    and the backward kernel the expected number of times, end with finite
    losses under every name, changed G and D parameters and a .ckpt that
-   loads back; then two resumed steps with mixed_precision;
+   loads back; then two resumed steps with mixed_precision (the backward
+   on its bf16 tensor-core body);
 6. holds one generator loss and gradient at that shape through the kernels
    against the same through their plain versions, times the (G, adv, D)
    step, both kernels at the training shape (each on the body its launch
    plan names, in f32 both on split-TF32 tensor cores) and the backward's
-   plain version, the bf16 backward body (SIMT) alone at the same shape,
-   the backward's bound on its body and its two-launch byte floor, and
-   prints where a step's device time goes (torch.profiler);
+   plain version, then the bf16 backward body (bf16 tensor cores) alone at
+   the same shape, held first against its explicit plain version and
+   autograd, with its plan, TFLOP/s, bound and the byte floor of what it
+   moves; the backward's bound on each body and its two-launch byte floor;
+   and prints where the f32 and the mixed-precision step's device time
+   goes (torch.profiler);
 7. runs the gate and int8 experiment (tools.int8_wavenet_experiment.main)
    at its full shape, 10 layers at batch 32 x 512 frames, whose run launches
    the variant kernel, prints its four lines, and holds and times each
@@ -292,13 +298,14 @@ def time_each_ms(fn, reps: int, warmup: int = 1) -> list:
 
 def max_err(a: torch.Tensor, b: torch.Tensor, dtype, kernel=None) -> tuple:
     """(max |a - b|, allowed) with allowed = tol * (1 + max |b|); the
-    relative error is kept under ``kernel`` where one is named."""
+    relative error is kept under ``kernel`` where one is named (or under
+    each of a tuple of names)."""
     a, b = a.float(), b.float()
     if not (torch.isfinite(a).all() and torch.isfinite(b).all()):
         raise AssertionError("non-finite values")
     err, scale = (a - b).abs().max().item(), 1 + b.abs().max().item()
-    if kernel is not None:
-        REL_ERR[kernel] = max(REL_ERR.get(kernel, 0.0), err / scale)
+    for name in ((kernel,) if isinstance(kernel, str) else kernel or ()):
+        REL_ERR[name] = max(REL_ERR.get(name, 0.0), err / scale)
     return err, TOL[dtype] * scale
 
 
@@ -347,6 +354,8 @@ def check_training_kernels(gen: torch.Generator, dev, cases) -> dict:
         wavenet_stack_reference,
     )
     from parallelwavegan_torch.ops.cuda.wavenet_stack_train import (
+        wavenet_stack_backward,
+        wavenet_stack_backward_reference,
         wavenet_stack_train,
         wavenet_stack_train_reference,
     )
@@ -365,16 +374,40 @@ def check_training_kernels(gen: torch.Generator, dev, cases) -> dict:
             worst["wavenet_stack"] = max(worst["wavenet_stack"], err)
         ux = torch.randn(xo.shape, generator=gen).to(dev)
         us = torch.randn(sk.shape, generator=gen).to(dev)
+        names = backward_err_names(dtype)
+        # the kernel and its explicit plain version on the same saved inputs
+        got = wavenet_stack_backward(xs, c, w, dils, ux.to(dtype), us)
+        torch.cuda.synchronize()
+        want = wavenet_stack_backward_reference(xs, c, w, dils,
+                                                ux.to(dtype), us)
+        for what, a, b in backward_outputs(got, want):
+            err = check(f"stack backward {tag} {what} (explicit plain)", a,
+                        b, dtype, names)
+            worst["wavenet_stack_backward"] = max(
+                worst["wavenet_stack_backward"], err)
         got = stack_grads(wavenet_stack_train, x, c, w, dils, ux, us)
         torch.cuda.synchronize()
         want = stack_grads(wavenet_stack_train_reference, x, c, w, dils, ux,
                            us)
         for what in want:
             err = check(f"stack backward {tag} {what}", got[what],
-                        want[what], dtype, "wavenet_stack_backward")
+                        want[what], dtype, names)
             worst["wavenet_stack_backward"] = max(
                 worst["wavenet_stack_backward"], err)
     return worst
+
+
+def backward_err_names(dtype) -> tuple:
+    """REL_ERR keys of a backward check: every check counts towards the
+    kernel's max_rel_err, a bf16 one also towards its bf16_max_rel_err."""
+    return ("wavenet_stack_backward",) + (
+        ("wavenet_stack_backward_bf16",) if dtype == torch.bfloat16 else ())
+
+
+def backward_outputs(got, want):
+    """(name, kernel output, plain output) of two (dx, dc, {weight grads})."""
+    return [("dx", got[0], want[0]), ("dc", got[1], want[1])] + [
+        (k, got[2][k], want[2][k]) for k in want[2]]
 
 
 def stack_bound_ms(B, T, L, dtype, body: str) -> tuple:
@@ -420,7 +453,7 @@ def backward_bound_ms(B, T, L, A, dtype, body: str) -> tuple:
     (``tensor_cores_tf32x3``) does every product as three TF32 products,
     so its peak is the TF32 rate over three; otherwise the type's peak."""
     R, G, S = 64, 128, 64
-    flops = 2 * (3 * (3 * R + A) * G + 2 * R * (S + R)) * B * T * L
+    flops = backward_flops(B, T, L, A)
     item = torch.finfo(dtype).bits // 8
     weights = L * (3 * R * G + G + A * G + R * (S + R) + S + R) * item
     nbytes = (B * T * (L * R * item + A * item + S * 4 + 2 * R * item
@@ -432,16 +465,33 @@ def backward_bound_ms(B, T, L, A, dtype, body: str) -> tuple:
                                        else "bytes")
 
 
+def backward_flops(B, T, L, A) -> float:
+    """3 (3R + A) G + 2 R (S + R) multiply-adds per row and layer."""
+    R, G, S = 64, 128, 64
+    return 2.0 * (3 * (3 * R + A) * G + 2 * R * (S + R)) * B * T * L
+
+
 def bwd_bytes_floor_ms(B, T, L, A, dtype) -> float:
     """Least time of the backward as two launches a layer, at the memory
-    rate. Per row and layer the data launch reads xs and c (in the matmul
-    type), D and writes it back (512 B), reads the three tap rows of the
-    layer above (768 B), writes its own taps (768 B), dz (512 B) and g
-    (256 B) and reads and writes dc (8 A B); the weight launch reads xs, c,
-    g, dz and dso (dskip and D, 512 B) once each."""
-    item = torch.finfo(dtype).bits // 8
-    data = (64 + A) * item + 512 + 768 + 768 + 512 + 256 + 8 * A
-    weight = (64 + A) * item + 256 + 512 + 512
+    rate: the bytes the body of ``dtype`` moves per row and layer, each
+    read or write once. Both bodies' data launch reads D and writes it back
+    (512 B), reads the three tap rows of the layer above (768 B), writes
+    its own taps (768 B) and reads and writes dc (8 A B), all f32. float32:
+    the data launch also reads xs and c and writes dz (512 B) and g
+    (256 B); the weight launch reads xs, c, g, dz and dso (dskip and D,
+    512 B), all f32: 5,888 B at A = 80. bfloat16: the data launch also
+    reads xs, c and dskip and writes dz, g and bf16(D sqrt(1/2)), all bf16;
+    the weight launch reads those six, all bf16: 4,544 B at A = 80. Left
+    out: the weight launch's partials and the bf16 column sums (fixed per
+    launch, about 1 % at the training shape) and what a call does once
+    (dskip to bf16, dx)."""
+    f32 = 512 + 768 + 768 + 8 * A
+    if dtype == torch.float32:
+        data = f32 + (64 + A) * 4 + 512 + 256
+        weight = (64 + A) * 4 + 256 + 512 + 512
+    else:
+        data = f32 + (64 + A + 64) * 2 + 256 + 128 + 128
+        weight = (64 + A) * 2 + 128 + 256 + 128 + 128
     return (data + weight) * B * T * L / PEAK_BYTES_PER_S * 1e3
 
 
@@ -489,6 +539,7 @@ def training_phase(dev, smi: str) -> dict:
     from parallelwavegan_torch.ops.cuda.wavenet_stack_train import (
         backward_launch_plan,
         wavenet_stack_backward,
+        wavenet_stack_backward_reference,
         wavenet_stack_train,
         wavenet_stack_train_reference,
     )
@@ -614,7 +665,7 @@ def training_phase(dev, smi: str) -> dict:
             pwg_infer.wavenet_stack_train = kernel_route
         largest = max(g.abs().max().item() for g in grads_p.values()
                       if g is not None)
-        worst = 0.0
+        worst, worst_key = 0.0, None
         for key, want in grads_p.items():
             if want is None:
                 continue
@@ -623,14 +674,15 @@ def training_phase(dev, smi: str) -> dict:
             # STFT magnitudes: 2e-3 of the gradient's largest entry plus
             # 2e-5 of the largest gradient in the network
             allowed = 2e-3 * want.abs().max().item() + 2e-5 * largest
-            worst = max(worst, err / allowed)
+            if err / allowed > worst:
+                worst, worst_key = err / allowed, key
             if not err <= allowed:
                 raise AssertionError(f"generator gradient differs on {key}: "
                                      f"{err:.3e} > {allowed:.3e}")
         print(f"generator loss at the training shape: kernels {loss_k:.6f}, "
               f"plain {loss_p:.6f}; gradients of {len(names)} parameters "
               f"agree (largest {largest:.3e}, worst error {worst:.2f} of "
-              f"its allowance)")
+              f"its allowance, on {worst_key})")
         if not abs(loss_k - loss_p) <= 1e-4 * abs(loss_p):
             raise AssertionError("generator loss differs from the plain one")
         del grads_k, grads_p
@@ -641,6 +693,7 @@ def training_phase(dev, smi: str) -> dict:
             out[f"step_ms_{what}"] = time_ms(lambda: step(t.state, batch),
                                              reps=3)
         profile_step(trainer, batch, "f32")
+        profile_step(mixed, batch, "mixed")
         torch.cuda.reset_peak_memory_stats()
         trainer.train_step_factory(True, True, True)(trainer.state, batch)
         torch.cuda.synchronize()
@@ -750,14 +803,33 @@ def training_phase(dev, smi: str) -> dict:
         out["bwd_plain_ms"] = sum(plain_backward_ms() for _ in range(2)) / 2
         del plain, xr, cr
 
-        # the bf16 body (SIMT) alone at the same shape, on the same inputs
-        # and weights rounded to bf16, as the mixed step runs it
+        # the bf16 body alone at the same shape, on the same inputs and
+        # weights rounded to bf16, as the mixed step runs it: held against
+        # its explicit plain version on the same saved inputs and, through
+        # autograd, against the plain forward's gradient, then timed
         bf = torch.bfloat16
         groups16 = [({k: v.to(bf) for k, v in wg.items()}, dg)
                     for wg, dg in groups]
         c16 = c_up.to(bf)
-        xs16 = wavenet_stack(x0.to(bf), c16, groups16[0][0], groups16[0][1],
-                             save_inputs=True)[2]
+        wg16, dg16 = groups16[0]
+        xs16 = wavenet_stack(x0.to(bf), c16, wg16, dg16, save_inputs=True)[2]
+        err_names = backward_err_names(bf)
+        got = wavenet_stack_backward(xs16, c16, wg16, dg16, ux.to(bf), us)
+        torch.cuda.synchronize()
+        want = wavenet_stack_backward_reference(xs16, c16, wg16, dg16,
+                                                ux.to(bf), us)
+        errs = [check(f"stack backward at the training shape bf16 {k} "
+                      f"(explicit plain)", a, b, bf, err_names)
+                for k, a, b in backward_outputs(got, want)]
+        del got, want
+        got = stack_grads(wavenet_stack_train, x0.to(bf), c16, wg16, dg16,
+                          ux, us)
+        want = stack_grads(wavenet_stack_train_reference, x0.to(bf), c16,
+                           wg16, dg16, ux, us)
+        errs += [check(f"stack backward at the training shape bf16 {k}",
+                       got[k], want[k], bf, err_names) for k in want]
+        out["bwd_err"] = max([out["bwd_err"]] + errs)
+        del got, want
 
         def backward_groups_bf16():
             for wg, dg in groups16:
@@ -774,6 +846,10 @@ def training_phase(dev, smi: str) -> dict:
     out["bwd_bf16_bound_ms"], _ = backward_bound_ms(
         B, T, L, A, torch.bfloat16, out["bwd_bf16_plan"]["body"])
     out["bwd_bytes_floor_ms"] = bwd_bytes_floor_ms(B, T, L, A, torch.float32)
+    out["bwd_bf16_bytes_floor_ms"] = bwd_bytes_floor_ms(B, T, L, A,
+                                                        torch.bfloat16)
+    out["bwd_bf16_tflop_per_s"] = (backward_flops(B, T, L, A)
+                                   / out["bwd_bf16_ms"] / 1e9)
     out["fwd_plan"] = stack_launch_plan(B, T, A, L // 3, torch.float32, sms)
     out["fwd_bound_ms"], _ = stack_bound_ms(B, T, L, torch.float32,
                                             out["fwd_plan"]["body"])
@@ -782,13 +858,19 @@ def training_phase(dev, smi: str) -> dict:
           f"{out['bwd_plan']['body']} body (plain {out['bwd_plain_ms']:.2f} "
           f"ms, bound {out['bwd_bound_ms']:.2f} ms by "
           f"{out['bwd_bound_by']}, two-launch byte floor "
-          f"{out['bwd_bytes_floor_ms']:.2f} ms; the bf16 "
-          f"{out['bwd_bf16_plan']['body']} body {out['bwd_bf16_ms']:.2f} ms, "
-          f"bound {out['bwd_bf16_bound_ms']:.2f} ms); forward kernel with "
+          f"{out['bwd_bytes_floor_ms']:.2f} ms); forward kernel with "
           f"saved inputs "
           f"{out['fwd_train_ms']:.2f} ms, without "
           f"{out['fwd_infer_ms']:.2f} ms (plain {out['fwd_plain_ms']:.2f} "
           f"ms, bound {out['fwd_bound_ms']:.2f} ms) on {smi}")
+    print(f"training shape bf16 {B} x {T}, {L} layers in 3 groups: backward "
+          f"kernel {out['bwd_bf16_ms']:.2f} ms on the "
+          f"{out['bwd_bf16_plan']['body']} body "
+          f"({out['bwd_bf16_tflop_per_s']:.1f} TFLOP/s; bound "
+          f"{out['bwd_bf16_bound_ms']:.2f} ms by operations at the bf16 "
+          f"peak, two-launch byte floor of what it moves "
+          f"{out['bwd_bf16_bytes_floor_ms']:.2f} ms); plan "
+          f"{out['bwd_bf16_plan']} on {smi}")
     print(f"training shape f32, the forward on the "
           f"{out['fwd_plan']['body']} body beside the backward: "
           f"wavenet_stack {out['fwd_train_ms']:.2f} ms with saved inputs, "
@@ -799,30 +881,20 @@ def training_phase(dev, smi: str) -> dict:
 def profile_step(trainer, batch, what: str) -> None:
     """Where one (G, adv, D) step's device time goes: torch.profiler over
     two steps, device time by kernel name. Printed, never a failure."""
-    from torch.profiler import ProfilerActivity, profile
+    from parallelwavegan_torch.tools.train_step_profile import device_time
 
     step = trainer.train_step_factory(True, True, True)
-    n = 2
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            step(trainer.state, batch)
-        torch.cuda.synchronize()
-    wall_ms = (time.perf_counter() - t0) * 1e3 / n
-    rows = [(e.key, getattr(e, "device_time_total", 0.0) / 1e3 / n, e.count / n)
-            for e in prof.key_averages()
-            if getattr(e, "device_type", None) is not None
-            and "cuda" in str(e.device_type).lower()]
-    busy = sum(ms for _, ms, _ in rows)
+    prof = device_time(lambda: step(trainer.state, batch), top=14)
+    busy = prof["device_busy_ms"]
     if busy <= 0:
         print(f"step profile {what}: the profiler shows no device time")
         return
-    print(f"step profile {what}: {wall_ms:.1f} ms wall a step under the "
-          f"profiler, device busy {busy:.1f} ms; device time by kernel:")
-    for name, ms, count in sorted(rows, key=lambda r: -r[1])[:14]:
-        print(f"  {ms:8.2f} ms {100 * ms / busy:5.1f} %  x{count:6.1f}  "
-              f"{name[:90]}")
+    print(f"step profile {what}: {prof['profiled_wall_ms']:.1f} ms wall a "
+          f"step under the profiler, device busy {busy:.1f} ms; device time "
+          f"by kernel:")
+    for row in prof["kernels"]:
+        print(f"  {row['ms']:8.2f} ms {100 * row['ms'] / busy:5.1f} %  "
+              f"x{row['calls']:6.1f}  {row['name']}")
 
 
 def score_utterance(job):
@@ -1909,13 +1981,15 @@ def run_phases(dev, smi: str, pool) -> int:
         "bound_by": train["bwd_bound_by"],
         "library_ms": None,
         "plan": train["bwd_plan"],
-        "bound_peak": ("TF32 tensor cores / 3"
-                       if train["bwd_plan"]["body"] == "tensor_cores_tf32x3"
-                       else "f32 CUDA cores"),
+        "bound_peak": {"tensor_cores_tf32x3": "TF32 tensor cores / 3",
+                       "tensor_cores_bf16": "bf16 tensor cores"},
         "bytes_floor_ms": train["bwd_bytes_floor_ms"],
         "bf16_ms": train["bwd_bf16_ms"],
         "bf16_plan": train["bwd_bf16_plan"],
         "bf16_bound_ms": train["bwd_bf16_bound_ms"],
+        "bf16_bytes_floor_ms": train["bwd_bf16_bytes_floor_ms"],
+        "bf16_tflop_per_s": train["bwd_bf16_tflop_per_s"],
+        "bf16_max_rel_err": REL_ERR.get("wavenet_stack_backward_bf16", 0.0),
     }, {
         "name": "mrf_stage",
         "route": "cuda",

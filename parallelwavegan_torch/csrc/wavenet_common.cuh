@@ -1,12 +1,11 @@
 // Shared pieces of the fused WaveNet stack kernels (forward, backward and the
 // experiment's variant forward): the compiled channel widths, the thread-tile
-// layout and the typed 2- and 4-wide loads and stores. The bf16 body of
-// wavenet_stack_bwd.cu and wavenet_variant.cu run 256-thread blocks over
-// tiles of TT = 64 time rows and do their products as register-blocked SIMT
-// GEMMs whose thread tile is 4 rows x 8 columns (columns cg*4..+3 and
-// 64 + cg*4..+3 of a 128-column panel); the tensor-core bodies of
-// wavenet_stack.cu and wavenet_stack_bwd.cu take only the constants and
-// the small loads and stores from here.
+// layout and the typed 2- and 4-wide loads and stores. wavenet_variant.cu
+// runs 256-thread blocks over tiles of TT = 64 time rows and does its
+// products as register-blocked SIMT GEMMs whose thread tile is 4 rows x 8
+// columns (columns cg*4..+3 and 64 + cg*4..+3 of a 128-column panel); the
+// tensor-core bodies of wavenet_stack.cu and wavenet_stack_bwd.cu take only
+// the constants and the small loads and stores from here.
 
 #pragma once
 

@@ -17,11 +17,21 @@
 //   dL/dx_l(u) = D(u) * sqrt(1/2) + tap0(u+d) + tap1(u) + tap2(u-d),
 //                [tap0 | tap1 | tap2] = dz . Wt^T, rows outside [0, T) zero.
 //
-// Matmul inputs that the forward rounded to the matmul type (xs, c, g, the
-// weights) enter rounded here too; every product accumulates in f32. The
-// cotangents (dso, dz) stay f32 (the TPU kernel rounds them for its matrix
-// unit), which is what autograd through the plain version computes up to
-// its bf16 gradient casts.
+// Every product accumulates in f32; the gate and dz through it are f32; D,
+// the tap scratch and dc stay f32, and dx is rounded to the type of x once,
+// at the end. What enters each product, per body:
+//
+//   product          float32 body          bfloat16 body (as the TPU kernel)
+//   z                xs, c, [Wt; Wa]       the same, bf16
+//   dg               dso, Wso^T            bf16(dso), Wso^T
+//   [taps | dc]      dz, [Wt; Wa]^T        bf16(dz), [Wt; Wa]^T
+//   dWt, dWa         xcat, c; dz           xcat, c; bf16(dz)
+//   dWso             g; dso                bf16(g); bf16(dso)
+//   dbt, dbso        sums of f32 dz, dso   sums of f32 dz, dso
+//
+// In f32 nothing is rounded; in bf16 the cotangents are rounded just before
+// the products that take them, where the TPU kernel rounds them for its
+// matrix unit (its dzm and dso.astype(mm)).
 //
 // Design. The TPU kernel walks halo'd windows, keeps the running cotangent
 // and two zero-edged tap scratches in VMEM across its sequential layer grid
@@ -30,8 +40,8 @@
 // unordered blocks. Here every layer is two launches over global scratch
 // buffers that the wrapper allocates, last layer first:
 //
-//   data launch   grid (ceil(T/64), B), one 64-row tile per block: recompute
-//     ta and sig from xs and c, then dg (K = 128) and [taps | dc] (K = 128,
+//   data launch   one 64-row tile of one item at a time: recompute ta and
+//     sig from xs and c, then dg (K = 128) and [taps | dc] (K = 128,
 //     N = 3R + A). No atomics and no overlap-add: the launch writes the
 //     three tap products (B, T, 3R) to a scratch, and the next launch
 //     (layer l-1) forms its incoming cotangent on read,
@@ -43,9 +53,10 @@
 //     all B*T rows, so they are [xcat | c | g]^T . [dz | dso] GEMMs whose
 //     contraction runs over rows. Each block takes one 64-row tile of the
 //     output (a tap, 64 channels of c, or g) and one slab of rows,
-//     accumulates 64 x 128 sums plus the 128 column sums (the bias
-//     gradients) in registers, and writes one f32 partial. The wrapper adds
-//     the slabs with one torch.sum: deterministic, unlike f32 atomicAdd.
+//     accumulates 64 x 128 sums in registers and writes one f32 partial.
+//     The wrapper adds the slabs with one torch.sum: deterministic, unlike
+//     f32 atomicAdd. As many slabs as keep every block resident (two a SM):
+//     the launch is one wave.
 //
 // A last small launch forms the cotangent of the stack input from D and the
 // first layer's taps.
@@ -63,33 +74,61 @@
 //     to 2.6e-4 in tests/test_torch_wavenet_stack_bwd.py's emulation); the
 //     three-term split keeps 6e-8 to 9e-8 there; on an NVIDIA H100 (700 W)
 //     the gradients stay within 3e-5 (1 + max) of the plain version. The
-//     data launch streams weights and activation columns through a
-//     three-slot cp.async ring of 32-row chunks (pipeline.cuh) that runs
-//     through its three products without draining; ta, sig, dg and dz
-//     live in registers in the accumulators' layout (a warp owns the tanh
-//     and sigmoid columns of the same channels). The weight launch streams
-//     32-row chunks of both sides through a four-slot ring, one slab per
-//     block, as many slabs as keep every block resident (one wave).
-//   bfloat16: simt (bwd_data_kernel, bwd_weight_kernel). The same products
-//     as register-blocked f32 FMAs on the CUDA cores, with the staging and
-//     gate GEMM of wavenet_common.cuh and weights staged synchronously in
-//     chunks of 16 rows.
+//     data launch runs one block per tile and streams weights and
+//     activation columns through a three-slot cp.async ring of 32-row
+//     chunks (pipeline.cuh) that runs through its three products without
+//     draining; ta, sig, dg and dz live in registers in the accumulators'
+//     layout (a warp owns the tanh and sigmoid columns of the same
+//     channels). The weight launch streams 32-row chunks of both sides
+//     through a four-slot ring; row 64 of its partial holds the column sums
+//     (the bias gradients).
+//   bfloat16: tensor_cores_bf16 (bwd_data_bf16_kernel,
+//     bwd_weight_bf16_kernel). Every product one mma.sync m16n8k16 bf16 ->
+//     f32 product (mma_common.cuh) on the operands of the table above. The
+//     data launch runs on persistent blocks, one an SM, in the manner of
+//     the forward's bf16 body (wavenet_stack.cu): each block loads the
+//     layer's weights once and keeps them while it walks tiles, and the next
+//     tile's xs windows, c rows and bf16 dskip rows arrive by cp.async while
+//     the warps work on this one. One copy of [Wt; Wa] serves two products:
+//     z reads it [k][n] through ldmatrix.trans, [taps | dc] reads the same
+//     rows as [n][k] through plain ldmatrix (so no transposed copy is read),
+//     and dg reads Wso [n][k] the same way. The incoming cotangent's f32
+//     loads are issued before the gate product and consumed after it. dz,
+//     g and bf16(D_in sqrt(1/2)) go to global memory in bf16 (the weight
+//     launch takes them only rounded), with the f32 column sums of dz and of
+//     D_in sqrt(1/2) per block (the wrapper adds the blocks; the sums of
+//     dskip are the same every layer and the wrapper takes them once). The
+//     weight launch streams 64-row chunks of both sides, all bf16, through
+//     a four-slot ring and reads both as fragments by ldmatrix.trans.
+//     Shared memory of the data launch (A = 80; AP = A padded to 16):
+//       [Wt; Wa; 0] (3R + AP) x 128 bf16, swizzled      69,632 B
+//       Wso R x 128 bf16, swizzled                      16,384
+//       bt f32                                             512
+//       column sums of a tile [8][R] + [2][G] f32        3,072
+//       bf16(D_in sqrt(1/2)) [64][R] (rows padded)       9,216
+//       bf16(dz) [64][G] (rows padded)                  17,408
+//       two ring slots: three xs windows (or one halo'd window) [192][R],
+//       bf16 dskip [64][S], c [64][AP] (rows padded)   96,256
+//     212,480 B in all, 512 B more for each 1 of AP: one block an SM, and
+//     the plan refuses A above 112.
 //
 // Bound (PWG v1 training batch 6 x 25,600 samples, 30 layers): per row and
 // layer 3 (3R + A) G + 2 R (S + R) = 120,832 MAC = 241,664 FLOP (the gate
 // product recomputed and transposed twice, the skip/out 1x1 only transposed
-// twice), 1.11e12 FLOP in all: 16.6 ms at the f32 CUDA-core peak (67
-// TFLOP/s), 6.75 ms for the split-TF32 body (three TF32 products each, 495
-// / 3 TFLOP/s), 1.1 ms at the bf16 tensor-core peak. The bytes that must
-// move (xs, c, the cotangents, dx, dc; about 1.4 GB) take 0.42 ms, but the
-// two-launch design moves more: per row and layer in f32 the data launch
-// 4,032 B (xs, c, D read and written, the three tap rows read, taps, dz and
-// g written, dc read and written) and the weight launch 1,856 B (xs, c, g,
-// dz, dskip, D), 27 GB in all, 8.1 ms at 3.35 TB/s. So for the f32 body the
-// byte floor of this design binds before its operations; fusing the
-// launches, keeping D and the taps on chip, is the next step.
-
-#include <type_traits>
+// twice), 1.11e12 FLOP in all: 6.75 ms for the split-TF32 body (three TF32
+// products each, 495 / 3 TFLOP/s), 1.13 ms at the bf16 tensor-core peak.
+// The bytes that must move (xs, c, the cotangents, dx, dc; about 0.7 GB in
+// bf16, 1.4 GB in f32) take under 0.5 ms, but the two-launch design moves
+// more. Per row and layer in f32 the data launch moves 4,032 B (xs, c, D
+// read and written, the three tap rows read, taps, dz and g written, dc
+// read and written) and the weight launch 1,856 B (xs, c, g, dz, dskip, D),
+// 27 GB in all, 8.10 ms at 3.35 TB/s. In bf16 the data launch moves 3,616 B
+// (xs, c and dskip in bf16; D, the tap rows and dc as in f32; dz, g and
+// bf16(D_in sqrt(1/2)) written in bf16) and the weight launch 928 B (xs, c,
+// g, dz, dskip, bf16(D_in sqrt(1/2)), all bf16), 21 GB in all, 6.25 ms. So
+// for both bodies the byte floor of this design binds before its
+// operations; keeping D and the taps on chip (fusing the launches) is the
+// next step.
 
 #include "mma_common.cuh"
 #include "pipeline.cuh"
@@ -103,23 +142,7 @@ using pwgmma::mma_tf32;
 using pwgmma::mma_tiles;
 using pwgmma::split_tf32;
 
-constexpr int KR = 32;  // rows per chunk of the weight-gradient contraction
-
-// bwd_data_kernel: activation tile (reused for dz), weight chunk, dso tile
-__host__ __device__ constexpr size_t data_smem_floats(int A) {
-  return (size_t)padded_k(A) * TT + (size_t)KC * G + (size_t)SR * TT;
-}
-
-// 4 rows x 4 columns: acc[r][j] += a[r] * w[j]
-__device__ __forceinline__ void fma_tile4(float acc[4][4], const float4 a,
-                                          const float4 w) {
-  const float av[4] = {a.x, a.y, a.z, a.w};
-  const float wv[4] = {w.x, w.y, w.z, w.w};
-#pragma unroll
-  for (int r = 0; r < 4; ++r)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[r][j] = fmaf(av[r], wv[j], acc[r][j]);
-}
+constexpr int KR = 32;  // rows per chunk of the f32 weight launch
 
 // The cotangent of this layer's output for 4 channels of row t of one item:
 // D itself for the last layer, else D * sqrt(1/2) plus the three tap
@@ -135,282 +158,6 @@ __device__ __forceinline__ void incoming_cotangent(
   if (t - dp >= 0) load4(taps + (row0 + t - dp) * (3 * R) + 2 * R + ch, e);
 #pragma unroll
   for (int j = 0; j < 4; ++j) v[j] = v[j] * kSqrtHalf + a[j] + b[j] + e[j];
-}
-
-template <typename WT>
-__global__ void __launch_bounds__(THREADS, 2) bwd_data_kernel(
-    const WT* __restrict__ xs, const WT* __restrict__ c,
-    const WT* __restrict__ w_tap, const WT* __restrict__ b_tap,
-    const WT* __restrict__ w_aux,
-    const WT* __restrict__ w_so_t,   // (SR, R): Wso transposed
-    const WT* __restrict__ w_cat_t,  // (G, 3R + A): [Wt; Wa] transposed
-    const float* __restrict__ dskip, float* __restrict__ D,
-    const float* __restrict__ taps_in, float* __restrict__ taps_out,
-    float* __restrict__ dc, float* __restrict__ dz_out,
-    float* __restrict__ g_out, int T, int A, int d, int d_prev,
-    int first_launch) {
-  extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
-  float* a_s = smem;                     // [KP][TT] activation tile
-  float* dz_s = smem;                    // [G][TT], after the gate GEMM
-  float* w_s = a_s + padded_k(A) * TT;   // [KC][128] weight chunk
-  float* dso_s = w_s + KC * G;           // [SR][TT] dso, transposed
-
-  const int tid = threadIdx.x;
-  const int t0 = blockIdx.x * TT;
-  const size_t row0 = (size_t)blockIdx.y * T;
-  const int rg = tid / 16;
-  const int cg = tid % 16;
-  const int M = 3 * R + A;
-
-  // 1. recompute the gate from the saved input
-  stage_activations<WT>(a_s, xs, c, row0, t0, T, A, d, tid);
-
-  // dso tile: [dskip | D_in * sqrt(1/2)], where D_in is formed on read and
-  // written back in place for the weight-gradient launch and the next layer
-  for (int i = tid; i < TT * (S / 4); i += THREADS) {
-    const int ch = (i % (S / 4)) * 4;
-    const int r = i / (S / 4);
-    const int t = t0 + r;
-    float v[4] = {0.f, 0.f, 0.f, 0.f};
-    if (t < T) load4(dskip + (row0 + t) * S + ch, v);
-#pragma unroll
-    for (int j = 0; j < 4; ++j) dso_s[(ch + j) * TT + r] = v[j];
-  }
-  for (int i = tid; i < TT * (R / 4); i += THREADS) {
-    const int ch = (i % (R / 4)) * 4;
-    const int r = i / (R / 4);
-    const int t = t0 + r;
-    float v[4] = {0.f, 0.f, 0.f, 0.f};
-    if (t < T) {
-      incoming_cotangent(v, D, taps_in, row0, t, T, ch, d_prev);
-      if (taps_in != nullptr) store4(D + (row0 + t) * R + ch, v);
-    }
-#pragma unroll
-    for (int j = 0; j < 4; ++j) dso_s[(S + ch + j) * TT + r] = v[j] * kSqrtHalf;
-  }
-
-  float acc[4][8];
-  zero_tile(acc);
-  gate_gemm<WT>(acc, a_s, w_s, w_tap, w_aux, A, tid, rg, cg);
-
-  float ta[4][4], sig[4][4];
-  {
-    float bt[8];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      bt[j] = to_f32(b_tap[cg * 4 + j]);
-      bt[4 + j] = to_f32(b_tap[R + cg * 4 + j]);
-    }
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      float gv[4];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        ta[r][j] = tanhf(acc[r][j] + bt[j]);
-        sig[r][j] = 1.f / (1.f + expf(-(acc[r][4 + j] + bt[4 + j])));
-        gv[j] = round_to<WT>(ta[r][j] * sig[r][j]);
-      }
-      const int t = t0 + rg * 4 + r;
-      if (t < T) store4(g_out + (row0 + t) * R + cg * 4, gv);
-    }
-  }
-
-  // 2. dg = dso . Wso^T: 64 rows x 64 columns, 4 x 4 a thread, the columns
-  // being the gate channels this thread holds ta and sig for
-  float dg[4][4];
-#pragma unroll
-  for (int r = 0; r < 4; ++r)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) dg[r][j] = 0.f;
-  for (int k0 = 0; k0 < SR; k0 += KC) {
-    __syncthreads();  // dso_s is staged / the previous chunk is consumed
-    for (int i = tid; i < KC * R / 4; i += THREADS) {
-      const int col = (i % (R / 4)) * 4;
-      const int kk = i / (R / 4);
-      float v[4];
-      load4(w_so_t + (size_t)(k0 + kk) * R + col, v);
-      store4(w_s + kk * R + col, v);
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < KC; ++kk) {
-      const float4 a = *reinterpret_cast<const float4*>(
-          dso_s + (k0 + kk) * TT + rg * 4);
-      const float4 w = *reinterpret_cast<const float4*>(w_s + kk * R + cg * 4);
-      fma_tile4(dg, a, w);
-    }
-  }
-
-  // 3. dz through the gate; to shared memory (over the activation tile,
-  // which every thread has finished reading: the dg loop synchronised) and
-  // to global memory for the weight-gradient launch
-#pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    float da[4], db[4];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      da[j] = dg[r][j] * sig[r][j] * (1.f - ta[r][j] * ta[r][j]);
-      db[j] = dg[r][j] * ta[r][j] * sig[r][j] * (1.f - sig[r][j]);
-      dz_s[(cg * 4 + j) * TT + rg * 4 + r] = da[j];
-      dz_s[(R + cg * 4 + j) * TT + rg * 4 + r] = db[j];
-    }
-    const int t = t0 + rg * 4 + r;
-    if (t < T) {
-      store4(dz_out + (row0 + t) * G + cg * 4, da);
-      store4(dz_out + (row0 + t) * G + R + cg * 4, db);
-    }
-  }
-
-  // 4. [tap0 | tap1 | tap2 | dc] = dz . [Wt; Wa]^T in panels of 128 columns
-  for (int m0 = 0; m0 < M; m0 += 128) {
-    zero_tile(acc);
-    for (int k0 = 0; k0 < G; k0 += KC) {
-      __syncthreads();  // dz_s is complete / the previous chunk is consumed
-      for (int i = tid; i < KC * 128 / 4; i += THREADS) {
-        const int col = (i % 32) * 4;
-        const int kk = i / 32;
-        float v[4] = {0.f, 0.f, 0.f, 0.f};
-        if (m0 + col < M) load4(w_cat_t + (size_t)(k0 + kk) * M + m0 + col, v);
-        store4(w_s + kk * 128 + col, v);
-      }
-      __syncthreads();
-#pragma unroll
-      for (int kk = 0; kk < KC; ++kk) {
-        const float4 a = *reinterpret_cast<const float4*>(
-            dz_s + (k0 + kk) * TT + rg * 4);
-        const float4 w0 =
-            *reinterpret_cast<const float4*>(w_s + kk * 128 + cg * 4);
-        const float4 w1 =
-            *reinterpret_cast<const float4*>(w_s + kk * 128 + 64 + cg * 4);
-        fma_tile(acc, a, w0, w1);
-      }
-    }
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int t = t0 + rg * 4 + r;
-      if (t >= T) break;
-      const size_t row = row0 + t;
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int m = m0 + h * 64 + cg * 4;  // 4 columns, never straddling 3R
-        float v[4] = {acc[r][4 * h], acc[r][4 * h + 1], acc[r][4 * h + 2],
-                      acc[r][4 * h + 3]};
-        if (m < 3 * R) {
-          store4(taps_out + row * (3 * R) + m, v);
-        } else if (m < M) {
-          float* p = dc + row * A + (m - 3 * R);
-          if (!first_launch) {
-            float old[4];
-            load4(p, old);
-#pragma unroll
-            for (int j = 0; j < 4; ++j) v[j] += old[j];
-          }
-          store4(p, v);
-        }
-      }
-    }
-  }
-}
-
-// One 64 x 128 block of [xcat | c | g]^T . [dz | dso] over one slab of rows.
-// tile 0..2: tap (tile - 1) d of xs against dz; tile 3..3+NC-1: 64 channels
-// of c against dz; the last tile: g against dso. Row 64 of the partial holds
-// the column sums of the right-hand side (dbt from tile 0, dbso from the
-// last tile).
-template <typename WT>
-__global__ void __launch_bounds__(THREADS) bwd_weight_kernel(
-    const WT* __restrict__ xs, const WT* __restrict__ c,
-    const float* __restrict__ dz, const float* __restrict__ g,
-    const float* __restrict__ dskip, const float* __restrict__ D,
-    float* __restrict__ partial, int B, int T, int A, int d,
-    int rows_per_slab) {
-  __shared__ float4 lhs4[KR * 64 / 4];
-  __shared__ float4 rhs4[KR * 128 / 4];
-  float* lhs_s = reinterpret_cast<float*>(lhs4);  // [KR][64]
-  float* rhs_s = reinterpret_cast<float*>(rhs4);  // [KR][128]
-
-  const int tid = threadIdx.x;
-  const int rg = tid / 16;
-  const int cg = tid % 16;
-  const int tile = blockIdx.y;
-  const int n_tiles = gridDim.y;
-  const bool g_tile = tile == n_tiles - 1;
-  const long long N = (long long)B * T;
-  const long long n_begin = (long long)blockIdx.x * rows_per_slab;
-  const long long n_end = min(N, n_begin + rows_per_slab);
-
-  float acc[4][8];
-  zero_tile(acc);
-  float colsum[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-
-  for (long long n0 = n_begin; n0 < n_end; n0 += KR) {
-    __syncthreads();  // the previous chunk is consumed
-    for (int i = tid; i < KR * 16; i += THREADS) {
-      const int ch = (i % 16) * 4;
-      const int kk = i / 16;
-      const long long n = n0 + kk;
-      float v[4] = {0.f, 0.f, 0.f, 0.f};
-      if (n < n_end) {
-        if (tile < 3) {
-          const long long b = n / T;
-          const int t = (int)(n - b * T) + (tile - 1) * d;
-          if (t >= 0 && t < T) load4(xs + (b * T + t) * R + ch, v);
-        } else if (g_tile) {
-          load4(g + n * R + ch, v);
-        } else {
-          const int ca = (tile - 3) * 64 + ch;
-          if (ca < A) load4(c + n * A + ca, v);
-        }
-      }
-      store4(lhs_s + kk * 64 + ch, v);
-    }
-    for (int i = tid; i < KR * 32; i += THREADS) {
-      const int col = (i % 32) * 4;
-      const int kk = i / 32;
-      const long long n = n0 + kk;
-      float v[4] = {0.f, 0.f, 0.f, 0.f};
-      if (n < n_end) {
-        if (!g_tile) {
-          load4(dz + n * G + col, v);
-        } else if (col < S) {
-          load4(dskip + n * S + col, v);
-        } else {
-          load4(D + n * R + col - S, v);
-#pragma unroll
-          for (int j = 0; j < 4; ++j) v[j] *= kSqrtHalf;
-        }
-      }
-      store4(rhs_s + kk * 128 + col, v);
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < KR; ++kk) {
-      const float4 a =
-          *reinterpret_cast<const float4*>(lhs_s + kk * 64 + rg * 4);
-      const float4 w0 =
-          *reinterpret_cast<const float4*>(rhs_s + kk * 128 + cg * 4);
-      const float4 w1 =
-          *reinterpret_cast<const float4*>(rhs_s + kk * 128 + 64 + cg * 4);
-      fma_tile(acc, a, w0, w1);
-      if (rg == 0) {
-        colsum[0] += w0.x; colsum[1] += w0.y; colsum[2] += w0.z;
-        colsum[3] += w0.w; colsum[4] += w1.x; colsum[5] += w1.y;
-        colsum[6] += w1.z; colsum[7] += w1.w;
-      }
-    }
-  }
-
-  float* out = partial + ((size_t)blockIdx.x * n_tiles + tile) * 65 * 128;
-#pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    store4(out + (rg * 4 + r) * 128 + cg * 4, &acc[r][0]);
-    store4(out + (rg * 4 + r) * 128 + 64 + cg * 4, &acc[r][4]);
-  }
-  if (rg == 0) {
-    store4(out + 64 * 128 + cg * 4, &colsum[0]);
-    store4(out + 64 * 128 + 64 + cg * 4, &colsum[4]);
-  }
 }
 
 // dx = D * sqrt(1/2) + the first layer's tap transposes, in the type of x
@@ -480,8 +227,8 @@ __device__ __forceinline__ void load_at_split(uint32_t hi[4], uint32_t lo[4],
 //   [taps | dc] = dz . [Wt; Wa]^T                 panels of 128 columns x 4
 //       chunks; the warp takes columns 32 wq .. +31 of a panel, n-tiles
 //       past 3R + A skipped
-// dso (dskip | D_in sqrt(1/2), D_in formed on read as in the SIMT body) and
-// then dz sit in one [64][128] tile beside the ring.
+// dso (dskip | D_in sqrt(1/2), D_in formed on read by incoming_cotangent)
+// and then dz sit in one [64][128] tile beside the ring.
 __global__ void __launch_bounds__(THREADS, 2) bwd_data_tc_kernel(
     const float* __restrict__ xs, const float* __restrict__ c,
     const float* __restrict__ w_tap, const float* __restrict__ b_tap,
@@ -736,9 +483,11 @@ __global__ void __launch_bounds__(THREADS, 2) bwd_data_tc_kernel(
 }
 
 // bwd_weight_tc_kernel: one 64 x 128 block of [xcat | c | g]^T . [dz | dso]
-// over one slab of rows, tiles as in bwd_weight_kernel. Chunks of 32 rows of
-// both sides arrive through a four-slot cp.async ring; warp (wm, wn) =
-// (warp % 2, warp / 2) owns output rows 32 wm .. +31 and columns 32 wn .. +31.
+// over one slab of rows. tile 0..2: tap (tile - 1) d of xs against dz; tile
+// 3..3+NC-1: 64 channels of c against dz; the last tile: g against dso.
+// Chunks of 32 rows of both sides arrive through a four-slot cp.async ring;
+// warp (wm, wn) = (warp % 2, warp / 2) owns output rows 32 wm .. +31 and
+// columns 32 wn .. +31.
 // The g tile reads D itself; its dso columns are scaled by sqrt(1/2) at the
 // end. Row 64 of the partial holds the column sums of the right-hand side
 // (dbt from tile 0, dbso from the last tile; zeros in the other tiles).
@@ -857,83 +606,688 @@ __global__ void __launch_bounds__(THREADS, 2) bwd_weight_tc_kernel(
     out[64 * 128 + tid] = g_tile && tid >= S ? colsum * kSqrtHalf : colsum;
 }
 
-template <typename WT>
-cudaError_t run_backward(const void* xs_, const void* c_, const void* w_tap_,
-                         const void* b_tap_, const void* w_aux_,
-                         const void* w_so_t_, const void* w_cat_t_,
-                         const float* dskip, float* D, float* taps0,
-                         float* taps1, float* dc, float* dz, float* g,
-                         float* partial, void* dx, const int* dilations,
-                         int L, int B, int T, int A, int n_slabs,
-                         cudaStream_t stream) {
-  // float32 runs the tensor-core body, bfloat16 the SIMT body
-  constexpr bool tensor_cores = std::is_same<WT, float>::value;
-  const WT* xs = static_cast<const WT*>(xs_);
-  const WT* c = static_cast<const WT*>(c_);
-  const WT* w_tap = static_cast<const WT*>(w_tap_);
-  const WT* b_tap = static_cast<const WT*>(b_tap_);
-  const WT* w_aux = static_cast<const WT*>(w_aux_);
-  const WT* w_so_t = static_cast<const WT*>(w_so_t_);
-  const WT* w_cat_t = static_cast<const WT*>(w_cat_t_);
+// ---------------------------------------------------------------------------
+// The bf16 tensor-core body: the same two launches a layer, every product
+// one mma.sync m16n8k16 bf16 -> f32 product, the cotangents rounded to bf16
+// where the TPU kernel rounds them.
+
+namespace bf {
+
+using bf16 = __nv_bfloat16;
+
+constexpr int W_ROW = G * 2;         // bytes of a resident weight row (swizzled)
+constexpr int X_ROW = R * 2 + 16;    // bytes of a staged row of 64 bf16
+constexpr int Z_ROW = G * 2 + 16;    // bytes of a row of the dz tile
+constexpr int STAGES = 2;            // data launch: ring slots
+constexpr int SUMS = 8 * R + 2 * G;  // f32 column sums of one tile
+constexpr int WCH = 64;              // weight launch: rows of a chunk
+constexpr int WSTAGES = 4;           // weight launch: ring slots
+constexpr int WSTAGE = WCH * (X_ROW + Z_ROW);
+constexpr int WEIGHT_SMEM = WSTAGES * WSTAGE;
+
+// aux channels padded to the mma depth, and a staged c row (an odd number
+// of 16-byte chunks, like every staged row: ldmatrix conflict-free)
+__host__ __device__ constexpr int padded_aux(int A) { return (A + 15) / 16 * 16; }
+__host__ __device__ constexpr int c_row(int A) { return padded_aux(A) * 2 + 16; }
+
+// a ring slot: three xs windows of TT rows (or one halo'd window of up to
+// TT + 2 d rows), bf16 dskip [TT][S], c [TT][AP]
+__host__ __device__ constexpr size_t stage_bytes(int A) {
+  return (size_t)4 * TT * X_ROW + (size_t)TT * c_row(A);
+}
+
+// the data launch's shared memory (the layout in the head note); mirrored
+// by backward_smem_bytes() in ops/cuda/wavenet_stack_train.py
+__host__ __device__ constexpr size_t data_smem(int A) {
+  return (size_t)(4 * R + padded_aux(A)) * W_ROW + G * 4 + SUMS * 4 +
+         TT * X_ROW + TT * Z_ROW + STAGES * stage_bytes(A);
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// tanh and sigmoid on the special-function unit (relative error near 1e-6,
+// far below bf16's rounding; both saturate exactly), as the forward's bf16
+// gate (wavenet_stack.cu)
+__device__ __forceinline__ float tanh_fast(float x) {
+  return 1.f - __fdividef(2.f, 1.f + __expf(2.f * x));
+}
+__device__ __forceinline__ float sigmoid_fast(float x) {
+  return __fdividef(1.f, 1.f + __expf(-x));
+}
+
+// A fragment of rows m0..m0+15, k0..k0+15 of a row-major bf16 tile whose
+// rows are `row` bytes apart
+__device__ __forceinline__ void a_frag(uint32_t a[4], const unsigned char* t,
+                                       int row, int m0, int k0, int lane) {
+  pwgpipe::ldmatrix_x4(a, t + (m0 + (lane & 7) + ((lane >> 3) & 1) * 8) * row +
+                              k0 * 2 + (lane >> 4) * 16);
+}
+
+// B fragments of n-tiles n0, n0 + 8 over k0..k0+15 from a swizzled resident
+// weight tile: stored [k][n] (b_kn, ldmatrix.trans) or [n][k] (b_nk)
+__device__ __forceinline__ void b_kn(uint32_t b[4], const unsigned char* w,
+                                     int k0, int n0, int lane) {
+  pwgpipe::ldmatrix_x4_trans(
+      b, w + pwgpipe::swizzle(k0 + (lane & 7) + ((lane >> 3) & 1) * 8,
+                              n0 / 8 + (lane >> 4), W_ROW));
+}
+__device__ __forceinline__ void b_nk(uint32_t b[4], const unsigned char* w,
+                                     int k0, int n0, int lane) {
+  pwgpipe::ldmatrix_x4(
+      b, w + pwgpipe::swizzle(n0 + (lane & 7) + (lane >> 4) * 8,
+                              k0 / 8 + ((lane >> 3) & 1), W_ROW));
+}
+
+}  // namespace bf
+
+// bwd_data_bf16_kernel: persistent blocks of 8 warps walk tiles tile =
+// blockIdx.x, + gridDim.x, ... (B * ceil(T / 64) of them). Warp (wm, wq) =
+// (warp % 2, warp / 2) owns rows 32 wm .. 32 wm + 31 of a tile (two
+// m-tiles, so every B fragment feeds two products):
+//   z = [x(t-d) | x(t) | x(t+d) | c] . [Wt; Wa]   3R / 16 + AP / 16 k-steps;
+//       the warp takes the tanh columns 16 wq .. +15 and the sigmoid
+//       columns 64 + 16 wq .. +15, so ta and sig of one channel meet in one
+//       lane
+//   dg = bf16(dso) . Wso^T                        8 k-steps; the warp takes
+//       the channels it holds ta and sig of, so dz forms in registers
+//   [taps | dc] = bf16(dz) . [Wt; Wa]^T           the warp keeps its rows'
+//       A fragments (all 8 k-steps) in registers and takes column pairs
+//       16 p .. 16 p + 15, p = wq, wq + 4, ... < (3R + AP) / 16
+// Three barriers a tile: the slot has landed; bf16(D_in sqrt(1/2)) is
+// complete; bf16(dz) and the tile's column sums are complete.
+__global__ void __launch_bounds__(THREADS, 1) bwd_data_bf16_kernel(
+    const bf::bf16* __restrict__ xs, const bf::bf16* __restrict__ c,
+    const bf::bf16* __restrict__ w_tap, const bf::bf16* __restrict__ b_tap,
+    const bf::bf16* __restrict__ w_aux, const bf::bf16* __restrict__ w_so,
+    const bf::bf16* __restrict__ dskip, float* __restrict__ D,
+    const float* __restrict__ taps_in, float* __restrict__ taps_out,
+    float* __restrict__ dc, bf::bf16* __restrict__ dz_out,
+    bf::bf16* __restrict__ g_out, bf::bf16* __restrict__ dres_out,
+    float* __restrict__ colsum, int B, int T, int A, int d, int d_prev,
+    int first_launch) {
+  using namespace bf;
+  using pwgpipe::cp_async16;
+  const int AP = padded_aux(A);
+  const int CS = c_row(A);
+  const int K = 3 * R + A;    // the gate contraction; columns of [taps | dc]
+  const int KP = 3 * R + AP;  // resident rows of [Wt; Wa], zero-padded
+  extern __shared__ float4 smem4[];
+  unsigned char* w_s = reinterpret_cast<unsigned char*>(smem4);
+  unsigned char* wso_s = w_s + (size_t)KP * W_ROW;
+  float* bias_s = reinterpret_cast<float*>(wso_s + R * W_ROW);
+  float* sums_s = bias_s + G;  // [8][R] of D_in sqrt(1/2), [2][G] of dz
+  unsigned char* dres_s = reinterpret_cast<unsigned char*>(sums_s + SUMS);
+  unsigned char* dz_s = dres_s + TT * X_ROW;
+  unsigned char* ring = dz_s + TT * Z_ROW;
+  const size_t sbytes = stage_bytes(A);
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int gq = lane >> 2, tq = lane & 3;
+  const int wm = warp & 1, wq = warp >> 1;
+  const int per_item = (T + TT - 1) / TT;
+  const int tiles = B * per_item;
+
+  // the layer's weights, once: rows [Wt (3R); Wa (A); zeros (AP - A); Wso
+  // (R)] of 128 bf16, 16-byte chunks swizzled (KP is a multiple of 8, so
+  // Wso's rows keep their swizzle key)
+  for (int i = tid; i < (KP + R) * (W_ROW / 16); i += THREADS) {
+    const int k = i / (W_ROW / 16), ch = i % (W_ROW / 16);
+    const bf16* src = w_tap;
+    bool ok = true;
+    if (k < 3 * R) src = w_tap + (size_t)k * G;
+    else if (k < K) src = w_aux + (size_t)(k - 3 * R) * G;
+    else if (k < KP) ok = false;
+    else src = w_so + (size_t)(k - KP) * SR;
+    cp_async16(w_s + pwgpipe::swizzle(k, ch, W_ROW), ok ? src + ch * 8 : w_tap,
+               ok);
+  }
+  for (int i = tid; i < G; i += THREADS) bias_s[i] = __bfloat162float(b_tap[i]);
+
+  // stage tile `tile` into ring slot `slot`, rows outside [0, T) as zeros;
+  // one commit group per call. For d < TT the taps overlap and one window
+  // of rows t0 - d .. t0 + TT + d - 1 serves all three (tap k starts at
+  // window row k d); otherwise each tap has its own TT rows.
+  const bool halo = d < TT;
+  const int x_rows = halo ? TT + 2 * d : 3 * TT;
+  auto fill = [&](int tile, int slot) {
+    if (tile < tiles) {
+      unsigned char* st = ring + slot * sbytes;
+      const int b = tile / per_item, t0 = (tile % per_item) * TT;
+      const size_t row0 = (size_t)b * T;
+      constexpr int XC = R * 2 / 16;  // 16-byte chunks of a row; S == R
+      const int ch = tid % XC;
+      for (int q = tid / XC; q < x_rows; q += THREADS / XC) {
+        const int t = halo ? t0 - d + q : t0 + q % TT + (q / TT - 1) * d;
+        const bool ok = t >= 0 && t < T;
+        cp_async16(st + q * X_ROW + ch * 16,
+                   ok ? xs + (row0 + t) * R + ch * 8 : xs, ok);
+      }
+      unsigned char* sk = st + 3 * TT * X_ROW;
+      for (int q = tid / XC; q < TT; q += THREADS / XC) {
+        const bool ok = t0 + q < T;
+        cp_async16(sk + q * X_ROW + ch * 16,
+                   ok ? dskip + (row0 + t0 + q) * S + ch * 8 : dskip, ok);
+      }
+      unsigned char* c_st = sk + TT * X_ROW;
+      if (A % 8 == 0) {  // rows of whole 16-byte pieces
+        for (int i = tid; i < TT * (AP / 8); i += THREADS) {
+          const int v = i % (AP / 8), r = i / (AP / 8);
+          const bool ok = t0 + r < T && v < A / 8;
+          cp_async16(c_st + r * CS + v * 16,
+                     ok ? c + (row0 + t0 + r) * A + v * 8 : c, ok);
+        }
+      } else {  // 8-byte pieces (A is a multiple of 4)
+        for (int i = tid; i < TT * (AP / 4); i += THREADS) {
+          const int v = i % (AP / 4), r = i / (AP / 4);
+          const bool ok = t0 + r < T && v < A / 4;
+          pwgpipe::cp_async8(c_st + r * CS + v * 8,
+                             ok ? c + (row0 + t0 + r) * A + v * 4 : c, ok);
+        }
+      }
+    }
+    pwgpipe::cp_async_commit();
+  };
+
+  // this thread's share of the incoming cotangent: rows tid / 16 + 16 i,
+  // channels 4 (tid % 16) .. + 3
+  const int cg = (tid & 15) * 4;
+  // the block's column sums over its tiles: dbt (tid < G), then the dso
+  // half of dbso (G <= tid < G + R)
+  float csum = 0.f;
+
+  fill(blockIdx.x, 0);  // with the weights: one group
+  int slot = 0;
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    fill(tile + gridDim.x, slot ^ 1);
+    pwgpipe::cp_async_wait<1>();  // this tile (and the weights) landed
+    __syncthreads();
+    const unsigned char* st = ring + slot * sbytes;
+    const int b = tile / per_item, t0 = (tile % per_item) * TT;
+    const size_t row0 = (size_t)b * T;
+
+    // 1. the incoming cotangent's loads, in flight during the gate product
+    float4 dv[4], tp[4][3];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int t = t0 + (tid >> 4) + 16 * i;
+      const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+      dv[i] = tp[i][0] = tp[i][1] = tp[i][2] = zero;
+      if (t >= T) continue;
+      dv[i] = *reinterpret_cast<const float4*>(D + (row0 + t) * R + cg);
+      if (taps_in == nullptr) continue;
+      const float* tr = taps_in + (row0 + t) * (3 * R) + cg;
+      if (t + d_prev < T)
+        tp[i][0] = *reinterpret_cast<const float4*>(tr + (size_t)d_prev * 3 * R);
+      tp[i][1] = *reinterpret_cast<const float4*>(tr + R);
+      if (t - d_prev >= 0)
+        tp[i][2] = *reinterpret_cast<const float4*>(
+            tr - (size_t)d_prev * 3 * R + 2 * R);
+    }
+
+    // 2. z on this warp's tanh n-tiles (j = 0, 1) and their sigmoid
+    // partners (j = 2, 3), then the gate in registers; g to global memory
+    float ta[2][2][4], sg[2][2][4];
+    {
+      float acc[2][4][4] = {};
+      const int tap_rows = halo ? d : TT;  // window rows between taps
+      auto step = [&](const unsigned char* act, int row, int k_act,
+                      int k_w) {
+        uint32_t a[2][4], bt[4], bs[4];
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+          a_frag(a[i], act, row, 32 * wm + 16 * i, k_act, lane);
+        b_kn(bt, w_s, k_w, 16 * wq, lane);
+        b_kn(bs, w_s, k_w, R + 16 * wq, lane);
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          pwgmma::mma_tile<bf16>(acc[i][0], a[i], bt);
+          pwgmma::mma_tile<bf16>(acc[i][1], a[i], bt + 2);
+          pwgmma::mma_tile<bf16>(acc[i][2], a[i], bs);
+          pwgmma::mma_tile<bf16>(acc[i][3], a[i], bs + 2);
+        }
+      };
+#pragma unroll
+      for (int s = 0; s < 3 * R / 16; ++s)
+        step(st + (s / 4) * tap_rows * X_ROW, X_ROW, (s % 4) * 16, s * 16);
+      const unsigned char* c_st = st + 4 * TT * X_ROW;
+#pragma unroll 5
+      for (int s = 0; s < AP / 16; ++s) step(c_st, CS, s * 16, 3 * R + s * 16);
+
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int col = 16 * wq + 8 * j + 2 * tq;
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            ta[i][j][e] = tanh_fast(acc[i][j][e] + bias_s[col + (e & 1)]);
+            sg[i][j][e] =
+                sigmoid_fast(acc[i][2 + j][e] + bias_s[R + col + (e & 1)]);
+          }
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int t = t0 + 32 * wm + 16 * i + gq + 8 * h;
+            if (t < T)
+              *reinterpret_cast<uint32_t*>(g_out + (row0 + t) * R + col) =
+                  pack_bf16(ta[i][j][2 * h] * sg[i][j][2 * h],
+                            ta[i][j][2 * h + 1] * sg[i][j][2 * h + 1]);
+          }
+        }
+      }
+    }
+
+    // 3. D_in = D sqrt(1/2) + the layer above's taps (D itself for the last
+    // layer), written back in place; bf16(D_in sqrt(1/2)) to dres_s and to
+    // global memory for the weight launch; its f32 column sums
+    {
+      float s4[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int r = (tid >> 4) + 16 * i, t = t0 + r;
+        float v[4] = {dv[i].x, dv[i].y, dv[i].z, dv[i].w};
+        if (taps_in != nullptr) {
+          const float a[4] = {tp[i][0].x, tp[i][0].y, tp[i][0].z, tp[i][0].w};
+          const float bb[4] = {tp[i][1].x, tp[i][1].y, tp[i][1].z, tp[i][1].w};
+          const float e[4] = {tp[i][2].x, tp[i][2].y, tp[i][2].z, tp[i][2].w};
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            v[j] = v[j] * kSqrtHalf + a[j] + bb[j] + e[j];
+          if (t < T) store4(D + (row0 + t) * R + cg, v);
+        }
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          v[j] *= kSqrtHalf;
+          s4[j] += v[j];
+        }
+        const uint2 packed = make_uint2(pack_bf16(v[0], v[1]),
+                                        pack_bf16(v[2], v[3]));
+        *reinterpret_cast<uint2*>(dres_s + r * X_ROW + cg * 2) = packed;
+        if (t < T)
+          *reinterpret_cast<uint2*>(dres_out + (row0 + t) * R + cg) = packed;
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j) s4[j] += __shfl_xor_sync(0xffffffffu, s4[j], 16);
+      if (lane < 16) store4(sums_s + warp * R + cg, s4);
+    }
+    __syncthreads();
+
+    // 4. dg = bf16(dso) . Wso^T (dskip's columns from the slot, the rest
+    // from dres_s), then dz through the gate: bf16 to dz_s and to global
+    // memory, f32 column sums
+    {
+      float dg[2][2][4] = {};
+      const unsigned char* sk = st + 3 * TT * X_ROW;
+#pragma unroll
+      for (int kk = 0; kk < SR / 16; ++kk) {
+        uint32_t a[2][4], bw[4];
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+          a_frag(a[i], kk < S / 16 ? sk : dres_s, X_ROW, 32 * wm + 16 * i,
+                 (kk % (S / 16)) * 16, lane);
+        b_nk(bw, wso_s, kk * 16, 16 * wq, lane);
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          pwgmma::mma_tile<bf16>(dg[i][0], a[i], bw);
+          pwgmma::mma_tile<bf16>(dg[i][1], a[i], bw + 2);
+        }
+      }
+      float sa[2][2] = {}, sb[2][2] = {};
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const int col = 16 * wq + 8 * j + 2 * tq;
+          float da[4], db[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float a = ta[i][j][e], s = sg[i][j][e];
+            da[e] = dg[i][j][e] * s * (1.f - a * a);
+            db[e] = dg[i][j][e] * a * s * (1.f - s);
+            sa[j][e & 1] += da[e];
+            sb[j][e & 1] += db[e];
+          }
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int r = 32 * wm + 16 * i + gq + 8 * h, t = t0 + r;
+            const uint32_t pa = pack_bf16(da[2 * h], da[2 * h + 1]);
+            const uint32_t pb = pack_bf16(db[2 * h], db[2 * h + 1]);
+            *reinterpret_cast<uint32_t*>(dz_s + r * Z_ROW + col * 2) = pa;
+            *reinterpret_cast<uint32_t*>(dz_s + r * Z_ROW + (R + col) * 2) = pb;
+            if (t < T) {
+              *reinterpret_cast<uint32_t*>(dz_out + (row0 + t) * G + col) = pa;
+              *reinterpret_cast<uint32_t*>(dz_out + (row0 + t) * G + R + col) =
+                  pb;
+            }
+          }
+        }
+      // sum over the warp's 32 rows (the lanes of one tq), then lanes 0..3
+      // hold the warp's column sums
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+#pragma unroll
+          for (int m = 4; m < 32; m <<= 1) {
+            sa[j][e] += __shfl_xor_sync(0xffffffffu, sa[j][e], m);
+            sb[j][e] += __shfl_xor_sync(0xffffffffu, sb[j][e], m);
+          }
+      if (gq == 0) {
+        float* out = sums_s + 8 * R + wm * G;
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const int col = 16 * wq + 8 * j + 2 * tq;
+          store2(out + col, sa[j][0], sa[j][1]);
+          store2(out + R + col, sb[j][0], sb[j][1]);
+        }
+      }
+    }
+    __syncthreads();
+
+    // the tile's column sums into the block's, in a fixed order
+    if (tid < G) {
+      csum += sums_s[8 * R + tid] + sums_s[8 * R + G + tid];
+    } else if (tid < G + R) {
+      float s = 0.f;
+#pragma unroll
+      for (int w = 0; w < 8; ++w) s += sums_s[w * R + tid - G];
+      csum += s;
+    }
+
+    // 5. [taps | dc] = bf16(dz) . [Wt; Wa]^T: tap products to the scratch,
+    // dc in place
+    {
+      uint32_t az[2][G / 16][4];
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int kk = 0; kk < G / 16; ++kk)
+          a_frag(az[i][kk], dz_s, Z_ROW, 32 * wm + 16 * i, kk * 16, lane);
+      for (int p = wq; p < KP / 16; p += 4) {
+        const int m0 = 16 * p;
+        const bool to_dc = m0 >= 3 * R;  // 3R is a multiple of 16
+        // dc's running sums, fetched before the products
+        float2 old[2][2][2];
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+#pragma unroll
+          for (int j = 0; j < 2; ++j)
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const int t = t0 + 32 * wm + 16 * i + gq + 8 * h;
+              const int m = m0 + 8 * j + 2 * tq;
+              old[i][j][h] = make_float2(0.f, 0.f);
+              if (to_dc && !first_launch && t < T && m < K)
+                old[i][j][h] = *reinterpret_cast<const float2*>(
+                    dc + (row0 + t) * A + (m - 3 * R));
+            }
+        float acc[2][2][4] = {};
+#pragma unroll
+        for (int kk = 0; kk < G / 16; ++kk) {
+          uint32_t bw[4];
+          b_nk(bw, w_s, kk * 16, m0, lane);
+#pragma unroll
+          for (int i = 0; i < 2; ++i) {
+            pwgmma::mma_tile<bf16>(acc[i][0], az[i][kk], bw);
+            pwgmma::mma_tile<bf16>(acc[i][1], az[i][kk], bw + 2);
+          }
+        }
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+#pragma unroll
+          for (int j = 0; j < 2; ++j)
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const int t = t0 + 32 * wm + 16 * i + gq + 8 * h;
+              const int m = m0 + 8 * j + 2 * tq;  // even, as are 3R and K
+              if (t >= T || m >= K) continue;
+              const float v0 = acc[i][j][2 * h], v1 = acc[i][j][2 * h + 1];
+              if (!to_dc)
+                store2(taps_out + (row0 + t) * (3 * R) + m, v0, v1);
+              else
+                store2(dc + (row0 + t) * A + (m - 3 * R),
+                       old[i][j][h].x + v0, old[i][j][h].y + v1);
+            }
+      }
+    }
+    slot ^= 1;
+  }
+  pwgpipe::cp_async_wait<0>();
+  if (tid < G + R) colsum[(size_t)blockIdx.x * (G + R) + tid] = csum;
+}
+
+// bwd_weight_bf16_kernel: one 64 x 128 block of
+// [xcat | c | g]^T . [bf16(dz) | bf16(dso)] over one slab of rows. tile
+// 0..2: tap (tile - 1) d of xs against dz; tile 3..3+NC-1: 64 channels of c
+// against dz; the last tile: g against [dskip | D_in sqrt(1/2)]. Chunks of
+// 64 rows of both sides arrive through a four-slot cp.async ring, both
+// stored row-major ([row][channel]) and read as fragments by
+// ldmatrix.trans; warp (wm, wn) = (warp % 2, warp / 2) owns output rows
+// 32 wm .. +31 and columns 32 wn .. +31. The bias gradients come from the
+// data launch.
+__global__ void __launch_bounds__(THREADS, 2) bwd_weight_bf16_kernel(
+    const bf::bf16* __restrict__ xs, const bf::bf16* __restrict__ c,
+    const bf::bf16* __restrict__ dz, const bf::bf16* __restrict__ g,
+    const bf::bf16* __restrict__ dskip, const bf::bf16* __restrict__ dres,
+    float* __restrict__ partial, int B, int T, int A, int d,
+    int rows_per_slab) {
+  using namespace bf;
+  using pwgpipe::cp_async16;
+  extern __shared__ float4 smem4[];
+  unsigned char* ring = reinterpret_cast<unsigned char*>(smem4);
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int gq = lane >> 2, tq = lane & 3;
+  const int wm = warp & 1, wn = warp >> 1;
+  const int tile = blockIdx.y;
+  const int n_tiles = gridDim.y;
+  const bool g_tile = tile == n_tiles - 1;
+  const bool c_tile = tile >= 3 && !g_tile;
+  const long long N = (long long)B * T;
+  const long long n_begin = (long long)blockIdx.x * rows_per_slab;
+  const long long n_end = min(N, n_begin + rows_per_slab);
+  const int n_chunks = n_end > n_begin
+                           ? (int)((n_end - n_begin + WCH - 1) / WCH)
+                           : 0;
+
+  auto issue = [&](int ci) {
+    unsigned char* lhs = ring + (ci % WSTAGES) * WSTAGE;
+    unsigned char* rhs = lhs + WCH * X_ROW;
+    const long long n0 = n_begin + (long long)ci * WCH;
+    if (c_tile && A % 8 != 0) {  // c rows in 8-byte pieces
+      for (int i = tid; i < WCH * 16; i += THREADS) {
+        const int kk = i / 16, v = i % 16;
+        const long long n = n0 + kk;
+        const int ca = (tile - 3) * 64 + v * 4;
+        const bool ok = n < n_end && ca < A;
+        pwgpipe::cp_async8(lhs + kk * X_ROW + v * 8, ok ? c + n * A + ca : c,
+                           ok);
+      }
+    } else {
+      for (int i = tid; i < WCH * 8; i += THREADS) {
+        const int kk = i / 8, ch = i % 8;
+        const long long n = n0 + kk;
+        const bf16* src = xs;
+        bool ok = false;
+        if (n < n_end) {
+          if (tile < 3) {
+            const long long b = n / T;
+            const int t = (int)(n - b * T) + (tile - 1) * d;
+            ok = t >= 0 && t < T;
+            if (ok) src = xs + (b * T + t) * R + ch * 8;
+          } else if (g_tile) {
+            ok = true;
+            src = g + n * R + ch * 8;
+          } else {
+            const int ca = (tile - 3) * 64 + ch * 8;
+            ok = ca < A;
+            if (ok) src = c + n * A + ca;
+          }
+        }
+        cp_async16(lhs + kk * X_ROW + ch * 16, src, ok);
+      }
+    }
+    for (int i = tid; i < WCH * 16; i += THREADS) {
+      const int kk = i / 16, col = (i % 16) * 8;
+      const long long n = n0 + kk;
+      const bf16* src = !g_tile  ? dz + n * G + col
+                        : col < S ? dskip + n * S + col
+                                  : dres + n * R + (col - S);
+      cp_async16(rhs + kk * Z_ROW + col * 2, n < n_end ? src : dz, n < n_end);
+    }
+  };
+
+#pragma unroll
+  for (int s = 0; s < WSTAGES - 1; ++s) {
+    if (s < n_chunks) issue(s);
+    pwgpipe::cp_async_commit();
+  }
+
+  float acc[2][4][4] = {};
+  for (int ci = 0; ci < n_chunks; ++ci) {
+    pwgpipe::cp_async_wait<WSTAGES - 2>();
+    __syncthreads();
+    if (ci + WSTAGES - 1 < n_chunks) issue(ci + WSTAGES - 1);
+    pwgpipe::cp_async_commit();
+    const unsigned char* lhs = ring + (ci % WSTAGES) * WSTAGE;
+    const unsigned char* rhs = lhs + WCH * X_ROW;
+#pragma unroll
+    for (int k0 = 0; k0 < WCH; k0 += 16) {
+      uint32_t a[2][4];
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+        pwgpipe::ldmatrix_x4_trans(
+            a[i], lhs + (k0 + (lane & 7) + ((lane >> 4) & 1) * 8) * X_ROW +
+                      (32 * wm + 16 * i + ((lane >> 3) & 1) * 8) * 2);
+#pragma unroll
+      for (int jp = 0; jp < 2; ++jp) {
+        uint32_t b[4];
+        pwgpipe::ldmatrix_x4_trans(
+            b, rhs + (k0 + (lane & 7) + ((lane >> 3) & 1) * 8) * Z_ROW +
+                   (32 * wn + 16 * jp + (lane >> 4) * 8) * 2);
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          pwgmma::mma_tile<bf16>(acc[i][2 * jp], a[i], b);
+          pwgmma::mma_tile<bf16>(acc[i][2 * jp + 1], a[i], b + 2);
+        }
+      }
+    }
+  }
+  pwgpipe::cp_async_wait<0>();
+
+  float* out = partial + ((size_t)blockIdx.x * n_tiles + tile) * 64 * 128;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int col = 32 * wn + 8 * j + 2 * tq;
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        store2(out + (32 * wm + 16 * i + gq + 8 * h) * 128 + col,
+               acc[i][j][2 * h], acc[i][j][2 * h + 1]);
+  }
+}
+
+cudaError_t run_backward_tf32(const float* xs, const float* c,
+                              const float* w_tap, const float* b_tap,
+                              const float* w_aux, const float* w_so_t,
+                              const float* w_cat_t, const float* dskip,
+                              float* D, float* taps0, float* taps1, float* dc,
+                              float* dz, float* g, float* partial, float* dx,
+                              const int* dilations, int L, int B, int T,
+                              int A, int n_slabs, cudaStream_t stream) {
   const int M = 3 * R + A;
   const int n_tiles = 3 + (A + 63) / 64 + 1;
   const long long N = (long long)B * T;
   const int rows_per_slab =
       (int)(((N + n_slabs - 1) / n_slabs + KR - 1) / KR * KR);
-  const size_t smem = data_smem_floats(A) * sizeof(float);
-  cudaError_t err;
-  if constexpr (tensor_cores) {
-    err = cudaFuncSetAttribute(bwd_data_tc_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               tc::DATA_SMEM);
-    if (err != cudaSuccess) return err;
-    err = cudaFuncSetAttribute(bwd_weight_tc_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               tc::WEIGHT_SMEM);
-  } else {
-    err = cudaFuncSetAttribute(bwd_data_kernel<WT>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem);
-  }
+  cudaError_t err = cudaFuncSetAttribute(
+      bwd_data_tc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      tc::DATA_SMEM);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(bwd_weight_tc_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             tc::WEIGHT_SMEM);
   if (err != cudaSuccess) return err;
   const dim3 data_grid((T + TT - 1) / TT, B);
   const dim3 weight_grid(n_slabs, n_tiles);
   float* taps[2] = {taps0, taps1};
   for (int l = L - 1; l >= 0; --l) {
     const bool first = l == L - 1;
-    const WT* xl = xs + (size_t)l * B * T * R;
-    float* part = partial + (size_t)l * n_slabs * n_tiles * 65 * 128;
+    const float* xl = xs + (size_t)l * B * T * R;
     const float* tin = first ? nullptr : taps[(l + 1) % 2];
     const int dp = first ? 0 : dilations[l + 1];
-    const WT* wt = w_tap + (size_t)l * 3 * R * G;
-    const WT* bt = b_tap + (size_t)l * G;
-    const WT* wa = w_aux + (size_t)l * A * G;
-    const WT* wso = w_so_t + (size_t)l * SR * R;
-    const WT* wcat = w_cat_t + (size_t)l * G * M;
-    if constexpr (tensor_cores) {
-      bwd_data_tc_kernel<<<data_grid, THREADS, tc::DATA_SMEM, stream>>>(
-          xl, c, wt, bt, wa, wso, wcat, dskip, D, tin, taps[l % 2], dc, dz, g,
-          T, A, dilations[l], dp, first ? 1 : 0);
-    } else {
-      bwd_data_kernel<WT><<<data_grid, THREADS, smem, stream>>>(
-          xl, c, wt, bt, wa, wso, wcat, dskip, D, tin, taps[l % 2], dc, dz, g,
-          T, A, dilations[l], dp, first ? 1 : 0);
-    }
+    bwd_data_tc_kernel<<<data_grid, THREADS, tc::DATA_SMEM, stream>>>(
+        xl, c, w_tap + (size_t)l * 3 * R * G, b_tap + (size_t)l * G,
+        w_aux + (size_t)l * A * G, w_so_t + (size_t)l * SR * R,
+        w_cat_t + (size_t)l * G * M, dskip, D, tin, taps[l % 2], dc, dz, g, T,
+        A, dilations[l], dp, first ? 1 : 0);
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
-    if constexpr (tensor_cores) {
-      bwd_weight_tc_kernel<<<weight_grid, THREADS, tc::WEIGHT_SMEM, stream>>>(
-          xl, c, dz, g, dskip, D, part, B, T, A, dilations[l], rows_per_slab);
-    } else {
-      bwd_weight_kernel<WT><<<weight_grid, THREADS, 0, stream>>>(
-          xl, c, dz, g, dskip, D, part, B, T, A, dilations[l], rows_per_slab);
-    }
+    bwd_weight_tc_kernel<<<weight_grid, THREADS, tc::WEIGHT_SMEM, stream>>>(
+        xl, c, dz, g, dskip, D,
+        partial + (size_t)l * n_slabs * n_tiles * 65 * 128, B, T, A,
+        dilations[l], rows_per_slab);
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
   }
   const long long groups = N * (R / 4);
-  bwd_finish_kernel<WT><<<(unsigned)((groups + 255) / 256), 256, 0, stream>>>(
-      D, taps[0], static_cast<WT*>(dx), T, dilations[0], groups);
+  bwd_finish_kernel<float><<<(unsigned)((groups + 255) / 256), 256, 0,
+                             stream>>>(D, taps[0], dx, T, dilations[0],
+                                       groups);
+  return cudaGetLastError();
+}
+
+cudaError_t run_backward_bf16(const bf::bf16* xs, const bf::bf16* c,
+                              const bf::bf16* w_tap, const bf::bf16* b_tap,
+                              const bf::bf16* w_aux, const bf::bf16* w_so,
+                              const bf::bf16* dskip, float* D, float* taps0,
+                              float* taps1, float* dc, bf::bf16* dz,
+                              bf::bf16* g, bf::bf16* dres, float* colsum,
+                              float* partial, bf::bf16* dx,
+                              const int* dilations, int L, int B, int T,
+                              int A, int n_slabs, int blocks,
+                              cudaStream_t stream) {
+  const int n_tiles = 3 + (A + 63) / 64 + 1;
+  const long long N = (long long)B * T;
+  const int rows_per_slab =
+      (int)(((N + n_slabs - 1) / n_slabs + bf::WCH - 1) / bf::WCH * bf::WCH);
+  const size_t smem = bf::data_smem(A);
+  cudaError_t err = cudaFuncSetAttribute(
+      bwd_data_bf16_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(bwd_weight_bf16_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             bf::WEIGHT_SMEM);
+  if (err != cudaSuccess) return err;
+  const dim3 weight_grid(n_slabs, n_tiles);
+  float* taps[2] = {taps0, taps1};
+  for (int l = L - 1; l >= 0; --l) {
+    const bool first = l == L - 1;
+    const bf::bf16* xl = xs + (size_t)l * B * T * R;
+    const float* tin = first ? nullptr : taps[(l + 1) % 2];
+    const int dp = first ? 0 : dilations[l + 1];
+    bwd_data_bf16_kernel<<<blocks, THREADS, smem, stream>>>(
+        xl, c, w_tap + (size_t)l * 3 * R * G, b_tap + (size_t)l * G,
+        w_aux + (size_t)l * A * G, w_so + (size_t)l * R * SR, dskip, D, tin,
+        taps[l % 2], dc, dz, g, dres, colsum + (size_t)l * blocks * (G + R), B,
+        T, A, dilations[l], dp, first ? 1 : 0);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    bwd_weight_bf16_kernel<<<weight_grid, THREADS, bf::WEIGHT_SMEM, stream>>>(
+        xl, c, dz, g, dskip, dres,
+        partial + (size_t)l * n_slabs * n_tiles * 64 * 128, B, T, A,
+        dilations[l], rows_per_slab);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  const long long groups = N * (R / 4);
+  bwd_finish_kernel<bf::bf16><<<(unsigned)((groups + 255) / 256), 256, 0,
+                                stream>>>(D, taps[0], dx, T, dilations[0],
+                                          groups);
   return cudaGetLastError();
 }
 
@@ -943,43 +1297,57 @@ extern "C" {
 
 // Backward of L layers on `stream`; returns a cudaError_t (0 on success).
 // The Python wrapper checks shapes, types and alignment, lays out the
-// transposed weights and allocates every buffer.
+// weights and allocates every buffer.
 // dtype: 0 = float32, 1 = bfloat16 (xs, c, dx and every weight). body, as
 // the wrapper's launch plan names it: 1 = the split-TF32 tensor-core body,
-// the one float32 runs, 0 = the SIMT body, the one bfloat16 runs; any other
-// pair is refused. The rows of a weight-launch slab are ceil(B T /
-// n_slabs) rounded up to 32.
-// xs (L, B, T, 64) saved layer inputs; c (B, T, A); w_tap, b_tap, w_aux as in
-// the forward; w_so_t (L, 128, 64) = Wso transposed; w_cat_t (L, 128, 192+A)
-// = [Wt; Wa] transposed; dskip (B, T, 64) f32; D (B, T, 64) f32, on entry
-// the cotangent of x_out, overwritten; taps0, taps1 (B, T, 192) f32, dz
-// (B, T, 128) f32 and g (B, T, 64) f32 scratch; dc (B, T, A) f32 out;
-// partial (L, n_slabs, 3 + ceil(A/64) + 1, 65, 128) f32 out, to be summed
-// over the slabs; dx (B, T, 64) out; dilations on the host.
-int pwg_wavenet_stack_backward(int dtype, const void* xs, const void* c,
-                               const void* w_tap, const void* b_tap,
-                               const void* w_aux, const void* w_so_t,
+// the one float32 runs; 2 = the bf16 tensor-core body on `blocks`
+// persistent blocks, the one bfloat16 runs; any other pair is refused. The
+// rows of a weight-launch slab are ceil(B T / n_slabs) rounded up to 32
+// (f32) or 64 (bf16).
+// xs (L, B, T, 64) saved layer inputs; c (B, T, A); w_tap, b_tap, w_aux as
+// in the forward; D (B, T, 64) f32, on entry the cotangent of x_out,
+// overwritten; taps0, taps1 (B, T, 192) f32 scratch; dc (B, T, A) f32 out;
+// dx (B, T, 64) out; dilations on the host.
+// f32 body: w_so_t (L, 128, 64) = Wso transposed; w_cat_t (L, 128, 192+A)
+// = [Wt; Wa] transposed; dskip (B, T, 64) f32; dz (B, T, 128) and g
+// (B, T, 64) f32 scratch; partial (L, n_slabs, 3 + ceil(A/64) + 1, 65, 128)
+// f32 out, to be summed over the slabs (row 64: the bias gradients).
+// bf16 body: w_so (L, 64, 128) as the forward takes it; dskip (B, T, 64)
+// bf16; dz (B, T, 128), g and dres (B, T, 64) bf16 scratch; colsum
+// (L, blocks, 192) f32 out, the column sums of dz and D_in sqrt(1/2) by
+// block, to be summed over the blocks; partial (L, n_slabs, 3 + ceil(A/64)
+// + 1, 64, 128) f32 out. The other body's pointers may be null.
+int pwg_wavenet_stack_backward(int dtype, int body, const void* xs,
+                               const void* c, const void* w_tap,
+                               const void* b_tap, const void* w_aux,
+                               const void* w_so, const void* w_so_t,
                                const void* w_cat_t, const void* dskip,
                                void* D, void* taps0, void* taps1, void* dc,
-                               void* dz, void* g, void* partial, void* dx,
-                               const int* dilations, int L, int B, int T,
-                               int A, int n_slabs, int body, void* stream) {
+                               void* dz, void* g, void* dres, void* colsum,
+                               void* partial, void* dx, const int* dilations,
+                               int L, int B, int T, int A, int n_slabs,
+                               int blocks, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   auto f = [](void* p) { return static_cast<float*>(p); };
-  if (body != (dtype == 0 ? 1 : 0) || A % 4 != 0)
-    return (int)cudaErrorInvalidValue;
-  if (dtype == 0)
-    return (int)run_backward<float>(
-        xs, c, w_tap, b_tap, w_aux, w_so_t, w_cat_t,
-        static_cast<const float*>(dskip), f(D), f(taps0), f(taps1), f(dc),
-        f(dz), f(g), f(partial), dx, dilations, L, B, T, A, n_slabs, s);
-  if (dtype == 1)
-    return (int)run_backward<__nv_bfloat16>(
-        xs, c, w_tap, b_tap, w_aux, w_so_t, w_cat_t,
-        static_cast<const float*>(dskip), f(D), f(taps0), f(taps1), f(dc),
-        f(dz), f(g), f(partial), dx, dilations, L, B, T, A, n_slabs, s);
+  auto cf = [](const void* p) { return static_cast<const float*>(p); };
+  auto h = [](void* p) { return static_cast<bf::bf16*>(p); };
+  auto ch = [](const void* p) { return static_cast<const bf::bf16*>(p); };
+  if (A % 4 != 0) return (int)cudaErrorInvalidValue;
+  if (dtype == 0 && body == 1)
+    return (int)run_backward_tf32(
+        cf(xs), cf(c), cf(w_tap), cf(b_tap), cf(w_aux), cf(w_so_t),
+        cf(w_cat_t), cf(dskip), f(D), f(taps0), f(taps1), f(dc), f(dz), f(g),
+        f(partial), f(dx), dilations, L, B, T, A, n_slabs, s);
+  if (dtype == 1 && body == 2 && blocks >= 1)
+    return (int)run_backward_bf16(
+        ch(xs), ch(c), ch(w_tap), ch(b_tap), ch(w_aux), ch(w_so), ch(dskip),
+        f(D), f(taps0), f(taps1), f(dc), h(dz), h(g), h(dres), f(colsum),
+        f(partial), h(dx), dilations, L, B, T, A, n_slabs, blocks, s);
   return (int)cudaErrorInvalidValue;
 }
+
+// shared memory of the bf16 body's data launch
+size_t pwg_wavenet_stack_bwd_bf16_smem(int A) { return bf::data_smem(A); }
 
 const char* pwg_cuda_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));

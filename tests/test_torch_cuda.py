@@ -44,8 +44,11 @@ from parallelwavegan_torch.ops.cuda.wavenet_variant import (
     variant_stack_reference,
 )
 from parallelwavegan_torch.ops.cuda.wavenet_stack_train import (
+    _library as backward_library,
     backward_launch_plan,
+    backward_smem_bytes,
     wavenet_stack_backward,
+    wavenet_stack_backward_reference,
     wavenet_stack_train,
     wavenet_stack_train_reference,
 )
@@ -383,11 +386,67 @@ def test_backward_tensor_core_body_matches_plain(cuda_device, B, T, dils, A):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("B,T,dils,A", _TC_BWD_CASES)
+def test_backward_bf16_tensor_core_body_matches_plain(cuda_device, B, T,
+                                                      dils, A):
+    """The bf16 body on the same edges: every output against the explicit
+    plain version on the same saved inputs (the same roundings, sums in
+    another order) and, through autograd, against the plain forward's
+    gradient (which rounds elsewhere), both within bf16's 2e-2 (1 + max
+    |plain|)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    bf = torch.bfloat16
+    plan = backward_launch_plan(B, T, A, len(dils), bf)
+    assert plan["body"] == "tensor_cores_bf16"
+    assert plan["data_grid"] == (plan["blocks"],) and \
+        plan["blocks"] <= plan["tiles"]
+    if (B, T) == (3, 333):
+        assert plan["slabs"] == 3 and B * T % plan["rows_per_slab"]
+    if (B, T) == (1, 77):
+        assert plan["slabs"] == 1
+    rng = np.random.default_rng(12)
+    x, c, w = _stack_inputs(rng, B, T, len(dils), bf, cuda_device, A=A)
+    ux = torch.from_numpy(rng.standard_normal((B, T, 64)).astype(
+        np.float32)).to(cuda_device)
+    us = torch.from_numpy(rng.standard_normal((B, T, 64)).astype(
+        np.float32)).to(cuda_device)
+    _, _, xs = wavenet_stack(x, c, w, dils, save_inputs=True)
+    bwd = wavenet_stack_backward.launches
+    dx, dc, dw = wavenet_stack_backward(xs, c, w, dils, ux.to(bf), us)
+    torch.cuda.synchronize()
+    assert wavenet_stack_backward.launches == bwd + plan["launches"]
+    pdx, pdc, pdw = wavenet_stack_backward_reference(xs, c, w, dils,
+                                                     ux.to(bf), us)
+    for key, a, b in [("dx", dx, pdx), ("dc", dc, pdc)] + [
+            (k, dw[k], pdw[k]) for k in pdw]:
+        assert a.dtype == b.dtype == bf, key
+        _assert_close(a, b, bf)
+    got = _stack_grads(wavenet_stack_train, x, c, w, dils, ux, us)
+    torch.cuda.synchronize()
+    want = _stack_grads(wavenet_stack_train_reference, x, c, w, dils, ux, us)
+    for key in want:
+        assert got[key].dtype == bf, key
+        _assert_close(got[key], want[key], bf)
+
+
+@pytest.mark.cuda
+def test_backward_launch_plan_matches_the_kernel(cuda_device):
+    """The plan mirrors the bf16 data launch's shared memory as the kernel
+    lays it out, for the aux widths the card tests run and the widest the
+    plan admits."""
+    lib = backward_library()
+    for A in (16, 36, 80, 112):
+        assert lib.pwg_wavenet_stack_bwd_bf16_smem(A) == backward_smem_bytes(
+            A, "tensor_cores_bf16")["data"], A
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_backward_kernel_is_deterministic_and_skipped_without_grad(
-        cuda_device):
+        cuda_device, dtype):
     rng = np.random.default_rng(4)
     dils = (1, 2, 4, 8)
-    x, c, w = _stack_inputs(rng, 2, 700, 4, torch.float32, cuda_device)
+    x, c, w = _stack_inputs(rng, 2, 700, 4, dtype, cuda_device)
     ux, us = torch.ones_like(x), torch.ones((2, 700, 64), device=cuda_device)
     a = _stack_grads(wavenet_stack_train, x, c, w, dils, ux, us)
     b = _stack_grads(wavenet_stack_train, x, c, w, dils, ux, us)

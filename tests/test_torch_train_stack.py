@@ -1,8 +1,9 @@
 """The port's trainable WaveNet stack on the CPU (plain version: autograd
-through the plain forward) against the JAX package: the Pallas backward
-kernel in interpret mode, ``jax.grad`` of the XLA reference, and the flax
-generator's gradients with respect to kernel_v / kernel_g. The CUDA kernels
-against the plain version are in test_torch_cuda.py."""
+through the plain forward; the backward kernel's explicit plain version)
+against the JAX package: the Pallas backward kernel in interpret mode,
+``jax.grad`` of the XLA reference, and the flax generator's gradients with
+respect to kernel_v / kernel_g. The CUDA kernels against the plain version
+are in test_torch_cuda.py."""
 
 import jax
 import jax.numpy as jnp
@@ -30,6 +31,7 @@ from parallelwavegan_torch.ops.cuda.wavenet_stack import (
 )
 from parallelwavegan_torch.ops.cuda.wavenet_stack_train import (
     wavenet_stack_backward,
+    wavenet_stack_backward_reference,
     wavenet_stack_train,
     wavenet_stack_train_reference,
 )
@@ -117,6 +119,72 @@ def test_plain_backward_matches_pallas_backward_kernel():
         *case)
     np.testing.assert_allclose(v, v_ker, rtol=1e-5)
     _assert_grads_close(got, want, 2e-5)
+
+
+# one dilation above the CUDA data launch's 64-row halo, where each tap
+# takes its own window
+DILS_BWD = (1, 2, 130, 1)
+
+
+def _explicit_grads(x, c, w, ux, us, dtype):
+    """dx, dc and the weight gradients of sum(x_out ux) + sum(skip us)
+    through the plain forward with saved inputs and the explicit plain
+    backward, in ``dtype``; x_out's cotangent in the type of x_out, as
+    autograd hands it over."""
+    def t(a):
+        return torch.from_numpy(a).to(dtype)
+
+    wt = {k: t(v) for k, v in w.items()}
+    _, _, xs = wavenet_stack(t(x), t(c), wt, DILS_BWD, save_inputs=True)
+    dx, dc, dw = wavenet_stack_backward_reference(
+        xs, t(c), wt, DILS_BWD, t(ux), torch.from_numpy(us))
+    assert dx.dtype == dc.dtype == dtype
+    assert all(v.dtype == dtype for v in dw.values())
+    out = {"dx": dx, "dc": dc, **dw}
+    return {k: v.float().numpy() for k, v in out.items()}
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
+                                       (torch.bfloat16, 2e-2)],
+                         ids=["f32", "bf16"])
+def test_explicit_backward_matches_pallas_backward_kernel(dtype, tol):
+    """The backward kernel's explicit plain version against the TPU
+    backward kernel in interpret mode, on the same numpy inputs (cast to
+    bf16 for bf16). f32: 2e-5 as the autograd path holds; bf16: both round
+    dso, dz and g where the TPU kernel does, and their forwards may round
+    an input of a later layer the other way (one bf16 step), hence bf16's
+    2e-2, relative to each gradient's largest entry."""
+    x, c, w, ux, us = _stack_case(5)
+    got = _explicit_grads(x, c, w, ux, us, dtype)
+    jdt = jnp.bfloat16 if dtype == torch.bfloat16 else jnp.float32
+
+    def loss(x, c, w):
+        xo, sk = jax_wavenet_stack_train(x, c, w, DILS_BWD, 128, True)
+        return jnp.sum(xo.astype(jnp.float32) * ux) + jnp.sum(sk * us)
+
+    dx, dc, dw = jax.grad(loss, argnums=(0, 1, 2))(
+        jnp.asarray(x, jdt), jnp.asarray(c, jdt),
+        {k: jnp.asarray(v, jdt) for k, v in w.items()})
+    want = {k: np.asarray(v, np.float32)
+            for k, v in {"dx": dx, "dc": dc, **dw}.items()}
+    _assert_grads_close(got, want, tol)
+
+
+def test_explicit_backward_matches_autograd_through_plain_forward():
+    """f32: the explicit plain backward is the plain forward's gradient, to
+    1e-5 of each gradient's largest entry (the same sums in another
+    order)."""
+    x, c, w, ux, us = _stack_case(6)
+    got = _explicit_grads(x, c, w, ux, us, torch.float32)
+    xt = torch.from_numpy(x).requires_grad_()
+    ct = torch.from_numpy(c).requires_grad_()
+    wt = {k: torch.from_numpy(v).requires_grad_() for k, v in w.items()}
+    xo, sk = wavenet_stack_train_reference(xt, ct, wt, DILS_BWD)
+    loss = ((xo * torch.from_numpy(ux)).sum()
+            + (sk * torch.from_numpy(us)).sum())
+    grads = torch.autograd.grad(loss, [xt, ct] + [wt[k] for k in w])
+    want = dict(zip(["dx", "dc"] + list(w), (g.numpy() for g in grads)))
+    _assert_grads_close(got, want, 1e-5)
 
 
 def test_plain_forward_saves_the_inputs_each_tap_product_consumed():

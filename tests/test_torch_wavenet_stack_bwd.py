@@ -1,5 +1,6 @@
 """The backward kernel's launch plan, the split-TF32 arithmetic of its f32
-body, and the bound and byte floor chip_smoke.py reports for it. CPU only:
+body, and the bound and byte floor chip_smoke.py reports for each body. CPU
+only:
 the kernel itself is held against its plain version on the card
 (tests/test_torch_cuda.py)."""
 
@@ -17,23 +18,27 @@ from tests.torch_helpers import tf32_round, tf32x3_matmul
 SMEM_LIMIT = 232448
 
 
-@pytest.mark.parametrize("dtype,body", [
-    (torch.float32, "tensor_cores_tf32x3"), (torch.bfloat16, "simt")])
-def test_plan_picks_the_body_from_dtype(dtype, body):
+@pytest.mark.parametrize("dtype,body,data_grid", [
+    (torch.float32, "tensor_cores_tf32x3", (400, 6)),
+    (torch.bfloat16, "tensor_cores_bf16", (132,))])
+def test_plan_picks_the_body_from_dtype(dtype, body, data_grid):
     plan = backward_launch_plan(6, 25600, 80, 10, dtype)
     assert plan["body"] == body
     assert plan["launches"] == 10 and plan["launches_per_layer"] == 2
-    assert plan["data_grid"] == (400, 6)
+    assert plan["data_grid"] == data_grid and plan["tiles"] == 2400
     assert plan["weight_grid"] == (plan["slabs"], 6)
     assert max(plan["data_smem"], plan["weight_smem"]) <= SMEM_LIMIT
     slabs, rows = plan["slabs"], plan["rows_per_slab"]
-    assert rows % 32 == 0 and slabs * rows >= 6 * 25600 > (slabs - 1) * rows
+    chunk = 32 if dtype == torch.float32 else 64
+    assert rows % chunk == 0 and slabs * rows >= 6 * 25600 > (slabs - 1) * rows
 
 
 def test_plan_sizes_the_tensor_core_launches():
-    """Every block of the tensor-core weight launch resident at once (two a
-    SM), one slab where the rows are few, and shared memory that does not
-    grow with A (activations and weights stream in chunks)."""
+    """Every block of both bodies' weight launch resident at once (two a
+    SM), one slab where the rows are few; the f32 body's shared memory does
+    not grow with A (activations and weights stream in chunks), the bf16
+    data launch holds the layer's weights (one block an SM, on persistent
+    blocks, never more than the tiles)."""
     plan = backward_launch_plan(6, 25600, 80, 30, torch.float32, sms=132)
     assert plan["slabs"] * 6 <= 2 * 132 < (plan["slabs"] + 1) * 6
     assert plan["data_smem"] == 113664 and plan["weight_smem"] == 106496
@@ -41,18 +46,25 @@ def test_plan_sizes_the_tensor_core_launches():
     assert backward_launch_plan(1, 77, 80, 1, torch.float32)["slabs"] == 1
     assert backward_smem_bytes(16, "tensor_cores_tf32x3") == \
         backward_smem_bytes(512, "tensor_cores_tf32x3")
-    # the SIMT body's slabs are as before the tensor-core body came
-    assert backward_launch_plan(6, 25600, 80, 30, torch.bfloat16)[
-        "slabs"] == 64
+    bf = backward_launch_plan(6, 25600, 80, 30, torch.bfloat16, sms=132)
+    assert bf["slabs"] == plan["slabs"] and bf["blocks"] == 132
+    assert bf["data_smem"] == 212480 and bf["weight_smem"] == 106496
+    assert 2 * (bf["data_smem"] + 1024) > 233472
+    assert 2 * (bf["weight_smem"] + 1024) <= 233472
+    small = backward_launch_plan(2, 40, 80, 1, torch.bfloat16, sms=132)
+    assert small["blocks"] == small["tiles"] == 2 and small["slabs"] == 1
+    # 512 bytes more for each aux channel of the padded width
+    assert backward_smem_bytes(32, "tensor_cores_bf16")["data"] - \
+        backward_smem_bytes(16, "tensor_cores_bf16")["data"] == 16 * 512
 
 
 def test_plan_refuses_what_the_kernel_cannot_launch():
-    # the SIMT data launch stages 3R + A activation rows (padded to 16):
-    # 544 fits, 548 not
-    assert backward_launch_plan(1, 64, 544, 1, torch.bfloat16)[
-        "data_smem"] == 229376
+    # the bf16 data launch holds 3R + A padded to 16 weight rows and stages
+    # c padded to 16: 112 fits, 116 not
+    assert backward_launch_plan(1, 64, 112, 1, torch.bfloat16)[
+        "data_smem"] == 228864
     with pytest.raises(NotImplementedError, match="shared memory"):
-        backward_launch_plan(1, 64, 548, 1, torch.bfloat16)
+        backward_launch_plan(1, 64, 116, 1, torch.bfloat16)
     with pytest.raises(NotImplementedError, match="multiple of 4"):
         backward_launch_plan(1, 64, 82, 1, torch.float32)
     with pytest.raises(NotImplementedError):
@@ -94,19 +106,27 @@ def test_three_term_split_keeps_f32_accuracy(M, K, N, scale):
     assert one > 1e-4, one
 
 
-def test_backward_bound_follows_the_body():
-    ms, by = chip_smoke.backward_bound_ms(6, 25600, 30, 80, torch.float32,
-                                          "tensor_cores_tf32x3")
-    assert by == "operations" and abs(ms - 6.75) < 0.01, ms
-    simt_ms, by = chip_smoke.backward_bound_ms(6, 25600, 30, 80,
-                                               torch.float32, "simt")
-    assert by == "operations" and abs(simt_ms - 16.62) < 0.01, simt_ms
+@pytest.mark.parametrize("dtype,body,want", [
+    (torch.float32, "tensor_cores_tf32x3", 6.75),
+    (torch.bfloat16, "tensor_cores_bf16", 1.13)])
+def test_backward_bound_follows_the_body(dtype, body, want):
+    """Operations at the body's peak: 495 / 3 TFLOP/s for three TF32
+    products, 989 TFLOP/s for one bf16 product."""
+    ms, by = chip_smoke.backward_bound_ms(6, 25600, 30, 80, dtype, body)
+    assert by == "operations" and abs(ms - want) < 0.01, ms
 
 
-def test_two_launch_byte_floor():
-    """The bytes the two-launch design moves per row and layer in f32 (data
-    launch 3,072 + 12 A, weight launch 1,536 + 4 A) over 3.35 TB/s."""
-    ms = chip_smoke.bwd_bytes_floor_ms(6, 25600, 30, 80, torch.float32)
-    assert abs(ms - 8.10) < 0.01, ms
-    assert chip_smoke.bwd_bytes_floor_ms(6, 25600, 30, 80,
-                                         torch.bfloat16) < ms
+@pytest.mark.parametrize("dtype,want", [(torch.float32, 8.10),
+                                        (torch.bfloat16, 6.25)])
+def test_two_launch_byte_floor(dtype, want):
+    """The bytes each body's two launches move per row and layer over
+    3.35 TB/s. f32: data launch 3,072 + 12 A, weight launch 1,536 + 4 A.
+    bf16: data launch 2,816 + 10 A (xs, c, dskip, dz, g and bf16(D
+    sqrt(1/2)) in bf16; D, the tap rows and dc f32), weight launch
+    768 + 2 A (xs, c, g, dz, dskip and bf16(D sqrt(1/2)), all bf16)."""
+    ms = chip_smoke.bwd_bytes_floor_ms(6, 25600, 30, 80, dtype)
+    assert abs(ms - want) < 0.01, ms
+    rows = 6 * 25600 * 30
+    per_row = ({torch.float32: (3072 + 12 * 80) + (1536 + 4 * 80),
+                torch.bfloat16: (2816 + 10 * 80) + (768 + 2 * 80)}[dtype])
+    assert abs(ms - per_row * rows / 3.35e12 * 1e3) < 1e-9
