@@ -12,7 +12,8 @@
    same saved inputs and, through autograd, against the plain forward),
    the fused MRF stage (f32, bf16 and int8 packs), the matmul bench
    (int32 results bit-equal) and the experiment's variant kernel (bf16
-   tanh, bf16 product gate on at most 3 layers, int8 taps);
+   tanh and bf16 product gate on at most 3 layers, on the tensor-core
+   body; int8 taps on the SIMT body);
 2h. drives HiFi-GAN v1 serving at full width on the shipped trained
    checkpoint (assets/quality/): (a) f32 exact mode over the 24 evaluation
    mels, the first 8 scored (MCD, log-F0 RMSE, V/UV; host processes that
@@ -52,20 +53,31 @@
    losses under every name, changed G and D parameters and a .ckpt that
    loads back; then two resumed steps with mixed_precision (the backward
    on its bf16 tensor-core body);
-6. holds one generator loss and gradient at that shape through the kernels
-   against the same through their plain versions, times the (G, adv, D)
+6. holds the generator loss and gradient at that shape, on 5 batches of
+   the loader, through the kernels (k) against the same through their
+   plain versions (p) and through the plain versions in float64 (e): per
+   parameter |k - e| <= max(2 |p - e|, a), a = 2e-3 of the gradient's
+   largest entry + 2e-5 of the largest gradient, printing |k - p| / a,
+   |p - e| / a and the gate's ratio with their worst parameters
+   (tools/float64_check.py); the loss within 1e-4; times the (G, adv, D)
    step, both kernels at the training shape (each on the body its launch
-   plan names, in f32 both on split-TF32 tensor cores) and the backward's
-   plain version, then the bf16 backward body (bf16 tensor cores) alone at
-   the same shape, held first against its explicit plain version and
-   autograd, with its plan, TFLOP/s, bound and the byte floor of what it
-   moves; the backward's bound on each body and its two-launch byte floor;
-   and prints where the f32 and the mixed-precision step's device time
-   goes (torch.profiler);
+   plan names, in f32 both on split-TF32 tensor cores; the forward's x and
+   skip and all seven outputs of the backward held against float64, at
+   most 2 x the plain version's error) and the backward's plain version,
+   then the bf16 backward body (bf16 tensor cores) alone at the same
+   shape, held first against its explicit plain version and autograd,
+   with its plan, TFLOP/s, bound and the byte floor of what it moves; the
+   backward's bound on each body and its two-launch byte floor; and prints
+   where the f32 and the mixed-precision step's device time goes
+   (torch.profiler);
 7. runs the gate and int8 experiment (tools.int8_wavenet_experiment.main)
    at its full shape, 10 layers at batch 32 x 512 frames, whose run launches
-   the variant kernel, prints its four lines, and holds and times each
-   variant beside its plain version at that shape;
+   the variant kernel (bf16 taps on the serving stack's tensor-core layer
+   body, int8 taps on its SIMT body), prints its four lines, holds each
+   variant against its plain version at that shape and the int8 body's
+   quantiser bit for bit against the plain quantiser, and prints each variant's body, plan, time, bound and
+   per-layer byte floor and the tanh variant's time over the serving
+   kernel's;
 8. drives HiFi-GAN v1 training at full width with the recipe of the shipped
    checkpoint (assets/quality/config.yml: multi-scale multi-period
    discriminator, mel loss x 45, feature matching, Adam + MultiStepLR, EMA
@@ -82,6 +94,7 @@ Exits non-zero, printing no result, on any failure or without a GPU.
 
 from __future__ import annotations
 
+import copy
 import glob
 import json
 import multiprocessing
@@ -524,6 +537,13 @@ def check_trainer(trainer, what: str, names=LOSS_NAMES) -> None:
             f"{k.split('/')[1]} {v:.4f}" for k, v in sorted(losses.items())))
 
 
+# batches of the loader the generator gradient is held on (step 6)
+GRAD_BATCHES = 5
+# stack_grads' keys -> the backward's output names in the kernels line
+BWD_OUTPUT_NAMES = {"dx": "dx", "dc": "dc", "w_tap": "dWt", "b_tap": "dbt",
+                    "w_aux": "dWa", "w_so": "dWso", "b_so": "dbso"}
+
+
 def training_phase(dev, smi: str) -> dict:
     """Steps 5 and 6 of the module docstring. Returns what the kernels line
     needs: launches on the training path, errors and times."""
@@ -542,6 +562,10 @@ def training_phase(dev, smi: str) -> dict:
         wavenet_stack_backward_reference,
         wavenet_stack_train,
         wavenet_stack_train_reference,
+    )
+    from parallelwavegan_torch.tools.float64_check import (
+        gradient_gate,
+        hold_to_float64,
     )
 
     rng = np.random.default_rng(1)
@@ -641,51 +665,67 @@ def training_phase(dev, smi: str) -> dict:
         if any(p.dtype != torch.float32 for p in mixed.generator.parameters()):
             raise AssertionError("master parameters left float32")
 
-        # 6. one generator loss and gradient at the training shape: through
-        # the kernels, and through their plain versions
-        batch = mixed._to_device(next(iter(mixed.train_loader)))
+        # 6. the generator loss and gradient at the training shape on
+        # GRAD_BATCHES batches of the loader, through the kernels (k),
+        # through their plain versions (p) and through the plain versions
+        # in float64 (e: float64 copies of the generator, discriminator and
+        # batch; the criterion holds no state and follows its input's
+        # type). Both f32 routes lie some way from float64, p at times
+        # several allowances: e decides (tools/float64_check.py)
         gen, dis, crit = trainer.generator, trainer.discriminator, \
             trainer.criterion
+        gen64, dis64 = copy.deepcopy(gen).double(), copy.deepcopy(dis).double()
         names = [n for n, _ in gen.named_parameters()]
 
-        def loss_and_grads():
-            y_ = gen(batch["z"], batch["c"], fused=True, trainable=True)
-            sc, mag = crit["stft"](y_[..., 0], batch["y"][..., 0])
-            loss = sc + mag + 4.0 * crit["gen_adv"](dis(y_))
-            grads = torch.autograd.grad(loss, list(gen.parameters()),
+        def loss_and_grads(g, d, b):
+            y_ = g(b["z"], b["c"], fused=True, trainable=True)
+            sc, mag = crit["stft"](y_[..., 0], b["y"][..., 0])
+            loss = sc + mag + 4.0 * crit["gen_adv"](d(y_))
+            grads = torch.autograd.grad(loss, list(g.parameters()),
                                         allow_unused=True)
             return loss.item(), dict(zip(names, grads))
 
-        loss_k, grads_k = loss_and_grads()
+        worst = {"kp": (0.0, None), "pe": (0.0, None), "ke": (0.0, None),
+                 "gate": (0.0, None), "plain_outside": 0}
         kernel_route = pwg_infer.wavenet_stack_train
-        pwg_infer.wavenet_stack_train = wavenet_stack_train_reference
-        try:
-            loss_p, grads_p = loss_and_grads()
-        finally:
-            pwg_infer.wavenet_stack_train = kernel_route
-        largest = max(g.abs().max().item() for g in grads_p.values()
-                      if g is not None)
-        worst, worst_key = 0.0, None
-        for key, want in grads_p.items():
-            if want is None:
-                continue
-            err = (grads_k[key] - want).abs().max().item()
-            # f32 sums in another order, then a log and a division by small
-            # STFT magnitudes: 2e-3 of the gradient's largest entry plus
-            # 2e-5 of the largest gradient in the network
-            allowed = 2e-3 * want.abs().max().item() + 2e-5 * largest
-            if err / allowed > worst:
-                worst, worst_key = err / allowed, key
-            if not err <= allowed:
-                raise AssertionError(f"generator gradient differs on {key}: "
-                                     f"{err:.3e} > {allowed:.3e}")
-        print(f"generator loss at the training shape: kernels {loss_k:.6f}, "
-              f"plain {loss_p:.6f}; gradients of {len(names)} parameters "
-              f"agree (largest {largest:.3e}, worst error {worst:.2f} of "
-              f"its allowance, on {worst_key})")
-        if not abs(loss_k - loss_p) <= 1e-4 * abs(loss_p):
-            raise AssertionError("generator loss differs from the plain one")
-        del grads_k, grads_p
+        for n in range(GRAD_BATCHES):
+            b = mixed._to_device(next(iter(mixed.train_loader)))
+            if n == 0:  # the timed steps below take the first batch
+                batch = b
+            loss_k, grads_k = loss_and_grads(gen, dis, b)
+            pwg_infer.wavenet_stack_train = wavenet_stack_train_reference
+            try:
+                loss_p, grads_p = loss_and_grads(gen, dis, b)
+                loss_e, grads_e = loss_and_grads(
+                    gen64, dis64, {k: v.double() for k, v in b.items()})
+            finally:
+                pwg_infer.wavenet_stack_train = kernel_route
+            gate = gradient_gate(grads_k, grads_p, grads_e)
+            print(f"generator loss at the training shape, batch {n}: "
+                  f"kernels {loss_k:.6f}, plain {loss_p:.6f}, float64 "
+                  f"{loss_e:.6f}; gradients of {gate['parameters']} "
+                  f"parameters in allowances a: k - p {gate['kp'][0]:.3f} "
+                  f"(on {gate['kp'][1]}), p - e {gate['pe'][0]:.3f} (on "
+                  f"{gate['pe'][1]}; {gate['plain_outside']} outside a), "
+                  f"k - e {gate['ke'][0]:.3f} (on {gate['ke'][1]}), gate "
+                  f"|k - e| / max(2 |p - e|, a) {gate['gate'][0]:.3f} "
+                  f"(on {gate['gate'][1]}): within")
+            for key in ("kp", "pe", "ke", "gate"):
+                worst[key] = max(worst[key], gate[key],
+                                 key=lambda v: v[0])
+            worst["plain_outside"] = max(worst["plain_outside"],
+                                         gate["plain_outside"])
+            if not abs(loss_k - loss_p) <= 1e-4 * abs(loss_p):
+                raise AssertionError("generator loss differs from the plain "
+                                     "one")
+            del grads_k, grads_p, grads_e
+        out["grad_gate"] = worst
+        print(f"generator gradient over {GRAD_BATCHES} batches: worst k - p "
+              f"{worst['kp'][0]:.3f} a, p - e {worst['pe'][0]:.3f} a (at most "
+              f"{worst['plain_outside']} gradients outside a), k - e "
+              f"{worst['ke'][0]:.3f} a, gate "
+              f"{worst['gate'][0]:.3f} on {worst['gate'][1]} on {smi}")
+        del gen64, dis64
 
         # timing: the (G, adv, D) step in f32 and in mixed precision
         for what, t in (("f32", trainer), ("mixed", mixed)):
@@ -734,14 +774,10 @@ def training_phase(dev, smi: str) -> dict:
                 x0.double(), c_up.double(),
                 {k: v.double() for k, v in wg.items()}, dg)
         for k, a, b, e in zip(("x", "skip"), got, want, exact):
-            scale = 1 + e.abs().max().item()
-            ka = (a.double() - e).abs().max().item() / scale
-            pa = (b.double() - e).abs().max().item() / scale
+            ka, pa = hold_to_float64(
+                f"wavenet_stack at the training shape f32 {k}", a, b, e)
             print(f"stack at the training shape f32 {k} against float64: "
                   f"kernel {ka:.3e}, plain {pa:.3e} of 1 + max")
-            if ka > 2 * pa:
-                raise AssertionError(f"wavenet_stack is less accurate than "
-                                     f"its plain version on {k}")
         del exact
         xs = got[2]
         got = stack_grads(wavenet_stack_train, x0, c_up, wg, dg, ux, us)
@@ -751,7 +787,22 @@ def training_phase(dev, smi: str) -> dict:
             check(f"stack backward at the training shape f32 {k}", got[k],
                   want[k], torch.float32, "wavenet_stack_backward")
             for k in want)
-        del got, want
+        # every output of the backward against float64 too, on the same
+        # inputs: the kernel may lie at most 2 x as far from the exact
+        # gradient as the plain version's f32 sums
+        exact = stack_grads(wavenet_stack_train_reference, x0.double(),
+                            c_up.double(),
+                            {k: v.double() for k, v in wg.items()}, dg,
+                            ux.double(), us.double())
+        out["bwd_f32_vs_float64"] = {}
+        for k in exact:
+            ka, pa = hold_to_float64(
+                f"wavenet_stack_backward at the training shape f32 {k}",
+                got[k], want[k], exact[k])
+            out["bwd_f32_vs_float64"][BWD_OUTPUT_NAMES[k]] = [ka, pa]
+            print(f"stack backward at the training shape f32 {k} against "
+                  f"float64: kernel {ka:.3e}, plain {pa:.3e} of 1 + max")
+        del got, want, exact
 
         def forward_groups(save):
             x = x0
@@ -1042,18 +1093,41 @@ def check_variant(what, x, c, w, dils, gate, int8_taps) -> float:
     torch.cuda.synchronize()
     want = variant_stack_reference(x, c, w, s_tap, dils, gate=gate,
                                    int8_taps=int8_taps)
+    name = variant_name(gate, int8_taps)
     worst = 0.0
-    for name, a, b in zip(("x", "skip"), got, want):
-        err, _ = max_err(a, b, torch.bfloat16, "wavenet_variant")
+    for out, a, b in zip(("x", "skip"), got, want):
+        err, _ = max_err(a, b, torch.bfloat16,
+                         ("wavenet_variant", f"wavenet_variant_{name}"))
         allowed = VARIANT_TOL[int8_taps] * (1 + b.float().abs().max().item())
-        print(f"variant {variant_name(gate, int8_taps)} {what} {name}: "
+        print(f"variant {name} {what} {out}: "
               f"max_abs_err {err:.3e} (allowed {allowed:.3e}), mean "
               f"{(a.float() - b.float()).abs().mean().item():.3e}")
         if err > allowed:
             raise AssertionError(
-                f"variant_stack {gate} int8={int8_taps} disagrees on {name}")
+                f"variant_stack {gate} int8={int8_taps} disagrees on {out}")
         worst = max(worst, err)
     return worst
+
+
+def check_quantiser(x: torch.Tensor, s: float) -> int:
+    """The int8 body's quantiser against the plain one on x (bf16
+    as stored, and the f32 values), bit for bit; also on the rounding
+    borders k + 1/2 and past +-127. Returns the words compared."""
+    from parallelwavegan_torch.ops.cuda.wavenet_variant import (
+        quantize_words,
+        quantize_words_reference,
+    )
+
+    borders = torch.arange(-520, 520, device=x.device) / 4 / s
+    n = 0
+    for v in (x, x.float(), borders.float().reshape(-1, 4)):
+        got = quantize_words(v, s)
+        torch.cuda.synchronize()
+        if not torch.equal(got, quantize_words_reference(v, s)):
+            raise AssertionError(f"quantised {v.dtype} words differ from "
+                                 f"the plain quantiser")
+        n += got.numel()
+    return n
 
 
 def check_variant_kernel(dev) -> float:
@@ -1096,12 +1170,21 @@ def variant_bound_ms(B, T, L, int8_taps: bool) -> tuple:
                                        else "bytes")
 
 
+# the tool's metric of each variant
+VARIANT_METRICS = {"bf16_tanh": "wavenet_variant_bf16_ms",
+                   "bf16_mul": "wavenet_no_transcendental_bound_ms",
+                   "int8_taps": "wavenet_int8_taps_ms"}
+
+
 def variant_phase(dev, smi: str) -> dict:
     """Step 7 of the module docstring: the experiment tool at its full
     shape (the counted run of the variant kernel's path), then every
     variant held against its plain version at that shape (the product gate
-    on its first 3 layers) and the plain version timed."""
+    on its first 3 layers), its quantiser bit for bit, the plain version
+    timed, and each variant's plan, bound and per-layer byte floor."""
     from parallelwavegan_torch.ops.cuda.wavenet_variant import (
+        quantize_taps,
+        variant_launch_plan,
         variant_stack,
         variant_stack_reference,
     )
@@ -1130,6 +1213,7 @@ def variant_phase(dev, smi: str) -> dict:
         raise AssertionError(f"unexpected SNR {snr}")
 
     B, T, L = BENCH_BATCH, BENCH_FRAMES * HOP, tool.LAYERS
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     dils = tuple(2 ** i for i in range(L))
     w, x, c = variant_inputs(np.random.default_rng(12), B, T, L, dev)
     out["err"] = 0.0
@@ -1143,16 +1227,35 @@ def variant_phase(dev, smi: str) -> dict:
         s_tap = torch.ones((L, 2), device=dev)
         out["plain_ms"] = time_ms(
             lambda: variant_stack_reference(x, c, w, s_tap, dils), reps=2)
-    out["bound_ms"], out["bound_by"] = variant_bound_ms(B, T, L, False)
-    out["int8_bound_ms"], _ = variant_bound_ms(B, T, L, True)
+        _, s_tap = quantize_taps(w["w_tap"], 4.0)
+        out["quantised_words"] = check_quantiser(x[:2].contiguous(),
+                                                 float(s_tap[0, 0]))
+    print(f"int8 quantiser: {out['quantised_words']} words "
+          f"bit-equal to the plain quantiser")
+    bytes_floor = layer_bytes_floor_ms(B, T, L, torch.bfloat16)
     t = out["tool"]
-    print(f"variant_stack {B} x {T}, {L} layers: bf16 tanh "
-          f"{t['wavenet_variant_bf16_ms']:.2f} ms, product gate "
-          f"{t['wavenet_no_transcendental_bound_ms']:.2f} ms, int8 taps "
-          f"{t['wavenet_int8_taps_ms']:.2f} ms; serving kernel on the same "
-          f"layers {t['wavenet_bf16_baseline_ms']:.2f} ms; plain bf16 tanh "
-          f"{out['plain_ms']:.2f} ms; bound {out['bound_ms']:.2f} ms (int8 "
-          f"taps {out['int8_bound_ms']:.2f} ms) by {out['bound_by']} on {smi}")
+    out["variants"] = {}
+    for gate, int8_taps in VARIANTS:
+        name = variant_name(gate, int8_taps)
+        bound, by = variant_bound_ms(B, T, L, int8_taps)
+        out["variants"][name] = v = {
+            "plan": variant_launch_plan(B, T, 80, L, gate, int8_taps, sms),
+            "ms": t[VARIANT_METRICS[name]], "bound_ms": bound,
+            "bound_by": by, "bytes_floor_ms": bytes_floor,
+            "max_rel_err": REL_ERR[f"wavenet_variant_{name}"]}
+        print(f"variant_stack {name} {B} x {T}, {L} layers: {v['ms']:.2f} ms "
+              f"on the {v['plan']['body']} body ({v['ms'] / bytes_floor:.2f} "
+              f"x the per-layer byte floor {bytes_floor:.2f} ms; bound "
+              f"{bound:.2f} ms by {by}); max_rel_err {v['max_rel_err']:.3e}; "
+              f"plan {v['plan']} on {smi}")
+    out["tanh_over_baseline"] = (t["wavenet_variant_bf16_ms"]
+                                 / t["wavenet_bf16_baseline_ms"])
+    print(f"variant_stack {B} x {T}, {L} layers: serving kernel on the same "
+          f"layers {t['wavenet_bf16_baseline_ms']:.2f} ms, bf16 tanh "
+          f"variant {out['tanh_over_baseline']:.3f} x that; plain bf16 tanh "
+          f"{out['plain_ms']:.2f} ms on {smi}")
+    out["bound_ms"] = out["variants"]["bf16_tanh"]["bound_ms"]
+    out["bound_by"] = out["variants"]["bf16_tanh"]["bound_by"]
     return out
 
 
@@ -1932,9 +2035,10 @@ def run_phases(dev, smi: str, pool) -> int:
     # five MRF contraction shapes in int8 (bf16 beside them); its library
     # time is torch._int_mm (torch.matmul). wavenet_variant: one call of 10
     # layers at batch 32 x 512 frames as the tool times it, ms for the bf16
-    # tanh variant (the product gate, int8 taps and the serving kernel on
-    # the same layers beside it), the plain bf16 tanh version; no single
-    # PyTorch call computes it.
+    # tanh variant, the plain bf16 tanh version; under "variants" each
+    # variant's body, plan, ms, bound, per-layer byte floor and error, and
+    # the serving kernel on the same layers beside them; no single PyTorch
+    # call computes it.
     print(json.dumps({"kernels": [{
         "name": "wavenet_stack",
         "route": "cuda",
@@ -1990,6 +2094,8 @@ def run_phases(dev, smi: str, pool) -> int:
         "bf16_bytes_floor_ms": train["bwd_bf16_bytes_floor_ms"],
         "bf16_tflop_per_s": train["bwd_bf16_tflop_per_s"],
         "bf16_max_rel_err": REL_ERR.get("wavenet_stack_backward_bf16", 0.0),
+        "f32_rel_err_vs_float64": train["bwd_f32_vs_float64"],
+        "generator_grad_gate": train["grad_gate"],
     }, {
         "name": "mrf_stage",
         "route": "cuda",
@@ -2045,10 +2151,11 @@ def run_phases(dev, smi: str, pool) -> int:
         "bound_ms": variant["bound_ms"],
         "bound_by": variant["bound_by"],
         "library_ms": None,
-        "gate_mul_ms": variant["tool"]["wavenet_no_transcendental_bound_ms"],
-        "int8_taps_ms": variant["tool"]["wavenet_int8_taps_ms"],
-        "int8_taps_bound_ms": variant["int8_bound_ms"],
+        "plan": variant["variants"]["bf16_tanh"]["plan"],
+        "bytes_floor_ms": variant["variants"]["bf16_tanh"]["bytes_floor_ms"],
+        "variants": variant["variants"],
         "baseline_ms": variant["tool"]["wavenet_bf16_baseline_ms"],
+        "tanh_over_baseline": variant["tanh_over_baseline"],
         "snr_db": variant["snr_db"],
     }]}))
     print(smi)

@@ -74,6 +74,14 @@
 //     to 2.6e-4 in tests/test_torch_wavenet_stack_bwd.py's emulation); the
 //     three-term split keeps 6e-8 to 9e-8 there; on an NVIDIA H100 (700 W)
 //     the gradients stay within 3e-5 (1 + max) of the plain version. The
+//     tensor core truncates what it adds into its accumulator, so, as in
+//     the forward, each k-step's three products are summed in a zeroed
+//     tile and added in f32 (mma_tiles with FRESH), and the bias column
+//     sums are taken per 32-row chunk and then added: summed in place, the
+//     weight gradients at the training shape lay up to 44 x further from
+//     float64 than the plain version's f32 sums, dx 6 x (seeded weights;
+//     chip_smoke.py holds all seven outputs to at most 2 x;
+//     tools/backward_f32_sums.py measures the variants). The
 //     data launch runs one block per tile and streams weights and
 //     activation columns through a three-slot cp.async ring of 32-row
 //     chunks (pipeline.cuh) that runs through its three products without
@@ -357,9 +365,9 @@ __global__ void __launch_bounds__(THREADS, 2) bwd_data_tc_kernel(
           load_a_split(a_hi[i], a_lo[i],
                        st + KCH * WB_LD + (32 * wm + 16 * i) * ACT_LD + kk,
                        ACT_LD, gq, tq);
-        mma_tiles<2, 4>(acc, a_hi, a_lo, st + kk * WB_LD + 16 * wq, WB_LD,
-                        [](int j) { return (j >> 1) * R + 8 * (j & 1); },
-                        gq, tq);
+        mma_tiles<2, 4, true>(
+            acc, a_hi, a_lo, st + kk * WB_LD + 16 * wq, WB_LD,
+            [](int j) { return (j >> 1) * R + 8 * (j & 1); }, gq, tq);
       }
     }
 #pragma unroll
@@ -402,8 +410,8 @@ __global__ void __launch_bounds__(THREADS, 2) bwd_data_tc_kernel(
           load_a_split(a_hi[i], a_lo[i],
                        row_s + (32 * wm + 16 * i) * ROW_LD + q * KCH + kk,
                        ROW_LD, gq, tq);
-        mma_tiles<2, 2>(dg, a_hi, a_lo, st + kk * WS_LD + 16 * wq, WS_LD,
-                        [](int j) { return 8 * j; }, gq, tq);
+        mma_tiles<2, 2, true>(dg, a_hi, a_lo, st + kk * WS_LD + 16 * wq,
+                              WS_LD, [](int j) { return 8 * j; }, gq, tq);
       }
     }
     __syncthreads();
@@ -450,8 +458,9 @@ __global__ void __launch_bounds__(THREADS, 2) bwd_data_tc_kernel(
           load_a_split(a_hi[i], a_lo[i],
                        row_s + (32 * wm + 16 * i) * ROW_LD + q * KCH + kk,
                        ROW_LD, gq, tq);
-        mma_tiles<2, 4>(acc, a_hi, a_lo, st + kk * WB_LD + 32 * wq, WB_LD,
-                        [](int j) { return 8 * j; }, gq, tq, n_valid);
+        mma_tiles<2, 4, true>(acc, a_hi, a_lo, st + kk * WB_LD + 32 * wq,
+                              WB_LD, [](int j) { return 8 * j; }, gq, tq,
+                              n_valid);
       }
     }
 #pragma unroll
@@ -574,9 +583,11 @@ __global__ void __launch_bounds__(THREADS, 2) bwd_weight_tc_kernel(
     pwgpipe::cp_async_commit();
     const float* lhs = ring + (ci % WSTAGES) * WSTAGE_FLOATS;
     const float* rhs = lhs + KR * LHS_LD;
-    if (sums && tid < G) {
+    if (sums && tid < G) {  // a chunk's rows summed apart, then added
+      float part = 0.f;
 #pragma unroll 8
-      for (int kk = 0; kk < KR; ++kk) colsum += rhs[kk * RHS_LD + tid];
+      for (int kk = 0; kk < KR; ++kk) part += rhs[kk * RHS_LD + tid];
+      colsum += part;
     }
 #pragma unroll
     for (int kk = 0; kk < KR; kk += 8) {
@@ -585,8 +596,8 @@ __global__ void __launch_bounds__(THREADS, 2) bwd_weight_tc_kernel(
       for (int i = 0; i < 2; ++i)
         load_at_split(a_hi[i], a_lo[i], lhs + kk * LHS_LD + 32 * wm + 16 * i,
                       LHS_LD, gq, tq);
-      mma_tiles<2, 4>(acc, a_hi, a_lo, rhs + kk * RHS_LD + 32 * wn, RHS_LD,
-                      [](int j) { return 8 * j; }, gq, tq);
+      mma_tiles<2, 4, true>(acc, a_hi, a_lo, rhs + kk * RHS_LD + 32 * wn,
+                            RHS_LD, [](int j) { return 8 * j; }, gq, tq);
     }
   }
 

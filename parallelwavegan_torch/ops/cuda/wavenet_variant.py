@@ -10,8 +10,11 @@ the tap product in int8: the packed window [x(t-d) | x(t) | x(t+d)] is
 quantised from the f32 state with one static scale, multiplied by
 pre-quantised weights (:func:`quantize_taps`) with exact int32 sums, and
 rescaled in f32; the aux and skip|out products stay bf16. ``variant_stack``
-runs ``csrc/wavenet_variant.cu`` (one launch per layer; design and bound in
-the note at the head of that file) for CUDA tensors and
+runs ``csrc/wavenet_variant.cu`` for CUDA tensors (one launch per layer on
+the body :func:`variant_launch_plan` names: bf16 taps on the serving
+stack's tensor-core layer body, ``csrc/wavenet_tc_layer.cuh``, int8 taps on
+a SIMT body that reproduces this module's plain arithmetic; design and
+bound in the notes at the head of those files) and
 ``variant_stack_reference`` for CPU tensors.
 
 Math per layer, with the rounding points of the kernels:
@@ -41,12 +44,70 @@ import torch
 
 from parallelwavegan_torch.ops.cuda.build import load_library
 from parallelwavegan_torch.ops.cuda.wavenet_stack import (
+    _SMEM_LIMIT,
+    _SMEM_PER_SM,
+    _TILE_ROWS,
+    KERNEL_CHANNELS,
     _shift,
     check_kernel_channels,
+    tc_smem_bytes,
 )
 from parallelwavegan_torch.ops.spectral import _no_tf32
 
 GATES = ("tanh", "mul")
+# layer bodies of csrc/wavenet_variant.cu, by tap type
+BODIES = {False: "tensor_cores_bf16", True: "simt_int8_taps"}
+
+
+def variant_smem_bytes(A: int, x_dtype: torch.dtype, int8_taps: bool) -> int:
+    """Shared memory of one launch of the variant's layer body. bf16 taps:
+    the serving stack's tensor-core body (:func:`tc_smem_bytes`). int8
+    taps: the SIMT body's ``simt_smem_floats`` in ``csrc/wavenet_variant.cu``,
+    f32 words of the quantised taps [3R / 4][64], c [A padded to 16][64], a
+    weight chunk [16][G] and g [R][64], whatever x's type."""
+    if not int8_taps:
+        return tc_smem_bytes(A, x_dtype)
+    R, G, T = (KERNEL_CHANNELS["residual"], KERNEL_CHANNELS["gate"],
+               _TILE_ROWS)
+    return 4 * T * (3 * R // 4 + -(-A // 16) * 16 + R) + 4 * 16 * G
+
+
+def variant_launch_plan(B: int, T: int, A: int, L: int, gate: str,
+                        int8_taps: bool, sms: int = 132) -> dict:
+    """How one ``variant_stack`` call runs on the card: one launch per layer
+    (``launches``, the exact count the wrapper adds to
+    ``variant_stack.launches``) on the body ``body`` over ``blocks``
+    blocks, each with ``smem`` bytes of shared memory (the largest of the
+    layer's instantiations: the first layer reads bf16 x, the others the
+    f32 residual), over ``tiles`` tiles of ``tile_rows`` rows. bf16 taps run
+    ``tensor_cores_bf16``, the serving stack's tensor-core body (mma.sync
+    m16n8k16), on persistent blocks, as many as fit ``sms`` SMs at once and
+    at most one a tile, each holding the layer's weights and a ring of
+    tiles. int8 taps run ``simt_int8_taps`` (dp4a taps, f32 FMAs in k order:
+    the plain version's arithmetic), one block a tile. Either gate. Raises
+    NotImplementedError where no body fits a block's shared memory."""
+    _check_gate(gate)
+    tiles = B * -(-T // _TILE_ROWS)
+    body = BODIES[bool(int8_taps)]
+    smem = max(variant_smem_bytes(A, torch.bfloat16, int8_taps),
+               variant_smem_bytes(A, torch.float32, int8_taps)
+               if L > 1 else 0)
+    if smem > _SMEM_LIMIT:
+        raise NotImplementedError(
+            f"aux channels {A} need {smem} bytes of shared memory a block on "
+            f"the {body} body, more than {_SMEM_LIMIT}")
+    per_sm = max(1, _SMEM_PER_SM // (smem + 1024))
+    blocks = tiles if int8_taps else min(tiles, per_sm * sms)
+    return {"body": body, "gate": gate, "launches": L, "tiles": tiles,
+            "blocks": blocks, "smem": smem, "tile_rows": _TILE_ROWS}
+
+
+def int8_tap_layout(w_tap_q: torch.Tensor) -> torch.Tensor:
+    """The int8 tap weights as the kernel takes them: (L, 3R, G) from
+    :func:`quantize_taps` -> (L, 3R/4, G, 4), four consecutive contraction
+    rows of one column a 32-bit word, the operand of one __dp4a."""
+    L, K, G = w_tap_q.shape
+    return w_tap_q.reshape(L, K // 4, 4, G).transpose(2, 3).contiguous()
 
 
 def _gate_scale(R: int, G: int, device=None, dtype=torch.float32
@@ -188,8 +249,14 @@ def _library() -> ctypes.CDLL:
     fn.argtypes = (
         [ctypes.c_int] * 2 + [ctypes.c_void_p] * 8
         + [ctypes.POINTER(ctypes.c_int)] + [ctypes.c_int] * 4
-        + [ctypes.c_void_p] * 5
+        + [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_void_p]
     )
+    lib.pwg_wavenet_variant_smem.restype = ctypes.c_size_t
+    lib.pwg_wavenet_variant_smem.argtypes = [ctypes.c_int] * 3
+    q = lib.pwg_wavenet_variant_quantize
+    q.restype = ctypes.c_int
+    q.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+                  ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p]
     lib.pwg_variant_cuda_error_string.restype = ctypes.c_char_p
     lib.pwg_variant_cuda_error_string.argtypes = [ctypes.c_int]
     return lib
@@ -208,8 +275,9 @@ def variant_stack(
     ``w_aux`` (L, A, G), ``w_so`` (L, R, S+R), ``b_so`` (L, S+R); ``s_tap``
     (L, 2) float32 (read only with ``int8_taps``). Returns (x_out (B, T, R)
     in x.dtype, skip sum (B, T, S) float32). CPU tensors take the plain
-    version; CUDA tensors launch the kernel (one launch per layer, counted
-    in ``variant_stack.launches``) or raise.
+    version; CUDA tensors launch the kernel (one launch per layer on the
+    body :func:`variant_launch_plan` names, counted in
+    ``variant_stack.launches``) or raise.
     """
     _check_gate(gate)
     if x.device.type == "cpu":
@@ -222,11 +290,10 @@ def variant_stack(
     p = _prepared_weights(w, R, int8_taps)
     s_tap = s_tap.to(torch.float32).contiguous()
     _check_cuda_args(x, c, p, s_tap, dilations, int8_taps)
-    G, S = p["w_tap"].shape[-1], p["w_so"].shape[-1] - R
-    w_tap = p["w_tap"]
-    if int8_taps:
-        # four consecutive contraction rows a 32-bit word: (L, 3R/4, G, 4)
-        w_tap = w_tap.reshape(L, 3 * R // 4, 4, G).transpose(2, 3).contiguous()
+    S = p["w_so"].shape[-1] - R
+    w_tap = int8_tap_layout(p["w_tap"]) if int8_taps else p["w_tap"]
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    plan = variant_launch_plan(B, T, c.shape[-1], L, gate, int8_taps, sms)
     lib = _library()
     dil = (ctypes.c_int * L)(*[int(d) for d in dilations])
     with torch.cuda.device(x.device):
@@ -246,15 +313,59 @@ def variant_stack(
             dil, L, B, T, c.shape[-1], x_out.data_ptr(), skip.data_ptr(),
             None if bufs[0] is None else bufs[0].data_ptr(),
             None if bufs[1] is None else bufs[1].data_ptr(),
-            torch.cuda.current_stream(x.device).cuda_stream,
+            plan["blocks"], torch.cuda.current_stream(x.device).cuda_stream,
         )
+    _raise_on(lib, err)
+    variant_stack.launches += plan["launches"]
+    return x_out, skip
+
+
+variant_stack.launches = 0
+
+
+def _raise_on(lib: ctypes.CDLL, err: int) -> None:
     if err != 0:
         raise RuntimeError(
             "wavenet_variant kernel launch failed: "
             + lib.pwg_variant_cuda_error_string(err).decode()
         )
-    variant_stack.launches += L
-    return x_out, skip
 
 
-variant_stack.launches = 0
+def quantize_words_reference(x: torch.Tensor, s: float) -> torch.Tensor:
+    """Plain version of the int8 body's quantiser: x (..., 4 n)
+    float32 or bfloat16 -> (..., n) int32 words, each four
+    clip(round_half_even(x * s), +-127) as bytes, the first the lowest, as
+    the plain stack quantises its tap window (x * s in float32)."""
+    scale = torch.tensor(s, dtype=torch.float32)
+    q = torch.clamp(torch.round(x.float() * scale), -127, 127).to(torch.int8)
+    return q.contiguous().view(torch.int32)
+
+
+def quantize_words(x: torch.Tensor, s: float) -> torch.Tensor:
+    """The int8 body's quantiser (``quant_word`` in
+    ``csrc/wavenet_variant.cu``) over x: CPU tensors take
+    :func:`quantize_words_reference`; CUDA tensors launch the quantiser
+    kernel (counted in ``quantize_words.launches``) or raise."""
+    if x.device.type == "cpu":
+        return quantize_words_reference(x, s)
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"quantize_words takes float32 or bfloat16, got "
+                        f"{x.dtype}")
+    if (x.shape[-1] % 4 or not x.is_contiguous() or x.data_ptr() % 16
+            or x.numel() == 0):
+        raise ValueError("x must be contiguous, 16-byte aligned and hold "
+                         "whole words of four values")
+    lib = _library()
+    with torch.cuda.device(x.device):
+        out = torch.empty(x.shape[:-1] + (x.shape[-1] // 4,),
+                          dtype=torch.int32, device=x.device)
+        err = lib.pwg_wavenet_variant_quantize(
+            int(x.dtype == torch.bfloat16), x.data_ptr(), out.numel(),
+            float(s), out.data_ptr(),
+            torch.cuda.current_stream(x.device).cuda_stream)
+    _raise_on(lib, err)
+    quantize_words.launches += 1
+    return out
+
+
+quantize_words.launches = 0

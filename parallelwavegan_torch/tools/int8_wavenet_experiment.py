@@ -22,8 +22,14 @@ dominates a layer, faster tap products buy little. On one dilation cycle
         [--batch 32] [--frames 512]
 
 Needs a GPU. Prints one JSON line per measurement: device time in ms (CUDA
-events) and, as ``vs_baseline``, the SNR in dB of the skip sum against the
-float32 plain reference, with the card's name and power limit. Weights and
+events), the layer body that ran (``body``: the serving kernel's or the
+variant's, as ``stack_launch_plan`` and ``variant_launch_plan`` name
+them), as ``vs_baseline`` the SNR in dB of the skip sum against the
+float32 plain reference, and as ``over_baseline`` the time over the
+baseline's, with the card's name and power limit. The bf16 variants run
+the serving kernel's own tensor-core layer body, so ``over_baseline`` of
+the bf16 tanh variant compares the two entry points on one body; int8 taps
+run a SIMT body (``simt_int8_taps``). Weights and
 inputs are drawn from ``numpy.random.default_rng(0)`` in the JAX tool's
 order and scales. A variant that fails to launch fails the run.
 """
@@ -39,11 +45,13 @@ import numpy as np
 import torch
 
 from parallelwavegan_torch.ops.cuda.wavenet_stack import (
+    stack_launch_plan,
     wavenet_stack,
     wavenet_stack_reference,
 )
 from parallelwavegan_torch.ops.cuda.wavenet_variant import (
     quantize_taps,
+    variant_launch_plan,
     variant_stack,
 )
 from parallelwavegan_torch.tools.int8_stage_roofline import time_ms
@@ -114,15 +122,22 @@ def main(argv=None) -> List[Dict[str, Any]]:
     _, ref_skip = wavenet_stack_reference(x.float(), c.float(), w_prod,
                                           dilations)
     results: List[Dict[str, Any]] = []
+    B, T = x.shape[:2]
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
 
-    def emit(name: str, ms: float, snr=None) -> None:
+    def emit(name: str, ms: float, body: str, snr=None) -> None:
         results.append({
             "metric": name, "value": ms, "unit": "ms",
             "vs_baseline": None if snr is None else round(snr, 1),
-            "batch": args.batch, "frames": args.frames,
+            "over_baseline": ms / results[0]["value"] if results else 1.0,
+            "body": body, "batch": args.batch, "frames": args.frames,
             "device": device_line,
         })
         print(json.dumps(results[-1]))
+
+    def body(gate: str, int8_taps: bool) -> str:
+        return variant_launch_plan(B, T, A, LAYERS, gate, int8_taps,
+                                   sms)["body"]
 
     def measure(fn):
         out = fn()
@@ -133,7 +148,9 @@ def main(argv=None) -> List[Dict[str, Any]]:
     # the biases are rounded to bf16 here, which the variants keep in f32)
     w_base = {k: v.to(bf16).contiguous() for k, v in w_prod.items()}
     t_base, out = measure(lambda: wavenet_stack(x, c, w_base, dilations))
-    emit("wavenet_bf16_baseline_ms", t_base, snr_db(out[1], ref_skip))
+    emit("wavenet_bf16_baseline_ms", t_base,
+         stack_launch_plan(B, T, A, LAYERS, bf16, sms)["body"],
+         snr_db(out[1], ref_skip))
     # the static activation scale of step 3: the residual range seen here
     act_max = float(out[0].float().abs().max()) * 1.05
 
@@ -142,19 +159,21 @@ def main(argv=None) -> List[Dict[str, Any]]:
     # 2. gate=mul timing bound (wrong math on purpose; no SNR)
     t_mul, _ = measure(lambda: variant_stack(x, c, w, s_dummy, dilations,
                                              gate="mul"))
-    emit("wavenet_no_transcendental_bound_ms", t_mul)
+    emit("wavenet_no_transcendental_bound_ms", t_mul, body("mul", False))
 
     # the bf16 variant path reproduces the baseline's math
     t_var, out = measure(lambda: variant_stack(x, c, w, s_dummy, dilations,
                                                gate="tanh"))
-    emit("wavenet_variant_bf16_ms", t_var, snr_db(out[1], ref_skip))
+    emit("wavenet_variant_bf16_ms", t_var, body("tanh", False),
+         snr_db(out[1], ref_skip))
 
     # 3. int8 taps
     w_tap_q, s_tap = quantize_taps(w["w_tap"], act_max)
     w_i8 = dict(w, w_tap_q=w_tap_q)
     t_i8, out = measure(lambda: variant_stack(x, c, w_i8, s_tap, dilations,
                                               gate="tanh", int8_taps=True))
-    emit("wavenet_int8_taps_ms", t_i8, snr_db(out[1], ref_skip))
+    emit("wavenet_int8_taps_ms", t_i8, body("tanh", True),
+         snr_db(out[1], ref_skip))
     return results
 
 

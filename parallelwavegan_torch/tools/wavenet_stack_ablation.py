@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """What binds the layer bodies of ``csrc/wavenet_stack.cu``: ablations.
 
-Builds variants of the kernel source, each with one part of a layer body
-taken out, and times each over the PWG v1 serving stack (30 layers,
+Builds variants of the kernel source (``csrc/wavenet_stack.cu`` and the
+bf16 body it includes, ``csrc/wavenet_tc_layer.cuh``), each with one part
+of a layer body taken out, and times each over the PWG v1 serving stack (30 layers,
 dilations 2^(i mod 10), batch 32 x 512 frames x hop 256, seeded weights).
 The bf16 tensor-core body (``--dtype bfloat16``, the default):
 
@@ -53,10 +54,13 @@ import torch
 from parallelwavegan_torch.ops.cuda import build
 from parallelwavegan_torch.ops.cuda import wavenet_stack as ws
 
-# variant -> [(text in csrc/wavenet_stack.cu, its replacement)]
+# the sources a variant edits: the kernel and its bf16 layer body
+SOURCES = ("wavenet_stack.cu", "wavenet_tc_layer.cuh")
+# variant -> [(text in one of SOURCES, its replacement)]
 VARIANTS: Dict[str, List[Tuple[str, str]]] = {
     "base": [],
-    "gate_product": [("        gv[e] = gate(za, zb);", "        gv[e] = za * zb;")],
+    "gate_product": [("        gv[e] = gate_value<GATE>(za, zb);",
+                      "        gv[e] = za * zb;")],
     "no_loads": [(
         "    fill(tile + gridDim.x, slot ^ 1);",
         "    if (tile == blockIdx.x) fill(tile + gridDim.x, slot ^ 1);\n"
@@ -122,23 +126,33 @@ F32_VARIANTS: Dict[str, List[Tuple[str, str]]] = {
 BODY_VARIANTS = {torch.bfloat16: VARIANTS, torch.float32: F32_VARIANTS}
 
 
+def variant_sources(name: str, dtype=torch.bfloat16) -> Dict[str, str]:
+    """{file name: text} of SOURCES with variant ``name``'s edits, each
+    applied to the one source that holds it."""
+    texts = {f: (build.CSRC_DIR / f).read_text() for f in SOURCES}
+    for old, new in BODY_VARIANTS[dtype][name]:
+        holders = [f for f, t in texts.items() if old in t]
+        if len(holders) != 1:
+            raise RuntimeError(f"variant {name}: {len(holders)} sources "
+                               f"hold {old!r}")
+        texts[holders[0]] = texts[holders[0]].replace(old, new)
+    return texts
+
+
 def build_variants(names, dtype=torch.bfloat16) -> Dict[str, str]:
     """Write and compile every variant of the body that runs ``dtype`` in
-    parallel; {name: library path}."""
-    source = (build.CSRC_DIR / "wavenet_stack.cu").read_text()
+    parallel; {name: library path}. Each variant's sources go to a
+    directory of their own, so its edited layer body is the one its
+    kernel includes."""
     out_dir = build.BUILD_DIR / "ablation"
-    out_dir.mkdir(parents=True, exist_ok=True)
     tag = str(dtype)[6:]
     procs = {}
     for name in names:
-        text = source
-        for old, new in BODY_VARIANTS[dtype][name]:
-            if old not in text:
-                raise RuntimeError(f"variant {name}: the source no longer "
-                                   f"holds {old!r}")
-            text = text.replace(old, new)
-        src = out_dir / f"wavenet_stack_{tag}_{name}.cu"
-        src.write_text(text)
+        src_dir = out_dir / f"{tag}_{name}"
+        src_dir.mkdir(parents=True, exist_ok=True)
+        for fname, text in variant_sources(name, dtype).items():
+            (src_dir / fname).write_text(text)
+        src = src_dir / SOURCES[0]
         lib = out_dir / f"libwavenet_stack_{tag}_{name}.so"
         cmd = [build._nvcc(), *build.NVCC_FLAGS, "-I", str(build.CSRC_DIR),
                "-o", str(lib), str(src)]

@@ -8,6 +8,8 @@ without them; there, run it without the JAX conftest:
 Without a GPU every test here skips.
 """
 
+import hashlib
+
 import numpy as np
 import pytest
 import torch
@@ -39,7 +41,12 @@ from parallelwavegan_torch.ops.cuda.wavenet_stack import (
     wavenet_stack_reference,
 )
 from parallelwavegan_torch.ops.cuda.wavenet_variant import (
+    _library as variant_library,
     quantize_taps,
+    quantize_words,
+    quantize_words_reference,
+    variant_launch_plan,
+    variant_smem_bytes,
     variant_stack,
     variant_stack_reference,
 )
@@ -52,6 +59,7 @@ from parallelwavegan_torch.ops.cuda.wavenet_stack_train import (
     wavenet_stack_train,
     wavenet_stack_train_reference,
 )
+from parallelwavegan_torch.tools.float64_check import hold_to_float64
 from parallelwavegan_torch.utils.model_loader import load_model
 
 # self-contained (no tests.* import): on the GPU machine another installed
@@ -214,6 +222,34 @@ def test_stack_launch_plan_matches_the_kernel(cuda_device):
     plan = stack_launch_plan(32, 131072, 80, 30, torch.float32, sms)
     assert plan["body"] == "tensor_cores_tf32x3"
     assert plan["smem"] == lib.pwg_wavenet_stack_tf32_smem() <= 232448
+
+
+# sha256 of (x_out as its bf16 bits, skip) of the bf16 tensor-core body on
+# _stack_inputs(np.random.default_rng(5), ...): the outputs of the body
+# before it became the template of csrc/wavenet_tc_layer.cuh that the
+# variant kernel shares (taken on an NVIDIA H100 80GB HBM3)
+_TC_BODY_DIGESTS = {
+    "first_middle_last":
+        "41ece1dc2ff993d674e097b19dd43e499aa905f3eeb924e18e279c2f24ed18e2",
+    "one_layer":
+        "a5f310fff14fbc4f84a63f637e5f7d4f621e3651fdd1d372c4f870204f2aa590",
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case,B,T,dils", [
+    ("first_middle_last", 2, 777, (1, 64, 3, 512)),
+    ("one_layer", 1, 4133, (2,))], ids=["first_middle_last", "one_layer"])
+def test_stack_tc_body_is_bit_equal_to_its_output_before_the_template(
+        cuda_device, case, B, T, dils):
+    """The serving kernel's instantiation of the shared layer body gives
+    the same bits as the body did before it was shared."""
+    x, c, w = _stack_inputs(np.random.default_rng(5), B, T, len(dils),
+                            torch.bfloat16, cuda_device)
+    xo, sk = wavenet_stack(x, c, w, dils)
+    digest = hashlib.sha256(xo.view(torch.int16).cpu().numpy().tobytes()
+                            + sk.cpu().numpy().tobytes()).hexdigest()
+    assert digest == _TC_BODY_DIGESTS[case]
 
 
 @pytest.mark.cuda
@@ -438,6 +474,33 @@ def test_backward_launch_plan_matches_the_kernel(cuda_device):
     for A in (16, 36, 80, 112):
         assert lib.pwg_wavenet_stack_bwd_bf16_smem(A) == backward_smem_bytes(
             A, "tensor_cores_bf16")["data"], A
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,dils", [(2, 4133, tuple(2 ** i for i in range(10))),
+                                      (1, 130, (512, 1))],
+                         ids=["one_cycle", "d_past_T"])
+def test_backward_f32_is_as_close_to_float64_as_its_plain_version(
+        cuda_device, B, T, dils):
+    """Every output of the f32 backward (dx, dc and the five weight
+    gradients, through the kernels' forward and backward) lies at most
+    2 x as far from the float64 gradient as the plain version's f32 sums,
+    max |a - e| / (1 + max |e|)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(12)
+    x, c, w = _stack_inputs(rng, B, T, len(dils), torch.float32, cuda_device)
+    ux, us = (torch.from_numpy(rng.standard_normal((B, T, 64)).astype(
+        np.float32)).to(cuda_device) for _ in range(2))
+    got = _stack_grads(wavenet_stack_train, x, c, w, dils, ux, us)
+    torch.cuda.synchronize()
+    plain = _stack_grads(wavenet_stack_train_reference, x, c, w, dils, ux,
+                         us)
+    exact = _stack_grads(wavenet_stack_train_reference, x.double(),
+                         c.double(), {k: v.double() for k, v in w.items()},
+                         dils, ux.double(), us.double())
+    assert len(exact) == 7
+    for key in exact:
+        hold_to_float64(key, got[key], plain[key], exact[key])
 
 
 @pytest.mark.cuda
@@ -798,8 +861,10 @@ def _variant_inputs(rng, B, T, L, dev):
                               "int8_mul"])
 @pytest.mark.parametrize("B,T,dils", [
     (2, 1000, (1, 2, 4)), (3, 333, (1, 8, 64)), (1, 7, (1, 2)),
-    (1, 130, (512, 1)), (2, 2117, tuple(2 ** i for i in range(10)))],
-    ids=["even", "ragged", "below_a_tile", "d_past_T", "one_cycle"])
+    (1, 130, (512, 1)), (2, 2117, tuple(2 ** i for i in range(10))),
+    (1, 4133, (1, 32, 63, 64, 65, 512))],
+    ids=["even", "ragged", "below_a_tile", "d_past_T", "one_cycle",
+         "halo_and_not"])
 def test_variant_kernel_matches_plain(cuda_device, gate, int8_taps, B, T,
                                       dils):
     """The experiment's variant kernel against its plain version: 2e-2
@@ -824,7 +889,8 @@ def test_variant_kernel_matches_plain(cuda_device, gate, int8_taps, B, T,
     xo, sk = variant_stack(x, c, w, s_tap, dils, gate=gate,
                            int8_taps=int8_taps)
     torch.cuda.synchronize()
-    assert variant_stack.launches == before + len(dils)
+    assert variant_stack.launches == before + variant_launch_plan(
+        B, T, 80, len(dils), gate, int8_taps)["launches"] == before + len(dils)
     assert xo.dtype == torch.bfloat16 and sk.dtype == torch.float32
     xo_p, sk_p = variant_stack_reference(x, c, w, s_tap, dils, gate=gate,
                                          int8_taps=int8_taps)
@@ -853,3 +919,43 @@ def test_variant_kernel_rejects_what_it_was_not_built_for(cuda_device):
         variant_stack(x, c, w, s_tap[:1], (1, 2))
     with pytest.raises(KeyError, match="w_tap_q"):
         variant_stack(x, c, w, s_tap, (1, 2), int8_taps=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_variant_quantiser_is_bit_equal_to_the_plain_one(cuda_device, dtype):
+    """The int8 body's quantiser gives the plain quantiser's words bit for
+    bit: on a residual-like state, on every half-integer border of x s and
+    past +-127."""
+    rng = np.random.default_rng(13)
+    x = torch.from_numpy(rng.standard_normal((3, 999, 64)).astype(
+        np.float32) * 2).to(cuda_device, dtype)
+    s = 127 / 4.3
+    borders = (torch.arange(-600, 600, device=cuda_device) / 4 / s).to(
+        dtype).reshape(-1, 4)
+    for v in (x, borders):
+        before = quantize_words.launches
+        got = quantize_words(v, s)
+        torch.cuda.synchronize()
+        assert quantize_words.launches == before + 1
+        assert torch.equal(got, quantize_words_reference(v, s))
+
+
+@pytest.mark.cuda
+def test_variant_launch_plan_matches_the_kernel(cuda_device):
+    """The plan's shared memory is the kernel's own for both bodies and
+    both x types; at the tool's shape the tensor-core body runs one
+    persistent block an SM, the SIMT int8 body one block a tile."""
+    lib = variant_library()
+    for A in (16, 36, 80):
+        for int8_taps in (False, True):
+            for is_bf16, dtype in ((1, torch.bfloat16), (0, torch.float32)):
+                assert lib.pwg_wavenet_variant_smem(is_bf16, int(int8_taps),
+                                                    A) == \
+                    variant_smem_bytes(A, dtype, int8_taps)
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    for int8_taps in (False, True):
+        plan = variant_launch_plan(32, 131072, 80, 10, "tanh", int8_taps, sms)
+        assert plan["smem"] <= 232448
+        assert plan["blocks"] == (plan["tiles"] if int8_taps else sms)

@@ -268,18 +268,26 @@ def test_stack_bound_and_byte_floor_follow_the_body():
 
 def test_ablation_tool_variants_still_apply_to_the_kernel_source():
     """Every text the ablation tool replaces, for either body, is in
-    csrc/wavenet_stack.cu exactly once, so each variant takes out what its
-    name says."""
+    csrc/wavenet_stack.cu or the bf16 layer body it includes
+    (csrc/wavenet_tc_layer.cuh) exactly once, so each variant takes out
+    what its name says."""
     from parallelwavegan_torch.ops.cuda.build import CSRC_DIR
     from parallelwavegan_torch.tools.wavenet_stack_ablation import (
         BODY_VARIANTS,
+        SOURCES,
+        variant_sources,
     )
 
-    source = (CSRC_DIR / "wavenet_stack.cu").read_text()
+    sources = [(CSRC_DIR / f).read_text() for f in SOURCES]
+    assert '#include "wavenet_tc_layer.cuh"' in sources[0]
     assert set(BODY_VARIANTS) == {torch.bfloat16, torch.float32}
-    for variants in BODY_VARIANTS.values():
+    for dtype, variants in BODY_VARIANTS.items():
         assert variants["base"] == []
         for name, edits in variants.items():
             for old, new in edits:
-                assert source.count(old) == 1, (name, old)
+                assert sum(s.count(old) for s in sources) == 1, (name, old)
                 assert old != new
+            edited = variant_sources(name, dtype)
+            assert (sum(a != b for a, b in zip(edited.values(), sources))
+                    == len({f for f, s in zip(SOURCES, sources)
+                            for old, _ in edits if old in s}))

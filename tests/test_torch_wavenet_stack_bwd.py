@@ -130,3 +130,30 @@ def test_two_launch_byte_floor(dtype, want):
     per_row = ({torch.float32: (3072 + 12 * 80) + (1536 + 4 * 80),
                 torch.bfloat16: (2816 + 10 * 80) + (768 + 2 * 80)}[dtype])
     assert abs(ms - per_row * rows / 3.35e12 * 1e3) < 1e-9
+
+
+@pytest.mark.parametrize("variant", ["base", "in_place", "chunk_partials"])
+def test_f32_sums_tool_variants_still_apply_to_the_kernel_source(variant):
+    """Every text tools/backward_f32_sums.py replaces is in
+    csrc/wavenet_stack_bwd.cu exactly once, and each variant sums what its
+    name says: the source as it is (each k-step's products summed apart in
+    all four product loops), every product in place with one running bias
+    sum, or a zeroed partial per ring chunk."""
+    from parallelwavegan_torch.ops.cuda.build import CSRC_DIR
+    from parallelwavegan_torch.tools.backward_f32_sums import (
+        VARIANTS,
+        variant_source,
+    )
+
+    source = (CSRC_DIR / "wavenet_stack_bwd.cu").read_text()
+    text = variant_source(variant)
+    for old, new in VARIANTS[variant]:
+        assert source.count(old) == 1 and old != new
+    fresh = text.count("true>(")
+    if variant == "base":
+        assert text == source and fresh == 4
+    elif variant == "in_place":
+        assert fresh == 0 and "colsum += rhs" in text
+    else:
+        assert fresh == 0 and text.count("add_part<") == 4
+        assert "colsum += part" in text

@@ -174,3 +174,120 @@ def test_tool_inputs_follow_the_jax_tools_draws():
     if not torch.cuda.is_available():
         with pytest.raises(SystemExit, match="CUDA"):
             tool.main(["--batch", "1", "--frames", "1"])
+
+
+
+# the kernel's widths (csrc/wavenet_common.cuh), which the layouts below use
+KR, KG = 64, 128
+
+
+@pytest.mark.parametrize("B,T,A,L", [(32, 131072, 80, 10), (1, 7, 80, 1),
+                                     (3, 333, 36, 3), (2, 4133, 16, 2)],
+                         ids=["tool", "below_a_tile", "ragged", "A16"])
+@pytest.mark.parametrize("gate,int8_taps", [("tanh", False), ("mul", False),
+                                            ("tanh", True), ("mul", True)],
+                         ids=["bf16_tanh", "bf16_mul", "int8_taps",
+                              "int8_mul"])
+def test_variant_launch_plan(B, T, A, L, gate, int8_taps):
+    """One launch a layer; bf16 taps on the serving stack's tensor-core
+    body over as many persistent blocks as fit 132 SMs (one a tile at
+    most), int8 taps on the SIMT body, one block a tile; the shared memory
+    of the layer's largest instantiation."""
+    from parallelwavegan_torch.ops.cuda.wavenet_stack import stack_launch_plan
+    from parallelwavegan_torch.ops.cuda.wavenet_variant import (
+        variant_launch_plan,
+        variant_smem_bytes,
+    )
+
+    plan = variant_launch_plan(B, T, A, L, gate, int8_taps)
+    tiles = B * -(-T // 64)
+    assert plan["body"] == ("simt_int8_taps" if int8_taps
+                            else "tensor_cores_bf16")
+    assert plan["gate"] == gate and plan["launches"] == L
+    assert plan["tiles"] == tiles and plan["tile_rows"] == 64
+    assert plan["blocks"] == (tiles if int8_taps else min(tiles, 132))
+    widest = torch.float32 if L > 1 else torch.bfloat16
+    assert plan["smem"] == variant_smem_bytes(A, widest, int8_taps) <= 232448
+    if not int8_taps:  # the serving stack's own body and footprint
+        serving = stack_launch_plan(B, T, A, L, torch.bfloat16)
+        assert (plan["smem"], plan["blocks"]) == (serving["smem"],
+                                                  serving["blocks"])
+    if (B, T, A, L) == (32, 131072, 80, 10):
+        assert plan["smem"] == (57344 if int8_taps else 228352)
+
+
+@pytest.mark.parametrize("int8_taps,A", [(False, 160), (True, 800)],
+                         ids=["bf16", "int8"])
+def test_variant_launch_plan_refuses_what_fits_no_body(int8_taps, A):
+    from parallelwavegan_torch.ops.cuda.wavenet_variant import (
+        variant_launch_plan,
+    )
+
+    with pytest.raises(NotImplementedError, match="shared memory"):
+        variant_launch_plan(2, 100, A, 3, "tanh", int8_taps)
+    with pytest.raises(ValueError, match="gate"):
+        variant_launch_plan(2, 100, 80, 3, "relu", int8_taps)
+
+
+def test_int8_operand_layout_unpacks_to_the_quantised_operands():
+    """The int8 body's operands as the kernel reads them, emulated on the
+    CPU: the wrapper's weight words (four consecutive contraction rows of
+    one column a word) unpack to quantize_taps' matrix, and __dp4a over
+    those words and the staged window words (four consecutive channels of
+    one row a word, quantised as the kernel quantises them) gives the
+    plain version's int32 tap sums xq . Wq."""
+    from parallelwavegan_torch.ops.cuda.wavenet_variant import (
+        int8_tap_layout,
+        quantize_words,
+    )
+
+    rng = np.random.default_rng(3)
+    w_tap = torch.from_numpy(
+        (rng.standard_normal((2, 3 * KR, KG)) * 0.08).astype(np.float32))
+    w_q, s_tap = quantize_taps(w_tap, 3.0)
+    words = int8_tap_layout(w_q)
+    assert words.shape == (2, 3 * KR // 4, KG, 4) and words.is_contiguous()
+    unpacked = words.permute(0, 1, 3, 2).reshape(2, 3 * KR, KG)
+    assert torch.equal(unpacked, w_q)
+    xcat = torch.from_numpy(
+        (rng.standard_normal((5, 3 * KR)) * 1.5).astype(np.float32))
+    for layer in range(2):
+        s = float(s_tap[layer, 0])
+        a_words = quantize_words(xcat, s).numpy().view(np.int8).reshape(
+            5, 3 * KR // 4, 4)
+        w_words = words[layer].numpy()  # (k4, n, byte)
+        dp4a = np.einsum("rki,kni->rn", a_words.astype(np.int64),
+                         w_words.astype(np.int64))
+        xq = torch.clamp(torch.round(xcat * torch.tensor(s)), -127, 127)
+        want = (xq.double() @ w_q[layer].double()).numpy()
+        np.testing.assert_array_equal(dp4a, want)
+
+
+@pytest.mark.parametrize("scale", [127 / 4.0, 127 / 3.3, 1.0])
+def test_quantiser_arithmetic_is_the_plain_quantiser(scale):
+    """The int8 body's pinned quantiser, v s rounded to f32, rint (half to
+    even), clipped to +-127, byte by byte low first, is the plain
+    quantiser's clip(round_half_even(x s), +-127), on every half-integer
+    border of x s, past +-127 and on random values, f32 and bf16 inputs
+    alike."""
+    from parallelwavegan_torch.ops.cuda.wavenet_variant import (
+        quantize_words,
+        quantize_words_reference,
+    )
+
+    rng = np.random.default_rng(4)
+    borders = (np.arange(-1200, 1200) / 8).astype(np.float32) / np.float32(
+        scale)
+    values = np.concatenate([borders, rng.standard_normal(4000).astype(
+        np.float32) * 5]).reshape(-1, 4)
+    for dtype in (torch.float32, torch.bfloat16):
+        x = torch.from_numpy(values).to(dtype)
+        want = quantize_words_reference(x, scale)
+        assert torch.equal(quantize_words(x, scale), want)  # CPU: plain
+        v = x.float().numpy() * np.float32(scale)
+        q = np.clip(np.rint(v), -127, 127).astype(np.int8).view(np.uint8)
+        words = (q[:, 0].astype(np.uint32) | q[:, 1].astype(np.uint32) << 8
+                 | q[:, 2].astype(np.uint32) << 16
+                 | q[:, 3].astype(np.uint32) << 24)
+        np.testing.assert_array_equal(words.view(np.int32),
+                                      want.numpy().reshape(-1))
