@@ -86,7 +86,26 @@
    recipe's setting); finite losses, a moved u, the EMA one decay step from
    the parameters; step time, a profile; then load_model(ckpt,
    use_ema=True) decodes an utterance. Cut: 6 of 60,000 steps, the corpus;
-9. prints a JSON line of the five kernels, the card line, and as the last
+9. serves the MelGAN family at full width from reference .pkl files that
+   the port's exporter writes from seeded weights: (a) multi-band MelGAN
+   v2 (egs/ljspeech/voc1/conf/multi_band_melgan.v2.yaml: PQMF on the old
+   prototype) through load_model on cuda; (b) f32 at batch 2 x 200 frames
+   held to the CPU's float64 forward (at most 2 x the CPU f32 forward's
+   error + 1e-6); (c) bf16 at batch 32 x 512 frames against f32 on the
+   card; (d) both timed there, with one torch.profiler pass each; (e)
+   full-band MelGAN v1 at batch 1 against its CPU forward; (f) the shipped
+   HiFi-GAN checkpoint exported to a .pkl and decoded by bin.decode from a
+   Kaldi ark and an npy feats.scp, bit-equal to the .gckpt route on all 24
+   mels; (g) the asset's mels end to end as one utterance through
+   inference_chunked (chunk 256, context 64) against the whole forward:
+   HiFi-GAN exact and on mrf_stage with f32 packs (both to f32
+   tolerances), on mrf_stage with bf16 packs (to the bf16 tolerance: the
+   cuDNN convs around the kernel round a window otherwise than the whole;
+   the kernel itself on one window's stage-0 input must give the whole's
+   rows bit for bit), multi-band MelGAN, and PWG v1 on wavenet_stack
+   window by window on its noise; the chunked runs' kernel launches
+   counted, wall times beside the whole's;
+10. prints a JSON line of the five kernels, the card line, and as the last
    line {"ok": true, "device": {...}}.
 
 Exits non-zero, printing no result, on any failure or without a GPU.
@@ -187,6 +206,35 @@ HIFIGAN_V1 = {
         "nonlinear_activation": "LeakyReLU",
         "nonlinear_activation_params": {"negative_slope": 0.1},
         "use_weight_norm": True,
+    },
+}
+# the MelGAN family at full width with seeded weights, served from a
+# reference .pkl (CPU tests hold these generator settings to the files):
+# multi-band MelGAN v2 (egs/ljspeech/voc1/conf/multi_band_melgan.v2.yaml; no
+# "version" and no pqmf_params, so PQMF takes the <= 0.4.2 prototype: taps
+# 62, cutoff 0.15, beta 9.0) and full-band MelGAN v1 (melgan.v1.yaml)
+MB_MELGAN_V2 = {
+    "sampling_rate": SR,
+    "hop_size": HOP,
+    "num_mels": 80,
+    "generator_type": "MelGANGenerator",
+    "generator_params": {
+        "in_channels": 80, "out_channels": 4, "kernel_size": 7,
+        "channels": 384, "upsample_scales": [8, 4, 2],
+        "stack_kernel_size": 3, "stacks": 4, "use_weight_norm": True,
+        "use_causal_conv": False,
+    },
+}
+MELGAN_V1 = {
+    "sampling_rate": SR,
+    "hop_size": HOP,
+    "num_mels": 80,
+    "generator_type": "MelGANGenerator",
+    "generator_params": {
+        "in_channels": 80, "out_channels": 1, "kernel_size": 7,
+        "channels": 512, "upsample_scales": [8, 8, 2, 2],
+        "stack_kernel_size": 3, "stacks": 3, "use_weight_norm": True,
+        "use_causal_conv": False,
     },
 }
 # the recipe that trained the shipped checkpoint (same file; held to it by
@@ -1405,6 +1453,24 @@ def wave_diff(what: str, got, want, max_allowed: float) -> float:
     return worst
 
 
+def stage_launches(model, stages, B, frames) -> int:
+    """What the plans of a HiFi-GAN's MRF stages routed to the fused
+    kernel launch for a batch of B mels of ``frames`` frames."""
+    from parallelwavegan_torch.ops.cuda.mrf_stage import mrf_stage_plan
+
+    gen = model.generator
+    kernels = tuple(gen.resblock_kernel_sizes)
+    dils = tuple(gen.resblock_dilations[0])
+    total, T = 0, frames
+    for i, s_up in enumerate(gen.upsample_scales):
+        T *= s_up
+        if i in stages:
+            pack = model._mrf_packs[i]
+            total += mrf_stage_plan(B, T, pack["w0"].shape[-1], kernels,
+                                    dils, pack["w0"].dtype)["launches"]
+    return total
+
+
 def hifigan_phase(dev, smi: str, pool) -> dict:
     """Step 2h of the module docstring. Returns what the kernels line needs
     for mrf_stage, and the pending host scores."""
@@ -1415,20 +1481,6 @@ def hifigan_phase(dev, smi: str, pool) -> dict:
     )
     from parallelwavegan_torch.ops.hifigan_infer import mrf_chain_stage
     from parallelwavegan_torch.utils.model_loader import load_model
-
-    def stage_launches(model, stages, B, frames) -> int:
-        """What the plans of the MRF stages routed to the kernel launch."""
-        gen = model.generator
-        kernels = tuple(gen.resblock_kernel_sizes)
-        dils = tuple(gen.resblock_dilations[0])
-        total, T = 0, frames
-        for i, s_up in enumerate(gen.upsample_scales):
-            T *= s_up
-            if i in stages:
-                pack = model._mrf_packs[i]
-                total += mrf_stage_plan(B, T, pack["w0"].shape[-1], kernels,
-                                        dils, pack["w0"].dtype)["launches"]
-        return total
 
     with open(QUALITY_REFERENCE) as f:
         reference = json.load(f)
@@ -1835,6 +1887,416 @@ def serving_timing(model, mels, dtype, sms: int, smi: str) -> dict:
     return out
 
 
+def seeded_melgan(config: dict, seed: int):
+    """A MelGAN generator of ``config`` with seeded weights: the module's
+    N(0, 0.02) kernels rescaled to a per-entry std of 1 / sqrt(K Cin), so
+    that the waveform reaches a full-scale level (at N(0, 0.02) the
+    full-band v1's sits near 1e-6, where no tolerance tells right from
+    wrong)."""
+    from parallelwavegan_torch.models import MelGANGenerator
+
+    gen = MelGANGenerator(**config["generator_params"],
+                          generator=torch.Generator().manual_seed(seed))
+    with torch.no_grad():
+        for name, p in gen.named_parameters():
+            if name.endswith("kernel"):
+                p.mul_(1.0 / (0.02 * (p.shape[0] * p.shape[1]) ** 0.5))
+    return gen.eval()
+
+
+def asset_mels() -> tuple:
+    """The asset's 24 evaluation mels and their names, in file order."""
+    files = sorted(glob.glob(os.path.join(ASSET_DIR, "*-feats.npy")))
+    return ([np.load(f) for f in files],
+            [os.path.basename(f)[: -len("-feats.npy")] for f in files])
+
+
+def float64_gate(what: str, card, cpu32, cpu64) -> float:
+    """Hold the card's output to float64: |card - e| <= 2 |cpu32 - e| +
+    1e-6, e the CPU's float64 forward. Returns the card's error."""
+    card, cpu32 = card.double().cpu(), cpu32.double()
+    if not torch.isfinite(card).all():
+        raise AssertionError(f"{what}: non-finite values")
+    err = (card - cpu64).abs().max().item()
+    ref = (cpu32 - cpu64).abs().max().item()
+    print(f"{what}: max |card - float64| {err:.3e}, CPU f32 {ref:.3e} "
+          f"(allowed {2 * ref + 1e-6:.3e}; max |y| "
+          f"{cpu64.abs().max().item():.3f})")
+    if err > 2 * ref + 1e-6:
+        raise AssertionError(f"{what}: the card lies further from float64 "
+                             f"than twice the CPU's f32 forward")
+    return err
+
+
+def melgan_phase(smi: str) -> dict:
+    """Step 9 (a)-(e) of the module docstring. Returns the f32
+    multi-band model and its numbers."""
+    from parallelwavegan_torch.tools.train_step_profile import device_time
+    from parallelwavegan_torch.utils.model_loader import load_model
+    from parallelwavegan_torch.utils.params import nested
+    from parallelwavegan_torch.utils.torch_export import (
+        save_reference_checkpoint,
+    )
+
+    out = {}
+    frames = np.concatenate(asset_mels()[0])
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = {}
+        for name, config in (("mb", MB_MELGAN_V2), ("v1", MELGAN_V1)):
+            paths[name] = os.path.join(tmp, f"{name}-checkpoint-1steps.pkl")
+            save_reference_checkpoint(
+                paths[name], nested(seeded_melgan(config, 1).state_dict()),
+                config, steps=1)
+        mb32 = load_model(paths["mb"], MB_MELGAN_V2, device="cuda")
+        mb16 = load_model(paths["mb"], MB_MELGAN_V2, dtype=torch.bfloat16,
+                          device="cuda")
+        mb_cpu = load_model(paths["mb"], MB_MELGAN_V2, device="cpu")
+        v1 = load_model(paths["v1"], MELGAN_V1, device="cuda")
+        v1_cpu = load_model(paths["v1"], MELGAN_V1, device="cpu")
+    if mb32.pqmf is None or mb32.upsample_factor != HOP:
+        raise AssertionError("multi-band MelGAN v2 without its PQMF")
+    n_params = sum(p.numel() for p in mb32.generator.parameters())
+    print(f"mb-melgan (a) v2 loaded from a reference .pkl: {n_params} "
+          f"parameters, {mb32.pqmf}, upsample factor "
+          f"{mb32.upsample_factor}")
+
+    # (b) f32, batch 2 x 200 frames: the card against float64 on the CPU
+    batch = [frames[i * 300: i * 300 + 200] for i in range(2)]
+    fn, (c, _), _ = mb32.prepare_batch(batch, bucket_size=1)
+    fn_cpu, (c_cpu, _), _ = mb_cpu.prepare_batch(batch, bucket_size=1)
+    gen64 = copy.deepcopy(mb_cpu.generator).double()
+    with torch.inference_mode():
+        y64 = mb_cpu.pqmf.synthesis(gen64(c_cpu.double()))
+    out["f64_err"] = float64_gate("mb-melgan (b) f32 2 x 200 frames",
+                                  fn(c, None), fn_cpu(c_cpu, None), y64)
+
+    # (c) batch 32 x 512 frames of the asset's mels: bf16 against f32 on
+    # the card; (d) both timed, and one profiled forward of each
+    need = BENCH_BATCH * BENCH_FRAMES
+    tiled = np.tile(frames, (-(-need // len(frames)), 1))[:need]
+    bench = list(tiled.reshape(BENCH_BATCH, BENCH_FRAMES, -1))
+    audio_s = BENCH_BATCH * BENCH_FRAMES * HOP / SR
+    runs = {"f32": mb32.prepare_batch(bench),
+            "bf16": mb16.prepare_batch(bench)}
+    y32, y16 = (fn(c, None) for fn, (c, _), _ in runs.values())
+    if y32.shape != (BENCH_BATCH, BENCH_FRAMES * HOP, 1):
+        raise AssertionError("bad multi-band MelGAN output shape")
+    err, allowed = max_err(y16, y32, torch.bfloat16)
+    print(f"mb-melgan (c) bf16 {BENCH_BATCH} x {BENCH_FRAMES} frames vs f32 "
+          f"on the card: max_abs_err {err:.3e} (allowed {allowed:.3e})")
+    if err > allowed:
+        raise AssertionError("bf16 multi-band MelGAN disagrees with f32")
+    out["bf16_err"] = err
+    del y32, y16
+    for name, (fn, (c, _), _) in runs.items():
+        ms = time_ms(lambda: fn(c, None), reps=3)
+        out[f"{name}_ms"] = ms
+        print(f"mb-melgan (d) {name} {BENCH_BATCH} x {BENCH_FRAMES} frames: "
+              f"forward {ms:.2f} ms, {audio_s / (ms / 1e3):.1f} audio-s/s "
+              f"on {smi}")
+    for name, (fn, (c, _), _) in runs.items():
+        prof = device_time(lambda: fn(c, None), n=1, top=10)
+        print(f"mb-melgan (d) {name} profile: {prof['profiled_wall_ms']:.1f} "
+              f"ms wall, device busy {prof['device_busy_ms']:.2f} ms; by "
+              f"kernel:")
+        for row in prof["kernels"]:
+            print(f"  {row['ms']:8.3f} ms x{row['calls']:4.0f}  "
+                  f"{row['name']}")
+    del runs, mb16
+
+    # (e) full-band MelGAN v1, batch 1 x 300 frames, f32: the card against
+    # its CPU forward
+    fn, (c, _), _ = v1.prepare_batch([frames[:300]], bucket_size=1)
+    fn_cpu, (c_cpu, _), _ = v1_cpu.prepare_batch([frames[:300]],
+                                                 bucket_size=1)
+    want = fn_cpu(c_cpu, None)
+    err, allowed = max_err(fn(c, None).cpu(), want, torch.float32)
+    print(f"melgan (e) v1 f32 1 x 300 frames vs the CPU: max_abs_err "
+          f"{err:.3e} (allowed {allowed:.3e}; max |y| "
+          f"{want.abs().max().item():.3f})")
+    if err > allowed or v1.pqmf is not None:
+        raise AssertionError("full-band MelGAN on the card disagrees")
+    out["model"] = mb32
+    return out
+
+
+def write_kaldi_ark(path: str, arrays: dict) -> list:
+    """A Kaldi binary ark of float32 matrices; returns its feats.scp
+    lines."""
+    lines = []
+    with open(path, "wb") as f:
+        for utt, a in arrays.items():
+            f.write(utt.encode() + b" ")
+            offset = f.tell()
+            f.write(b"\x00BFM \x04" + np.int32(a.shape[0]).tobytes()
+                    + b"\x04" + np.int32(a.shape[1]).tobytes())
+            f.write(np.ascontiguousarray(a, np.float32).tobytes())
+            lines.append(f"{utt} {path}:{offset}")
+    return lines
+
+
+def pkl_decode_phase(tmp: str) -> int:
+    """Step 9 (f): the shipped HiFi-GAN checkpoint exported to a reference
+    .pkl (the .gckpt's kernels after its fold, under a config without
+    weight norm), decoded by ``python -m parallelwavegan_torch.bin.decode``
+    from a Kaldi ark feats.scp and from an npy feats.scp, beside the
+    .gckpt route from the asset's directory: three processes at once.
+    Returns how many of the 24 waveforms are bit-equal in all three."""
+    from scipy.io import wavfile
+
+    from parallelwavegan_torch.utils.model_loader import load_model
+    from parallelwavegan_torch.utils.params import nested
+    from parallelwavegan_torch.utils.torch_export import (
+        save_reference_checkpoint,
+    )
+
+    ckpt = os.path.join(ASSET_DIR, "generator.gckpt")
+    folded = load_model(ckpt, HIFIGAN_V1, device="cpu").generator
+    config = copy.deepcopy(HIFIGAN_V1)
+    config["generator_params"]["use_weight_norm"] = False
+    config["format"] = "npy"
+    pkl = os.path.join(tmp, "checkpoint-60000steps.pkl")
+    save_reference_checkpoint(pkl, nested(folded.state_dict()), config,
+                              steps=60000)
+    conf = os.path.join(tmp, "config.json")  # bin.decode reads JSON too
+    with open(conf, "w") as f:
+        json.dump(config, f)
+    mels, names = asset_mels()
+    scp = {"ark": os.path.join(tmp, "feats_ark.scp"),
+           "npy": os.path.join(tmp, "feats_npy.scp")}
+    with open(scp["ark"], "w") as f:
+        f.write("\n".join(write_kaldi_ark(os.path.join(tmp, "feats.ark"),
+                                          dict(zip(names, mels)))) + "\n")
+    with open(scp["npy"], "w") as f:
+        f.write("".join(f"{n} {os.path.join(ASSET_DIR, n)}-feats.npy\n"
+                        for n in names))
+    runs = {"gckpt": ["--dumpdir", ASSET_DIR, "--checkpoint", ckpt],
+            "pkl_ark": ["--feats-scp", scp["ark"], "--checkpoint", pkl],
+            "pkl_npy": ["--scp", scp["npy"], "--checkpoint", pkl]}
+    t0 = time.perf_counter()
+    procs = {k: subprocess.Popen(
+        [sys.executable, "-m", "parallelwavegan_torch.bin.decode", *a,
+         "--config", conf, "--outdir", os.path.join(tmp, k)],
+        cwd=REPO, env=dict(os.environ, PYTHONPATH=REPO),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for k, a in runs.items()}
+    try:
+        logs = {k: p.communicate(timeout=600)[0] for k, p in procs.items()}
+    finally:
+        for p in procs.values():
+            p.kill()
+            p.wait()
+    wall = time.perf_counter() - t0
+    for k, p in procs.items():
+        if p.returncode != 0:
+            raise AssertionError(f"decode ({k}) failed:\n{logs[k][-3000:]}")
+    same = 0
+    for n, m in zip(names, mels):
+        wavs = [wavfile.read(os.path.join(tmp, k, f"{n}_gen.wav"))[1]
+                for k in runs]
+        if wavs[0].shape != (len(m) * HOP,) or wavs[0].dtype != np.int16:
+            raise AssertionError(f"decode wrote a bad wav for {n}")
+        same += all(np.array_equal(wavs[0], w) for w in wavs[1:])
+    print(f"hifigan (f) the asset as a reference .pkl through bin.decode "
+          f"from an ark and an npy feats.scp, beside the .gckpt route (3 "
+          f"processes at once, {wall:.1f} s wall): {same} of {len(names)} "
+          f"waveforms bit-equal in all three")
+    if same != len(names):
+        raise AssertionError("the .pkl route differs from the .gckpt route")
+    return same
+
+
+def stage0_window_is_exact(model, mel, window) -> None:
+    """The first MRF stage of a HiFi-GAN on mrf_stage, run on one window's
+    rows of the whole utterance's stage-0 input, gives the whole's rows bit
+    for bit away from the window's edges."""
+    from parallelwavegan_torch.ops.conv import conv1d, conv_transpose1d
+    from parallelwavegan_torch.ops.cuda.mrf_stage import mrf_stage
+
+    gen, pack = model.generator, model._mrf_packs[0]
+    s_up = gen.upsample_scales[0]
+    kw = dict(kernels=tuple(gen.resblock_kernel_sizes),
+              dils=tuple(gen.resblock_dilations[0]), chunk=pack["chunk"],
+              quant=pack["quant"], slope=0.1)
+    c = torch.from_numpy(mel[None]).to("cuda", model.dtype)
+    with torch.inference_mode():
+        x = conv1d(c, gen.input_conv.folded_kernel().to(c.dtype),
+                   gen.input_conv.bias, padding=(gen.kernel_size - 1) // 2)
+        x = conv_transpose1d(
+            F.leaky_relu(x, 0.1), gen.upsamples[0].folded_kernel().to(
+                c.dtype), gen.upsamples[0].bias, stride=s_up,
+            padding=s_up // 2 + s_up % 2, output_padding=s_up % 2)
+        lo, hi = window[0] * s_up, window[1] * s_up
+        margin = 200  # rows; the stage reaches 60 on each side
+        x = x.contiguous()
+        whole = mrf_stage(x, pack, **kw)[0, lo + margin: hi - margin]
+        part = mrf_stage(x[:, lo:hi].contiguous(), pack, **kw)[
+            0, margin:-margin]
+    same = torch.equal(whole, part)
+    print(f"chunked (g) mrf_stage on rows [{lo}, {hi}) of the whole's "
+          f"stage-0 input: {'bit-equal' if same else 'NOT equal'} to the "
+          f"whole's {whole.shape[0]} inner rows")
+    if not same:
+        raise AssertionError("mrf_stage's output depends on where the "
+                             "window starts")
+
+
+def chunked_phase(dev, smi: str, mb32) -> dict:
+    """Step 9 (g): one long utterance (the asset's 24 mels end to end)
+    through inference_chunked(chunk 256, context 64) against the whole
+    utterance's forward: HiFi-GAN exact (f32), HiFi-GAN on mrf_stage with
+    f32 and with bf16 packs, multi-band MelGAN (f32), and PWG v1 on
+    wavenet_stack (f32) window by window on the noise a fresh generator of
+    the same seed draws in window order. Each kernel's launches are counted
+    over one chunked run alone."""
+    from parallelwavegan_torch.engine.checkpoint import (
+        save_generator_checkpoint,
+    )
+    from parallelwavegan_torch.models import ParallelWaveGANGenerator
+    from parallelwavegan_torch.ops.cuda.mrf_stage import mrf_stage
+    from parallelwavegan_torch.ops.cuda.wavenet_stack import (
+        stack_launch_plan,
+        wavenet_stack,
+    )
+    from parallelwavegan_torch.utils.model_loader import (
+        chunk_windows,
+        load_model,
+    )
+
+    chunk, ctx = 256, 64
+    long = np.concatenate(asset_mels()[0])
+    windows = chunk_windows(len(long), chunk, ctx)
+    out = {"frames": len(long), "windows": len(windows)}
+    ckpt = os.path.join(ASSET_DIR, "generator.gckpt")
+
+    def walls(model, **kw):
+        """Whole and chunked outputs (first calls), then the wall time of a
+        second call of each."""
+        whole = model.inference(long, **kw)
+        chunked = model.inference_chunked(long, chunk, ctx, **kw)
+        t = []
+        for fn in (lambda: model.inference(long, **kw),
+                   lambda: model.inference_chunked(long, chunk, ctx, **kw)):
+            t0 = time.perf_counter()
+            fn()
+            t.append(time.perf_counter() - t0)
+        return whole, chunked, t
+
+    def report(what, whole, chunked, t, tol):
+        if chunked.shape != whole.shape or not np.isfinite(chunked).all():
+            raise AssertionError(f"{what}: bad chunked waveform")
+        err = float(np.abs(chunked - whole).max())
+        allowed = tol * (1 + float(np.abs(whole).max()))
+        print(f"chunked (g) {what}: {len(long)} frames in {len(windows)} "
+              f"windows; max |chunked - whole| {err:.3e} (allowed "
+              f"{allowed:.3e}); wall {t[1] * 1e3:.1f} ms chunked vs "
+              f"{t[0] * 1e3:.1f} ms whole = {t[1] / t[0]:.3f} x on {smi}")
+        if err > allowed:
+            raise AssertionError(f"{what}: chunks disagree with the whole")
+        return {"err": err, "chunked_ms": t[1] * 1e3,
+                "whole_ms": t[0] * 1e3, "ratio": t[1] / t[0]}
+
+    exact = load_model(ckpt, HIFIGAN_V1, device="cuda")
+    out["hifigan_exact"] = report("hifigan exact f32", *walls(exact), 1e-5)
+    del exact
+
+    # HiFi-GAN with its MRF stages on mrf_stage. With f32 packs (the
+    # per-conv body) the chunks are held to B3's f32 tolerance. With bf16
+    # packs (the fused-pair body; the counted run) cuDNN's bf16 convs
+    # around the kernel take other algorithms for a window than for the
+    # whole utterance, so a rounding of the first conv moves by a bf16
+    # step and the output by the bf16 path's own error: the chunks are held
+    # to the bf16 tolerance, beside the cuDNN-only bf16 forward's own
+    # chunked-vs-whole difference, and the kernel alone on one window's
+    # stage-0 input, cut from the whole's, must give the whole's rows bit
+    # for bit
+    f32_kernel = load_model(ckpt, HIFIGAN_V1, device="cuda")
+    f32_kernel.use_mrf_kernel(quant=False)
+    out["hifigan_kernel_f32"] = report("hifigan on mrf_stage, f32 packs",
+                                       *walls(f32_kernel), TOL[torch.float32])
+    del f32_kernel
+    cudnn16 = load_model(ckpt, HIFIGAN_V1, dtype=torch.bfloat16,
+                         device="cuda")
+    out["cudnn_bf16_err"] = float(np.abs(
+        cudnn16.inference_chunked(long, chunk, ctx)
+        - cudnn16.inference(long)).max())
+    del cudnn16
+    kernel = load_model(ckpt, HIFIGAN_V1, dtype=torch.bfloat16,
+                        device="cuda")
+    kernel.use_mrf_kernel(quant=False)
+    whole = kernel.inference(long)
+    torch.cuda.synchronize()
+    mrf_stage.launches = 0
+    counted = kernel.inference_chunked(long, chunk, ctx)
+    launches = mrf_stage.launches
+    want = sum(stage_launches(kernel, range(4), 1, hi - lo)
+               for lo, hi, _, _ in windows)
+    print(f"chunked (g) hifigan on mrf_stage, bf16 packs: {launches} "
+          f"mrf_stage launches over {len(windows)} windows (the plans: "
+          f"{want})")
+    if launches != want or launches < 1:
+        raise AssertionError("chunked HiFi-GAN did not run mrf_stage as "
+                             "its plans say")
+    out["mrf_launches"] = launches
+    _, again, t = walls(kernel)
+    if not np.array_equal(again, counted):
+        raise AssertionError("chunked HiFi-GAN on mrf_stage is not "
+                             "deterministic")
+    print(f"chunked (g) the cuDNN-only bf16 forward: max |chunked - whole| "
+          f"{out['cudnn_bf16_err']:.3e}")
+    out["hifigan_kernel"] = report("hifigan on mrf_stage, bf16 packs",
+                                   whole, counted, t, TOL[torch.bfloat16])
+    stage0_window_is_exact(kernel, long, windows[len(windows) // 2])
+    del kernel
+
+    out["mb_melgan"] = report("mb-melgan v2 f32", *walls(mb32), 1e-5)
+
+    gen = ParallelWaveGANGenerator(
+        **PWG_V1["generator_params"], generator=torch.Generator().manual_seed(0))
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "generator.gckpt")
+        save_generator_checkpoint(path, gen)
+        pwg = load_model(path, PWG_V1, device="cuda")
+    noise = lambda: torch.Generator(device=dev).manual_seed(11)  # noqa: E731
+    torch.cuda.synchronize()
+    wavenet_stack.launches = 0
+    got = pwg.inference_chunked(long, chunk, ctx, generator=noise())
+    launches = wavenet_stack.launches
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    want = sum(stack_launch_plan(1, (hi - lo) * HOP, PWG_V1["num_mels"],
+                                 pwg.generator.layers, torch.float32,
+                                 sms)["launches"]
+               for lo, hi, _, _ in windows)
+    print(f"chunked (g) pwg v1 f32 on wavenet_stack: {launches} launches "
+          f"over {len(windows)} windows (the plans: {want})")
+    if launches != want or launches < 1:
+        raise AssertionError("chunked PWG did not run wavenet_stack as its "
+                             "plans say")
+    out["pwg_launches"] = launches
+    fresh = noise()
+    for lo, hi, a, b in windows:
+        fn, (c, z), _ = pwg.prepare_batch([long[lo:hi]], generator=fresh,
+                                          bucket_size=1)
+        want = fn(c, z)[0, (a - lo) * HOP: (b - lo) * HOP].float().cpu()
+        if not np.array_equal(got[a * HOP: b * HOP], want.numpy()):
+            raise AssertionError(f"PWG chunk [{a}, {b}) is not the fused "
+                                 f"forward of its window on its noise")
+    t = []
+    for fn in (lambda: pwg.inference(long, generator=noise()),
+               lambda: pwg.inference_chunked(long, chunk, ctx,
+                                             generator=noise())):
+        t0 = time.perf_counter()
+        fn()
+        t.append(time.perf_counter() - t0)
+    print(f"chunked (g) pwg v1 f32: each of the {len(windows)} chunks "
+          f"bit-equal to the fused forward of its window on its noise; wall "
+          f"{t[1] * 1e3:.1f} ms chunked vs {t[0] * 1e3:.1f} ms whole = "
+          f"{t[1] / t[0]:.3f} x on {smi}")
+    out["pwg"] = {"chunked_ms": t[1] * 1e3, "whole_ms": t[0] * 1e3,
+                  "ratio": t[1] / t[0]}
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2018,8 +2480,17 @@ def run_phases(dev, smi: str, pool) -> int:
     # 7. the gate and int8 experiment; 8. HiFi-GAN v1 training
     variant = variant_phase(dev, smi)
     hifigan_training_phase(dev, smi)
+    # 9. the MelGAN family from reference .pkl files, the asset as a .pkl
+    # through bin.decode, and chunked synthesis
+    t0 = time.perf_counter()
+    melgan = melgan_phase(smi)
+    with tempfile.TemporaryDirectory() as tmp:
+        pkl_decode_phase(tmp)
+    chunked = chunked_phase(dev, smi, melgan.pop("model"))
+    print(f"step 9: {time.perf_counter() - t0:.1f} s wall")
     if min(launches, launches32, train["fwd_launches"], train["bwd_launches"],
-           hifi["launches"], mm["launches"], variant["launches"]) < 1:
+           hifi["launches"], mm["launches"], variant["launches"],
+           chunked["pwg_launches"], chunked["mrf_launches"]) < 1:
         raise AssertionError("a kernel of a main path was never launched")
 
     # no single PyTorch call computes the stack or its backward: library_ms
@@ -2069,6 +2540,7 @@ def run_phases(dev, smi: str, pool) -> int:
         "train_plain_ms": train["fwd_plain_ms"],
         "train_bound_ms": train["fwd_bound_ms"],
         "train_plan": train["fwd_plan"],
+        "chunked_launches": chunked["pwg_launches"],
     }, {
         "name": "wavenet_stack_backward",
         "route": "cuda",
@@ -2115,6 +2587,7 @@ def run_phases(dev, smi: str, pool) -> int:
         "forward_ms": {k: hifi[k] for k in (
             "exact_ms", "chain_auto_ms", "chain_all_ms", "kernel_bf16_ms",
             "kernel_int8_ms")},
+        "chunked_launches": chunked["mrf_launches"],
     }, {
         "name": "matmul_bench",
         "route": "cuda",

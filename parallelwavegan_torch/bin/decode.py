@@ -1,20 +1,24 @@
 #!/usr/bin/env python3
 """Decode CLI: mel features -> waveforms with a trained generator of a
-ported family (Parallel WaveGAN, HiFi-GAN).
+ported family (Parallel WaveGAN, HiFi-GAN, MelGAN and multi-band MelGAN).
 
-Counterpart of the bucketed batch branch of
-``parallelwavegan_tpu/bin/decode.py``, with its int8 serving mode for
-HiFi-GAN. Runs on CUDA by default (``--device cpu`` for the host):
+Counterpart of the mel branches of ``parallelwavegan_tpu/bin/decode.py``:
+bucketed batches, or each utterance in overlapping windows
+(``--chunk-frames``), with the int8 serving mode for HiFi-GAN. Runs on
+CUDA by default (``--device cpu`` for the host):
 
-    python -m parallelwavegan_torch.bin.decode --dumpdir dump \
-        --checkpoint exp/generator.gckpt --outdir wav [--dtype bfloat16] \
-        [--use-ema] \
+    python -m parallelwavegan_torch.bin.decode \
+        (--dumpdir dump | --feats-scp feats.scp) \
+        --checkpoint exp/checkpoint-400000steps.pkl --config conf.yml \
+        --outdir wav [--dtype bfloat16] [--chunk-frames 256] [--use-ema] \
         [--int8 [--int8-calib-utts 8] [--int8-schedule auto|all]]
 
-``--checkpoint`` is a generator-only ``.gckpt`` or a train-state ``.ckpt``
-(``--use-ema`` then serves its EMA weights). ``--feats-scp``,
-``--chunk-frames``, ``--use-f0`` and the other generator families are not
-ported yet.
+``--checkpoint`` is a generator-only ``.gckpt``, a train-state ``.ckpt``
+(``--use-ema`` then serves its EMA weights) or a reference PyTorch
+``.pkl``. ``--feats-scp`` reads a Kaldi ark, hdf5 or npy feats.scp. The
+config is YAML (``config.yml`` beside the checkpoint by default) or JSON.
+``--use-f0`` and the families of the JAX package's other decode branches
+are not ported yet.
 """
 
 from __future__ import annotations
@@ -28,6 +32,7 @@ import numpy as np
 import torch
 
 from parallelwavegan_torch.datasets.audio_mel_dataset import MelDataset
+from parallelwavegan_torch.datasets.scp_dataset import MelSCPDataset
 from parallelwavegan_torch.utils.io import load_config, read_hdf5, write_wav
 from parallelwavegan_torch.utils.model_loader import load_model
 
@@ -38,13 +43,22 @@ def main(argv=None):
     parser = argparse.ArgumentParser(
         description="Decode dumped features with a trained vocoder."
     )
-    parser.add_argument("--dumpdir", type=str, required=True)
+    parser.add_argument("--feats-scp", "--scp", default=None, type=str)
+    parser.add_argument("--dumpdir", default=None, type=str)
     parser.add_argument("--outdir", type=str, required=True)
     parser.add_argument("--checkpoint", type=str, required=True)
     parser.add_argument("--config", default=None, type=str)
     parser.add_argument("--stats", default=None, type=str)
     parser.add_argument("--normalize-before", action="store_true")
     parser.add_argument("--batch-size", default=8, type=int)
+    parser.add_argument(
+        "--chunk-frames", default=0, type=int,
+        help="if > 0, synthesize each utterance in overlapping windows of "
+        "this many mel frames and 64 frames of context on each side "
+        "(bounded memory for long utterances; equal to the whole forward "
+        "where the context covers the receptive field, see "
+        "InferenceModel.inference_chunked)",
+    )
     parser.add_argument(
         "--int8", action="store_true",
         help="int8-activation HiFi-GAN serving mode: calibrates "
@@ -86,6 +100,8 @@ def main(argv=None):
         level=logging.INFO if args.verbose else logging.WARN,
         format="%(asctime)s (%(module)s:%(lineno)d) %(levelname)s: %(message)s",
     )
+    if (args.feats_scp is None) == (args.dumpdir is None):
+        raise ValueError("Please specify either --dumpdir or --feats-scp.")
     if args.normalize_before and args.stats is None:
         raise ValueError("--normalize-before requires --stats.")
 
@@ -107,7 +123,9 @@ def main(argv=None):
             )
         if args.int8_calib_utts < 1:
             parser.error("--int8-calib-utts must be >= 1")
-    if config.get("format", "hdf5") == "hdf5":
+    if args.feats_scp is not None:
+        dataset = MelSCPDataset(args.feats_scp, return_utt_id=True)
+    elif config.get("format", "hdf5") == "hdf5":
         dataset = MelDataset(args.dumpdir, "*.h5",
                              lambda f: read_hdf5(f, "feats"),
                              return_utt_id=True)
@@ -139,12 +157,18 @@ def main(argv=None):
         )
         model.quantize_int8(calib, schedule=args.int8_schedule)
     total_t = total_audio = 0.0
-    for i in range(0, len(items), args.batch_size):
-        chunk = items[i : i + args.batch_size]
+    step = 1 if args.chunk_frames > 0 else args.batch_size
+    for i in range(0, len(items), step):
+        chunk = items[i : i + step]
         start = time.perf_counter()
-        waves = model.synthesize_batch(
-            [m for _, m in chunk], normalize_before=args.normalize_before
-        )
+        if args.chunk_frames > 0:
+            waves = [model.inference_chunked(
+                chunk[0][1], chunk_frames=args.chunk_frames,
+                normalize_before=args.normalize_before)]
+        else:
+            waves = model.synthesize_batch(
+                [m for _, m in chunk], normalize_before=args.normalize_before
+            )
         total_t += time.perf_counter() - start
         total_audio += sum(len(w) for w in waves) / sr
         for (utt_id, _), w in zip(chunk, waves):

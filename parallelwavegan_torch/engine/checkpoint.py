@@ -1,5 +1,6 @@
 """Checkpoints read and written without flax: the generator-only
-``.gckpt`` and the train-state ``.ckpt``.
+``.gckpt`` and the train-state ``.ckpt``; the reference toolkit's
+``.pkl`` is read through ``utils/torch_import.py``.
 
 Counterpart of ``parallelwavegan_tpu/engine/checkpoint.py``. Both files are
 flax's msgpack of a tree: a map of maps whose array leaves are
@@ -210,3 +211,29 @@ def load_params_only(path: str, state: GANTrainState,
         _load_params(state.discriminator, tree["params_d"],
                      tree.get("extra_d"))
     return state
+
+
+def load_reference_checkpoint(path: str, config: Dict[str, Any]
+                              ) -> Dict[str, Any]:
+    """A reference ``checkpoint-<N>steps.pkl`` -> {"generator": {"params":
+    tree}, "discriminator": {...} where the file has one, "steps": int},
+    the trees under the flax names (numpy, float32)."""
+    from parallelwavegan_torch.utils.torch_import import (
+        import_model_params,
+        load_torch_checkpoint,
+    )
+
+    ckpt = load_torch_checkpoint(path)
+    out: Dict[str, Any] = {"steps": int(ckpt.get("steps", 0))}
+    out["generator"] = import_model_params(
+        ckpt["model"]["generator"],
+        config.get("generator_type", "ParallelWaveGANGenerator"),
+        config.get("generator_params", {}),
+    )
+    if "discriminator" in ckpt.get("model", {}):
+        out["discriminator"] = import_model_params(
+            ckpt["model"]["discriminator"],
+            config.get("discriminator_type", "ParallelWaveGANDiscriminator"),
+            config.get("discriminator_params", {}),
+        )
+    return out

@@ -115,6 +115,22 @@ def get_activation(name: Optional[str], params: Optional[dict] = None):
     raise NotImplementedError(f"activation {name} is not ported yet")
 
 
+# torch pad-module name (as configs spell it) -> pad1d mode
+_PAD_MODES = {
+    "ConstantPad1d": "zeros",
+    "ZeroPad1d": "zeros",
+    "ReflectionPad1d": "reflect",
+    "ReplicationPad1d": "replicate",
+}
+
+
+def pad_mode_from_torch(name: str) -> str:
+    """The ``pad1d`` mode of a torch pad-module name."""
+    if name in _PAD_MODES:
+        return _PAD_MODES[name]
+    raise ValueError(f"unsupported pad module: {name}")
+
+
 class WeightNormedConv(nn.Module):
     """Kernel handling shared by the convs: one ``kernel`` parameter, or
     ``kernel_v`` and ``kernel_g``. g has size 1 on ``wn_axes``, the axes

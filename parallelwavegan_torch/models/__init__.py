@@ -1,4 +1,5 @@
-"""Model families and the config-name registry (Parallel WaveGAN, HiFi-GAN)."""
+"""Model families and the config-name registry (Parallel WaveGAN, HiFi-GAN,
+the MelGAN generator)."""
 
 from parallelwavegan_torch.models.hifigan import (  # noqa: F401
     HiFiGANGenerator,
@@ -8,6 +9,7 @@ from parallelwavegan_torch.models.hifigan import (  # noqa: F401
     HiFiGANPeriodDiscriminator,
     HiFiGANScaleDiscriminator,
 )
+from parallelwavegan_torch.models.melgan import MelGANGenerator  # noqa: F401
 from parallelwavegan_torch.models.parallel_wavegan import (  # noqa: F401
     ParallelWaveGANDiscriminator,
     ParallelWaveGANGenerator,
@@ -21,6 +23,7 @@ _REGISTRY = {
     "HiFiGANMultiScaleDiscriminator": HiFiGANMultiScaleDiscriminator,
     "HiFiGANMultiScaleMultiPeriodDiscriminator":
         HiFiGANMultiScaleMultiPeriodDiscriminator,
+    "MelGANGenerator": MelGANGenerator,
     "ParallelWaveGANGenerator": ParallelWaveGANGenerator,
     "ParallelWaveGANDiscriminator": ParallelWaveGANDiscriminator,
 }

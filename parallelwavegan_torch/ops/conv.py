@@ -21,12 +21,13 @@ PadLike = Union[int, Tuple[int, int]]
 
 def pad1d(x: torch.Tensor, pad: Tuple[int, int], mode: str = "zeros"
           ) -> torch.Tensor:
-    """Pad the time axis of (B, T, C) with zeros or by reflection."""
+    """Pad the time axis of (B, T, C) with zeros, by reflection or by
+    replicating the edge frames."""
     if tuple(pad) == (0, 0):
         return x
     if mode == "zeros":
         return F.pad(x, (0, 0, pad[0], pad[1]))
-    if mode == "reflect":
+    if mode in ("reflect", "replicate"):
         return F.pad(x.transpose(1, 2), tuple(pad), mode=mode).transpose(1, 2)
     raise ValueError(f"unsupported pad mode: {mode}")
 
@@ -46,6 +47,14 @@ def conv1d(
     if lo != hi:
         x = pad1d(x, (lo, hi))
         lo = 0
+    if x.device.type == "cpu" and x.dtype == torch.bfloat16:
+        # PyTorch's bf16 conv1d on the CPU returns wrong sums for some
+        # shapes (Cin * K of 64 or 128, e.g. PQMF's (16, 4, 4) kernel); a
+        # bf16 conv sums in f32 and rounds once, which this does
+        y = conv1d(x.float(), kernel.float(),
+                   None if bias is None else bias.float(), lo, dilation,
+                   stride, groups)
+        return y.to(torch.bfloat16)
     y = F.conv1d(x.transpose(1, 2), kernel.permute(2, 1, 0), bias,
                  stride=stride, padding=lo, dilation=dilation, groups=groups)
     return y.transpose(1, 2)

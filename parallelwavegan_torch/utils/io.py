@@ -1,4 +1,5 @@
-"""File IO: feature files, WAV input and 16-bit PCM output, YAML configs.
+"""File IO: feature files, WAV input and 16-bit PCM output, YAML (or JSON)
+configs.
 
 Counterpart of the serving and training part of
 ``parallelwavegan_tpu/utils/io.py``. ``yaml`` and ``h5py`` are imported
@@ -9,6 +10,7 @@ installed.
 from __future__ import annotations
 
 import fnmatch
+import json
 import os
 from typing import Any, Dict, List
 
@@ -73,10 +75,13 @@ def write_wav(path: str, wave: np.ndarray, sampling_rate: int) -> None:
 
 
 def load_config(path: str) -> Dict[str, Any]:
-    """Load a (reference-compatible) YAML experiment config."""
-    import yaml
-
+    """Load a (reference-compatible) YAML experiment config; a ``.json``
+    file (JSON is a subset of YAML) is read without ``yaml``."""
     with open(path) as f:
+        if path.endswith(".json"):
+            return json.load(f)
+        import yaml
+
         return yaml.load(f, Loader=yaml.SafeLoader)
 
 

@@ -1,17 +1,21 @@
 """Public inference API: load a trained generator and synthesize waveforms.
 
-Counterpart of ``parallelwavegan_tpu/utils/model_loader.py`` for the two
-ported families, Parallel WaveGAN and HiFi-GAN: read the config, build the
-generator, load its weights (a ``.gckpt``, or the parameters or the EMA
-stream of a train-state ``.ckpt``) with weight norm folded, cast to the
-compute dtype, register mean/scale stats, and synthesize a list of mels as
-one bucketed batch. On CUDA a Parallel WaveGAN generator runs through
+Counterpart of ``parallelwavegan_tpu/utils/model_loader.py`` for the
+ported families, Parallel WaveGAN, HiFi-GAN and the MelGAN generator: read
+the config, build the generator, load its weights (a ``.gckpt``, the
+parameters or the EMA stream of a train-state ``.ckpt``, or a reference
+PyTorch ``.pkl``) with weight norm folded, cast to the compute dtype,
+register mean/scale stats, attach PQMF synthesis for a multi-band
+generator (``out_channels`` > 1), and synthesize a list of mels as one
+bucketed batch, or one long mel in overlapping windows
+(``inference_chunked``). On CUDA a Parallel WaveGAN generator runs through
 ``pwg_fused_forward`` (the WaveNet stack kernel), on the CPU through its
 plain per-layer forward; the config's ``inference_fused_wavenet`` can ask
 for either on any device (:func:`fused_wavenet`). A HiFi-GAN generator
-runs its exact forward (``hifigan_fast_forward``); ``quantize_int8`` switches its conv chain to
-int8, and ``use_mrf_kernel`` routes its MRF stages to the fused CUDA
-kernel.
+runs its exact forward (``hifigan_fast_forward``); ``quantize_int8``
+switches its conv chain to int8, and ``use_mrf_kernel`` routes its MRF
+stages to the fused CUDA kernel. A MelGAN generator runs its module
+forward (cuDNN convs).
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
 """
@@ -25,6 +29,7 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from parallelwavegan_torch.layers.pqmf import PQMF
 from parallelwavegan_torch.models import get_model_class
 from parallelwavegan_torch.ops.cuda.pwg_infer import (
     pwg_fused_forward,
@@ -57,6 +62,66 @@ def resolve_device(device: Any = "cuda") -> torch.device:
     return device
 
 
+def _version_leq(a: str, b: str) -> bool:
+    """Dotted-version a <= b (non-numeric parts compare as 0), for the
+    reference's back-compat switch of the PQMF prototype."""
+
+    def parts(v: str) -> List[int]:
+        return [int(p) if p.isdigit() else 0
+                for p in str(v).replace("-", ".").split(".")]
+
+    pa, pb = parts(a), parts(b)
+    n = max(len(pa), len(pb))
+    return pa + [0] * (n - len(pa)) <= pb + [0] * (n - len(pb))
+
+
+def pqmf_for(config: Dict[str, Any]) -> Optional[PQMF]:
+    """The PQMF synthesis a generator with ``out_channels`` > 1 needs, as
+    the JAX InferenceModel builds it: ``pqmf_params`` where the config has
+    them; else, for a config of version <= 0.4.2 or none, the old
+    prototype (taps 62, cutoff 0.15, beta 9.0); else PQMF's defaults."""
+    out_ch = config.get("generator_params", {}).get("out_channels", 1)
+    if out_ch <= 1:
+        return None
+    defaults: Dict[str, Any] = {}
+    if _version_leq(config.get("version", "0.1.0"), "0.4.2"):
+        defaults = {"taps": 62, "cutoff_ratio": 0.15, "beta": 9.0}
+    return PQMF(subbands=out_ch, **config.get("pqmf_params", defaults))
+
+
+def upsample_factor(config: Dict[str, Any]) -> int:
+    """Output samples per mel frame, the JAX InferenceModel's rule: the
+    product of the upsample scales (a Parallel WaveGAN's under
+    ``upsample_params``), times the subband count."""
+    gp = config.get("generator_params", {})
+    if config.get("generator_type",
+                  "ParallelWaveGANGenerator") == "ParallelWaveGANGenerator":
+        scales = (gp.get("upsample_params") or {}).get(
+            "upsample_scales", [4, 4, 4, 4])
+    else:
+        scales = gp.get("upsample_scales", [8, 8, 2, 2])
+    return int(np.prod(scales)) * gp.get("out_channels", 1)
+
+
+def chunk_windows(T: int, chunk_frames: int, context_frames: int
+                  ) -> List[Tuple[int, int, int, int]]:
+    """(lo, hi, a, b) for each window of ``InferenceModel.inference_chunked``
+    over T frames: frames [lo, hi) are synthesized and the output of frames
+    [a, b) is kept. A mel no longer than one window is one window; else the
+    windows are chunk + 2 context frames long, those at the ends shorter
+    (the first) or shifted inward (the last), as in the JAX package."""
+    window = chunk_frames + 2 * context_frames
+    if T <= window:
+        return [(0, T, 0, T)]
+    out = []
+    for a in range(0, T, chunk_frames):
+        b = min(a + chunk_frames, T)
+        lo = max(0, min(a - context_frames, T - window))
+        hi = min(T, lo + window) if lo > 0 else b + context_frames
+        out.append((lo, hi, a, b))
+    return out
+
+
 def fused_wavenet(config: Dict[str, Any], device: torch.device) -> bool:
     """Whether a Parallel WaveGAN serves through ``pwg_fused_forward``:
     the config's ``inference_fused_wavenet`` (true, false or "auto", the
@@ -86,10 +151,6 @@ class InferenceModel:
             gen_params["upsample_kernel_sizes"] = gen_params.pop(
                 "upsample_kernal_sizes"
             )
-        if self.gen_type != "ParallelWaveGANGenerator" \
-                and gen_params.get("out_channels", 1) != 1:
-            raise NotImplementedError(
-                "multi-band (PQMF) generators are not ported yet")
         self.generator = get_model_class(self.gen_type)(**gen_params)
         self.generator.load_state_dict(
             convert_jax_params(variables["params"]), strict=True
@@ -123,7 +184,11 @@ class InferenceModel:
         self._mrf_packs: Optional[Dict[int, Dict[str, Any]]] = None
         self.mean: Optional[np.ndarray] = None
         self.scale: Optional[np.ndarray] = None
-        self.upsample_factor = self.generator.upsample_factor
+        # multi-band: PQMF merges the subbands after the generator, in the
+        # compute dtype, and the upsample factor counts them
+        self.pqmf = pqmf_for(config)
+        self.upsample_factor = upsample_factor(
+            dict(config, generator_params=gen_params))
         # pcm16: convert to int16 PCM on the device (clip to [-1, 1],
         # *32767, truncate), as utils.io.write_wav does on the host
         self.pcm16 = bool(pcm16)
@@ -144,8 +209,8 @@ class InferenceModel:
     def _forward_fn(self) -> Callable[[torch.Tensor,
                                        Optional[torch.Tensor]], torch.Tensor]:
         """fn(c, z): the device call of the current serving mode. z is the
-        noise of a Parallel WaveGAN and None for HiFi-GAN."""
-        gen, w = self.generator, self.stack_params
+        noise of a Parallel WaveGAN and None for the other families."""
+        gen, w, pqmf = self.generator, self.stack_params, self.pqmf
         scales, qweights = self._int8_scales, self._int8_weights
         packs = self._mrf_packs
 
@@ -155,8 +220,14 @@ class InferenceModel:
             if self.gen_type == "ParallelWaveGANGenerator":
                 y = gen(z, c) if w is None else pwg_fused_forward(gen, z, c, w)
             else:
-                y = hifigan_fast_forward(gen, c, scales=scales,
-                                         qweights=qweights, mrf_packs=packs)
+                if self.gen_type == "HiFiGANGenerator":
+                    y = hifigan_fast_forward(gen, c, scales=scales,
+                                             qweights=qweights,
+                                             mrf_packs=packs)
+                else:
+                    y = gen(c)
+                if pqmf is not None:
+                    y = pqmf.synthesis(y)
             if self.pcm16:
                 # f32 before scaling: bf16's 8-bit mantissa would quantize
                 # worse than the 16-bit target format
@@ -174,9 +245,9 @@ class InferenceModel:
             raise ValueError(
                 f"{what} requires a non-causal HiFi-GAN generator"
             )
-        if self.generator.out_channels != 1:
-            # the fast forward returns the raw generator output and never
-            # applies PQMF synthesis
+        if self.pqmf is not None:
+            # as the JAX package's int8 mode: the quantised paths are not
+            # held on multi-band generators
             raise ValueError(
                 f"{what} does not support multi-band (PQMF) generators"
             )
@@ -296,6 +367,50 @@ class InferenceModel:
         return self.synthesize_batch([c], normalize_before, generator,
                                      bucket_size=1)[0]
 
+    def inference_chunked(
+        self,
+        c: np.ndarray,
+        chunk_frames: int = 256,
+        context_frames: int = 64,
+        normalize_before: bool = False,
+        generator: Optional[torch.Generator] = None,
+    ) -> np.ndarray:
+        """Mel (T', C) -> wave (T, 1) in overlapping windows, for
+        utterances too long for one call.
+
+        Each chunk of ``chunk_frames`` frames is synthesized from a window
+        with ``context_frames`` real neighbouring frames on each side (the
+        windows all have one of at most three lengths) and cropped to its
+        own frames. A conv generator's border effects reach only the
+        receptive field from a window's edge, so where the context covers
+        it the chunks equal the whole-utterance forward. Each window goes
+        through ``synthesize_batch(..., bucket_size=1)``, so through the
+        forward of the current serving mode (the WaveNet stack kernel, the
+        fused MRF stage). A Parallel WaveGAN draws each window's noise from
+        ``generator`` (a fresh one seeded 0 by default), in window order;
+        its chunks are the forward of their windows on that noise.
+        """
+        if self.gen_type not in ("ParallelWaveGANGenerator",
+                                 "MelGANGenerator", "HiFiGANGenerator"):
+            raise NotImplementedError(
+                f"chunked synthesis of {self.gen_type} is not ported (the "
+                f"StyleMelGAN noise grid comes with ROADMAP A5)")
+        c = np.asarray(c, dtype=np.float32)
+        if normalize_before:
+            if self.mean is None:
+                raise ValueError("register_stats first")
+            c = (c - self.mean) / self.scale
+        if generator is None and self.gen_type == "ParallelWaveGANGenerator":
+            generator = torch.Generator(device=self.device).manual_seed(0)
+        up = self.upsample_factor
+        outs = []
+        for lo, hi, a, b in chunk_windows(len(c), chunk_frames,
+                                          context_frames):
+            y = self.synthesize_batch([c[lo:hi]], generator=generator,
+                                      bucket_size=1)[0]
+            outs.append(y[(a - lo) * up: (b - lo) * up])
+        return np.concatenate(outs, axis=0)
+
 
 def load_model(
     checkpoint: str,
@@ -306,33 +421,35 @@ def load_model(
     device: Any = "cuda",
     use_ema: bool = False,
 ) -> InferenceModel:
-    """Load an InferenceModel from a generator-only ``.gckpt`` or from a
-    train-state ``.ckpt`` of either package.
+    """Load an InferenceModel from a generator-only ``.gckpt``, a
+    train-state ``.ckpt`` of either package or a reference PyTorch
+    ``checkpoint-<N>steps.pkl``.
 
     The config defaults to ``config.yml`` beside the checkpoint.
     ``use_ema`` serves the EMA generator weights of a ``.ckpt`` trained
     with ``generator_ema_decay`` (a ``.gckpt`` holds exactly the parameters
-    chosen at its export). Reference ``.pkl`` files are not ported yet.
+    chosen at its export; a ``.pkl`` has no EMA stream).
     """
     from parallelwavegan_torch.engine.checkpoint import (
         load_generator_checkpoint,
+        load_reference_checkpoint,
     )
 
-    if checkpoint.endswith(".pkl"):
-        raise NotImplementedError(
-            f".pkl checkpoints are not ported yet: {checkpoint}")
     if config is None:
         config = load_config(
             os.path.join(os.path.dirname(checkpoint), "config.yml")
         )
-    tree = load_generator_checkpoint(checkpoint)
-    if checkpoint.endswith(".gckpt"):
-        if use_ema:
-            raise ValueError(
-                "use_ema applies to full train-state .ckpt files only (a "
-                ".gckpt already holds exactly the params chosen at export)")
-        variables = tree
+    if use_ema and checkpoint.endswith((".pkl", ".gckpt")):
+        raise ValueError(
+            "use_ema applies to full train-state .ckpt files only (a "
+            ".gckpt already holds exactly the params chosen at export; "
+            "reference .pkl checkpoints have no EMA stream)")
+    if checkpoint.endswith(".pkl"):
+        variables = load_reference_checkpoint(checkpoint, config)["generator"]
+    elif checkpoint.endswith(".gckpt"):
+        variables = load_generator_checkpoint(checkpoint)
     else:
+        tree = load_generator_checkpoint(checkpoint)
         params = tree["params_g"]
         if use_ema:
             if float(config.get("generator_ema_decay", 0.0) or 0.0) <= 0.0:

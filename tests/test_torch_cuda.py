@@ -959,3 +959,128 @@ def test_variant_launch_plan_matches_the_kernel(cuda_device):
         plan = variant_launch_plan(32, 131072, 80, 10, "tanh", int8_taps, sms)
         assert plan["smem"] <= 232448
         assert plan["blocks"] == (plan["tiles"] if int8_taps else sms)
+
+
+# --- the MelGAN family, reference .pkl files and chunked synthesis ---------
+_SMALL_MB_MELGAN = dict(in_channels=12, out_channels=4, channels=64,
+                        upsample_scales=(4, 2), stacks=2)
+
+
+@pytest.mark.cuda
+def test_mb_melgan_on_card_matches_cpu(tmp_path, cuda_device):
+    """A small multi-band MelGAN written as a reference .pkl by the port's
+    exporter: InferenceModel on the card (cuDNN convs, PQMF synthesis)
+    against the CPU, in f32 with TF32 off."""
+    from parallelwavegan_torch.models import MelGANGenerator
+    from parallelwavegan_torch.utils.params import nested
+    from parallelwavegan_torch.utils.torch_export import (
+        save_reference_checkpoint,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gen = MelGANGenerator(**_SMALL_MB_MELGAN,
+                          generator=torch.Generator().manual_seed(0))
+    with torch.no_grad():  # unit-gain kernels: a full-scale waveform
+        for name, p in gen.named_parameters():
+            if name.endswith("kernel"):
+                p.mul_(1.0 / (0.02 * (p.shape[0] * p.shape[1]) ** 0.5))
+    config = {"generator_type": "MelGANGenerator",
+              "generator_params": _SMALL_MB_MELGAN}
+    path = str(tmp_path / "checkpoint-1steps.pkl")
+    save_reference_checkpoint(path, nested(gen.state_dict()), config)
+    rng = np.random.default_rng(9)
+    mels = [rng.standard_normal((n, 12)).astype(np.float32) for n in (40, 23)]
+    want = load_model(path, config, device="cpu").synthesize_batch(
+        mels, bucket_size=8)
+    got = load_model(path, config, device=cuda_device).synthesize_batch(
+        mels, bucket_size=8)
+    for a, b in zip(got, want):
+        assert a.shape == b.shape and np.abs(b).max() > 0.1
+        _assert_close(torch.from_numpy(a), torch.from_numpy(b),
+                      torch.float32)
+
+
+@pytest.mark.cuda
+def test_chunked_synthesis_through_both_serving_kernels(tmp_path,
+                                                        cuda_device):
+    """inference_chunked on the card: a small HiFi-GAN on mrf_stage against
+    its whole-utterance forward, with the plans' launches; PWG at v1 widths
+    on wavenet_stack, each chunk the fused forward of its window on the
+    noise a fresh generator of the same seed draws in window order."""
+    from parallelwavegan_torch.utils.model_loader import chunk_windows
+
+    torch.backends.cudnn.allow_tf32 = False
+    rng = np.random.default_rng(10)
+    gen = HiFiGANGenerator(**_SMALL_HIFIGAN,
+                           generator=torch.Generator().manual_seed(0))
+    path = str(tmp_path / "hifigan.gckpt")
+    save_generator_checkpoint(path, gen)
+    model = load_model(path, {"generator_type": "HiFiGANGenerator",
+                              "generator_params": _SMALL_HIFIGAN},
+                       device=cuda_device)
+    model.use_mrf_kernel(quant=False)
+    mel = rng.standard_normal((300, 12)).astype(np.float32)
+    whole = model.inference(mel)
+    windows = chunk_windows(300, 64, 24)
+    before = mrf_stage.launches
+    chunked = model.inference_chunked(mel, 64, 24)
+    want = sum(mrf_stage_plan(1, (hi - lo) * (4, 8)[i], C, (3, 5, 7),
+                              (1, 3), torch.float32)["launches"]
+               for lo, hi, _, _ in windows for i, C in enumerate((16, 8)))
+    assert mrf_stage.launches - before == want
+    _assert_close(torch.from_numpy(chunked), torch.from_numpy(whole),
+                  torch.float32)
+
+    pwg = ParallelWaveGANGenerator(**dict(PWG_V1_KWARGS, layers=6, stacks=3),
+                                   generator=torch.Generator().manual_seed(1))
+    path = str(tmp_path / "pwg.gckpt")
+    save_generator_checkpoint(path, pwg)
+    model = load_model(path, {"generator_type": "ParallelWaveGANGenerator",
+                              "generator_params": dict(PWG_V1_KWARGS,
+                                                       layers=6, stacks=3)},
+                       device=cuda_device)
+    mel = rng.standard_normal((200, 80)).astype(np.float32)
+    before = wavenet_stack.launches
+    got = model.inference_chunked(
+        mel, 64, 16, generator=torch.Generator(cuda_device).manual_seed(3))
+    windows = chunk_windows(200, 64, 16)
+    assert wavenet_stack.launches - before == 6 * len(windows)
+    fresh = torch.Generator(cuda_device).manual_seed(3)
+    for lo, hi, a, b in windows:
+        fn, (c, z), _ = model.prepare_batch([mel[lo:hi]], generator=fresh,
+                                            bucket_size=1)
+        y = fn(c, z)[0, (a - lo) * 256: (b - lo) * 256].cpu().numpy()
+        np.testing.assert_array_equal(got[a * 256: b * 256], y)
+
+
+@pytest.mark.cuda
+def test_asset_pkl_serves_like_its_gckpt(tmp_path, cuda_device):
+    """The shipped HiFi-GAN checkpoint exported to a reference .pkl (its
+    kernels after the .gckpt's fold, under a config without weight norm)
+    gives the .gckpt's waveforms bit for bit on the card."""
+    import os
+
+    from parallelwavegan_torch.utils.params import nested
+    from parallelwavegan_torch.utils.torch_export import (
+        save_reference_checkpoint,
+    )
+
+    assets = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "assets", "quality")
+    ckpt = os.path.join(assets, "generator.gckpt")
+    config = {"generator_type": "HiFiGANGenerator", "generator_params": dict(
+        in_channels=80, channels=512, kernel_size=7,
+        upsample_scales=[8, 8, 2, 2], upsample_kernel_sizes=[16, 16, 4, 4],
+        resblock_kernel_sizes=[3, 7, 11],
+        resblock_dilations=[[1, 3, 5]] * 3, use_weight_norm=True)}
+    gckpt = load_model(ckpt, config, device=cuda_device)
+    config["generator_params"]["use_weight_norm"] = False
+    path = str(tmp_path / "checkpoint-60000steps.pkl")
+    save_reference_checkpoint(path, nested(gckpt.generator.state_dict()),
+                              config)
+    pkl = load_model(path, config, device=cuda_device)
+    mels = [np.load(os.path.join(assets, f"eval_utt{i}-feats.npy"))[:100]
+            for i in (0, 1)]
+    for a, b in zip(pkl.synthesize_batch(mels), gckpt.synthesize_batch(mels)):
+        np.testing.assert_array_equal(a, b)

@@ -8,6 +8,7 @@ import glob
 import json
 import os
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -187,11 +188,35 @@ def test_int8_refusals(tmp_path):
         pwg.quantize_int8([np.zeros((4, 20), np.float32)])
     with pytest.raises(ValueError, match="HiFiGANGenerator, not Parallel"):
         pwg.use_mrf_kernel(quant=False)
+    # multi-band HiFi-GAN serves with PQMF synthesis, as the JAX exact
+    # forward does; the int8 and fused-stage modes refuse it
+    from parallelwavegan_tpu.engine.checkpoint import (
+        save_generator_checkpoint as jax_save_gckpt,
+    )
+    from parallelwavegan_tpu.models import HiFiGANGenerator as FlaxHiFiGAN
+    from tests.torch_helpers import melgan_perturbed
+
+    gp = dict(in_channels=12, out_channels=4, channels=32,
+              upsample_scales=(4, 2), upsample_kernel_sizes=(8, 4),
+              resblock_kernel_sizes=(3, 5), resblock_dilations=((1, 3),) * 2)
+    mb = {"generator_type": "HiFiGANGenerator", "generator_params": gp}
+    flax_kw = {k: a for k, a in gp.items() if k != "in_channels"}
+    v = melgan_perturbed(FlaxHiFiGAN(**flax_kw).init(
+        jax.random.key(0), jnp.zeros((1, 6, 12))))
+    mb_path = str(tmp_path / "mb.gckpt")
+    jax_save_gckpt(mb_path, v)
+    mel = np.random.default_rng(6).standard_normal((14, 12)).astype(
+        np.float32)
+    want = JaxInferenceModel(mb, v).inference(mel)
+    model = load_model(mb_path, mb, device="cpu")
+    got = model.inference(mel)
+    assert got.shape == want.shape == (14 * 8 * 4, 1)
+    assert np.abs(got - want).max() <= 1e-5 * (1 + np.abs(want).max())
+    with pytest.raises(ValueError, match="multi-band"):
+        model.quantize_int8([mel])
+    with pytest.raises(ValueError, match="multi-band"):
+        model.use_mrf_kernel(quant=False)
     config = dict(asset_config())
-    config["generator_params"] = dict(config["generator_params"],
-                                      out_channels=4)
-    with pytest.raises(NotImplementedError, match="multi-band"):
-        load_model(CKPT, config, device="cpu")
     config["generator_params"] = dict(asset_config()["generator_params"],
                                       use_causal_conv=True)
     with pytest.raises(NotImplementedError, match="causal"):

@@ -22,6 +22,10 @@ from parallelwavegan_tpu.models import (
 from parallelwavegan_tpu.utils.model_loader import (
     InferenceModel as JaxInferenceModel,
 )
+from parallelwavegan_torch import models as port_models
+from parallelwavegan_torch.engine.checkpoint import (
+    save_generator_checkpoint as port_save_gckpt,
+)
 from parallelwavegan_torch.utils import model_loader as port_loader
 from parallelwavegan_torch.utils.model_loader import load_model, resolve_device
 from tests.torch_helpers import flax_generator_kwargs
@@ -165,13 +169,39 @@ def test_pcm16_matches_jax_within_one_lsb(tmp_path):
 
 
 def test_load_model_rejects_what_the_slice_lacks(tmp_path):
+    """What the port lacked before, a reference .pkl and the MelGAN family,
+    now loads (the .pkl serves as the JAX load_model serves it); a family
+    the port still lacks raises NotImplementedError naming it."""
+    from parallelwavegan_tpu.utils.model_loader import (
+        load_model as jax_load_model,
+    )
+    from parallelwavegan_tpu.utils.torch_export import (
+        save_reference_checkpoint,
+    )
+
     config = _config()
-    with pytest.raises(NotImplementedError, match=".pkl"):
-        load_model(str(tmp_path / "checkpoint-10steps.pkl"), config,
-                   device="cpu")
-    path, _ = _jax_checkpoint(tmp_path, config)
-    other = dict(config, generator_type="MelGANGenerator")
-    with pytest.raises(NotImplementedError, match="MelGANGenerator"):
+    path, v = _jax_checkpoint(tmp_path, config)
+    pkl = str(tmp_path / "checkpoint-10steps.pkl")
+    save_reference_checkpoint(pkl, jax.tree.map(np.asarray, v["params"]),
+                              config)
+    mels = _mels(np.random.default_rng(4), [9])
+    fn, args, _ = jax_load_model(pkl, config).prepare_batch(mels,
+                                                            bucket_size=1)
+    model = load_model(pkl, config, device="cpu")
+    fn_t, (c, _), _ = model.prepare_batch(mels, bucket_size=1)
+    got = fn_t(c, torch.from_numpy(np.array(args[2]))).numpy()
+    want = np.asarray(fn(*args))
+    assert np.abs(got - want).max() <= 1e-5 * (1 + np.abs(want).max())
+    melgan = {"generator_type": "MelGANGenerator",
+              "generator_params": {"in_channels": 20, "channels": 16,
+                                   "upsample_scales": [2, 2], "stacks": 1}}
+    gen = port_models.MelGANGenerator(**melgan["generator_params"])
+    gpath = str(tmp_path / "melgan.gckpt")
+    port_save_gckpt(gpath, gen)
+    assert load_model(gpath, melgan, device="cpu").inference(
+        mels[0]).shape == (9 * 4, 1)
+    other = dict(config, generator_type="StyleMelGANGenerator")
+    with pytest.raises(NotImplementedError, match="StyleMelGANGenerator"):
         load_model(path, other, device="cpu")
 
 
@@ -231,11 +261,14 @@ def test_port_imports_no_jax():
         "'tools.int8_stage_roofline', 'tools.int8_wavenet_experiment', "
         "'ops.cuda.wavenet_variant', 'ops.mel', 'losses.mel_loss', "
         "'losses.feat_match', 'tools.wavenet_stack_ablation', "
-        "'tools.mrf_stage_ablation']\n"
+        "'tools.mrf_stage_ablation', 'ops.pqmf', 'layers.pqmf', "
+        "'layers.causal_conv', 'layers.residual_stack', 'models.melgan', "
+        "'utils.torch_import', 'utils.torch_export', 'utils.kaldiio_lite', "
+        "'datasets.scp_dataset']\n"
         "missing = [w for w in want if 'parallelwavegan_torch.' + w "
         "not in names]\n"
         "assert not missing, missing\n"
-        "assert len(names) >= 41, names\n"
+        "assert len(names) >= 50, names\n"
         "print(len(names))\n"
     )
     env = dict(os.environ, PYTHONPATH=REPO)

@@ -241,7 +241,7 @@ def test_avg_pool1d_matches_jax(kernel_size, stride, padding, include):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-6)
 
 
-@pytest.mark.parametrize("mode", ["zeros", "reflect"])
+@pytest.mark.parametrize("mode", ["zeros", "reflect", "replicate"])
 def test_pad1d_modes_match_jax(mode):
     rng = np.random.default_rng(10)
     x = rng.standard_normal((2, 11, 3)).astype(np.float32)
@@ -250,7 +250,7 @@ def test_pad1d_modes_match_jax(mode):
         got = conv_ops.pad1d(torch.from_numpy(x), pad, mode)
         np.testing.assert_array_equal(got.numpy(), np.asarray(want))
     with pytest.raises(ValueError, match="pad mode"):
-        conv_ops.pad1d(torch.from_numpy(x), (1, 1), "replicate")
+        conv_ops.pad1d(torch.from_numpy(x), (1, 1), "circular")
 
 
 @pytest.mark.parametrize("conv_type", ["conv1d", "conv2d"])

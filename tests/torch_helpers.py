@@ -1,6 +1,7 @@
 """Shared pieces of the port's JAX-side tests (tests/test_torch_*.py): model
-widths, the small HiFi-GAN train recipe, and the helpers that put one train
-state into both packages and compare what a step did to each."""
+widths, the small HiFi-GAN train recipe, the helpers that put one train
+state into both packages and compare what a step did to each, and the
+perturbation of a MelGAN tree."""
 
 import numpy as np
 
@@ -271,3 +272,23 @@ def tf32_truncate(x):
     product reads an f32 operand."""
     bits = np.asarray(x, dtype=np.float32).view(np.uint32)
     return (bits & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def melgan_perturbed(variables, seed=0):
+    """Move every leaf of a flax tree off its init. Weight-norm g becomes
+    1 + 0.3 N(0, 1): with MelGAN's N(0, 0.02) kernels each conv would
+    shrink its input about threefold, and the generator's output would
+    vanish."""
+    import jax
+    import jax.numpy as jnp
+
+    rng = np.random.default_rng(seed)
+
+    def move(path, a):
+        a = np.asarray(a)
+        noise = rng.standard_normal(a.shape)
+        if path[-1].key == "kernel_g":
+            return jnp.asarray(1 + 0.3 * noise, a.dtype)
+        return jnp.asarray(a * (1 + 0.3 * noise) + 0.05 * noise, a.dtype)
+
+    return jax.tree_util.tree_map_with_path(move, variables)
