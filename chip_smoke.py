@@ -105,7 +105,30 @@
    rows bit for bit), multi-band MelGAN, and PWG v1 on wavenet_stack
    window by window on its noise; the chunked runs' kernel launches
    counted, wall times beside the whole's;
-10. prints a JSON line of the five kernels, the card line, and as the last
+10. trains the MelGAN family and Parallel WaveGAN v3 at full width: (a)
+   multi-band MelGAN v2 with its recipe
+   (egs/ljspeech/voc1/conf/multi_band_melgan.v2.yaml: the multi-scale
+   MelGAN discriminator, the subband STFT loss, lambda_adv 2.5, Adam +
+   MultiStepLR; chip_smoke.MB_MELGAN_V2_TRAIN, held to the yaml by a CPU
+   test) at batch 64 x 16,384 from a seeded wav.scp + feats.scp:
+   bin.train.run on cuda, 4 f32 steps (the discriminator from step 2), 2
+   more resumed from the .ckpt with mixed_precision; finite losses under
+   every name, the subband terms included, moved G and D parameters, a
+   .ckpt that loads back; step times and a profile of each precision; (b)
+   on the loader's batch cut to 2 x 16,384 the generator and the
+   discriminator loss and every gradient on the card in f32 (k), on the
+   CPU in f32 (p) and in float64 (e), each gradient held to
+   |k - e| <= max(2 |p - e|, a) (no hand-written kernel: this holds cuDNN
+   and the port's modules); (c) Parallel WaveGAN v3
+   (parallel_wavegan.v3.yaml: kernel size 5, the multi-scale MelGAN
+   discriminator with feature matching) at batch 16 x 8,192, 3 f32 steps
+   with the discriminator from step 1, on the per-layer path: kernel size
+   5 lies outside the fused stack (the JAX step's too), so the step
+   refuses the fused path and neither stack kernel launches (counted);
+   (d) the generator of (a)'s last .ckpt through save_generator_checkpoint
+   and load_model with PQMF on cuda against the CPU at 1 x 200 frames,
+   printing the PQMF prototypes training and serving chose;
+11. prints a JSON line of the five kernels, the card line, and as the last
    line {"ok": true, "device": {...}}.
 
 Exits non-zero, printing no result, on any failure or without a GPU.
@@ -311,6 +334,98 @@ HIFIGAN_LOSS_NAMES = (
     "mel_loss", "adversarial_loss", "feature_matching_loss",
     "generator_loss", "real_loss", "fake_loss", "discriminator_loss",
 )
+# multi-band MelGAN v2 as its recipe trains it
+# (egs/ljspeech/voc1/conf/multi_band_melgan.v2.yaml; a CPU test holds every
+# key to the file), read from a seeded wav.scp + feats.scp
+MB_MELGAN_V2_TRAIN = dict(
+    MB_MELGAN_V2,
+    format="hdf5",
+    discriminator_type="MelGANMultiScaleDiscriminator",
+    discriminator_params={
+        "in_channels": 1, "out_channels": 1, "scales": 3,
+        "downsample_pooling": "AvgPool1d",
+        "downsample_pooling_params": {
+            "kernel_size": 4, "stride": 2, "padding": 1,
+            "count_include_pad": False},
+        "kernel_sizes": [5, 3], "channels": 16,
+        "max_downsample_channels": 512, "bias": True,
+        "downsample_scales": [4, 4, 4],
+        "nonlinear_activation": "LeakyReLU",
+        "nonlinear_activation_params": {"negative_slope": 0.2},
+    },
+    stft_loss_params=PWG_V1["stft_loss_params"],
+    use_subband_stft_loss=True,
+    subband_stft_loss_params={
+        "fft_sizes": [384, 683, 171], "hop_sizes": [30, 60, 10],
+        "win_lengths": [150, 300, 60], "window": "hann_window"},
+    use_feat_match_loss=False,
+    lambda_adv=2.5,
+    batch_size=64, batch_max_steps=16384,
+    remove_short_samples=True, allow_cache=True,
+    generator_optimizer_type="Adam",
+    generator_optimizer_params={"lr": 0.001, "eps": 1.0e-07,
+                                "weight_decay": 0.0},
+    generator_scheduler_type="MultiStepLR",
+    generator_scheduler_params={
+        "gamma": 0.5, "milestones": [100000, 200000, 300000, 400000]},
+    generator_grad_norm=-1,
+    discriminator_optimizer_type="Adam",
+    discriminator_optimizer_params={"lr": 0.001, "eps": 1.0e-07,
+                                    "weight_decay": 0.0},
+    discriminator_scheduler_type="MultiStepLR",
+    discriminator_scheduler_params={
+        "gamma": 0.5, "milestones": [100000, 200000, 300000, 400000]},
+    discriminator_grad_norm=-1,
+)
+# what this script sets itself: four steps (the discriminator from step 2,
+# not 200,000), one evaluation, one checkpoint
+MB_MELGAN_V2_TRAIN_CUT = dict(
+    discriminator_train_start_steps=2, train_max_steps=4,
+    save_interval_steps=4, eval_interval_steps=4, log_interval_steps=2)
+MB_MELGAN_LOSS_NAMES = (
+    "spectral_convergence_loss", "log_stft_magnitude_loss",
+    "sub_spectral_convergence_loss", "sub_log_stft_magnitude_loss",
+    "adversarial_loss", "generator_loss", "real_loss", "fake_loss",
+    "discriminator_loss",
+)
+# Parallel WaveGAN v3 (egs/ljspeech/voc1/conf/parallel_wavegan.v3.yaml; a
+# CPU test holds every key to the file but the data format, a seeded npy
+# corpus): v1's generator with kernel size 5, the multi-scale MelGAN
+# discriminator, feature matching x 25. Kernel size 5 lies outside the
+# fused WaveNet stack (the JAX step runs its per-layer path there too);
+# the port's CUDA step refuses to fall back, so the per-layer path is asked
+# for by name
+PWG_V3_TRAIN = dict(
+    PWG_V1,
+    generator_params=dict(PWG_V1["generator_params"], kernel_size=5),
+    discriminator_type="MelGANMultiScaleDiscriminator",
+    discriminator_params={
+        "in_channels": 1, "out_channels": 1, "scales": 3,
+        "downsample_pooling": "AvgPool1d",
+        "downsample_pooling_params": {
+            "kernel_size": 4, "stride": 2, "padding": 1,
+            "count_include_pad": False},
+        "kernel_sizes": [5, 3], "channels": 16,
+        "max_downsample_channels": 1024, "downsample_scales": [4, 4, 4, 4],
+        "nonlinear_activation": "LeakyReLU",
+        "nonlinear_activation_params": {"negative_slope": 0.2},
+        "use_weight_norm": True,
+    },
+    lambda_adv=4.0, use_feat_match_loss=True, lambda_feat_match=25.0,
+    batch_size=16, batch_max_steps=8192,
+    generator_scheduler_params={"step_size": 3000000, "gamma": 0.5},
+    discriminator_scheduler_params={"step_size": 3000000, "gamma": 0.5},
+)
+for _key in ("discriminator_train_start_steps", "train_max_steps",
+             "save_interval_steps", "eval_interval_steps",
+             "log_interval_steps"):
+    del PWG_V3_TRAIN[_key]
+# three steps (step 0 trains nothing: the gates are strict), the
+# discriminator from step 1 (not 100,000), one evaluation, one checkpoint
+PWG_V3_TRAIN_CUT = dict(
+    fused_wavenet=False, discriminator_train_start_steps=0,
+    train_max_steps=3, save_interval_steps=3, eval_interval_steps=3,
+    log_interval_steps=1)
 N_SCORED = 8       # utterances scored on the host (about 20 s each)
 N_CALIB = 8        # utterances the int8 scales are calibrated on
 # the scored numbers against the committed CPU reference of the JAX package
@@ -663,20 +778,10 @@ def training_phase(dev, smi: str) -> dict:
                 "launches"] * g_updates:
             raise AssertionError("unexpected backward kernel launches")
         check_trainer(trainer, "training path f32")
-        for name, module, start in (
-            ("G", trainer.generator, initial.generator),
-            ("D", trainer.discriminator, initial.discriminator),
-        ):
-            before = dict(start.named_parameters())
-            moved = sum(not torch.equal(p, before[k])
-                        for k, p in module.named_parameters())
-            finite = all(torch.isfinite(p).all()
-                         for p in module.parameters())
-            print(f"  {name}: {moved} of {len(before)} parameters changed")
-            # the last layer's residual 1x1 (v, g, bias) feeds nothing, and
-            # first_conv's kernel_v has a zero gradient but for rounding
-            if moved < len(before) - 4 or not finite:
-                raise AssertionError(f"{name} parameters did not train")
+        # the last layer's residual 1x1 (v, g, bias) feeds nothing, and
+        # first_conv's kernel_v has a zero gradient but for rounding
+        check_moved("G", trainer.generator, initial.generator, 4)
+        check_moved("D", trainer.discriminator, initial.discriminator, 4)
         path = os.path.join(tmp, "exp", "checkpoint-6steps.ckpt")
         ckpt.load_checkpoint(path, initial)
         if initial.steps != 6 or initial.opt_g.count != g_updates \
@@ -1422,6 +1527,298 @@ def hifigan_training_phase(dev, smi: str) -> dict:
               f"{len(mel)} frames on cuda; max |EMA - raw| {diff:.3e}")
         if not diff > 0:
             raise AssertionError("use_ema served the raw parameters")
+    return out
+
+
+def write_scp_corpus(root: str, rng: np.random.Generator, n_utts: int
+                     ) -> dict:
+    """Seeded utterances as 16-bit wav files and npy features, listed in a
+    wav.scp and a feats.scp; returns them as bin.train's split dict."""
+    from parallelwavegan_torch.utils.io import write_wav
+
+    os.makedirs(root)
+    wav_lines, feats_lines = [], []
+    for i in range(n_utts):
+        frames = 72 + 4 * (i % 8)  # longer than the 64-frame window
+        t = np.arange(frames * HOP) / SR
+        wave = sum(0.2 / (k + 1) * np.sin(2 * np.pi * (90 + 7 * i) * (k + 1)
+                                          * t) for k in range(3))
+        wave = wave + 0.01 * rng.standard_normal(t.shape)
+        wav = os.path.join(root, f"utt{i}.wav")
+        feats = os.path.join(root, f"utt{i}-feats.npy")
+        write_wav(wav, wave, SR)
+        np.save(feats, rng.standard_normal((frames, 80)).astype(np.float32))
+        wav_lines.append(f"utt{i} {wav}")
+        feats_lines.append(f"utt{i} {feats}")
+    split = {"wav_scp": os.path.join(root, "wav.scp"),
+             "feats_scp": os.path.join(root, "feats.scp")}
+    for key, lines in (("wav_scp", wav_lines), ("feats_scp", feats_lines)):
+        with open(split[key], "w") as f:
+            f.write("\n".join(lines) + "\n")
+    return split
+
+
+def check_moved(what: str, module, start, unmoved_allowed: int) -> None:
+    """Every parameter of ``module`` finite, all but ``unmoved_allowed`` of
+    them changed from ``start``'s."""
+    before = dict(start.named_parameters())
+    moved = sum(not torch.equal(p, before[k])
+                for k, p in module.named_parameters())
+    finite = all(torch.isfinite(p).all() for p in module.parameters())
+    print(f"  {what}: {moved} of {len(before)} parameters changed")
+    if moved < len(before) - unmoved_allowed or not finite:
+        raise AssertionError(f"{what} parameters did not train")
+
+
+def mb_melgan_losses(gen, dis, crit, b: dict) -> tuple:
+    """The (G, adv) generator loss of the multi-band recipe as the step
+    forms it (PQMF synthesis; full-band STFT loss halved plus half the
+    subband loss; 2.5 x the adversarial loss) and the discriminator loss
+    on the detached prediction, each with its parameters' gradients."""
+    pqmf = crit["pqmf"]
+    y = b["y"]
+    y_mb_ = gen(b["c"])
+    y_ = pqmf.synthesis(y_mb_)
+    sc, mag = crit["stft"](y_[..., 0], y[..., 0])
+    sub_sc, sub_mag = crit["sub_stft"](
+        y_mb_.transpose(1, 2), pqmf.analysis(y).transpose(1, 2))
+    loss_g = 0.5 * (sc + mag) + 0.5 * (sub_sc + sub_mag) \
+        + MB_MELGAN_V2_TRAIN["lambda_adv"] * crit["gen_adv"](dis(y_))
+    grads_g = dict(zip([n for n, _ in gen.named_parameters()],
+                       torch.autograd.grad(loss_g, list(gen.parameters()))))
+    real, fake = crit["dis_adv"](dis(y_.detach()), dis(y))
+    loss_d = real + fake
+    grads_d = dict(zip([n for n, _ in dis.named_parameters()],
+                       torch.autograd.grad(loss_d, list(dis.parameters()))))
+    return loss_g.item(), grads_g, loss_d.item(), grads_d
+
+
+def melgan_training_phase(dev, smi: str) -> dict:
+    """Step 10 (a), (b) and (d) of the module docstring: multi-band MelGAN
+    v2 trained at full width from a wav.scp + feats.scp, its gradients held
+    to float64, the trained generator served. No hand-written kernel is on
+    this path (the JAX step fuses only Parallel WaveGAN). Returns step
+    times and the gradient gates."""
+    from parallelwavegan_torch.bin.train import VERSION, run
+    from parallelwavegan_torch.engine import checkpoint as ckpt
+    from parallelwavegan_torch.engine.build import init_train_state
+    from parallelwavegan_torch.tools.float64_check import gradient_gate
+    from parallelwavegan_torch.utils.model_loader import load_model
+
+    rng = np.random.default_rng(4)
+    config = dict(MB_MELGAN_V2_TRAIN, **MB_MELGAN_V2_TRAIN_CUT)
+    B, T = config["batch_size"], config["batch_max_steps"]
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        split = write_scp_corpus(os.path.join(tmp, "corpus"), rng, B)
+        # (a) four f32 steps: nothing at step 0 (the gates are strict), G
+        # alone at steps 1 and 2, G + adv + D at step 3, one evaluation
+        initial, _, _, _, _ = init_train_state(config, seed=0, device=dev)
+        n_g = sum(p.numel() for p in initial.generator.parameters())
+        n_d = sum(p.numel() for p in initial.discriminator.parameters())
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer = run(config, split, split, os.path.join(tmp, "exp"),
+                      seed=0, device="cuda", dump_config=False)
+        torch.cuda.synchronize()
+        print(f"mb-melgan training f32 {B} x {T} samples from a wav.scp + "
+              f"feats.scp, G {n_g / 1e6:.2f} M and D {n_d / 1e6:.2f} M "
+              f"parameters: {trainer.steps} steps in "
+              f"{time.perf_counter() - t0:.1f} s wall (first calls)")
+        state = trainer.state
+        if trainer.steps != 4 or trainer.device.type != "cuda" \
+                or state.opt_g.count != 3 or state.opt_d.count != 1:
+            raise AssertionError("the trainer did not take 4 steps on cuda")
+        check_trainer(trainer, "mb-melgan training f32", MB_MELGAN_LOSS_NAMES)
+        check_moved("G", trainer.generator, initial.generator, 0)
+        check_moved("D", trainer.discriminator, initial.discriminator, 0)
+        path = os.path.join(tmp, "exp", "checkpoint-4steps.ckpt")
+        ckpt.load_checkpoint(path, initial)
+        for module, loaded in ((trainer.generator, initial.generator),
+                               (trainer.discriminator, initial.discriminator)):
+            want = dict(module.named_parameters())
+            for key, p in loaded.named_parameters():
+                if not torch.equal(p, want[key]):
+                    raise AssertionError(f".ckpt differs on {key}")
+        print(f"  {os.path.basename(path)} "
+              f"({os.path.getsize(path) / 1e6:.1f} MB) loads back")
+        del initial
+
+        # two more steps in mixed precision, resumed from that checkpoint
+        mixed_config = dict(config, mixed_precision=True, train_max_steps=6,
+                            save_interval_steps=6, eval_interval_steps=1000)
+        mixed = run(mixed_config, split, split,
+                    os.path.join(tmp, "exp_mixed"), resume=path, seed=0,
+                    device="cuda", dump_config=False)
+        torch.cuda.synchronize()
+        print(f"mb-melgan training mixed precision: steps 4 -> "
+              f"{mixed.steps}")
+        if mixed.steps != 6 or mixed.state.opt_g.count != 5 \
+                or mixed.state.opt_d.count != 3:
+            raise AssertionError("the resumed run did not take 2 steps")
+        check_trainer(mixed, "mb-melgan training mixed",
+                      MB_MELGAN_LOSS_NAMES)
+        if any(p.dtype != torch.float32 or not torch.isfinite(p).all()
+               for p in mixed.generator.parameters()):
+            raise AssertionError("master parameters left finite float32")
+
+        # step times and where the device time goes, both precisions
+        batch = mixed._to_device(next(iter(mixed.train_loader)))
+        for what, t in (("f32", trainer), ("mixed", mixed)):
+            step = t.train_step_factory(True, True, True)
+            out[f"step_ms_{what}"] = time_ms(lambda: step(t.state, batch),
+                                             reps=3)
+        profile_step(trainer, batch, "mb-melgan f32")
+        profile_step(mixed, batch, "mb-melgan mixed")
+        torch.cuda.reset_peak_memory_stats()
+        trainer.train_step_factory(True, True, True)(trainer.state, batch)
+        torch.cuda.synchronize()
+        out["step_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        print(f"mb-melgan (G, adv, D) step {B} x {T}: f32 "
+              f"{out['step_ms_f32']:.1f} ms "
+              f"({1e3 / out['step_ms_f32']:.2f} steps/s), mixed precision "
+              f"{out['step_ms_mixed']:.1f} ms "
+              f"({1e3 / out['step_ms_mixed']:.2f} steps/s), peak memory "
+              f"(f32) {out['step_peak_gb']:.2f} GB on {smi}")
+
+        # (b) the generator loss and every gradient on the loader's batch
+        # cut to 2 x 16,384: on the card in f32 (k), on the CPU in f32 (p)
+        # and in float64 (e); the discriminator's the same way
+        b = {k: v[:2] for k, v in batch.items()}
+        gen, dis, crit = trainer.generator, trainer.discriminator, \
+            trainer.criterion
+        routes = {"k": (gen, dis, b),
+                  "p": (copy.deepcopy(gen).cpu(), copy.deepcopy(dis).cpu(),
+                        {k: v.cpu() for k, v in b.items()}),
+                  "e": (copy.deepcopy(gen).cpu().double(),
+                        copy.deepcopy(dis).cpu().double(),
+                        {k: v.cpu().double() for k, v in b.items()})}
+        got = {r: mb_melgan_losses(g, d, crit, bb)
+               for r, (g, d, bb) in routes.items()}
+        for i in (1, 3):  # the card's gradients beside the CPU's
+            got["k"][i].update({n: g.cpu() for n, g in got["k"][i].items()})
+        for i, what in ((1, "generator"), (3, "discriminator")):
+            gate = gradient_gate(got["k"][i], got["p"][i], got["e"][i],
+                                 what=f"mb-melgan {what} gradient")
+            loss = {r: got[r][i - 1] for r in got}
+            print(f"mb-melgan {what} loss on 2 x {T}: card {loss['k']:.6f}, "
+                  f"CPU f32 {loss['p']:.6f}, float64 {loss['e']:.6f}; "
+                  f"gradients of {gate['parameters']} parameters in "
+                  f"allowances a: k - p {gate['kp'][0]:.3f} (on "
+                  f"{gate['kp'][1]}), p - e {gate['pe'][0]:.3f} "
+                  f"({gate['plain_outside']} outside a), k - e "
+                  f"{gate['ke'][0]:.3f}, gate |k - e| / max(2 |p - e|, a) "
+                  f"{gate['gate'][0]:.3f} (on {gate['gate'][1]}): within")
+            err = abs(loss["k"] - loss["e"])
+            if not err <= max(2 * abs(loss["p"] - loss["e"]),
+                              1e-4 * abs(loss["e"])):
+                raise AssertionError(f"mb-melgan {what} loss on the card "
+                                     f"lies {err:.3e} from float64")
+            out[f"{what}_gate"] = gate["gate"][0]
+        del routes, got
+
+        # (d) serve what was trained: the resumed run's last .ckpt through
+        # a .gckpt and load_model with PQMF, the card against the CPU
+        final = os.path.join(tmp, "exp_mixed", "checkpoint-6steps.ckpt")
+        served, _, _, _, _ = init_train_state(mixed_config, seed=1,
+                                              device="cpu")
+        ckpt.load_checkpoint(final, served)
+        gckpt = os.path.join(tmp, "generator.gckpt")
+        ckpt.save_generator_checkpoint(gckpt, served)
+        written = dict(MB_MELGAN_V2_TRAIN, version=VERSION)
+        mel = rng.standard_normal((200, 80)).astype(np.float32)
+        waves = {}
+        for device in ("cuda", "cpu"):
+            model = load_model(gckpt, written, device=device)
+            if model.pqmf is None:
+                raise AssertionError("the trained multi-band model has no "
+                                     "PQMF")
+            waves[device] = model.synthesize_batch([mel])[0]
+        if waves["cuda"].shape != (200 * HOP, 1):
+            raise AssertionError("bad waveform from the trained generator")
+        err, allowed = max_err(torch.from_numpy(waves["cuda"]),
+                               torch.from_numpy(waves["cpu"]), torch.float32)
+        print(f"mb-melgan (d) the trained generator served by load_model on "
+              f"cuda, 1 x 200 frames: max_abs_err {err:.3e} against the CPU "
+              f"(allowed {allowed:.3e}; max |y| "
+              f"{np.abs(waves['cpu']).max():.3f})")
+        if err > allowed:
+            raise AssertionError("the served multi-band MelGAN disagrees")
+        print(f"mb-melgan PQMF: trained with {trainer.criterion['pqmf']}, "
+              f"served with {model.pqmf} (version {VERSION} reads as <= "
+              f"0.4.2, as in the JAX package)")
+    return out
+
+
+def pwg_v3_training_phase(dev, smi: str) -> dict:
+    """Step 10 (c): Parallel WaveGAN v3 trained at its batch on the
+    per-layer path. Its kernel size 5 lies outside the fused WaveNet stack,
+    in the JAX step as here: the step with the yaml's settings refuses the
+    fused path on the card, and the run launches neither stack kernel."""
+    from parallelwavegan_torch.bin.train import run
+    from parallelwavegan_torch.engine.build import init_train_state
+    from parallelwavegan_torch.engine.step import make_generator_forward
+    from parallelwavegan_torch.ops.cuda.pwg_infer import (
+        unsupported_fused_settings,
+    )
+    from parallelwavegan_torch.ops.cuda.wavenet_stack import wavenet_stack
+    from parallelwavegan_torch.ops.cuda.wavenet_stack_train import (
+        wavenet_stack_backward,
+    )
+
+    rng = np.random.default_rng(5)
+    config = dict(PWG_V3_TRAIN, **PWG_V3_TRAIN_CUT)
+    B, T = config["batch_size"], config["batch_max_steps"]
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        dump = os.path.join(tmp, "dump")
+        write_corpus(dump, rng, n_utts=B)
+        initial, gen, _, _, _ = init_train_state(config, seed=0, device=dev)
+        bad = unsupported_fused_settings(gen)
+        try:
+            make_generator_forward(PWG_V3_TRAIN, gen)
+        except NotImplementedError as e:
+            print(f"pwg v3: the fused stack does not take {bad}: {e}")
+        else:
+            raise AssertionError("the fused path took kernel size 5")
+        if bad != ["kernel_size=5"]:
+            raise AssertionError(f"unexpected fused-path verdict {bad}")
+        torch.cuda.synchronize()
+        wavenet_stack.launches = wavenet_stack_backward.launches = 0
+        t0 = time.perf_counter()
+        trainer = run(config, dump, dump, os.path.join(tmp, "exp"), seed=0,
+                      device="cuda", dump_config=False)
+        torch.cuda.synchronize()
+        out["fwd_launches"] = wavenet_stack.launches
+        out["bwd_launches"] = wavenet_stack_backward.launches
+        print(f"pwg v3 training f32 {B} x {T} samples: {trainer.steps} steps "
+              f"in {time.perf_counter() - t0:.1f} s wall (first calls); "
+              f"wavenet_stack launches {out['fwd_launches']}, backward "
+              f"launches {out['bwd_launches']} (the plan: none, the "
+              f"per-layer path)")
+        if trainer.steps != 3 or trainer.state.opt_g.count != 2 \
+                or trainer.state.opt_d.count != 2:
+            raise AssertionError("the trainer did not take 3 steps on cuda")
+        if out["fwd_launches"] or out["bwd_launches"]:
+            raise AssertionError("a stack kernel ran on kernel size 5")
+        check_trainer(trainer, "pwg v3 training f32",
+                      LOSS_NAMES + ("feature_matching_loss",))
+        # the last layer's residual 1x1 (v, g, bias) feeds nothing, and
+        # first_conv's kernel_v has a zero gradient but for rounding
+        check_moved("G", trainer.generator, initial.generator, 4)
+        # RAdam's first steps move a parameter by lr x its first moment:
+        # at lr 5e-5 under a gradient norm clipped to 1 many of the
+        # discriminator's fall below their f32 rounding
+        n_d = len(list(trainer.discriminator.parameters()))
+        check_moved("D", trainer.discriminator, initial.discriminator,
+                    n_d - 1)
+        batch = trainer._to_device(next(iter(trainer.train_loader)))
+        step = trainer.train_step_factory(True, True, True)
+        out["step_ms_f32"] = time_ms(lambda: step(trainer.state, batch),
+                                     reps=2)
+        profile_step(trainer, batch, "pwg v3 f32")
+        print(f"pwg v3 (G, adv, D) step {B} x {T}: f32 "
+              f"{out['step_ms_f32']:.1f} ms on {smi}")
     return out
 
 
@@ -2488,6 +2885,11 @@ def run_phases(dev, smi: str, pool) -> int:
         pkl_decode_phase(tmp)
     chunked = chunked_phase(dev, smi, melgan.pop("model"))
     print(f"step 9: {time.perf_counter() - t0:.1f} s wall")
+    # 10. training of multi-band MelGAN v2 and of Parallel WaveGAN v3
+    t0 = time.perf_counter()
+    melgan_training_phase(dev, smi)
+    pwg_v3 = pwg_v3_training_phase(dev, smi)
+    print(f"step 10: {time.perf_counter() - t0:.1f} s wall")
     if min(launches, launches32, train["fwd_launches"], train["bwd_launches"],
            hifi["launches"], mm["launches"], variant["launches"],
            chunked["pwg_launches"], chunked["mrf_launches"]) < 1:
@@ -2541,6 +2943,7 @@ def run_phases(dev, smi: str, pool) -> int:
         "train_bound_ms": train["fwd_bound_ms"],
         "train_plan": train["fwd_plan"],
         "chunked_launches": chunked["pwg_launches"],
+        "pwg_v3_launches": pwg_v3["fwd_launches"],
     }, {
         "name": "wavenet_stack_backward",
         "route": "cuda",
@@ -2568,6 +2971,7 @@ def run_phases(dev, smi: str, pool) -> int:
         "bf16_max_rel_err": REL_ERR.get("wavenet_stack_backward_bf16", 0.0),
         "f32_rel_err_vs_float64": train["bwd_f32_vs_float64"],
         "generator_grad_gate": train["grad_gate"],
+        "pwg_v3_launches": pwg_v3["bwd_launches"],
     }, {
         "name": "mrf_stage",
         "route": "cuda",

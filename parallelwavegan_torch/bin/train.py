@@ -1,14 +1,24 @@
 #!/usr/bin/env python3
 """Training CLI: config -> datasets -> collater -> loader -> Trainer.
 
-Counterpart of ``parallelwavegan_tpu/bin/train.py`` for Parallel WaveGAN and
-HiFi-GAN on one device, with ``--resume`` / ``--pretrain`` and the ``config.yml`` dump.
+Counterpart of ``parallelwavegan_tpu/bin/train.py`` for Parallel WaveGAN,
+HiFi-GAN and the MelGAN family (MelGAN, multi-band MelGAN through PQMF,
+with any of their discriminators) on one device, with ``--resume`` /
+``--pretrain`` (a ``.ckpt``, a generator ``.gckpt`` or a reference
+``.pkl``) and the ``config.yml`` dump. Each split reads a dump directory
+or Kaldi-style lists (a wav.scp and a feats.scp, optionally segments).
 Runs on CUDA by default (``--device cpu`` for the host):
 
     python -m parallelwavegan_torch.bin.train --train-dumpdir dump/train \
         --dev-dumpdir dump/dev --outdir exp --config conf.yaml
+    python -m parallelwavegan_torch.bin.train \
+        --train-wav-scp train/wav.scp --train-feats-scp train/feats.scp \
+        --dev-wav-scp dev/wav.scp --dev-feats-scp dev/feats.scp \
+        --outdir exp --config conf/multi_band_melgan.v2.yaml
 
-``run`` is the same entry with the config as a dict.
+``run`` is the same entry with the config as a dict; a split given as a
+dict ``{"wav_scp": ..., "feats_scp": ..., "segments": ...}`` instead of a
+directory reads the lists.
 """
 
 from __future__ import annotations
@@ -17,16 +27,48 @@ import argparse
 import logging
 import os
 import sys
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Union
 
 import numpy as np
 
 from parallelwavegan_torch.datasets.audio_mel_dataset import AudioMelDataset
 from parallelwavegan_torch.datasets.collater import Collater
 from parallelwavegan_torch.datasets.loader import DataLoader
+from parallelwavegan_torch.datasets.scp_dataset import AudioMelSCPDataset
+from parallelwavegan_torch.engine.step import uses_noise
 from parallelwavegan_torch.utils.io import load_config, read_hdf5, save_config
 
 VERSION = "parallelwavegan_torch-0.1.0"
+
+# a split's data: a dump directory, or {"wav_scp", "feats_scp"[, "segments"]}
+Split = Union[str, Dict[str, Optional[str]]]
+
+
+def _mel_length_threshold(config: Dict[str, Any]) -> Optional[int]:
+    if not config.get("remove_short_samples", False):
+        return None
+    return (config["batch_max_steps"] // config["hop_size"]
+            + 2 * config.get("generator_params", {}).get(
+                "aux_context_window", 0))
+
+
+def build_scp_dataset(config: Dict[str, Any], wav_scp: str, feats_scp: str,
+                      segments: Optional[str] = None) -> AudioMelSCPDataset:
+    """Kaldi-style lists; as in the JAX package only the audio + mel path
+    reads them (f0, VQVAE and UHiFiGAN inputs raise)."""
+    gen_type = config.get("generator_type", "ParallelWaveGANGenerator")
+    if gen_type == "UHiFiGANGenerator":
+        raise NotImplementedError(
+            "SCP format is not supported for f0 and excitation.")
+    if config.get("use_f0", False):
+        raise NotImplementedError("SCP format is not supported for f0.")
+    if gen_type == "VQVAE":
+        raise NotImplementedError("SCP format is not supported for VQVAE.")
+    return AudioMelSCPDataset(
+        wav_scp=wav_scp, feats_scp=feats_scp, segments=segments,
+        mel_length_threshold=_mel_length_threshold(config),
+        allow_cache=config.get("allow_cache", False),
+    )
 
 
 def build_dataset(config: Dict[str, Any], rootdir: str) -> AudioMelDataset:
@@ -40,29 +82,30 @@ def build_dataset(config: Dict[str, Any], rootdir: str) -> AudioMelDataset:
         audio_load_fn = mel_load_fn = np.load
     else:
         raise ValueError("support only hdf5 or npy format.")
-    mel_length_threshold = None
-    if config.get("remove_short_samples", False):
-        mel_length_threshold = (
-            config["batch_max_steps"] // config["hop_size"]
-            + 2 * config.get("generator_params", {}).get(
-                "aux_context_window", 0)
-        )
     return AudioMelDataset(
         root_dir=rootdir, audio_query=audio_query, mel_query=mel_query,
         audio_load_fn=audio_load_fn, mel_load_fn=mel_load_fn,
-        mel_length_threshold=mel_length_threshold,
+        mel_length_threshold=_mel_length_threshold(config),
         allow_cache=config.get("allow_cache", False),
     )
 
 
+def _split_dataset(config: Dict[str, Any], split: Split):
+    if isinstance(split, dict):
+        return build_scp_dataset(config, split["wav_scp"], split["feats_scp"],
+                                 split.get("segments"))
+    return build_dataset(config, split)
+
+
 def build_loader(config: Dict[str, Any], dataset, seed: int) -> DataLoader:
-    gen_type = config.get("generator_type", "ParallelWaveGANGenerator")
+    # z for the generators the step feeds it to (the JAX CLI gives it to
+    # Parallel WaveGAN alone, so a use_noise_input run there lacks it)
     collater = Collater(
         batch_max_steps=config["batch_max_steps"],
         hop_size=config["hop_size"],
         aux_context_window=config.get("generator_params", {}).get(
             "aux_context_window", 0),
-        use_noise_input=gen_type == "ParallelWaveGANGenerator",
+        use_noise_input=uses_noise(config),
         rng=np.random.default_rng(seed),
     )
     return DataLoader(
@@ -72,23 +115,28 @@ def build_loader(config: Dict[str, Any], dataset, seed: int) -> DataLoader:
     )
 
 
-def run(config: Dict[str, Any], train_dumpdir: str, dev_dumpdir: str,
+def run(config: Dict[str, Any], train: Split, dev: Split,
         outdir: str, resume: str = "", pretrain: str = "", seed: int = 0,
         device: Any = "cuda", dump_config: bool = True):
     """Train from a config dict; returns the Trainer when training ends.
+    ``train`` and ``dev`` are dump directories or scp lists (``Split``).
     ``dump_config`` writes ``outdir/config.yml`` (needs ``yaml``)."""
     from parallelwavegan_torch.engine.trainer import Trainer
 
-    config = dict(config, train_dumpdir=train_dumpdir,
-                  dev_dumpdir=dev_dumpdir, outdir=outdir, resume=resume,
-                  pretrain=pretrain, seed=seed, version=VERSION)
+    config = dict(config, outdir=outdir, resume=resume, pretrain=pretrain,
+                  seed=seed, version=VERSION)
+    for name, split in (("train", train), ("dev", dev)):
+        if isinstance(split, dict):
+            config.update({f"{name}_{k}": v for k, v in split.items()})
+        else:
+            config[f"{name}_dumpdir"] = split
     os.makedirs(outdir, exist_ok=True)
     if dump_config:
         save_config(os.path.join(outdir, "config.yml"), config)
     for key, value in config.items():
         logging.info(f"{key} = {value}")
-    train_dataset = build_dataset(config, train_dumpdir)
-    dev_dataset = build_dataset(config, dev_dumpdir)
+    train_dataset = _split_dataset(config, train)
+    dev_dataset = _split_dataset(config, dev)
     logging.info(f"The number of training files = {len(train_dataset)}.")
     logging.info(f"The number of development files = {len(dev_dataset)}.")
     trainer = Trainer(
@@ -108,10 +156,18 @@ def run(config: Dict[str, Any], train_dumpdir: str, dev_dumpdir: str,
 
 def main(argv: Optional[list] = None):
     parser = argparse.ArgumentParser(
-        description="Train a Parallel WaveGAN or HiFi-GAN vocoder."
+        description="Train a Parallel WaveGAN, HiFi-GAN, MelGAN or "
+        "multi-band MelGAN vocoder."
     )
-    parser.add_argument("--train-dumpdir", type=str, required=True)
-    parser.add_argument("--dev-dumpdir", type=str, required=True)
+    for split in ("train", "dev"):
+        parser.add_argument(f"--{split}-dumpdir", default=None, type=str,
+                            help=f"{split} dump directory")
+        parser.add_argument(f"--{split}-wav-scp", default=None, type=str,
+                            help=f"{split} wav.scp (with --{split}-feats-scp)")
+        parser.add_argument(f"--{split}-feats-scp", default=None, type=str,
+                            help=f"{split} feats.scp (with --{split}-wav-scp)")
+        parser.add_argument(f"--{split}-segments", default=None, type=str,
+                            help=f"{split} segments of the wav.scp")
     parser.add_argument("--outdir", type=str, required=True)
     parser.add_argument("--config", type=str, required=True)
     parser.add_argument("--resume", default="", type=str, nargs="?")
@@ -123,13 +179,27 @@ def main(argv: Optional[list] = None):
     )
     parser.add_argument("--verbose", type=int, default=1)
     args = parser.parse_args(argv)
+    splits = {}
+    for split in ("train", "dev"):
+        dumpdir = getattr(args, f"{split}_dumpdir")
+        wav_scp = getattr(args, f"{split}_wav_scp")
+        feats_scp = getattr(args, f"{split}_feats_scp")
+        if dumpdir is None and (wav_scp is None or feats_scp is None):
+            raise ValueError(f"--{split}-dumpdir or (--{split}-wav-scp and "
+                             f"--{split}-feats-scp) is required.")
+        if dumpdir is not None and wav_scp is not None:
+            raise ValueError(f"give --{split}-dumpdir OR --{split}-wav-scp, "
+                             "not both.")
+        splits[split] = dumpdir if dumpdir is not None else {
+            "wav_scp": wav_scp, "feats_scp": feats_scp,
+            "segments": getattr(args, f"{split}_segments")}
     logging.basicConfig(
         level=logging.INFO if args.verbose else logging.WARN,
         stream=sys.stdout,
         format="%(asctime)s (%(module)s:%(lineno)d) %(levelname)s: %(message)s",
     )
-    return run(load_config(args.config), args.train_dumpdir,
-               args.dev_dumpdir, args.outdir, args.resume or "",
+    return run(load_config(args.config), splits["train"], splits["dev"],
+               args.outdir, args.resume or "",
                args.pretrain or "", args.seed, args.device)
 
 

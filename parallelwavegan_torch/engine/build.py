@@ -1,9 +1,9 @@
 """Build models, optimizers and the initial train state from a
 (reference-compatible) config.
 
-Counterpart of ``parallelwavegan_tpu/engine/build.py`` for Parallel WaveGAN
-and HiFi-GAN; other families raise ``NotImplementedError`` (from the model
-registry). The models are built
+Counterpart of ``parallelwavegan_tpu/engine/build.py`` for Parallel WaveGAN,
+HiFi-GAN and MelGAN; other families raise ``NotImplementedError`` (from the
+model registry). The models are built
 in their training form (``kernel_v``/``kernel_g``), initialised from a
 seeded ``torch.Generator`` on the CPU and then moved to the device.
 """
@@ -16,12 +16,14 @@ import numpy as np
 import torch
 
 from parallelwavegan_torch.engine.state import GANTrainState
+from parallelwavegan_torch.engine.step import uses_noise
 from parallelwavegan_torch.models import get_model_class
 from parallelwavegan_torch.optimizers import Optimizer, build_optimizer
 from parallelwavegan_torch.utils.model_loader import resolve_device
 
 
-_GENERATORS = ("ParallelWaveGANGenerator", "HiFiGANGenerator")
+_GENERATORS = ("ParallelWaveGANGenerator", "HiFiGANGenerator",
+               "MelGANGenerator")
 
 
 def build_models(config: Dict[str, Any], generator: torch.Generator = None):
@@ -48,7 +50,10 @@ def build_models(config: Dict[str, Any], generator: torch.Generator = None):
 
 def example_batch(config: Dict[str, Any], batch_size: int = 2
                   ) -> Dict[str, np.ndarray]:
-    """Tiny batch with the training shapes, for dry runs."""
+    """Tiny batch with the training shapes, for dry runs. Noise z goes to
+    the generators the step gives it to: Parallel WaveGAN and any config
+    with ``use_noise_input`` (the JAX package's batch gives it to Parallel
+    WaveGAN alone, and its step then fails on the missing z)."""
     gen_type = config.get("generator_type", "ParallelWaveGANGenerator")
     if gen_type not in _GENERATORS:
         raise NotImplementedError(f"{gen_type}: not ported yet")
@@ -66,7 +71,7 @@ def example_batch(config: Dict[str, Any], batch_size: int = 2
         "c": rng.standard_normal(
             (batch_size, frames + 2 * ctx, num_mels)).astype(f32),
     }
-    if gen_type == "ParallelWaveGANGenerator":  # the others take no noise
+    if uses_noise(config):
         batch["z"] = rng.standard_normal(
             (batch_size, steps, gp.get("in_channels", 1))).astype(f32)
     return batch

@@ -1,6 +1,7 @@
 """Checkpoints read and written without flax: the generator-only
 ``.gckpt`` and the train-state ``.ckpt``; the reference toolkit's
-``.pkl`` is read through ``utils/torch_import.py``.
+``.pkl`` is read through ``utils/torch_import.py`` (for serving, and as a
+``--pretrain`` source of a generator and its discriminator).
 
 Counterpart of ``parallelwavegan_tpu/engine/checkpoint.py``. Both files are
 flax's msgpack of a tree: a map of maps whose array leaves are
@@ -195,10 +196,26 @@ def load_checkpoint(path: str, state: GANTrainState) -> GANTrainState:
 
 
 def load_params_only(path: str, state: GANTrainState,
-                     load_discriminator: bool = True) -> GANTrainState:
+                     load_discriminator: bool = True,
+                     config: Optional[Dict[str, Any]] = None
+                     ) -> GANTrainState:
     """``--pretrain`` semantics: restore the model parameters and keep the
     fresh optimizers and step counter. A generator-only ``.gckpt`` (with
-    ``kernel_v``/``kernel_g`` leaves) warm-starts the generator alone."""
+    ``kernel_v``/``kernel_g`` leaves) warm-starts the generator alone. A
+    reference ``.pkl`` (named by ``config``'s model types) warm-starts the
+    generator and, where the file holds one, the discriminator with its
+    spectral-norm vectors."""
+    if path.endswith(".pkl"):
+        if config is None:
+            raise ValueError("a reference .pkl is read with its config")
+        ref = load_reference_checkpoint(path, config)
+        _load_params(state.generator, ref["generator"]["params"])
+        if state.ema_g is not None:
+            state.seed_ema()
+        if load_discriminator and "discriminator" in ref:
+            _load_params(state.discriminator, ref["discriminator"]["params"],
+                         ref["discriminator"])
+        return state
     tree = _read(path)
     if path.endswith(".gckpt"):
         _load_params(state.generator, tree["params"])

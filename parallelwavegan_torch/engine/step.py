@@ -1,16 +1,20 @@
 """GAN train and eval steps: the generator update, then the discriminator
 update, in one function.
 
-Counterpart of ``parallelwavegan_tpu/engine/step.py`` for Parallel WaveGAN
-and HiFi-GAN on one device. Warm-up gating selects a step variant by
-(train_g, use_adv, train_d), as there. The loss arithmetic follows the JAX
-step: the STFT and mel losses times ``lambda_aux``, plus ``lambda_adv``
-times the adversarial loss, to which feature matching adds
-``lambda_feat_match`` times its value; gradient clipping, the optimizers
-and the schedules live in ``optimizers``. Differences that PyTorch brings:
-the parameters are updated in place in the state's modules; the step takes
-no random key (the noise z arrives in the batch and nothing else on this
-path is random); the ``shard_map`` data-parallel path is not ported yet.
+Counterpart of ``parallelwavegan_tpu/engine/step.py`` for Parallel WaveGAN,
+HiFi-GAN and MelGAN (full-band and multi-band) on one device. Warm-up
+gating selects a step variant by (train_g, use_adv, train_d), as there. The
+loss arithmetic follows the JAX step: a multi-band output is merged by the
+criterion's PQMF before the full-band STFT loss; with the subband STFT loss
+that loss is halved and half the subband loss (on the PQMF analysis of the
+target against the generator's subbands) added; then the mel loss, all
+times ``lambda_aux``, plus ``lambda_adv`` times the adversarial loss, to
+which feature matching adds ``lambda_feat_match`` times its value;
+gradient clipping, the optimizers and the schedules live in
+``optimizers``. Differences that PyTorch brings: the parameters are updated
+in place in the state's modules; the step takes no random key (the noise z
+arrives in the batch and nothing else on this path is random); the
+``shard_map`` data-parallel path is not ported yet.
 
 A spectral-normed discriminator advances its vectors ``u`` only in the
 discriminator update (training mode), once per pass: twice a step with the
@@ -20,9 +24,9 @@ state's ``ema_g`` follows the generator after each of its updates.
 
 ``mixed_precision: true`` runs both networks on bfloat16 copies of the
 float32 master parameters, of the batch and of ``u``, with explicit casts
-as in the JAX step (no ``torch.autocast``); outputs return to float32, the
-losses reduce in float32, the gradients arrive in float32, and the stored
-``u`` is the bfloat16 result widened again.
+as in the JAX step (no ``torch.autocast``); outputs return to float32
+before PQMF and the losses, which run in float32, the gradients arrive in
+float32, and the stored ``u`` is the bfloat16 result widened again.
 """
 
 from __future__ import annotations
@@ -41,28 +45,48 @@ Params = Dict[str, torch.Tensor]
 Batch = Dict[str, torch.Tensor]
 
 
+# generator families whose step the port does not have yet (their inputs:
+# codes, durations, f0 and excitation, random windows)
+_NOT_PORTED_FAMILIES = ("StyleMelGAN", "VQVAE", "DiscreteSymbol", "Duration",
+                        "UHiFiGAN")
+
+
+def uses_noise(config: Dict[str, Any]) -> bool:
+    """Whether the generator takes noise z: Parallel WaveGAN always, any
+    other generator with ``use_noise_input: true`` (JAX engine/step.py:
+    52-55)."""
+    return (config.get("generator_type", "ParallelWaveGANGenerator")
+            == "ParallelWaveGANGenerator"
+            or bool(config.get("use_noise_input", False)))
+
+
 def make_generator_forward(config: Dict[str, Any], generator
                            ) -> Callable[[Params, Batch], torch.Tensor]:
     """Adapter (params, batch) -> y_hat. ``params`` are the generator's
     named parameters or copies of them (cast, detached).
 
-    A generator on CUDA takes the fused path (the WaveNet stack kernels,
-    trainable grouping) unless ``fused_wavenet`` is false; there a config
-    the kernels lack raises, it does not fall back. On the CPU the
-    per-layer forward runs.
+    As in the JAX step, Parallel WaveGAN and any generator with
+    ``use_noise_input: true`` take (z, c), every other generator c alone.
+    A Parallel WaveGAN generator on CUDA takes the fused path (the WaveNet
+    stack kernels, trainable grouping) unless ``fused_wavenet`` is false;
+    there a config the kernels lack raises, it does not fall back. On the
+    CPU the per-layer forward runs.
     """
     gen_type = config.get("generator_type", "ParallelWaveGANGenerator")
-    if gen_type == "HiFiGANGenerator":
-        # no noise input and no hand-written kernel on its training path
+    for family in _NOT_PORTED_FAMILIES:
+        if family in gen_type:
+            raise NotImplementedError(
+                f"{gen_type}: the {family} family's train step is not "
+                "ported yet")
+    if not uses_noise(config):
         def forward_c(params: Params, batch: Batch) -> torch.Tensor:
             return functional_call(generator, params, (batch["c"],))
 
         return forward_c
-    if gen_type != "ParallelWaveGANGenerator":
-        raise NotImplementedError(f"{gen_type}: not ported yet")
     device = next(generator.parameters()).device
-    fused = (config.get("fused_wavenet", "auto") in (True, "auto", "true")
-             and device.type == "cuda")
+    is_pwg = gen_type == "ParallelWaveGANGenerator"
+    fused = (is_pwg and device.type == "cuda"
+             and config.get("fused_wavenet", "auto") in (True, "auto", "true"))
     if fused:
         bad = unsupported_fused_settings(generator)
         if bad:
@@ -73,14 +97,24 @@ def make_generator_forward(config: Dict[str, Any], generator
         check_kernel_channels(generator.residual_channels,
                               generator.gate_channels,
                               generator.skip_channels)
+    kwargs = {"fused": fused, "trainable": fused} if is_pwg else {}
 
     def forward(params: Params, batch: Batch) -> torch.Tensor:
-        return functional_call(
-            generator, params, (batch["z"], batch["c"]),
-            {"fused": fused, "trainable": fused},
-        )
+        return functional_call(generator, params, (batch["z"], batch["c"]),
+                               kwargs)
 
     return forward
+
+
+def fuse_real_fake_default(discriminator_type: str) -> bool:
+    """Whether the discriminator sees real and fake in one pass when the
+    config does not say (``fuse_real_fake_discriminator``): off for the
+    multi-scale multi-period discriminator and for StyleMelGAN's, as in
+    the JAX step. Every module of the others is pointwise in the batch, so
+    one pass over concat([real, fake]) gives the two passes' numbers; the
+    spectral norm's power iteration advances once instead of twice."""
+    return ("StyleMelGAN" not in discriminator_type
+            and "HiFiGANMultiScaleMultiPeriod" not in discriminator_type)
 
 
 def make_discriminator_forward(config: Dict[str, Any], discriminator
@@ -132,14 +166,15 @@ def build_steps(config: Dict[str, Any], generator, discriminator,
     lambda_adv = config.get("lambda_adv", 4.0)
     lambda_fm = config.get("lambda_feat_match", 2.0)
     dis_type = config.get("discriminator_type", "ParallelWaveGANDiscriminator")
-    # one pass over concat([real, fake]) instead of two: every module of the
-    # discriminators is pointwise in the batch, so the split outputs are the
-    # same numbers (held by a test). Off by default for the multi-scale
-    # multi-period discriminator, as in the JAX step; there the spectral
-    # norm's power iteration advances twice a step, fused only once.
-    fuse_rf = bool(config.get(
-        "fuse_real_fake_discriminator",
-        "HiFiGANMultiScaleMultiPeriod" not in dis_type))
+    fuse_rf = bool(config.get("fuse_real_fake_discriminator",
+                              fuse_real_fake_default(dis_type)))
+    out_ch = config.get("generator_params", {}).get("out_channels", 1)
+    pqmf = criterion["pqmf"] if out_ch > 1 else None
+
+    def full_band(y_hat: torch.Tensor) -> torch.Tensor:
+        """The generator's output as one band: subbands merged by PQMF."""
+        return y_hat if pqmf is None else pqmf.synthesis(y_hat)
+
     recompute = config.get("update_prediction_after_generator_update", True)
     ema_decay = float(config.get("generator_ema_decay", 0.0) or 0.0)
 
@@ -166,13 +201,22 @@ def build_steps(config: Dict[str, Any], generator, discriminator,
                    use_adv: bool):
         metrics = {}
         y = batch["y"]
-        y_ = gen_forward(params_g, batch)
+        y_mb_ = gen_forward(params_g, batch)  # (B, T / S, S) when multi-band
+        y_ = full_band(y_mb_)
         gen_loss = 0.0
         if "stft" in criterion:
             sc_loss, mag_loss = criterion["stft"](y_[..., 0], y[..., 0])
             metrics["spectral_convergence_loss"] = sc_loss
             metrics["log_stft_magnitude_loss"] = mag_loss
             gen_loss = gen_loss + sc_loss + mag_loss
+        if "sub_stft" in criterion:
+            gen_loss = gen_loss * 0.5  # full band and subbands weigh alike
+            y_mb = pqmf.analysis(y)
+            sub_sc, sub_mag = criterion["sub_stft"](y_mb_.transpose(1, 2),
+                                                    y_mb.transpose(1, 2))
+            metrics["sub_spectral_convergence_loss"] = sub_sc
+            metrics["sub_log_stft_magnitude_loss"] = sub_mag
+            gen_loss = gen_loss + 0.5 * (sub_sc + sub_mag)
         if "mel" in criterion:
             mel_loss = criterion["mel"](y_[..., 0], y[..., 0])
             metrics["mel_loss"] = mel_loss
@@ -258,7 +302,7 @@ def build_steps(config: Dict[str, Any], generator, discriminator,
                     # a second forward with the updated generator; nothing
                     # is saved for a backward
                     with torch.no_grad():
-                        y_hat = gen_forward(params_g, batch)
+                        y_hat = full_band(gen_forward(params_g, batch))
                 dis_loss, m = dis_losses(params_d, batch["y"], y_hat, True)
                 grads_d = _grads(dis_loss, params_d)
                 metrics.update(_detached(m))

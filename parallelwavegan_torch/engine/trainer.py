@@ -151,7 +151,7 @@ class Trainer:
 
     def load_checkpoint(self, path: str, load_only_params: bool = False):
         if load_only_params:
-            ckpt_lib.load_params_only(path, self.state)
+            ckpt_lib.load_params_only(path, self.state, config=self.config)
         else:
             ckpt_lib.load_checkpoint(path, self.state)
             self.steps = self.state.steps
@@ -227,6 +227,8 @@ class Trainer:
 
             with torch.no_grad():
                 y_hat = self.gen_forward(self.state.params_g, batch)
+                if "pqmf" in self.criterion:  # subbands -> one band
+                    y_hat = self.criterion["pqmf"].synthesis(y_hat)
             y_hat = y_hat.float().cpu().numpy()
             y = batch["y"].float().cpu().numpy()
             dirname = os.path.join(

@@ -1,5 +1,5 @@
 """Model families and the config-name registry (Parallel WaveGAN, HiFi-GAN,
-the MelGAN generator)."""
+MelGAN)."""
 
 from parallelwavegan_torch.models.hifigan import (  # noqa: F401
     HiFiGANGenerator,
@@ -9,10 +9,15 @@ from parallelwavegan_torch.models.hifigan import (  # noqa: F401
     HiFiGANPeriodDiscriminator,
     HiFiGANScaleDiscriminator,
 )
-from parallelwavegan_torch.models.melgan import MelGANGenerator  # noqa: F401
+from parallelwavegan_torch.models.melgan import (  # noqa: F401
+    MelGANDiscriminator,
+    MelGANGenerator,
+    MelGANMultiScaleDiscriminator,
+)
 from parallelwavegan_torch.models.parallel_wavegan import (  # noqa: F401
     ParallelWaveGANDiscriminator,
     ParallelWaveGANGenerator,
+    ResidualParallelWaveGANDiscriminator,
 )
 
 _REGISTRY = {
@@ -24,8 +29,12 @@ _REGISTRY = {
     "HiFiGANMultiScaleMultiPeriodDiscriminator":
         HiFiGANMultiScaleMultiPeriodDiscriminator,
     "MelGANGenerator": MelGANGenerator,
+    "MelGANDiscriminator": MelGANDiscriminator,
+    "MelGANMultiScaleDiscriminator": MelGANMultiScaleDiscriminator,
     "ParallelWaveGANGenerator": ParallelWaveGANGenerator,
     "ParallelWaveGANDiscriminator": ParallelWaveGANDiscriminator,
+    "ResidualParallelWaveGANDiscriminator":
+        ResidualParallelWaveGANDiscriminator,
 }
 
 

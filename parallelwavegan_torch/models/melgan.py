@@ -1,7 +1,8 @@
-"""MelGAN generator, channels-last (B, T, C).
+"""MelGAN generator and discriminators, channels-last (B, T, C).
 
-Counterpart of ``MelGANGenerator`` in ``parallelwavegan_tpu/models/
-melgan.py``: Conv7 -> per scale [activation, transposed conv (k = 2 s),
+Counterparts of ``MelGANGenerator``, ``MelGANDiscriminator`` and
+``MelGANMultiScaleDiscriminator`` in ``parallelwavegan_tpu/models/
+melgan.py``. The generator: Conv7 -> per scale [activation, transposed conv (k = 2 s),
 ``stacks`` residual stacks with dilations k^j] -> activation, Conv7
 (-> tanh). With ``out_channels`` > 1 it is a multi-band generator whose
 subbands the caller merges by PQMF synthesis (``InferenceModel`` does).
@@ -12,8 +13,13 @@ uniform biases, as the JAX module's.
 
 ``folded=True`` (the default, the serving form) holds every kernel with
 weight norm applied; ``folded=False`` holds ``kernel_v``/``kernel_g``
-where ``use_weight_norm`` asks for them. The discriminators are not
-ported yet.
+where ``use_weight_norm`` asks for them.
+
+The discriminator is a reflect-padded conv of kernel prod(kernel_sizes),
+grouped strided convs (kernel 10 s + 1, ``in_chs // 4`` groups) per
+downsampling scale, then two plain convs; it returns every layer's feature
+map, the logits last. The multi-scale discriminator runs copies of it on
+the signal average-pooled between scales and returns their lists.
 """
 
 from __future__ import annotations
@@ -36,7 +42,7 @@ from parallelwavegan_torch.layers.common import (
     pad_mode_from_torch,
 )
 from parallelwavegan_torch.layers.residual_stack import ResidualStack
-from parallelwavegan_torch.ops.conv import pad1d
+from parallelwavegan_torch.ops.conv import avg_pool1d, pad1d
 
 
 class MelGANGenerator(nn.Module):
@@ -137,3 +143,126 @@ class MelGANGenerator(nn.Module):
             i += 1 + self.stacks
         x = self._conv7(self.layers[i], self.act(x))
         return torch.tanh(x) if self.use_final_nonlinear_activation else x
+
+
+class MelGANDiscriminator(nn.Module):
+    """(B, T, in_channels) -> the list of every layer's feature map, the
+    logits (B, T / prod(downsample_scales), out_channels) last. Submodules
+    are ``layer_<i>``, as in the flax tree; N(0, 0.02) kernels and torch's
+    uniform biases, as the JAX module's."""
+
+    def __init__(
+        self,
+        in_channels: int = 1,
+        out_channels: int = 1,
+        kernel_sizes: Sequence[int] = (5, 3),
+        channels: int = 16,
+        max_downsample_channels: int = 1024,
+        bias: bool = True,
+        downsample_scales: Sequence[int] = (4, 4, 4, 4),
+        nonlinear_activation: str = "LeakyReLU",
+        nonlinear_activation_params: Optional[Dict[str, Any]] = None,
+        pad: str = "ReflectionPad1d",
+        pad_params: Optional[Dict[str, Any]] = None,
+        use_weight_norm: bool = True,
+        *,
+        folded: bool = True,
+        generator: Optional[torch.Generator] = None,
+    ):
+        super().__init__()
+        del pad_params  # read by neither package, as the generator's
+        if len(kernel_sizes) != 2 or not all(k % 2 for k in kernel_sizes):
+            raise ValueError("kernel_sizes must be two odd sizes")
+        self.act = get_activation(
+            nonlinear_activation,
+            dict({"negative_slope": 0.2}, **(nonlinear_activation_params
+                                              or {})))
+        self.pad_mode = pad_mode_from_torch(pad)
+        k0 = math.prod(kernel_sizes)
+        self.edge = (k0 - 1) // 2
+        kw = dict(bias=bias, kernel_init=normal_init(0.02), bias_init=None,
+                  use_weight_norm=use_weight_norm and not folded,
+                  generator=generator)
+        self.layers: List[Conv1d] = []
+        self._add(Conv1d(in_channels, channels, k0, **kw))
+        in_chs = channels
+        for s in downsample_scales:
+            out_chs = min(in_chs * s, max_downsample_channels)
+            self._add(Conv1d(in_chs, out_chs, s * 10 + 1, stride=s,
+                             padding=s * 5, groups=in_chs // 4, **kw))
+            in_chs = out_chs
+        out_chs = min(in_chs * 2, max_downsample_channels)
+        self._add(Conv1d(in_chs, out_chs, kernel_sizes[0],
+                         padding=(kernel_sizes[0] - 1) // 2, **kw))
+        self._add(Conv1d(out_chs, out_channels, kernel_sizes[1],
+                         padding=(kernel_sizes[1] - 1) // 2, **kw))
+
+    def _add(self, module: nn.Module) -> None:
+        self.add_module(f"layer_{len(self.layers)}", module)
+        self.layers.append(module)
+
+    def forward(self, x: torch.Tensor) -> List[torch.Tensor]:
+        x = pad1d(x, (self.edge, self.edge), self.pad_mode)
+        outs = []
+        for layer in self.layers[:-1]:
+            x = self.act(layer(x))
+            outs.append(x)
+        outs.append(self.layers[-1](x))
+        return outs
+
+
+class MelGANMultiScaleDiscriminator(nn.Module):
+    """``scales`` MelGAN discriminators (``discriminators_<i>``) on the
+    signal average-pooled between scales; returns their lists of feature
+    maps. Pooling other than ``AvgPool1d`` raises, as in the JAX module."""
+
+    def __init__(
+        self,
+        in_channels: int = 1,
+        out_channels: int = 1,
+        scales: int = 3,
+        downsample_pooling: str = "AvgPool1d",
+        downsample_pooling_params: Optional[Dict[str, Any]] = None,
+        kernel_sizes: Sequence[int] = (5, 3),
+        channels: int = 16,
+        max_downsample_channels: int = 1024,
+        bias: bool = True,
+        downsample_scales: Sequence[int] = (4, 4, 4, 4),
+        nonlinear_activation: str = "LeakyReLU",
+        nonlinear_activation_params: Optional[Dict[str, Any]] = None,
+        pad: str = "ReflectionPad1d",
+        pad_params: Optional[Dict[str, Any]] = None,
+        use_weight_norm: bool = True,
+        *,
+        folded: bool = True,
+        generator: Optional[torch.Generator] = None,
+    ):
+        super().__init__()
+        if downsample_pooling != "AvgPool1d":
+            raise NotImplementedError(
+                f"downsample_pooling {downsample_pooling} is not ported")
+        self.pool_params = dict(
+            {"kernel_size": 4, "stride": 2, "padding": 1,
+             "count_include_pad": False},
+            **(downsample_pooling_params or {}))
+        self.discriminators: List[MelGANDiscriminator] = []
+        for i in range(scales):
+            dis = MelGANDiscriminator(
+                in_channels=in_channels, out_channels=out_channels,
+                kernel_sizes=kernel_sizes, channels=channels,
+                max_downsample_channels=max_downsample_channels, bias=bias,
+                downsample_scales=downsample_scales,
+                nonlinear_activation=nonlinear_activation,
+                nonlinear_activation_params=nonlinear_activation_params,
+                pad=pad, pad_params=pad_params,
+                use_weight_norm=use_weight_norm, folded=folded,
+                generator=generator)
+            self.add_module(f"discriminators_{i}", dis)
+            self.discriminators.append(dis)
+
+    def forward(self, x: torch.Tensor) -> List[List[torch.Tensor]]:
+        outs = []
+        for dis in self.discriminators:
+            outs.append(dis(x))
+            x = avg_pool1d(x, **self.pool_params)
+        return outs

@@ -1,8 +1,8 @@
 """Parallel WaveGAN generator and discriminator, channels-last (B, T, C).
 
-Counterpart of ``ParallelWaveGANGenerator`` and
-``ParallelWaveGANDiscriminator`` in
-``parallelwavegan_tpu/models/parallel_wavegan.py``. Submodule and parameter
+Counterpart of ``ParallelWaveGANGenerator``,
+``ParallelWaveGANDiscriminator`` and ``ResidualParallelWaveGANDiscriminator``
+in ``parallelwavegan_tpu/models/parallel_wavegan.py``. Submodule and parameter
 names follow the JAX package's parameter tree (``upsample_net``,
 ``first_conv``, ``conv_layers_<i>``, ``last_conv_0``/``_1``; ``conv_<i>``,
 ``last_conv``), so a converted flax tree
@@ -28,7 +28,11 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from parallelwavegan_torch.layers.common import Conv1d, get_activation
+from parallelwavegan_torch.layers.common import (
+    Conv1d,
+    get_activation,
+    kaiming_normal_relu_init,
+)
 from parallelwavegan_torch.layers.residual_block import WaveNetResidualBlock
 from parallelwavegan_torch.layers.upsample import ConvInUpsampleNetwork
 
@@ -233,3 +237,69 @@ class ParallelWaveGANDiscriminator(nn.Module):
         for i in range(self.layers - 1):
             x = self.act(getattr(self, f"conv_{i}")(x))
         return self.last_conv(x)
+
+
+class ResidualParallelWaveGANDiscriminator(nn.Module):
+    """WaveNet-style discriminator without conditioning: first 1x1 +
+    activation, ``layers`` gated residual blocks (``aux_channels=0``,
+    dilations 2 ** (i % (layers / stacks))), the skip sum x sqrt(1 /
+    layers), then activation, 1x1, activation, 1x1 -> (B, T, out_channels)
+    logits. Names ``first_conv``, ``conv_layers_<i>``, ``last_conv_0`` /
+    ``_1``, as in the flax tree."""
+
+    def __init__(
+        self,
+        in_channels: int = 1,
+        out_channels: int = 1,
+        kernel_size: int = 3,
+        layers: int = 30,
+        stacks: int = 3,
+        residual_channels: int = 64,
+        gate_channels: int = 128,
+        skip_channels: int = 64,
+        dropout: float = 0.0,
+        bias: bool = True,
+        use_weight_norm: bool = True,
+        use_causal_conv: bool = False,
+        nonlinear_activation: str = "LeakyReLU",
+        nonlinear_activation_params: Optional[Dict[str, Any]] = None,
+        *,
+        folded: bool = True,
+        generator: Optional[torch.Generator] = None,
+    ):
+        super().__init__()
+        if (kernel_size - 1) % 2:
+            raise ValueError("kernel_size must be odd")
+        if layers % stacks:
+            raise ValueError("layers must be divisible by stacks")
+        self.act = get_activation(
+            nonlinear_activation,
+            dict({"negative_slope": 0.2}, **(nonlinear_activation_params or {})),
+        )
+        weight_norm = use_weight_norm and not folded
+        kw = dict(bias=True, kernel_init=kaiming_normal_relu_init,
+                  use_weight_norm=weight_norm, generator=generator)
+        self.first_conv = Conv1d(in_channels, residual_channels, 1, **kw)
+        lpc = layers // stacks
+        self.conv_layers: List[WaveNetResidualBlock] = []
+        for i in range(layers):
+            block = WaveNetResidualBlock(
+                kernel_size=kernel_size, residual_channels=residual_channels,
+                gate_channels=gate_channels, skip_channels=skip_channels,
+                aux_channels=0, dropout=dropout, dilation=2 ** (i % lpc),
+                bias=bias, use_causal_conv=use_causal_conv,
+                use_weight_norm=weight_norm, generator=generator,
+            )
+            self.add_module(f"conv_layers_{i}", block)
+            self.conv_layers.append(block)
+        self.last_conv_0 = Conv1d(skip_channels, skip_channels, 1, **kw)
+        self.last_conv_1 = Conv1d(skip_channels, out_channels, 1, **kw)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = self.act(self.first_conv(x))
+        skips = 0.0
+        for block in self.conv_layers:
+            x, h = block(x)
+            skips = skips + h
+        x = self.act(skips * math.sqrt(1.0 / len(self.conv_layers)))
+        return self.last_conv_1(self.act(self.last_conv_0(x)))

@@ -58,7 +58,8 @@ def _inf_norm(a: torch.Tensor, b: Optional[torch.Tensor] = None) -> float:
 
 def gradient_gate(grads_k: Dict[str, Optional[torch.Tensor]],
                   grads_p: Dict[str, Optional[torch.Tensor]],
-                  grads_e: Dict[str, Optional[torch.Tensor]]) -> dict:
+                  grads_e: Dict[str, Optional[torch.Tensor]],
+                  what: str = "generator gradient") -> dict:
     """Apply the gradient rule of the module docstring to every parameter
     (name -> gradient; None where the loss does not reach it, in all three).
 
@@ -67,7 +68,7 @@ def gradient_gate(grads_k: Dict[str, Optional[torch.Tensor]],
     ``plain_outside`` (how many parameters the plain f32 route puts outside
     a), ``ke`` (||k - e|| / a) and ``gate`` (||k - e|| / max(2 ||p - e||,
     a), which must stay <= 1). Raises AssertionError on the first
-    parameter past it."""
+    parameter past it, naming ``what``."""
     present = [n for n, g in grads_p.items() if g is not None]
     for name in grads_p:
         if (grads_k[name] is None, grads_e[name] is None) != (
@@ -90,7 +91,7 @@ def gradient_gate(grads_k: Dict[str, Optional[torch.Tensor]],
         out["plain_outside"] += pe > a
         if not gate <= 1.0:
             raise AssertionError(
-                f"generator gradient on {name}: the kernels lie {ke:.3e} "
+                f"{what} on {name}: the kernels lie {ke:.3e} "
                 f"from float64, past max(2 x the plain route's {pe:.3e}, "
                 f"the allowance {a:.3e})")
     return out

@@ -1084,3 +1084,111 @@ def test_asset_pkl_serves_like_its_gckpt(tmp_path, cuda_device):
             for i in (0, 1)]
     for a, b in zip(pkl.synthesize_batch(mels), gckpt.synthesize_batch(mels)):
         np.testing.assert_array_equal(a, b)
+
+
+# small discriminators of the MelGAN family's training recipes
+_CARD_DISCRIMINATORS = {
+    "MelGANDiscriminator": dict(channels=4, downsample_scales=(4, 4),
+                                max_downsample_channels=16),
+    "MelGANMultiScaleDiscriminator": dict(
+        scales=3, channels=4, downsample_scales=(4, 4),
+        max_downsample_channels=16),
+    "ResidualParallelWaveGANDiscriminator": dict(
+        layers=4, stacks=2, residual_channels=8, gate_channels=16,
+        skip_channels=8),
+}
+
+
+def _flat_outputs(outs):
+    if isinstance(outs, (list, tuple)):
+        return [t for o in outs for t in _flat_outputs(o)]
+    return [outs]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(_CARD_DISCRIMINATORS))
+def test_melgan_family_discriminators_on_card_match_cpu(cuda_device, name):
+    """Each discriminator in its training form on the card (cuDNN convs,
+    TF32 off) against the same module on the CPU: every output and every
+    parameter's gradient of a weighted sum of them, f32 tolerance."""
+    from parallelwavegan_torch.models import get_model_class
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cpu = get_model_class(name)(**_CARD_DISCRIMINATORS[name], folded=False,
+                                generator=torch.Generator().manual_seed(0))
+    card = get_model_class(name)(**_CARD_DISCRIMINATORS[name], folded=False)
+    card.load_state_dict(cpu.state_dict())
+    card.to(cuda_device)
+    x = torch.from_numpy(np.random.default_rng(4).standard_normal(
+        (2, 1021, 1)).astype(np.float32))
+    results = []
+    for module, xin in ((card, x.to(cuda_device)), (cpu, x)):
+        outs = _flat_outputs(module(xin))
+        weights = [torch.from_numpy(np.random.default_rng(i).standard_normal(
+            tuple(t.shape)).astype(np.float32)).to(t.device)
+            for i, t in enumerate(outs)]
+        loss = sum((w * t).sum() for w, t in zip(weights, outs))
+        grads = torch.autograd.grad(loss, list(module.parameters()),
+                                    allow_unused=True)
+        results.append((outs, [torch.zeros_like(p) if g is None else g
+                               for g, p in zip(grads, module.parameters())]))
+    (outs, grads), (want_outs, want_grads) = results
+    for a, b in zip(outs + grads, want_outs + want_grads, strict=True):
+        _assert_close(a.cpu(), b.detach(), torch.float32)
+
+
+@pytest.mark.cuda
+def test_mb_melgan_train_step_on_card_matches_cpu(cuda_device):
+    """One (G, adv, D) step of a small multi-band MelGAN with the subband
+    STFT loss and the multi-scale discriminator (no hand-written kernel on
+    this path): the card (TF32 off) against the CPU from the same
+    parameters and batch, the losses to 1e-4 relative and the updated
+    parameters to 1e-6 absolute (Adam, lr 1e-4, eps 1e-3)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    adam = {"lr": 1e-4, "eps": 1e-3}
+    config = {
+        "hop_size": 64, "num_mels": 16, "batch_max_steps": 1024,
+        "generator_type": "MelGANGenerator",
+        "generator_params": {"in_channels": 16, "out_channels": 4,
+                             "channels": 32, "upsample_scales": [4, 4],
+                             "stacks": 2},
+        "discriminator_type": "MelGANMultiScaleDiscriminator",
+        "discriminator_params": _CARD_DISCRIMINATORS[
+            "MelGANMultiScaleDiscriminator"],
+        "stft_loss_params": {"fft_sizes": [128, 256], "hop_sizes": [16, 32],
+                             "win_lengths": [64, 128]},
+        "use_subband_stft_loss": True,
+        "subband_stft_loss_params": {"fft_sizes": [64, 32],
+                                     "hop_sizes": [8, 4],
+                                     "win_lengths": [32, 16]},
+        "lambda_adv": 2.5,
+        "generator_optimizer_type": "Adam",
+        "generator_optimizer_params": adam,
+        "discriminator_optimizer_type": "Adam",
+        "discriminator_optimizer_params": adam,
+    }
+    batch = example_batch(config, batch_size=2)
+    t = np.arange(1024) / 16000
+    batch["y"] = (0.3 * np.sin(2 * np.pi * np.array([[300.0], [520.0]]) * t)
+                  ).astype(np.float32)[..., None]
+    runs = []
+    for device in (cuda_device, "cpu"):
+        state, gen, dis, opt_g, opt_d = init_train_state(config, seed=0,
+                                                         device=device)
+        factory, _ = build_steps(config, gen, dis, build_criterion(config),
+                                 opt_g, opt_d)
+        _, metrics = factory(True, True, True)(
+            state, {k: torch.from_numpy(v).to(device)
+                    for k, v in batch.items()})
+        runs.append((metrics, {**state.params_g, **state.params_d}))
+    (metrics, params), (want_metrics, want_params) = runs
+    assert "sub_log_stft_magnitude_loss" in metrics
+    assert sorted(metrics) == sorted(want_metrics)
+    for key, value in want_metrics.items():
+        assert abs(metrics[key].item() - value.item()) <= 1e-4 * abs(
+            value.item()), key
+    for key, value in want_params.items():
+        err = (params[key].detach().cpu() - value.detach()).abs().max()
+        assert err.item() <= 1e-6, key

@@ -28,7 +28,11 @@ from parallelwavegan_torch.engine.checkpoint import load_reference_checkpoint
 from parallelwavegan_torch.models import get_model_class
 from parallelwavegan_torch.utils import torch_export, torch_import
 from parallelwavegan_torch.utils.model_loader import load_model
-from parallelwavegan_torch.utils.params import folded_state_dict, nested
+from parallelwavegan_torch.utils.params import (
+    convert_jax_params,
+    folded_state_dict,
+    nested,
+)
 from tests.torch_helpers import (
     flax_generator_kwargs,
     melgan_perturbed,
@@ -240,8 +244,9 @@ def _discriminator(which):
 @pytest.mark.parametrize("which", ["pwg", "residual_pwg", "hifigan_msmpd",
                                    "melgan_msd"])
 def test_discriminator_import_matches_jax(which):
-    """Name maps only: the port has no MelGAN or residual PWG
-    discriminator module, and their trees still convert."""
+    """The port's importer gives the JAX importer's tree, which loads into
+    the port's module of that discriminator (training form, strictly) and
+    computes the flax module's outputs to 1e-5 (1 + max)."""
     name, kw, v, names = _discriminator(which)
     state = reference_state_dict(v, names)
     got = torch_import.import_model_params(state, name, kw)
@@ -250,6 +255,21 @@ def test_discriminator_import_matches_jax(which):
     assert_trees_equal(got["params"], v["params"])
     if "spectral" in v:
         assert_trees_equal(got["spectral"], v["spectral"])
+    port = get_model_class(name)(**kw, folded=False)
+    port.load_state_dict(convert_jax_params(
+        got["params"], fold=False, spectral=got.get("spectral")), strict=True)
+    port.eval()
+    x = np.random.default_rng(2).standard_normal((1, 512, 1)).astype(
+        np.float32)
+    ref = jax_model_class(name)(**kw).apply(v, jnp.asarray(x))
+    outs = port(torch.from_numpy(x))
+    flat = lambda o: [t for a in o for t in flat(a)] if isinstance(  # noqa: E731
+        o, (list, tuple)) else [o]
+    assert len(flat(outs)) == len(flat(ref))
+    for a, b in zip(flat(outs), flat(ref)):
+        b = np.asarray(b)
+        assert np.abs(a.detach().numpy() - b).max() <= 1e-5 * (
+            1 + np.abs(b).max())
 
 
 def test_mb_melgan_pkl_with_its_discriminator_loads(tmp_path):

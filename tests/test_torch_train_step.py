@@ -419,15 +419,30 @@ def test_build_names_what_is_not_ported():
     assert "msd.discriminators_0.layer_0.kernel" in keys
     assert "msd.discriminators_1.layer_0.kernel_v" in keys
     assert "mpd.discriminators_1.convs_0.kernel_g" in keys
-    for key, value in (("generator_type", "MelGANGenerator"),
-                       ("discriminator_type",
-                        "ResidualParallelWaveGANDiscriminator")):
+    # the MelGAN family, the residual discriminator and the subband loss
+    # are ported; StyleMelGAN and the duration loss are not
+    for key, value in (("generator_type", "StyleMelGANGenerator"),
+                       ("discriminator_type", "StyleMelGANDiscriminator")):
         with pytest.raises(NotImplementedError, match="not ported yet"):
             build_models(dict(config, **{key: value}))
     with pytest.raises(NotImplementedError, match="not ported yet"):
-        example_batch(dict(config, generator_type="MelGANGenerator"))
-    with pytest.raises(NotImplementedError, match="use_subband_stft_loss"):
-        build_criterion(dict(config, use_subband_stft_loss=True))
+        example_batch(dict(config, generator_type="StyleMelGANGenerator"))
+    with pytest.raises(NotImplementedError, match="use_duration_loss"):
+        build_criterion(dict(config, use_duration_loss=True))
+    melgan = dict(config, generator_type="MelGANGenerator",
+                  generator_params={"in_channels": 80, "channels": 32,
+                                    "upsample_scales": [4, 4]},
+                  discriminator_type="ResidualParallelWaveGANDiscriminator",
+                  discriminator_params={"layers": 2, "stacks": 1})
+    gen_m, dis_m = build_models(melgan, torch.Generator().manual_seed(0))
+    assert "layer_0.kernel_v" in gen_m.state_dict()
+    assert "conv_layers_1.conv1x1_out.kernel_g" in dis_m.state_dict()
+    a, b = example_batch(melgan), jax_example_batch(melgan)
+    assert sorted(a) == sorted(b) == ["c", "y"]
+    assert sorted(build_criterion(dict(
+        melgan, use_subband_stft_loss=True, subband_stft_loss_params={},
+        generator_params={"out_channels": 4}))) == [
+            "dis_adv", "gen_adv", "pqmf", "stft", "sub_stft"]
     assert sorted(build_criterion(hifigan)) == [
         "dis_adv", "feat_match", "gen_adv", "mel"]
     # an EMA run keeps real copies of the initial parameters

@@ -292,3 +292,113 @@ def melgan_perturbed(variables, seed=0):
         return jnp.asarray(a * (1 + 0.3 * noise) + 0.05 * noise, a.dtype)
 
     return jax.tree_util.tree_map_with_path(move, variables)
+
+
+_SMALL_STFT = {"fft_sizes": [128, 256, 64], "hop_sizes": [16, 32, 8],
+               "win_lengths": [64, 128, 32], "window": "hann_window"}
+_SMALL_MSD = {
+    "scales": 2, "downsample_pooling": "AvgPool1d",
+    "downsample_pooling_params": {"kernel_size": 4, "stride": 2,
+                                  "padding": 1, "count_include_pad": False},
+    "kernel_sizes": [5, 3], "channels": 4, "downsample_scales": [4, 4],
+    "nonlinear_activation": "LeakyReLU",
+    "nonlinear_activation_params": {"negative_slope": 0.2},
+}
+
+
+def small_melgan_train_config(kind, **overrides):
+    """Small recipes of the three shapes that train with the MelGAN family
+    or its discriminator, at hop 64 and 1,024-sample windows:
+
+    - ``mb_melgan``: multi_band_melgan.v2.yaml's shape (4 subbands through
+      PQMF, the multi-scale MelGAN discriminator, the subband STFT loss,
+      lambda_adv 2.5, Adam + MultiStepLR);
+    - ``melgan_v1``: melgan.v1.yaml's (the full-band MelGAN generator
+      against the Parallel WaveGAN discriminator, RAdam + StepLR);
+    - ``pwg_v3``: parallel_wavegan.v3.yaml's (the Parallel WaveGAN
+      generator with kernel size 5 against the multi-scale MelGAN
+      discriminator, feature matching x 25), per-layer
+      (``fused_wavenet: false``).
+
+    Adam's eps is 1e-3, not the recipe's 1e-7, for the reason
+    ``small_hifigan_train_config`` gives, and its rate 1e-4, not 1e-3: the
+    kernel_v gradients carry rounding of up to 1e-3 of their size (the log
+    of small STFT magnitudes), which an update of lr g / (|g| + eps) passes
+    on to the parameters at lr times that."""
+    config = {
+        "sampling_rate": 16000, "hop_size": 64, "num_mels": 16,
+        "batch_max_steps": 1024, "batch_size": 2, "format": "npy",
+        "stft_loss_params": dict(_SMALL_STFT),
+        "discriminator_train_start_steps": 0,
+    }
+    if kind == "mb_melgan":
+        adam = {"lr": 1e-4, "eps": 1e-3, "weight_decay": 0.0}
+        multistep = {"gamma": 0.5, "milestones": [3, 6]}
+        config.update({
+            "generator_type": "MelGANGenerator",
+            "generator_params": {
+                "in_channels": 16, "out_channels": 4, "kernel_size": 7,
+                "channels": 32, "upsample_scales": [4, 4],
+                "stack_kernel_size": 3, "stacks": 2, "use_weight_norm": True,
+                "use_causal_conv": False,
+            },
+            "discriminator_type": "MelGANMultiScaleDiscriminator",
+            "discriminator_params": dict(_SMALL_MSD,
+                                         max_downsample_channels=16),
+            "use_subband_stft_loss": True,
+            "subband_stft_loss_params": {
+                "fft_sizes": [64, 128, 32], "hop_sizes": [8, 16, 4],
+                "win_lengths": [32, 64, 16], "window": "hann_window"},
+            "use_feat_match_loss": False,
+            "lambda_adv": 2.5,
+            "generator_optimizer_type": "Adam",
+            "generator_optimizer_params": dict(adam),
+            "generator_scheduler_type": "MultiStepLR",
+            "generator_scheduler_params": dict(multistep),
+            "generator_grad_norm": -1,
+            "discriminator_optimizer_type": "Adam",
+            "discriminator_optimizer_params": dict(adam),
+            "discriminator_scheduler_type": "MultiStepLR",
+            "discriminator_scheduler_params": dict(multistep),
+            "discriminator_grad_norm": -1,
+        })
+    elif kind == "melgan_v1":
+        config.update({
+            "generator_type": "MelGANGenerator",
+            "generator_params": {
+                "in_channels": 16, "out_channels": 1, "kernel_size": 7,
+                "channels": 64, "upsample_scales": [8, 8],
+                "stack_kernel_size": 3, "stacks": 2, "use_weight_norm": True,
+            },
+            "discriminator_type": "ParallelWaveGANDiscriminator",
+            "discriminator_params": {"layers": 4, "conv_channels": 8},
+            "lambda_adv": 4.0,
+            "generator_optimizer_params": {"lr": 1e-4, "eps": 1e-6},
+            "generator_grad_norm": 10,
+            "discriminator_optimizer_params": {"lr": 5e-5, "eps": 1e-6},
+            "discriminator_grad_norm": 1,
+        })
+    elif kind == "pwg_v3":
+        config.update({
+            "generator_type": "ParallelWaveGANGenerator",
+            "generator_params": dict(flax_generator_kwargs(
+                layers=4, stacks=2, kernel_size=5, residual_channels=8,
+                gate_channels=16, skip_channels=8, aux_channels=16,
+                upsample_params={"upsample_scales": [4, 4, 4]})),
+            "discriminator_type": "MelGANMultiScaleDiscriminator",
+            "discriminator_params": dict(_SMALL_MSD,
+                                         max_downsample_channels=32,
+                                         use_weight_norm=True),
+            "use_feat_match_loss": True,
+            "lambda_feat_match": 25.0,
+            "lambda_adv": 4.0,
+            "generator_optimizer_params": {"lr": 1e-4, "eps": 1e-6},
+            "generator_grad_norm": 10,
+            "discriminator_optimizer_params": {"lr": 5e-5, "eps": 1e-6},
+            "discriminator_grad_norm": 1,
+            "fused_wavenet": False,
+        })
+    else:
+        raise ValueError(kind)
+    config.update(overrides)
+    return config
