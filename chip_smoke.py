@@ -129,7 +129,33 @@
    and load_model with PQMF on cuda against the CPU at 1 x 200 frames,
    printing the PQMF prototypes training and serving chose;
 11. prints a JSON line of the five kernels, the card line, and as the last
-   line {"ok": true, "device": {...}}.
+   line {"ok": true, "device": {...}}, after step 12;
+12. serves and trains StyleMelGAN v1 at full width
+   (egs/ljspeech/voc1/conf/style_melgan.v1.yaml: the TADE generator on a
+   noise grid of 88 frames, the random-window discriminator with PQMF at
+   1, 2, 4 and 8 subbands; no hand-written kernel, in the JAX package as
+   here): (a) seeded weights written to a reference .pkl by the port's
+   exporter and read back by load_model on cuda; (b) f32 at batch 2 x 200
+   frames (3 noise frames) held to the CPU's float64 forward on the same z
+   (at most 2 x the CPU f32 forward's error + 1e-6); (c) bf16 against f32
+   at batch 32 x 512 frames on the same z, within 2e-2 (1 + max), both
+   timed with CUDA events and profiled once; (d) the asset's 24 mels as
+   one 7,200-frame utterance through inference_chunked (chunk 256 and
+   context 64, rounded to the grid: 264 and 88) on the card in f32 against
+   the CPU port's chunks on the same noise within 1e-5 (1 + max), the
+   chunked-vs-whole difference and both wall times printed; (e) training
+   with the recipe (chip_smoke.STYLE_MELGAN_V1_TRAIN, held to the yaml by
+   a CPU test) at batch 32 x 22,528 from a seeded npy corpus:
+   bin.train.run on cuda, 3 f32 steps with the discriminator from step 1,
+   2 more resumed from the .ckpt with mixed_precision; finite losses under
+   every name, moved G and D parameters, a .ckpt that loads back; step
+   times, a profile of each precision, the peak memory; (f) on the
+   loader's batch cut to 2 x 22,528, with fixed noise and window starts,
+   every G and D gradient on the card in f32 (k) and on the CPU in f32 (p)
+   and float64 (e), held to |k - e| <= max(2 |p - e|, a)
+   (tools/float64_check.gradient_gate); (g) the launches of the five
+   kernels counted over (a)-(f): 0. The CPU routes of (b), (d) and (f) are
+   the references, labelled as such.
 
 Exits non-zero, printing no result, on any failure or without a GPU.
 """
@@ -426,6 +452,71 @@ PWG_V3_TRAIN_CUT = dict(
     fused_wavenet=False, discriminator_train_start_steps=0,
     train_max_steps=3, save_interval_steps=3, eval_interval_steps=3,
     log_interval_steps=1)
+# StyleMelGAN v1 (egs/ljspeech/voc1/conf/style_melgan.v1.yaml; a CPU test
+# holds every key to the file but the data format, a seeded npy corpus)
+STYLE_MELGAN_V1 = {
+    "sampling_rate": SR,
+    "hop_size": HOP,
+    "num_mels": 80,
+    "generator_type": "StyleMelGANGenerator",
+    "generator_params": {
+        "in_channels": 128, "aux_channels": 80, "channels": 64,
+        "out_channels": 1, "kernel_size": 9, "dilation": 2, "bias": True,
+        "noise_upsample_scales": [11, 2, 2, 2],
+        "noise_upsample_activation": "LeakyReLU",
+        "noise_upsample_activation_params": {"negative_slope": 0.2},
+        "upsample_scales": [2, 2, 2, 2, 2, 2, 2, 2, 1],
+        "upsample_mode": "nearest", "gated_function": "softmax",
+        "use_weight_norm": True,
+    },
+}
+STYLE_MELGAN_V1_TRAIN = dict(
+    STYLE_MELGAN_V1,
+    format="npy",
+    discriminator_type="StyleMelGANDiscriminator",
+    discriminator_params={
+        "repeats": 2, "window_sizes": [512, 1024, 2048, 4096],
+        "pqmf_params": [[1, None, None, None], [2, 62, 0.267, 9.0],
+                        [4, 62, 0.142, 9.0], [8, 62, 0.07949, 9.0]],
+        "discriminator_params": {
+            "out_channels": 1, "kernel_sizes": [5, 3], "channels": 16,
+            "max_downsample_channels": 512, "bias": True,
+            "downsample_scales": [4, 4, 4, 1],
+            "nonlinear_activation": "LeakyReLU",
+            "nonlinear_activation_params": {"negative_slope": 0.2},
+            "pad": "ReflectionPad1d", "pad_params": {},
+        },
+        "use_weight_norm": True,
+    },
+    stft_loss_params=PWG_V1["stft_loss_params"],
+    lambda_aux=1.0,
+    generator_adv_loss_params={"average_by_discriminators": False},
+    discriminator_adv_loss_params={"average_by_discriminators": False},
+    lambda_adv=1.0,
+    batch_size=32, batch_max_steps=22528,
+    remove_short_samples=False, allow_cache=True,
+    generator_optimizer_type="Adam",
+    generator_optimizer_params={"lr": 0.0001, "betas": [0.5, 0.9],
+                                "weight_decay": 0.0},
+    generator_scheduler_type="MultiStepLR",
+    generator_scheduler_params={
+        "gamma": 0.5,
+        "milestones": [100000, 300000, 500000, 700000, 900000]},
+    generator_grad_norm=-1,
+    discriminator_optimizer_type="Adam",
+    discriminator_optimizer_params={"lr": 0.0002, "betas": [0.5, 0.9],
+                                    "weight_decay": 0.0},
+    discriminator_scheduler_type="MultiStepLR",
+    discriminator_scheduler_params={
+        "gamma": 0.5, "milestones": [200000, 400000, 600000, 800000]},
+    discriminator_grad_norm=-1,
+    generator_train_start_steps=0,
+)
+# three steps (step 0 trains nothing: the gates are strict), the
+# discriminator from step 1 (not 100,000), one evaluation, one checkpoint
+STYLE_MELGAN_V1_TRAIN_CUT = dict(
+    discriminator_train_start_steps=0, train_max_steps=3,
+    save_interval_steps=3, eval_interval_steps=3, log_interval_steps=1)
 N_SCORED = 8       # utterances scored on the host (about 20 s each)
 N_CALIB = 8        # utterances the int8 scales are calibrated on
 # the scored numbers against the committed CPU reference of the JAX package
@@ -1085,10 +1176,13 @@ def training_phase(dev, smi: str) -> dict:
 def profile_step(trainer, batch, what: str) -> None:
     """Where one (G, adv, D) step's device time goes: torch.profiler over
     two steps, device time by kernel name. Printed, never a failure."""
+    from parallelwavegan_torch.engine.step import step_generator
     from parallelwavegan_torch.tools.train_step_profile import device_time
 
     step = trainer.train_step_factory(True, True, True)
-    prof = device_time(lambda: step(trainer.state, batch), top=14)
+    prof = device_time(lambda: step(trainer.state, batch,
+                                    step_generator(0, trainer.state.steps)),
+                       top=14)
     busy = prof["device_busy_ms"]
     if busy <= 0:
         print(f"step profile {what}: the profiler shows no device time")
@@ -2693,6 +2787,341 @@ def chunked_phase(dev, smi: str, mb32) -> dict:
                   "ratio": t[1] / t[0]}
     return out
 
+def seeded_style_melgan(config: dict, seed: int):
+    """A StyleMelGAN generator of ``config`` with seeded weights (serving
+    form). The TADE convs keep torch's uniform init; the N(0, 0.02)
+    kernels of the noise upsampling are rescaled to a per-entry std of
+    1 / sqrt(K Cin) and the output conv's to 8 / sqrt(K Cin), so that the
+    waveform reaches a full-scale level (at the module's init its largest
+    sample sits near 0.03: the softmax gates over 64 channels keep every
+    block's output small)."""
+    from parallelwavegan_torch.models import StyleMelGANGenerator
+
+    gen = StyleMelGANGenerator(**config["generator_params"],
+                               generator=torch.Generator().manual_seed(seed))
+    with torch.no_grad():
+        for name, p in gen.named_parameters():
+            if name.endswith("kernel") and name.startswith(
+                    ("noise_upsample", "output_conv")):
+                gain = 8.0 if name.startswith("output_conv") else 1.0
+                p.mul_(gain / (0.02 * (p.shape[0] * p.shape[1]) ** 0.5))
+    return gen.eval()
+
+
+def kernel_launch_counters() -> dict:
+    """The five kernels' wrappers, by the names of the kernels line."""
+    from parallelwavegan_torch.ops.cuda.matmul_bench import matmul_bench
+    from parallelwavegan_torch.ops.cuda.mrf_stage import mrf_stage
+    from parallelwavegan_torch.ops.cuda.wavenet_stack import wavenet_stack
+    from parallelwavegan_torch.ops.cuda.wavenet_stack_train import (
+        wavenet_stack_backward,
+    )
+    from parallelwavegan_torch.ops.cuda.wavenet_variant import variant_stack
+
+    return {"wavenet_stack": wavenet_stack,
+            "wavenet_stack_backward": wavenet_stack_backward,
+            "mrf_stage": mrf_stage, "matmul_bench": matmul_bench,
+            "wavenet_variant": variant_stack}
+
+
+def style_melgan_serving(smi: str) -> dict:
+    """Step 12 (a)-(d) of the module docstring."""
+    from parallelwavegan_torch.tools.train_step_profile import device_time
+    from parallelwavegan_torch.utils.model_loader import load_model
+    from parallelwavegan_torch.utils.params import nested
+    from parallelwavegan_torch.utils.torch_export import (
+        save_reference_checkpoint,
+    )
+
+    out = {}
+    config = STYLE_MELGAN_V1
+    mels = asset_mels()[0]
+    frames = np.concatenate(mels)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "checkpoint-1steps.pkl")
+        save_reference_checkpoint(
+            path, nested(seeded_style_melgan(config, 2).state_dict()),
+            config, steps=1)
+        m32 = load_model(path, config)
+        m16 = load_model(path, config, dtype=torch.bfloat16)
+        cpu = load_model(path, config, device="cpu")  # the CPU reference
+    gen = m32.generator
+    if m32.device.type != "cuda" or m32.upsample_factor != HOP \
+            or gen.noise_upsample_factor != 88:
+        raise AssertionError("StyleMelGAN v1 did not load as configured")
+    n_params = sum(p.numel() for p in gen.parameters())
+    print(f"style-melgan (a) v1 loaded from a reference .pkl on cuda: "
+          f"{n_params} parameters, noise grid {gen.noise_upsample_factor} "
+          f"frames, upsample factor {m32.upsample_factor}")
+
+    # (b) f32, batch 2 x 200 frames (3 noise frames): the card against
+    # the CPU's float64 forward on the same z (the CPU routes: references)
+    batch = [frames[i * 300: i * 300 + 200] for i in range(2)]
+    fn, (c, z), _ = m32.prepare_batch(batch, bucket_size=1)
+    if tuple(z.shape) != (2, 3, gen.in_channels) or c.shape[1] != 3 * 88:
+        raise AssertionError(f"bad noise grid: z {tuple(z.shape)}, c "
+                             f"{tuple(c.shape)}")
+    fn_cpu = cpu.prepare_batch(batch, bucket_size=1)[0]
+    c_cpu, z_cpu = c.cpu(), z.cpu()
+    gen64 = copy.deepcopy(cpu.generator).double()
+    with torch.inference_mode():
+        y64 = gen64(c_cpu.double(), z_cpu.double())
+    out["f64_err"] = float64_gate("style-melgan (b) f32 2 x 200 frames",
+                                  fn(c, z), fn_cpu(c_cpu, z_cpu), y64)
+    del gen64, y64
+
+    # (c) batch 32 x 512 frames of the asset's mels: bf16 against f32 on
+    # the same z, both timed and profiled once
+    need = BENCH_BATCH * BENCH_FRAMES
+    tiled = np.tile(frames, (-(-need // len(frames)), 1))[:need]
+    bench = list(tiled.reshape(BENCH_BATCH, BENCH_FRAMES, -1))
+    audio_s = BENCH_BATCH * BENCH_FRAMES * HOP / SR
+    fn32, (c32, z32), _ = m32.prepare_batch(bench)
+    fn16, (c16, _), _ = m16.prepare_batch(bench)
+    z16 = z32.to(torch.bfloat16)
+    runs = {"f32": (fn32, c32, z32), "bf16": (fn16, c16, z16)}
+    y32, y16 = fn32(c32, z32), fn16(c16, z16)
+    grid = gen.noise_frames(BENCH_FRAMES) * 88
+    if y32.shape != (BENCH_BATCH, grid * HOP, 1):
+        raise AssertionError(f"bad StyleMelGAN output shape {y32.shape}")
+    err, allowed = max_err(y16, y32, torch.bfloat16)
+    print(f"style-melgan (c) bf16 {BENCH_BATCH} x {BENCH_FRAMES} frames "
+          f"({grid} on the noise grid) vs f32 on the card: max_abs_err "
+          f"{err:.3e} (allowed {allowed:.3e}; max |y| "
+          f"{y32.abs().max().item():.3f})")
+    if err > allowed:
+        raise AssertionError("bf16 StyleMelGAN disagrees with f32")
+    out["bf16_err"] = err
+    del y32, y16
+    for name, (f, cc, zz) in runs.items():
+        torch.cuda.reset_peak_memory_stats()
+        ms = time_ms(lambda: f(cc, zz), reps=3)
+        out[f"{name}_ms"] = ms
+        out[f"{name}_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        print(f"style-melgan (c) {name} {BENCH_BATCH} x {BENCH_FRAMES} "
+              f"frames: forward {ms:.2f} ms, {audio_s / (ms / 1e3):.1f} "
+              f"audio-s/s, peak memory {out[f'{name}_peak_gb']:.2f} GB on "
+              f"{smi}")
+    for name, (f, cc, zz) in runs.items():
+        prof = device_time(lambda: f(cc, zz), n=1, top=10)
+        out[f"{name}_busy_ms"] = prof["device_busy_ms"]
+        print(f"style-melgan (c) {name} profile: "
+              f"{prof['profiled_wall_ms']:.1f} ms wall, device busy "
+              f"{prof['device_busy_ms']:.2f} ms; by kernel:")
+        for row in prof["kernels"]:
+            print(f"  {row['ms']:8.3f} ms x{row['calls']:4.0f}  "
+                  f"{row['name']}")
+    del runs, c32, z32, c16, z16, m16
+
+    # (d) the asset's 24 mels as one utterance through inference_chunked:
+    # the card's f32 chunks against the CPU port's (the reference) on the
+    # noise of one CPU generator seeded 7; the whole forward beside them
+    chunk, ctx = 256, 64
+    noise = lambda: torch.Generator().manual_seed(7)  # noqa: E731
+    t0 = time.perf_counter()
+    chunked = m32.inference_chunked(frames, chunk, ctx, generator=noise())
+    t_first = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    want = cpu.inference_chunked(frames, chunk, ctx, generator=noise())
+    t_cpu = time.perf_counter() - t0
+    if chunked.shape != (len(frames) * HOP, 1):
+        raise AssertionError("bad chunked StyleMelGAN waveform")
+    if not np.isfinite(chunked).all():
+        raise AssertionError("non-finite chunked StyleMelGAN waveform")
+    err = float(np.abs(chunked - want).max())
+    allowed = 1e-5 * (1 + float(np.abs(want).max()))
+    print(f"style-melgan (d) {len(frames)} frames in chunks of 264 with 88 "
+          f"frames of context: card f32 vs the CPU port's chunks on the "
+          f"same noise max_abs_err {err:.3e} (allowed {allowed:.3e}; CPU "
+          f"reference {t_cpu:.1f} s)")
+    if err > allowed:
+        raise AssertionError("chunked StyleMelGAN on the card disagrees "
+                             "with the CPU")
+    m32.inference(frames, generator=noise())  # first call
+    t0 = time.perf_counter()
+    whole = m32.inference(frames, generator=noise())
+    t = [time.perf_counter() - t0]
+    t0 = time.perf_counter()
+    m32.inference_chunked(frames, chunk, ctx, generator=noise())
+    t.append(time.perf_counter() - t0)
+    diff = float(np.abs(chunked - whole).max())
+    rms = float(np.sqrt(np.mean((chunked - whole) ** 2))
+                / np.sqrt(np.mean(whole ** 2)))
+    print(f"style-melgan (d) chunked vs whole (instance norm over the "
+          f"window): max |difference| {diff:.3e}, relative RMS {rms:.3e}; "
+          f"wall {t[1] * 1e3:.1f} ms chunked (first call "
+          f"{t_first * 1e3:.1f}) vs {t[0] * 1e3:.1f} ms whole = "
+          f"{t[1] / t[0]:.3f} x on {smi}")
+    if not (np.isfinite(whole).all() and rms < 0.5):
+        raise AssertionError("chunked StyleMelGAN strays from the whole")
+    out.update(chunked_err=err, chunked_vs_whole=diff, chunked_rms=rms,
+               chunked_ms=t[1] * 1e3, whole_ms=t[0] * 1e3)
+    return out
+
+
+def style_melgan_losses(gen, dis, crit, b: dict, z, starts) -> tuple:
+    """The (G, adv) generator loss of the v1 recipe as the step forms it
+    (STFT loss x lambda_aux + lambda_adv x the adversarial loss on the
+    fake pass's windows) and the discriminator loss on the detached
+    prediction (real, then fake windows), each with its parameters'
+    gradients; z and the three passes' window starts fixed."""
+    cfg = STYLE_MELGAN_V1_TRAIN
+    y = b["y"]
+    y_ = gen(b["c"], z)
+    sc, mag = crit["stft"](y_[..., 0], y[..., 0])
+    loss_g = cfg["lambda_aux"] * (sc + mag) \
+        + cfg["lambda_adv"] * crit["gen_adv"](dis(y_, starts[0]))
+    grads_g = dict(zip([n for n, _ in gen.named_parameters()],
+                       torch.autograd.grad(loss_g, list(gen.parameters()))))
+    real, fake = crit["dis_adv"](dis(y_.detach(), starts[2]),
+                                 dis(y, starts[1]))
+    loss_d = real + fake
+    grads_d = dict(zip([n for n, _ in dis.named_parameters()],
+                       torch.autograd.grad(loss_d, list(dis.parameters()))))
+    return loss_g.item(), grads_g, loss_d.item(), grads_d
+
+
+def style_melgan_training(dev, smi: str) -> dict:
+    """Step 12 (e) and (f) of the module docstring."""
+    from parallelwavegan_torch.bin.train import run
+    from parallelwavegan_torch.engine import checkpoint as ckpt
+    from parallelwavegan_torch.engine.build import init_train_state
+    from parallelwavegan_torch.engine.step import step_generator
+    from parallelwavegan_torch.tools.float64_check import gradient_gate
+
+    rng = np.random.default_rng(6)
+    config = dict(STYLE_MELGAN_V1_TRAIN, **STYLE_MELGAN_V1_TRAIN_CUT)
+    B, T = config["batch_size"], config["batch_max_steps"]
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        dump = os.path.join(tmp, "dump")
+        write_corpus(dump, rng, n_utts=B)
+        initial, _, _, _, _ = init_train_state(config, seed=0, device=dev)
+        n_g = sum(p.numel() for p in initial.generator.parameters())
+        n_d = sum(p.numel() for p in initial.discriminator.parameters())
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer = run(config, dump, dump, os.path.join(tmp, "exp"), seed=0,
+                      device="cuda", dump_config=False)
+        torch.cuda.synchronize()
+        print(f"style-melgan (e) training f32 {B} x {T} samples, G "
+              f"{n_g / 1e6:.2f} M and D {n_d / 1e6:.2f} M parameters: "
+              f"{trainer.steps} steps in {time.perf_counter() - t0:.1f} s "
+              f"wall (first calls)")
+        state = trainer.state
+        if trainer.steps != 3 or trainer.device.type != "cuda" \
+                or state.opt_g.count != 2 or state.opt_d.count != 2:
+            raise AssertionError("the trainer did not take 3 steps on cuda")
+        check_trainer(trainer, "style-melgan (e) training f32", LOSS_NAMES)
+        check_moved("G", trainer.generator, initial.generator, 0)
+        check_moved("D", trainer.discriminator, initial.discriminator, 0)
+        path = os.path.join(tmp, "exp", "checkpoint-3steps.ckpt")
+        ckpt.load_checkpoint(path, initial)
+        for module, loaded in ((trainer.generator, initial.generator),
+                               (trainer.discriminator, initial.discriminator)):
+            want = dict(module.named_parameters())
+            for key, p in loaded.named_parameters():
+                if not torch.equal(p, want[key]):
+                    raise AssertionError(f".ckpt differs on {key}")
+        print(f"  {os.path.basename(path)} "
+              f"({os.path.getsize(path) / 1e6:.1f} MB) loads back")
+        del initial
+
+        mixed_config = dict(config, mixed_precision=True, train_max_steps=5,
+                            save_interval_steps=5, eval_interval_steps=5)
+        mixed = run(mixed_config, dump, dump, os.path.join(tmp, "mixed"),
+                    resume=path, seed=0, device="cuda", dump_config=False)
+        torch.cuda.synchronize()
+        print(f"style-melgan (e) training mixed precision: steps 3 -> "
+              f"{mixed.steps}")
+        if mixed.steps != 5 or mixed.state.opt_g.count != 4 \
+                or mixed.state.opt_d.count != 4:
+            raise AssertionError("the resumed run did not take 2 steps")
+        check_trainer(mixed, "style-melgan (e) training mixed", LOSS_NAMES)
+        if any(p.dtype != torch.float32 or not torch.isfinite(p).all()
+               for p in mixed.generator.parameters()):
+            raise AssertionError("master parameters left finite float32")
+
+        batch = mixed._to_device(next(iter(mixed.train_loader)))
+        for what, t in (("f32", trainer), ("mixed", mixed)):
+            step = t.train_step_factory(True, True, True)
+            out[f"step_ms_{what}"] = time_ms(
+                lambda: step(t.state, batch,
+                             step_generator(0, t.state.steps)), reps=3)
+            torch.cuda.reset_peak_memory_stats()
+            step(t.state, batch, step_generator(0, t.state.steps))
+            torch.cuda.synchronize()
+            out[f"peak_gb_{what}"] = torch.cuda.max_memory_allocated() / 1e9
+        profile_step(trainer, batch, "style-melgan f32")
+        profile_step(mixed, batch, "style-melgan mixed")
+        print(f"style-melgan (e) (G, adv, D) step {B} x {T}: f32 "
+              f"{out['step_ms_f32']:.1f} ms "
+              f"({1e3 / out['step_ms_f32']:.2f} steps/s, peak "
+              f"{out['peak_gb_f32']:.2f} GB), mixed precision "
+              f"{out['step_ms_mixed']:.1f} ms "
+              f"({1e3 / out['step_ms_mixed']:.2f} steps/s, peak "
+              f"{out['peak_gb_mixed']:.2f} GB) on {smi}")
+
+        # (f) the loader's batch cut to 2 x 22,528, fixed z and windows:
+        # every gradient on the card in f32 (k), on the CPU in f32 (p) and
+        # float64 (e) (the CPU routes: references)
+        b = {k: v[:2] for k, v in batch.items()}
+        gen, dis, crit = trainer.generator, trainer.discriminator, \
+            trainer.criterion
+        g = torch.Generator().manual_seed(12)
+        z = gen.draw_noise(2, b["c"].shape[1], g)
+        starts = [dis.draw_window_starts(T, g) for _ in range(3)]
+        routes = {"k": (gen, dis, b, z.to(dev)),
+                  "p": (copy.deepcopy(gen).cpu(), copy.deepcopy(dis).cpu(),
+                        {k: v.cpu() for k, v in b.items()}, z),
+                  "e": (copy.deepcopy(gen).cpu().double(),
+                        copy.deepcopy(dis).cpu().double(),
+                        {k: v.cpu().double() for k, v in b.items()},
+                        z.double())}
+        got = {r: style_melgan_losses(gg, dd, crit, bb, zz, starts)
+               for r, (gg, dd, bb, zz) in routes.items()}
+        for i in (1, 3):  # the card's gradients beside the CPU's
+            got["k"][i].update({n: t.cpu() for n, t in got["k"][i].items()})
+        for i, what in ((1, "generator"), (3, "discriminator")):
+            gate = gradient_gate(got["k"][i], got["p"][i], got["e"][i],
+                                 what=f"style-melgan {what} gradient")
+            loss = {r: got[r][i - 1] for r in got}
+            print(f"style-melgan (f) {what} loss on 2 x {T}: card "
+                  f"{loss['k']:.6f}, CPU f32 {loss['p']:.6f}, float64 "
+                  f"{loss['e']:.6f}; gradients of {gate['parameters']} "
+                  f"parameters in allowances a: k - p {gate['kp'][0]:.3f} "
+                  f"(on {gate['kp'][1]}), p - e {gate['pe'][0]:.3f} "
+                  f"({gate['plain_outside']} outside a), k - e "
+                  f"{gate['ke'][0]:.3f}, gate |k - e| / max(2 |p - e|, a) "
+                  f"{gate['gate'][0]:.3f} (on {gate['gate'][1]}): within")
+            err = abs(loss["k"] - loss["e"])
+            if not err <= max(2 * abs(loss["p"] - loss["e"]),
+                              1e-4 * abs(loss["e"])):
+                raise AssertionError(f"style-melgan {what} loss on the card "
+                                     f"lies {err:.3e} from float64")
+            out[f"{what}_gate"] = gate["gate"][0]
+    return out
+
+
+def style_melgan_phase(dev, smi: str) -> dict:
+    """Step 12: StyleMelGAN v1 served and trained, (g) with every launch
+    of the five kernels counted across (a)-(e)."""
+    counters = kernel_launch_counters()
+    torch.cuda.synchronize()
+    for wrapper in counters.values():
+        wrapper.launches = 0
+    out = style_melgan_serving(smi)
+    out.update(style_melgan_training(dev, smi))
+    torch.cuda.synchronize()
+    out["launches"] = {name: wrapper.launches
+                       for name, wrapper in counters.items()}
+    print(f"style-melgan (g) launches of the five kernels over (a)-(f): "
+          f"{out['launches']} (none is on this path)")
+    if any(out["launches"].values()):
+        raise AssertionError("a hand-written kernel ran on the StyleMelGAN "
+                             "path")
+    return out
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -2890,6 +3319,10 @@ def run_phases(dev, smi: str, pool) -> int:
     melgan_training_phase(dev, smi)
     pwg_v3 = pwg_v3_training_phase(dev, smi)
     print(f"step 10: {time.perf_counter() - t0:.1f} s wall")
+    # 12. StyleMelGAN v1 serving and training
+    t0 = time.perf_counter()
+    style = style_melgan_phase(dev, smi)
+    print(f"step 12: {time.perf_counter() - t0:.1f} s wall")
     if min(launches, launches32, train["fwd_launches"], train["bwd_launches"],
            hifi["launches"], mm["launches"], variant["launches"],
            chunked["pwg_launches"], chunked["mrf_launches"]) < 1:
@@ -2912,7 +3345,7 @@ def run_phases(dev, smi: str, pool) -> int:
     # variant's body, plan, ms, bound, per-layer byte floor and error, and
     # the serving kernel on the same layers beside them; no single PyTorch
     # call computes it.
-    print(json.dumps({"kernels": [{
+    kernels = [{
         "name": "wavenet_stack",
         "route": "cuda",
         "source": "parallelwavegan_torch/csrc/wavenet_stack.cu",
@@ -3034,7 +3467,11 @@ def run_phases(dev, smi: str, pool) -> int:
         "baseline_ms": variant["tool"]["wavenet_bf16_baseline_ms"],
         "tanh_over_baseline": variant["tanh_over_baseline"],
         "snr_db": variant["snr_db"],
-    }]}))
+    }]
+    # step 12 (g): none of the five runs on the StyleMelGAN path
+    for entry in kernels:
+        entry["style_melgan_launches"] = style["launches"][entry["name"]]
+    print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

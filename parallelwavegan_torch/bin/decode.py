@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Decode CLI: mel features -> waveforms with a trained generator of a
-ported family (Parallel WaveGAN, HiFi-GAN, MelGAN and multi-band MelGAN).
+ported family (Parallel WaveGAN, HiFi-GAN, MelGAN, multi-band MelGAN and
+StyleMelGAN).
 
 Counterpart of the mel branches of ``parallelwavegan_tpu/bin/decode.py``:
 bucketed batches, or each utterance in overlapping windows
@@ -17,8 +18,10 @@ CUDA by default (``--device cpu`` for the host):
 (``--use-ema`` then serves its EMA weights) or a reference PyTorch
 ``.pkl``. ``--feats-scp`` reads a Kaldi ark, hdf5 or npy feats.scp. The
 config is YAML (``config.yml`` beside the checkpoint by default) or JSON.
-``--use-f0`` and the families of the JAX package's other decode branches
-are not ported yet.
+The noise of Parallel WaveGAN and StyleMelGAN comes from a
+``torch.Generator`` seeded 0 for each batch or utterance, as the JAX CLI
+draws from ``jax.random.key(0)``. ``--use-f0`` and the families of the JAX
+package's other decode branches are not ported yet.
 """
 
 from __future__ import annotations

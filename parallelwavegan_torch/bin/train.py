@@ -2,10 +2,10 @@
 """Training CLI: config -> datasets -> collater -> loader -> Trainer.
 
 Counterpart of ``parallelwavegan_tpu/bin/train.py`` for Parallel WaveGAN,
-HiFi-GAN and the MelGAN family (MelGAN, multi-band MelGAN through PQMF,
-with any of their discriminators) on one device, with ``--resume`` /
-``--pretrain`` (a ``.ckpt``, a generator ``.gckpt`` or a reference
-``.pkl``) and the ``config.yml`` dump. Each split reads a dump directory
+HiFi-GAN, the MelGAN family (MelGAN, multi-band MelGAN through PQMF, with
+any of their discriminators) and StyleMelGAN on one device, with
+``--resume`` / ``--pretrain`` (a ``.ckpt``, a generator ``.gckpt`` or a
+reference ``.pkl``) and the ``config.yml`` dump. Each split reads a dump directory
 or Kaldi-style lists (a wav.scp and a feats.scp, optionally segments).
 Runs on CUDA by default (``--device cpu`` for the host):
 
@@ -156,8 +156,8 @@ def run(config: Dict[str, Any], train: Split, dev: Split,
 
 def main(argv: Optional[list] = None):
     parser = argparse.ArgumentParser(
-        description="Train a Parallel WaveGAN, HiFi-GAN, MelGAN or "
-        "multi-band MelGAN vocoder."
+        description="Train a Parallel WaveGAN, HiFi-GAN, MelGAN, "
+        "multi-band MelGAN or StyleMelGAN vocoder."
     )
     for split in ("train", "dev"):
         parser.add_argument(f"--{split}-dumpdir", default=None, type=str,

@@ -2,10 +2,10 @@
 (reference-compatible) config.
 
 Counterpart of ``parallelwavegan_tpu/engine/build.py`` for Parallel WaveGAN,
-HiFi-GAN and MelGAN; other families raise ``NotImplementedError`` (from the
-model registry). The models are built
-in their training form (``kernel_v``/``kernel_g``), initialised from a
-seeded ``torch.Generator`` on the CPU and then moved to the device.
+HiFi-GAN, MelGAN and StyleMelGAN; other families raise
+``NotImplementedError`` (from the model registry). The models are built in
+their training form (``kernel_v``/``kernel_g``), initialised from a seeded
+``torch.Generator`` on the CPU and then moved to the device.
 """
 
 from __future__ import annotations
@@ -23,7 +23,7 @@ from parallelwavegan_torch.utils.model_loader import resolve_device
 
 
 _GENERATORS = ("ParallelWaveGANGenerator", "HiFiGANGenerator",
-               "MelGANGenerator")
+               "MelGANGenerator", "StyleMelGANGenerator")
 
 
 def build_models(config: Dict[str, Any], generator: torch.Generator = None):
@@ -53,7 +53,8 @@ def example_batch(config: Dict[str, Any], batch_size: int = 2
     """Tiny batch with the training shapes, for dry runs. Noise z goes to
     the generators the step gives it to: Parallel WaveGAN and any config
     with ``use_noise_input`` (the JAX package's batch gives it to Parallel
-    WaveGAN alone, and its step then fails on the missing z)."""
+    WaveGAN alone, and its step then fails on the missing z); StyleMelGAN
+    draws its own in the step."""
     gen_type = config.get("generator_type", "ParallelWaveGANGenerator")
     if gen_type not in _GENERATORS:
         raise NotImplementedError(f"{gen_type}: not ported yet")

@@ -2,9 +2,9 @@
 update, in one function.
 
 Counterpart of ``parallelwavegan_tpu/engine/step.py`` for Parallel WaveGAN,
-HiFi-GAN and MelGAN (full-band and multi-band) on one device. Warm-up
-gating selects a step variant by (train_g, use_adv, train_d), as there. The
-loss arithmetic follows the JAX step: a multi-band output is merged by the
+HiFi-GAN, MelGAN (full-band and multi-band) and StyleMelGAN on one device.
+Warm-up gating selects a step variant by (train_g, use_adv, train_d), as
+there. The loss arithmetic follows the JAX step: a multi-band output is merged by the
 criterion's PQMF before the full-band STFT loss; with the subband STFT loss
 that loss is halved and half the subband loss (on the PQMF analysis of the
 target against the generator's subbands) added; then the mel loss, all
@@ -12,9 +12,20 @@ times ``lambda_aux``, plus ``lambda_adv`` times the adversarial loss, to
 which feature matching adds ``lambda_feat_match`` times its value;
 gradient clipping, the optimizers and the schedules live in
 ``optimizers``. Differences that PyTorch brings: the parameters are updated
-in place in the state's modules; the step takes no random key (the noise z
-arrives in the batch and nothing else on this path is random); the
-``shard_map`` data-parallel path is not ported yet.
+in place in the state's modules; the ``shard_map`` data-parallel path is not
+ported yet.
+
+Random draws: Parallel WaveGAN (and any generator with ``use_noise_input``)
+takes its noise z from the batch. StyleMelGAN's generator noise and its
+discriminator's random windows come from the step's random source, a
+``torch.Generator`` passed to each call (``step_generator``: the trainer
+seeds one from its seed and the step count, as the JAX trainer folds the
+step into its key), drawn in
+the JAX step's order: in the generator update the noise, then the windows
+of the fake pass, then of the real pass when feature matching is on; in the
+discriminator update fresh noise for the recompute, then the windows of the
+real pass and of the fake pass; ``eval_step`` likewise. A step whose
+families draw and that is given no source raises.
 
 A spectral-normed discriminator advances its vectors ``u`` only in the
 discriminator update (training mode), once per pass: twice a step with the
@@ -32,8 +43,9 @@ float32, and the stored ``u`` is the bfloat16 result widened again.
 from __future__ import annotations
 
 import functools
-from typing import Any, Callable, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 from torch.func import functional_call
 
@@ -46,18 +58,57 @@ Batch = Dict[str, torch.Tensor]
 
 
 # generator families whose step the port does not have yet (their inputs:
-# codes, durations, f0 and excitation, random windows)
-_NOT_PORTED_FAMILIES = ("StyleMelGAN", "VQVAE", "DiscreteSymbol", "Duration",
-                        "UHiFiGAN")
+# codes, durations, f0 and excitation)
+_NOT_PORTED_FAMILIES = ("VQVAE", "DiscreteSymbol", "Duration", "UHiFiGAN")
+
+
+def step_generator(seed: int = 0, steps: int = 0, stream: int = 0
+                   ) -> torch.Generator:
+    """The step's random source: a CPU ``torch.Generator`` seeded from
+    (``seed``, ``steps``, ``stream``), so that a run resumed at a step draws
+    what an unbroken run draws there. The step hands it to the modules'
+    ``draw_noise`` and ``draw_window_starts``."""
+    state = np.random.SeedSequence([int(seed), int(steps), int(stream)])
+    return torch.Generator().manual_seed(
+        int(state.generate_state(1, np.uint64)[0]))
+
+
+def _is_style_generator(config: Dict[str, Any]) -> bool:
+    return config.get("generator_type") == "StyleMelGANGenerator"
+
+
+def _is_style_discriminator(config: Dict[str, Any]) -> bool:
+    return config.get("discriminator_type") == "StyleMelGANDiscriminator"
+
+
+def needs_step_random(config: Dict[str, Any]) -> bool:
+    """Whether the step draws from its random source: StyleMelGAN's
+    generator (its noise) or discriminator (its windows)."""
+    return _is_style_generator(config) or _is_style_discriminator(config)
 
 
 def uses_noise(config: Dict[str, Any]) -> bool:
-    """Whether the generator takes noise z: Parallel WaveGAN always, any
-    other generator with ``use_noise_input: true`` (JAX engine/step.py:
-    52-55)."""
+    """Whether the generator takes noise z from the batch: Parallel WaveGAN
+    always, any other generator but StyleMelGAN (which the step draws for)
+    with ``use_noise_input: true`` (JAX engine/step.py:52-55, where
+    StyleMelGAN's branch comes first)."""
+    if _is_style_generator(config):
+        return False
     return (config.get("generator_type", "ParallelWaveGANGenerator")
             == "ParallelWaveGANGenerator"
             or bool(config.get("use_noise_input", False)))
+
+
+def with_noise(generator, batch: Dict[str, torch.Tensor],
+               rng: Optional[torch.Generator]) -> Dict[str, torch.Tensor]:
+    """``batch`` with a StyleMelGAN generator's noise z (B, noise frames,
+    in_channels) drawn from ``rng`` (f32, on the batch's device); any other
+    generator's batch as it is."""
+    if not hasattr(generator, "draw_noise"):
+        return batch
+    c = batch["c"]
+    z = generator.draw_noise(c.shape[0], c.shape[1], rng)
+    return dict(batch, z=z.to(c.device))
 
 
 def make_generator_forward(config: Dict[str, Any], generator
@@ -66,7 +117,8 @@ def make_generator_forward(config: Dict[str, Any], generator
     named parameters or copies of them (cast, detached).
 
     As in the JAX step, Parallel WaveGAN and any generator with
-    ``use_noise_input: true`` take (z, c), every other generator c alone.
+    ``use_noise_input: true`` take (z, c), StyleMelGAN (c, z) with the z
+    that ``with_noise`` puts in the batch, every other generator c alone.
     A Parallel WaveGAN generator on CUDA takes the fused path (the WaveNet
     stack kernels, trainable grouping) unless ``fused_wavenet`` is false;
     there a config the kernels lack raises, it does not fall back. On the
@@ -78,6 +130,12 @@ def make_generator_forward(config: Dict[str, Any], generator
             raise NotImplementedError(
                 f"{gen_type}: the {family} family's train step is not "
                 "ported yet")
+    if _is_style_generator(config):
+        def forward_style(params: Params, batch: Batch) -> torch.Tensor:
+            return functional_call(generator, params,
+                                   (batch["c"], batch["z"]))
+
+        return forward_style
     if not uses_noise(config):
         def forward_c(params: Params, batch: Batch) -> torch.Tensor:
             return functional_call(generator, params, (batch["c"],))
@@ -119,18 +177,21 @@ def fuse_real_fake_default(discriminator_type: str) -> bool:
 
 def make_discriminator_forward(config: Dict[str, Any], discriminator
                                ) -> Callable[..., Any]:
-    """Adapter (params, x, train, buffers=None) -> discriminator outputs (a
-    tensor, or a list of lists of tensors). ``train`` selects the module's
-    mode for the call: in training mode the spectral-norm vectors advance.
-    ``buffers`` are stand-ins for the module's own buffers (read, and in
-    training mode advanced, in their place)."""
+    """Adapter (params, x, train, buffers=None, *, window_starts=None) ->
+    discriminator outputs (a tensor, or a list of lists of tensors).
+    ``train`` selects the module's mode for the call: in training mode the
+    spectral-norm vectors advance. ``buffers`` are stand-ins for the
+    module's own buffers (read, and in training mode advanced, in their
+    place). ``window_starts`` go to StyleMelGAN's discriminator."""
     def forward(params: Params, x: torch.Tensor, train: bool,
-                buffers: Optional[Params] = None):
+                buffers: Optional[Params] = None, *,
+                window_starts: Optional[List[int]] = None):
         was_training = discriminator.training
         discriminator.train(train)
+        args = (x,) if window_starts is None else (x, window_starts)
         try:
             return functional_call(discriminator,
-                                   {**params, **(buffers or {})}, (x,))
+                                   {**params, **(buffers or {})}, args)
         finally:
             discriminator.train(was_training)
 
@@ -154,10 +215,13 @@ def build_steps(config: Dict[str, Any], generator, discriminator,
     """Return (train_step_factory, eval_step).
 
     train_step_factory(train_g, use_adv, train_d) -> step
-      step(state, batch) -> (state, metrics); the state is updated in place
-    eval_step(state, batch, use_adv=True) -> metrics
+      step(state, batch, rng=None) -> (state, metrics); the state is
+      updated in place
+    eval_step(state, batch, use_adv=True, rng=None) -> metrics
 
     ``batch`` holds tensors on the models' device: y (B, T, 1), c, z.
+    ``rng`` is the step's random source (``step_generator``), which
+    StyleMelGAN needs.
     Metrics are detached 0-d tensors on the device.
     """
     gen_forward_raw = make_generator_forward(config, generator)
@@ -170,10 +234,25 @@ def build_steps(config: Dict[str, Any], generator, discriminator,
                               fuse_real_fake_default(dis_type)))
     out_ch = config.get("generator_params", {}).get("out_channels", 1)
     pqmf = criterion["pqmf"] if out_ch > 1 else None
+    needs_rng = needs_step_random(config)
+    style_d = _is_style_discriminator(config)
+
+    def starts(x: torch.Tensor, rng: Optional[torch.Generator]):
+        """One pass's window starts (StyleMelGAN), else None."""
+        if not style_d:
+            return None
+        return discriminator.draw_window_starts(x.shape[1], rng)
 
     def full_band(y_hat: torch.Tensor) -> torch.Tensor:
         """The generator's output as one band: subbands merged by PQMF."""
         return y_hat if pqmf is None else pqmf.synthesis(y_hat)
+
+    def check_rng(rng: Optional[torch.Generator]) -> None:
+        if needs_rng and rng is None:
+            raise ValueError(
+                f"{config.get('generator_type')} / "
+                f"{config.get('discriminator_type')} draw noise or windows "
+                "from the step's random source: pass step_generator(...)")
 
     recompute = config.get("update_prediction_after_generator_update", True)
     ema_decay = float(config.get("generator_ema_decay", 0.0) or 0.0)
@@ -184,11 +263,12 @@ def build_steps(config: Dict[str, Any], generator, discriminator,
             return gen_forward_raw(_cast(params, f32, bf16),
                                    _cast(batch, f32, bf16)).to(f32)
 
-        def dis_forward(params: Params, x: torch.Tensor, train: bool):
+        def dis_forward(params: Params, x: torch.Tensor, train: bool, *,
+                        window_starts: Optional[List[int]] = None):
             buffers = dict(discriminator.named_buffers())
             half = _cast(buffers, f32, bf16)
             outs = dis_forward_raw(_cast(params, f32, bf16), x.to(bf16),
-                                   train, half)
+                                   train, half, window_starts=window_starts)
             if train:  # the carried power-iteration state back to f32
                 with torch.no_grad():
                     for key, value in buffers.items():
@@ -198,8 +278,9 @@ def build_steps(config: Dict[str, Any], generator, discriminator,
         gen_forward, dis_forward = gen_forward_raw, dis_forward_raw
 
     def gen_losses(params_g: Params, params_d: Params, batch: Batch,
-                   use_adv: bool):
+                   use_adv: bool, rng: Optional[torch.Generator]):
         metrics = {}
+        batch = with_noise(generator, batch, rng)
         y = batch["y"]
         y_mb_ = gen_forward(params_g, batch)  # (B, T / S, S) when multi-band
         y_ = full_band(y_mb_)
@@ -230,17 +311,20 @@ def build_steps(config: Dict[str, Any], generator, discriminator,
             p = None
             if fuse_rf and feat_match is not None:
                 nb = y_.shape[0]
-                p_all = dis_forward(fixed_d, torch.cat([y_, y], dim=0), False)
+                p_all = dis_forward(fixed_d, torch.cat([y_, y], dim=0), False,
+                                    window_starts=starts(y_, rng))
                 p_ = _tree_map(lambda t: t[:nb], p_all)
                 p = _tree_map(lambda t: t[nb:], p_all)
             else:
-                p_ = dis_forward(fixed_d, y_, False)
+                p_ = dis_forward(fixed_d, y_, False,
+                                 window_starts=starts(y_, rng))
             adv_loss = criterion["gen_adv"](p_)
             metrics["adversarial_loss"] = adv_loss
             if feat_match is not None:
                 if p is None:
                     with torch.no_grad():  # the real features are constants
-                        p = dis_forward(fixed_d, y, False)
+                        p = dis_forward(fixed_d, y, False,
+                                        window_starts=starts(y, rng))
                 fm_loss = feat_match(p_, p)
                 metrics["feature_matching_loss"] = fm_loss
                 adv_loss = adv_loss + lambda_fm * fm_loss
@@ -249,16 +333,18 @@ def build_steps(config: Dict[str, Any], generator, discriminator,
         return gen_loss, metrics, y_
 
     def dis_losses(params_d: Params, y: torch.Tensor, y_hat: torch.Tensor,
-                   train: bool):
+                   train: bool, rng: Optional[torch.Generator]):
         y_hat = y_hat.detach()
         if fuse_rf:
             nb = y.shape[0]
-            p_all = dis_forward(params_d, torch.cat([y, y_hat], dim=0), train)
+            p_all = dis_forward(params_d, torch.cat([y, y_hat], dim=0), train,
+                                window_starts=starts(y, rng))
             p = _tree_map(lambda t: t[:nb], p_all)
             p_ = _tree_map(lambda t: t[nb:], p_all)
         else:
-            p = dis_forward(params_d, y, train)
-            p_ = dis_forward(params_d, y_hat, train)
+            p = dis_forward(params_d, y, train, window_starts=starts(y, rng))
+            p_ = dis_forward(params_d, y_hat, train,
+                             window_starts=starts(y_hat, rng))
         real_loss, fake_loss = criterion["dis_adv"](p_, p)
         dis_loss = real_loss + fake_loss
         metrics = {"real_loss": real_loss, "fake_loss": fake_loss,
@@ -278,14 +364,16 @@ def build_steps(config: Dict[str, Any], generator, discriminator,
 
     @functools.lru_cache(maxsize=8)
     def train_step_factory(train_g: bool, use_adv: bool, train_d: bool):
-        def step(state: GANTrainState, batch: Batch
+        def step(state: GANTrainState, batch: Batch,
+                 rng: Optional[torch.Generator] = None
                  ) -> Tuple[GANTrainState, Dict[str, torch.Tensor]]:
+            check_rng(rng)
             metrics: Dict[str, torch.Tensor] = {}
             params_g, params_d = state.params_g, state.params_d
             y_hat = None
             if train_g:
                 gen_loss, m, y_hat = gen_losses(params_g, params_d, batch,
-                                                use_adv)
+                                                use_adv, rng)
                 grads = _grads(gen_loss, params_g)
                 y_hat = y_hat.detach()
                 metrics.update(_detached(m))
@@ -302,8 +390,10 @@ def build_steps(config: Dict[str, Any], generator, discriminator,
                     # a second forward with the updated generator; nothing
                     # is saved for a backward
                     with torch.no_grad():
-                        y_hat = full_band(gen_forward(params_g, batch))
-                dis_loss, m = dis_losses(params_d, batch["y"], y_hat, True)
+                        y_hat = full_band(gen_forward(
+                            params_g, with_noise(generator, batch, rng)))
+                dis_loss, m = dis_losses(params_d, batch["y"], y_hat, True,
+                                         rng)
                 grads_d = _grads(dis_loss, params_d)
                 metrics.update(_detached(m))
                 opt_d.step(params_d, grads_d)
@@ -313,13 +403,15 @@ def build_steps(config: Dict[str, Any], generator, discriminator,
         return step
 
     @torch.no_grad()
-    def eval_step(state: GANTrainState, batch: Batch, use_adv: bool = True
+    def eval_step(state: GANTrainState, batch: Batch, use_adv: bool = True,
+                  rng: Optional[torch.Generator] = None
                   ) -> Dict[str, torch.Tensor]:
+        check_rng(rng)
         _, metrics, y_hat = gen_losses(state.params_g, state.params_d, batch,
-                                       use_adv)
+                                       use_adv, rng)
         if use_adv:
             metrics.update(
-                dis_losses(state.params_d, batch["y"], y_hat, False)[1])
+                dis_losses(state.params_d, batch["y"], y_hat, False, rng)[1])
         return metrics
 
     return train_step_factory, eval_step

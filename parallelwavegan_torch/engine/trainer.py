@@ -6,7 +6,10 @@ wav/plot dumps, checkpoint save and resume, warm-up gating of the G and D
 updates (which selects the step variant), and a final checkpoint on exit.
 Device work stays in ``engine.step``. Metrics accumulate on the device and
 are read back only at the log interval, so the loop does not wait for the
-card every step.
+card every step. Each step gets a random source (``step.step_generator``)
+seeded from the run's seed and the state's step count (each eval epoch one
+of its own), so a run resumed from a ``.ckpt`` draws StyleMelGAN's noise
+and windows as an unbroken run does.
 
 Not carried over from the JAX trainer: ``dispatch_queue_depth`` and the
 ``jax.profiler`` hook. Both work around that package's accelerator runtime
@@ -33,6 +36,8 @@ from parallelwavegan_torch.engine.criterion import build_criterion
 from parallelwavegan_torch.engine.step import (
     build_steps,
     make_generator_forward,
+    step_generator,
+    with_noise,
 )
 
 
@@ -47,6 +52,7 @@ class Trainer:
         device: Any = "cuda",
     ):
         self.config = config
+        self.seed = seed
         self.outdir = outdir or config.get("outdir", "exp")
         self.train_loader = train_loader
         self.eval_loader = eval_loader
@@ -102,7 +108,8 @@ class Trainer:
             self.steps += 1
             return
         step_fn = self.train_step_factory(train_g, use_adv, train_d)
-        self.state, metrics = step_fn(self.state, self._to_device(batch))
+        rng = step_generator(self.seed, self.state.steps)
+        self.state, metrics = step_fn(self.state, self._to_device(batch), rng)
         for k, v in metrics.items():
             self.total_train_loss[f"train/{k}"] += v  # stays on the device
         self._accum_steps += 1
@@ -203,11 +210,12 @@ class Trainer:
         n_batches = 0
         _, use_adv, _ = self._flags()
         first_batch = None
+        rng = step_generator(self.seed, self.state.steps, stream=1)
         for n_batches, batch in enumerate(self.eval_loader, 1):
             batch = self._to_device(batch)
             if first_batch is None:
                 first_batch = batch
-            metrics = self.eval_step(self.state, batch, use_adv)
+            metrics = self.eval_step(self.state, batch, use_adv, rng)
             for k, v in metrics.items():
                 totals[f"eval/{k}"] += v  # on the device; read back below
         for k in totals:
@@ -225,6 +233,8 @@ class Trainer:
         try:
             from parallelwavegan_torch.utils.io import write_wav
 
+            batch = with_noise(self.generator, batch,
+                               step_generator(self.seed, self.state.steps, 2))
             with torch.no_grad():
                 y_hat = self.gen_forward(self.state.params_g, batch)
                 if "pqmf" in self.criterion:  # subbands -> one band

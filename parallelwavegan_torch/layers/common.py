@@ -1,5 +1,5 @@
 """Core modules: the channels-last Conv1d, ConvTranspose1d and Conv2d,
-initializers, activations.
+initializers, activations, instance norm.
 
 Counterpart of ``parallelwavegan_tpu/layers/common.py``. Kernels keep the
 JAX package's (K..., Cin, Cout) layout. Initializers draw from an explicit
@@ -129,6 +129,17 @@ def pad_mode_from_torch(name: str) -> str:
     if name in _PAD_MODES:
         return _PAD_MODES[name]
     raise ValueError(f"unsupported pad module: {name}")
+
+
+def instance_norm_1d(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """torch's InstanceNorm1d without affine: (B, T, C) normalised over T
+    with the biased variance. The statistics of a bf16 input are taken in
+    f32 and the result rounded once, as the JAX package's ``jnp.mean``
+    accumulates bf16 in f32."""
+    xf = x.float() if x.dtype in (torch.bfloat16, torch.float16) else x
+    mean = xf.mean(dim=1, keepdim=True)
+    var = xf.var(dim=1, unbiased=False, keepdim=True)
+    return ((xf - mean) * torch.rsqrt(var + eps)).to(x.dtype)
 
 
 class WeightNormedConv(nn.Module):

@@ -1,5 +1,5 @@
 """Model families and the config-name registry (Parallel WaveGAN, HiFi-GAN,
-MelGAN)."""
+MelGAN, StyleMelGAN)."""
 
 from parallelwavegan_torch.models.hifigan import (  # noqa: F401
     HiFiGANGenerator,
@@ -19,6 +19,10 @@ from parallelwavegan_torch.models.parallel_wavegan import (  # noqa: F401
     ParallelWaveGANGenerator,
     ResidualParallelWaveGANDiscriminator,
 )
+from parallelwavegan_torch.models.style_melgan import (  # noqa: F401
+    StyleMelGANDiscriminator,
+    StyleMelGANGenerator,
+)
 
 _REGISTRY = {
     "HiFiGANGenerator": HiFiGANGenerator,
@@ -35,6 +39,8 @@ _REGISTRY = {
     "ParallelWaveGANDiscriminator": ParallelWaveGANDiscriminator,
     "ResidualParallelWaveGANDiscriminator":
         ResidualParallelWaveGANDiscriminator,
+    "StyleMelGANGenerator": StyleMelGANGenerator,
+    "StyleMelGANDiscriminator": StyleMelGANDiscriminator,
 }
 
 

@@ -83,6 +83,14 @@ def avg_pool1d(x: torch.Tensor, kernel_size: int = 4, stride: int = 2,
     return y.transpose(1, 2)
 
 
+def upsample_nearest_time(x: torch.Tensor, scale: int) -> torch.Tensor:
+    """Nearest-neighbour upsampling along the time axis of (B, T, C)."""
+    if scale == 1:
+        return x
+    B, T, C = x.shape
+    return x[:, :, None, :].expand(B, T, scale, C).reshape(B, T * scale, C)
+
+
 def conv_transpose1d(
     x: torch.Tensor,
     kernel: torch.Tensor,

@@ -1,7 +1,7 @@
 """Public inference API: load a trained generator and synthesize waveforms.
 
 Counterpart of ``parallelwavegan_tpu/utils/model_loader.py`` for the
-ported families, Parallel WaveGAN, HiFi-GAN and the MelGAN generator: read
+ported families, Parallel WaveGAN, HiFi-GAN, MelGAN and StyleMelGAN: read
 the config, build the generator, load its weights (a ``.gckpt``, the
 parameters or the EMA stream of a train-state ``.ckpt``, or a reference
 PyTorch ``.pkl``) with weight norm folded, cast to the compute dtype,
@@ -14,8 +14,9 @@ plain per-layer forward; the config's ``inference_fused_wavenet`` can ask
 for either on any device (:func:`fused_wavenet`). A HiFi-GAN generator
 runs its exact forward (``hifigan_fast_forward``); ``quantize_int8``
 switches its conv chain to int8, and ``use_mrf_kernel`` routes its MRF
-stages to the fused CUDA kernel. A MelGAN generator runs its module
-forward (cuDNN convs).
+stages to the fused CUDA kernel. A MelGAN or StyleMelGAN generator runs
+its module forward (cuDNN convs); StyleMelGAN's mels are edge-padded to its
+noise grid and its noise drawn from the caller's ``torch.Generator``.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
 """
@@ -122,6 +123,15 @@ def chunk_windows(T: int, chunk_frames: int, context_frames: int
     return out
 
 
+def _randn(shape, generator: torch.Generator, device: torch.device,
+           dtype: torch.dtype) -> torch.Tensor:
+    """N(0, 1) noise drawn on ``generator``'s device, then moved to
+    ``device``: a CPU generator gives a CUDA model the noise it gives a CPU
+    model."""
+    return torch.randn(shape, generator=generator, device=generator.device,
+                       dtype=dtype).to(device)
+
+
 def fused_wavenet(config: Dict[str, Any], device: torch.device) -> bool:
     """Whether a Parallel WaveGAN serves through ``pwg_fused_forward``:
     the config's ``inference_fused_wavenet`` (true, false or "auto", the
@@ -209,7 +219,8 @@ class InferenceModel:
     def _forward_fn(self) -> Callable[[torch.Tensor,
                                        Optional[torch.Tensor]], torch.Tensor]:
         """fn(c, z): the device call of the current serving mode. z is the
-        noise of a Parallel WaveGAN and None for the other families."""
+        noise of a Parallel WaveGAN or a StyleMelGAN and None for the other
+        families."""
         gen, w, pqmf = self.generator, self.stack_params, self.pqmf
         scales, qweights = self._int8_scales, self._int8_weights
         packs = self._mrf_packs
@@ -219,6 +230,8 @@ class InferenceModel:
                ) -> torch.Tensor:
             if self.gen_type == "ParallelWaveGANGenerator":
                 y = gen(z, c) if w is None else pwg_fused_forward(gen, z, c, w)
+            elif self.gen_type == "StyleMelGANGenerator":
+                y = gen(c, z)
             else:
                 if self.gen_type == "HiFiGANGenerator":
                     y = hifigan_fast_forward(gen, c, scales=scales,
@@ -317,10 +330,12 @@ class InferenceModel:
                List[int]]:
         """Host-side prep for one batched call: normalize, edge-pad mels to
         a shared bucket length (plus, for Parallel WaveGAN, the context
-        window), draw the noise z from ``generator`` (a fresh one seeded 0
-        by default; None for HiFi-GAN, which takes no noise) and resolve
-        the forward. Returns (fn, (c, z), lengths); ``fn(c, z)`` is the
-        device call, and callers may pass their own z in its place."""
+        window; for StyleMelGAN, then on to its noise grid), draw the noise
+        z from ``generator`` on its device (by default a fresh one on the
+        model's, seeded 0; for StyleMelGAN (B, noise frames, in_channels);
+        None for the families that take no noise) and resolve the forward.
+        Returns (fn, (c, z), lengths); ``fn(c, z)`` is the device call,
+        and callers may pass their own z in its place."""
         cs = [np.asarray(c, dtype=np.float32) for c in cs]
         if normalize_before:
             if self.mean is None:
@@ -334,16 +349,23 @@ class InferenceModel:
             np.pad(c, ((ctx, bucket - len(c) + ctx), (0, 0)), mode="edge")
             for c in cs
         ])
+        style = self.gen_type == "StyleMelGANGenerator"
+        if style:
+            # the bucket edge-padded on to the noise grid (the JAX
+            # package's padding: the instance norms see these frames)
+            frames = self.generator.noise_frames(bucket)
+            grid = frames * self.generator.noise_upsample_factor
+            padded = np.pad(padded, ((0, 0), (0, grid - bucket), (0, 0)),
+                            mode="edge")
         c = torch.from_numpy(padded).to(self.device, self.dtype)
         z = None
-        if pwg:
+        if pwg or style:
             if generator is None:
                 generator = torch.Generator(device=self.device).manual_seed(0)
-            z = torch.randn(
-                (len(cs), bucket * self.upsample_factor,
-                 self.generator.in_channels),
-                generator=generator, device=self.device, dtype=self.dtype,
-            )
+            shape = ((len(cs), frames, self.generator.in_channels) if style
+                     else (len(cs), bucket * self.upsample_factor,
+                           self.generator.in_channels))
+            z = _randn(shape, generator, self.device, self.dtype)
         return self._forward_fn(), (c, z), lengths
 
     def synthesize_batch(
@@ -389,19 +411,31 @@ class InferenceModel:
         fused MRF stage). A Parallel WaveGAN draws each window's noise from
         ``generator`` (a fresh one seeded 0 by default), in window order;
         its chunks are the forward of their windows on that noise.
+
+        StyleMelGAN chunks on its noise grid, as the JAX package does:
+        chunk and context are rounded up to whole noise frames, the mel is
+        edge-padded to the grid, one draw from ``generator`` covers the
+        whole utterance (the draw ``inference`` makes) and each window
+        takes its slice of it. Its instance norms take their statistics
+        over the window, so the chunks come close to the whole forward
+        without equalling it.
         """
         if self.gen_type not in ("ParallelWaveGANGenerator",
-                                 "MelGANGenerator", "HiFiGANGenerator"):
+                                 "MelGANGenerator", "HiFiGANGenerator",
+                                 "StyleMelGANGenerator"):
             raise NotImplementedError(
-                f"chunked synthesis of {self.gen_type} is not ported (the "
-                f"StyleMelGAN noise grid comes with ROADMAP A5)")
+                f"chunked synthesis of {self.gen_type} is not ported")
         c = np.asarray(c, dtype=np.float32)
         if normalize_before:
             if self.mean is None:
                 raise ValueError("register_stats first")
             c = (c - self.mean) / self.scale
-        if generator is None and self.gen_type == "ParallelWaveGANGenerator":
+        if generator is None and self.gen_type in (
+                "ParallelWaveGANGenerator", "StyleMelGANGenerator"):
             generator = torch.Generator(device=self.device).manual_seed(0)
+        if self.gen_type == "StyleMelGANGenerator":
+            return self._inference_chunked_style(c, chunk_frames,
+                                                 context_frames, generator)
         up = self.upsample_factor
         outs = []
         for lo, hi, a, b in chunk_windows(len(c), chunk_frames,
@@ -410,6 +444,31 @@ class InferenceModel:
                                       bucket_size=1)[0]
             outs.append(y[(a - lo) * up: (b - lo) * up])
         return np.concatenate(outs, axis=0)
+
+    def _inference_chunked_style(self, c: np.ndarray, chunk_frames: int,
+                                 context_frames: int,
+                                 generator: torch.Generator) -> np.ndarray:
+        """StyleMelGAN's windows on the noise grid (``inference_chunked``):
+        every boundary is a whole number of noise frames, so each window's
+        mel pairs with a contiguous slice of the one noise draw."""
+        gen = self.generator
+        nf = gen.noise_upsample_factor
+        align = lambda n: -(-n // nf) * nf  # noqa: E731
+        T = len(c)
+        T_pad = align(T)
+        c_pad = torch.from_numpy(
+            np.pad(c, ((0, T_pad - T), (0, 0)), mode="edge")[None]
+        ).to(self.device, self.dtype)
+        z = _randn((1, T_pad // nf, gen.in_channels), generator,
+                   self.device, self.dtype)
+        fn, up = self._forward_fn(), self.upsample_factor
+        outs = []
+        for lo, hi, a, b in chunk_windows(T_pad, align(max(chunk_frames, 1)),
+                                          align(max(context_frames, 1))):
+            y = fn(c_pad[:, lo:hi], z[:, lo // nf: hi // nf])
+            y = (y if self.pcm16 else y.float()).cpu().numpy()
+            outs.append(y[0, (a - lo) * up: (b - lo) * up])
+        return np.concatenate(outs, axis=0)[: T * up]
 
 
 def load_model(

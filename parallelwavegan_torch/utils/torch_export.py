@@ -1,9 +1,9 @@
 """Generator parameter trees -> reference PyTorch state_dicts and ``.pkl``.
 
 Counterpart of ``parallelwavegan_tpu/utils/torch_export.py`` for the
-generators the port has (Parallel WaveGAN, MelGAN, HiFi-GAN): the inverse
-of ``utils/torch_import.py``. The reference toolkit (or ESPnet) loads the
-``.pkl`` through its ``utils.load_model``, which reads
+generators the port has (Parallel WaveGAN, MelGAN, HiFi-GAN, StyleMelGAN):
+the inverse of ``utils/torch_import.py``. The reference toolkit (or
+ESPnet) loads the ``.pkl`` through its ``utils.load_model``, which reads
 ``ckpt["model"]["generator"]`` and the config beside it. The tree is
 flax-style, nested dicts of numpy arrays or tensors: a converted flax
 tree, or ``utils.params.nested(module.state_dict())``.
@@ -91,10 +91,31 @@ def _hifigan_generator_inverse(config: Dict[str, Any]):
     return rule
 
 
+def _style_melgan_generator_inverse(config: Dict[str, Any]):
+    def rule(path: str):
+        m = re.match(r"^noise_upsample_(\d+)$", path)
+        if m:
+            return f"noise_upsample.{2 * int(m.group(1))}", "convt1d"
+        m = re.match(r"^blocks_(\d+)/(tade1|tade2)/(aux_conv|gated_conv)$",
+                     path)
+        if m:
+            return (f"blocks.{m.group(1)}.{m.group(2)}.{m.group(3)}.0",
+                    "conv1d")
+        m = re.match(r"^blocks_(\d+)/(gated_conv1|gated_conv2)$", path)
+        if m:
+            return f"blocks.{m.group(1)}.{m.group(2)}", "conv1d"
+        if path == "output_conv":
+            return "output_conv.0", "conv1d"
+        return None
+
+    return rule
+
+
 _INVERSE_RULES = {
     "ParallelWaveGANGenerator": _pwg_generator_inverse,
     "MelGANGenerator": _melgan_generator_inverse,
     "HiFiGANGenerator": _hifigan_generator_inverse,
+    "StyleMelGANGenerator": _style_melgan_generator_inverse,
 }
 _INV_PERMS = {"conv1d": (2, 1, 0), "convt1d": (1, 2, 0),
               "conv2d": (3, 2, 0, 1)}

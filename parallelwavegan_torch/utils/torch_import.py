@@ -5,8 +5,7 @@ families the port has: it reads the reference toolkit's
 ``checkpoint-<N>steps.pkl`` and gives the tree the JAX importer gives
 (nested dicts of float32 numpy arrays under the flax names), which
 ``utils/params.convert_jax_params`` turns into the port's state_dicts.
-Discriminator rules are name maps only, so a checkpoint whose
-discriminator the port cannot build yet (MelGAN's) still converts.
+Discriminator rules are name maps only.
 
 Layout conversions (torch -> flax):
   Conv1d  weight (O, I/g, K)    -> kernel (K, I/g, O)     transpose(2, 1, 0)
@@ -28,7 +27,6 @@ Rule = Callable[[str], Optional[Tuple[str, str]]]
 
 # families the JAX importer knows and the port does not have yet
 _NOT_PORTED = (
-    "StyleMelGANGenerator", "StyleMelGANDiscriminator",
     "DiscreteSymbolHiFiGANGenerator", "DiscreteSymbolDurationGenerator",
     "DiscreteSymbolF0Generator", "DiscreteSymbolStyleMelGANGenerator",
     "UHiFiGANGenerator", "VQVAE",
@@ -199,6 +197,25 @@ def _hifigan_scale_rule() -> Rule:
     return rule
 
 
+def _style_melgan_generator_rule(config) -> Rule:
+    def rule(key):
+        m = re.match(r"^noise_upsample\.(\d+)$", key)
+        if m:
+            return f"noise_upsample_{int(m.group(1)) // 2}", "convt1d"
+        m = re.match(
+            r"^blocks\.(\d+)\.(tade1|tade2)\.(aux_conv|gated_conv)\.0$", key)
+        if m:
+            return f"blocks_{m.group(1)}/{m.group(2)}/{m.group(3)}", "conv1d"
+        m = re.match(r"^blocks\.(\d+)\.(gated_conv1|gated_conv2)$", key)
+        if m:
+            return f"blocks_{m.group(1)}/{m.group(2)}", "conv1d"
+        if key == "output_conv.0":
+            return "output_conv", "conv1d"
+        return None
+
+    return rule
+
+
 def _multi(rule_fn: Rule, list_name: str = "discriminators") -> Rule:
     def rule(key):
         m = re.match(rf"^{list_name}\.(\d+)\.(.*)$", key)
@@ -252,6 +269,10 @@ def _rule_for(model_name: str, config: Dict[str, Any]) -> Rule:
         return _multi(_hifigan_scale_rule())
     if model_name == "HiFiGANMultiScaleMultiPeriodDiscriminator":
         return _msmpd_rule(config)
+    if model_name == "StyleMelGANGenerator":
+        return _style_melgan_generator_rule(config)
+    if model_name == "StyleMelGANDiscriminator":
+        return _multi(_melgan_discriminator_rules())
     if model_name in _NOT_PORTED:
         raise NotImplementedError(
             f"reference checkpoints of {model_name} are not ported yet")

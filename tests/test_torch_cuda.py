@@ -1192,3 +1192,116 @@ def test_mb_melgan_train_step_on_card_matches_cpu(cuda_device):
     for key, value in want_params.items():
         err = (params[key].detach().cpu() - value.detach()).abs().max()
         assert err.item() <= 1e-6, key
+
+
+# --- StyleMelGAN (no hand-written kernel on its path) ----------------------
+_SMALL_STYLE_G = dict(in_channels=16, aux_channels=12, channels=16,
+                      noise_upsample_scales=(4, 2),
+                      upsample_scales=(2, 2, 2, 2, 1))
+_SMALL_STYLE_D = dict(repeats=2, window_sizes=(32, 64, 128, 256),
+                      discriminator_params=dict(channels=4,
+                                                max_downsample_channels=16,
+                                                downsample_scales=(4, 1)))
+
+
+def _five_kernel_launches():
+    from parallelwavegan_torch.ops.cuda.wavenet_stack_train import (
+        wavenet_stack_backward as bwd,
+    )
+
+    return (wavenet_stack.launches, bwd.launches, mrf_stage.launches,
+            matmul_bench.launches, variant_stack.launches)
+
+
+@pytest.mark.cuda
+def test_style_melgan_on_card_matches_cpu(tmp_path, cuda_device):
+    """A small StyleMelGAN written as a reference .pkl by the port's
+    exporter: batched and chunked serving on the card (TF32 off) against
+    the CPU on the noise of one CPU generator, f32 tolerance; no launch
+    of the five kernels."""
+    from parallelwavegan_torch.models import StyleMelGANGenerator
+    from parallelwavegan_torch.utils.params import nested
+    from parallelwavegan_torch.utils.torch_export import (
+        save_reference_checkpoint,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gen = StyleMelGANGenerator(**_SMALL_STYLE_G,
+                               generator=torch.Generator().manual_seed(0))
+    config = {"generator_type": "StyleMelGANGenerator",
+              "generator_params": _SMALL_STYLE_G, "hop_size": 16}
+    path = str(tmp_path / "checkpoint-1steps.pkl")
+    save_reference_checkpoint(path, nested(gen.state_dict()), config)
+    rng = np.random.default_rng(10)
+    mels = [rng.standard_normal((n, 12)).astype(np.float32) for n in (40, 23)]
+    before = _five_kernel_launches()
+    models = {d: load_model(path, config, device=d)
+              for d in (cuda_device, "cpu")}
+    noise = lambda: torch.Generator().manual_seed(3)  # noqa: E731
+    got, want = (m.synthesize_batch(mels, generator=noise())
+                 for m in models.values())
+    for a, b in zip(got, want, strict=True):
+        assert a.shape == b.shape and np.abs(b).max() > 1e-3
+        _assert_close(torch.from_numpy(a), torch.from_numpy(b),
+                      torch.float32)
+    long = rng.standard_normal((300, 12)).astype(np.float32)
+    got, want = (m.inference_chunked(long, 24, 8, generator=noise())
+                 for m in models.values())
+    assert got.shape == (300 * 16, 1)
+    _assert_close(torch.from_numpy(got), torch.from_numpy(want),
+                  torch.float32)
+    assert _five_kernel_launches() == before
+
+
+@pytest.mark.cuda
+def test_style_melgan_train_step_on_card_matches_cpu(cuda_device):
+    """One (G, adv, D) step of a small StyleMelGAN from the same
+    parameters, batch and random source on the card (TF32 off) and on the
+    CPU: the losses to 1e-4 relative, the updated parameters to 1e-6
+    absolute (Adam, lr 1e-4, eps 1e-3); no launch of the five kernels."""
+    from parallelwavegan_torch.engine.step import step_generator
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    adam = {"lr": 1e-4, "eps": 1e-3}
+    config = {
+        "hop_size": 16, "num_mels": 12, "batch_max_steps": 384,
+        "generator_type": "StyleMelGANGenerator",
+        "generator_params": _SMALL_STYLE_G,
+        "discriminator_type": "StyleMelGANDiscriminator",
+        "discriminator_params": _SMALL_STYLE_D,
+        "stft_loss_params": {"fft_sizes": [64, 128], "hop_sizes": [8, 16],
+                             "win_lengths": [32, 64]},
+        "lambda_adv": 1.0,
+        "generator_optimizer_type": "Adam",
+        "generator_optimizer_params": adam,
+        "discriminator_optimizer_type": "Adam",
+        "discriminator_optimizer_params": adam,
+    }
+    batch = example_batch(config, batch_size=2)
+    assert sorted(batch) == ["c", "y"]
+    t = np.arange(384) / 8000
+    batch["y"] = (0.3 * np.sin(2 * np.pi * np.array([[300.0], [520.0]]) * t)
+                  ).astype(np.float32)[..., None]
+    before = _five_kernel_launches()
+    runs = []
+    for device in (cuda_device, "cpu"):
+        state, gen, dis, opt_g, opt_d = init_train_state(config, seed=0,
+                                                         device=device)
+        factory, _ = build_steps(config, gen, dis, build_criterion(config),
+                                 opt_g, opt_d)
+        _, metrics = factory(True, True, True)(
+            state, {k: torch.from_numpy(v).to(device)
+                    for k, v in batch.items()}, step_generator(0, 0))
+        runs.append((metrics, {**state.params_g, **state.params_d}))
+    assert _five_kernel_launches() == before
+    (metrics, params), (want_metrics, want_params) = runs
+    assert sorted(metrics) == sorted(want_metrics)
+    assert "adversarial_loss" in metrics
+    for key, value in want_metrics.items():
+        assert abs(metrics[key].item() - value.item()) <= 1e-4 * abs(
+            value.item()), key
+    for key, value in want_params.items():
+        err = (params[key].detach().cpu() - value.detach()).abs().max()
+        assert err.item() <= 1e-6, key

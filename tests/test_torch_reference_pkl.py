@@ -323,7 +323,7 @@ def test_port_written_pkl_reads_back_through_jax(tmp_path, which):
 
 
 @pytest.mark.parametrize("family", [
-    "StyleMelGANGenerator", "DiscreteSymbolHiFiGANGenerator",
+    "DiscreteSymbolStyleMelGANGenerator", "DiscreteSymbolHiFiGANGenerator",
     "UHiFiGANGenerator", "VQVAE",
 ])
 def test_unported_family_raises_naming_it(tmp_path, family):

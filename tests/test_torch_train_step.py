@@ -419,14 +419,16 @@ def test_build_names_what_is_not_ported():
     assert "msd.discriminators_0.layer_0.kernel" in keys
     assert "msd.discriminators_1.layer_0.kernel_v" in keys
     assert "mpd.discriminators_1.convs_0.kernel_g" in keys
-    # the MelGAN family, the residual discriminator and the subband loss
-    # are ported; StyleMelGAN and the duration loss are not
-    for key, value in (("generator_type", "StyleMelGANGenerator"),
-                       ("discriminator_type", "StyleMelGANDiscriminator")):
+    # the MelGAN family, StyleMelGAN, the residual discriminator and the
+    # subband loss are ported; UHiFiGAN, VQ-VAE and the duration loss are
+    # not (every discriminator family is ported: an unported model name
+    # stands in the discriminator's place)
+    for key, value in (("generator_type", "UHiFiGANGenerator"),
+                       ("discriminator_type", "VQVAE")):
         with pytest.raises(NotImplementedError, match="not ported yet"):
             build_models(dict(config, **{key: value}))
     with pytest.raises(NotImplementedError, match="not ported yet"):
-        example_batch(dict(config, generator_type="StyleMelGANGenerator"))
+        example_batch(dict(config, generator_type="UHiFiGANGenerator"))
     with pytest.raises(NotImplementedError, match="use_duration_loss"):
         build_criterion(dict(config, use_duration_loss=True))
     melgan = dict(config, generator_type="MelGANGenerator",

@@ -1,7 +1,8 @@
 """Shared pieces of the port's JAX-side tests (tests/test_torch_*.py): model
 widths, the small HiFi-GAN train recipe, the helpers that put one train
-state into both packages and compare what a step did to each, and the
-perturbation of a MelGAN tree."""
+state into both packages and compare what a step did to each, the
+perturbation of a MelGAN tree, and a stand-in for the ``jax`` name of a
+JAX-package module that hands out given random draws."""
 
 import numpy as np
 
@@ -400,5 +401,104 @@ def small_melgan_train_config(kind, **overrides):
         })
     else:
         raise ValueError(kind)
+    config.update(overrides)
+    return config
+
+
+class _RandomDraws:
+    def __init__(self, normals, ints):
+        import jax
+
+        self._random = jax.random
+        self.normals, self.ints = list(normals), list(ints)
+
+    def normal(self, key, shape, dtype=None):
+        import jax.numpy as jnp
+
+        a = np.asarray(self.normals.pop(0))
+        assert a.shape == tuple(shape), (a.shape, shape)
+        return jnp.asarray(a, dtype)
+
+    def randint(self, key, shape, minval, maxval):
+        v = self.ints.pop(0)
+        assert minval <= v < max(maxval, minval + 1), (v, minval, maxval)
+        return v
+
+    def __getattr__(self, name):
+        return getattr(self._random, name)
+
+
+class JaxDraws:
+    """Stands in for the ``jax`` name of a JAX-package module (set with
+    ``monkeypatch.setattr``): ``random.normal`` and ``random.randint`` hand
+    out ``normals`` and ``ints`` in call order (asserting the shape and the
+    range), everything else is jax's. Under ``jax.jit`` the draws are read
+    when the function is traced."""
+
+    def __init__(self, normals=(), ints=()):
+        import jax
+
+        self._jax = jax
+        self.random = _RandomDraws(normals, ints)
+
+    def __getattr__(self, name):
+        return getattr(self._jax, name)
+
+
+def small_style_melgan_train_config(**overrides):
+    """style_melgan.v1.yaml's shape at hop 16: the TADE generator on a
+    noise grid of 8 frames (noise scales 4, 2; upsample scales 2, 2, 2, 2,
+    1), the random-window discriminator (2 repeats of windows of 32 to 256
+    samples through PQMF at 1, 2, 4 and 8 subbands, MelGAN
+    sub-discriminators of 8 channels), the STFT and the MSE adversarial
+    loss with lambda_adv 1, Adam + MultiStepLR, the discriminator from step
+    0. Windows of 384 samples = 24 frames = 3 noise frames, so that every
+    window start is drawn. Adam's eps is 1e-3, for the reason
+    ``small_hifigan_train_config`` gives."""
+    adam = {"lr": 1e-4, "betas": (0.5, 0.9), "eps": 1e-3,
+            "weight_decay": 0.0}
+    config = {
+        "sampling_rate": 8000, "hop_size": 16, "num_mels": 16,
+        "batch_max_steps": 384, "batch_size": 2, "format": "npy",
+        "generator_type": "StyleMelGANGenerator",
+        "generator_params": {
+            "in_channels": 16, "aux_channels": 16, "channels": 16,
+            "kernel_size": 9, "dilation": 2, "noise_upsample_scales": [4, 2],
+            "upsample_scales": [2, 2, 2, 2, 1], "gated_function": "softmax",
+            "use_weight_norm": True,
+        },
+        "discriminator_type": "StyleMelGANDiscriminator",
+        "discriminator_params": {
+            "repeats": 2, "window_sizes": [32, 64, 128, 256],
+            "pqmf_params": [[1, None, None, None], [2, 62, 0.267, 9.0],
+                            [4, 62, 0.142, 9.0], [8, 62, 0.07949, 9.0]],
+            "discriminator_params": {
+                "out_channels": 1, "kernel_sizes": [5, 3], "channels": 8,
+                "max_downsample_channels": 32, "downsample_scales": [4, 1],
+                "pad": "ReflectionPad1d", "pad_params": {},
+            },
+            "use_weight_norm": True,
+        },
+        "stft_loss_params": {"fft_sizes": [64, 128, 32],
+                             "hop_sizes": [8, 16, 4],
+                             "win_lengths": [32, 64, 16],
+                             "window": "hann_window"},
+        "lambda_aux": 1.0, "lambda_adv": 1.0,
+        "generator_adv_loss_params": {"average_by_discriminators": False},
+        "discriminator_adv_loss_params": {"average_by_discriminators": False},
+        "generator_optimizer_type": "Adam",
+        "generator_optimizer_params": dict(adam),
+        "generator_scheduler_type": "MultiStepLR",
+        "generator_scheduler_params": {"gamma": 0.5, "milestones": [3, 6]},
+        "generator_grad_norm": -1,
+        "discriminator_optimizer_type": "Adam",
+        "discriminator_optimizer_params": dict(adam, lr=2e-4),
+        "discriminator_scheduler_type": "MultiStepLR",
+        "discriminator_scheduler_params": {"gamma": 0.5,
+                                           "milestones": [3, 6]},
+        "discriminator_grad_norm": -1,
+        "generator_train_start_steps": 0,
+        "discriminator_train_start_steps": 0,
+    }
     config.update(overrides)
     return config
