@@ -119,7 +119,9 @@
    discriminator loss and every gradient on the card in f32 (k), on the
    CPU in f32 (p) and in float64 (e), each gradient held to
    |k - e| <= max(2 |p - e|, a) (no hand-written kernel: this holds cuDNN
-   and the port's modules); (c) Parallel WaveGAN v3
+   and the port's modules), G's through the network on float64's
+   cotangents of the loss (gate_gradients; its own gradients' ratio is
+   printed); (c) Parallel WaveGAN v3
    (parallel_wavegan.v3.yaml: kernel size 5, the multi-scale MelGAN
    discriminator with feature matching) at batch 16 x 8,192, 3 f32 steps
    with the discriminator from step 1, on the per-layer path: kernel size
@@ -129,7 +131,7 @@
    and load_model with PQMF on cuda against the CPU at 1 x 200 frames,
    printing the PQMF prototypes training and serving chose;
 11. prints a JSON line of the five kernels, the card line, and as the last
-   line {"ok": true, "device": {...}}, after step 12;
+   line {"ok": true, "device": {...}}, after steps 12 and 13;
 12. serves and trains StyleMelGAN v1 at full width
    (egs/ljspeech/voc1/conf/style_melgan.v1.yaml: the TADE generator on a
    noise grid of 88 frames, the random-window discriminator with PQMF at
@@ -153,9 +155,44 @@
    loader's batch cut to 2 x 22,528, with fixed noise and window starts,
    every G and D gradient on the card in f32 (k) and on the CPU in f32 (p)
    and float64 (e), held to |k - e| <= max(2 |p - e|, a)
-   (tools/float64_check.gradient_gate); (g) the launches of the five
+   (tools/float64_check.gradient_gate), G's on float64's loss cotangents
+   as in step 10 (b); (g) the launches of the five
    kernels counted over (a)-(f): 0. The CPU routes of (b), (d) and (f) are
-   the references, labelled as such.
+   the references, labelled as such;
+13. serves and trains the VQ-VAE at full width
+   (egs/vctk/vq1/conf/conditioned_melgan_vae.v3.yaml: the MelGAN
+   discriminator tower as encoder, 64 x down to 256 dims, a codebook of
+   512 x 256, 128 speakers, a MelGAN decoder; no hand-written kernel, in
+   the JAX package as here): (a) seeded weights (the codebook rows
+   latents of a seeded batch) written to a reference .pkl by the port's
+   exporter and read back by load_model on cuda; (b) 8 seeded utterances
+   of 1-6 s at 24 kHz (one of a ragged length) with speaker ids through
+   vq_encode -> vq_decode on the card against the CPU port: the codes
+   equal but at near-ties (a float64 gap between a latent's two nearest
+   distances below 1e-5 (||z||^2 + max ||e||^2)), counted, the waves from
+   the same codes within 1e-4 (1 + max), the distinct codes and the
+   batch-1 wall printed; (c) decode(encode(x)) in f32 at 32 x 131,072
+   samples timed with CUDA events, with its FLOP count, bound, a profile
+   and the peak memory; (d) bin.decode on the card over npy dumps of the
+   unconditioned cut (decoder input 256), its text the codes vq_encode
+   gives; (e) training with the recipe (chip_smoke.VQVAE_V3_TRAIN, held to
+   the yaml by a CPU test; windows at hop 64, VQVAE_V3_HOP_CUT, since the
+   recipe's hop 300 cuts them to 8,100 samples, which neither package's
+   step takes) at batch 16 x 8,192 from a seeded npy corpus of 16
+   utterances of 4 speakers: bin.train.run on cuda, 3 f32 steps with the
+   discriminator from step 1 and the dead-code restart, 2 more resumed from
+   the .ckpt with mixed_precision; finite losses under every name and
+   vq_codes_used, moved encoder, decoder, D and codebook, a .ckpt that
+   loads back; step
+   times, a profile of each precision, the peak memory; (f) one f32 step of
+   the local recipe (local_conditioned_melgan_vae.v3.yaml: a 2-channel
+   -local.npy at hop 64); (g) on the loader's batch cut to 2 x 8,192,
+   every G and D gradient on the card in f32 (k) and on the CPU in f32 (p)
+   and float64 (e), the codes of k and p first held to e's by the near-tie
+   rule, then all three on e's codes (the model's explicit indices), held
+   to |k - e| <= max(2 |p - e|, a), G's on float64's loss cotangents as in
+   step 10 (b); (h) the launches of the five kernels
+   counted over (a)-(g): 0.
 
 Exits non-zero, printing no result, on any failure or without a GPU.
 """
@@ -517,6 +554,85 @@ STYLE_MELGAN_V1_TRAIN = dict(
 STYLE_MELGAN_V1_TRAIN_CUT = dict(
     discriminator_train_start_steps=0, train_max_steps=3,
     save_interval_steps=3, eval_interval_steps=3, log_interval_steps=1)
+# the globally conditioned MelGAN VQ-VAE for VCTK
+# (egs/vctk/vq1/conf/conditioned_melgan_vae.v3.yaml; a CPU test holds every
+# key to the file but the data format, a seeded npy corpus): the MelGAN
+# discriminator tower as encoder (64 x down to 256 dims), a codebook of
+# 512 x 256, 128 speakers of 128 dims, a MelGAN decoder of 384 inputs
+VQ_SR = 24000
+VQVAE_V3 = {
+    "sampling_rate": VQ_SR,
+    "hop_size": 300,
+    "use_global_condition": True,
+    "generator_type": "VQVAE",
+    "generator_params": {
+        "in_channels": 1, "out_channels": 1, "num_embeds": 512,
+        "embed_dim": 256, "num_global_embeds": 128, "global_embed_dim": 128,
+        "encoder_type": "MelGANDiscriminator",
+        "encoder_conf": {"out_channels": 256,
+                         "downsample_scales": [4, 4, 2, 2],
+                         "max_downsample_channels": 1024},
+        "decoder_type": "MelGANGenerator",
+        "decoder_conf": {"in_channels": 384, "upsample_scales": [4, 4, 2, 2],
+                         "channels": 512, "stacks": 3},
+    },
+}
+VQVAE_V3_TRAIN = dict(
+    VQVAE_V3,
+    format="npy",
+    discriminator_type="MelGANMultiScaleDiscriminator",
+    discriminator_params={
+        "in_channels": 1, "out_channels": 1, "scales": 3,
+        "downsample_pooling": "AvgPool1d",
+        "downsample_pooling_params": {"kernel_size": 4, "stride": 2,
+                                      "padding": 1,
+                                      "count_include_pad": False},
+        "kernel_sizes": [5, 3], "channels": 16,
+        "max_downsample_channels": 1024, "downsample_scales": [4, 4, 4, 4],
+        "nonlinear_activation": "LeakyReLU",
+        "nonlinear_activation_params": {"negative_slope": 0.2},
+        "use_weight_norm": True,
+    },
+    stft_loss_params={"fft_sizes": [1024, 2048, 512],
+                      "hop_sizes": [120, 240, 50],
+                      "win_lengths": [600, 1200, 240],
+                      "window": "hann_window"},
+    use_feat_match_loss=True, lambda_commit=0.25, lambda_feat_match=25.0,
+    lambda_adv=4.0, batch_size=16, batch_max_steps=8192,
+    remove_short_samples=False, allow_cache=False,
+    generator_optimizer_params={"lr": 0.0001, "eps": 1.0e-06,
+                                "weight_decay": 0.0},
+    generator_scheduler_params={"step_size": 200000, "gamma": 0.5},
+    generator_grad_norm=10,
+    discriminator_optimizer_params={"lr": 5.0e-05, "eps": 1.0e-06,
+                                    "weight_decay": 0.0},
+    discriminator_scheduler_params={"step_size": 200000, "gamma": 0.5},
+    discriminator_grad_norm=1,
+)
+del VQVAE_V3_TRAIN["hop_size"]  # cut: VQVAE_V3_HOP_CUT
+# the same with a 2-channel local condition (log-f0 and V/UV) at hop 64
+# through a 1x1 conv to 32 dims (local_conditioned_melgan_vae.v3.yaml)
+VQVAE_LOCAL_V3_TRAIN = dict(
+    VQVAE_V3_TRAIN, hop_size=64, use_local_condition=True,
+    generator_params=dict(
+        VQVAE_V3["generator_params"], num_local_embeds=2,
+        local_embed_dim=32,
+        decoder_conf=dict(VQVAE_V3["generator_params"]["decoder_conf"],
+                          in_channels=416)))
+# three steps (step 0 trains nothing: the gates are strict), the
+# discriminator from step 1 (not 100,000), one evaluation, one checkpoint,
+# and the dead-code restart (egs/synthetic/voc1/conf/vqvae.v1.rich.yaml
+# sets it; the VCTK recipes leave it off)
+VQVAE_V3_TRAIN_CUT = dict(
+    discriminator_train_start_steps=0, train_max_steps=3,
+    save_interval_steps=3, eval_interval_steps=3, log_interval_steps=1,
+    vq_dead_code_restart=True)
+# the global recipe's hop_size 300 cuts the window to 8,100 samples (the
+# collater takes whole hops), which the 64x encoder and decoder return as
+# 8,128: the STFT loss then fails on the two lengths, in the JAX step as
+# in the port's. Its windows are cut at hop 64, the local recipe's, to the
+# full 8,192
+VQVAE_V3_HOP_CUT = dict(hop_size=64)
 N_SCORED = 8       # utterances scored on the host (about 20 s each)
 N_CALIB = 8        # utterances the int8 scales are calibrated on
 # the scored numbers against the committed CPU reference of the JAX package
@@ -778,12 +894,15 @@ def write_corpus(root: str, rng: np.random.Generator, n_utts: int = 8) -> None:
                 rng.standard_normal((frames, 80)).astype(np.float32))
 
 
-def check_trainer(trainer, what: str, names=LOSS_NAMES) -> None:
-    for split, losses in (("train", trainer.last_train_loss),
-                          ("eval", trainer.last_eval_loss)):
+def check_trainer(trainer, what: str, names=LOSS_NAMES,
+                  eval_names=None) -> None:
+    for split, losses, want in (
+            ("train", trainer.last_train_loss, names),
+            ("eval", trainer.last_eval_loss,
+             names if eval_names is None else eval_names)):
         if split == "eval" and not losses:  # a run without an eval epoch
             continue
-        if sorted(losses) != sorted(f"{split}/{n}" for n in names):
+        if sorted(losses) != sorted(f"{split}/{n}" for n in want):
             raise AssertionError(f"{what}: {split} losses {sorted(losses)}")
         if not all(np.isfinite(v) for v in losses.values()):
             raise AssertionError(f"{what}: non-finite {split} loss {losses}")
@@ -1176,13 +1295,16 @@ def training_phase(dev, smi: str) -> dict:
 def profile_step(trainer, batch, what: str) -> None:
     """Where one (G, adv, D) step's device time goes: torch.profiler over
     two steps, device time by kernel name. Printed, never a failure."""
-    from parallelwavegan_torch.engine.step import step_generator
+    from parallelwavegan_torch.engine.step import (
+        SHARED_STREAM,
+        step_generator,
+    )
     from parallelwavegan_torch.tools.train_step_profile import device_time
 
     step = trainer.train_step_factory(True, True, True)
-    prof = device_time(lambda: step(trainer.state, batch,
-                                    step_generator(0, trainer.state.steps)),
-                       top=14)
+    prof = device_time(lambda: step(
+        trainer.state, batch, step_generator(0, trainer.state.steps),
+        step_generator(0, trainer.state.steps, SHARED_STREAM)), top=14)
     busy = prof["device_busy_ms"]
     if busy <= 0:
         print(f"step profile {what}: the profiler shows no device time")
@@ -1656,35 +1778,124 @@ def check_moved(what: str, module, start, unmoved_allowed: int) -> None:
     """Every parameter of ``module`` finite, all but ``unmoved_allowed`` of
     them changed from ``start``'s."""
     before = dict(start.named_parameters())
-    moved = sum(not torch.equal(p, before[k])
-                for k, p in module.named_parameters())
+    still = [k for k, p in module.named_parameters()
+             if torch.equal(p, before[k])]
+    moved = len(before) - len(still)
     finite = all(torch.isfinite(p).all() for p in module.parameters())
-    print(f"  {what}: {moved} of {len(before)} parameters changed")
+    print(f"  {what}: {moved} of {len(before)} parameters changed"
+          + (f" (not: {', '.join(still[:6])}{' ...' if len(still) > 6 else ''})"
+             if still else ""))
     if moved < len(before) - unmoved_allowed or not finite:
         raise AssertionError(f"{what} parameters did not train")
 
 
-def mb_melgan_losses(gen, dis, crit, b: dict) -> tuple:
-    """The (G, adv) generator loss of the multi-band recipe as the step
-    forms it (PQMF synthesis; full-band STFT loss halved plus half the
-    subband loss; 2.5 x the adversarial loss) and the discriminator loss
-    on the detached prediction, each with its parameters' gradients."""
+def gate_routes(gen, dis, b: dict) -> dict:
+    """The gradient gate's routes (G, D, batch): the card's modules in f32
+    (k), copies on the CPU in f32 (p) and in float64 (e); the batch's
+    integer tensors stay integers."""
+    def cpu(t, dtype=None):
+        return t.cpu() if dtype is None or not t.is_floating_point() \
+            else t.cpu().to(dtype)
+
+    return {"k": (gen, dis, b),
+            "p": (copy.deepcopy(gen).cpu(), copy.deepcopy(dis).cpu(),
+                  {k: cpu(v) for k, v in b.items()}),
+            "e": (copy.deepcopy(gen).cpu().double(),
+                  copy.deepcopy(dis).cpu().double(),
+                  {k: cpu(v, torch.float64) for k, v in b.items()})}
+
+
+def gate_gradients(routes: dict, forward, g_loss, d_loss) -> dict:
+    """Per route of ``gate_routes``: G's loss and its parameters' gradients
+    through the route's own loss (``own``) and through the network on
+    float64's cotangents of the loss at G's outputs (``held``), and D's
+    loss on float64's prediction with its parameters' gradients (``d``).
+    The log-magnitude STFT loss's gradient 1 / |X| at bins near its power
+    clamp turns each route's f32 forward error into gradient errors of its
+    own (PERF.md § 6): the held gradients hold the network's
+    arithmetic. forward(G, b) -> G's outputs (a tuple); g_loss(outs, D, b)
+    and d_loss(outs, D, b) -> the losses."""
+    ge, de, be = routes["e"]
+    with torch.no_grad():
+        outs_e = forward(ge, be)
+    leaves = [o.detach().requires_grad_() for o in outs_e]
+    cot = torch.autograd.grad(g_loss(leaves, de, be), leaves)
+    got = {}
+    for r, (gen, dis, b) in routes.items():
+        names = [n for n, _ in gen.named_parameters()]
+        params = list(gen.parameters())
+        outs = forward(gen, b)
+        loss_g = g_loss(outs, dis, b)
+        own = torch.autograd.grad(loss_g, params, retain_graph=True)
+        held = torch.autograd.grad(
+            outs, params, [c.to(o.device, o.dtype) for c, o in zip(cot, outs)])
+        loss_d = d_loss([o.to(x.device, x.dtype) for o, x in zip(outs_e,
+                                                                 outs)],
+                        dis, b)
+        grads_d = torch.autograd.grad(loss_d, list(dis.parameters()))
+        got[r] = {"loss_g": loss_g.item(), "loss_d": loss_d.item(),
+                  "own": {n: t.cpu() for n, t in zip(names, own)},
+                  "held": {n: t.cpu() for n, t in zip(names, held)},
+                  "d": {n: t.cpu() for (n, _), t in zip(
+                      dis.named_parameters(), grads_d)}}
+    return got
+
+
+def hold_gate(tag: str, got: dict, T: int) -> dict:
+    """``gradient_gate`` on the held G gradients and on D's, each loss
+    within max(2 |p - e|, 1e-4 |e|) of float64 on the card; the ratio of
+    G's own gradients printed beside them, not gated. Returns the gates."""
+    from parallelwavegan_torch.tools.float64_check import gradient_gate
+
+    own = gradient_gate(*(got[r]["own"] for r in "kpe"), strict=False)
+    print(f"{tag} G's own gradients (not gated): p - e up to "
+          f"{own['pe'][0]:.3f} allowances ({own['plain_outside']} outside "
+          f"a), k - e {own['ke'][0]:.3f}, |k - e| / max(2 |p - e|, a) "
+          f"{own['gate'][0]:.3f} (on {own['gate'][1]})")
+    out = {"generator_own_gate": own["gate"][0]}
+    for key, what, loss in (("held", "generator", "loss_g"),
+                            ("d", "discriminator", "loss_d")):
+        gate = gradient_gate(*(got[r][key] for r in "kpe"),
+                             what=f"{tag} {what} gradient")
+        losses = {r: got[r][loss] for r in got}
+        print(f"{tag} {what} loss on 2 x {T}: card {losses['k']:.6f}, CPU "
+              f"f32 {losses['p']:.6f}, float64 {losses['e']:.6f}; gradients "
+              f"of {gate['parameters']} parameters in allowances a: k - p "
+              f"{gate['kp'][0]:.3f} (on {gate['kp'][1]}), p - e "
+              f"{gate['pe'][0]:.3f} ({gate['plain_outside']} outside a), "
+              f"k - e {gate['ke'][0]:.3f}, gate |k - e| / max(2 |p - e|, a) "
+              f"{gate['gate'][0]:.3f} (on {gate['gate'][1]}): within")
+        err = abs(losses["k"] - losses["e"])
+        if not err <= max(2 * abs(losses["p"] - losses["e"]),
+                          1e-4 * abs(losses["e"])):
+            raise AssertionError(f"{tag} {what} loss on the card lies "
+                                 f"{err:.3e} from float64")
+        out[f"{what}_gate"] = gate["gate"][0]
+    return out
+
+
+def mb_melgan_gate_losses(crit):
+    """(forward, g_loss, d_loss) of the multi-band recipe's gate: the (G,
+    adv) generator loss as the step forms it (PQMF synthesis; full-band
+    STFT loss halved plus half the subband loss; 2.5 x the adversarial
+    loss) and the discriminator loss on the prediction."""
     pqmf = crit["pqmf"]
-    y = b["y"]
-    y_mb_ = gen(b["c"])
-    y_ = pqmf.synthesis(y_mb_)
-    sc, mag = crit["stft"](y_[..., 0], y[..., 0])
-    sub_sc, sub_mag = crit["sub_stft"](
-        y_mb_.transpose(1, 2), pqmf.analysis(y).transpose(1, 2))
-    loss_g = 0.5 * (sc + mag) + 0.5 * (sub_sc + sub_mag) \
-        + MB_MELGAN_V2_TRAIN["lambda_adv"] * crit["gen_adv"](dis(y_))
-    grads_g = dict(zip([n for n, _ in gen.named_parameters()],
-                       torch.autograd.grad(loss_g, list(gen.parameters()))))
-    real, fake = crit["dis_adv"](dis(y_.detach()), dis(y))
-    loss_d = real + fake
-    grads_d = dict(zip([n for n, _ in dis.named_parameters()],
-                       torch.autograd.grad(loss_d, list(dis.parameters()))))
-    return loss_g.item(), grads_g, loss_d.item(), grads_d
+
+    def g_loss(outs, dis, b):
+        y, y_mb_ = b["y"], outs[0]
+        y_ = pqmf.synthesis(y_mb_)
+        sc, mag = crit["stft"](y_[..., 0], y[..., 0])
+        sub_sc, sub_mag = crit["sub_stft"](
+            y_mb_.transpose(1, 2), pqmf.analysis(y).transpose(1, 2))
+        return 0.5 * (sc + mag) + 0.5 * (sub_sc + sub_mag) \
+            + MB_MELGAN_V2_TRAIN["lambda_adv"] * crit["gen_adv"](dis(y_))
+
+    def d_loss(outs, dis, b):
+        real, fake = crit["dis_adv"](dis(pqmf.synthesis(outs[0])),
+                                     dis(b["y"]))
+        return real + fake
+
+    return (lambda gen, b: (gen(b["c"]),)), g_loss, d_loss
 
 
 def melgan_training_phase(dev, smi: str) -> dict:
@@ -1696,7 +1907,6 @@ def melgan_training_phase(dev, smi: str) -> dict:
     from parallelwavegan_torch.bin.train import VERSION, run
     from parallelwavegan_torch.engine import checkpoint as ckpt
     from parallelwavegan_torch.engine.build import init_train_state
-    from parallelwavegan_torch.tools.float64_check import gradient_gate
     from parallelwavegan_torch.utils.model_loader import load_model
 
     rng = np.random.default_rng(4)
@@ -1775,41 +1985,16 @@ def melgan_training_phase(dev, smi: str) -> dict:
               f"({1e3 / out['step_ms_mixed']:.2f} steps/s), peak memory "
               f"(f32) {out['step_peak_gb']:.2f} GB on {smi}")
 
-        # (b) the generator loss and every gradient on the loader's batch
-        # cut to 2 x 16,384: on the card in f32 (k), on the CPU in f32 (p)
-        # and in float64 (e); the discriminator's the same way
+        # (b) the generator and discriminator loss and every gradient on
+        # the loader's batch cut to 2 x 16,384: on the card in f32 (k), on
+        # the CPU in f32 (p) and in float64 (e); G's held on float64's
+        # loss cotangents (gate_gradients)
         b = {k: v[:2] for k, v in batch.items()}
-        gen, dis, crit = trainer.generator, trainer.discriminator, \
-            trainer.criterion
-        routes = {"k": (gen, dis, b),
-                  "p": (copy.deepcopy(gen).cpu(), copy.deepcopy(dis).cpu(),
-                        {k: v.cpu() for k, v in b.items()}),
-                  "e": (copy.deepcopy(gen).cpu().double(),
-                        copy.deepcopy(dis).cpu().double(),
-                        {k: v.cpu().double() for k, v in b.items()})}
-        got = {r: mb_melgan_losses(g, d, crit, bb)
-               for r, (g, d, bb) in routes.items()}
-        for i in (1, 3):  # the card's gradients beside the CPU's
-            got["k"][i].update({n: g.cpu() for n, g in got["k"][i].items()})
-        for i, what in ((1, "generator"), (3, "discriminator")):
-            gate = gradient_gate(got["k"][i], got["p"][i], got["e"][i],
-                                 what=f"mb-melgan {what} gradient")
-            loss = {r: got[r][i - 1] for r in got}
-            print(f"mb-melgan {what} loss on 2 x {T}: card {loss['k']:.6f}, "
-                  f"CPU f32 {loss['p']:.6f}, float64 {loss['e']:.6f}; "
-                  f"gradients of {gate['parameters']} parameters in "
-                  f"allowances a: k - p {gate['kp'][0]:.3f} (on "
-                  f"{gate['kp'][1]}), p - e {gate['pe'][0]:.3f} "
-                  f"({gate['plain_outside']} outside a), k - e "
-                  f"{gate['ke'][0]:.3f}, gate |k - e| / max(2 |p - e|, a) "
-                  f"{gate['gate'][0]:.3f} (on {gate['gate'][1]}): within")
-            err = abs(loss["k"] - loss["e"])
-            if not err <= max(2 * abs(loss["p"] - loss["e"]),
-                              1e-4 * abs(loss["e"])):
-                raise AssertionError(f"mb-melgan {what} loss on the card "
-                                     f"lies {err:.3e} from float64")
-            out[f"{what}_gate"] = gate["gate"][0]
-        del routes, got
+        got = gate_gradients(
+            gate_routes(trainer.generator, trainer.discriminator, b),
+            *mb_melgan_gate_losses(trainer.criterion))
+        out.update(hold_gate("mb-melgan", got, T))
+        del got
 
         # (d) serve what was trained: the resumed run's last .ckpt through
         # a .gckpt and load_model with PQMF, the card against the CPU
@@ -2959,26 +3144,26 @@ def style_melgan_serving(smi: str) -> dict:
     return out
 
 
-def style_melgan_losses(gen, dis, crit, b: dict, z, starts) -> tuple:
-    """The (G, adv) generator loss of the v1 recipe as the step forms it
-    (STFT loss x lambda_aux + lambda_adv x the adversarial loss on the
-    fake pass's windows) and the discriminator loss on the detached
-    prediction (real, then fake windows), each with its parameters'
-    gradients; z and the three passes' window starts fixed."""
+def style_melgan_gate_losses(crit, starts):
+    """(forward, g_loss, d_loss) of the v1 recipe's gate: the (G, adv)
+    generator loss as the step forms it (STFT loss x lambda_aux +
+    lambda_adv x the adversarial loss on the fake pass's windows) and the
+    discriminator loss (real, then fake windows); the batch's z and the
+    three passes' window starts fixed."""
     cfg = STYLE_MELGAN_V1_TRAIN
-    y = b["y"]
-    y_ = gen(b["c"], z)
-    sc, mag = crit["stft"](y_[..., 0], y[..., 0])
-    loss_g = cfg["lambda_aux"] * (sc + mag) \
-        + cfg["lambda_adv"] * crit["gen_adv"](dis(y_, starts[0]))
-    grads_g = dict(zip([n for n, _ in gen.named_parameters()],
-                       torch.autograd.grad(loss_g, list(gen.parameters()))))
-    real, fake = crit["dis_adv"](dis(y_.detach(), starts[2]),
-                                 dis(y, starts[1]))
-    loss_d = real + fake
-    grads_d = dict(zip([n for n, _ in dis.named_parameters()],
-                       torch.autograd.grad(loss_d, list(dis.parameters()))))
-    return loss_g.item(), grads_g, loss_d.item(), grads_d
+
+    def g_loss(outs, dis, b):
+        y, y_ = b["y"], outs[0]
+        sc, mag = crit["stft"](y_[..., 0], y[..., 0])
+        return cfg["lambda_aux"] * (sc + mag) \
+            + cfg["lambda_adv"] * crit["gen_adv"](dis(y_, starts[0]))
+
+    def d_loss(outs, dis, b):
+        real, fake = crit["dis_adv"](dis(outs[0], starts[2]),
+                                     dis(b["y"], starts[1]))
+        return real + fake
+
+    return (lambda gen, b: (gen(b["c"], b["z"]),)), g_loss, d_loss
 
 
 def style_melgan_training(dev, smi: str) -> dict:
@@ -2987,7 +3172,6 @@ def style_melgan_training(dev, smi: str) -> dict:
     from parallelwavegan_torch.engine import checkpoint as ckpt
     from parallelwavegan_torch.engine.build import init_train_state
     from parallelwavegan_torch.engine.step import step_generator
-    from parallelwavegan_torch.tools.float64_check import gradient_gate
 
     rng = np.random.default_rng(6)
     config = dict(STYLE_MELGAN_V1_TRAIN, **STYLE_MELGAN_V1_TRAIN_CUT)
@@ -3064,42 +3248,17 @@ def style_melgan_training(dev, smi: str) -> dict:
 
         # (f) the loader's batch cut to 2 x 22,528, fixed z and windows:
         # every gradient on the card in f32 (k), on the CPU in f32 (p) and
-        # float64 (e) (the CPU routes: references)
+        # float64 (e) (the CPU routes: references); G's held on float64's
+        # loss cotangents (gate_gradients)
         b = {k: v[:2] for k, v in batch.items()}
-        gen, dis, crit = trainer.generator, trainer.discriminator, \
-            trainer.criterion
+        gen, dis = trainer.generator, trainer.discriminator
         g = torch.Generator().manual_seed(12)
-        z = gen.draw_noise(2, b["c"].shape[1], g)
+        b["z"] = gen.draw_noise(2, b["c"].shape[1], g).to(dev)
         starts = [dis.draw_window_starts(T, g) for _ in range(3)]
-        routes = {"k": (gen, dis, b, z.to(dev)),
-                  "p": (copy.deepcopy(gen).cpu(), copy.deepcopy(dis).cpu(),
-                        {k: v.cpu() for k, v in b.items()}, z),
-                  "e": (copy.deepcopy(gen).cpu().double(),
-                        copy.deepcopy(dis).cpu().double(),
-                        {k: v.cpu().double() for k, v in b.items()},
-                        z.double())}
-        got = {r: style_melgan_losses(gg, dd, crit, bb, zz, starts)
-               for r, (gg, dd, bb, zz) in routes.items()}
-        for i in (1, 3):  # the card's gradients beside the CPU's
-            got["k"][i].update({n: t.cpu() for n, t in got["k"][i].items()})
-        for i, what in ((1, "generator"), (3, "discriminator")):
-            gate = gradient_gate(got["k"][i], got["p"][i], got["e"][i],
-                                 what=f"style-melgan {what} gradient")
-            loss = {r: got[r][i - 1] for r in got}
-            print(f"style-melgan (f) {what} loss on 2 x {T}: card "
-                  f"{loss['k']:.6f}, CPU f32 {loss['p']:.6f}, float64 "
-                  f"{loss['e']:.6f}; gradients of {gate['parameters']} "
-                  f"parameters in allowances a: k - p {gate['kp'][0]:.3f} "
-                  f"(on {gate['kp'][1]}), p - e {gate['pe'][0]:.3f} "
-                  f"({gate['plain_outside']} outside a), k - e "
-                  f"{gate['ke'][0]:.3f}, gate |k - e| / max(2 |p - e|, a) "
-                  f"{gate['gate'][0]:.3f} (on {gate['gate'][1]}): within")
-            err = abs(loss["k"] - loss["e"])
-            if not err <= max(2 * abs(loss["p"] - loss["e"]),
-                              1e-4 * abs(loss["e"])):
-                raise AssertionError(f"style-melgan {what} loss on the card "
-                                     f"lies {err:.3e} from float64")
-            out[f"{what}_gate"] = gate["gate"][0]
+        got = gate_gradients(gate_routes(gen, dis, b),
+                             *style_melgan_gate_losses(trainer.criterion,
+                                                       starts))
+        out.update(hold_gate("style-melgan (f)", got, T))
     return out
 
 
@@ -3120,6 +3279,458 @@ def style_melgan_phase(dev, smi: str) -> dict:
     if any(out["launches"].values()):
         raise AssertionError("a hand-written kernel ran on the StyleMelGAN "
                              "path")
+    return out
+
+VQ_LOSS_NAMES = ("quantization_loss", "commitment_loss",
+                 "spectral_convergence_loss", "log_stft_magnitude_loss",
+                 "adversarial_loss", "feature_matching_loss",
+                 "generator_loss", "real_loss", "fake_loss",
+                 "discriminator_loss")
+# the unconditioned cut of the VCTK recipe that bin.decode serves from npy
+# dumps (a conditioned VQ-VAE reads its conditions from hdf5 only)
+VQVAE_V3_PLAIN = copy.deepcopy(VQVAE_V3)
+VQVAE_V3_PLAIN["use_global_condition"] = False
+for _key in ("num_global_embeds", "global_embed_dim"):
+    del VQVAE_V3_PLAIN["generator_params"][_key]
+VQVAE_V3_PLAIN["generator_params"]["decoder_conf"]["in_channels"] = 256
+VQ_DOWN = 64  # the encoder's downsampling: samples a code
+VQ_BENCH_BATCH, VQ_BENCH_T = 32, 131072  # 174.8 s of 24 kHz audio a call
+# a near-tie: a float64 gap between a latent's two nearest distances below
+# this x the scale of the terms they are summed from (||z||^2 + ||e||^2),
+# the scale of f32's rounding of ||z||^2 - 2 z.e + ||e||^2
+VQ_TIE = 1e-5
+
+
+def seeded_vqvae(config: dict, seed: int, dev):
+    """A VQ-VAE of ``config`` with seeded weights (serving form, on
+    ``dev``): the MelGAN kernels rescaled to a per-entry std of
+    1 / sqrt(K Cin) (at N(0, 0.02) the latents are the encoder's biases and
+    the wave sits near zero), the codebook rows latents of a seeded batch
+    of sines and noise, as a dead-code restart would set them (at the
+    U(+-1/K) init one or two codes win every assignment)."""
+    from parallelwavegan_torch.models import VQVAE
+
+    g = torch.Generator().manual_seed(seed)
+    gen = VQVAE(**config["generator_params"], generator=g)
+    with torch.no_grad():
+        for name, p in gen.named_parameters():
+            if name.endswith("kernel") and name.startswith(("encoder",
+                                                            "decoder")):
+                p.mul_(1.0 / (0.02 * (p.shape[0] * p.shape[1]) ** 0.5))
+        gen.to(dev).eval()
+        x = vq_audio(np.random.default_rng(seed), 4, 32768)
+        z_e = gen.encoder(torch.from_numpy(x[..., None]).to(dev))[-1]
+        flat = z_e.reshape(-1, z_e.shape[-1])
+        rows = torch.randperm(flat.shape[0], generator=g)[
+            :gen.codebook.embedding.shape[0]]
+        gen.codebook.embedding.copy_(flat[rows.to(dev)])
+    return gen
+
+
+def vq_audio(rng: np.random.Generator, n: int, T: int) -> np.ndarray:
+    """n seeded waves of T samples at 24 kHz: a few harmonics with a
+    drifting pitch, and noise."""
+    t = np.arange(T) / VQ_SR
+    out = []
+    for i in range(n):
+        f0 = 90.0 + 25.0 * i + 20.0 * np.sin(2 * np.pi * 0.7 * t)
+        phase = 2 * np.pi * np.cumsum(f0) / VQ_SR
+        wave = sum(0.25 / k * np.sin(k * phase) for k in range(1, 6))
+        out.append(wave + 0.02 * rng.standard_normal(T))
+    return np.stack(out).astype(np.float32)
+
+
+def check_codes(what: str, got, want, z_e64, embedding) -> int:
+    """Codes of a route against the reference route's: equal but at
+    near-ties (``layers.vq.code_gaps`` below VQ_TIE). Prints and returns
+    how many differ."""
+    from parallelwavegan_torch.layers.vq import code_gaps
+
+    got, want = np.asarray(got).reshape(-1), np.asarray(want).reshape(-1)
+    differ = got != want
+    n = int(differ.sum())
+    if n:
+        gaps = code_gaps(z_e64, embedding).numpy()
+        if (gaps[differ] >= VQ_TIE).any():
+            raise AssertionError(
+                f"{what}: {n} codes differ, {int((gaps[differ] >= VQ_TIE).sum())}"
+                f" away from a near-tie")
+    print(f"{what}: {got.size - n} of {got.size} codes equal, {n} differ at "
+          f"near-ties (float64 gap < {VQ_TIE:g} (||z||^2 + max ||e||^2))")
+    return n
+
+
+def vqvae_serving(dev, smi: str) -> dict:
+    """Step 13 (a)-(d) of the module docstring."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from parallelwavegan_torch.bin import decode
+    from parallelwavegan_torch.engine.checkpoint import (
+        save_generator_checkpoint,
+    )
+    from parallelwavegan_torch.tools.train_step_profile import device_time
+    from parallelwavegan_torch.utils.model_loader import load_model
+    from parallelwavegan_torch.utils.params import nested
+    from parallelwavegan_torch.utils.torch_export import (
+        save_reference_checkpoint,
+    )
+
+    out = {}
+    config = VQVAE_V3
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "checkpoint-1steps.pkl")
+        seeded = seeded_vqvae(config, 3, dev)
+        save_reference_checkpoint(path, nested(seeded.state_dict()), config,
+                                  steps=1)
+        del seeded
+        model = load_model(path, config, device=dev)
+        cpu = load_model(path, config, device="cpu")  # the CPU reference
+    gen, emb = model.generator, cpu.generator.codebook.embedding
+    n_params = sum(p.numel() for p in gen.parameters())
+    print(f"vqvae (a) conditioned_melgan_vae.v3 from a reference .pkl on "
+          f"{model.device}: {n_params} parameters, codebook "
+          f"{tuple(emb.shape)}, upsample factor {model.upsample_factor}")
+    if model.device.type != dev.type or model.upsample_factor != 1:
+        raise AssertionError("the VQ-VAE did not load as configured")
+
+    # (b) 8 utterances of 1-6 s (one of a ragged length) with speaker ids:
+    # vq_encode -> vq_decode on the card against the CPU port
+    rng = np.random.default_rng(13)
+    lengths = [VQ_SR * s for s in (1, 2, 3, 4, 5, 6, 2, 3)]
+    lengths[2] += 1000  # not a multiple of the encoder's 64
+    flips, used, walls, worst = 0, set(), [], 0.0
+    for i, T in enumerate(lengths):
+        audio = vq_audio(rng, 1, T)[0]
+        spk = int(rng.integers(0, 128))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        codes = model.vq_encode(audio)
+        wave = model.vq_decode(codes, g=spk)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        want = cpu.vq_encode(audio)
+        if codes.shape != (-(-T // VQ_DOWN),) or wave.shape != (
+                len(codes) * VQ_DOWN, 1) or not np.isfinite(wave).all():
+            raise AssertionError(f"vqvae (b) utterance {i}: bad shapes")
+        if (codes != want).any():
+            with torch.inference_mode():
+                z64 = copy.deepcopy(cpu.generator).double().encoder(
+                    torch.from_numpy(audio).double()[None, :, None])[-1]
+            flips += check_codes(f"vqvae (b) utterance {i}", codes, want,
+                                 z64, emb)
+        used |= set(codes.tolist())
+        ref = cpu.vq_decode(codes, g=spk)  # the card's codes on the CPU
+        err = float(np.abs(wave - ref).max())
+        allowed = 1e-4 * (1 + float(np.abs(ref).max()))
+        if err > allowed:
+            raise AssertionError(f"vqvae (b) utterance {i}: the card's wave "
+                                 f"lies {err:.3e} from the CPU's")
+        worst = max(worst, err / allowed)
+    print(f"vqvae (b) {len(lengths)} utterances of 1-6 s in f32, card vs the "
+          f"CPU port: codes equal but {flips} flips at near-ties, waves from "
+          f"the same codes within {worst:.3f} of 1e-4 (1 + max); "
+          f"{len(used)} distinct codes of {emb.shape[0]}; batch-1 wall "
+          f"(encode + decode, host clock) first {walls[0] * 1e3:.1f} ms, "
+          f"then {', '.join(f'{w * 1e3:.1f}' for w in walls[1:])} ms for "
+          f"{', '.join(f'{T / VQ_SR:.2f}' for T in lengths[1:])} s")
+    if len(used) < 8:
+        raise AssertionError("the seeded codebook serves too few codes")
+    out.update(flips=flips, codes_used=len(used), wave_ratio=worst,
+               batch1_ms=[w * 1e3 for w in walls])
+
+    # (c) decode(encode(x)) at 32 x 131,072 samples in f32, CUDA events
+    x = torch.from_numpy(vq_audio(rng, VQ_BENCH_BATCH, VQ_BENCH_T)[..., None]
+                         ).to(dev)
+    spk = torch.arange(VQ_BENCH_BATCH, device=dev) % 128
+
+    def forward():
+        with torch.inference_mode():
+            return gen.decode(gen.encode(x), g=spk)
+
+    with FlopCounterMode(display=False) as counter:
+        y = forward()
+    flop = counter.get_total_flops()
+    if y.shape != (VQ_BENCH_BATCH, VQ_BENCH_T, 1) or not torch.isfinite(
+            y).all():
+        raise AssertionError(f"vqvae (c) bad output {tuple(y.shape)}")
+    del y
+    torch.cuda.reset_peak_memory_stats()
+    ms = time_ms(forward, reps=3)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    audio_s = VQ_BENCH_BATCH * VQ_BENCH_T / VQ_SR
+    bound = flop / PEAK_FLOPS[torch.float32] * 1e3
+    print(f"vqvae (c) decode(encode(x)) f32 {VQ_BENCH_BATCH} x {VQ_BENCH_T} "
+          f"samples ({audio_s:.1f} s of audio): {ms:.2f} ms, "
+          f"{audio_s / (ms / 1e3):.1f} audio-s/s, {flop / 1e12:.3f} TFLOP "
+          f"(bound {bound:.2f} ms at 67 TFLOP/s), peak memory {peak:.2f} GB "
+          f"on {smi}")
+    prof = device_time(forward, n=1, top=10)
+    print(f"vqvae (c) profile: {prof['profiled_wall_ms']:.1f} ms wall, "
+          f"device busy {prof['device_busy_ms']:.2f} ms; by kernel:")
+    for row in prof["kernels"]:
+        print(f"  {row['ms']:8.3f} ms x{row['calls']:4.0f}  {row['name']}")
+    out.update(forward_ms=ms, audio_s_per_s=audio_s / (ms / 1e3),
+               forward_tflop=flop / 1e12, forward_bound_ms=bound,
+               forward_peak_gb=peak, forward_busy_ms=prof["device_busy_ms"])
+    del x, model
+
+    # (d) bin.decode on npy dumps of the unconditioned cut: its text holds
+    # the codes that vq_encode gives
+    with tempfile.TemporaryDirectory() as tmp:
+        plain = VQVAE_V3_PLAIN
+        ckpt = os.path.join(tmp, "generator.gckpt")
+        save_generator_checkpoint(ckpt, seeded_vqvae(plain, 4, dev))
+        conf = os.path.join(tmp, "config.json")
+        with open(conf, "w") as f:
+            json.dump(dict(plain, format="npy"), f)
+        dump = os.path.join(tmp, "dump")
+        os.makedirs(dump)
+        waves = {f"utt{i}": vq_audio(rng, 1, VQ_SR * (i + 1) + 123 * i)[0]
+                 for i in range(3)}
+        for name, wave in waves.items():
+            np.save(os.path.join(dump, f"{name}-wave.npy"), wave)
+        t0 = time.perf_counter()
+        decode.main(["--dumpdir", dump, "--checkpoint", ckpt, "--config",
+                     conf, "--outdir", os.path.join(tmp, "out"),
+                     "--device", dev.type])
+        wall = time.perf_counter() - t0
+        served = load_model(ckpt, plain, device=dev)
+        with open(os.path.join(tmp, "out", "text")) as f:
+            lines = f.read().splitlines()
+        for line, (name, wave) in zip(lines, sorted(waves.items()),
+                                      strict=True):
+            want = served.vq_encode(wave)
+            if line.split() != [name] + [str(c) for c in want] or \
+                    not os.path.exists(os.path.join(tmp, "out",
+                                                    f"{name}_gen.wav")):
+                raise AssertionError(f"bin.decode's text for {name} is not "
+                                     f"vq_encode's codes")
+    print(f"vqvae (d) bin.decode on the card over npy dumps of the "
+          f"unconditioned cut (decoder input 256): 3 utterances, text = "
+          f"vq_encode's codes, {wall:.1f} s wall")
+    return out
+
+
+def write_vq_corpus(root: str, rng: np.random.Generator, n: int,
+                    speakers: int, local: bool) -> None:
+    """Seeded npy wav2wav dumps: n waves of 1-2 s with ``-global.npy``
+    speaker ids (i % speakers) and, with ``local``, a ``-local.npy``
+    condition of 2 channels at hop 64 (a log-f0 and a V/UV track)."""
+    os.makedirs(root)
+    for i in range(n):
+        T = VQ_SR + 1500 * i
+        np.save(os.path.join(root, f"utt{i}-wave.npy"), vq_audio(rng, 1, T)[0])
+        np.save(os.path.join(root, f"utt{i}-global.npy"),
+                np.array([i % speakers]))
+        if local:
+            frames = T // 64
+            lf0 = 4.6 + 0.1 * np.sin(np.arange(frames) / 9.0)
+            vuv = (rng.random(frames) > 0.2).astype(np.float64)
+            np.save(os.path.join(root, f"utt{i}-local.npy"),
+                    np.stack([lf0 * vuv, vuv], axis=1).astype(np.float32))
+
+
+def vqvae_gate_losses(crit):
+    """(forward, g_loss, d_loss) of the recipe's gate: G on the batch's
+    codes (``indices``), the (G, adv) generator loss as the step forms it
+    (quantisation + 0.25 x commitment + the STFT loss, + 4 x (adversarial
+    + 25 x feature matching)) of (y_, z_e, z_q), and the discriminator
+    loss on the prediction."""
+    cfg = VQVAE_V3_TRAIN
+
+    def g_loss(outs, dis, b):
+        y_, z_e, z_q = outs
+        y = b["y"]
+        quant = torch.mean((z_q - z_e.detach()) ** 2)
+        commit = torch.mean((z_e - z_q.detach()) ** 2)
+        sc, mag = crit["stft"](y_[..., 0], y[..., 0])
+        p_ = dis(y_)
+        with torch.no_grad():
+            p = dis(y)
+        adv = crit["gen_adv"](p_) + cfg["lambda_feat_match"] * crit[
+            "feat_match"](p_, p)
+        return quant + cfg["lambda_commit"] * commit + (sc + mag) \
+            + cfg["lambda_adv"] * adv
+
+    def d_loss(outs, dis, b):
+        real, fake = crit["dis_adv"](dis(outs[0]), dis(b["y"]))
+        return real + fake
+
+    def forward(gen, b):
+        return gen(b["y"], None, b["g"], indices=b["codes"])
+
+    return forward, g_loss, d_loss
+
+
+def vqvae_training(dev, smi: str) -> dict:
+    """Step 13 (e)-(g) of the module docstring."""
+    import dataclasses
+
+    from parallelwavegan_torch.bin.train import run
+    from parallelwavegan_torch.engine import checkpoint as ckpt
+    from parallelwavegan_torch.engine.build import init_train_state
+    from parallelwavegan_torch.engine.step import (
+        SHARED_STREAM,
+        step_generator,
+    )
+
+    rng = np.random.default_rng(7)
+    config = dict(VQVAE_V3_TRAIN, **VQVAE_V3_TRAIN_CUT, **VQVAE_V3_HOP_CUT)
+    B, T = config["batch_size"], config["batch_max_steps"]
+    names = VQ_LOSS_NAMES + ("vq_codes_used",)
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        dump = os.path.join(tmp, "dump")
+        write_vq_corpus(dump, rng, n=B, speakers=4, local=False)
+        initial, _, _, _, _ = init_train_state(config, seed=0, device=dev)
+        n_g = sum(p.numel() for p in initial.generator.parameters())
+        n_d = sum(p.numel() for p in initial.discriminator.parameters())
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer = run(config, dump, dump, os.path.join(tmp, "exp"), seed=0,
+                      device=dev.type, dump_config=False)
+        torch.cuda.synchronize()
+        print(f"vqvae (e) training f32 {B} x {T} samples, G {n_g / 1e6:.2f} "
+              f"M and D {n_d / 1e6:.2f} M parameters: {trainer.steps} steps "
+              f"in {time.perf_counter() - t0:.1f} s wall (first calls)")
+        state = trainer.state
+        if trainer.steps != 3 or trainer.device.type != dev.type \
+                or state.opt_g.count != 2 or state.opt_d.count != 2:
+            raise AssertionError("the trainer did not take 3 steps")
+        check_trainer(trainer, "vqvae (e) training f32", names,
+                      VQ_LOSS_NAMES)
+        print(f"  vq_codes_used {trainer.last_train_loss['train/vq_codes_used']:.1f} "
+              f"of {config['generator_params']['num_embeds']}")
+        # the recipe's RAdam takes plain momentum steps until its
+        # rectification sets in (step 6): a parameter moves by lr x its
+        # gradient, so in two steps one whose gradient lies below about
+        # 1e-4 of its size (lr 1e-4 and 5e-5) stays put in f32. The
+        # encoder, the decoder and D must move somewhere; the counts (and
+        # the speaker table's) are printed
+        gen, start = trainer.generator, initial.generator
+        for what, a, b in (("G encoder", gen.encoder, start.encoder),
+                           ("G decoder", gen.decoder, start.decoder),
+                           ("D", trainer.discriminator,
+                            initial.discriminator)):
+            check_moved(what, a, b, len(list(b.parameters())) - 1)
+        print(f"  G speaker table moved: "
+              f"{not torch.equal(gen.global_embed.embedding, start.global_embed.embedding)}")
+        moved = (gen.codebook.embedding
+                 - start.codebook.embedding).abs().amax(1)
+        print(f"  codebook: {int((moved > 0).sum())} of {len(moved)} rows "
+              f"moved, {int((moved > 0.01).sum())} by more than 0.01 "
+              f"(restarts)")
+        if not (moved > 0.01).any():
+            raise AssertionError("the codebook did not move")
+        path = os.path.join(tmp, "exp", "checkpoint-3steps.ckpt")
+        ckpt.load_checkpoint(path, initial)
+        for module, loaded in ((trainer.generator, initial.generator),
+                               (trainer.discriminator, initial.discriminator)):
+            want = dict(module.named_parameters())
+            for key, p in loaded.named_parameters():
+                if not torch.equal(p, want[key]):
+                    raise AssertionError(f".ckpt differs on {key}")
+        print(f"  {os.path.basename(path)} "
+              f"({os.path.getsize(path) / 1e6:.1f} MB) loads back")
+        del initial
+
+        mixed_config = dict(config, mixed_precision=True, train_max_steps=5,
+                            save_interval_steps=5, eval_interval_steps=5)
+        mixed = run(mixed_config, dump, dump, os.path.join(tmp, "mixed"),
+                    resume=path, seed=0, device=dev.type, dump_config=False)
+        torch.cuda.synchronize()
+        print(f"vqvae (e) training mixed precision: steps 3 -> {mixed.steps}")
+        if mixed.steps != 5 or mixed.state.opt_g.count != 4 \
+                or mixed.state.opt_d.count != 4:
+            raise AssertionError("the resumed run did not take 2 steps")
+        check_trainer(mixed, "vqvae (e) training mixed", names,
+                      VQ_LOSS_NAMES)
+        if any(p.dtype != torch.float32 or not torch.isfinite(p).all()
+               for p in mixed.generator.parameters()):
+            raise AssertionError("master parameters left finite float32")
+
+        batch = mixed._to_device(next(iter(mixed.train_loader)))
+        for what, t in (("f32", trainer), ("mixed", mixed)):
+            step = t.train_step_factory(True, True, True)
+
+            def one():
+                step(t.state, batch, step_generator(0, t.state.steps),
+                     step_generator(0, t.state.steps, SHARED_STREAM))
+
+            out[f"step_ms_{what}"] = time_ms(one, reps=3)
+            torch.cuda.reset_peak_memory_stats()
+            one()
+            torch.cuda.synchronize()
+            out[f"peak_gb_{what}"] = torch.cuda.max_memory_allocated() / 1e9
+        profile_step(trainer, batch, "vqvae f32")
+        profile_step(mixed, batch, "vqvae mixed")
+        print(f"vqvae (e) (G, adv, D) step {B} x {T}: f32 "
+              f"{out['step_ms_f32']:.1f} ms "
+              f"({1e3 / out['step_ms_f32']:.2f} steps/s, peak "
+              f"{out['peak_gb_f32']:.2f} GB), mixed precision "
+              f"{out['step_ms_mixed']:.1f} ms "
+              f"({1e3 / out['step_ms_mixed']:.2f} steps/s, peak "
+              f"{out['peak_gb_mixed']:.2f} GB) on {smi}")
+
+        # (f) the local recipe: one f32 step (step 0 trains nothing)
+        local = dict(VQVAE_LOCAL_V3_TRAIN, **VQVAE_V3_TRAIN_CUT)
+        local.update(train_max_steps=2, save_interval_steps=2,
+                     eval_interval_steps=2)
+        ldump = os.path.join(tmp, "ldump")
+        write_vq_corpus(ldump, rng, n=B, speakers=4, local=True)
+        lt = run(local, ldump, ldump, os.path.join(tmp, "local"), seed=0,
+                 device=dev.type, dump_config=False)
+        if lt.steps != 2 or lt.state.opt_g.count != 1:
+            raise AssertionError("the local run did not take its step")
+        check_trainer(lt, "vqvae (f) local f32", names, VQ_LOSS_NAMES)
+        lb = next(iter(lt.train_loader))
+        print(f"vqvae (f) local recipe, batch y {lb['y'].shape}, l "
+              f"{lb['l'].shape}, g {lb['g'].shape}: one step, losses finite")
+        del lt
+
+        # (g) the loader's batch cut to 2 x 8,192: every G and D gradient
+        # on the card (k), on the CPU in f32 (p) and float64 (e), on the
+        # float64 route's codes (first held to the others' by the near-tie
+        # rule), G's on float64's loss cotangents (gate_gradients); the
+        # STFT loss on its framed product on every route (the CPU's FFT
+        # route rounds near-clamp bins otherwise)
+        b = {k: v[:2] for k, v in batch.items()}
+        crit = dict(trainer.criterion)
+        crit["stft"] = dataclasses.replace(crit["stft"], method="matmul")
+        routes = gate_routes(trainer.generator, trainer.discriminator, b)
+        codes = {}
+        with torch.no_grad():
+            for r, (gg, _, bb) in routes.items():
+                codes[r] = gg.encode(bb["y"])
+            z64 = routes["e"][0].encoder(routes["e"][2]["y"])[-1]
+        emb = routes["e"][0].codebook.embedding
+        for r in ("k", "p"):
+            out[f"grad_flips_{r}"] = check_codes(
+                f"vqvae (g) codes of route {r} vs float64", codes[r].cpu(),
+                codes["e"], z64, emb)
+        for r, (_, _, bb) in routes.items():
+            bb["codes"] = codes["e"].to(bb["y"].device)
+        out.update(hold_gate("vqvae (g)", gate_gradients(
+            routes, *vqvae_gate_losses(crit)), T))
+    return out
+
+
+def vqvae_phase(dev, smi: str) -> dict:
+    """Step 13: the VQ-VAE served and trained, (h) with every launch of the
+    five kernels counted across (a)-(g)."""
+    counters = kernel_launch_counters()
+    torch.cuda.synchronize()
+    for wrapper in counters.values():
+        wrapper.launches = 0
+    out = vqvae_serving(dev, smi)
+    out.update(vqvae_training(dev, smi))
+    torch.cuda.synchronize()
+    out["launches"] = {name: wrapper.launches
+                       for name, wrapper in counters.items()}
+    print(f"vqvae (h) launches of the five kernels over (a)-(g): "
+          f"{out['launches']} (none is on this path)")
+    if any(out["launches"].values()):
+        raise AssertionError("a hand-written kernel ran on the VQ-VAE path")
     return out
 
 
@@ -3323,6 +3934,10 @@ def run_phases(dev, smi: str, pool) -> int:
     t0 = time.perf_counter()
     style = style_melgan_phase(dev, smi)
     print(f"step 12: {time.perf_counter() - t0:.1f} s wall")
+    # 13. the VQ-VAE served and trained
+    t0 = time.perf_counter()
+    vq = vqvae_phase(dev, smi)
+    print(f"step 13: {time.perf_counter() - t0:.1f} s wall")
     if min(launches, launches32, train["fwd_launches"], train["bwd_launches"],
            hifi["launches"], mm["launches"], variant["launches"],
            chunked["pwg_launches"], chunked["mrf_launches"]) < 1:
@@ -3468,9 +4083,11 @@ def run_phases(dev, smi: str, pool) -> int:
         "tanh_over_baseline": variant["tanh_over_baseline"],
         "snr_db": variant["snr_db"],
     }]
-    # step 12 (g): none of the five runs on the StyleMelGAN path
+    # step 12 (g), step 13 (h): none of the five runs on the StyleMelGAN
+    # or the VQ-VAE path
     for entry in kernels:
         entry["style_melgan_launches"] = style["launches"][entry["name"]]
+        entry["vqvae_launches"] = vq["launches"][entry["name"]]
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

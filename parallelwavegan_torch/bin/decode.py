@@ -1,12 +1,17 @@
 #!/usr/bin/env python3
 """Decode CLI: mel features -> waveforms with a trained generator of a
 ported family (Parallel WaveGAN, HiFi-GAN, MelGAN, multi-band MelGAN and
-StyleMelGAN).
+StyleMelGAN), or audio -> codes -> audio with a VQ-VAE.
 
-Counterpart of the mel branches of ``parallelwavegan_tpu/bin/decode.py``:
-bucketed batches, or each utterance in overlapping windows
-(``--chunk-frames``), with the int8 serving mode for HiFi-GAN. Runs on
-CUDA by default (``--device cpu`` for the host):
+Counterpart of the mel branches and the VQ-VAE branch of
+``parallelwavegan_tpu/bin/decode.py``: bucketed batches, or each utterance
+in overlapping windows (``--chunk-frames``), with the int8 serving mode for
+HiFi-GAN. A VQ-VAE reads the audio dumps of ``--dumpdir``, encodes and
+decodes each utterance and writes its codes to ``<outdir>/text`` (one line
+"utt code code ..." each); a conditioned one reads its conditions from
+hdf5 dumps ("local", "global"), and over npy dumps it raises, where the
+JAX CLI passes no condition and fails in the decoder. Runs on CUDA by
+default (``--device cpu`` for the host):
 
     python -m parallelwavegan_torch.bin.decode \
         (--dumpdir dump | --feats-scp feats.scp) \
@@ -34,7 +39,10 @@ import time
 import numpy as np
 import torch
 
-from parallelwavegan_torch.datasets.audio_mel_dataset import MelDataset
+from parallelwavegan_torch.datasets.audio_mel_dataset import (
+    AudioDataset,
+    MelDataset,
+)
 from parallelwavegan_torch.datasets.scp_dataset import MelSCPDataset
 from parallelwavegan_torch.utils.io import load_config, read_hdf5, write_wav
 from parallelwavegan_torch.utils.model_loader import load_model
@@ -126,6 +134,8 @@ def main(argv=None):
             )
         if args.int8_calib_utts < 1:
             parser.error("--int8-calib-utts must be >= 1")
+    if gen_type == "VQVAE":
+        return _decode_vq(args, config)
     if args.feats_scp is not None:
         dataset = MelSCPDataset(args.feats_scp, return_utt_id=True)
     elif config.get("format", "hdf5") == "hdf5":
@@ -182,6 +192,56 @@ def main(argv=None):
         f"(RTF = {total_t / max(total_audio, 1e-9):.06f}, first call "
         f"included)."
     )
+
+
+def _decode_vq(args, config) -> None:
+    """The VQ-VAE branch: each utterance's audio through ``vq_encode`` and
+    ``vq_decode``, ``<utt>_gen.wav`` and a line of ``text`` each."""
+    hdf5 = config.get("format", "hdf5") == "hdf5"
+    conditioned = [k for k in ("use_local_condition", "use_global_condition")
+                   if config.get(k, False)]
+    if args.feats_scp is not None:
+        raise ValueError("a VQVAE decodes audio dumps (--dumpdir), not "
+                         "--feats-scp")
+    if conditioned and not hdf5:
+        raise ValueError(
+            f"a VQVAE with {' and '.join(conditioned)} reads its conditions "
+            "from hdf5 dumps; npy dumps give it none")
+    if hdf5:
+        dataset = AudioDataset(args.dumpdir, "*.h5",
+                               lambda f: read_hdf5(f, "wave"),
+                               return_utt_id=True)
+    else:
+        dataset = AudioDataset(args.dumpdir, "*-wave.npy", np.load,
+                               return_utt_id=True)
+    logging.info(f"The number of utterances to be decoded = {len(dataset)}.")
+    model = load_model(args.checkpoint, config, dtype=_DTYPES[args.dtype],
+                       device=args.device, use_ema=args.use_ema)
+    sr = config.get("sampling_rate", 22050)
+    os.makedirs(args.outdir, exist_ok=True)
+    lines = []
+    total_t = total_audio = 0.0
+    for i in range(len(dataset)):
+        utt_id, audio = dataset[i]
+        path = dataset.audio_files[i]
+        l = g = None
+        if config.get("use_local_condition", False):
+            l = read_hdf5(path, "local")
+        if config.get("use_global_condition", False):
+            g = read_hdf5(path, "global").reshape(-1)[0]
+        start = time.perf_counter()
+        indices = model.vq_encode(audio)
+        y = model.vq_decode(indices, l=l, g=g)
+        total_t += time.perf_counter() - start
+        total_audio += len(y) / sr
+        write_wav(os.path.join(args.outdir, f"{utt_id}_gen.wav"), y[:, 0], sr)
+        lines.append(utt_id + " " + " ".join(map(str, indices.tolist())))
+    with open(os.path.join(args.outdir, "text"), "w") as f:
+        f.write("\n".join(lines) + "\n")
+    logging.info(
+        f"Finished generation of {len(lines)} utterances "
+        f"(RTF = {total_t / max(total_audio, 1e-9):.06f}, first call "
+        f"included).")
 
 
 if __name__ == "__main__":

@@ -3,9 +3,11 @@
 
 Counterpart of ``parallelwavegan_tpu/bin/train.py`` for Parallel WaveGAN,
 HiFi-GAN, the MelGAN family (MelGAN, multi-band MelGAN through PQMF, with
-any of their discriminators) and StyleMelGAN on one device, with
-``--resume`` / ``--pretrain`` (a ``.ckpt``, a generator ``.gckpt`` or a
-reference ``.pkl``) and the ``config.yml`` dump. Each split reads a dump directory
+any of their discriminators), StyleMelGAN and the VQ-VAE (wav2wav: audio
+dumps, with ``-global.npy`` speaker ids and ``-local.npy`` frame
+conditions beside the ``-wave.npy`` files of an npy dump) on one device,
+with ``--resume`` / ``--pretrain`` (a ``.ckpt``, a generator ``.gckpt`` or
+a reference ``.pkl``) and the ``config.yml`` dump. Each split reads a dump directory
 or Kaldi-style lists (a wav.scp and a feats.scp, optionally segments).
 Runs on CUDA by default (``--device cpu`` for the host):
 
@@ -31,11 +33,16 @@ from typing import Any, Dict, Optional, Union
 
 import numpy as np
 
-from parallelwavegan_torch.datasets.audio_mel_dataset import AudioMelDataset
+from parallelwavegan_torch.datasets.audio_mel_dataset import (
+    AudioDataset,
+    AudioGlobalDataset,
+    AudioLocalDataset,
+    AudioMelDataset,
+)
 from parallelwavegan_torch.datasets.collater import Collater
 from parallelwavegan_torch.datasets.loader import DataLoader
 from parallelwavegan_torch.datasets.scp_dataset import AudioMelSCPDataset
-from parallelwavegan_torch.engine.step import uses_noise
+from parallelwavegan_torch.engine.step import is_vqvae, uses_noise
 from parallelwavegan_torch.utils.io import load_config, read_hdf5, save_config
 
 VERSION = "parallelwavegan_torch-0.1.0"
@@ -71,7 +78,34 @@ def build_scp_dataset(config: Dict[str, Any], wav_scp: str, feats_scp: str,
     )
 
 
-def build_dataset(config: Dict[str, Any], rootdir: str) -> AudioMelDataset:
+def build_audio_dataset(config: Dict[str, Any], rootdir: str,
+                        audio_query: str, audio_load_fn) -> AudioDataset:
+    """A VQ-VAE's wav2wav dataset: audio longer than ``batch_max_steps``,
+    with the local condition and (or) the speaker id the config asks for,
+    from hdf5 ("local", "global") or from the npy files beside the
+    ``-wave.npy`` ones (``-local.npy``, ``-global.npy``)."""
+    hdf5 = config.get("format", "hdf5") == "hdf5"
+
+    def load_fn(name: str):
+        if hdf5:
+            return lambda f: read_hdf5(f, name)
+        return lambda f: np.load(f.replace("-wave.npy", f"-{name}.npy"))
+
+    kw = dict(audio_query=audio_query, audio_load_fn=audio_load_fn,
+              audio_length_threshold=config["batch_max_steps"],
+              allow_cache=config.get("allow_cache", False))
+    use_global = config.get("use_global_condition", False)
+    if config.get("use_local_condition", False):
+        return AudioLocalDataset(
+            rootdir, local_load_fn=load_fn("local"),
+            global_load_fn=load_fn("global") if use_global else None, **kw)
+    if use_global:
+        return AudioGlobalDataset(rootdir, global_load_fn=load_fn("global"),
+                                  **kw)
+    return AudioDataset(rootdir, **kw)
+
+
+def build_dataset(config: Dict[str, Any], rootdir: str):
     fmt = config.get("format", "hdf5")
     if fmt == "hdf5":
         audio_query, mel_query = "*.h5", "*.h5"
@@ -82,6 +116,9 @@ def build_dataset(config: Dict[str, Any], rootdir: str) -> AudioMelDataset:
         audio_load_fn = mel_load_fn = np.load
     else:
         raise ValueError("support only hdf5 or npy format.")
+    if is_vqvae(config):
+        return build_audio_dataset(config, rootdir, audio_query,
+                                   audio_load_fn)
     return AudioMelDataset(
         root_dir=rootdir, audio_query=audio_query, mel_query=mel_query,
         audio_load_fn=audio_load_fn, mel_load_fn=mel_load_fn,
@@ -99,13 +136,19 @@ def _split_dataset(config: Dict[str, Any], split: Split):
 
 def build_loader(config: Dict[str, Any], dataset, seed: int) -> DataLoader:
     # z for the generators the step feeds it to (the JAX CLI gives it to
-    # Parallel WaveGAN alone, so a use_noise_input run there lacks it)
+    # Parallel WaveGAN alone, so a use_noise_input run there lacks it); a
+    # VQ-VAE takes audio windows and its conditions
+    vq = is_vqvae(config)
     collater = Collater(
         batch_max_steps=config["batch_max_steps"],
         hop_size=config["hop_size"],
         aux_context_window=config.get("generator_params", {}).get(
             "aux_context_window", 0),
         use_noise_input=uses_noise(config),
+        use_aux_input=not vq,
+        use_global_condition=vq and config.get("use_global_condition",
+                                               False),
+        use_local_condition=vq and config.get("use_local_condition", False),
         rng=np.random.default_rng(seed),
     )
     return DataLoader(
@@ -157,7 +200,7 @@ def run(config: Dict[str, Any], train: Split, dev: Split,
 def main(argv: Optional[list] = None):
     parser = argparse.ArgumentParser(
         description="Train a Parallel WaveGAN, HiFi-GAN, MelGAN, "
-        "multi-band MelGAN or StyleMelGAN vocoder."
+        "multi-band MelGAN, StyleMelGAN or VQ-VAE model."
     )
     for split in ("train", "dev"):
         parser.add_argument(f"--{split}-dumpdir", default=None, type=str,

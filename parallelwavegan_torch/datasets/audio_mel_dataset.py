@@ -1,9 +1,12 @@
 """Datasets over a directory of dumped features.
 
-Counterpart of ``AudioMelDataset`` and ``MelDataset`` in
+Counterpart of ``AudioMelDataset``, ``MelDataset``, ``AudioDataset``,
+``AudioGlobalDataset`` and ``AudioLocalDataset`` in
 ``parallelwavegan_tpu/datasets/audio_mel_dataset.py``: ``*-wave.npy`` /
 ``*-feats.npy`` files (or ``*.h5`` with "wave" / "feats" datasets, read
-through a lazy ``h5py`` import). Plain Python sequences, numpy in and out.
+through a lazy ``h5py`` import); the wav2wav datasets read a speaker id
+("global") and a frame-rate condition ("local") through load functions
+of the audio file's path. Plain Python sequences, numpy in and out.
 """
 
 from __future__ import annotations
@@ -11,6 +14,8 @@ from __future__ import annotations
 import logging
 import os
 from typing import Callable, Optional
+
+import numpy as np
 
 from parallelwavegan_torch.utils.io import find_files, read_hdf5
 
@@ -111,3 +116,89 @@ class AudioMelDataset:
         if self.caches is not None:
             self.caches[idx] = item
         return item
+
+
+class AudioDataset:
+    """Audio items (or (utt_id, audio) pairs), sorted by file name, those
+    no longer than ``audio_length_threshold`` samples filtered out at
+    construction; with ``allow_cache`` each item is read once."""
+
+    def __init__(
+        self,
+        root_dir: str,
+        audio_query: str = "*.h5",
+        audio_load_fn: Callable = lambda f: read_hdf5(f, "wave"),
+        audio_length_threshold: Optional[int] = None,
+        return_utt_id: bool = False,
+        allow_cache: bool = False,
+    ):
+        audio_files = find_files(root_dir, audio_query)
+        if audio_length_threshold is not None:
+            audio_files = [f for f in audio_files
+                           if audio_load_fn(f).shape[0]
+                           > audio_length_threshold]
+        if not audio_files:
+            raise ValueError(f"No audio files in {root_dir}.")
+        self.audio_files = audio_files
+        self.audio_load_fn = audio_load_fn
+        self.return_utt_id = return_utt_id
+        self.utt_ids = [_utt_id(f) for f in audio_files]
+        self.caches = [None] * len(audio_files) if allow_cache else None
+
+    def __len__(self) -> int:
+        return len(self.audio_files)
+
+    def _load(self, idx: int):
+        return self.audio_load_fn(self.audio_files[idx])
+
+    def __getitem__(self, idx):
+        if self.caches is not None and self.caches[idx] is not None:
+            return self.caches[idx]
+        item = self._load(idx)
+        if self.return_utt_id:
+            item = (self.utt_ids[idx],) + (
+                item if isinstance(item, tuple) else (item,))
+        if self.caches is not None:
+            self.caches[idx] = item
+        return item
+
+
+def _speaker_id(value) -> int:
+    return int(np.asarray(value).reshape(-1)[0])
+
+
+class AudioGlobalDataset(AudioDataset):
+    """(audio, speaker id) items for a globally conditioned VQ-VAE; the id
+    is read by ``global_load_fn`` of the audio file (hdf5 "global" by
+    default)."""
+
+    def __init__(self, root_dir: str,
+                 global_load_fn: Callable = lambda f: read_hdf5(f, "global"),
+                 **kwargs):
+        super().__init__(root_dir, **kwargs)
+        self.global_load_fn = global_load_fn
+
+    def _load(self, idx: int):
+        f = self.audio_files[idx]
+        return (self.audio_load_fn(f), _speaker_id(self.global_load_fn(f)))
+
+
+class AudioLocalDataset(AudioDataset):
+    """(audio, local[, speaker id]) items for a locally conditioned VQ-VAE:
+    ``local_load_fn`` of the audio file gives the frame-rate condition
+    (hdf5 "local" by default, e.g. log-f0 and V/UV), ``global_load_fn``
+    (none by default) the speaker id."""
+
+    def __init__(self, root_dir: str,
+                 local_load_fn: Callable = lambda f: read_hdf5(f, "local"),
+                 global_load_fn: Optional[Callable] = None, **kwargs):
+        super().__init__(root_dir, **kwargs)
+        self.local_load_fn = local_load_fn
+        self.global_load_fn = global_load_fn
+
+    def _load(self, idx: int):
+        f = self.audio_files[idx]
+        out = (self.audio_load_fn(f), self.local_load_fn(f))
+        if self.global_load_fn is not None:
+            out += (_speaker_id(self.global_load_fn(f)),)
+        return out

@@ -1,11 +1,15 @@
 """Batch collater: random fixed-window cropping into static-shape,
 channels-last numpy batches.
 
-Counterpart of the mel-to-waveform branch (``_mel2wav_batch``) of
+Counterpart of the mel-to-waveform and the audio (wav2wav) branches of
 ``parallelwavegan_tpu/datasets/collater.py``; this package keeps its own
-copy. Every batch has the same shapes: {"y": (B, T, 1), "c": (B, T' + 2 ctx,
-C)} and, with ``use_noise_input``, {"z": (B, T, 1)}. The random source is an
-explicit ``np.random.Generator``.
+copy. Every batch has the same shapes: mel2wav {"y": (B, T, 1), "c":
+(B, T' + 2 ctx, C)} and, with ``use_noise_input``, {"z": (B, T, 1)};
+wav2wav (a VQ-VAE: ``use_aux_input`` off, or a local or global condition)
+{"y": (B, T, 1)} with {"l": (B, T' + 2 ctx, C)} and {"g": (B,)} as the
+conditions ask. The random source is an explicit ``np.random.Generator``,
+drawn in the JAX collater's order, so that one seed gives both packages
+the same crops.
 """
 
 from __future__ import annotations
@@ -19,46 +23,98 @@ class Collater:
     def __init__(
         self,
         batch_max_steps: int = 20480,
-        hop_size: int = 256,
+        hop_size: Optional[int] = 256,
         aux_context_window: int = 2,
         use_noise_input: bool = False,
+        use_aux_input: bool = True,
+        use_global_condition: bool = False,
+        use_local_condition: bool = False,
         rng: Optional[np.random.Generator] = None,
     ):
-        batch_max_steps -= batch_max_steps % hop_size
-        self.hop_size = hop_size
+        if hop_size is not None:
+            batch_max_steps -= batch_max_steps % hop_size
+            self.hop_size = hop_size
+            self.batch_max_frames = batch_max_steps // hop_size
         self.batch_max_steps = batch_max_steps
-        self.batch_max_frames = batch_max_steps // hop_size
         self.aux_context_window = aux_context_window
         self.use_noise_input = use_noise_input
+        self.use_aux_input = use_aux_input
+        self.use_global_condition = use_global_condition
+        self.use_local_condition = use_local_condition
         self.rng = rng or np.random.default_rng()
-        self.start_offset = aux_context_window
-        self.end_offset = -(self.batch_max_frames + aux_context_window)
-        self.mel_threshold = self.batch_max_frames + 2 * aux_context_window
+        if use_aux_input or use_local_condition:
+            self.start_offset = aux_context_window
+            self.end_offset = -(self.batch_max_frames + aux_context_window)
+            self.mel_threshold = self.batch_max_frames + 2 * aux_context_window
+        else:
+            self.start_offset = 0
+            self.end_offset = -batch_max_steps
+            self.audio_threshold = batch_max_steps
 
     def __call__(self, batch: List) -> Dict[str, np.ndarray]:
-        batch = [self._adjust_length(*b) for b in batch
-                 if len(b[1]) > self.mel_threshold]
-        if not batch:
-            raise ValueError("all utterances shorter than the mel threshold")
-        xs = [b[0] for b in batch]
-        cs = [b[1] for b in batch]
+        if self.use_local_condition or self.use_global_condition \
+                or not self.use_aux_input:
+            return self._audio_batch(batch)
+        return self._mel2wav_batch(batch)
+
+    def _frame_windows(self, xs, cs):
+        """Random frame windows: (y (B, T, 1), the frames of each c with
+        the context on both sides)."""
         start_frames = np.array([
             self.rng.integers(self.start_offset, len(c) + self.end_offset)
             for c in cs
         ])
         x_starts = start_frames * self.hop_size
-        x_ends = x_starts + self.batch_max_steps
         c_starts = start_frames - self.aux_context_window
         c_ends = start_frames + self.batch_max_frames + self.aux_context_window
-        y = np.stack(
-            [x[s:e] for x, s, e in zip(xs, x_starts, x_ends)]
-        ).astype(np.float32)[..., None]
-        c = np.stack(
-            [c[s:e] for c, s, e in zip(cs, c_starts, c_ends)]
-        ).astype(np.float32)
+        y = np.stack([x[s: s + self.batch_max_steps]
+                      for x, s in zip(xs, x_starts)]).astype(np.float32)
+        c = np.stack([c[s:e] for c, s, e in zip(cs, c_starts, c_ends)]
+                     ).astype(np.float32)
+        return y[..., None], c
+
+    def _mel2wav_batch(self, batch: List) -> Dict[str, np.ndarray]:
+        batch = [self._adjust_length(*b) for b in batch
+                 if len(b[1]) > self.mel_threshold]
+        if not batch:
+            raise ValueError("all utterances shorter than the mel threshold")
+        y, c = self._frame_windows([b[0] for b in batch],
+                                   [b[1] for b in batch])
         out = {"y": y, "c": c}
         if self.use_noise_input:
             out["z"] = self.rng.standard_normal(y.shape).astype(np.float32)
+        return out
+
+    def _audio_batch(self, batch: List) -> Dict[str, np.ndarray]:
+        """wav2wav: audio windows, with the local condition's frames
+        (items (audio, local[, global id])) or a global id (items (audio,
+        global id)) where the conditions are on."""
+        if self.use_local_condition:
+            items = [b for b in batch if len(b[1]) > self.mel_threshold]
+            if not items:
+                raise ValueError(
+                    "all utterances shorter than the frame threshold")
+            y, l = self._frame_windows(
+                [self._adjust_length(b[0], b[1])[0] for b in items],
+                [b[1] for b in items])
+            out = {"y": y, "l": l}
+            if self.use_global_condition:
+                out["g"] = np.array([b[2] for b in items]).reshape(-1)
+            return out
+        gs = None
+        if self.use_global_condition:
+            gs = [b[1] for b in batch]
+            batch = [b[0] for b in batch]
+        xs = [x for x in batch if len(x) > self.audio_threshold]
+        if not xs:
+            raise ValueError("all utterances shorter than the audio threshold")
+        starts = [self.rng.integers(0, len(x) - self.batch_max_steps)
+                  for x in xs]
+        y = np.stack([x[s: s + self.batch_max_steps]
+                      for x, s in zip(xs, starts)]).astype(np.float32)
+        out = {"y": y[..., None]}
+        if gs is not None:
+            out["g"] = np.array(gs).reshape(-1)
         return out
 
     def _adjust_length(self, x, c):

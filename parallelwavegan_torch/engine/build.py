@@ -2,7 +2,7 @@
 (reference-compatible) config.
 
 Counterpart of ``parallelwavegan_tpu/engine/build.py`` for Parallel WaveGAN,
-HiFi-GAN, MelGAN and StyleMelGAN; other families raise
+HiFi-GAN, MelGAN, StyleMelGAN and the VQ-VAE; other families raise
 ``NotImplementedError`` (from the model registry). The models are built in
 their training form (``kernel_v``/``kernel_g``), initialised from a seeded
 ``torch.Generator`` on the CPU and then moved to the device.
@@ -23,7 +23,7 @@ from parallelwavegan_torch.utils.model_loader import resolve_device
 
 
 _GENERATORS = ("ParallelWaveGANGenerator", "HiFiGANGenerator",
-               "MelGANGenerator", "StyleMelGANGenerator")
+               "MelGANGenerator", "StyleMelGANGenerator", "VQVAE")
 
 
 def build_models(config: Dict[str, Any], generator: torch.Generator = None):
@@ -54,7 +54,10 @@ def example_batch(config: Dict[str, Any], batch_size: int = 2
     the generators the step gives it to: Parallel WaveGAN and any config
     with ``use_noise_input`` (the JAX package's batch gives it to Parallel
     WaveGAN alone, and its step then fails on the missing z); StyleMelGAN
-    draws its own in the step."""
+    draws its own in the step. A VQ-VAE's batch is y with, as the config
+    asks, speaker ids g (zeros) and a local condition l of
+    ``num_local_embeds`` (or 2) channels at one frame a hop, as in the
+    JAX package."""
     gen_type = config.get("generator_type", "ParallelWaveGANGenerator")
     if gen_type not in _GENERATORS:
         raise NotImplementedError(f"{gen_type}: not ported yet")
@@ -68,10 +71,17 @@ def example_batch(config: Dict[str, Any], batch_size: int = 2
     rng = np.random.default_rng(0)
     f32 = np.float32
     batch = {
-        "y": rng.standard_normal((batch_size, steps, 1)).astype(f32) * 0.1,
-        "c": rng.standard_normal(
-            (batch_size, frames + 2 * ctx, num_mels)).astype(f32),
-    }
+        "y": rng.standard_normal((batch_size, steps, 1)).astype(f32) * 0.1}
+    if gen_type == "VQVAE":
+        if config.get("use_global_condition", False):
+            batch["g"] = np.zeros((batch_size,), np.int32)
+        if config.get("use_local_condition", False):
+            batch["l"] = rng.standard_normal(
+                (batch_size, frames, gp.get("num_local_embeds") or 2)
+            ).astype(f32)
+        return batch
+    batch["c"] = rng.standard_normal(
+        (batch_size, frames + 2 * ctx, num_mels)).astype(f32)
     if uses_noise(config):
         batch["z"] = rng.standard_normal(
             (batch_size, steps, gp.get("in_channels", 1))).astype(f32)

@@ -3,10 +3,10 @@
 Counterpart of ``parallelwavegan_tpu/engine/criterion.py`` for the Parallel
 WaveGAN, HiFi-GAN and MelGAN keys: the multi-resolution STFT loss, the
 subband STFT loss, the mel spectrogram loss, feature matching, the two
-adversarial losses and, for a multi-band generator (``out_channels`` > 1),
-the PQMF filterbank with the layer's defaults (taps 62, cutoff 0.142, beta
-9.0) unless ``pqmf_params`` says otherwise: training reads no version
-switch. The duration keys raise ``NotImplementedError``.
+adversarial losses and, for a multi-band generator (``out_channels`` > 1)
+and for a VQ-VAE (``out_channels`` subbands if above 1, else 4), the PQMF
+filterbank with the layer's defaults (taps 62, cutoff 0.142, beta 9.0)
+unless ``pqmf_params`` says otherwise: training reads no version switch. The duration keys raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -56,6 +56,7 @@ def build_criterion(config: Dict[str, Any]) -> Dict[str, Any]:
             **config.get("feat_match_loss_params", {})
         )
     out_ch = config.get("generator_params", {}).get("out_channels", 1)
-    if out_ch > 1:
-        c["pqmf"] = PQMF(subbands=out_ch, **config.get("pqmf_params", {}))
+    if out_ch > 1 or config.get("generator_type") == "VQVAE":
+        c["pqmf"] = PQMF(subbands=out_ch if out_ch > 1 else 4,
+                         **config.get("pqmf_params", {}))
     return c

@@ -2,9 +2,12 @@
 update, in one function.
 
 Counterpart of ``parallelwavegan_tpu/engine/step.py`` for Parallel WaveGAN,
-HiFi-GAN, MelGAN (full-band and multi-band) and StyleMelGAN on one device.
-Warm-up gating selects a step variant by (train_g, use_adv, train_d), as
-there. The loss arithmetic follows the JAX step: a multi-band output is merged by the
+HiFi-GAN, MelGAN (full-band and multi-band), StyleMelGAN and the VQ-VAE on
+one device. Warm-up gating selects a step variant by (train_g, use_adv,
+train_d), as there. The loss arithmetic follows the JAX step: a VQ-VAE
+starts the generator loss with its quantisation loss mean((z_q -
+sg(z_e))^2) plus ``lambda_commit`` times its commitment loss mean((z_e -
+sg(z_q))^2); a multi-band output is merged by the
 criterion's PQMF before the full-band STFT loss; with the subband STFT loss
 that loss is halved and half the subband loss (on the PQMF analysis of the
 target against the generator's subbands) added; then the mel loss, all
@@ -27,6 +30,14 @@ discriminator update fresh noise for the recompute, then the windows of the
 real pass and of the fake pass; ``eval_step`` likewise. A step whose
 families draw and that is given no source raises.
 
+With ``vq_dead_code_restart`` a VQ-VAE's codes that no latent of the
+batch chose are restarted after the generator's update and before the
+EMA (``dead_code_restart``): each takes a random latent of the batch, drawn
+from the step's source, where a gate drawn from ``shared_rng`` (a stream
+every data-parallel rank would share, so that the codebook stays the same
+on each) passes ``vq_restart_prob``; the metric ``vq_codes_used`` counts
+the codes used.
+
 A spectral-normed discriminator advances its vectors ``u`` only in the
 discriminator update (training mode), once per pass: twice a step with the
 two-pass update, the fake pass starting from the real pass's ``u``. During
@@ -37,7 +48,9 @@ state's ``ema_g`` follows the generator after each of its updates.
 float32 master parameters, of the batch and of ``u``, with explicit casts
 as in the JAX step (no ``torch.autocast``); outputs return to float32
 before PQMF and the losses, which run in float32, the gradients arrive in
-float32, and the stored ``u`` is the bfloat16 result widened again.
+float32, and the stored ``u`` is the bfloat16 result widened again. A
+VQ-VAE's code distances and argmin run in bfloat16 there, as in the JAX
+step.
 """
 
 from __future__ import annotations
@@ -50,6 +63,7 @@ import torch
 from torch.func import functional_call
 
 from parallelwavegan_torch.engine.state import GANTrainState
+from parallelwavegan_torch.layers.vq import code_distances
 from parallelwavegan_torch.ops.cuda.pwg_infer import unsupported_fused_settings
 from parallelwavegan_torch.ops.cuda.wavenet_stack import check_kernel_channels
 
@@ -59,7 +73,10 @@ Batch = Dict[str, torch.Tensor]
 
 # generator families whose step the port does not have yet (their inputs:
 # codes, durations, f0 and excitation)
-_NOT_PORTED_FAMILIES = ("VQVAE", "DiscreteSymbol", "Duration", "UHiFiGAN")
+_NOT_PORTED_FAMILIES = ("DiscreteSymbol", "Duration", "UHiFiGAN")
+# the stream of step_generator that every data-parallel rank would share:
+# the dead-code restart draws its gate there
+SHARED_STREAM = 0x5BDEAD
 
 
 def step_generator(seed: int = 0, steps: int = 0, stream: int = 0
@@ -81,10 +98,23 @@ def _is_style_discriminator(config: Dict[str, Any]) -> bool:
     return config.get("discriminator_type") == "StyleMelGANDiscriminator"
 
 
+def is_vqvae(config: Dict[str, Any]) -> bool:
+    return config.get("generator_type") == "VQVAE"
+
+
+def vq_restarts(config: Dict[str, Any]) -> bool:
+    """Whether the step restarts a VQ-VAE's dead codes
+    (``vq_dead_code_restart``)."""
+    return is_vqvae(config) and bool(config.get("vq_dead_code_restart",
+                                                False))
+
+
 def needs_step_random(config: Dict[str, Any]) -> bool:
     """Whether the step draws from its random source: StyleMelGAN's
-    generator (its noise) or discriminator (its windows)."""
-    return _is_style_generator(config) or _is_style_discriminator(config)
+    generator (its noise) or discriminator (its windows), or a VQ-VAE's
+    dead-code restart."""
+    return (_is_style_generator(config) or _is_style_discriminator(config)
+            or vq_restarts(config))
 
 
 def uses_noise(config: Dict[str, Any]) -> bool:
@@ -112,17 +142,23 @@ def with_noise(generator, batch: Dict[str, torch.Tensor],
 
 
 def make_generator_forward(config: Dict[str, Any], generator
-                           ) -> Callable[[Params, Batch], torch.Tensor]:
-    """Adapter (params, batch) -> y_hat. ``params`` are the generator's
-    named parameters or copies of them (cast, detached).
+                           ) -> Callable[[Params, Batch], Tuple[torch.Tensor,
+                                                               Params]]:
+    """Adapter (params, batch) -> (y_hat, aux). ``params`` are the
+    generator's named parameters or copies of them (cast, detached).
+    ``aux`` holds a VQ-VAE's latents ``z_e`` and ``z_q``, and is empty for
+    the other families.
 
-    As in the JAX step, Parallel WaveGAN and any generator with
-    ``use_noise_input: true`` take (z, c), StyleMelGAN (c, z) with the z
-    that ``with_noise`` puts in the batch, every other generator c alone.
-    A Parallel WaveGAN generator on CUDA takes the fused path (the WaveNet
-    stack kernels, trainable grouping) unless ``fused_wavenet`` is false;
-    there a config the kernels lack raises, it does not fall back. On the
-    CPU the per-layer forward runs.
+    As in the JAX step, a VQ-VAE takes the batch's ``x_vq`` (the PQMF
+    subbands of y that ``prepare_batch`` adds at ``in_channels`` > 1) or
+    else y, with its conditions ``l`` and ``g`` where the batch has them;
+    Parallel WaveGAN and any generator with ``use_noise_input: true`` take
+    (z, c), StyleMelGAN (c, z) with the z that ``with_noise`` puts in the
+    batch, every other generator c alone. A Parallel WaveGAN generator on
+    CUDA takes the fused path (the WaveNet stack kernels, trainable
+    grouping) unless ``fused_wavenet`` is false; there a config the kernels
+    lack raises, it does not fall back. On the CPU the per-layer forward
+    runs.
     """
     gen_type = config.get("generator_type", "ParallelWaveGANGenerator")
     for family in _NOT_PORTED_FAMILIES:
@@ -130,15 +166,23 @@ def make_generator_forward(config: Dict[str, Any], generator
             raise NotImplementedError(
                 f"{gen_type}: the {family} family's train step is not "
                 "ported yet")
+    if is_vqvae(config):
+        def forward_vq(params: Params, batch: Batch):
+            y_, z_e, z_q = functional_call(
+                generator, params, (batch.get("x_vq", batch["y"]),
+                                    batch.get("l"), batch.get("g")))
+            return y_, {"z_e": z_e, "z_q": z_q}
+
+        return forward_vq
     if _is_style_generator(config):
-        def forward_style(params: Params, batch: Batch) -> torch.Tensor:
+        def forward_style(params: Params, batch: Batch):
             return functional_call(generator, params,
-                                   (batch["c"], batch["z"]))
+                                   (batch["c"], batch["z"])), {}
 
         return forward_style
     if not uses_noise(config):
-        def forward_c(params: Params, batch: Batch) -> torch.Tensor:
-            return functional_call(generator, params, (batch["c"],))
+        def forward_c(params: Params, batch: Batch):
+            return functional_call(generator, params, (batch["c"],)), {}
 
         return forward_c
     device = next(generator.parameters()).device
@@ -157,9 +201,9 @@ def make_generator_forward(config: Dict[str, Any], generator
                               generator.skip_channels)
     kwargs = {"fused": fused, "trainable": fused} if is_pwg else {}
 
-    def forward(params: Params, batch: Batch) -> torch.Tensor:
+    def forward(params: Params, batch: Batch):
         return functional_call(generator, params, (batch["z"], batch["c"]),
-                               kwargs)
+                               kwargs), {}
 
     return forward
 
@@ -215,13 +259,15 @@ def build_steps(config: Dict[str, Any], generator, discriminator,
     """Return (train_step_factory, eval_step).
 
     train_step_factory(train_g, use_adv, train_d) -> step
-      step(state, batch, rng=None) -> (state, metrics); the state is
-      updated in place
+      step(state, batch, rng=None, shared_rng=None) -> (state, metrics);
+      the state is updated in place
     eval_step(state, batch, use_adv=True, rng=None) -> metrics
 
-    ``batch`` holds tensors on the models' device: y (B, T, 1), c, z.
-    ``rng`` is the step's random source (``step_generator``), which
-    StyleMelGAN needs.
+    ``batch`` holds tensors on the models' device: y (B, T, 1), c, z, and
+    a VQ-VAE's conditions l (B, T', C) and g (B,). ``rng`` is the step's
+    random source (``step_generator``), which StyleMelGAN needs, and the
+    dead-code restart with ``shared_rng`` (``step_generator(seed, steps,
+    SHARED_STREAM)``, the stream data-parallel ranks would share).
     Metrics are detached 0-d tensors on the device.
     """
     gen_forward_raw = make_generator_forward(config, generator)
@@ -236,6 +282,11 @@ def build_steps(config: Dict[str, Any], generator, discriminator,
     pqmf = criterion["pqmf"] if out_ch > 1 else None
     needs_rng = needs_step_random(config)
     style_d = _is_style_discriminator(config)
+    vq = is_vqvae(config)
+    lambda_commit = config.get("lambda_commit", 0.25)
+    vq_subbands = vq and config["generator_params"].get("in_channels", 1) > 1
+    restart = vq_restarts(config)
+    restart_prob = float(config.get("vq_restart_prob", 1.0))
 
     def starts(x: torch.Tensor, rng: Optional[torch.Generator]):
         """One pass's window starts (StyleMelGAN), else None."""
@@ -251,17 +302,26 @@ def build_steps(config: Dict[str, Any], generator, discriminator,
         if needs_rng and rng is None:
             raise ValueError(
                 f"{config.get('generator_type')} / "
-                f"{config.get('discriminator_type')} draw noise or windows "
-                "from the step's random source: pass step_generator(...)")
+                f"{config.get('discriminator_type')} draw noise, windows or "
+                "restarted codes from the step's random source: pass "
+                "step_generator(...)")
+
+    def prepare_batch(batch: Batch) -> Batch:
+        """A VQ-VAE at ``in_channels`` > 1 encodes the PQMF subbands of y
+        (``x_vq``), as the JAX step's ``prepare_batch``."""
+        if vq_subbands:
+            return dict(batch, x_vq=criterion["pqmf"].analysis(batch["y"]))
+        return batch
 
     recompute = config.get("update_prediction_after_generator_update", True)
     ema_decay = float(config.get("generator_ema_decay", 0.0) or 0.0)
 
     f32, bf16 = torch.float32, torch.bfloat16
     if config.get("mixed_precision", False):
-        def gen_forward(params: Params, batch: Batch) -> torch.Tensor:
-            return gen_forward_raw(_cast(params, f32, bf16),
-                                   _cast(batch, f32, bf16)).to(f32)
+        def gen_forward(params: Params, batch: Batch):
+            y_, aux = gen_forward_raw(_cast(params, f32, bf16),
+                                      _cast(batch, f32, bf16))
+            return y_.to(f32), _cast(aux, bf16, f32)
 
         def dis_forward(params: Params, x: torch.Tensor, train: bool, *,
                         window_starts: Optional[List[int]] = None):
@@ -282,14 +342,22 @@ def build_steps(config: Dict[str, Any], generator, discriminator,
         metrics = {}
         batch = with_noise(generator, batch, rng)
         y = batch["y"]
-        y_mb_ = gen_forward(params_g, batch)  # (B, T / S, S) when multi-band
+        # y_mb_ (B, T / S, S) when multi-band
+        y_mb_, aux = gen_forward(params_g, batch)
         y_ = full_band(y_mb_)
         gen_loss = 0.0
+        if vq:
+            z_e, z_q = aux["z_e"], aux["z_q"]
+            quant = torch.mean((z_q - z_e.detach()) ** 2)
+            commit = torch.mean((z_e - z_q.detach()) ** 2)
+            metrics["quantization_loss"] = quant
+            metrics["commitment_loss"] = commit
+            gen_loss = gen_loss + (quant + lambda_commit * commit)
         if "stft" in criterion:
             sc_loss, mag_loss = criterion["stft"](y_[..., 0], y[..., 0])
             metrics["spectral_convergence_loss"] = sc_loss
             metrics["log_stft_magnitude_loss"] = mag_loss
-            gen_loss = gen_loss + sc_loss + mag_loss
+            gen_loss = gen_loss + (sc_loss + mag_loss)
         if "sub_stft" in criterion:
             gen_loss = gen_loss * 0.5  # full band and subbands weigh alike
             y_mb = pqmf.analysis(y)
@@ -330,7 +398,7 @@ def build_steps(config: Dict[str, Any], generator, discriminator,
                 adv_loss = adv_loss + lambda_fm * fm_loss
             gen_loss = gen_loss + lambda_adv * adv_loss
         metrics["generator_loss"] = gen_loss
-        return gen_loss, metrics, y_
+        return gen_loss, metrics, y_, aux
 
     def dis_losses(params_d: Params, y: torch.Tensor, y_hat: torch.Tensor,
                    train: bool, rng: Optional[torch.Generator]):
@@ -362,23 +430,58 @@ def build_steps(config: Dict[str, Any], generator, discriminator,
         return [torch.zeros_like(p) if g is None else g
                 for p, g in zip(params.values(), grads)]
 
+    @torch.no_grad()
+    def dead_code_restart(params_g: Params, z_e: torch.Tensor,
+                          rng: torch.Generator,
+                          shared_rng: torch.Generator) -> torch.Tensor:
+        """The dead-code restart of the JAX step, after the generator's
+        update: a code that no latent of z_e (the loss forward's, before
+        the update) is nearest to under the updated codebook takes a random
+        row of z_e, where a gate uniform < ``vq_restart_prob`` lets it. The
+        rows come from ``rng``, the gate from ``shared_rng``; Adam's
+        moments of the restarted rows stay. Returns the number of codes
+        used."""
+        emb = params_g["codebook.embedding"]
+        k = emb.shape[0]
+        flat = z_e.detach().reshape(-1, emb.shape[-1])
+        used = torch.zeros(k, dtype=torch.float32, device=emb.device)
+        used.index_add_(0, torch.argmin(code_distances(flat, emb), dim=-1),
+                        torch.ones(flat.shape[0], device=emb.device))
+        rows = torch.randint(0, flat.shape[0], (k,), generator=rng)
+        gate = torch.rand(k, generator=shared_rng) < restart_prob
+        dead = (used == 0.0) & gate.to(emb.device)
+        emb.copy_(torch.where(dead[:, None],
+                              flat[rows.to(flat.device)].to(emb.dtype), emb))
+        return torch.sum(used > 0.0).to(torch.float32)
+
     @functools.lru_cache(maxsize=8)
     def train_step_factory(train_g: bool, use_adv: bool, train_d: bool):
         def step(state: GANTrainState, batch: Batch,
-                 rng: Optional[torch.Generator] = None
+                 rng: Optional[torch.Generator] = None,
+                 shared_rng: Optional[torch.Generator] = None
                  ) -> Tuple[GANTrainState, Dict[str, torch.Tensor]]:
             check_rng(rng)
+            if restart and train_g and shared_rng is None:
+                raise ValueError(
+                    "the dead-code restart draws its gate from the shared "
+                    "stream: pass shared_rng=step_generator(seed, steps, "
+                    "SHARED_STREAM)")
+            batch = prepare_batch(batch)
             metrics: Dict[str, torch.Tensor] = {}
             params_g, params_d = state.params_g, state.params_d
             y_hat = None
             if train_g:
-                gen_loss, m, y_hat = gen_losses(params_g, params_d, batch,
-                                                use_adv, rng)
+                gen_loss, m, y_hat, aux = gen_losses(params_g, params_d,
+                                                     batch, use_adv, rng)
                 grads = _grads(gen_loss, params_g)
                 y_hat = y_hat.detach()
                 metrics.update(_detached(m))
                 del gen_loss, m
                 opt_g.step(params_g, grads)
+                if restart:
+                    metrics["vq_codes_used"] = dead_code_restart(
+                        params_g, aux["z_e"], rng, shared_rng)
+                del aux
                 if ema_decay > 0.0 and state.ema_g is not None:
                     with torch.no_grad():
                         ema = [state.ema_g[k] for k in params_g]
@@ -391,7 +494,7 @@ def build_steps(config: Dict[str, Any], generator, discriminator,
                     # is saved for a backward
                     with torch.no_grad():
                         y_hat = full_band(gen_forward(
-                            params_g, with_noise(generator, batch, rng)))
+                            params_g, with_noise(generator, batch, rng))[0])
                 dis_loss, m = dis_losses(params_d, batch["y"], y_hat, True,
                                          rng)
                 grads_d = _grads(dis_loss, params_d)
@@ -407,8 +510,9 @@ def build_steps(config: Dict[str, Any], generator, discriminator,
                   rng: Optional[torch.Generator] = None
                   ) -> Dict[str, torch.Tensor]:
         check_rng(rng)
-        _, metrics, y_hat = gen_losses(state.params_g, state.params_d, batch,
-                                       use_adv, rng)
+        batch = prepare_batch(batch)
+        _, metrics, y_hat, _ = gen_losses(state.params_g, state.params_d,
+                                          batch, use_adv, rng)
         if use_adv:
             metrics.update(
                 dis_losses(state.params_d, batch["y"], y_hat, False, rng)[1])

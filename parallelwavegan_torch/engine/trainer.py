@@ -9,7 +9,9 @@ are read back only at the log interval, so the loop does not wait for the
 card every step. Each step gets a random source (``step.step_generator``)
 seeded from the run's seed and the state's step count (each eval epoch one
 of its own), so a run resumed from a ``.ckpt`` draws StyleMelGAN's noise
-and windows as an unbroken run does.
+and windows, and a VQ-VAE's restarted codes, as an unbroken run does; the
+restart's gate comes from the stream ``SHARED_STREAM`` of the same seed
+and step.
 
 Not carried over from the JAX trainer: ``dispatch_queue_depth`` and the
 ``jax.profiler`` hook. Both work around that package's accelerator runtime
@@ -34,6 +36,7 @@ from parallelwavegan_torch.engine import checkpoint as ckpt_lib
 from parallelwavegan_torch.engine.build import init_train_state
 from parallelwavegan_torch.engine.criterion import build_criterion
 from parallelwavegan_torch.engine.step import (
+    SHARED_STREAM,
     build_steps,
     make_generator_forward,
     step_generator,
@@ -108,8 +111,11 @@ class Trainer:
             self.steps += 1
             return
         step_fn = self.train_step_factory(train_g, use_adv, train_d)
-        rng = step_generator(self.seed, self.state.steps)
-        self.state, metrics = step_fn(self.state, self._to_device(batch), rng)
+        steps = self.state.steps
+        self.state, metrics = step_fn(
+            self.state, self._to_device(batch),
+            step_generator(self.seed, steps),
+            step_generator(self.seed, steps, SHARED_STREAM))
         for k, v in metrics.items():
             self.total_train_loss[f"train/{k}"] += v  # stays on the device
         self._accum_steps += 1
@@ -229,15 +235,19 @@ class Trainer:
             self._generate_and_save_intermediate_result(first_batch)
 
     def _generate_and_save_intermediate_result(self, batch):
-        """Dump a few generated/reference wav pairs and plots."""
+        """Dump a few generated/reference wav pairs and plots. The batch
+        goes to the generator as the loader gave it: a VQ-VAE at
+        ``in_channels`` > 1 is not given its PQMF subbands here, and its
+        dump fails with a warning, as in the JAX trainer."""
         try:
             from parallelwavegan_torch.utils.io import write_wav
 
             batch = with_noise(self.generator, batch,
                                step_generator(self.seed, self.state.steps, 2))
             with torch.no_grad():
-                y_hat = self.gen_forward(self.state.params_g, batch)
-                if "pqmf" in self.criterion:  # subbands -> one band
+                y_hat = self.gen_forward(self.state.params_g, batch)[0]
+                if self.config.get("generator_params", {}).get(
+                        "out_channels", 1) > 1:  # subbands -> one band
                     y_hat = self.criterion["pqmf"].synthesis(y_hat)
             y_hat = y_hat.float().cpu().numpy()
             y = batch["y"].float().cpu().numpy()

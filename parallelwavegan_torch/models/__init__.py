@@ -1,5 +1,5 @@
 """Model families and the config-name registry (Parallel WaveGAN, HiFi-GAN,
-MelGAN, StyleMelGAN)."""
+MelGAN, StyleMelGAN, VQ-VAE)."""
 
 from parallelwavegan_torch.models.hifigan import (  # noqa: F401
     HiFiGANGenerator,
@@ -23,6 +23,7 @@ from parallelwavegan_torch.models.style_melgan import (  # noqa: F401
     StyleMelGANDiscriminator,
     StyleMelGANGenerator,
 )
+from parallelwavegan_torch.models.vqvae import VQVAE  # noqa: F401
 
 _REGISTRY = {
     "HiFiGANGenerator": HiFiGANGenerator,
@@ -41,6 +42,7 @@ _REGISTRY = {
         ResidualParallelWaveGANDiscriminator,
     "StyleMelGANGenerator": StyleMelGANGenerator,
     "StyleMelGANDiscriminator": StyleMelGANDiscriminator,
+    "VQVAE": VQVAE,
 }
 
 

@@ -1,8 +1,8 @@
 """Public inference API: load a trained generator and synthesize waveforms.
 
 Counterpart of ``parallelwavegan_tpu/utils/model_loader.py`` for the
-ported families, Parallel WaveGAN, HiFi-GAN, MelGAN and StyleMelGAN: read
-the config, build the generator, load its weights (a ``.gckpt``, the
+ported families, Parallel WaveGAN, HiFi-GAN, MelGAN, StyleMelGAN and the
+VQ-VAE: read the config, build the generator, load its weights (a ``.gckpt``, the
 parameters or the EMA stream of a train-state ``.ckpt``, or a reference
 PyTorch ``.pkl``) with weight norm folded, cast to the compute dtype,
 register mean/scale stats, attach PQMF synthesis for a multi-band
@@ -16,7 +16,10 @@ runs its exact forward (``hifigan_fast_forward``); ``quantize_int8``
 switches its conv chain to int8, and ``use_mrf_kernel`` routes its MRF
 stages to the fused CUDA kernel. A MelGAN or StyleMelGAN generator runs
 its module forward (cuDNN convs); StyleMelGAN's mels are edge-padded to its
-noise grid and its noise drawn from the caller's ``torch.Generator``.
+noise grid and its noise drawn from the caller's ``torch.Generator``. A
+VQ-VAE serves wav2wav, one utterance a call: ``vq_encode`` (audio -> code
+indices) and ``vq_decode`` (codes and conditions -> audio, merged by PQMF
+at ``out_channels`` > 1), in float32 only.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
 """
@@ -93,12 +96,15 @@ def pqmf_for(config: Dict[str, Any]) -> Optional[PQMF]:
 def upsample_factor(config: Dict[str, Any]) -> int:
     """Output samples per mel frame, the JAX InferenceModel's rule: the
     product of the upsample scales (a Parallel WaveGAN's under
-    ``upsample_params``), times the subband count."""
+    ``upsample_params``; none for a VQ-VAE, whose decoder undoes its
+    encoder), times the subband count."""
     gp = config.get("generator_params", {})
-    if config.get("generator_type",
-                  "ParallelWaveGANGenerator") == "ParallelWaveGANGenerator":
+    gen_type = config.get("generator_type", "ParallelWaveGANGenerator")
+    if gen_type == "ParallelWaveGANGenerator":
         scales = (gp.get("upsample_params") or {}).get(
             "upsample_scales", [4, 4, 4, 4])
+    elif gen_type == "VQVAE":
+        scales = []
     else:
         scales = gp.get("upsample_scales", [8, 8, 2, 2])
     return int(np.prod(scales)) * gp.get("out_channels", 1)
@@ -155,6 +161,11 @@ class InferenceModel:
         self.device = resolve_device(device)
         self.config = config
         self.gen_type = config.get("generator_type", "ParallelWaveGANGenerator")
+        if self.gen_type == "VQVAE" and dtype not in (None, torch.float32):
+            # the JAX InferenceModel fails there too: its conv gets f32
+            # audio and bf16 weights
+            raise NotImplementedError(
+                f"VQVAE serves in float32 only, not {dtype}")
         gen_params = dict(config.get("generator_params", {}))
         # reference back-compat: the upsample_kernal_sizes typo
         if "upsample_kernal_sizes" in gen_params:
@@ -336,6 +347,9 @@ class InferenceModel:
         None for the families that take no noise) and resolve the forward.
         Returns (fn, (c, z), lengths); ``fn(c, z)`` is the device call,
         and callers may pass their own z in its place."""
+        if self.gen_type == "VQVAE":
+            raise ValueError("a VQVAE serves audio through vq_encode and "
+                             "vq_decode, not mels")
         cs = [np.asarray(c, dtype=np.float32) for c in cs]
         if normalize_before:
             if self.mean is None:
@@ -388,6 +402,30 @@ class InferenceModel:
         """Mel (T', C) -> wave (T, out_channels), no bucket padding."""
         return self.synthesize_batch([c], normalize_before, generator,
                                      bucket_size=1)[0]
+
+    @torch.inference_mode()
+    def vq_encode(self, audio: np.ndarray) -> np.ndarray:
+        """Audio (T,) -> code indices (T // prod(downsample_scales),), as
+        the JAX ``InferenceModel.vq_encode``."""
+        x = torch.from_numpy(np.asarray(audio, np.float32).reshape(1, -1, 1))
+        return self.generator.encode(x.to(self.device))[0].cpu().numpy()
+
+    @torch.inference_mode()
+    def vq_decode(self, indices: np.ndarray, l: Optional[np.ndarray] = None,
+                  g: Optional[int] = None) -> np.ndarray:
+        """Code indices (T',) with an optional local condition (T', C) and
+        speaker id -> wave (T, 1) (T, out_channels subbands merged by PQMF),
+        as the JAX ``InferenceModel.vq_decode``."""
+        dev = self.device
+        idx = torch.from_numpy(np.asarray(indices, np.int64)[None]).to(dev)
+        l_in = None if l is None else torch.from_numpy(
+            np.asarray(l, np.float32)[None]).to(dev)
+        g_in = None if g is None else torch.from_numpy(
+            np.asarray(g, np.int64).reshape(1)).to(dev)
+        y = self.generator.decode(idx, l_in, g_in)
+        if self.pqmf is not None:
+            y = self.pqmf.synthesis(y)
+        return y[0].float().cpu().numpy()
 
     def inference_chunked(
         self,

@@ -1,8 +1,8 @@
 """Generator parameter trees -> reference PyTorch state_dicts and ``.pkl``.
 
 Counterpart of ``parallelwavegan_tpu/utils/torch_export.py`` for the
-generators the port has (Parallel WaveGAN, MelGAN, HiFi-GAN, StyleMelGAN):
-the inverse of ``utils/torch_import.py``. The reference toolkit (or
+generators the port has (Parallel WaveGAN, MelGAN, HiFi-GAN, StyleMelGAN,
+VQ-VAE): the inverse of ``utils/torch_import.py``. The reference toolkit (or
 ESPnet) loads the ``.pkl`` through its ``utils.load_model``, which reads
 ``ckpt["model"]["generator"]`` and the config beside it. The tree is
 flax-style, nested dicts of numpy arrays or tensors: a converted flax
@@ -15,6 +15,7 @@ Layout conversions (flax -> torch) invert the importer's:
   kernel_g (1, ..., O)          -> weight_g (O, 1, ...)   [ConvT1d: (I, 1, 1)]
   a folded kernel under use_weight_norm -> weight_v = w, weight_g = ||w||
     (torch folds w = g v / ||v||, so that pair gives w back)
+  embedding (N, D)              -> Embedding weight (N, D)  as it is
 """
 
 from __future__ import annotations
@@ -111,11 +112,43 @@ def _style_melgan_generator_inverse(config: Dict[str, Any]):
     return rule
 
 
+def _vqvae_inverse(config: Dict[str, Any]):
+    """VQVAE's inverse map. The encoder tower's first conv sits in a
+    Sequential(pad, conv) (``.1``), the downsampling convs and the one
+    before the output in Sequential(conv, act) (``.0``), the output conv
+    bare; as the JAX exporter, the tower's length comes from
+    ``encoder_conf``'s ``downsample_scales`` (four by default)."""
+    dec_inv = _melgan_generator_inverse(config.get("decoder_conf", {}) or {})
+    encoder_conf = config.get("encoder_conf", {}) or {}
+    n_enc = len(encoder_conf.get("downsample_scales", (4, 4, 4, 4))) + 3
+
+    def rule(path: str):
+        if path == "codebook":
+            return "codebook.embedding", "embedding"
+        if path == "local_embed":
+            return "local_embed", "conv1d"
+        if path == "global_embed":
+            return "global_embed", "embedding"
+        m = re.match(r"^encoder/layer_(\d+)$", path)
+        if m:
+            i = int(m.group(1))
+            suffix = ".1" if i == 0 else ("" if i == n_enc - 1 else ".0")
+            return f"encoder.layers.{i}{suffix}", "conv1d"
+        if path.startswith("decoder/"):
+            sub = dec_inv(path[len("decoder/"):])
+            if sub:
+                return f"decoder.{sub[0]}", sub[1]
+        return None
+
+    return rule
+
+
 _INVERSE_RULES = {
     "ParallelWaveGANGenerator": _pwg_generator_inverse,
     "MelGANGenerator": _melgan_generator_inverse,
     "HiFiGANGenerator": _hifigan_generator_inverse,
     "StyleMelGANGenerator": _style_melgan_generator_inverse,
+    "VQVAE": _vqvae_inverse,
 }
 _INV_PERMS = {"conv1d": (2, 1, 0), "convt1d": (1, 2, 0),
               "conv2d": (3, 2, 0, 1)}
@@ -138,6 +171,8 @@ def _g_to_torch(kind: str, g: np.ndarray) -> np.ndarray:
 def _leaf_to_torch(kind: str, leaves: Dict[str, np.ndarray],
                    use_weight_norm: bool) -> Dict[str, np.ndarray]:
     out: Dict[str, np.ndarray] = {}
+    if kind == "embedding":  # flax's nn.Embed table, as nn.Embedding's
+        return {"weight": leaves["embedding"]}
     perm = _INV_PERMS[kind]
     if "kernel_v" in leaves:
         out["weight_v"] = leaves["kernel_v"].transpose(perm)

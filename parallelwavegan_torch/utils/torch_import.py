@@ -13,6 +13,7 @@ Layout conversions (torch -> flax):
   Conv2d  weight (O, I, Kh, Kw) -> kernel (Kh, Kw, I, O)  transpose(2, 3, 1, 0)
   weight_g (O, 1, ...)          -> kernel_g (1, ..., O)   [ConvT1d: (1, I, 1)]
   spectral-norm weight_orig     -> kernel; weight_u -> the spectral collection
+  Embedding weight (N, D)       -> embedding (N, D)       as it is
 """
 
 from __future__ import annotations
@@ -29,7 +30,7 @@ Rule = Callable[[str], Optional[Tuple[str, str]]]
 _NOT_PORTED = (
     "DiscreteSymbolHiFiGANGenerator", "DiscreteSymbolDurationGenerator",
     "DiscreteSymbolF0Generator", "DiscreteSymbolStyleMelGANGenerator",
-    "UHiFiGANGenerator", "VQVAE",
+    "UHiFiGANGenerator",
 )
 
 
@@ -216,6 +217,33 @@ def _style_melgan_generator_rule(config) -> Rule:
     return rule
 
 
+def _vqvae_rule(config) -> Rule:
+    """VQVAE: the codebook and the speaker table (embeddings), the local
+    condition's 1x1 conv, the encoder as a MelGAN discriminator tower and
+    the decoder as a MelGAN generator (``decoder_conf``'s layout)."""
+    dec_map = _melgan_sequential_map(config.get("decoder_conf", {}) or {})
+    enc = _melgan_discriminator_rules()
+
+    def rule(key):
+        if key == "codebook.embedding":
+            return "codebook", "embedding"
+        if key == "local_embed":
+            return "local_embed", "conv1d"
+        if key == "global_embed":
+            return "global_embed", "embedding"
+        if key.startswith("encoder."):
+            sub = enc(key[len("encoder."):])
+            if sub:
+                return f"encoder/{sub[0]}", sub[1]
+        if key.startswith("decoder."):
+            sub = dec_map.get(key[len("decoder."):])
+            if sub:
+                return f"decoder/{sub[0]}", sub[1]
+        return None
+
+    return rule
+
+
 def _multi(rule_fn: Rule, list_name: str = "discriminators") -> Rule:
     def rule(key):
         m = re.match(rf"^{list_name}\.(\d+)\.(.*)$", key)
@@ -273,6 +301,8 @@ def _rule_for(model_name: str, config: Dict[str, Any]) -> Rule:
         return _style_melgan_generator_rule(config)
     if model_name == "StyleMelGANDiscriminator":
         return _multi(_melgan_discriminator_rules())
+    if model_name == "VQVAE":
+        return _vqvae_rule(config)
     if model_name in _NOT_PORTED:
         raise NotImplementedError(
             f"reference checkpoints of {model_name} are not ported yet")
@@ -286,6 +316,10 @@ def _convert(kind: str, name: str, w: np.ndarray) -> Tuple[str, np.ndarray]:
     """(torch leaf name, tensor) -> (flax leaf name, converted tensor)."""
     if name == "bias":
         return "bias", w
+    if kind == "embedding":
+        if name == "weight":  # nn.Embedding's table, as flax's nn.Embed
+            return "embedding", w
+        raise ValueError(f"unsupported leaf {name} of an embedding")
     if name in ("weight", "weight_orig"):
         return "kernel", w.transpose(_PERMS[kind])
     if name == "weight_v":

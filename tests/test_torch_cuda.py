@@ -1305,3 +1305,68 @@ def test_style_melgan_train_step_on_card_matches_cpu(cuda_device):
     for key, value in want_params.items():
         err = (params[key].detach().cpu() - value.detach()).abs().max()
         assert err.item() <= 1e-6, key
+
+
+_SMALL_VQ = {
+    "num_embeds": 32, "embed_dim": 16, "num_global_embeds": 4,
+    "global_embed_dim": 4,
+    "encoder_conf": {"out_channels": 16, "downsample_scales": [4, 4],
+                     "max_downsample_channels": 32, "channels": 8},
+    "decoder_conf": {"in_channels": 20, "upsample_scales": [4, 4],
+                     "channels": 32, "stacks": 2},
+}
+
+
+@pytest.mark.cuda
+def test_vqvae_on_card_matches_cpu(cuda_device):
+    """A small globally conditioned VQ-VAE (kernels at a per-entry std of
+    1 / sqrt(K Cin), codebook rows latents of a seeded batch): the codes on
+    the card (TF32 off) equal the CPU's but at near-ties (a float64 gap
+    between a latent's two nearest distances below 1e-5 (||z||^2 + max
+    ||e||^2)); forward, latents and the decode of the CPU's codes within
+    1e-4 (1 + max); no launch of the five kernels."""
+    from parallelwavegan_torch.layers.vq import code_gaps
+    from parallelwavegan_torch.models import VQVAE
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    g = torch.Generator().manual_seed(0)
+    gen = VQVAE(**_SMALL_VQ, generator=g)
+    rng = np.random.default_rng(5)
+    t = np.arange(4000) / 8000.0
+    x = torch.from_numpy(np.stack([
+        0.4 * np.sin(2 * np.pi * f * t) + 0.05 * rng.standard_normal(t.size)
+        for f in (180.0, 310.0, 445.0)]).astype(np.float32)[..., None])
+    spk = torch.tensor([0, 3, 1])
+    with torch.no_grad():
+        for name, p in gen.named_parameters():
+            if name.endswith("kernel") and name.startswith(("encoder",
+                                                            "decoder")):
+                p.mul_(1.0 / (0.02 * (p.shape[0] * p.shape[1]) ** 0.5))
+        flat = gen.encoder(x)[-1].reshape(-1, 16)
+        gen.codebook.embedding.copy_(flat[torch.randperm(len(flat),
+                                                         generator=g)[:32]])
+    card = VQVAE(**_SMALL_VQ).to(cuda_device).eval()
+    card.load_state_dict(gen.state_dict())
+    before = _five_kernel_launches()
+    with torch.inference_mode():
+        codes = gen.encode(x)
+        got_codes = card.encode(x.to(cuda_device)).cpu()
+        want = gen(x, None, spk)
+        got = card(x.to(cuda_device), None, spk.to(cuda_device))
+        wave = card.decode(codes.to(cuda_device), g=spk.to(cuda_device))
+        want_wave = gen.decode(codes, g=spk)
+        z64 = VQVAE(**_SMALL_VQ).double()
+        z64.load_state_dict(gen.state_dict())
+        z = z64.encoder(x.double())[-1].reshape(-1, 16)
+    assert _five_kernel_launches() == before
+    near_tie = code_gaps(z, gen.codebook.embedding) < 1e-5
+    differ = (got_codes != codes).reshape(-1)
+    assert not (differ & ~near_tie).any(), int(differ.sum())
+    assert len(torch.unique(codes)) >= 8
+    if not differ.any():
+        for a, b in zip(got, want, strict=True):
+            _assert_close(a.cpu(), b, torch.float32)
+    _assert_close(got[1].cpu(), want[1], torch.float32)  # z_e
+    assert wave.shape == (3, 4000, 1) and want_wave.abs().max() > 1e-2
+    _assert_close(wave.cpu(), want_wave, torch.float32)

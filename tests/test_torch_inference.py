@@ -264,11 +264,12 @@ def test_port_imports_no_jax():
         "'tools.mrf_stage_ablation', 'ops.pqmf', 'layers.pqmf', "
         "'layers.causal_conv', 'layers.residual_stack', 'models.melgan', "
         "'utils.torch_import', 'utils.torch_export', 'utils.kaldiio_lite', "
-        "'datasets.scp_dataset', 'layers.tade', 'models.style_melgan']\n"
+        "'datasets.scp_dataset', 'layers.tade', 'models.style_melgan', "
+        "'layers.vq', 'models.vqvae']\n"
         "missing = [w for w in want if 'parallelwavegan_torch.' + w "
         "not in names]\n"
         "assert not missing, missing\n"
-        "assert len(names) >= 52, names\n"
+        "assert len(names) >= 54, names\n"
         "print(len(names))\n"
     )
     env = dict(os.environ, PYTHONPATH=REPO)

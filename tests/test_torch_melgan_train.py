@@ -414,7 +414,7 @@ def test_fuse_real_fake_default_follows_jax(dis_type):
 
 
 @pytest.mark.parametrize("gen_type", [
-    "DiscreteSymbolStyleMelGANGenerator", "VQVAE",
+    "DiscreteSymbolStyleMelGANGenerator", "DiscreteSymbolF0Generator",
     "DiscreteSymbolHiFiGANGenerator", "DiscreteSymbolDurationGenerator",
     "UHiFiGANGenerator"])
 def test_unported_generator_families_raise_naming_the_family(gen_type):

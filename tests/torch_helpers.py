@@ -406,11 +406,12 @@ def small_melgan_train_config(kind, **overrides):
 
 
 class _RandomDraws:
-    def __init__(self, normals, ints):
+    def __init__(self, normals, ints, uniforms=()):
         import jax
 
         self._random = jax.random
         self.normals, self.ints = list(normals), list(ints)
+        self.uniforms = list(uniforms)
 
     def normal(self, key, shape, dtype=None):
         import jax.numpy as jnp
@@ -420,9 +421,24 @@ class _RandomDraws:
         return jnp.asarray(a, dtype)
 
     def randint(self, key, shape, minval, maxval):
+        """An int for shape (), an int array of ``shape`` otherwise."""
+        import jax.numpy as jnp
+
         v = self.ints.pop(0)
-        assert minval <= v < max(maxval, minval + 1), (v, minval, maxval)
-        return v
+        a = np.asarray(v)
+        assert a.shape == tuple(shape) or (a.ndim == 0 and shape == ()), (
+            a.shape, shape)
+        assert (minval <= a).all() and (a < max(maxval, minval + 1)).all(), (
+            v, minval, maxval)
+        return v if a.ndim == 0 else jnp.asarray(a, jnp.int32)
+
+    def uniform(self, key, shape=(), dtype=None, minval=0.0, maxval=1.0):
+        import jax.numpy as jnp
+
+        a = np.asarray(self.uniforms.pop(0))
+        assert a.shape == tuple(shape), (a.shape, shape)
+        assert (minval <= a).all() and (a < maxval).all(), (minval, maxval)
+        return jnp.asarray(a, dtype or jnp.float32)
 
     def __getattr__(self, name):
         return getattr(self._random, name)
@@ -430,16 +446,17 @@ class _RandomDraws:
 
 class JaxDraws:
     """Stands in for the ``jax`` name of a JAX-package module (set with
-    ``monkeypatch.setattr``): ``random.normal`` and ``random.randint`` hand
-    out ``normals`` and ``ints`` in call order (asserting the shape and the
-    range), everything else is jax's. Under ``jax.jit`` the draws are read
-    when the function is traced."""
+    ``monkeypatch.setattr``): ``random.normal``, ``random.randint`` and
+    ``random.uniform`` hand out ``normals``, ``ints`` and ``uniforms`` in
+    call order (asserting the shape and the range), everything else is
+    jax's. Under ``jax.jit`` the draws are read when the function is
+    traced."""
 
-    def __init__(self, normals=(), ints=()):
+    def __init__(self, normals=(), ints=(), uniforms=()):
         import jax
 
         self._jax = jax
-        self.random = _RandomDraws(normals, ints)
+        self.random = _RandomDraws(normals, ints, uniforms)
 
     def __getattr__(self, name):
         return getattr(self._jax, name)
@@ -502,3 +519,99 @@ def small_style_melgan_train_config(**overrides):
     }
     config.update(overrides)
     return config
+
+
+def small_vqvae_train_config(cond="none", **overrides):
+    """conditioned_melgan_vae.v3.yaml's shape at 8 kHz, hop 16 and
+    512-sample windows: an encoder tower of 8 to 16 channels downsampling
+    16 times (the hop, so that a local condition's frames are the latent
+    frames), a codebook of 16 x 8, a MelGAN decoder of 16 channels
+    upsampling 16 times, the multi-scale MelGAN discriminator with feature
+    matching x 25, lambda_commit 0.25, lambda_adv 4, the discriminator from
+    step 0. ``cond``: "none"; "global" (4 speakers x 4 dims, the VCTK
+    recipe's condition); "local" (local_conditioned_melgan_vae.v3.yaml's:
+    a 2-channel local condition through a 1x1 conv to 3 dims, and the
+    speakers). Adam with eps 1e-3 and lr 1e-4, for the reasons
+    ``small_melgan_train_config`` gives. The STFT loss takes its framed
+    product (``method: matmul``, the port's CUDA route) in both packages:
+    the unconditioned reconstruction has spectral bins at the power clamp
+    (1e-7), where the log-magnitude gradient 1 / (2 power) turns the f32
+    rounding of the CPU FFT into errors of 1e-2 of the gradient (the
+    port's FFT route against its float64 one; the framed product stays
+    within 7e-5), and the two packages' FFTs round differently."""
+    gp = {
+        "in_channels": 1, "out_channels": 1, "num_embeds": 16,
+        "embed_dim": 8,
+        "encoder_conf": {"out_channels": 8, "downsample_scales": [4, 4],
+                         "max_downsample_channels": 16, "channels": 8},
+        "decoder_conf": {"in_channels": 8, "upsample_scales": [4, 4],
+                         "channels": 16, "stacks": 1},
+    }
+    config = {
+        "sampling_rate": 8000, "hop_size": 16, "num_mels": 16,
+        "batch_max_steps": 512, "batch_size": 2, "format": "npy",
+        "generator_type": "VQVAE", "generator_params": gp,
+        "discriminator_type": "MelGANMultiScaleDiscriminator",
+        "discriminator_params": dict(_SMALL_MSD, max_downsample_channels=16,
+                                     use_weight_norm=True),
+        "stft_loss_params": {"fft_sizes": [64, 128, 32],
+                             "hop_sizes": [8, 16, 4],
+                             "win_lengths": [32, 64, 16],
+                             "window": "hann_window", "method": "matmul"},
+        "use_feat_match_loss": True, "lambda_feat_match": 25.0,
+        "lambda_commit": 0.25, "lambda_adv": 4.0,
+        "generator_optimizer_type": "Adam",
+        "generator_optimizer_params": {"lr": 1e-4, "eps": 1e-3},
+        "generator_grad_norm": 10,
+        "discriminator_optimizer_type": "Adam",
+        "discriminator_optimizer_params": {"lr": 1e-4, "eps": 1e-3},
+        "discriminator_grad_norm": 1,
+        "discriminator_train_start_steps": 0,
+    }
+    if cond in ("global", "local"):
+        config["use_global_condition"] = True
+        gp.update(num_global_embeds=4, global_embed_dim=4)
+        gp["decoder_conf"]["in_channels"] += 4
+    if cond == "local":
+        config["use_local_condition"] = True
+        gp.update(num_local_embeds=2, local_embed_dim=3)
+        gp["decoder_conf"]["in_channels"] += 3
+    elif cond not in ("none", "global"):
+        raise ValueError(cond)
+    config.update(overrides)
+    return config
+
+
+def seed_codebook(variables, z_e, seed=0):
+    """A flax VQVAE tree whose codebook rows are latents of z_e (B, T', D),
+    drawn without replacement, as a dead-code restart would seed them: at
+    the U(+-1/K) init one or two codes win every assignment."""
+    import jax
+    import jax.numpy as jnp
+
+    flat = np.asarray(z_e, np.float32).reshape(-1, np.shape(z_e)[-1])
+    emb = variables["params"]["codebook"]["embedding"]
+    rows = np.random.default_rng(seed).choice(len(flat), emb.shape[0],
+                                              replace=len(flat) < emb.shape[0])
+    variables = jax.tree.map(lambda a: a, variables)
+    variables["params"]["codebook"]["embedding"] = jnp.asarray(flat[rows])
+    return variables
+
+
+def assert_codes(got, want, z_e, embedding, rel=1e-5):
+    """Codes (B, T') of two routes: equal, but at a near-tie
+    (``layers.vq.code_gaps`` below ``rel``). Returns the number of codes
+    that differ."""
+    import torch
+
+    from parallelwavegan_torch.layers.vq import code_gaps
+
+    got, want = np.asarray(got), np.asarray(want)
+    assert got.shape == want.shape, (got.shape, want.shape)
+    near_tie = code_gaps(torch.from_numpy(np.array(z_e, np.float64)),
+                         torch.from_numpy(np.array(embedding, np.float64))
+                         ).numpy() < rel
+    differ = got.reshape(-1) != want.reshape(-1)
+    assert not (differ & ~near_tie).any(), (
+        f"{int((differ & ~near_tie).sum())} codes differ away from a tie")
+    return int(differ.sum())
