@@ -77,10 +77,19 @@ def conv2d(
 def avg_pool1d(x: torch.Tensor, kernel_size: int = 4, stride: int = 2,
                padding: int = 1, count_include_pad: bool = False
                ) -> torch.Tensor:
-    """torch.nn.AvgPool1d on (B, T, C)."""
-    y = F.avg_pool1d(x.transpose(1, 2), kernel_size, stride, padding,
-                     count_include_pad=count_include_pad)
-    return y.transpose(1, 2)
+    """torch.nn.AvgPool1d on (B, T, C), written as the JAX package writes
+    it: window sums over the zero-padded time axis, divided by the
+    window's size or, without ``count_include_pad``, by its count of
+    frames inside the signal. Not ``F.avg_pool1d``: on an H100 (PyTorch
+    2.11, CUDA 12.8) its backward with ``count_include_pad=False`` returns
+    input gradients up to 100 % of their largest entry wrong on some input
+    layouts, while its forward is right."""
+    sums = pad1d(x, (padding, padding)).unfold(1, kernel_size, stride).sum(-1)
+    if count_include_pad:
+        return sums / kernel_size
+    inside = pad1d(torch.ones((1, x.shape[1], 1), dtype=x.dtype,
+                              device=x.device), (padding, padding))
+    return sums / inside.unfold(1, kernel_size, stride).sum(-1)
 
 
 def upsample_nearest_time(x: torch.Tensor, scale: int) -> torch.Tensor:

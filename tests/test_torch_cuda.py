@@ -1370,3 +1370,36 @@ def test_vqvae_on_card_matches_cpu(cuda_device):
     _assert_close(got[1].cpu(), want[1], torch.float32)  # z_e
     assert wave.shape == (3, 4000, 1) and want_wave.abs().max() > 1e-2
     _assert_close(wave.cpu(), want_wave, torch.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 16384, 1), (2, 4096, 16)])
+@pytest.mark.parametrize("layout", ["contiguous", "from (B, C, T)"])
+def test_avg_pool1d_gradient_on_card_matches_float64(cuda_device, shape,
+                                                     layout):
+    """The multi-scale discriminator's pooling (kernel 4, stride 2, padding
+    1, count_include_pad False): forward and input gradient on the card as
+    close to float64 as the CPU's f32, at most 2 x + 1e-6 (of 1 + max).
+    ``F.avg_pool1d``'s backward missed this by up to 100 % of the largest
+    entry (PyTorch 2.11, CUDA 12.8)."""
+    from parallelwavegan_torch.ops.conv import avg_pool1d
+
+    g = torch.Generator().manual_seed(3)
+    base = torch.randn(shape, generator=g)
+    cot = torch.randn((shape[0], shape[1] // 2, shape[2]), generator=g)
+    got = {}
+    for route, (device, dtype) in (("k", (cuda_device, torch.float32)),
+                                   ("p", ("cpu", torch.float32)),
+                                   ("e", ("cpu", torch.float64))):
+        x = base.to(device, dtype)
+        if layout != "contiguous":
+            x = x.transpose(1, 2).contiguous().transpose(1, 2)
+        x.requires_grad_()
+        y = avg_pool1d(x, 4, 2, 1, False)
+        (dx,) = torch.autograd.grad(y, x, cot.to(device, dtype))
+        got[route] = (y.detach().cpu().double(), dx.cpu().double())
+    for i in (0, 1):
+        e = got["e"][i]
+        errs = [((got[r][i] - e).abs().max() / (1 + e.abs().max())).item()
+                for r in "kp"]
+        assert errs[0] <= 2 * errs[1] + 1e-6, (i, errs)

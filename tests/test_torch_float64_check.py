@@ -61,16 +61,12 @@ def test_gate_passes_when_the_kernels_lie_as_far_from_float64_as_plain(
 
 
 def test_gate_raises_when_the_kernels_lie_three_times_as_far():
-    """k = e + 3 (p - e), with p - e past the allowance; measured without
-    the gate (``strict=False``) the ratio is 1.5."""
+    """k = e + 3 (p - e), with p - e past the allowance."""
     p, e, _ = _routes(4.0)
     k = {n: None if v is None else (e[n] + 3 * (p[n].double() - e[n])).float()
          for n, v in p.items()}
     with pytest.raises(AssertionError, match="generator gradient on"):
         gradient_gate(k, p, e)
-    out = gradient_gate(k, p, e, strict=False)
-    assert out["gate"][0] == pytest.approx(1.5, rel=1e-3)
-    assert out["plain_outside"] == len(SHAPES)
 
 
 @pytest.mark.parametrize("name", ["upsample.conv_1.kernel_v",

@@ -241,6 +241,28 @@ def test_avg_pool1d_matches_jax(kernel_size, stride, padding, include):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-6)
 
 
+@pytest.mark.parametrize("kernel_size,stride,padding,include", [
+    (4, 2, 2, True), (4, 2, 1, False), (3, 1, 1, False), (4, 4, 0, True)])
+def test_avg_pool1d_gradient_matches_jax(kernel_size, stride, padding,
+                                         include):
+    """The input gradient on a random cotangent, the input laid out as a
+    transposed (B, C, T) tensor (as a discriminator hands it on)."""
+    rng = np.random.default_rng(10)
+    x = rng.standard_normal((2, 37, 3)).astype(np.float32)
+    _, vjp = jax.vjp(lambda v: jax_avg_pool1d(v, kernel_size, stride,
+                                              padding, include),
+                     jnp.asarray(x))
+    y = conv_ops.avg_pool1d(torch.from_numpy(x), kernel_size, stride,
+                            padding, include)
+    cot = rng.standard_normal(tuple(y.shape)).astype(np.float32)
+    (want,) = vjp(jnp.asarray(cot))
+    leaf = torch.from_numpy(x.transpose(0, 2, 1).copy()).transpose(1, 2)
+    leaf.requires_grad_()
+    y = conv_ops.avg_pool1d(leaf, kernel_size, stride, padding, include)
+    (got,) = torch.autograd.grad(y, leaf, torch.from_numpy(cot))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-6)
+
+
 @pytest.mark.parametrize("mode", ["zeros", "reflect", "replicate"])
 def test_pad1d_modes_match_jax(mode):
     rng = np.random.default_rng(10)
