@@ -134,7 +134,7 @@
    and load_model with PQMF on cuda against the CPU at 1 x 200 frames,
    printing the PQMF prototypes training and serving chose;
 11. prints a JSON line of the five kernels, the card line, and as the last
-   line {"ok": true, "device": {...}}, after steps 12 and 13;
+   line {"ok": true, "device": {...}}, after steps 12 to 14;
 12. serves and trains StyleMelGAN v1 at full width
    (egs/ljspeech/voc1/conf/style_melgan.v1.yaml: the TADE generator on a
    noise grid of 88 frames, the random-window discriminator with PQMF at
@@ -197,7 +197,37 @@
    on e's codes (the model's explicit indices), held to
    |k - e| <= max(2 |p - e|, a) as in step 10 (b); (h) the launches of
    the five kernels
-   counted over (a)-(g): 0.
+   counted over (a)-(g): 0;
+14. serves and trains UHiFiGAN at full width
+   (egs/opencpop/voc1/conf/uhifigan.v1.yaml: the sine-excitation U-Net of
+   32 channels rising to 512, 25.6 M parameters, dropout 0.1; the
+   multi-scale multi-period discriminator; no hand-written kernel, in the
+   JAX package as here): (a) seeded weights written to a reference .pkl by
+   the port's exporter and read back by load_model on cuda; 8 utterances
+   of 40-115 frames with seeded f0 contours and their excitations (the
+   port's sine_excitation) through InferenceModel.inference(c, f0=,
+   excitation=), card f32 within 1e-4 (1 + max) and bf16 within 2e-2 of
+   the CPU port's f32; (b) 32 x 512 frames (204.8 s of audio) through the
+   generator in f32 and bf16, timed with CUDA events, with its FLOP count,
+   bound, a profile and the peak memory; (c) bin.decode on the card over
+   seeded -feats/-f0/-excitation.npy dumps, each wave frames x 300
+   samples; (d) training with the recipe (chip_smoke.UHIFIGAN_V1_TRAIN,
+   held to the yaml by a CPU test) at batch 16 x 8,400 from a seeded npy
+   corpus of 16 utterances: bin.train.run on cuda, 3 f32 steps (the
+   recipe's gates: D from step 1, G from step 2), 2 more resumed from the
+   .ckpt with mixed_precision; finite losses under every name, moved G
+   and D parameters, a .ckpt that loads back; step times, a profile of
+   each precision, the peak memory; the dropout masks of a step drawn on
+   the host and copied against drawn on the card, timed; (e) on the
+   loader's batch cut to 1 x 8,400, with one set of dropout masks handed
+   to every route and D in eval mode, every G and D gradient on the card
+   in f32 (k) and on the CPU in f32 (p) and float64 (e), the kinks of the
+   STFT loss, the mel loss (kinked_mel: its power and mel clamps and its
+   L1 signs) and feature matching decided by float64, held to
+   |k - e| <= max(2 |p - e|, a) as in step 10 (b); (f) the launches of the
+   five kernels counted over (a)-(e): 0. Step 10 (b) also holds the
+   HiFi-GAN multi-scale discriminator's pooling (kernel 4, stride 2,
+   padding 2, count_include_pad True) as it holds the MelGAN one's.
 
 Exits non-zero, printing no result, on any failure or without a GPU.
 """
@@ -638,6 +668,104 @@ VQVAE_V3_TRAIN_CUT = dict(
 # in the port's. Its windows are cut at hop 64, the local recipe's, to the
 # full 8,192
 VQVAE_V3_HOP_CUT = dict(hop_size=64)
+# UHiFiGAN v1 (egs/opencpop/voc1/conf/uhifigan.v1.yaml: the sine-excitation
+# U-Net of 32 channels rising to 512, downsampling 5 x 5 x 4 x 3,
+# upsampling 3 x 4 x 5 x 5, MRF kernels 3, 7, 11 with dilations 1, 3, 5,
+# dropout 0.1; the multi-scale multi-period discriminator; STFT, mel and
+# feature-matching losses; Adam + MultiStepLR), every key of the yaml but
+# the cut ones (UHIFIGAN_V1_TRAIN_CUT) and the data format of a seeded npy
+# corpus: held to the yaml by test_smoke_uhifigan_config_is_the_opencpop_yaml
+UHIFIGAN_V1_TRAIN = {
+    "sampling_rate": 24000, "fft_size": 2048, "hop_size": 300,
+    "win_length": 1200, "window": "hann", "num_mels": 80, "fmin": 80,
+    "fmax": 7600, "global_gain_scale": 1.0, "trim_silence": False,
+    "trim_threshold_in_db": 60, "trim_frame_size": 2048,
+    "trim_hop_size": 256, "format": "npy", "use_f0": True,
+    "use_excitation": True,
+    "generator_type": "UHiFiGANGenerator",
+    "generator_params": {
+        "in_channels": 80, "out_channels": 1, "channels": 32,
+        "kernel_size": 7, "downsample_scales": [5, 5, 4, 3],
+        "downsample_kernel_sizes": [10, 10, 8, 6],
+        "upsample_scales": [3, 4, 5, 5],
+        "upsample_kernel_sizes": [6, 8, 10, 10],
+        "resblock_kernel_sizes": [3, 7, 11],
+        "resblock_dilations": [[1, 3, 5], [1, 3, 5], [1, 3, 5]],
+        "dropout": 0.1, "use_additional_convs": True, "bias": True,
+        "nonlinear_activation": "LeakyReLU",
+        "nonlinear_activation_params": {"negative_slope": 0.1},
+        "use_weight_norm": True,
+    },
+    "discriminator_type": "HiFiGANMultiScaleMultiPeriodDiscriminator",
+    "discriminator_params": {
+        "scales": 3, "scale_downsample_pooling": "AvgPool1d",
+        "scale_downsample_pooling_params": {"kernel_size": 4, "stride": 2,
+                                            "padding": 2},
+        "scale_discriminator_params": {
+            "in_channels": 1, "out_channels": 1,
+            "kernel_sizes": [15, 41, 5, 3], "channels": 128,
+            "max_downsample_channels": 1024, "max_groups": 16, "bias": True,
+            "downsample_scales": [2, 2, 4, 4, 1],
+            "nonlinear_activation": "LeakyReLU",
+            "nonlinear_activation_params": {"negative_slope": 0.1},
+        },
+        "follow_official_norm": True,
+        "periods": [2, 3, 5, 7, 11],
+        "period_discriminator_params": {
+            "in_channels": 1, "out_channels": 1, "kernel_sizes": [5, 3],
+            "channels": 32, "downsample_scales": [3, 3, 3, 3, 1],
+            "max_downsample_channels": 1024, "bias": True,
+            "nonlinear_activation": "LeakyReLU",
+            "nonlinear_activation_params": {"negative_slope": 0.1},
+            "use_weight_norm": True, "use_spectral_norm": False,
+        },
+    },
+    "use_stft_loss": True,
+    "stft_loss_params": {"fft_sizes": [1024, 2048, 512],
+                         "hop_sizes": [120, 240, 50],
+                         "win_lengths": [600, 1200, 240],
+                         "window": "hann_window"},
+    "use_mel_loss": True,
+    "mel_loss_params": {"fs": 24000, "fft_size": 2048, "hop_size": 300,
+                        "win_length": 1200, "window": "hann", "num_mels": 80,
+                        "fmin": 0, "fmax": 12000, "log_base": None},
+    "generator_adv_loss_params": {"average_by_discriminators": False},
+    "discriminator_adv_loss_params": {"average_by_discriminators": False},
+    "use_feat_match_loss": True,
+    "feat_match_loss_params": {"average_by_discriminators": False,
+                               "average_by_layers": False,
+                               "include_final_outputs": False},
+    "lambda_aux": 45.0, "lambda_adv": 1.0, "lambda_feat_match": 2.0,
+    "batch_size": 16, "batch_max_steps": 8400,
+    "remove_short_samples": False, "allow_cache": True,
+    "generator_optimizer_type": "Adam",
+    "generator_optimizer_params": {"lr": 0.0002, "betas": [0.5, 0.9],
+                                   "weight_decay": 0.0},
+    "generator_scheduler_type": "MultiStepLR",
+    "generator_scheduler_params": {
+        "gamma": 0.5, "milestones": [200000, 400000, 600000, 800000]},
+    "generator_grad_norm": -1,
+    "discriminator_optimizer_type": "Adam",
+    "discriminator_optimizer_params": {"lr": 0.0002, "betas": [0.5, 0.9],
+                                       "weight_decay": 0.0},
+    "discriminator_scheduler_type": "MultiStepLR",
+    "discriminator_scheduler_params": {
+        "gamma": 0.5, "milestones": [200000, 400000, 600000, 800000]},
+    "discriminator_grad_norm": -1,
+    "generator_train_start_steps": 1,
+    "discriminator_train_start_steps": 0,
+}
+# three steps of 2,500,000 (step 0 trains nothing, D from step 1, G from
+# step 2: the recipe's gates, strict), one evaluation, one checkpoint
+UHIFIGAN_V1_TRAIN_CUT = dict(train_max_steps=3, save_interval_steps=3,
+                             eval_interval_steps=3, log_interval_steps=1)
+UHIFIGAN_LOSS_NAMES = ("spectral_convergence_loss", "log_stft_magnitude_loss",
+                       "mel_loss", "adversarial_loss", "feature_matching_loss",
+                       "generator_loss", "real_loss", "fake_loss",
+                       "discriminator_loss")
+UHIFIGAN_SR, UHIFIGAN_HOP = 24000, 300
+# 32 x 512 frames = 4,915,200 samples = 204.8 s of 24 kHz audio a call
+UHIFIGAN_BENCH_BATCH, UHIFIGAN_BENCH_FRAMES = 32, 512
 N_SCORED = 8       # utterances scored on the host (about 20 s each)
 N_CALIB = 8        # utterances the int8 scales are calibrated on
 # the scored numbers against the committed CPU reference of the JAX package
@@ -1301,6 +1429,7 @@ def profile_step(trainer, batch, what: str) -> None:
     """Where one (G, adv, D) step's device time goes: torch.profiler over
     two steps, device time by kernel name. Printed, never a failure."""
     from parallelwavegan_torch.engine.step import (
+        DROPOUT_STREAM,
         SHARED_STREAM,
         step_generator,
     )
@@ -1309,7 +1438,9 @@ def profile_step(trainer, batch, what: str) -> None:
     step = trainer.train_step_factory(True, True, True)
     prof = device_time(lambda: step(
         trainer.state, batch, step_generator(0, trainer.state.steps),
-        step_generator(0, trainer.state.steps, SHARED_STREAM)), top=14)
+        step_generator(0, trainer.state.steps, SHARED_STREAM),
+        step_generator(0, trainer.state.steps, DROPOUT_STREAM,
+                       trainer.device)), top=14)
     busy = prof["device_busy_ms"]
     if busy <= 0:
         print(f"step profile {what}: the profiler shows no device time")
@@ -1936,7 +2067,7 @@ def gate_gradients(routes: dict, forward, terms: dict, d_loss) -> dict:
     return got
 
 
-def hold_gate(tag: str, got: dict, T: int) -> dict:
+def hold_gate(tag: str, got: dict, T: int, B: int = 2) -> dict:
     """``gradient_gate`` on each set of ``gate_gradients`` (G's own
     gradients, the loss's cotangents at G's outputs, G's gradients on
     float64's cotangents, D's gradients), and G's and D's losses within
@@ -1951,7 +2082,7 @@ def hold_gate(tag: str, got: dict, T: int) -> dict:
             ("d", "discriminator gradient")):
         gate = gradient_gate(*(got[r][key] for r in "kpe"),
                              what=f"{tag} {what}")
-        print(f"{tag} {what} on 2 x {T}, {gate['parameters']} tensors in "
+        print(f"{tag} {what} on {B} x {T}, {gate['parameters']} tensors in "
               f"allowances a: k - p {gate['kp'][0]:.3f} (on "
               f"{gate['kp'][1]}), p - e {gate['pe'][0]:.3f} "
               f"({gate['plain_outside']} outside a), k - e "
@@ -1970,49 +2101,60 @@ def hold_gate(tag: str, got: dict, T: int) -> dict:
     return out
 
 
+# the discriminators' pooling settings (kernel, stride, padding,
+# count_include_pad): the multi-scale MelGAN discriminator's, and the
+# HiFi-GAN multi-scale discriminator's as the UHiFiGAN and HiFi-GAN
+# recipes set it (scale_downsample_pooling_params)
+POOLINGS = ((4, 2, 1, False), (4, 2, 2, True))
+
+
 def check_pooling_backward(dev) -> dict:
-    """The multi-scale discriminator's pooling (kernel 4, stride 2,
-    padding 1, count_include_pad False) on the card: the input gradient of
-    ``ops.conv.avg_pool1d`` and of ``F.avg_pool1d`` against float64, on a
-    channels-last input and a transposed (B, C, T) one. The port's must lie
-    at most 2 x the CPU's f32 + 1e-6 (of 1 + max) from float64;
-    ``F.avg_pool1d``'s is printed (its CUDA backward is what the port's
-    replaces, ROADMAP.md C-3)."""
+    """The discriminators' pooling (``POOLINGS``) on the card: the input
+    gradient of ``ops.conv.avg_pool1d`` and of ``F.avg_pool1d`` against
+    float64, on a channels-last input and a transposed (B, C, T) one. The
+    port's must lie at most 2 x the CPU's f32 + 1e-6 (of 1 + max) from
+    float64; ``F.avg_pool1d``'s is printed (its CUDA backward is what the
+    port's replaces, ROADMAP.md C-3)."""
     from parallelwavegan_torch.ops.conv import avg_pool1d
     from parallelwavegan_torch.tools.float64_check import rel_err
 
-    def library(x):
-        return F.avg_pool1d(x.transpose(1, 2), 4, 2, 1,
-                            count_include_pad=False).transpose(1, 2)
-
     g = torch.Generator().manual_seed(21)
     out = {}
-    for layout in ("channels-last", "from (B, C, T)"):
-        x0 = torch.randn((2, 16384, 16), generator=g)
-        cot = torch.randn((2, 8192, 16), generator=g)
-        errs = {}
-        for name, fn in (("port", avg_pool1d), ("library", library)):
-            got = {}
-            for r, (device, dtype) in (("k", (dev, torch.float32)),
-                                       ("p", ("cpu", torch.float32)),
-                                       ("e", ("cpu", torch.float64))):
-                x = x0.to(device, dtype)
-                if layout != "channels-last":
-                    x = x.transpose(1, 2).contiguous().transpose(1, 2)
-                x.requires_grad_()
-                (dx,) = torch.autograd.grad(fn(x, 4, 2, 1, False)
-                                            if fn is avg_pool1d else fn(x),
-                                            x, cot.to(device, dtype))
-                got[r] = dx.cpu()
-            errs[name] = {r: rel_err(got[r], got["e"]) for r in "kp"}
-        print(f"pooling backward at 2 x 16,384 x 16, {layout}: the port's "
-              f"avg_pool1d {errs['port']['k']:.3e} of 1 + max from float64 "
-              f"on the card, F.avg_pool1d {errs['library']['k']:.3e} (CPU "
-              f"f32 {errs['port']['p']:.3e})")
-        if not errs["port"]["k"] <= 2 * errs["port"]["p"] + 1e-6:
-            raise AssertionError("avg_pool1d's backward on the card lies "
-                                 "far from float64")
-        out[layout] = errs
+    for k, stride, pad, include in POOLINGS:
+        def library(x):
+            return F.avg_pool1d(x.transpose(1, 2), k, stride, pad,
+                                count_include_pad=include).transpose(1, 2)
+
+        frames = (16384 + 2 * pad - k) // stride + 1
+        setting = (f"kernel {k}, stride {stride}, padding {pad}, "
+                   f"count_include_pad {include}")
+        for layout in ("channels-last", "from (B, C, T)"):
+            x0 = torch.randn((2, 16384, 16), generator=g)
+            cot = torch.randn((2, frames, 16), generator=g)
+            errs = {}
+            for name, fn in (("port", avg_pool1d), ("library", library)):
+                got = {}
+                for r, (device, dtype) in (("k", (dev, torch.float32)),
+                                           ("p", ("cpu", torch.float32)),
+                                           ("e", ("cpu", torch.float64))):
+                    x = x0.to(device, dtype)
+                    if layout != "channels-last":
+                        x = x.transpose(1, 2).contiguous().transpose(1, 2)
+                    x.requires_grad_()
+                    y = (fn(x, k, stride, pad, include) if fn is avg_pool1d
+                         else fn(x))
+                    (dx,) = torch.autograd.grad(y, x, cot.to(device, dtype))
+                    got[r] = dx.cpu()
+                errs[name] = {r: rel_err(got[r], got["e"]) for r in "kp"}
+            print(f"pooling backward ({setting}) at 2 x 16,384 x 16, "
+                  f"{layout}: the port's avg_pool1d "
+                  f"{errs['port']['k']:.3e} of 1 + max from float64 on the "
+                  f"card, F.avg_pool1d {errs['library']['k']:.3e} (CPU f32 "
+                  f"{errs['port']['p']:.3e})")
+            if not errs["port"]["k"] <= 2 * errs["port"]["p"] + 1e-6:
+                raise AssertionError(f"avg_pool1d's backward ({setting}) on "
+                                     f"the card lies far from float64")
+            out[f"{setting}, {layout}"] = errs
     return out
 
 
@@ -3917,6 +4059,482 @@ def vqvae_phase(dev, smi: str) -> dict:
     return out
 
 
+def seeded_uhifigan(config: dict, seed: int):
+    """A UHiFiGAN generator of ``config`` with seeded weights (serving
+    form, on the CPU): the N(0, 0.01) kernels rescaled to a per-entry std
+    of 1 / sqrt(K Cin), the output conv's to 4 / sqrt(K Cin), so that the
+    wave reaches a full-scale level (at the module's init it sits near
+    1e-3)."""
+    from parallelwavegan_torch.models import UHiFiGANGenerator
+
+    gen = UHiFiGANGenerator(**config["generator_params"],
+                            generator=torch.Generator().manual_seed(seed))
+    with torch.no_grad():
+        for name, p in gen.named_parameters():
+            if name.endswith("kernel"):
+                gain = 4.0 if name.startswith("output_conv") else 1.0
+                p.mul_(gain / (0.01 * (p.shape[0] * p.shape[1]) ** 0.5))
+    return gen.eval()
+
+
+def uhifigan_inputs(rng: np.random.Generator, frames: int) -> tuple:
+    """(mel (frames, 80), f0 (frames,) in Hz, excitation (frames x hop,)):
+    a drifting f0 contour with unvoiced stretches, its excitation from the
+    port's ``sine_excitation`` (each frame's f0 held for a hop) on a CPU
+    generator seeded from ``rng``."""
+    from parallelwavegan_torch.ops.sine import sine_excitation
+
+    t = np.arange(frames)
+    f0 = 180.0 + 60.0 * np.sin(t / (5.0 + 10.0 * rng.random()))
+    f0 = np.where(np.sin(t / 7.0 + 6.0 * rng.random()) > -0.6, f0, 0.0)
+    exc = sine_excitation(
+        torch.from_numpy(np.repeat(f0, UHIFIGAN_HOP)[None, :, None]).float(),
+        UHIFIGAN_SR, generator=torch.Generator().manual_seed(
+            int(rng.integers(1 << 31))))[0][0, :, 0].numpy()
+    mel = rng.standard_normal((frames, 80)).astype(np.float32)
+    return mel, f0.astype(np.float32), exc
+
+
+def uhifigan_serving(dev, smi: str) -> dict:
+    """Step 14 (a)-(c) of the module docstring."""
+    from scipy.io import wavfile
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from parallelwavegan_torch.bin import decode
+    from parallelwavegan_torch.engine.checkpoint import (
+        save_generator_checkpoint,
+    )
+    from parallelwavegan_torch.tools.train_step_profile import device_time
+    from parallelwavegan_torch.utils.model_loader import load_model
+    from parallelwavegan_torch.utils.params import nested
+    from parallelwavegan_torch.utils.torch_export import (
+        save_reference_checkpoint,
+    )
+
+    out = {}
+    t_start = time.perf_counter()
+    config = dict(UHIFIGAN_V1_TRAIN, **UHIFIGAN_V1_TRAIN_CUT)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "checkpoint-1steps.pkl")
+        save_reference_checkpoint(
+            path, nested(seeded_uhifigan(config, 4).state_dict()), config,
+            steps=1)
+        m32 = load_model(path, config, device=dev)
+        m16 = load_model(path, config, dtype=torch.bfloat16, device=dev)
+        cpu = load_model(path, config, device="cpu")  # the CPU reference
+    gen = m32.generator
+    n_params = sum(p.numel() for p in gen.parameters())
+    print(f"uhifigan (a) opencpop uhifigan.v1 from a reference .pkl on "
+          f"{m32.device}: {n_params} parameters, upsample factor "
+          f"{m32.upsample_factor}")
+    if m32.device.type != dev.type or m32.upsample_factor != UHIFIGAN_HOP:
+        raise AssertionError("UHiFiGAN did not load as configured")
+
+    # (a) 8 utterances of 0.5-1.4 s with their f0 and excitation, one a
+    # call at its exact length: f32 and bf16 on the card against the CPU
+    # port's f32
+    rng = np.random.default_rng(14)
+    worst = {"f32": 0.0, "bf16": 0.0}
+    walls = []
+    for i, frames in enumerate((40, 57, 64, 80, 93, 100, 111, 115)):
+        mel, f0, exc = uhifigan_inputs(rng, frames)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        y32 = m32.inference(mel, f0=f0, excitation=exc)
+        walls.append(time.perf_counter() - t0)
+        y16 = m16.inference(mel, f0=f0, excitation=exc)
+        ref = cpu.inference(mel, f0=f0, excitation=exc)
+        for what, y, tol in (("f32", y32, 1e-4), ("bf16", y16, 2e-2)):
+            if y.shape != (frames * UHIFIGAN_HOP, 1) or \
+                    not np.isfinite(y).all():
+                raise AssertionError(f"uhifigan (a) utterance {i} {what}: "
+                                     f"bad output {y.shape}")
+            allowed = tol * (1 + float(np.abs(ref).max()))
+            err = float(np.abs(y - ref).max())
+            if err > allowed:
+                raise AssertionError(f"uhifigan (a) utterance {i}: the "
+                                     f"card's {what} wave lies {err:.3e} "
+                                     f"from the CPU's f32")
+            worst[what] = max(worst[what], err / allowed)
+    print(f"uhifigan (a) 8 utterances of 40-115 frames, inference(c, f0=, "
+          f"excitation=) on the card vs the CPU port's f32: f32 within "
+          f"{worst['f32']:.3f} of 1e-4 (1 + max), bf16 within "
+          f"{worst['bf16']:.3f} of 2e-2 (1 + max); max |y| "
+          f"{float(np.abs(ref).max()):.3f}; f32 batch-1 wall (host clock) "
+          f"first {walls[0] * 1e3:.1f} ms, then "
+          f"{', '.join(f'{w * 1e3:.1f}' for w in walls[1:])} ms")
+    out.update(f32_ratio=worst["f32"], bf16_ratio=worst["bf16"],
+               batch1_ms=[w * 1e3 for w in walls])
+    del cpu
+    print(f"uhifigan (a) {time.perf_counter() - t_start:.1f} s wall")
+    t_start = time.perf_counter()
+
+    # (b) 32 x 512 frames (204.8 s of audio) through the generator in f32
+    # and bf16, CUDA events, a profile each, the bound from the FLOP count
+    B, frames = UHIFIGAN_BENCH_BATCH, UHIFIGAN_BENCH_FRAMES
+    T = frames * UHIFIGAN_HOP
+    audio_s = B * T / UHIFIGAN_SR
+    c = torch.from_numpy(rng.standard_normal((B, frames, 80)).astype(
+        np.float32)).to(dev)
+    exc = torch.from_numpy(np.stack([uhifigan_inputs(rng, frames)[2]
+                                     for _ in range(B)])[..., None]).to(dev)
+    runs = {"f32": (m32.generator, torch.float32),
+            "bf16": (m16.generator, torch.bfloat16)}
+
+    def forward(name):
+        g, dtype = runs[name]
+        with torch.inference_mode():
+            return g(c.to(dtype), None, exc.to(dtype))
+
+    with FlopCounterMode(display=False) as counter:
+        y32 = forward("f32")
+    flop = counter.get_total_flops()
+    y16 = forward("bf16")
+    if y32.shape != (B, T, 1) or not torch.isfinite(y32).all() \
+            or not torch.isfinite(y16).all():
+        raise AssertionError(f"uhifigan (b) bad output {tuple(y32.shape)}")
+    err, allowed = max_err(y16, y32, torch.bfloat16)
+    print(f"uhifigan (b) {B} x {frames} frames ({B * T} samples, "
+          f"{audio_s:.1f} s of audio): {flop / 1e12:.3f} TFLOP a forward "
+          f"({flop / (2 * B * T) / 1e6:.4f} M MAC a sample); bf16 vs f32 on "
+          f"the card max_abs_err {err:.3e} (allowed {allowed:.3e})")
+    if err > allowed:
+        raise AssertionError("bf16 UHiFiGAN disagrees with f32")
+    del y32, y16
+    for name, (_, dtype) in runs.items():
+        torch.cuda.reset_peak_memory_stats()
+        ms = time_ms(lambda: forward(name), reps=3)
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        bound = flop / PEAK_FLOPS[dtype] * 1e3
+        prof = device_time(lambda: forward(name), n=1, top=10)
+        out.update({f"{name}_ms": ms, f"{name}_peak_gb": peak,
+                    f"{name}_bound_ms": bound,
+                    f"{name}_audio_s_per_s": audio_s / (ms / 1e3),
+                    f"{name}_busy_ms": prof["device_busy_ms"]})
+        print(f"uhifigan (b) {name} forward {ms:.2f} ms = "
+              f"{audio_s / (ms / 1e3):.1f} audio-s/s, {bound / ms:.3f} of "
+              f"the bound {bound:.2f} ms ({PEAK_FLOPS[dtype] / 1e12:.0f} "
+              f"TFLOP/s), peak memory {peak:.2f} GB on {smi}; profile "
+              f"{prof['profiled_wall_ms']:.1f} ms wall, device busy "
+              f"{prof['device_busy_ms']:.2f} ms; by kernel:")
+        for row in prof["kernels"]:
+            print(f"  {row['ms']:8.3f} ms x{row['calls']:4.0f}  "
+                  f"{row['name']}")
+    out["forward_tflop"] = flop / 1e12
+    del c, exc, m16
+    print(f"uhifigan (b) {time.perf_counter() - t_start:.1f} s wall")
+
+    # (c) bin.decode on the card over -feats/-f0/-excitation.npy dumps
+    # (the excitation as the reference dumps it, (frames, hop))
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = os.path.join(tmp, "generator.gckpt")
+        save_generator_checkpoint(ckpt, gen)
+        conf = os.path.join(tmp, "config.json")
+        with open(conf, "w") as f:
+            json.dump(config, f)
+        dump = os.path.join(tmp, "dump")
+        os.makedirs(dump)
+        lengths = {f"utt{i}": 30 + 17 * i for i in range(4)}
+        for name, frames in lengths.items():
+            mel, f0, exc = uhifigan_inputs(rng, frames)
+            np.save(os.path.join(dump, f"{name}-feats.npy"), mel)
+            np.save(os.path.join(dump, f"{name}-f0.npy"), f0)
+            np.save(os.path.join(dump, f"{name}-excitation.npy"),
+                    exc.reshape(frames, UHIFIGAN_HOP))
+        t0 = time.perf_counter()
+        decode.main(["--dumpdir", dump, "--checkpoint", ckpt, "--config",
+                     conf, "--outdir", os.path.join(tmp, "out"),
+                     "--device", dev.type])
+        wall = time.perf_counter() - t0
+        for name, frames in lengths.items():
+            sr, wave = wavfile.read(os.path.join(tmp, "out",
+                                                 f"{name}_gen.wav"))
+            if sr != UHIFIGAN_SR or wave.shape != (frames * UHIFIGAN_HOP,):
+                raise AssertionError(f"bin.decode wrote {wave.shape} for "
+                                     f"{name} ({frames} frames)")
+    print(f"uhifigan (c) bin.decode on the card over -feats/-f0/-excitation"
+          f".npy dumps: 4 utterances of {min(lengths.values())}-"
+          f"{max(lengths.values())} frames, each frames x 300 samples, "
+          f"{wall:.1f} s wall")
+    return out
+
+
+def kinked_mel(loss, x, y, kinks: dict, key: str):
+    """The mel-spectrogram L1 loss ``loss`` of x against y (B, T) with its
+    kinks taken from ``kinks[key]`` as ``kinked_stft`` takes its: the
+    power clamp (at ``loss.eps``) before the amplitude, the mel's clamp
+    (at ``loss.eps``) before the log, and the sign of the log-mel L1; its
+    value held to ``loss``'s."""
+    from parallelwavegan_torch.ops.spectral import (
+        _mel_basis_on,
+        _MatmulHighest,
+        stft_magnitude,
+    )
+
+    decided = kinks.setdefault(key, [])
+    eps = loss.eps
+    fmin = 0.0 if loss.fmin is None else float(loss.fmin)
+    fmax = loss.fs / 2.0 if loss.fmax is None else float(loss.fmax)
+
+    def log_mel(v, i):
+        amp = stft_magnitude(v, loss.fft_size, loss.hop_size,
+                             loss.win_length, loss.window,
+                             center=loss.center, power_clamp_min=1e-30,
+                             method=loss.method)
+        if len(decided) == i:
+            decided.append((amp.detach() ** 2 > eps).cpu())
+        amp = torch.where(decided[i].to(amp.device), amp, eps ** 0.5)
+        mel = _MatmulHighest.apply(amp, _mel_basis_on(
+            loss.fs, loss.fft_size, loss.num_mels, fmin, fmax, v.device,
+            v.dtype))
+        if len(decided) == i + 1:
+            decided.append((mel.detach() > eps).cpu())
+        mel = torch.where(decided[i + 1].to(mel.device), mel, eps)
+        out = torch.log(mel)
+        return out if loss.log_base is None else out / np.log(loss.log_base)
+
+    d = log_mel(x, 0) - log_mel(y, 2)
+    if len(decided) == 4:
+        decided.append(torch.sign(d.detach()).cpu())
+    total = torch.mean(decided[4].to(d) * d)
+    with torch.no_grad():
+        want = loss(x, y).item()
+    if not abs(total.item() - want) <= 1e-5 * abs(want):
+        raise AssertionError(f"{key}: the gate's mel loss {total.item()} "
+                             f"is not the step's {want}")
+    return total
+
+
+def uhifigan_gate_losses(crit):
+    """(forward, terms, d_loss) of the recipe's gate: G with dropout on,
+    on the batch's keep masks (``mask_<i>``), the terms of the (G, adv)
+    generator loss as the step forms it (45 x the STFT and the mel loss,
+    the adversarial loss, 2 x feature matching) and the discriminator loss
+    on the prediction (real pass, then fake); D in eval mode."""
+    cfg = UHIFIGAN_V1_TRAIN
+
+    def stft(outs, dis, b, kinks):
+        sc, mag = kinked_stft(crit["stft"], outs[0][..., 0], b["y"][..., 0],
+                              kinks, "stft")
+        return cfg["lambda_aux"] * (sc + mag)
+
+    def mel(outs, dis, b, kinks):
+        return cfg["lambda_aux"] * kinked_mel(
+            crit["mel"], outs[0][..., 0], b["y"][..., 0], kinks, "mel")
+
+    def feature_matching(outs, dis, b, kinks):
+        p_ = dis(outs[0])
+        with torch.no_grad():
+            p = dis(b["y"])
+        return cfg["lambda_adv"] * cfg["lambda_feat_match"] * \
+            kinked_feature_match(crit["feat_match"], p_, p, kinks,
+                                 "feature matching")
+
+    terms = {
+        "stft": stft, "mel": mel,
+        "adversarial": lambda outs, dis, b, kinks: cfg["lambda_adv"] * crit[
+            "gen_adv"](dis(outs[0])),
+        "feature matching": feature_matching}
+
+    def d_loss(outs, dis, b):
+        p = dis(b["y"])
+        real, fake = crit["dis_adv"](dis(outs[0]), p)
+        return real + fake
+
+    def forward(gen, b):
+        masks = [b[f"mask_{i}"] for i in range(5)]
+        return (gen(b["c"], b["f0"], b["excitation"], deterministic=False,
+                    masks=masks),)
+
+    return forward, terms, d_loss
+
+
+def write_uhifigan_corpus(root: str, rng: np.random.Generator, n: int
+                          ) -> None:
+    """Seeded npy dumps of n utterances of 40-100 frames: -wave (harmonics
+    of the f0 contour, and noise), -feats, -f0 and -excitation ((frames,
+    hop), as the reference dumps it)."""
+    os.makedirs(root)
+    for i in range(n):
+        frames = 40 + (4 * i) % 61
+        mel, f0, exc = uhifigan_inputs(rng, frames)
+        phase = 2 * np.pi * np.cumsum(np.repeat(f0, UHIFIGAN_HOP)) / \
+            UHIFIGAN_SR
+        wave = sum(0.25 / k * np.sin(k * phase) for k in range(1, 5))
+        wave = wave * np.repeat(f0 > 0, UHIFIGAN_HOP) + 0.01 * \
+            rng.standard_normal(len(phase))
+        np.save(os.path.join(root, f"utt{i}-wave.npy"),
+                wave.astype(np.float32))
+        np.save(os.path.join(root, f"utt{i}-feats.npy"), mel)
+        np.save(os.path.join(root, f"utt{i}-f0.npy"), f0)
+        np.save(os.path.join(root, f"utt{i}-excitation.npy"),
+                exc.reshape(frames, UHIFIGAN_HOP))
+
+
+def uhifigan_training(dev, smi: str) -> dict:
+    """Step 14 (d) and (e) of the module docstring."""
+    import dataclasses
+
+    from parallelwavegan_torch.bin.train import run
+    from parallelwavegan_torch.engine import checkpoint as ckpt
+    from parallelwavegan_torch.engine.build import init_train_state
+    from parallelwavegan_torch.engine.step import (
+        DROPOUT_STREAM,
+        SHARED_STREAM,
+        step_generator,
+    )
+
+    rng = np.random.default_rng(17)
+    config = dict(UHIFIGAN_V1_TRAIN, **UHIFIGAN_V1_TRAIN_CUT)
+    B, T = config["batch_size"], config["batch_max_steps"]
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        dump = os.path.join(tmp, "dump")
+        write_uhifigan_corpus(dump, rng, n=B)
+        initial, _, _, _, _ = init_train_state(config, seed=0, device=dev)
+        n_g = sum(p.numel() for p in initial.generator.parameters())
+        n_d = sum(p.numel() for p in initial.discriminator.parameters())
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer = run(config, dump, dump, os.path.join(tmp, "exp"), seed=0,
+                      device=dev.type, dump_config=False)
+        torch.cuda.synchronize()
+        print(f"uhifigan (d) training f32 {B} x {T} samples, G "
+              f"{n_g / 1e6:.2f} M and D {n_d / 1e6:.2f} M parameters: "
+              f"{trainer.steps} steps in {time.perf_counter() - t0:.1f} s "
+              f"wall (first calls)")
+        state = trainer.state
+        if trainer.steps != 3 or trainer.device.type != dev.type \
+                or state.opt_g.count != 1 or state.opt_d.count != 2:
+            raise AssertionError("the trainer did not take 3 steps")
+        check_trainer(trainer, "uhifigan (d) training f32",
+                      UHIFIGAN_LOSS_NAMES)
+        check_moved("G", trainer.generator, initial.generator, 0)
+        check_moved("D", trainer.discriminator, initial.discriminator, 0)
+        path = os.path.join(tmp, "exp", "checkpoint-3steps.ckpt")
+        ckpt.load_checkpoint(path, initial)
+        for module, loaded in ((trainer.generator, initial.generator),
+                               (trainer.discriminator, initial.discriminator)):
+            want = dict(module.named_parameters())
+            for key, p in loaded.named_parameters():
+                if not torch.equal(p, want[key]):
+                    raise AssertionError(f".ckpt differs on {key}")
+        print(f"  {os.path.basename(path)} "
+              f"({os.path.getsize(path) / 1e6:.1f} MB) loads back")
+        del initial
+
+        t_start = time.perf_counter()
+        mixed_config = dict(config, mixed_precision=True, train_max_steps=5,
+                            save_interval_steps=5, eval_interval_steps=5)
+        mixed = run(mixed_config, dump, dump, os.path.join(tmp, "mixed"),
+                    resume=path, seed=0, device=dev.type, dump_config=False)
+        torch.cuda.synchronize()
+        print(f"uhifigan (d) training mixed precision: steps 3 -> "
+              f"{mixed.steps}")
+        if mixed.steps != 5 or mixed.state.opt_g.count != 3 \
+                or mixed.state.opt_d.count != 4:
+            raise AssertionError("the resumed run did not take 2 steps")
+        check_trainer(mixed, "uhifigan (d) training mixed",
+                      UHIFIGAN_LOSS_NAMES)
+        if any(p.dtype != torch.float32 or not torch.isfinite(p).all()
+               for p in mixed.generator.parameters()):
+            raise AssertionError("master parameters left finite float32")
+
+        batch = mixed._to_device(next(iter(mixed.train_loader)))
+        if tuple(batch["excitation"].shape) != (B, T, 1) or \
+                tuple(batch["f0"].shape) != (B, T // UHIFIGAN_HOP, 1):
+            raise AssertionError("bad UHiFiGAN batch")
+        for what, t in (("f32", trainer), ("mixed", mixed)):
+            step = t.train_step_factory(True, True, True)
+
+            def one():
+                s = t.state.steps
+                step(t.state, batch, step_generator(0, s),
+                     step_generator(0, s, SHARED_STREAM),
+                     step_generator(0, s, DROPOUT_STREAM, dev))
+
+            out[f"step_ms_{what}"] = time_ms(one, reps=3)
+            torch.cuda.reset_peak_memory_stats()
+            one()
+            torch.cuda.synchronize()
+            out[f"peak_gb_{what}"] = torch.cuda.max_memory_allocated() / 1e9
+        profile_step(trainer, batch, "uhifigan f32")
+        profile_step(mixed, batch, "uhifigan mixed")
+        print(f"uhifigan (d) (G, adv, D) step {B} x {T}: f32 "
+              f"{out['step_ms_f32']:.1f} ms "
+              f"({1e3 / out['step_ms_f32']:.2f} steps/s, peak "
+              f"{out['peak_gb_f32']:.2f} GB), mixed precision "
+              f"{out['step_ms_mixed']:.1f} ms "
+              f"({1e3 / out['step_ms_mixed']:.2f} steps/s, peak "
+              f"{out['peak_gb_mixed']:.2f} GB) on {smi}")
+
+        # the dropout masks of one step's two forwards (7.3 M entries
+        # each): drawn on a CPU generator and copied over, against drawn
+        # on the card (what the trainer does), host clock
+        gen = trainer.generator
+        for where in ("cpu", "card"):
+            walls = []
+            for i in range(4):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                g = step_generator(0, i, DROPOUT_STREAM,
+                                   "cpu" if where == "cpu" else dev)
+                masks = [m.to(dev) for _ in range(2)
+                         for m in gen.draw_dropout_masks(B, T, g)]
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
+            out[f"masks_ms_{where}"] = float(np.mean(walls[1:])) * 1e3
+        n_mask = sum(m.numel() for m in masks)
+        print(f"uhifigan (d) dropout masks of a step ({n_mask} entries, "
+              f"two forwards): drawn on the host and copied "
+              f"{out['masks_ms_cpu']:.2f} ms, drawn on the card "
+              f"{out['masks_ms_card']:.2f} ms (host clock, mean of 3 "
+              f"after one); the trainer draws them on the card")
+        del masks
+        print(f"uhifigan (d) resume to the masks "
+              f"{time.perf_counter() - t_start:.1f} s wall")
+        t_start = time.perf_counter()
+
+        # (e) the loader's batch cut to 1 x 8,400 with one set of dropout
+        # masks handed to every route: every G and D gradient on the card
+        # in f32 (k) and on the CPU in f32 (p) and float64 (e), the loss's
+        # kinks decided by float64, held by gate_gradients and hold_gate.
+        # The STFT and mel losses on their framed products on every route
+        # (the card's own method: "auto" is the framed product on CUDA)
+        b = {k: v[:1] for k, v in batch.items()}
+        g = torch.Generator().manual_seed(15)
+        for i, m in enumerate(gen.draw_dropout_masks(1, T, g)):
+            b[f"mask_{i}"] = m.to(dev)
+        crit = dict(trainer.criterion)
+        for name in ("stft", "mel"):
+            crit[name] = dataclasses.replace(crit[name], method="matmul")
+        dis = trainer.discriminator.eval()  # u stays put
+        out.update(hold_gate("uhifigan (e)", gate_gradients(
+            gate_routes(gen, dis, b), *uhifigan_gate_losses(crit)), T, B=1))
+        print(f"uhifigan (e) {time.perf_counter() - t_start:.1f} s wall")
+    return out
+
+
+def uhifigan_phase(dev, smi: str) -> dict:
+    """Step 14: UHiFiGAN served and trained, (f) with every launch of the
+    five kernels counted across (a)-(e)."""
+    counters = kernel_launch_counters()
+    torch.cuda.synchronize()
+    for wrapper in counters.values():
+        wrapper.launches = 0
+    out = uhifigan_serving(dev, smi)
+    out.update(uhifigan_training(dev, smi))
+    torch.cuda.synchronize()
+    out["launches"] = {name: wrapper.launches
+                       for name, wrapper in counters.items()}
+    print(f"uhifigan (f) launches of the five kernels over (a)-(e): "
+          f"{out['launches']} (none is on this path)")
+    if any(out["launches"].values()):
+        raise AssertionError("a hand-written kernel ran on the UHiFiGAN "
+                             "path")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4121,6 +4739,10 @@ def run_phases(dev, smi: str, pool) -> int:
     t0 = time.perf_counter()
     vq = vqvae_phase(dev, smi)
     print(f"step 13: {time.perf_counter() - t0:.1f} s wall")
+    # 14. UHiFiGAN served and trained
+    t0 = time.perf_counter()
+    uh = uhifigan_phase(dev, smi)
+    print(f"step 14: {time.perf_counter() - t0:.1f} s wall")
     if min(launches, launches32, train["fwd_launches"], train["bwd_launches"],
            hifi["launches"], mm["launches"], variant["launches"],
            chunked["pwg_launches"], chunked["mrf_launches"]) < 1:
@@ -4266,11 +4888,12 @@ def run_phases(dev, smi: str, pool) -> int:
         "tanh_over_baseline": variant["tanh_over_baseline"],
         "snr_db": variant["snr_db"],
     }]
-    # step 12 (g), step 13 (h): none of the five runs on the StyleMelGAN
-    # or the VQ-VAE path
+    # step 12 (g), step 13 (h), step 14 (f): none of the five runs on the
+    # StyleMelGAN, the VQ-VAE or the UHiFiGAN path
     for entry in kernels:
         entry["style_melgan_launches"] = style["launches"][entry["name"]]
         entry["vqvae_launches"] = vq["launches"][entry["name"]]
+        entry["uhifigan_launches"] = uh["launches"][entry["name"]]
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

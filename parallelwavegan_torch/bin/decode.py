@@ -1,17 +1,23 @@
 #!/usr/bin/env python3
 """Decode CLI: mel features -> waveforms with a trained generator of a
-ported family (Parallel WaveGAN, HiFi-GAN, MelGAN, multi-band MelGAN and
-StyleMelGAN), or audio -> codes -> audio with a VQ-VAE.
+ported family (Parallel WaveGAN, HiFi-GAN, MelGAN, multi-band MelGAN,
+StyleMelGAN and UHiFiGAN), or audio -> codes -> audio with a VQ-VAE.
 
-Counterpart of the mel branches and the VQ-VAE branch of
-``parallelwavegan_tpu/bin/decode.py``: bucketed batches, or each utterance
-in overlapping windows (``--chunk-frames``), with the int8 serving mode for
-HiFi-GAN. A VQ-VAE reads the audio dumps of ``--dumpdir``, encodes and
+Counterpart of the mel branches, the F0 and excitation branch and the
+VQ-VAE branch of ``parallelwavegan_tpu/bin/decode.py``: bucketed batches,
+or each utterance in overlapping windows (``--chunk-frames``), with the
+int8 serving mode for HiFi-GAN. UHiFiGAN (and any family with ``--use-f0``)
+decodes one utterance a call at its exact shape, its f0 and excitation read
+beside each mel (hdf5 "f0" / "excitation", or ``-f0.npy`` /
+``-excitation.npy`` beside ``-feats.npy``; a feats.scp carries neither and
+is refused), through ``InferenceModel.inference``, which for UHiFiGAN
+applies neither ``--normalize-before`` nor ``--pcm16``, as in the JAX
+package. A VQ-VAE reads the audio dumps of ``--dumpdir``, encodes and
 decodes each utterance and writes its codes to ``<outdir>/text`` (one line
-"utt code code ..." each); a conditioned one reads its conditions from
-hdf5 dumps ("local", "global"), and over npy dumps it raises, where the
-JAX CLI passes no condition and fails in the decoder. Runs on CUDA by
-default (``--device cpu`` for the host):
+"utt code code ..." each); a conditioned one reads its conditions from hdf5
+dumps ("local", "global"), and over npy dumps it raises, where the JAX CLI
+passes no condition and fails in the decoder. Runs on CUDA by default
+(``--device cpu`` for the host):
 
     python -m parallelwavegan_torch.bin.decode \
         (--dumpdir dump | --feats-scp feats.scp) \
@@ -25,8 +31,8 @@ default (``--device cpu`` for the host):
 config is YAML (``config.yml`` beside the checkpoint by default) or JSON.
 The noise of Parallel WaveGAN and StyleMelGAN comes from a
 ``torch.Generator`` seeded 0 for each batch or utterance, as the JAX CLI
-draws from ``jax.random.key(0)``. ``--use-f0`` and the families of the JAX
-package's other decode branches are not ported yet.
+draws from ``jax.random.key(0)``. The discrete-symbol families of the JAX
+package's other decode branch are not ported yet.
 """
 
 from __future__ import annotations
@@ -42,6 +48,8 @@ import torch
 from parallelwavegan_torch.datasets.audio_mel_dataset import (
     AudioDataset,
     MelDataset,
+    MelF0Dataset,
+    MelF0ExcitationDataset,
 )
 from parallelwavegan_torch.datasets.scp_dataset import MelSCPDataset
 from parallelwavegan_torch.utils.io import load_config, read_hdf5, write_wav
@@ -70,6 +78,8 @@ def main(argv=None):
         "where the context covers the receptive field, see "
         "InferenceModel.inference_chunked)",
     )
+    parser.add_argument("--use-f0", action="store_true",
+                        help="read the per-frame f0 beside each mel")
     parser.add_argument(
         "--int8", action="store_true",
         help="int8-activation HiFi-GAN serving mode: calibrates "
@@ -136,15 +146,32 @@ def main(argv=None):
             parser.error("--int8-calib-utts must be >= 1")
     if gen_type == "VQVAE":
         return _decode_vq(args, config)
+    use_excitation = gen_type == "UHiFiGANGenerator"
+    single = args.use_f0 or use_excitation
+    hdf5 = config.get("format", "hdf5") == "hdf5"
+
+    def side(name: str):
+        if hdf5:
+            return lambda f: read_hdf5(f, name)
+        return lambda f: np.load(f.replace("-feats.npy", f"-{name}.npy"))
+
+    mel_kw = (dict(mel_query="*.h5", mel_load_fn=side("feats")) if hdf5
+              else dict(mel_query="*-feats.npy", mel_load_fn=np.load))
     if args.feats_scp is not None:
+        if single:
+            raise ValueError(
+                "SCP format is not supported for f0 and excitation.")
         dataset = MelSCPDataset(args.feats_scp, return_utt_id=True)
-    elif config.get("format", "hdf5") == "hdf5":
-        dataset = MelDataset(args.dumpdir, "*.h5",
-                             lambda f: read_hdf5(f, "feats"),
-                             return_utt_id=True)
+    elif use_excitation:
+        dataset = MelF0ExcitationDataset(
+            args.dumpdir, f0_load_fn=side("f0"),
+            excitation_load_fn=side("excitation"), return_utt_id=True,
+            **mel_kw)
+    elif args.use_f0:
+        dataset = MelF0Dataset(args.dumpdir, f0_load_fn=side("f0"),
+                               return_utt_id=True, **mel_kw)
     else:
-        dataset = MelDataset(args.dumpdir, "*-feats.npy", np.load,
-                             return_utt_id=True)
+        dataset = MelDataset(args.dumpdir, return_utt_id=True, **mel_kw)
     logging.info(f"The number of features to be decoded = {len(dataset)}.")
 
     model = load_model(args.checkpoint, config, stats=args.stats,
@@ -160,7 +187,8 @@ def main(argv=None):
                 "dataset is empty"
             )
         calib = []
-        for _, c in items[: args.int8_calib_utts]:
+        for item in items[: args.int8_calib_utts]:
+            c = item[1]
             if args.normalize_before:
                 c = (c - model.mean) / model.scale
             calib.append(np.asarray(c, np.float32))
@@ -170,9 +198,21 @@ def main(argv=None):
         )
         model.quantize_int8(calib, schedule=args.int8_schedule)
     total_t = total_audio = 0.0
+    if single:
+        # one utterance a call at its exact shape: (utt, mel, f0[,
+        # excitation]) items
+        for utt_id, c, f0, *rest in items:
+            start = time.perf_counter()
+            w = model.inference(c, normalize_before=args.normalize_before,
+                                f0=f0, excitation=rest[0] if rest else None)
+            total_t += time.perf_counter() - start
+            total_audio += len(w) / sr
+            write_wav(os.path.join(args.outdir, f"{utt_id}_gen.wav"),
+                      w[:, 0], sr)
+    batched = [] if single else items
     step = 1 if args.chunk_frames > 0 else args.batch_size
-    for i in range(0, len(items), step):
-        chunk = items[i : i + step]
+    for i in range(0, len(batched), step):
+        chunk = batched[i : i + step]
         start = time.perf_counter()
         if args.chunk_frames > 0:
             waves = [model.inference_chunked(

@@ -3,9 +3,12 @@
 
 Counterpart of ``parallelwavegan_tpu/bin/train.py`` for Parallel WaveGAN,
 HiFi-GAN, the MelGAN family (MelGAN, multi-band MelGAN through PQMF, with
-any of their discriminators), StyleMelGAN and the VQ-VAE (wav2wav: audio
+any of their discriminators), StyleMelGAN, the VQ-VAE (wav2wav: audio
 dumps, with ``-global.npy`` speaker ids and ``-local.npy`` frame
-conditions beside the ``-wave.npy`` files of an npy dump) on one device,
+conditions beside the ``-wave.npy`` files of an npy dump) and UHiFiGAN
+(``-f0.npy`` and ``-excitation.npy`` beside them; ``--use-f0`` gives the
+other families the f0 too, which their generators do not read) on one
+device,
 with ``--resume`` / ``--pretrain`` (a ``.ckpt``, a generator ``.gckpt`` or
 a reference ``.pkl``) and the ``config.yml`` dump. Each split reads a dump directory
 or Kaldi-style lists (a wav.scp and a feats.scp, optionally segments).
@@ -38,11 +41,17 @@ from parallelwavegan_torch.datasets.audio_mel_dataset import (
     AudioGlobalDataset,
     AudioLocalDataset,
     AudioMelDataset,
+    AudioMelF0Dataset,
+    AudioMelF0ExcitationDataset,
 )
 from parallelwavegan_torch.datasets.collater import Collater
 from parallelwavegan_torch.datasets.loader import DataLoader
 from parallelwavegan_torch.datasets.scp_dataset import AudioMelSCPDataset
-from parallelwavegan_torch.engine.step import is_vqvae, uses_noise
+from parallelwavegan_torch.engine.step import (
+    is_uhifigan,
+    is_vqvae,
+    uses_noise,
+)
 from parallelwavegan_torch.utils.io import load_config, read_hdf5, save_config
 
 VERSION = "parallelwavegan_torch-0.1.0"
@@ -78,30 +87,33 @@ def build_scp_dataset(config: Dict[str, Any], wav_scp: str, feats_scp: str,
     )
 
 
+def _side_load_fn(config: Dict[str, Any], name: str):
+    """A load function of the audio file's path for the input ``name``
+    beside the audio: the hdf5 dataset ``name``, or the npy file
+    ``<utt>-<name>.npy`` beside ``<utt>-wave.npy``."""
+    if config.get("format", "hdf5") == "hdf5":
+        return lambda f: read_hdf5(f, name)
+    return lambda f: np.load(f.replace("-wave.npy", f"-{name}.npy"))
+
+
 def build_audio_dataset(config: Dict[str, Any], rootdir: str,
                         audio_query: str, audio_load_fn) -> AudioDataset:
     """A VQ-VAE's wav2wav dataset: audio longer than ``batch_max_steps``,
     with the local condition and (or) the speaker id the config asks for,
     from hdf5 ("local", "global") or from the npy files beside the
     ``-wave.npy`` ones (``-local.npy``, ``-global.npy``)."""
-    hdf5 = config.get("format", "hdf5") == "hdf5"
-
-    def load_fn(name: str):
-        if hdf5:
-            return lambda f: read_hdf5(f, name)
-        return lambda f: np.load(f.replace("-wave.npy", f"-{name}.npy"))
-
     kw = dict(audio_query=audio_query, audio_load_fn=audio_load_fn,
               audio_length_threshold=config["batch_max_steps"],
               allow_cache=config.get("allow_cache", False))
     use_global = config.get("use_global_condition", False)
     if config.get("use_local_condition", False):
         return AudioLocalDataset(
-            rootdir, local_load_fn=load_fn("local"),
-            global_load_fn=load_fn("global") if use_global else None, **kw)
+            rootdir, local_load_fn=_side_load_fn(config, "local"),
+            global_load_fn=(_side_load_fn(config, "global") if use_global
+                            else None), **kw)
     if use_global:
-        return AudioGlobalDataset(rootdir, global_load_fn=load_fn("global"),
-                                  **kw)
+        return AudioGlobalDataset(
+            rootdir, global_load_fn=_side_load_fn(config, "global"), **kw)
     return AudioDataset(rootdir, **kw)
 
 
@@ -119,12 +131,22 @@ def build_dataset(config: Dict[str, Any], rootdir: str):
     if is_vqvae(config):
         return build_audio_dataset(config, rootdir, audio_query,
                                    audio_load_fn)
-    return AudioMelDataset(
+    common = dict(
         root_dir=rootdir, audio_query=audio_query, mel_query=mel_query,
         audio_load_fn=audio_load_fn, mel_load_fn=mel_load_fn,
         mel_length_threshold=_mel_length_threshold(config),
         allow_cache=config.get("allow_cache", False),
     )
+    # UHiFiGAN reads f0 and excitation (hdf5 "f0" / "excitation", or
+    # -f0.npy / -excitation.npy), use_f0 the f0 alone
+    if is_uhifigan(config):
+        return AudioMelF0ExcitationDataset(
+            f0_load_fn=_side_load_fn(config, "f0"),
+            excitation_load_fn=_side_load_fn(config, "excitation"), **common)
+    if config.get("use_f0", False):
+        return AudioMelF0Dataset(f0_load_fn=_side_load_fn(config, "f0"),
+                                 **common)
+    return AudioMelDataset(**common)
 
 
 def _split_dataset(config: Dict[str, Any], split: Split):
@@ -145,6 +167,8 @@ def build_loader(config: Dict[str, Any], dataset, seed: int) -> DataLoader:
         aux_context_window=config.get("generator_params", {}).get(
             "aux_context_window", 0),
         use_noise_input=uses_noise(config),
+        use_f0=config.get("use_f0", False),
+        use_f0_and_excitation=is_uhifigan(config),
         use_aux_input=not vq,
         use_global_condition=vq and config.get("use_global_condition",
                                                False),
@@ -200,7 +224,7 @@ def run(config: Dict[str, Any], train: Split, dev: Split,
 def main(argv: Optional[list] = None):
     parser = argparse.ArgumentParser(
         description="Train a Parallel WaveGAN, HiFi-GAN, MelGAN, "
-        "multi-band MelGAN, StyleMelGAN or VQ-VAE model."
+        "multi-band MelGAN, StyleMelGAN, VQ-VAE or UHiFiGAN model."
     )
     for split in ("train", "dev"):
         parser.add_argument(f"--{split}-dumpdir", default=None, type=str,
@@ -211,6 +235,8 @@ def main(argv: Optional[list] = None):
                             help=f"{split} feats.scp (with --{split}-wav-scp)")
         parser.add_argument(f"--{split}-segments", default=None, type=str,
                             help=f"{split} segments of the wav.scp")
+    parser.add_argument("--use-f0", action="store_true",
+                        help="train with the per-frame f0 as an extra input")
     parser.add_argument("--outdir", type=str, required=True)
     parser.add_argument("--config", type=str, required=True)
     parser.add_argument("--resume", default="", type=str, nargs="?")
@@ -241,7 +267,9 @@ def main(argv: Optional[list] = None):
         stream=sys.stdout,
         format="%(asctime)s (%(module)s:%(lineno)d) %(levelname)s: %(message)s",
     )
-    return run(load_config(args.config), splits["train"], splits["dev"],
+    # the flag sets use_f0, as the JAX CLI's config takes its arguments
+    config = dict(load_config(args.config), use_f0=args.use_f0)
+    return run(config, splits["train"], splits["dev"],
                args.outdir, args.resume or "",
                args.pretrain or "", args.seed, args.device)
 

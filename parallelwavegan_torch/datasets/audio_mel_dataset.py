@@ -1,12 +1,16 @@
 """Datasets over a directory of dumped features.
 
-Counterpart of ``AudioMelDataset``, ``MelDataset``, ``AudioDataset``,
-``AudioGlobalDataset`` and ``AudioLocalDataset`` in
-``parallelwavegan_tpu/datasets/audio_mel_dataset.py``: ``*-wave.npy`` /
-``*-feats.npy`` files (or ``*.h5`` with "wave" / "feats" datasets, read
-through a lazy ``h5py`` import); the wav2wav datasets read a speaker id
-("global") and a frame-rate condition ("local") through load functions
-of the audio file's path. Plain Python sequences, numpy in and out.
+Counterpart of ``AudioMelDataset``, ``AudioMelF0Dataset``,
+``AudioMelF0ExcitationDataset``, ``MelDataset``, ``MelF0Dataset``,
+``MelF0ExcitationDataset``, ``AudioDataset``, ``AudioGlobalDataset`` and
+``AudioLocalDataset`` in ``parallelwavegan_tpu/datasets/audio_mel_dataset.py``:
+``*-wave.npy`` / ``*-feats.npy`` files (or ``*.h5`` with "wave" / "feats"
+datasets, read through a lazy ``h5py`` import). The F0 datasets add the
+per-frame f0 and the excitation (a (frames, hop) dump), the wav2wav
+datasets a speaker id ("global") and a frame-rate condition ("local"),
+each read by a load function of the audio file's path (of the mel file's
+for the mel-only datasets), hdf5 by default, as in the JAX package. Plain
+Python sequences, numpy in and out.
 """
 
 from __future__ import annotations
@@ -51,9 +55,45 @@ class MelDataset:
     def __len__(self) -> int:
         return len(self.mel_files)
 
+    def _load(self, idx: int):
+        return self.mel_load_fn(self.mel_files[idx])
+
     def __getitem__(self, idx):
-        mel = self.mel_load_fn(self.mel_files[idx])
-        return (self.utt_ids[idx], mel) if self.return_utt_id else mel
+        item = self._load(idx)
+        if not self.return_utt_id:
+            return item
+        return (self.utt_ids[idx],) + (
+            item if isinstance(item, tuple) else (item,))
+
+
+class MelF0Dataset(MelDataset):
+    """(mel, f0) items; ``f0_load_fn`` of the mel file gives the f0."""
+
+    def __init__(self, root_dir: str,
+                 f0_load_fn: Callable = lambda f: read_hdf5(f, "f0"),
+                 **kwargs):
+        super().__init__(root_dir, **kwargs)
+        self.f0_load_fn = f0_load_fn
+
+    def _load(self, idx: int):
+        f = self.mel_files[idx]
+        return (self.mel_load_fn(f), self.f0_load_fn(f))
+
+
+class MelF0ExcitationDataset(MelF0Dataset):
+    """(mel, f0, excitation) items; the excitation from
+    ``excitation_load_fn`` of the mel file."""
+
+    def __init__(self, root_dir: str,
+                 excitation_load_fn: Callable = lambda f: read_hdf5(
+                     f, "excitation"),
+                 **kwargs):
+        super().__init__(root_dir, **kwargs)
+        self.excitation_load_fn = excitation_load_fn
+
+    def _load(self, idx: int):
+        return super()._load(idx) + (
+            self.excitation_load_fn(self.mel_files[idx]),)
 
 
 class AudioMelDataset:
@@ -106,16 +146,50 @@ class AudioMelDataset:
     def __len__(self) -> int:
         return len(self.audio_files)
 
+    def _load(self, idx: int) -> tuple:
+        return (self.audio_load_fn(self.audio_files[idx]),
+                self.mel_load_fn(self.mel_files[idx]))
+
     def __getitem__(self, idx):
         if self.caches is not None and self.caches[idx] is not None:
             return self.caches[idx]
-        item = (self.audio_load_fn(self.audio_files[idx]),
-                self.mel_load_fn(self.mel_files[idx]))
+        item = self._load(idx)
         if self.return_utt_id:
             item = (self.utt_ids[idx],) + item
         if self.caches is not None:
             self.caches[idx] = item
         return item
+
+
+class AudioMelF0Dataset(AudioMelDataset):
+    """(audio, mel, f0) items; ``f0_load_fn`` of the audio file gives the
+    per-frame f0."""
+
+    def __init__(self, root_dir: str,
+                 f0_load_fn: Callable = lambda f: read_hdf5(f, "f0"),
+                 **kwargs):
+        super().__init__(root_dir, **kwargs)
+        self.f0_load_fn = f0_load_fn
+
+    def _load(self, idx: int) -> tuple:
+        return super()._load(idx) + (
+            self.f0_load_fn(self.audio_files[idx]),)
+
+
+class AudioMelF0ExcitationDataset(AudioMelF0Dataset):
+    """(audio, mel, f0, excitation) items; the excitation (frames, hop)
+    from ``excitation_load_fn`` of the audio file."""
+
+    def __init__(self, root_dir: str,
+                 excitation_load_fn: Callable = lambda f: read_hdf5(
+                     f, "excitation"),
+                 **kwargs):
+        super().__init__(root_dir, **kwargs)
+        self.excitation_load_fn = excitation_load_fn
+
+    def _load(self, idx: int) -> tuple:
+        return super()._load(idx) + (
+            self.excitation_load_fn(self.audio_files[idx]),)
 
 
 class AudioDataset:

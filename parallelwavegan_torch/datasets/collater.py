@@ -4,7 +4,12 @@ channels-last numpy batches.
 Counterpart of the mel-to-waveform and the audio (wav2wav) branches of
 ``parallelwavegan_tpu/datasets/collater.py``; this package keeps its own
 copy. Every batch has the same shapes: mel2wav {"y": (B, T, 1), "c":
-(B, T' + 2 ctx, C)} and, with ``use_noise_input``, {"z": (B, T, 1)};
+(B, T' + 2 ctx, C)} and, with ``use_noise_input``, {"z": (B, T, 1)}; with
+``use_f0`` (items (audio, mel, f0)) the f0 of the mel's frame window
+{"f0": (B, T' + 2 ctx, 1)}; with ``use_f0_and_excitation`` (items (audio,
+mel, f0, excitation)) also {"excitation": (B, (T' + 2 ctx) hop, 1)}, an
+excitation dump of (frames, hop) cut on the frame window and flattened (a
+1-D dump is first reshaped to (frames, hop)), as the reference cuts it;
 wav2wav (a VQ-VAE: ``use_aux_input`` off, or a local or global condition)
 {"y": (B, T, 1)} with {"l": (B, T' + 2 ctx, C)} and {"g": (B,)} as the
 conditions ask. The random source is an explicit ``np.random.Generator``,
@@ -26,6 +31,8 @@ class Collater:
         hop_size: Optional[int] = 256,
         aux_context_window: int = 2,
         use_noise_input: bool = False,
+        use_f0: bool = False,
+        use_f0_and_excitation: bool = False,
         use_aux_input: bool = True,
         use_global_condition: bool = False,
         use_local_condition: bool = False,
@@ -38,6 +45,8 @@ class Collater:
         self.batch_max_steps = batch_max_steps
         self.aux_context_window = aux_context_window
         self.use_noise_input = use_noise_input
+        self.use_f0 = use_f0
+        self.use_f0_and_excitation = use_f0_and_excitation
         self.use_aux_input = use_aux_input
         self.use_global_condition = use_global_condition
         self.use_local_condition = use_local_condition
@@ -57,9 +66,10 @@ class Collater:
             return self._audio_batch(batch)
         return self._mel2wav_batch(batch)
 
-    def _frame_windows(self, xs, cs):
+    def _frame_windows(self, xs, cs, *frame_rate):
         """Random frame windows: (y (B, T, 1), the frames of each c with
-        the context on both sides)."""
+        the context on both sides, then those frames of each list of
+        frame-indexed arrays in ``frame_rate``)."""
         start_frames = np.array([
             self.rng.integers(self.start_offset, len(c) + self.end_offset)
             for c in cs
@@ -69,20 +79,30 @@ class Collater:
         c_ends = start_frames + self.batch_max_frames + self.aux_context_window
         y = np.stack([x[s: s + self.batch_max_steps]
                       for x, s in zip(xs, x_starts)]).astype(np.float32)
-        c = np.stack([c[s:e] for c, s, e in zip(cs, c_starts, c_ends)]
-                     ).astype(np.float32)
-        return y[..., None], c
+        cut = [np.stack([a[s:e] for a, s, e in zip(arrays, c_starts, c_ends)]
+                        ).astype(np.float32) for arrays in (cs,) + frame_rate]
+        return (y[..., None], *cut)
 
     def _mel2wav_batch(self, batch: List) -> Dict[str, np.ndarray]:
         batch = [self._adjust_length(*b) for b in batch
                  if len(b[1]) > self.mel_threshold]
         if not batch:
             raise ValueError("all utterances shorter than the mel threshold")
-        y, c = self._frame_windows([b[0] for b in batch],
-                                   [b[1] for b in batch])
+        frame_rate = []
+        if self.use_f0 or self.use_f0_and_excitation:
+            frame_rate.append([b[2] for b in batch])
+        if self.use_f0_and_excitation:
+            frame_rate.append([e.reshape(-1, self.hop_size) if e.ndim == 1
+                               else e for e in (b[3] for b in batch)])
+        y, c, *cut = self._frame_windows([b[0] for b in batch],
+                                         [b[1] for b in batch], *frame_rate)
         out = {"y": y, "c": c}
         if self.use_noise_input:
             out["z"] = self.rng.standard_normal(y.shape).astype(np.float32)
+        if frame_rate:
+            out["f0"] = cut[0].reshape(cut[0].shape[0], -1, 1)
+        if self.use_f0_and_excitation:
+            out["excitation"] = cut[1].reshape(cut[1].shape[0], -1, 1)
         return out
 
     def _audio_batch(self, batch: List) -> Dict[str, np.ndarray]:
@@ -117,9 +137,9 @@ class Collater:
             out["g"] = np.array(gs).reshape(-1)
         return out
 
-    def _adjust_length(self, x, c):
+    def _adjust_length(self, x, c, *rest):
         """Pad or cut the audio so that len(x) == len(c) * hop."""
         want = len(c) * self.hop_size
         if len(x) < want:
             x = np.pad(x, (0, want - len(x)), mode="edge")
-        return x[:want], c
+        return (x[:want], c) + rest

@@ -2,7 +2,7 @@
 (reference-compatible) config.
 
 Counterpart of ``parallelwavegan_tpu/engine/build.py`` for Parallel WaveGAN,
-HiFi-GAN, MelGAN, StyleMelGAN and the VQ-VAE; other families raise
+HiFi-GAN, MelGAN, StyleMelGAN, the VQ-VAE and UHiFiGAN; other families raise
 ``NotImplementedError`` (from the model registry). The models are built in
 their training form (``kernel_v``/``kernel_g``), initialised from a seeded
 ``torch.Generator`` on the CPU and then moved to the device.
@@ -23,7 +23,8 @@ from parallelwavegan_torch.utils.model_loader import resolve_device
 
 
 _GENERATORS = ("ParallelWaveGANGenerator", "HiFiGANGenerator",
-               "MelGANGenerator", "StyleMelGANGenerator", "VQVAE")
+               "MelGANGenerator", "StyleMelGANGenerator", "VQVAE",
+               "UHiFiGANGenerator")
 
 
 def build_models(config: Dict[str, Any], generator: torch.Generator = None):
@@ -57,7 +58,8 @@ def example_batch(config: Dict[str, Any], batch_size: int = 2
     draws its own in the step. A VQ-VAE's batch is y with, as the config
     asks, speaker ids g (zeros) and a local condition l of
     ``num_local_embeds`` (or 2) channels at one frame a hop, as in the
-    JAX package."""
+    JAX package. UHiFiGAN's adds an excitation (B, T, 1) and an f0
+    (B, T', 1) of |N(0, 1)|, drawn after c (and z) as there."""
     gen_type = config.get("generator_type", "ParallelWaveGANGenerator")
     if gen_type not in _GENERATORS:
         raise NotImplementedError(f"{gen_type}: not ported yet")
@@ -85,6 +87,11 @@ def example_batch(config: Dict[str, Any], batch_size: int = 2
     if uses_noise(config):
         batch["z"] = rng.standard_normal(
             (batch_size, steps, gp.get("in_channels", 1))).astype(f32)
+    if gen_type == "UHiFiGANGenerator":
+        batch["excitation"] = rng.standard_normal(
+            (batch_size, steps, 1)).astype(f32)
+        batch["f0"] = np.abs(
+            rng.standard_normal((batch_size, frames, 1))).astype(f32)
     return batch
 
 

@@ -2,10 +2,10 @@
 update, in one function.
 
 Counterpart of ``parallelwavegan_tpu/engine/step.py`` for Parallel WaveGAN,
-HiFi-GAN, MelGAN (full-band and multi-band), StyleMelGAN and the VQ-VAE on
-one device. Warm-up gating selects a step variant by (train_g, use_adv,
-train_d), as there. The loss arithmetic follows the JAX step: a VQ-VAE
-starts the generator loss with its quantisation loss mean((z_q -
+HiFi-GAN, MelGAN (full-band and multi-band), StyleMelGAN, the VQ-VAE and
+UHiFiGAN on one device. Warm-up gating selects a step variant by (train_g,
+use_adv, train_d), as there. The loss arithmetic follows the JAX step: a
+VQ-VAE starts the generator loss with its quantisation loss mean((z_q -
 sg(z_e))^2) plus ``lambda_commit`` times its commitment loss mean((z_e -
 sg(z_q))^2); a multi-band output is merged by the
 criterion's PQMF before the full-band STFT loss; with the subband STFT loss
@@ -37,6 +37,14 @@ from the step's source, where a gate drawn from ``shared_rng`` (a stream
 every data-parallel rank would share, so that the codebook stays the same
 on each) passes ``vq_restart_prob``; the metric ``vq_codes_used`` counts
 the codes used.
+
+UHiFiGAN takes (c, f0, excitation) from the batch, and its dropout is on
+in the train step, as the JAX step calls its generator with
+``deterministic=False``: the keep masks of the generator update's forward,
+then of the discriminator update's recompute, are drawn from the step's
+``dropout_rng`` (``step_generator(seed, steps, DROPOUT_STREAM, device)``:
+the trainer seeds it on the models' device, so the masks are drawn there
+and not copied from the host). ``eval_step`` runs it deterministic.
 
 A spectral-normed discriminator advances its vectors ``u`` only in the
 discriminator update (training mode), once per pass: twice a step with the
@@ -72,21 +80,25 @@ Batch = Dict[str, torch.Tensor]
 
 
 # generator families whose step the port does not have yet (their inputs:
-# codes, durations, f0 and excitation)
-_NOT_PORTED_FAMILIES = ("DiscreteSymbol", "Duration", "UHiFiGAN")
+# codes and durations)
+_NOT_PORTED_FAMILIES = ("DiscreteSymbol", "Duration")
 # the stream of step_generator that every data-parallel rank would share:
 # the dead-code restart draws its gate there
 SHARED_STREAM = 0x5BDEAD
+# the stream UHiFiGAN's dropout masks are drawn from
+DROPOUT_STREAM = 0xD50
 
 
-def step_generator(seed: int = 0, steps: int = 0, stream: int = 0
-                   ) -> torch.Generator:
-    """The step's random source: a CPU ``torch.Generator`` seeded from
-    (``seed``, ``steps``, ``stream``), so that a run resumed at a step draws
-    what an unbroken run draws there. The step hands it to the modules'
-    ``draw_noise`` and ``draw_window_starts``."""
+def step_generator(seed: int = 0, steps: int = 0, stream: int = 0,
+                   device: Any = "cpu") -> torch.Generator:
+    """The step's random source: a ``torch.Generator`` on ``device`` (the
+    CPU by default) seeded from (``seed``, ``steps``, ``stream``), so that a
+    run resumed at a step draws what an unbroken run draws there. The step
+    hands it to the modules' ``draw_noise``, ``draw_window_starts`` and
+    ``draw_dropout_masks``. A generator on another device draws other
+    numbers from the same seed."""
     state = np.random.SeedSequence([int(seed), int(steps), int(stream)])
-    return torch.Generator().manual_seed(
+    return torch.Generator(device=device).manual_seed(
         int(state.generate_state(1, np.uint64)[0]))
 
 
@@ -100,6 +112,10 @@ def _is_style_discriminator(config: Dict[str, Any]) -> bool:
 
 def is_vqvae(config: Dict[str, Any]) -> bool:
     return config.get("generator_type") == "VQVAE"
+
+
+def is_uhifigan(config: Dict[str, Any]) -> bool:
+    return config.get("generator_type") == "UHiFiGANGenerator"
 
 
 def vq_restarts(config: Dict[str, Any]) -> bool:
@@ -142,23 +158,24 @@ def with_noise(generator, batch: Dict[str, torch.Tensor],
 
 
 def make_generator_forward(config: Dict[str, Any], generator
-                           ) -> Callable[[Params, Batch], Tuple[torch.Tensor,
-                                                               Params]]:
-    """Adapter (params, batch) -> (y_hat, aux). ``params`` are the
-    generator's named parameters or copies of them (cast, detached).
+                           ) -> Callable[..., Tuple[torch.Tensor, Params]]:
+    """Adapter (params, batch, masks=None) -> (y_hat, aux). ``params`` are
+    the generator's named parameters or copies of them (cast, detached).
     ``aux`` holds a VQ-VAE's latents ``z_e`` and ``z_q``, and is empty for
-    the other families.
+    the other families. ``masks`` are UHiFiGAN's dropout keep masks of a
+    training forward (``draw_dropout_masks``), None for a deterministic
+    one; the other families have no dropout and are given None.
 
     As in the JAX step, a VQ-VAE takes the batch's ``x_vq`` (the PQMF
     subbands of y that ``prepare_batch`` adds at ``in_channels`` > 1) or
     else y, with its conditions ``l`` and ``g`` where the batch has them;
     Parallel WaveGAN and any generator with ``use_noise_input: true`` take
     (z, c), StyleMelGAN (c, z) with the z that ``with_noise`` puts in the
-    batch, every other generator c alone. A Parallel WaveGAN generator on
-    CUDA takes the fused path (the WaveNet stack kernels, trainable
-    grouping) unless ``fused_wavenet`` is false; there a config the kernels
-    lack raises, it does not fall back. On the CPU the per-layer forward
-    runs.
+    batch, UHiFiGAN (c, f0, excitation), every other generator c alone. A
+    Parallel WaveGAN generator on CUDA takes the fused path (the WaveNet
+    stack kernels, trainable grouping) unless ``fused_wavenet`` is false;
+    there a config the kernels lack raises, it does not fall back. On the
+    CPU the per-layer forward runs.
     """
     gen_type = config.get("generator_type", "ParallelWaveGANGenerator")
     for family in _NOT_PORTED_FAMILIES:
@@ -167,21 +184,29 @@ def make_generator_forward(config: Dict[str, Any], generator
                 f"{gen_type}: the {family} family's train step is not "
                 "ported yet")
     if is_vqvae(config):
-        def forward_vq(params: Params, batch: Batch):
+        def forward_vq(params: Params, batch: Batch, masks=None):
             y_, z_e, z_q = functional_call(
                 generator, params, (batch.get("x_vq", batch["y"]),
                                     batch.get("l"), batch.get("g")))
             return y_, {"z_e": z_e, "z_q": z_q}
 
         return forward_vq
+    if is_uhifigan(config):
+        def forward_u(params: Params, batch: Batch, masks=None):
+            return functional_call(
+                generator, params,
+                (batch["c"], batch.get("f0"), batch.get("excitation")),
+                {"deterministic": masks is None, "masks": masks}), {}
+
+        return forward_u
     if _is_style_generator(config):
-        def forward_style(params: Params, batch: Batch):
+        def forward_style(params: Params, batch: Batch, masks=None):
             return functional_call(generator, params,
                                    (batch["c"], batch["z"])), {}
 
         return forward_style
     if not uses_noise(config):
-        def forward_c(params: Params, batch: Batch):
+        def forward_c(params: Params, batch: Batch, masks=None):
             return functional_call(generator, params, (batch["c"],)), {}
 
         return forward_c
@@ -201,7 +226,7 @@ def make_generator_forward(config: Dict[str, Any], generator
                               generator.skip_channels)
     kwargs = {"fused": fused, "trainable": fused} if is_pwg else {}
 
-    def forward(params: Params, batch: Batch):
+    def forward(params: Params, batch: Batch, masks=None):
         return functional_call(generator, params, (batch["z"], batch["c"]),
                                kwargs), {}
 
@@ -259,16 +284,19 @@ def build_steps(config: Dict[str, Any], generator, discriminator,
     """Return (train_step_factory, eval_step).
 
     train_step_factory(train_g, use_adv, train_d) -> step
-      step(state, batch, rng=None, shared_rng=None) -> (state, metrics);
-      the state is updated in place
+      step(state, batch, rng=None, shared_rng=None, dropout_rng=None)
+      -> (state, metrics); the state is updated in place
     eval_step(state, batch, use_adv=True, rng=None) -> metrics
 
-    ``batch`` holds tensors on the models' device: y (B, T, 1), c, z, and
-    a VQ-VAE's conditions l (B, T', C) and g (B,). ``rng`` is the step's
-    random source (``step_generator``), which StyleMelGAN needs, and the
-    dead-code restart with ``shared_rng`` (``step_generator(seed, steps,
-    SHARED_STREAM)``, the stream data-parallel ranks would share).
-    Metrics are detached 0-d tensors on the device.
+    ``batch`` holds tensors on the models' device: y (B, T, 1), c, z, a
+    VQ-VAE's conditions l (B, T', C) and g (B,), UHiFiGAN's f0 (B, T', 1)
+    and excitation (B, T, 1). ``rng`` is the step's random source
+    (``step_generator``), which StyleMelGAN needs, and the dead-code
+    restart with ``shared_rng`` (``step_generator(seed, steps,
+    SHARED_STREAM)``, the stream data-parallel ranks would share);
+    UHiFiGAN's dropout draws its masks from ``dropout_rng``
+    (``step_generator(seed, steps, DROPOUT_STREAM, device)``). Metrics are
+    detached 0-d tensors on the device.
     """
     gen_forward_raw = make_generator_forward(config, generator)
     dis_forward_raw = make_discriminator_forward(config, discriminator)
@@ -287,6 +315,7 @@ def build_steps(config: Dict[str, Any], generator, discriminator,
     vq_subbands = vq and config["generator_params"].get("in_channels", 1) > 1
     restart = vq_restarts(config)
     restart_prob = float(config.get("vq_restart_prob", 1.0))
+    dropout = getattr(generator, "dropout", 0.0) > 0.0
 
     def starts(x: torch.Tensor, rng: Optional[torch.Generator]):
         """One pass's window starts (StyleMelGAN), else None."""
@@ -316,11 +345,25 @@ def build_steps(config: Dict[str, Any], generator, discriminator,
     recompute = config.get("update_prediction_after_generator_update", True)
     ema_decay = float(config.get("generator_ema_decay", 0.0) or 0.0)
 
+    def dropout_masks(batch: Batch, dropout_rng: Optional[torch.Generator]):
+        """The keep masks of one training forward of UHiFiGAN (its
+        ``draw_dropout_masks`` on ``dropout_rng``), None for the families
+        without dropout."""
+        if not dropout:
+            return None
+        if dropout_rng is None:
+            raise ValueError(
+                f"{config.get('generator_type')} draws dropout masks in "
+                "training: pass dropout_rng=step_generator(seed, steps, "
+                "DROPOUT_STREAM, device)")
+        B, T = batch["excitation"].shape[:2]
+        return generator.draw_dropout_masks(B, T, dropout_rng)
+
     f32, bf16 = torch.float32, torch.bfloat16
     if config.get("mixed_precision", False):
-        def gen_forward(params: Params, batch: Batch):
+        def gen_forward(params: Params, batch: Batch, masks=None):
             y_, aux = gen_forward_raw(_cast(params, f32, bf16),
-                                      _cast(batch, f32, bf16))
+                                      _cast(batch, f32, bf16), masks)
             return y_.to(f32), _cast(aux, bf16, f32)
 
         def dis_forward(params: Params, x: torch.Tensor, train: bool, *,
@@ -338,12 +381,13 @@ def build_steps(config: Dict[str, Any], generator, discriminator,
         gen_forward, dis_forward = gen_forward_raw, dis_forward_raw
 
     def gen_losses(params_g: Params, params_d: Params, batch: Batch,
-                   use_adv: bool, rng: Optional[torch.Generator]):
+                   use_adv: bool, rng: Optional[torch.Generator],
+                   masks: Optional[List[torch.Tensor]] = None):
         metrics = {}
         batch = with_noise(generator, batch, rng)
         y = batch["y"]
         # y_mb_ (B, T / S, S) when multi-band
-        y_mb_, aux = gen_forward(params_g, batch)
+        y_mb_, aux = gen_forward(params_g, batch, masks)
         y_ = full_band(y_mb_)
         gen_loss = 0.0
         if vq:
@@ -458,7 +502,8 @@ def build_steps(config: Dict[str, Any], generator, discriminator,
     def train_step_factory(train_g: bool, use_adv: bool, train_d: bool):
         def step(state: GANTrainState, batch: Batch,
                  rng: Optional[torch.Generator] = None,
-                 shared_rng: Optional[torch.Generator] = None
+                 shared_rng: Optional[torch.Generator] = None,
+                 dropout_rng: Optional[torch.Generator] = None
                  ) -> Tuple[GANTrainState, Dict[str, torch.Tensor]]:
             check_rng(rng)
             if restart and train_g and shared_rng is None:
@@ -471,8 +516,9 @@ def build_steps(config: Dict[str, Any], generator, discriminator,
             params_g, params_d = state.params_g, state.params_d
             y_hat = None
             if train_g:
-                gen_loss, m, y_hat, aux = gen_losses(params_g, params_d,
-                                                     batch, use_adv, rng)
+                gen_loss, m, y_hat, aux = gen_losses(
+                    params_g, params_d, batch, use_adv, rng,
+                    dropout_masks(batch, dropout_rng))
                 grads = _grads(gen_loss, params_g)
                 y_hat = y_hat.detach()
                 metrics.update(_detached(m))
@@ -494,7 +540,8 @@ def build_steps(config: Dict[str, Any], generator, discriminator,
                     # is saved for a backward
                     with torch.no_grad():
                         y_hat = full_band(gen_forward(
-                            params_g, with_noise(generator, batch, rng))[0])
+                            params_g, with_noise(generator, batch, rng),
+                            dropout_masks(batch, dropout_rng))[0])
                 dis_loss, m = dis_losses(params_d, batch["y"], y_hat, True,
                                          rng)
                 grads_d = _grads(dis_loss, params_d)

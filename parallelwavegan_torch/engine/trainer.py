@@ -11,7 +11,8 @@ seeded from the run's seed and the state's step count (each eval epoch one
 of its own), so a run resumed from a ``.ckpt`` draws StyleMelGAN's noise
 and windows, and a VQ-VAE's restarted codes, as an unbroken run does; the
 restart's gate comes from the stream ``SHARED_STREAM`` of the same seed
-and step.
+and step, UHiFiGAN's dropout masks from the stream ``DROPOUT_STREAM``,
+seeded on the models' device.
 
 Not carried over from the JAX trainer: ``dispatch_queue_depth`` and the
 ``jax.profiler`` hook. Both work around that package's accelerator runtime
@@ -36,6 +37,7 @@ from parallelwavegan_torch.engine import checkpoint as ckpt_lib
 from parallelwavegan_torch.engine.build import init_train_state
 from parallelwavegan_torch.engine.criterion import build_criterion
 from parallelwavegan_torch.engine.step import (
+    DROPOUT_STREAM,
     SHARED_STREAM,
     build_steps,
     make_generator_forward,
@@ -115,7 +117,8 @@ class Trainer:
         self.state, metrics = step_fn(
             self.state, self._to_device(batch),
             step_generator(self.seed, steps),
-            step_generator(self.seed, steps, SHARED_STREAM))
+            step_generator(self.seed, steps, SHARED_STREAM),
+            step_generator(self.seed, steps, DROPOUT_STREAM, self.device))
         for k, v in metrics.items():
             self.total_train_loss[f"train/{k}"] += v  # stays on the device
         self._accum_steps += 1

@@ -1,5 +1,5 @@
 """Model families and the config-name registry (Parallel WaveGAN, HiFi-GAN,
-MelGAN, StyleMelGAN, VQ-VAE)."""
+MelGAN, StyleMelGAN, VQ-VAE, UHiFiGAN)."""
 
 from parallelwavegan_torch.models.hifigan import (  # noqa: F401
     HiFiGANGenerator,
@@ -23,6 +23,9 @@ from parallelwavegan_torch.models.style_melgan import (  # noqa: F401
     StyleMelGANDiscriminator,
     StyleMelGANGenerator,
 )
+from parallelwavegan_torch.models.uhifigan import (  # noqa: F401
+    UHiFiGANGenerator,
+)
 from parallelwavegan_torch.models.vqvae import VQVAE  # noqa: F401
 
 _REGISTRY = {
@@ -42,6 +45,7 @@ _REGISTRY = {
         ResidualParallelWaveGANDiscriminator,
     "StyleMelGANGenerator": StyleMelGANGenerator,
     "StyleMelGANDiscriminator": StyleMelGANDiscriminator,
+    "UHiFiGANGenerator": UHiFiGANGenerator,
     "VQVAE": VQVAE,
 }
 

@@ -68,9 +68,12 @@ def conv2d(
     padding: Tuple[int, int] = (0, 0),
 ) -> torch.Tensor:
     """x (B, H, W, Cin) * kernel (KH, KW, Cin, Cout) -> (B, H', W', Cout),
-    zero padding of ``padding`` = (rows, columns) on both sides."""
-    y = F.conv2d(x.permute(0, 3, 1, 2), kernel.permute(3, 2, 0, 1), bias,
-                 stride=tuple(stride), padding=tuple(padding))
+    zero padding of ``padding`` = (rows, columns) on both sides. The
+    kernel goes in contiguous: the CPU's float64 conv (``slow_conv2d``)
+    refuses the weight gradient of a permuted (Cout 1, K, 1) kernel."""
+    y = F.conv2d(x.permute(0, 3, 1, 2), kernel.permute(3, 2, 0, 1)
+                 .contiguous(), bias, stride=tuple(stride),
+                 padding=tuple(padding))
     return y.permute(0, 2, 3, 1)
 
 

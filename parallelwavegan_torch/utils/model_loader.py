@@ -1,11 +1,11 @@
 """Public inference API: load a trained generator and synthesize waveforms.
 
-Counterpart of ``parallelwavegan_tpu/utils/model_loader.py`` for the
-ported families, Parallel WaveGAN, HiFi-GAN, MelGAN, StyleMelGAN and the
-VQ-VAE: read the config, build the generator, load its weights (a ``.gckpt``, the
-parameters or the EMA stream of a train-state ``.ckpt``, or a reference
-PyTorch ``.pkl``) with weight norm folded, cast to the compute dtype,
-register mean/scale stats, attach PQMF synthesis for a multi-band
+Counterpart of ``parallelwavegan_tpu/utils/model_loader.py`` for the ported
+families, Parallel WaveGAN, HiFi-GAN, MelGAN, StyleMelGAN, the VQ-VAE and
+UHiFiGAN: read the config, build the generator, load its weights (a
+``.gckpt``, the parameters or the EMA stream of a train-state ``.ckpt``, or
+a reference PyTorch ``.pkl``) with weight norm folded, cast to the compute
+dtype, register mean/scale stats, attach PQMF synthesis for a multi-band
 generator (``out_channels`` > 1), and synthesize a list of mels as one
 bucketed batch, or one long mel in overlapping windows
 (``inference_chunked``). On CUDA a Parallel WaveGAN generator runs through
@@ -19,7 +19,9 @@ its module forward (cuDNN convs); StyleMelGAN's mels are edge-padded to its
 noise grid and its noise drawn from the caller's ``torch.Generator``. A
 VQ-VAE serves wav2wav, one utterance a call: ``vq_encode`` (audio -> code
 indices) and ``vq_decode`` (codes and conditions -> audio, merged by PQMF
-at ``out_channels`` > 1), in float32 only.
+at ``out_channels`` > 1), in float32 only. UHiFiGAN serves one utterance a
+call through ``inference(c, f0=..., excitation=...)``, at its exact shape,
+as the JAX package's single-utterance path does.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
 """
@@ -350,6 +352,9 @@ class InferenceModel:
         if self.gen_type == "VQVAE":
             raise ValueError("a VQVAE serves audio through vq_encode and "
                              "vq_decode, not mels")
+        if self.gen_type == "UHiFiGANGenerator":
+            raise ValueError("UHiFiGAN serves one utterance a call through "
+                             "inference(c, f0=..., excitation=...)")
         cs = [np.asarray(c, dtype=np.float32) for c in cs]
         if normalize_before:
             if self.mean is None:
@@ -398,10 +403,38 @@ class InferenceModel:
         return [y[i, : n * self.upsample_factor] for i, n in enumerate(lengths)]
 
     def inference(self, c: np.ndarray, normalize_before: bool = False,
-                  generator: Optional[torch.Generator] = None) -> np.ndarray:
-        """Mel (T', C) -> wave (T, out_channels), no bucket padding."""
+                  generator: Optional[torch.Generator] = None,
+                  f0: Optional[np.ndarray] = None,
+                  excitation: Optional[np.ndarray] = None) -> np.ndarray:
+        """Mel (T', C) -> wave (T, out_channels), no bucket padding.
+        UHiFiGAN takes the utterance's excitation (T samples, or
+        (T', hop)) and its f0 (T' frames, unused by the generator); the
+        other families ignore both."""
+        if self.gen_type == "UHiFiGANGenerator":
+            return self._inference_excitation(c, f0, excitation)
         return self.synthesize_batch([c], normalize_before, generator,
                                      bucket_size=1)[0]
+
+    @torch.inference_mode()
+    def _inference_excitation(self, c: np.ndarray, f0: Optional[np.ndarray],
+                              excitation: Optional[np.ndarray]
+                              ) -> np.ndarray:
+        """UHiFiGAN's single-utterance path, as the JAX package's
+        ``_inference_special``: batch 1 at the exact shape, c, f0 and the
+        excitation cast to the parameters' dtype, a float32 wave back.
+        Like that path it applies neither ``normalize_before`` nor
+        ``pcm16``."""
+        if excitation is None:
+            raise ValueError("UHiFiGAN requires an excitation")
+
+        def tensor(a: np.ndarray, shape) -> torch.Tensor:
+            return torch.from_numpy(np.asarray(a, np.float32).reshape(shape)
+                                    ).to(self.device, self.dtype)
+
+        c_in = tensor(c, (1,) + np.shape(c))
+        f0_in = None if f0 is None else tensor(f0, (1, -1, 1))
+        y = self.generator(c_in, f0_in, tensor(excitation, (1, -1, 1)))
+        return y[0].float().cpu().numpy()
 
     @torch.inference_mode()
     def vq_encode(self, audio: np.ndarray) -> np.ndarray:

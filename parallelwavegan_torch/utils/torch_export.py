@@ -2,11 +2,11 @@
 
 Counterpart of ``parallelwavegan_tpu/utils/torch_export.py`` for the
 generators the port has (Parallel WaveGAN, MelGAN, HiFi-GAN, StyleMelGAN,
-VQ-VAE): the inverse of ``utils/torch_import.py``. The reference toolkit (or
-ESPnet) loads the ``.pkl`` through its ``utils.load_model``, which reads
-``ckpt["model"]["generator"]`` and the config beside it. The tree is
-flax-style, nested dicts of numpy arrays or tensors: a converted flax
-tree, or ``utils.params.nested(module.state_dict())``.
+VQ-VAE, UHiFiGAN): the inverse of ``utils/torch_import.py``. The reference
+toolkit (or ESPnet) loads the ``.pkl`` through its ``utils.load_model``,
+which reads ``ckpt["model"]["generator"]`` and the config beside it. The
+tree is flax-style, nested dicts of numpy arrays or tensors: a converted
+flax tree, or ``utils.params.nested(module.state_dict())``.
 
 Layout conversions (flax -> torch) invert the importer's:
   Conv1d  kernel (K, I/g, O)    -> weight (O, I/g, K)     transpose(2, 1, 0)
@@ -143,12 +143,40 @@ def _vqvae_inverse(config: Dict[str, Any]):
     return rule
 
 
+def _uhifigan_generator_inverse(config: Dict[str, Any]):
+    """UHiFiGAN's inverse map: the input and the downsampling convs sit at
+    index 0 of their reference Sequential, the transposed convs, the
+    residual blocks' convs and the output conv at index 1."""
+    def rule(path: str):
+        if path == "input_conv":
+            return "input_conv.0", "conv1d"
+        if path == "hidden_conv":
+            return "hidden_conv", "conv1d"
+        if path == "output_conv":
+            return "output_conv.1", "conv1d"
+        m = re.match(r"^downsamples_(\d+)$", path)
+        if m:
+            return f"downsamples.{m.group(1)}.0", "conv1d"
+        m = re.match(r"^upsamples_(\d+)$", path)
+        if m:
+            return f"upsamples.{m.group(1)}.1", "convt1d"
+        m = re.match(r"^(downsamples_mrf|upsamples_mrf)_(\d+)/"
+                     r"(convs1|convs2)_(\d+)$", path)
+        if m:
+            return (f"{m.group(1)}.{m.group(2)}.{m.group(3)}.{m.group(4)}.1",
+                    "conv1d")
+        return None
+
+    return rule
+
+
 _INVERSE_RULES = {
     "ParallelWaveGANGenerator": _pwg_generator_inverse,
     "MelGANGenerator": _melgan_generator_inverse,
     "HiFiGANGenerator": _hifigan_generator_inverse,
     "StyleMelGANGenerator": _style_melgan_generator_inverse,
     "VQVAE": _vqvae_inverse,
+    "UHiFiGANGenerator": _uhifigan_generator_inverse,
 }
 _INV_PERMS = {"conv1d": (2, 1, 0), "convt1d": (1, 2, 0),
               "conv2d": (3, 2, 0, 1)}

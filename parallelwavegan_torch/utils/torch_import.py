@@ -30,7 +30,6 @@ Rule = Callable[[str], Optional[Tuple[str, str]]]
 _NOT_PORTED = (
     "DiscreteSymbolHiFiGANGenerator", "DiscreteSymbolDurationGenerator",
     "DiscreteSymbolF0Generator", "DiscreteSymbolStyleMelGANGenerator",
-    "UHiFiGANGenerator",
 )
 
 
@@ -244,6 +243,30 @@ def _vqvae_rule(config) -> Rule:
     return rule
 
 
+def _uhifigan_generator_rule(config) -> Rule:
+    def rule(key):
+        if key == "input_conv.0":
+            return "input_conv", "conv1d"
+        if key == "hidden_conv":
+            return "hidden_conv", "conv1d"
+        if key == "output_conv.1":
+            return "output_conv", "conv1d"
+        m = re.match(r"^downsamples\.(\d+)\.0$", key)
+        if m:
+            return f"downsamples_{m.group(1)}", "conv1d"
+        m = re.match(r"^upsamples\.(\d+)\.1$", key)
+        if m:
+            return f"upsamples_{m.group(1)}", "convt1d"
+        m = re.match(r"^(downsamples_mrf|upsamples_mrf)\.(\d+)\."
+                     r"(convs1|convs2)\.(\d+)\.1$", key)
+        if m:
+            return (f"{m.group(1)}_{m.group(2)}/{m.group(3)}_{m.group(4)}",
+                    "conv1d")
+        return None
+
+    return rule
+
+
 def _multi(rule_fn: Rule, list_name: str = "discriminators") -> Rule:
     def rule(key):
         m = re.match(rf"^{list_name}\.(\d+)\.(.*)$", key)
@@ -303,6 +326,8 @@ def _rule_for(model_name: str, config: Dict[str, Any]) -> Rule:
         return _multi(_melgan_discriminator_rules())
     if model_name == "VQVAE":
         return _vqvae_rule(config)
+    if model_name == "UHiFiGANGenerator":
+        return _uhifigan_generator_rule(config)
     if model_name in _NOT_PORTED:
         raise NotImplementedError(
             f"reference checkpoints of {model_name} are not ported yet")

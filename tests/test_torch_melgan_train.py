@@ -415,11 +415,10 @@ def test_fuse_real_fake_default_follows_jax(dis_type):
 
 @pytest.mark.parametrize("gen_type", [
     "DiscreteSymbolStyleMelGANGenerator", "DiscreteSymbolF0Generator",
-    "DiscreteSymbolHiFiGANGenerator", "DiscreteSymbolDurationGenerator",
-    "UHiFiGANGenerator"])
+    "DiscreteSymbolHiFiGANGenerator", "DiscreteSymbolDurationGenerator"])
 def test_unported_generator_families_raise_naming_the_family(gen_type):
     config = {"generator_type": gen_type}
-    family = next(f for f in ("VQVAE", "DiscreteSymbol", "UHiFiGAN")
+    family = next(f for f in ("DiscreteSymbol", "Duration")
                   if f in gen_type)
     with pytest.raises(NotImplementedError, match=family):
         make_generator_forward(config, _Recorder())

@@ -117,8 +117,11 @@ def test_generator_init_is_seeded_and_registry_names_family():
     assert get_model_class("ParallelWaveGANGenerator") is ParallelWaveGANGenerator
     assert get_model_class("HiFiGANGenerator").__name__ == "HiFiGANGenerator"
     assert get_model_class("MelGANGenerator").__name__ == "MelGANGenerator"
-    with pytest.raises(NotImplementedError, match="UHiFiGANGenerator"):
-        get_model_class("UHiFiGANGenerator")
+    assert get_model_class("UHiFiGANGenerator").__name__ == \
+        "UHiFiGANGenerator"
+    with pytest.raises(NotImplementedError,
+                       match="DiscreteSymbolHiFiGANGenerator"):
+        get_model_class("DiscreteSymbolHiFiGANGenerator")
 
 
 def test_fused_path_names_what_it_does_not_support():

@@ -324,7 +324,7 @@ def test_port_written_pkl_reads_back_through_jax(tmp_path, which):
 
 @pytest.mark.parametrize("family", [
     "DiscreteSymbolStyleMelGANGenerator", "DiscreteSymbolHiFiGANGenerator",
-    "UHiFiGANGenerator", "DiscreteSymbolDurationGenerator",
+    "DiscreteSymbolF0Generator", "DiscreteSymbolDurationGenerator",
 ])
 def test_unported_family_raises_naming_it(tmp_path, family):
     with pytest.raises(NotImplementedError, match=family):

@@ -419,18 +419,19 @@ def test_build_names_what_is_not_ported():
     assert "msd.discriminators_0.layer_0.kernel" in keys
     assert "msd.discriminators_1.layer_0.kernel_v" in keys
     assert "mpd.discriminators_1.convs_0.kernel_g" in keys
-    # the MelGAN family, StyleMelGAN, VQ-VAE, the residual discriminator
-    # and the subband loss are ported; UHiFiGAN, the discrete-symbol
+    # the MelGAN family, StyleMelGAN, VQ-VAE, UHiFiGAN, the residual
+    # discriminator and the subband loss are ported; the discrete-symbol
     # families and the duration loss are not (every discriminator family
     # is ported: an unported model name stands in the discriminator's
     # place)
-    for key, value in (("generator_type", "UHiFiGANGenerator"),
+    for key, value in (("generator_type", "DiscreteSymbolF0Generator"),
                        ("discriminator_type",
                         "DiscreteSymbolHiFiGANGenerator")):
         with pytest.raises(NotImplementedError, match="not ported yet"):
             build_models(dict(config, **{key: value}))
     with pytest.raises(NotImplementedError, match="not ported yet"):
-        example_batch(dict(config, generator_type="UHiFiGANGenerator"))
+        example_batch(dict(config,
+                           generator_type="DiscreteSymbolF0Generator"))
     with pytest.raises(NotImplementedError, match="use_duration_loss"):
         build_criterion(dict(config, use_duration_loss=True))
     melgan = dict(config, generator_type="MelGANGenerator",

@@ -155,6 +155,70 @@ def both_train_states(config, seed=0):
     return state, jax_steps, t_state, steps
 
 
+def port_first_train_states(config, seed=0):
+    """What ``both_train_states`` returns, with both states built from the
+    port's init: the JAX state holds the port's parameters (perturbed as
+    there) under the flax names, its spectral vectors, its EMA copies, and
+    the optimizer states the JAX optimizers' own ``init`` makes. The JAX
+    package's ``init_train_state`` runs flax's init op by op, compiling
+    each parameter shape apart: about 40 s for the small UHiFiGAN recipe,
+    whose U-Net has many conv shapes."""
+    import jax
+    import jax.numpy as jnp
+
+    from parallelwavegan_tpu.engine.build import (
+        build_models as jax_build_models,
+    )
+    from parallelwavegan_tpu.engine.criterion import (
+        build_criterion as jax_build_criterion,
+    )
+    from parallelwavegan_tpu.engine.state import GANTrainState as JaxState
+    from parallelwavegan_tpu.engine.step import build_steps as jax_build_steps
+    from parallelwavegan_tpu.optimizers import build_optimizer
+    from parallelwavegan_torch.engine.build import init_train_state
+    from parallelwavegan_torch.engine.criterion import build_criterion
+    from parallelwavegan_torch.engine.step import build_steps
+    from parallelwavegan_torch.utils.params import nested
+
+    t_state, t_gen, t_dis, t_opt_g, t_opt_d = init_train_state(
+        config, seed, device="cpu")
+    rng = np.random.default_rng(seed)
+
+    def tree(named):
+        return jax.tree.map(jnp.asarray, nested(
+            {k: v.detach().numpy() for k, v in named}))
+
+    params_g = perturbed(tree(t_gen.named_parameters()), rng)
+    params_d = perturbed(tree(t_dis.named_parameters()), rng)
+    buffers = dict(t_dis.named_buffers())
+    extra_d = {"spectral": tree(buffers.items())} if buffers else {}
+
+    def optimizer(prefix):
+        return build_optimizer(
+            config.get(f"{prefix}_optimizer_type", "RAdam"),
+            config.get(f"{prefix}_optimizer_params", {}),
+            config.get(f"{prefix}_scheduler_type", "StepLR"),
+            config.get(f"{prefix}_scheduler_params", {}),
+            config.get(f"{prefix}_grad_norm", -1))
+
+    opt_g, opt_d = optimizer("generator"), optimizer("discriminator")
+    ema = float(config.get("generator_ema_decay", 0.0) or 0.0) > 0.0
+    state = JaxState(
+        steps=jnp.asarray(0, jnp.int32), params_g=params_g, extra_g={},
+        opt_g=opt_g.init(params_g), params_d=params_d, extra_d=extra_d,
+        opt_d=opt_d.init(params_d),
+        ema_g=jax.tree.map(lambda a: a + 0, params_g) if ema else None)
+    gen, dis = jax_build_models(config)
+    jax_steps = jax_build_steps(config, gen, dis, jax_build_criterion(config),
+                                opt_g, opt_d)
+    load_jax_state(state, t_gen, t_dis)
+    if t_state.ema_g is not None:
+        t_state.seed_ema()
+    steps = build_steps(config, t_gen, t_dis, build_criterion(config),
+                        t_opt_g, t_opt_d)
+    return state, jax_steps, t_state, steps
+
+
 def sine_batch(config, seed=1):
     """The JAX package's example batch with sines plus noise as y."""
     from parallelwavegan_tpu.engine.build import example_batch
@@ -519,6 +583,65 @@ def small_style_melgan_train_config(**overrides):
     }
     config.update(overrides)
     return config
+
+
+def small_uhifigan_train_config(**overrides):
+    """egs/opencpop/voc1/conf/uhifigan.v1.yaml's shape at hop 16: the U-Net
+    of 4 channels (downsampling 4 x 4, upsampling 4 x 4, one residual
+    block of kernel 3 with dilations 1 and 3, dropout 0.1), the
+    multi-scale multi-period discriminator, the STFT, mel and
+    feature-matching losses with lambda_aux 45, the generator from step 1
+    and the discriminator from step 0, Adam + MultiStepLR, no EMA (the
+    recipe keeps none), on ``small_hifigan_train_config``'s discriminator,
+    mel loss and optimizers. The generator's Adam takes eps 100: its
+    gradients at this init reach 1e3 (45 x the mel L1 through the U-Net),
+    so with eps 1e-3 its first update is lr * sign(g), and wherever a
+    gradient lies within the two packages' rounding of 0 (differences of
+    up to 5e-2 on entries of 1e2, measured) the parameters part by 2 lr;
+    with eps 100 the update is a continuous function of the gradient."""
+    config = small_hifigan_train_config(
+        generator_type="UHiFiGANGenerator",
+        generator_params={
+            "in_channels": 16, "out_channels": 1, "channels": 4,
+            "kernel_size": 7, "downsample_scales": (4, 4),
+            "downsample_kernel_sizes": (8, 8), "upsample_scales": (4, 4),
+            "upsample_kernel_sizes": (8, 8), "resblock_kernel_sizes": (3,),
+            "resblock_dilations": ((1, 3),), "dropout": 0.1,
+        },
+        hop_size=16, batch_size=2, use_stft_loss=True,
+        stft_loss_params={"fft_sizes": [64, 128, 32],
+                          "hop_sizes": [8, 16, 4],
+                          "win_lengths": [32, 64, 16],
+                          "window": "hann_window"},
+    )
+    del config["generator_ema_decay"]
+    config["generator_optimizer_params"] = dict(
+        config["generator_optimizer_params"], eps=100.0)
+    config.update(overrides)
+    return config
+
+
+class FlaxMasks:
+    """Stands in for ``flax.linen.stochastic.random`` (set with
+    ``monkeypatch.setattr``): ``bernoulli`` hands out ``masks`` (flax
+    dropout's keep masks) in call order, asserting each shape; everything
+    else is ``jax.random``'s. Under ``jax.jit`` the masks are read when the
+    function is traced."""
+
+    def __init__(self, masks):
+        self.masks = [np.asarray(m) for m in masks]
+
+    def bernoulli(self, key, p, shape):
+        import jax.numpy as jnp
+
+        mask = self.masks.pop(0)
+        assert mask.shape == tuple(shape), (mask.shape, shape)
+        return jnp.asarray(mask)
+
+    def __getattr__(self, name):
+        import jax
+
+        return getattr(jax.random, name)
 
 
 def small_vqvae_train_config(cond="none", **overrides):
