@@ -122,7 +122,8 @@
    and the port's modules): G's own gradients, the loss's cotangents at
    G's outputs (its backward through D alone), G's gradients on float64's
    cotangents (the network's backward alone) and D's gradients, the
-   loss's kinks decided by float64 (gate_gradients), then the pooling's
+   loss's kinks and the branches of D's LeakyReLUs decided by float64
+   (gate_gradients), then the pooling's
    input gradient on the card against float64 beside F.avg_pool1d's
    (check_pooling_backward); (c) Parallel WaveGAN v3
    (parallel_wavegan.v3.yaml: kernel size 5, the multi-scale MelGAN
@@ -134,7 +135,7 @@
    and load_model with PQMF on cuda against the CPU at 1 x 200 frames,
    printing the PQMF prototypes training and serving chose;
 11. prints a JSON line of the five kernels, the card line, and as the last
-   line {"ok": true, "device": {...}}, after steps 12 to 14;
+   line {"ok": true, "device": {...}}, after steps 12 to 15;
 12. serves and trains StyleMelGAN v1 at full width
    (egs/ljspeech/voc1/conf/style_melgan.v1.yaml: the TADE generator on a
    noise grid of 88 frames, the random-window discriminator with PQMF at
@@ -227,7 +228,48 @@
    |k - e| <= max(2 |p - e|, a) as in step 10 (b); (f) the launches of the
    five kernels counted over (a)-(e): 0. Step 10 (b) also holds the
    HiFi-GAN multi-scale discriminator's pooling (kernel 4, stride 2,
-   padding 2, count_include_pad True) as it holds the MelGAN one's.
+   padding 2, count_include_pad True) as it holds the MelGAN one's;
+15. serves and trains the discrete-symbol families at the full width of
+   their recipes (chip_smoke.DISCRETE_RECIPES, held to the yaml by a CPU
+   test: the token HiFi-GAN of egs/vctk/hubert_voc1/conf/hifigan_hubert.
+   v1.yaml, 100 units and 128 speakers; the duration generator of
+   egs/opencpop/token_voc1/conf/hifigan_token_16k_duration.v1.yaml, 1,024
+   tokens, a predictor of 2 x 384 with dropout 0.5, max_reg_len 2,048; the
+   F0 generator of hifigan_token_24k_nodp_f0.v1.yaml; the token
+   StyleMelGAN of egs/vctk/hubert_voc1/conf/style_melgan_hubert.v1.yaml; no
+   hand-written kernel, in the JAX package as here): (a) seeded weights
+   written to a reference .pkl by the port's exporter and read back by
+   load_model on cuda; 8 utterances of 40-115 tokens, ids over the whole
+   vocabulary (above 256 too), a speaker id or an f0 contour as the
+   family needs, card f32 within 1e-4 (1 + max) and bf16 within 2e-2 of
+   the CPU port's f32 (the duration model's CPU reference at max_reg_len
+   512, DURATION_CPU_REG_LEN); the duration generator's predicted
+   durations card vs CPU (a flip allowed only within 1e-4 of a rounding tie in float64,
+   on at most 1 % of the tokens), the waves held where they agree, each
+   sum(ds) x 320 samples; (b) 32 x 512 tokens through the token generator
+   in f32 and bf16, timed with CUDA events, with its FLOP count, bound, a
+   profile and the peak memory, and the duration generator's batch-1
+   wall (its 2,048-frame trunk forward) and audio-s/s on the cut output;
+   (c) bin.decode on the card over seeded token dumps (the F0 recipe's
+   -f0.npy read by default) and bin.decode_from_text with --unique (and
+   --spk-idx for the token model), every wave of its expected length;
+   (d) training the duration recipe at 16 x 10,240 from a seeded npy
+   corpus of 16 utterances whose tokens come in runs: bin.train.run on
+   cuda, 3 f32 steps under the recipe's gates, 2 more resumed from the
+   .ckpt with mixed_precision; finite losses under every name
+   (duration_loss included), moved G (the token table and the predictor
+   among them) and D, a .ckpt that loads back; step times, a profile of
+   each precision, the peak memory, the predictor's dropout masks drawn
+   on the card; then 3 f32 steps (the last G and D) of the token, F0 and
+   token StyleMelGAN recipes at their full batch, StyleMelGAN's D from
+   step 1; (e) on the duration batch cut to 1 x 10,240, with one set of
+   dropout masks handed to every route and D in eval mode, every G and D
+   gradient on the card in f32 (k) and on the CPU in f32 (p) and float64
+   (e), the mel loss's and feature matching's kinks and D's LeakyReLU
+   branches decided by float64, the duration term's cotangent included, held to |k - e| <= max(2 |p -
+   e|, a) (the first gate through F.embedding's CUDA backward, a
+   scatter-add); (f) the launches of the five kernels counted over
+   (a)-(e): 0.
 
 Exits non-zero, printing no result, on any failure or without a GPU.
 """
@@ -766,6 +808,217 @@ UHIFIGAN_LOSS_NAMES = ("spectral_convergence_loss", "log_stft_magnitude_loss",
 UHIFIGAN_SR, UHIFIGAN_HOP = 24000, 300
 # 32 x 512 frames = 4,915,200 samples = 204.8 s of 24 kHz audio a call
 UHIFIGAN_BENCH_BATCH, UHIFIGAN_BENCH_FRAMES = 32, 512
+
+# step 15: the discrete-symbol recipes, every key of their yaml (the data
+# format that of a seeded npy corpus), held to the yaml by
+# test_smoke_discrete_recipes_are_the_yaml. The token recipe
+# (egs/vctk/hubert_voc1/conf/hifigan_hubert.v1.yaml: 100 HuBERT units,
+# 128 speakers added to the 512-wide units, a HiFi-GAN trunk of 512
+# channels upsampling 10 x 8 x 2 x 2; the multi-scale multi-period
+# discriminator; mel loss x 45 and feature matching)
+_HUBERT_HIFIGAN_V1 = {
+    "sampling_rate": 16000, "fft_size": None, "hop_size": 320,
+    "win_length": None, "window": None, "num_mels": 2, "fmin": None,
+    "fmax": None, "global_gain_scale": 1.0, "trim_silence": False,
+    "trim_threshold_in_db": 20, "trim_frame_size": 1024,
+    "trim_hop_size": 256, "format": "npy",
+    "generator_type": "DiscreteSymbolHiFiGANGenerator",
+    "generator_params": {
+        "in_channels": 512, "out_channels": 1, "channels": 512,
+        "num_embs": 100, "num_spk_embs": 128, "spk_emb_dim": 512,
+        "concat_spk_emb": False, "kernel_size": 7,
+        "upsample_scales": [10, 8, 2, 2],
+        "upsample_kernel_sizes": [20, 16, 4, 4],
+        "resblock_kernel_sizes": [3, 7, 11],
+        "resblock_dilations": [[1, 3, 5], [1, 3, 5], [1, 3, 5]],
+        "use_additional_convs": True, "bias": True,
+        "nonlinear_activation": "LeakyReLU",
+        "nonlinear_activation_params": {"negative_slope": 0.1},
+        "use_weight_norm": True,
+    },
+    "discriminator_type": "HiFiGANMultiScaleMultiPeriodDiscriminator",
+    "discriminator_params": {
+        "scales": 3, "scale_downsample_pooling": "AvgPool1d",
+        "scale_downsample_pooling_params": {"kernel_size": 4, "stride": 2,
+                                            "padding": 2},
+        "scale_discriminator_params": {
+            "in_channels": 1, "out_channels": 1,
+            "kernel_sizes": [15, 41, 5, 3], "channels": 128,
+            "max_downsample_channels": 1024, "max_groups": 16, "bias": True,
+            "downsample_scales": [4, 4, 4, 4, 1],
+            "nonlinear_activation": "LeakyReLU",
+            "nonlinear_activation_params": {"negative_slope": 0.1},
+        },
+        "follow_official_norm": True,
+        "periods": [2, 3, 5, 7, 11],
+        "period_discriminator_params": {
+            "in_channels": 1, "out_channels": 1, "kernel_sizes": [5, 3],
+            "channels": 32, "downsample_scales": [3, 3, 3, 3, 1],
+            "max_downsample_channels": 1024, "bias": True,
+            "nonlinear_activation": "LeakyReLU",
+            "nonlinear_activation_params": {"negative_slope": 0.1},
+            "use_weight_norm": True, "use_spectral_norm": False,
+        },
+    },
+    "use_stft_loss": False,
+    "use_mel_loss": True,
+    "mel_loss_params": {"fs": 16000, "fft_size": 1024, "hop_size": 256,
+                        "win_length": None, "window": "hann", "num_mels": 80,
+                        "fmin": 0, "fmax": 8000, "log_base": None},
+    "generator_adv_loss_params": {"average_by_discriminators": False},
+    "discriminator_adv_loss_params": {"average_by_discriminators": False},
+    "use_feat_match_loss": True,
+    "feat_match_loss_params": {"average_by_discriminators": False,
+                               "average_by_layers": False,
+                               "include_final_outputs": True},
+    "lambda_aux": 45.0, "lambda_adv": 1.0, "lambda_feat_match": 2.0,
+    "batch_size": 16, "batch_max_steps": 10240,
+    "remove_short_samples": False, "allow_cache": True,
+    "generator_optimizer_type": "Adam",
+    "generator_optimizer_params": {"lr": 0.0002, "betas": [0.5, 0.9],
+                                   "weight_decay": 0.0},
+    "generator_scheduler_type": "MultiStepLR",
+    "generator_scheduler_params": {
+        "gamma": 0.5, "milestones": [200000, 400000, 600000, 800000]},
+    "generator_grad_norm": -1,
+    "discriminator_optimizer_type": "Adam",
+    "discriminator_optimizer_params": {"lr": 0.0002, "betas": [0.5, 0.9],
+                                       "weight_decay": 0.0},
+    "discriminator_scheduler_type": "MultiStepLR",
+    "discriminator_scheduler_params": {
+        "gamma": 0.5, "milestones": [200000, 400000, 600000, 800000]},
+    "discriminator_grad_norm": -1,
+    "generator_train_start_steps": 1,
+    "discriminator_train_start_steps": 0,
+    "train_max_steps": 2500000, "save_interval_steps": 50000,
+    "eval_interval_steps": 1000, "log_interval_steps": 100,
+}
+
+
+def _opencpop_token(generator_type: str, **generator_params) -> dict:
+    """An opencpop token recipe: the token recipe's trunk, discriminator,
+    losses and optimizers without speakers, at 250,000 steps."""
+    gp = {k: v for k, v in _HUBERT_HIFIGAN_V1["generator_params"].items()
+          if k not in ("num_embs", "num_spk_embs", "spk_emb_dim",
+                       "concat_spk_emb")}
+    config = {k: v for k, v in _HUBERT_HIFIGAN_V1.items()
+              if k not in ("generator_adv_loss_params",
+                           "discriminator_adv_loss_params")}
+    return dict(config, generator_type=generator_type, num_mels=1,
+                trim_threshold_in_db=35, allow_cache=False,
+                train_max_steps=250000, eval_interval_steps=10000,
+                generator_params=dict(gp, **generator_params))
+
+
+DISCRETE_RECIPES = {
+    "token": _HUBERT_HIFIGAN_V1,
+    # egs/opencpop/token_voc1/conf/hifigan_token_16k_duration.v1.yaml:
+    # 1,024 singing tokens (+1 padding row), the duration predictor of 2 x
+    # 384 with dropout 0.5 (its defaults) and the duration loss,
+    # max_reg_len 2,048 in serving
+    "duration": dict(
+        _opencpop_token("DiscreteSymbolDurationGenerator", num_embs=1024,
+                        num_spk_embs=0, max_reg_len=2048),
+        use_duration_loss=True),
+    # egs/opencpop/token_voc1/conf/hifigan_token_24k_nodp_f0.v1.yaml: 1,025
+    # tokens and the f0 through a 256-wide Linear, at 24 kHz
+    "f0": dict(
+        _opencpop_token(
+            "DiscreteSymbolF0Generator", num_embs=1025, num_spk_embs=0,
+            linear_channel=256, use_embedding_feats=False,
+            use_weight_sum=False, layer_num=12, use_fix_weight=False,
+            use_f0=True),
+        sampling_rate=24000, use_f0=True,
+        mel_loss_params=dict(_HUBERT_HIFIGAN_V1["mel_loss_params"],
+                             fs=24000, fmax=12000)),
+    # egs/vctk/hubert_voc1/conf/style_melgan_hubert.v1.yaml: 100 units, 128
+    # speakers, the TADE trunk on a noise grid of 56 frames (1.12 s), the
+    # random-window discriminator
+    "style": {
+        "sampling_rate": 16000, "fft_size": None, "hop_size": 320,
+        "win_length": None, "window": None, "num_mels": 1, "fmin": None,
+        "fmax": None, "global_gain_scale": 1.0, "trim_silence": False,
+        "trim_threshold_in_db": 60, "trim_frame_size": 1024,
+        "trim_hop_size": 256, "format": "npy",
+        "generator_type": "DiscreteSymbolStyleMelGANGenerator",
+        "generator_params": {
+            "in_channels": 128, "aux_channels": 128, "channels": 64,
+            "out_channels": 1, "num_embs": 100, "num_spk_embs": 128,
+            "spk_emb_dim": 128, "concat_spk_emb": False, "kernel_size": 9,
+            "dilation": 2, "bias": True,
+            "noise_upsample_scales": [7, 2, 2, 2],
+            "noise_upsample_activation": "LeakyReLU",
+            "noise_upsample_activation_params": {"negative_slope": 0.2},
+            "upsample_scales": [5, 2, 2, 2, 2, 2, 2, 1, 1],
+            "upsample_mode": "nearest", "gated_function": "softmax",
+            "use_weight_norm": True,
+        },
+        "discriminator_type": "StyleMelGANDiscriminator",
+        "discriminator_params": {
+            "repeats": 4, "window_sizes": [512, 1024, 2048, 4096],
+            "pqmf_params": [[1, None, None, None], [2, 62, 0.267, 9.0],
+                            [4, 62, 0.142, 9.0], [8, 62, 0.07949, 9.0]],
+            "discriminator_params": {
+                "out_channels": 1, "kernel_sizes": [5, 3], "channels": 16,
+                "max_downsample_channels": 512, "bias": True,
+                "downsample_scales": [4, 4, 4, 1],
+                "nonlinear_activation": "LeakyReLU",
+                "nonlinear_activation_params": {"negative_slope": 0.2},
+            },
+            "use_weight_norm": True,
+        },
+        "stft_loss_params": STYLE_MELGAN_V1_TRAIN["stft_loss_params"],
+        "lambda_aux": 1.0, "lambda_adv": 1.0,
+        "generator_adv_loss_params": {"average_by_discriminators": False},
+        "discriminator_adv_loss_params": {"average_by_discriminators": False},
+        "batch_size": 16, "batch_max_steps": 17920,
+        "remove_short_samples": False, "allow_cache": True,
+        "generator_optimizer_type": "Adam",
+        "generator_optimizer_params": {"lr": 0.0001, "betas": [0.5, 0.9],
+                                       "weight_decay": 0.0},
+        "generator_scheduler_type": "MultiStepLR",
+        "generator_scheduler_params": {
+            "gamma": 0.5,
+            "milestones": [100000, 300000, 500000, 700000, 900000]},
+        "generator_grad_norm": -1,
+        "discriminator_optimizer_type": "Adam",
+        "discriminator_optimizer_params": {"lr": 0.0002, "betas": [0.5, 0.9],
+                                           "weight_decay": 0.0},
+        "discriminator_scheduler_type": "MultiStepLR",
+        "discriminator_scheduler_params": {
+            "gamma": 0.5, "milestones": [200000, 400000, 600000, 800000]},
+        "discriminator_grad_norm": -1,
+        "discriminator_train_start_steps": 100000,
+        "train_max_steps": 1500000, "save_interval_steps": 50000,
+        "eval_interval_steps": 1000, "log_interval_steps": 100,
+    },
+}
+DISCRETE_SR, DISCRETE_HOP = 16000, 320
+# the duration recipe's training: 3 f32 steps (D from step 1, G from step
+# 2), one evaluation, one checkpoint
+DURATION_TRAIN_CUT = dict(train_max_steps=3, save_interval_steps=3,
+                          eval_interval_steps=3, log_interval_steps=1)
+# one f32 (G, adv, D) step of the other three recipes at their full batch:
+# three steps under the recipes' gates (step 0 trains nothing, the token
+# recipes' D from step 1 and G from step 2), no evaluation; the token
+# StyleMelGAN's D from step 1, as step 12 cuts it
+ONE_STEP_CUT = dict(train_max_steps=3, save_interval_steps=3,
+                    eval_interval_steps=100, log_interval_steps=1)
+DISCRETE_LOSS_NAMES = ("mel_loss", "adversarial_loss",
+                       "feature_matching_loss", "generator_loss",
+                       "real_loss", "fake_loss", "discriminator_loss")
+# 32 x 512 tokens = 5,242,880 samples = 327.7 s of 16 kHz audio a call
+DISCRETE_BENCH_BATCH, DISCRETE_BENCH_FRAMES = 32, 512
+# a predicted duration that flips between card and CPU must lie within this
+# of a rounding tie in float64: |exp(d) - offset - (k + 1/2)|
+DURATION_TIE = 1e-4
+DURATION_FLIP_SHARE = 0.01
+# the CPU reference of the duration model serves at this max_reg_len (the
+# card at the recipe's 2,048): the valid frames (sum(ds) <= 448 checked)
+# and the trunk's reach of a few frames lie inside it, and the zero fill
+# past the sum is the same, so the valid samples are the same function;
+# the CPU's 2,048-frame forward takes about 8 s an utterance
+DURATION_CPU_REG_LEN = 512
 N_SCORED = 8       # utterances scored on the host (about 20 s each)
 N_CALIB = 8        # utterances the int8 scales are calibrated on
 # the scored numbers against the committed CPU reference of the JAX package
@@ -2014,6 +2267,57 @@ def gate_routes(gen, dis, b: dict) -> dict:
                   {k: cpu(v, torch.float64) for k, v in b.items()})}
 
 
+class _DecidedLeakyReLU:
+    """A discriminator's LeakyReLU in the gate: its branch (input > 0) is
+    the sign pattern that the first route to reach this call recorded in
+    ``state["decided"][state["key"]]`` (float64: ``gate_gradients`` runs
+    it first), so that a pre-activation within rounding of 0 takes one
+    slope on every route."""
+
+    def __init__(self, slope: float, state: dict):
+        self.slope, self.state = slope, state
+
+    def __call__(self, x):
+        st = self.state
+        masks = st["decided"].setdefault(st["key"], [])
+        i = st["i"]
+        st["i"] = i + 1
+        if i == len(masks):
+            masks.append((x.detach() > 0).cpu())
+        return torch.where(masks[i].to(x.device), x, x * self.slope)
+
+
+class _DecidedDiscriminator:
+    """A route's discriminator with its LeakyReLUs' branches decided by
+    float64: ``at(name)`` is the discriminator as the loss term ``name``
+    calls it, its n-th call keyed (name, n); ``restore`` puts the module's
+    own activations back."""
+
+    def __init__(self, dis, decided: dict):
+        self.dis = dis
+        self.state = {"decided": decided, "key": None, "i": 0}
+        self.saved = []
+        for m in dis.modules():
+            act = getattr(m, "act", None)
+            if getattr(act, "func", None) is F.leaky_relu:
+                self.saved.append((m, act))
+                m.act = _DecidedLeakyReLU(act.keywords["negative_slope"],
+                                          self.state)
+
+    def at(self, name: str):
+        calls = iter(range(1 << 30))
+
+        def call(*args, **kwargs):
+            self.state.update(key=(name, next(calls)), i=0)
+            return self.dis(*args, **kwargs)
+
+        return call
+
+    def restore(self) -> None:
+        for m, act in self.saved:
+            m.act = act
+
+
 def gate_gradients(routes: dict, forward, terms: dict, d_loss) -> dict:
     """Per route of ``gate_routes``: G's loss (the sum of ``terms``) and
     its parameters' gradients through the route's own forward and loss
@@ -2022,48 +2326,64 @@ def gate_gradients(routes: dict, forward, terms: dict, d_loss) -> dict:
     G's gradients through the route's network on float64's cotangents
     (``held``: the network's backward alone); D's loss on the route's own
     prediction and its parameters' gradients (``d``). The loss's kinks
-    (``kinked_stft``, ``kinked_feature_match``) are decided once, by
-    float64 at its outputs. forward(G, b) -> G's outputs (a tuple);
-    term(outs, D, b, kinks) and d_loss(outs, D, b) -> a loss."""
-    def g_loss(outs, dis, b):
-        return sum(term(outs, dis, b, kinks) for term in terms.values())
+    (``kinked_stft``, ``kinked_feature_match``) and the branches of D's
+    LeakyReLUs (``_DecidedDiscriminator``, each D call of each term keyed
+    by its order) are decided once, by float64 at its outputs: an input
+    within rounding of a kink would otherwise take another slope on each
+    route, and one term of an ill-conditioned sum, a bias gradient of D,
+    then parts the routes by up to 2.5 a. forward(G, b) -> G's
+    outputs (a tuple); term(outs, D, b, kinks) and d_loss(outs, D, b) -> a
+    loss."""
+    decided = {}  # D's branches, by float64
+    dis_of = {r: _DecidedDiscriminator(dis, decided)
+              for r, (_, dis, _) in routes.items()}
 
-    ge, de, be = routes["e"]
+    def g_loss(outs, r, b):
+        return sum(term(outs, dis_of[r].at(name), b, kinks)
+                   for name, term in terms.items())
+
+    ge, _, be = routes["e"]
     kinks = {}  # decided on float64, at its outputs
-    with torch.no_grad():
-        outs_e = forward(ge, be)
-        g_loss(outs_e, de, be)
-    cots = {}
-    for r, (_, dis, b) in routes.items():
-        leaves = [o.detach().to(b["y"].device, b["y"].dtype).requires_grad_()
-                  for o in outs_e]
-        cots[r] = {}
-        for name, term in terms.items():
-            for i, c in enumerate(torch.autograd.grad(
-                    term(leaves, dis, b, kinks), leaves,
-                    allow_unused=True)):
-                if c is not None:
-                    cots[r][f"{name} at output {i}"] = c
-    held_cot = [sum(c for key, c in cots["e"].items()
-                    if key.endswith(f"output {i}")) for i in range(
-                        len(outs_e))]
-    got = {}
-    for r, (gen, dis, b) in routes.items():
-        names = [n for n, _ in gen.named_parameters()]
-        params = list(gen.parameters())
-        outs = forward(gen, b)
-        loss_g = g_loss(outs, dis, b)
-        own = torch.autograd.grad(loss_g, params, retain_graph=True)
-        held = torch.autograd.grad(outs, params, [
-            c.to(o.device, o.dtype) for c, o in zip(held_cot, outs)])
-        loss_d = d_loss([o.detach() for o in outs], dis, b)
-        grads_d = torch.autograd.grad(loss_d, list(dis.parameters()))
-        got[r] = {"loss_g": loss_g.item(), "loss_d": loss_d.item(),
-                  "own": {n: t.cpu() for n, t in zip(names, own)},
-                  "cot": {k: t.cpu() for k, t in cots[r].items()},
-                  "held": {n: t.cpu() for n, t in zip(names, held)},
-                  "d": {n: t.cpu() for (n, _), t in zip(
-                      dis.named_parameters(), grads_d)}}
+    try:
+        with torch.no_grad():
+            outs_e = forward(ge, be)
+            g_loss(outs_e, "e", be)
+            d_loss(list(outs_e), dis_of["e"].at("d_loss"), be)
+        cots = {}
+        for r, (_, _, b) in routes.items():
+            leaves = [o.detach().to(b["y"].device, b["y"].dtype)
+                      .requires_grad_() for o in outs_e]
+            cots[r] = {}
+            for name, term in terms.items():
+                for i, c in enumerate(torch.autograd.grad(
+                        term(leaves, dis_of[r].at(name), b, kinks), leaves,
+                        allow_unused=True)):
+                    if c is not None:
+                        cots[r][f"{name} at output {i}"] = c
+        held_cot = [sum(c for key, c in cots["e"].items()
+                        if key.endswith(f"output {i}")) for i in range(
+                            len(outs_e))]
+        got = {}
+        for r, (gen, dis, b) in routes.items():
+            names = [n for n, _ in gen.named_parameters()]
+            params = list(gen.parameters())
+            outs = forward(gen, b)
+            loss_g = g_loss(outs, r, b)
+            own = torch.autograd.grad(loss_g, params, retain_graph=True)
+            held = torch.autograd.grad(outs, params, [
+                c.to(o.device, o.dtype) for c, o in zip(held_cot, outs)])
+            loss_d = d_loss([o.detach() for o in outs],
+                            dis_of[r].at("d_loss"), b)
+            grads_d = torch.autograd.grad(loss_d, list(dis.parameters()))
+            got[r] = {"loss_g": loss_g.item(), "loss_d": loss_d.item(),
+                      "own": {n: t.cpu() for n, t in zip(names, own)},
+                      "cot": {k: t.cpu() for k, t in cots[r].items()},
+                      "held": {n: t.cpu() for n, t in zip(names, held)},
+                      "d": {n: t.cpu() for (n, _), t in zip(
+                          dis.named_parameters(), grads_d)}}
+    finally:
+        for wrapped in dis_of.values():
+            wrapped.restore()
     return got
 
 
@@ -4535,6 +4855,550 @@ def uhifigan_phase(dev, smi: str) -> dict:
     return out
 
 
+def seeded_discrete(config: dict, seed: int):
+    """A discrete-symbol generator of ``config`` with seeded weights
+    (serving form, on the CPU). A HiFi-GAN trunk's N(0, 0.01) kernels are
+    rescaled to a per-entry std of 1 / sqrt(K Cin), the output conv's to
+    4 / sqrt(K Cin) (the UHiFiGAN rule: at the init the wave sits near
+    1e-3); the token StyleMelGAN's trunk as ``seeded_style_melgan``; a
+    duration predictor's output bias is set to 1.4, so that its
+    durations sit near exp(1.4) - 1 = 3 frames (at the init they round to
+    0 or 1)."""
+    from parallelwavegan_torch.models import get_model_class
+
+    gen_type = config["generator_type"]
+    gen = get_model_class(gen_type)(
+        **config["generator_params"],
+        generator=torch.Generator().manual_seed(seed))
+    style = "StyleMelGAN" in gen_type
+    with torch.no_grad():
+        for name, p in gen.named_parameters():
+            if not (name.startswith("trunk.") and name.endswith("kernel")):
+                continue
+            if style and not name.startswith(("trunk.noise_upsample",
+                                              "trunk.output_conv")):
+                continue
+            base = 0.02 if style else 0.01
+            gain = (8.0 if style else 4.0) if name.startswith(
+                "trunk.output_conv") else 1.0
+            p.mul_(gain / (base * (p.shape[0] * p.shape[1]) ** 0.5))
+        if "Duration" in gen_type:
+            gen.duration_predictor.linear.bias.fill_(1.4)
+    return gen.eval()
+
+
+def discrete_inputs(rng: np.random.Generator, config: dict, frames: int,
+                    runs: bool = False) -> tuple:
+    """(ids (frames, 1|2) int64 over the whole vocabulary, with a speaker
+    column where the recipe has speakers, f0 (frames,) or None): ids in
+    runs of 1 to 6 frames with ``runs``; the F0 recipe's f0 a log-Hz
+    contour with unvoiced stretches at 0."""
+    gp = config["generator_params"]
+    if runs:
+        ids = np.repeat(rng.integers(0, gp["num_embs"], frames),
+                        rng.integers(1, 7, frames))[:frames]
+    else:
+        ids = rng.integers(0, gp["num_embs"], frames)
+    c = ids[:, None]
+    if gp.get("num_spk_embs", 128) > 0:
+        c = np.concatenate([c, np.full_like(c, rng.integers(
+            gp["num_spk_embs"]))], axis=1)
+    f0 = None
+    if config["generator_type"] == "DiscreteSymbolF0Generator":
+        t = np.arange(frames)
+        hz = 220.0 + 80.0 * np.sin(t / (4.0 + 8.0 * rng.random()))
+        f0 = np.where(np.sin(t / 6.0 + 6.0 * rng.random()) > -0.6,
+                      np.log(hz), 0.0).astype(np.float32)
+    return c.astype(np.int64), f0
+
+
+def duration_flips(card: np.ndarray, cpu: np.ndarray, offset: float) -> tuple:
+    """(flipped durations, of which not near a rounding tie): the card's
+    predicted durations against the CPU's, a flip excused where float64
+    puts exp(d) - offset of the CPU's d within DURATION_TIE of k + 1/2."""
+    ds = [np.clip(np.round(np.exp(d) - offset), 0, None) for d in (card, cpu)]
+    flips = np.flatnonzero(ds[0] != ds[1])
+    x = np.exp(cpu[flips].astype(np.float64)) - offset
+    far = int(np.sum(np.abs(x - (np.floor(x) + 0.5)) >= DURATION_TIE))
+    return len(flips), far
+
+
+def discrete_serving(dev, smi: str, tmp: str) -> dict:
+    """Step 15 (a)-(c) of the module docstring; the .pkl files and their
+    JSON configs stay in ``tmp`` for (c)."""
+    from scipy.io import wavfile
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from parallelwavegan_torch.bin import decode, decode_from_text
+    from parallelwavegan_torch.tools.train_step_profile import device_time
+    from parallelwavegan_torch.utils.model_loader import load_model
+    from parallelwavegan_torch.utils.params import nested
+    from parallelwavegan_torch.utils.torch_export import (
+        save_reference_checkpoint,
+    )
+
+    out = {}
+    rng = np.random.default_rng(15)
+    models = {}
+    for name, config in DISCRETE_RECIPES.items():
+        t_start = time.perf_counter()
+        path = os.path.join(tmp, f"{name}.pkl")
+        save_reference_checkpoint(path, nested(
+            seeded_discrete(config, 15).state_dict()), config, steps=1)
+        with open(os.path.join(tmp, f"{name}.json"), "w") as f:
+            json.dump(config, f)
+        m32 = load_model(path, config, device=dev)
+        m16 = load_model(path, config, dtype=torch.bfloat16, device=dev)
+        # the CPU reference; a duration model's at DURATION_CPU_REG_LEN
+        # frames, as the valid frames and the trunk's reach fit there
+        cpu = load_model(path, dict(config, generator_params=dict(
+            config["generator_params"], max_reg_len=DURATION_CPU_REG_LEN))
+            if name == "duration" else config, device="cpu")
+        models[name] = m32
+        hop = m32.upsample_factor
+        if m32.device.type != dev.type or hop != DISCRETE_HOP:
+            raise AssertionError(f"{name} did not load as configured")
+        worst = {"f32": 0.0, "bf16": 0.0}
+        walls, flips, far, n_ds, bf16_flips, held = [], 0, 0, 0, 0, 0
+        for i, frames in enumerate((40, 57, 64, 80, 93, 100, 111, 115)):
+            c, f0 = discrete_inputs(rng, config, frames)
+            g = lambda: torch.Generator().manual_seed(i)  # noqa: E731
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            y32 = m32.inference(c, f0=f0, generator=g())
+            walls.append(time.perf_counter() - t0)
+            y16 = m16.inference(c, f0=f0, generator=g())
+            ref = cpu.inference(c, f0=f0, generator=g())
+            want = {"f32": frames * hop, "bf16": frames * hop}
+            if name == "duration":
+                d32, d16, dcpu = (m.predicted_log_durations(c)
+                                  for m in (m32, m16, cpu))
+                n, bad = duration_flips(d32, dcpu, 1.0)
+                flips, far, n_ds = flips + n, far + bad, n_ds + frames
+                for what, d in (("f32", d32), ("bf16", d16)):
+                    ds = np.clip(np.round(np.exp(d) - 1.0), 0, None)
+                    want[what] = int(min(ds.sum(), 2048)) * hop
+                if max(want.values()) > (DURATION_CPU_REG_LEN - 64) * hop:
+                    raise AssertionError("the durations outgrow the CPU "
+                                         "reference's max_reg_len")
+                # the bf16 wave follows the durations its generator rounds
+                # in bf16
+                n16 = int(np.sum(m16.predicted_durations(c)
+                                 != cpu.predicted_durations(c)))
+                bf16_flips += n16
+            for what, y, tol in (("f32", y32, 1e-4), ("bf16", y16, 2e-2)):
+                if y.shape != (want[what], 1) or not np.isfinite(y).all():
+                    raise AssertionError(f"{name} (a) utterance {i} {what}: "
+                                         f"bad output {y.shape}, want "
+                                         f"({want[what]}, 1)")
+                if name == "duration" and (n if what == "f32" else n16):
+                    continue  # the waves of utterances whose ds agree
+                allowed = tol * (1 + float(np.abs(ref).max()))
+                err = float(np.abs(y - ref).max())
+                if err > allowed:
+                    raise AssertionError(f"{name} (a) utterance {i}: the "
+                                         f"card's {what} wave lies {err:.3e} "
+                                         f"from the CPU's f32")
+                worst[what] = max(worst[what], err / allowed)
+                held += 1
+        line = (f"discrete (a) {name} ({config['generator_type']}, "
+                f"{sum(p.numel() for p in m32.generator.parameters())} "
+                f"parameters) from a reference .pkl: 8 utterances of 40-115 "
+                f"tokens, ids over all "
+                f"{config['generator_params']['num_embs']}, card vs the "
+                f"CPU port's f32: f32 within "
+                f"{worst['f32']:.3f} of 1e-4 (1 + max), bf16 within "
+                f"{worst['bf16']:.3f} of 2e-2 (1 + max) on {held} of 16 "
+                f"waves; "
+                f"max |y| {float(np.abs(ref).max()):.3f}; f32 batch-1 wall "
+                f"(host clock) {', '.join(f'{w * 1e3:.1f}' for w in walls)} "
+                f"ms")
+        out[f"{name}_f32_ratio"] = worst["f32"]
+        out[f"{name}_bf16_ratio"] = worst["bf16"]
+        out[f"{name}_batch1_ms"] = [w * 1e3 for w in walls]
+        if name == "duration":
+            share = flips / n_ds
+            line += (f"; predicted durations card vs CPU: {flips} of {n_ds} "
+                     f"flipped ({far} not near a tie), bf16 {bf16_flips} "
+                     f"flipped (its waves held where none did)")
+            if far or share > DURATION_FLIP_SHARE:
+                raise AssertionError(f"duration flips: {flips} of {n_ds}, "
+                                     f"{far} not near a tie")
+            out.update(duration_flips=flips, duration_tokens=n_ds,
+                       duration_bf16_flips=bf16_flips)
+        print(line)
+        if name == "duration":
+            # the 2,048-frame trunk forward of each call, cut to sum(ds)
+            audio = sum(int(min(np.clip(np.round(np.exp(
+                m32.predicted_log_durations(discrete_inputs(
+                    np.random.default_rng(k), config, 100)[0])) - 1.0), 0,
+                None).sum(), 2048)) for k in range(4)) * hop / DISCRETE_SR
+            ms = []
+            for k in range(4):
+                c, _ = discrete_inputs(np.random.default_rng(k), config, 100)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                m32.inference(c)
+                ms.append((time.perf_counter() - t0) * 1e3)
+            out["duration_batch1_100_ms"] = ms
+            out["duration_audio_s_per_s"] = audio / (sum(ms) / 1e3)
+            print(f"discrete (b) duration batch 1 x 100 tokens, the "
+                  f"{2048}-frame trunk forward cut to sum(ds) x 320: wall "
+                  f"(host clock) {', '.join(f'{m:.1f}' for m in ms)} ms, "
+                  f"{out['duration_audio_s_per_s']:.1f} audio-s/s on the "
+                  f"cut output, on {smi}")
+        del m16, cpu
+        print(f"discrete (a) {name} {time.perf_counter() - t_start:.1f} s "
+              f"wall")
+
+    # (b) 32 x 512 tokens through the token generator in f32 and bf16
+    t_start = time.perf_counter()
+    config = DISCRETE_RECIPES["token"]
+    m16 = load_model(os.path.join(tmp, "token.pkl"), config,
+                     dtype=torch.bfloat16, device=dev)
+    B, frames = DISCRETE_BENCH_BATCH, DISCRETE_BENCH_FRAMES
+    T = frames * DISCRETE_HOP
+    audio_s = B * T / DISCRETE_SR
+    c = torch.from_numpy(np.stack([discrete_inputs(rng, config, frames)[0]
+                                   for _ in range(B)])).to(dev)
+    runs = {"f32": models["token"].generator, "bf16": m16.generator}
+
+    def forward(name):
+        with torch.inference_mode():
+            return runs[name](c)
+
+    with FlopCounterMode(display=False) as counter:
+        y32 = forward("f32")
+    flop = counter.get_total_flops()
+    y16 = forward("bf16")
+    if y32.shape != (B, T, 1) or not torch.isfinite(y32).all() \
+            or not torch.isfinite(y16).all():
+        raise AssertionError(f"discrete (b) bad output {tuple(y32.shape)}")
+    err, allowed = max_err(y16, y32, torch.bfloat16)
+    print(f"discrete (b) token {B} x {frames} tokens ({B * T} samples, "
+          f"{audio_s:.1f} s of audio): {flop / 1e12:.3f} TFLOP a forward; "
+          f"bf16 vs f32 on the card max_abs_err {err:.3e} (allowed "
+          f"{allowed:.3e})")
+    if err > allowed:
+        raise AssertionError("bf16 token generator disagrees with f32")
+    del y32, y16
+    dtypes = {"f32": torch.float32, "bf16": torch.bfloat16}
+    for name, dtype in dtypes.items():
+        torch.cuda.reset_peak_memory_stats()
+        ms = time_ms(lambda: forward(name), reps=3)
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        bound = flop / PEAK_FLOPS[dtype] * 1e3
+        prof = device_time(lambda: forward(name), n=1, top=8)
+        out.update({f"token_{name}_ms": ms, f"token_{name}_peak_gb": peak,
+                    f"token_{name}_bound_ms": bound,
+                    f"token_{name}_audio_s_per_s": audio_s / (ms / 1e3),
+                    f"token_{name}_busy_ms": prof["device_busy_ms"]})
+        print(f"discrete (b) token {name} forward {ms:.2f} ms = "
+              f"{audio_s / (ms / 1e3):.1f} audio-s/s, {bound / ms:.3f} of "
+              f"the bound {bound:.2f} ms ({PEAK_FLOPS[dtype] / 1e12:.0f} "
+              f"TFLOP/s), peak memory {peak:.2f} GB on {smi}; profile "
+              f"{prof['profiled_wall_ms']:.1f} ms wall, device busy "
+              f"{prof['device_busy_ms']:.2f} ms; by kernel:")
+        for row in prof["kernels"]:
+            print(f"  {row['ms']:8.3f} ms x{row['calls']:4.0f}  "
+                  f"{row['name']}")
+    out["token_forward_tflop"] = flop / 1e12
+    del c, m16, runs, models
+    print(f"discrete (b) {time.perf_counter() - t_start:.1f} s wall")
+
+    # (c) bin.decode over token dumps (the F0 recipe's -f0.npy read by
+    # default) and bin.decode_from_text with --unique and --spk-idx
+    t_start = time.perf_counter()
+    for name in ("token", "f0"):
+        config = DISCRETE_RECIPES[name]
+        dump = os.path.join(tmp, f"dump_{name}")
+        os.makedirs(dump)
+        lengths = {f"utt{i}": 30 + 17 * i for i in range(3)}
+        for utt, frames in lengths.items():
+            c, f0 = discrete_inputs(rng, config, frames)
+            np.save(os.path.join(dump, f"{utt}-feats.npy"), c)
+            if f0 is not None:
+                np.save(os.path.join(dump, f"{utt}-f0.npy"), f0)
+        outdir = os.path.join(tmp, f"out_{name}")
+        decode.main(["--dumpdir", dump, "--checkpoint",
+                     os.path.join(tmp, f"{name}.pkl"), "--config",
+                     os.path.join(tmp, f"{name}.json"), "--outdir", outdir,
+                     "--device", dev.type])
+        for utt, frames in lengths.items():
+            sr, wave = wavfile.read(os.path.join(outdir, f"{utt}_gen.wav"))
+            if sr != config["sampling_rate"] or \
+                    wave.shape != (frames * DISCRETE_HOP,):
+                raise AssertionError(f"bin.decode wrote {wave.shape} for "
+                                     f"{name} {utt} ({frames} tokens)")
+    text = os.path.join(tmp, "text")
+    lines = {}
+    with open(text, "w") as f:
+        for i in range(3):
+            toks = np.repeat(rng.integers(0, 100, 20), rng.integers(1, 4, 20))
+            lines[f"utt{i}"] = toks
+            f.write(f"utt{i} " + " ".join(map(str, toks)) + "\n")
+    lengths = {}
+    dur = load_model(os.path.join(tmp, "duration.pkl"),
+                     DISCRETE_RECIPES["duration"], device=dev)
+    for name, extra in (("token", ["--spk-idx", "5"]), ("duration", [])):
+        outdir = os.path.join(tmp, f"text_{name}")
+        decode_from_text.main(
+            ["--text", text, "--checkpoint", os.path.join(tmp, f"{name}.pkl"),
+             "--config", os.path.join(tmp, f"{name}.json"), "--outdir",
+             outdir, "--unique", "--device", dev.type] + extra)
+        for utt, toks in lines.items():
+            n = 1 + int(np.sum(toks[1:] != toks[:-1]))
+            wave = wavfile.read(os.path.join(outdir, f"{utt}_gen.wav"))[1]
+            want = n * DISCRETE_HOP
+            if name == "duration":
+                d = dur.predicted_log_durations(
+                    decode_from_text.token_lines(text, True)[int(utt[3:])][1])
+                want = int(min(np.clip(np.round(np.exp(d) - 1.0), 0,
+                                       None).sum(), 2048)) * DISCRETE_HOP
+            if wave.shape != (want,):
+                raise AssertionError(f"decode_from_text wrote {wave.shape} "
+                                     f"for {name} {utt}, want ({want},)")
+            lengths[f"{name} {utt}"] = len(wave)
+    print(f"discrete (c) bin.decode over token dumps (token, and F0 with "
+          f"-f0.npy), each frames x 320 samples; bin.decode_from_text "
+          f"--unique (--spk-idx 5 for the token model) lengths "
+          f"{lengths}; {time.perf_counter() - t_start:.1f} s wall")
+    return out
+
+
+def write_discrete_corpus(root: str, rng: np.random.Generator, n: int,
+                          config: dict) -> None:
+    """Seeded npy dumps of n utterances of 60-120 frames: -wave (harmonics
+    of a drifting pitch, and noise), -feats of ids in runs (the speaker
+    column where the recipe has one) and, for the F0 recipe, -f0."""
+    os.makedirs(root)
+    sr = config["sampling_rate"]
+    for i in range(n):
+        frames = 60 + (7 * i) % 61
+        c, f0 = discrete_inputs(rng, config, frames, runs=True)
+        hz = 150.0 + 3.0 * (c[:, 0] % 50)
+        phase = 2 * np.pi * np.cumsum(np.repeat(hz, DISCRETE_HOP)) / sr
+        wave = sum(0.25 / k * np.sin(k * phase) for k in range(1, 5)) + \
+            0.01 * rng.standard_normal(len(phase))
+        np.save(os.path.join(root, f"utt{i}-wave.npy"),
+                wave.astype(np.float32))
+        np.save(os.path.join(root, f"utt{i}-feats.npy"), c)
+        if f0 is not None:
+            np.save(os.path.join(root, f"utt{i}-f0.npy"), f0)
+
+
+def discrete_gate_losses(crit):
+    """(forward, terms, d_loss) of the duration recipe's gate: G with its
+    predictor's dropout on the batch's keep masks (``mask_<i>``), the
+    terms of the (G, adv) generator loss as the step forms it (45 x the
+    duration and the mel loss, the adversarial loss, 2 x feature
+    matching), the discriminator loss on the prediction; D in eval mode."""
+    cfg = DISCRETE_RECIPES["duration"]
+
+    def mel(outs, dis, b, kinks):
+        return cfg["lambda_aux"] * kinked_mel(
+            crit["mel"], outs[0][..., 0], b["y"][..., 0], kinks, "mel")
+
+    def duration(outs, dis, b, kinks):
+        return cfg["lambda_aux"] * crit["duration"](outs[1], b["ds"])
+
+    def feature_matching(outs, dis, b, kinks):
+        p_ = dis(outs[0])
+        with torch.no_grad():
+            p = dis(b["y"])
+        return cfg["lambda_adv"] * cfg["lambda_feat_match"] * \
+            kinked_feature_match(crit["feat_match"], p_, p, kinks,
+                                 "feature matching")
+
+    terms = {
+        "duration": duration, "mel": mel,
+        "adversarial": lambda outs, dis, b, kinks: cfg["lambda_adv"] * crit[
+            "gen_adv"](dis(outs[0])),
+        "feature matching": feature_matching}
+
+    def d_loss(outs, dis, b):
+        p = dis(b["y"])
+        real, fake = crit["dis_adv"](dis(outs[0]), p)
+        return real + fake
+
+    def forward(gen, b):
+        masks = [b[f"mask_{i}"] for i in range(2)]
+        return tuple(gen(b["c"], b["ds"], deterministic=False, masks=masks))
+
+    return forward, terms, d_loss
+
+
+def discrete_training(dev, smi: str) -> dict:
+    """Step 15 (d) and (e) of the module docstring."""
+    import dataclasses
+
+    from parallelwavegan_torch.bin.train import run
+    from parallelwavegan_torch.engine import checkpoint as ckpt
+    from parallelwavegan_torch.engine.build import init_train_state
+    from parallelwavegan_torch.engine.step import (
+        DROPOUT_STREAM,
+        SHARED_STREAM,
+        step_generator,
+    )
+
+    rng = np.random.default_rng(18)
+    config = dict(DISCRETE_RECIPES["duration"], **DURATION_TRAIN_CUT)
+    B, T = config["batch_size"], config["batch_max_steps"]
+    names = DISCRETE_LOSS_NAMES + ("duration_loss",)
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        dump = os.path.join(tmp, "dump")
+        write_discrete_corpus(dump, rng, B, config)
+        initial, _, _, _, _ = init_train_state(config, seed=0, device=dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer = run(config, dump, dump, os.path.join(tmp, "exp"), seed=0,
+                      device=dev.type, dump_config=False)
+        torch.cuda.synchronize()
+        n_g = sum(p.numel() for p in trainer.generator.parameters())
+        n_d = sum(p.numel() for p in trainer.discriminator.parameters())
+        print(f"discrete (d) duration recipe training f32 {B} x {T} samples "
+              f"(max_reg_len {trainer.generator.max_reg_len}), G "
+              f"{n_g / 1e6:.2f} M and D {n_d / 1e6:.2f} M parameters: "
+              f"{trainer.steps} steps in {time.perf_counter() - t0:.1f} s "
+              f"wall (first calls)")
+        state = trainer.state
+        if trainer.steps != 3 or trainer.device.type != dev.type \
+                or state.opt_g.count != 1 or state.opt_d.count != 2:
+            raise AssertionError("the trainer did not take 3 steps")
+        check_trainer(trainer, "discrete (d) duration f32", names)
+        check_moved("G", trainer.generator, initial.generator, 0)
+        check_moved("D", trainer.discriminator, initial.discriminator, 0)
+        path = os.path.join(tmp, "exp", "checkpoint-3steps.ckpt")
+        ckpt.load_checkpoint(path, initial)
+        for module, loaded in ((trainer.generator, initial.generator),
+                               (trainer.discriminator, initial.discriminator)):
+            want = dict(module.named_parameters())
+            for key, p in loaded.named_parameters():
+                if not torch.equal(p, want[key]):
+                    raise AssertionError(f".ckpt differs on {key}")
+        print(f"  {os.path.basename(path)} "
+              f"({os.path.getsize(path) / 1e6:.1f} MB) loads back")
+        del initial
+        mixed = run(dict(config, mixed_precision=True, train_max_steps=5,
+                         save_interval_steps=5, eval_interval_steps=5),
+                    dump, dump, os.path.join(tmp, "mixed"), resume=path,
+                    seed=0, device=dev.type, dump_config=False)
+        torch.cuda.synchronize()
+        if mixed.steps != 5 or mixed.state.opt_g.count != 3 \
+                or mixed.state.opt_d.count != 4:
+            raise AssertionError("the resumed run did not take 2 steps")
+        check_trainer(mixed, "discrete (d) duration mixed", names)
+        batch = mixed._to_device(next(iter(mixed.train_loader)))
+        if tuple(batch["ds"].shape[:1]) != (B,) or \
+                not bool((batch["ds"].sum(1) == T // DISCRETE_HOP).all()):
+            raise AssertionError("bad duration batch")
+        for what, t in (("f32", trainer), ("mixed", mixed)):
+            step = t.train_step_factory(True, True, True)
+
+            def one():
+                s = t.state.steps
+                step(t.state, batch, step_generator(0, s),
+                     step_generator(0, s, SHARED_STREAM),
+                     step_generator(0, s, DROPOUT_STREAM, dev))
+
+            out[f"step_ms_{what}"] = time_ms(one, reps=3)
+            torch.cuda.reset_peak_memory_stats()
+            one()
+            torch.cuda.synchronize()
+            out[f"peak_gb_{what}"] = torch.cuda.max_memory_allocated() / 1e9
+        profile_step(trainer, batch, "discrete duration f32")
+        profile_step(mixed, batch, "discrete duration mixed")
+        gen = trainer.generator
+        walls = []
+        for i in range(4):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            g = step_generator(0, i, DROPOUT_STREAM, dev)
+            masks = [m for _ in range(2)
+                     for m in gen.batch_dropout_masks(batch, g)]
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        out["masks_ms_card"] = float(np.mean(walls[1:])) * 1e3
+        print(f"discrete (d) (G, adv, D) step {B} x {T}: f32 "
+              f"{out['step_ms_f32']:.1f} ms "
+              f"({1e3 / out['step_ms_f32']:.2f} steps/s, peak "
+              f"{out['peak_gb_f32']:.2f} GB), mixed precision "
+              f"{out['step_ms_mixed']:.1f} ms "
+              f"({1e3 / out['step_ms_mixed']:.2f} steps/s, peak "
+              f"{out['peak_gb_mixed']:.2f} GB) on {smi}; the predictor's "
+              f"dropout masks of a step ({sum(m.numel() for m in masks)} "
+              f"entries, two forwards) drawn on the card "
+              f"{out['masks_ms_card']:.3f} ms (host clock)")
+        del masks
+
+        # (e) the batch cut to 1 x 10,240 with one set of masks for every
+        # route, D in eval mode: every G and D gradient on the card in f32
+        # (k), on the CPU in f32 (p) and float64 (e), the kinks decided by
+        # float64, the duration term's cotangent included
+        t_start = time.perf_counter()
+        b = {k: v[:1] for k, v in batch.items()}
+        n_tok = int((b["ds"] > 0).sum())
+        b = {**b, "c": b["c"][:, :n_tok], "ds": b["ds"][:, :n_tok]}
+        for i, m in enumerate(gen.batch_dropout_masks(
+                b, torch.Generator().manual_seed(15))):
+            b[f"mask_{i}"] = m.to(dev)
+        crit = dict(trainer.criterion)
+        crit["mel"] = dataclasses.replace(crit["mel"], method="matmul")
+        dis = trainer.discriminator.eval()  # u stays put
+        out.update(hold_gate("discrete (e)", gate_gradients(
+            gate_routes(gen, dis, b), *discrete_gate_losses(crit)), T, B=1))
+        print(f"discrete (e) {time.perf_counter() - t_start:.1f} s wall")
+        del trainer, mixed, gen, dis
+
+        # one f32 (G, adv, D) step each of the token, F0 and token
+        # StyleMelGAN recipes at their full batch
+        for name in ("token", "f0", "style"):
+            t_start = time.perf_counter()
+            cfg = dict(DISCRETE_RECIPES[name], **ONE_STEP_CUT)
+            if name == "style":
+                cfg["discriminator_train_start_steps"] = 1
+            dump = os.path.join(tmp, f"dump_{name}")
+            write_discrete_corpus(dump, rng, cfg["batch_size"], cfg)
+            t = run(cfg, dump, dump, os.path.join(tmp, f"exp_{name}"),
+                    seed=0, device=dev.type, dump_config=False)
+            torch.cuda.synchronize()
+            want = (("spectral_convergence_loss", "log_stft_magnitude_loss",
+                     "generator_loss", "adversarial_loss", "real_loss",
+                     "fake_loss", "discriminator_loss") if name == "style"
+                    else DISCRETE_LOSS_NAMES)
+            if t.steps != 3:
+                raise AssertionError(f"{name} did not take 3 steps")
+            check_trainer(t, f"discrete (d) {name} f32", want)
+            out[f"{name}_train_s"] = time.perf_counter() - t_start
+            print(f"discrete (d) {name} recipe, 3 steps (the last G and D) "
+                  f"at {cfg['batch_size']} x {cfg['batch_max_steps']}: "
+                  f"{out[f'{name}_train_s']:.1f} s wall")
+            del t
+    return out
+
+
+def discrete_phase(dev, smi: str) -> dict:
+    """Step 15: the discrete-symbol families served and trained, (f) with
+    every launch of the five kernels counted across (a)-(e)."""
+    counters = kernel_launch_counters()
+    torch.cuda.synchronize()
+    for wrapper in counters.values():
+        wrapper.launches = 0
+    with tempfile.TemporaryDirectory() as tmp:
+        out = discrete_serving(dev, smi, tmp)
+    out.update(discrete_training(dev, smi))
+    torch.cuda.synchronize()
+    out["launches"] = {name: wrapper.launches
+                       for name, wrapper in counters.items()}
+    print(f"discrete (f) launches of the five kernels over (a)-(e): "
+          f"{out['launches']} (none is on this path)")
+    if any(out["launches"].values()):
+        raise AssertionError("a hand-written kernel ran on the discrete "
+                             "path")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4743,6 +5607,10 @@ def run_phases(dev, smi: str, pool) -> int:
     t0 = time.perf_counter()
     uh = uhifigan_phase(dev, smi)
     print(f"step 14: {time.perf_counter() - t0:.1f} s wall")
+    # 15. the discrete-symbol families served and trained
+    t0 = time.perf_counter()
+    disc = discrete_phase(dev, smi)
+    print(f"step 15: {time.perf_counter() - t0:.1f} s wall")
     if min(launches, launches32, train["fwd_launches"], train["bwd_launches"],
            hifi["launches"], mm["launches"], variant["launches"],
            chunked["pwg_launches"], chunked["mrf_launches"]) < 1:
@@ -4888,12 +5756,13 @@ def run_phases(dev, smi: str, pool) -> int:
         "tanh_over_baseline": variant["tanh_over_baseline"],
         "snr_db": variant["snr_db"],
     }]
-    # step 12 (g), step 13 (h), step 14 (f): none of the five runs on the
-    # StyleMelGAN, the VQ-VAE or the UHiFiGAN path
+    # step 12 (g), step 13 (h), step 14 (f), step 15 (f): none of the five
+    # runs on the StyleMelGAN, the VQ-VAE, the UHiFiGAN or the discrete path
     for entry in kernels:
         entry["style_melgan_launches"] = style["launches"][entry["name"]]
         entry["vqvae_launches"] = vq["launches"][entry["name"]]
         entry["uhifigan_launches"] = uh["launches"][entry["name"]]
+        entry["discrete_launches"] = disc["launches"][entry["name"]]
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Decode CLI: mel features -> waveforms with a trained generator of a
 ported family (Parallel WaveGAN, HiFi-GAN, MelGAN, multi-band MelGAN,
-StyleMelGAN and UHiFiGAN), or audio -> codes -> audio with a VQ-VAE.
+StyleMelGAN and UHiFiGAN), token ids -> waveforms with a discrete-symbol
+generator, or audio -> codes -> audio with a VQ-VAE.
 
 Counterpart of the mel branches, the F0 and excitation branch and the
 VQ-VAE branch of ``parallelwavegan_tpu/bin/decode.py``: bucketed batches,
@@ -12,10 +13,13 @@ beside each mel (hdf5 "f0" / "excitation", or ``-f0.npy`` /
 ``-excitation.npy`` beside ``-feats.npy``; a feats.scp carries neither and
 is refused), through ``InferenceModel.inference``, which for UHiFiGAN
 applies neither ``--normalize-before`` nor ``--pcm16``, as in the JAX
-package. A VQ-VAE reads the audio dumps of ``--dumpdir``, encodes and
-decodes each utterance and writes its codes to ``<outdir>/text`` (one line
-"utt code code ..." each); a conditioned one reads its conditions from hdf5
-dumps ("local", "global"), and over npy dumps it raises, where the JAX CLI
+package. A discrete-symbol generator decodes one utterance a call too, the
+``-feats.npy`` (or hdf5 "feats") holding its token ids; the F0 generator
+reads the f0 beside them where its ``use_f0`` (default true) asks. A
+VQ-VAE reads the audio dumps of ``--dumpdir``, encodes and decodes each
+utterance and writes its codes to ``<outdir>/text`` (one line "utt code
+code ..." each); a conditioned one reads its conditions from hdf5 dumps
+("local", "global"), and over npy dumps it raises, where the JAX CLI
 passes no condition and fails in the decoder. Runs on CUDA by default
 (``--device cpu`` for the host):
 
@@ -31,8 +35,7 @@ passes no condition and fails in the decoder. Runs on CUDA by default
 config is YAML (``config.yml`` beside the checkpoint by default) or JSON.
 The noise of Parallel WaveGAN and StyleMelGAN comes from a
 ``torch.Generator`` seeded 0 for each batch or utterance, as the JAX CLI
-draws from ``jax.random.key(0)``. The discrete-symbol families of the JAX
-package's other decode branch are not ported yet.
+draws from ``jax.random.key(0)``.
 """
 
 from __future__ import annotations
@@ -53,7 +56,10 @@ from parallelwavegan_torch.datasets.audio_mel_dataset import (
 )
 from parallelwavegan_torch.datasets.scp_dataset import MelSCPDataset
 from parallelwavegan_torch.utils.io import load_config, read_hdf5, write_wav
-from parallelwavegan_torch.utils.model_loader import load_model
+from parallelwavegan_torch.utils.model_loader import (
+    DISCRETE_GENERATORS,
+    load_model,
+)
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -147,7 +153,10 @@ def main(argv=None):
     if gen_type == "VQVAE":
         return _decode_vq(args, config)
     use_excitation = gen_type == "UHiFiGANGenerator"
-    single = args.use_f0 or use_excitation
+    use_f0 = args.use_f0 or (
+        gen_type == "DiscreteSymbolF0Generator"
+        and config.get("generator_params", {}).get("use_f0", True))
+    single = use_f0 or use_excitation or gen_type in DISCRETE_GENERATORS
     hdf5 = config.get("format", "hdf5") == "hdf5"
 
     def side(name: str):
@@ -158,7 +167,7 @@ def main(argv=None):
     mel_kw = (dict(mel_query="*.h5", mel_load_fn=side("feats")) if hdf5
               else dict(mel_query="*-feats.npy", mel_load_fn=np.load))
     if args.feats_scp is not None:
-        if single:
+        if use_f0 or use_excitation:
             raise ValueError(
                 "SCP format is not supported for f0 and excitation.")
         dataset = MelSCPDataset(args.feats_scp, return_utt_id=True)
@@ -167,7 +176,7 @@ def main(argv=None):
             args.dumpdir, f0_load_fn=side("f0"),
             excitation_load_fn=side("excitation"), return_utt_id=True,
             **mel_kw)
-    elif args.use_f0:
+    elif use_f0:
         dataset = MelF0Dataset(args.dumpdir, f0_load_fn=side("f0"),
                                return_utt_id=True, **mel_kw)
     else:
@@ -199,12 +208,14 @@ def main(argv=None):
         model.quantize_int8(calib, schedule=args.int8_schedule)
     total_t = total_audio = 0.0
     if single:
-        # one utterance a call at its exact shape: (utt, mel, f0[,
-        # excitation]) items
-        for utt_id, c, f0, *rest in items:
+        # one utterance a call at its exact shape: (utt, mel[, f0[,
+        # excitation]]) items
+        for utt_id, c, *rest in items:
             start = time.perf_counter()
             w = model.inference(c, normalize_before=args.normalize_before,
-                                f0=f0, excitation=rest[0] if rest else None)
+                                f0=rest[0] if rest else None,
+                                excitation=rest[1] if len(rest) > 1
+                                else None)
             total_t += time.perf_counter() - start
             total_audio += len(w) / sr
             write_wav(os.path.join(args.outdir, f"{utt_id}_gen.wav"),

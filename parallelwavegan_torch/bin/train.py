@@ -7,8 +7,10 @@ any of their discriminators), StyleMelGAN, the VQ-VAE (wav2wav: audio
 dumps, with ``-global.npy`` speaker ids and ``-local.npy`` frame
 conditions beside the ``-wave.npy`` files of an npy dump) and UHiFiGAN
 (``-f0.npy`` and ``-excitation.npy`` beside them; ``--use-f0`` gives the
-other families the f0 too, which their generators do not read) on one
-device,
+other families the f0 too, which their generators do not read) and the
+discrete-symbol generators (token ids as ``-feats.npy``, one or two
+columns; a duration generator's batches are the window's runs and their
+lengths; the F0 generator reads ``-f0.npy``) on one device,
 with ``--resume`` / ``--pretrain`` (a ``.ckpt``, a generator ``.gckpt`` or
 a reference ``.pkl``) and the ``config.yml`` dump. Each split reads a dump directory
 or Kaldi-style lists (a wav.scp and a feats.scp, optionally segments).
@@ -48,6 +50,8 @@ from parallelwavegan_torch.datasets.collater import Collater
 from parallelwavegan_torch.datasets.loader import DataLoader
 from parallelwavegan_torch.datasets.scp_dataset import AudioMelSCPDataset
 from parallelwavegan_torch.engine.step import (
+    is_discrete_f0,
+    is_duration,
     is_uhifigan,
     is_vqvae,
     uses_noise,
@@ -76,7 +80,7 @@ def build_scp_dataset(config: Dict[str, Any], wav_scp: str, feats_scp: str,
     if gen_type == "UHiFiGANGenerator":
         raise NotImplementedError(
             "SCP format is not supported for f0 and excitation.")
-    if config.get("use_f0", False):
+    if uses_f0(config):
         raise NotImplementedError("SCP format is not supported for f0.")
     if gen_type == "VQVAE":
         raise NotImplementedError("SCP format is not supported for VQVAE.")
@@ -85,6 +89,14 @@ def build_scp_dataset(config: Dict[str, Any], wav_scp: str, feats_scp: str,
         mel_length_threshold=_mel_length_threshold(config),
         allow_cache=config.get("allow_cache", False),
     )
+
+
+def uses_f0(config: Dict[str, Any]) -> bool:
+    """Whether the batches carry the f0: ``use_f0``, or the F0 generator
+    with its ``use_f0`` (default true), as the JAX CLI decides."""
+    return bool(config.get("use_f0", False)) or (
+        is_discrete_f0(config)
+        and config.get("generator_params", {}).get("use_f0", True))
 
 
 def _side_load_fn(config: Dict[str, Any], name: str):
@@ -143,7 +155,7 @@ def build_dataset(config: Dict[str, Any], rootdir: str):
         return AudioMelF0ExcitationDataset(
             f0_load_fn=_side_load_fn(config, "f0"),
             excitation_load_fn=_side_load_fn(config, "excitation"), **common)
-    if config.get("use_f0", False):
+    if uses_f0(config):
         return AudioMelF0Dataset(f0_load_fn=_side_load_fn(config, "f0"),
                                  **common)
     return AudioMelDataset(**common)
@@ -167,9 +179,10 @@ def build_loader(config: Dict[str, Any], dataset, seed: int) -> DataLoader:
         aux_context_window=config.get("generator_params", {}).get(
             "aux_context_window", 0),
         use_noise_input=uses_noise(config),
-        use_f0=config.get("use_f0", False),
+        use_f0=uses_f0(config),
         use_f0_and_excitation=is_uhifigan(config),
         use_aux_input=not vq,
+        use_duration=is_duration(config),
         use_global_condition=vq and config.get("use_global_condition",
                                                False),
         use_local_condition=vq and config.get("use_local_condition", False),
@@ -224,7 +237,8 @@ def run(config: Dict[str, Any], train: Split, dev: Split,
 def main(argv: Optional[list] = None):
     parser = argparse.ArgumentParser(
         description="Train a Parallel WaveGAN, HiFi-GAN, MelGAN, "
-        "multi-band MelGAN, StyleMelGAN, VQ-VAE or UHiFiGAN model."
+        "multi-band MelGAN, StyleMelGAN, VQ-VAE, UHiFiGAN or "
+        "discrete-symbol model."
     )
     for split in ("train", "dev"):
         parser.add_argument(f"--{split}-dumpdir", default=None, type=str,

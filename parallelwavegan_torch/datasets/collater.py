@@ -12,7 +12,11 @@ excitation dump of (frames, hop) cut on the frame window and flattened (a
 1-D dump is first reshaped to (frames, hop)), as the reference cuts it;
 wav2wav (a VQ-VAE: ``use_aux_input`` off, or a local or global condition)
 {"y": (B, T, 1)} with {"l": (B, T' + 2 ctx, C)} and {"g": (B,)} as the
-conditions ask. The random source is an explicit ``np.random.Generator``,
+conditions ask; with ``use_duration`` (items (audio, token ids (T', 1|2)
+or (T',))) the window's ids collapsed into runs of equal rows, {"c": (B, N,
+1|2) int32 ids of the runs, padded with ``pad_value`` to the longest (or
+to ``max_num_frames``, cut there), "ds": (B, N) int32 run lengths,
+zero-padded}. The random source is an explicit ``np.random.Generator``,
 drawn in the JAX collater's order, so that one seed gives both packages
 the same crops.
 """
@@ -34,8 +38,11 @@ class Collater:
         use_f0: bool = False,
         use_f0_and_excitation: bool = False,
         use_aux_input: bool = True,
+        use_duration: bool = False,
         use_global_condition: bool = False,
         use_local_condition: bool = False,
+        pad_value: int = 0,
+        max_num_frames: Optional[int] = None,
         rng: Optional[np.random.Generator] = None,
     ):
         if hop_size is not None:
@@ -48,6 +55,8 @@ class Collater:
         self.use_f0 = use_f0
         self.use_f0_and_excitation = use_f0_and_excitation
         self.use_aux_input = use_aux_input
+        self.use_duration = use_duration
+        self.pad_value, self.max_num_frames = pad_value, max_num_frames
         self.use_global_condition = use_global_condition
         self.use_local_condition = use_local_condition
         self.rng = rng or np.random.default_rng()
@@ -61,6 +70,8 @@ class Collater:
             self.audio_threshold = batch_max_steps
 
     def __call__(self, batch: List) -> Dict[str, np.ndarray]:
+        if self.use_duration:
+            return self._duration_batch(batch)
         if self.use_local_condition or self.use_global_condition \
                 or not self.use_aux_input:
             return self._audio_batch(batch)
@@ -136,6 +147,41 @@ class Collater:
         if gs is not None:
             out["g"] = np.array(gs).reshape(-1)
         return out
+
+    def _duration_batch(self, batch: List) -> Dict[str, np.ndarray]:
+        """Token windows as runs and their lengths (the JAX collater's
+        draws: one start frame an utterance)."""
+        batch = [self._adjust_length(*b) for b in batch
+                 if len(b[1]) > self.mel_threshold]
+        cs = [b[1] for b in batch]
+        start_frames = np.array([
+            self.rng.integers(self.start_offset, len(c) + self.end_offset)
+            for c in cs
+        ])
+        y = np.stack([x[s * self.hop_size: s * self.hop_size
+                        + self.batch_max_steps]
+                      for x, s in zip((b[0] for b in batch), start_frames)]
+                     ).astype(np.float32)[..., None]
+        codes, durs = [], []
+        for c, s in zip(cs, start_frames - self.aux_context_window):
+            window = np.asarray(c[s: s + self.batch_max_frames
+                                  + 2 * self.aux_context_window])
+            if window.ndim == 1:
+                window = window[:, None]
+            # unique-consecutive over rows: the first row of each run
+            change = np.any(window[1:] != window[:-1], axis=-1)
+            starts = np.flatnonzero(np.concatenate([[True], change]))
+            codes.append(window[starts])
+            durs.append(np.diff(np.concatenate([starts, [len(window)]])))
+        max_len = self.max_num_frames or max(len(c) for c in codes)
+        c_batch = np.full((len(codes), max_len, codes[0].shape[-1]),
+                          self.pad_value, dtype=np.int32)
+        d_batch = np.zeros((len(codes), max_len), dtype=np.int32)
+        for i, (code, d) in enumerate(zip(codes, durs)):
+            n = min(len(code), max_len)
+            c_batch[i, :n] = code[:n]
+            d_batch[i, :n] = d[:n]
+        return {"y": y, "c": c_batch, "ds": d_batch}
 
     def _adjust_length(self, x, c, *rest):
         """Pad or cut the audio so that len(x) == len(c) * hop."""

@@ -2,10 +2,14 @@
 (reference-compatible) config.
 
 Counterpart of ``parallelwavegan_tpu/engine/build.py`` for Parallel WaveGAN,
-HiFi-GAN, MelGAN, StyleMelGAN, the VQ-VAE and UHiFiGAN; other families raise
-``NotImplementedError`` (from the model registry). The models are built in
-their training form (``kernel_v``/``kernel_g``), initialised from a seeded
-``torch.Generator`` on the CPU and then moved to the device.
+HiFi-GAN, MelGAN, StyleMelGAN, the VQ-VAE, UHiFiGAN and the four
+discrete-symbol generators; other families raise ``NotImplementedError``
+(from the model registry). A duration generator's ``max_reg_len`` is pinned
+to the training window's frames (``batch_max_steps // hop_size``), as in
+the JAX package: a window's tokens regulate to exactly its frames. The
+models are built in their training form (``kernel_v``/``kernel_g``),
+initialised from a seeded ``torch.Generator`` on the CPU and then moved to
+the device.
 """
 
 from __future__ import annotations
@@ -24,7 +28,9 @@ from parallelwavegan_torch.utils.model_loader import resolve_device
 
 _GENERATORS = ("ParallelWaveGANGenerator", "HiFiGANGenerator",
                "MelGANGenerator", "StyleMelGANGenerator", "VQVAE",
-               "UHiFiGANGenerator")
+               "UHiFiGANGenerator", "DiscreteSymbolHiFiGANGenerator",
+               "DiscreteSymbolDurationGenerator", "DiscreteSymbolF0Generator",
+               "DiscreteSymbolStyleMelGANGenerator")
 
 
 def build_models(config: Dict[str, Any], generator: torch.Generator = None):
@@ -39,6 +45,10 @@ def build_models(config: Dict[str, Any], generator: torch.Generator = None):
     if "upsample_kernal_sizes" in gen_params:
         gen_params["upsample_kernel_sizes"] = gen_params.pop(
             "upsample_kernal_sizes")
+    if "Duration" in gen_type and "hop_size" in config:
+        steps = config.get("batch_max_steps", 8192)
+        gen_params["max_reg_len"] = (steps - steps % config["hop_size"]) \
+            // config["hop_size"]
     gen = get_model_class(gen_type)(
         **gen_params, folded=False, generator=generator,
     )
@@ -59,7 +69,12 @@ def example_batch(config: Dict[str, Any], batch_size: int = 2
     asks, speaker ids g (zeros) and a local condition l of
     ``num_local_embeds`` (or 2) channels at one frame a hop, as in the
     JAX package. UHiFiGAN's adds an excitation (B, T, 1) and an f0
-    (B, T', 1) of |N(0, 1)|, drawn after c (and z) as there."""
+    (B, T', 1) of |N(0, 1)|, drawn after c (and z) as there. A discrete
+    generator's c is int32 ones of (B, T', 2), or (B, T', 1) without
+    speakers (the JAX batch is always 2 wide, so the JAX init of a recipe
+    without speakers fails its assert); a duration generator's adds ds,
+    ones (B, T'); the F0 generator's an f0 (B, T', 1) of |N(0, 1)| (the
+    JAX batch returns before its f0, so its init builds no f0_embedding)."""
     gen_type = config.get("generator_type", "ParallelWaveGANGenerator")
     if gen_type not in _GENERATORS:
         raise NotImplementedError(f"{gen_type}: not ported yet")
@@ -74,6 +89,15 @@ def example_batch(config: Dict[str, Any], batch_size: int = 2
     f32 = np.float32
     batch = {
         "y": rng.standard_normal((batch_size, steps, 1)).astype(f32) * 0.1}
+    if "DiscreteSymbol" in gen_type:
+        cols = 2 if gp.get("num_spk_embs", 128) > 0 else 1
+        batch["c"] = np.ones((batch_size, frames, cols), np.int32)
+        if "Duration" in gen_type:
+            batch["ds"] = np.ones((batch_size, frames), np.int32)
+        if gen_type == "DiscreteSymbolF0Generator" and gp.get("use_f0", True):
+            batch["f0"] = np.abs(rng.standard_normal(
+                (batch_size, frames, 1))).astype(f32)
+        return batch
     if gen_type == "VQVAE":
         if config.get("use_global_condition", False):
             batch["g"] = np.zeros((batch_size,), np.int32)

@@ -2,12 +2,15 @@
 update, in one function.
 
 Counterpart of ``parallelwavegan_tpu/engine/step.py`` for Parallel WaveGAN,
-HiFi-GAN, MelGAN (full-band and multi-band), StyleMelGAN, the VQ-VAE and
-UHiFiGAN on one device. Warm-up gating selects a step variant by (train_g,
-use_adv, train_d), as there. The loss arithmetic follows the JAX step: a
-VQ-VAE starts the generator loss with its quantisation loss mean((z_q -
-sg(z_e))^2) plus ``lambda_commit`` times its commitment loss mean((z_e -
-sg(z_q))^2); a multi-band output is merged by the
+HiFi-GAN, MelGAN (full-band and multi-band), StyleMelGAN, the VQ-VAE,
+UHiFiGAN and the discrete-symbol generators on one device. Warm-up gating
+selects a step variant by (train_g, use_adv, train_d), as there. The loss
+arithmetic follows the JAX step: a VQ-VAE starts the generator loss with
+its quantisation loss mean((z_q - sg(z_e))^2) plus ``lambda_commit`` times
+its commitment loss mean((z_e - sg(z_q))^2), and a duration generator with
+its duration loss on the predicted log-durations against the batch's
+``ds`` (no weight of its own, before the factor ``lambda_aux`` as in the
+JAX step); a multi-band output is merged by the
 criterion's PQMF before the full-band STFT loss; with the subband STFT loss
 that loss is halved and half the subband loss (on the PQMF analysis of the
 target against the generator's subbands) added; then the mel loss, all
@@ -38,13 +41,22 @@ every data-parallel rank would share, so that the codebook stays the same
 on each) passes ``vq_restart_prob``; the metric ``vq_codes_used`` counts
 the codes used.
 
-UHiFiGAN takes (c, f0, excitation) from the batch, and its dropout is on
-in the train step, as the JAX step calls its generator with
-``deterministic=False``: the keep masks of the generator update's forward,
-then of the discriminator update's recompute, are drawn from the step's
-``dropout_rng`` (``step_generator(seed, steps, DROPOUT_STREAM, device)``:
-the trainer seeds it on the models' device, so the masks are drawn there
-and not copied from the host). ``eval_step`` runs it deterministic.
+UHiFiGAN takes (c, f0, excitation) from the batch, a duration generator
+(c, ds), the F0 generator (c, f0), the token StyleMelGAN (c, z) as
+StyleMelGAN does, the token HiFi-GAN c alone. Dropout (UHiFiGAN's, the
+duration predictor's) is on in the train step, as the JAX step calls its
+generator with ``deterministic=False``: the generator draws the keep masks
+for the batch it gets (``batch_dropout_masks``), those of the generator
+update's forward, then of the discriminator update's recompute, from the
+step's ``dropout_rng`` (``step_generator(seed, steps, DROPOUT_STREAM,
+device)``: the trainer seeds it on the models' device, so the masks are
+drawn there and not copied from the host). ``eval_step`` runs it
+deterministic.
+
+Token ids stay exact: ``prepare_batch`` turns a token generator's c into
+int64 before any dtype cast, and the casts touch floating tensors only. The
+JAX step's mixed precision casts the collater's float32 ids to bfloat16,
+where an id above 256 may round to a neighbour.
 
 A spectral-normed discriminator advances its vectors ``u`` only in the
 discriminator update (training mode), once per pass: twice a step with the
@@ -79,13 +91,11 @@ Params = Dict[str, torch.Tensor]
 Batch = Dict[str, torch.Tensor]
 
 
-# generator families whose step the port does not have yet (their inputs:
-# codes and durations)
-_NOT_PORTED_FAMILIES = ("DiscreteSymbol", "Duration")
 # the stream of step_generator that every data-parallel rank would share:
 # the dead-code restart draws its gate there
 SHARED_STREAM = 0x5BDEAD
-# the stream UHiFiGAN's dropout masks are drawn from
+# the stream the dropout masks (UHiFiGAN's, the duration predictor's) are
+# drawn from
 DROPOUT_STREAM = 0xD50
 
 
@@ -103,7 +113,8 @@ def step_generator(seed: int = 0, steps: int = 0, stream: int = 0,
 
 
 def _is_style_generator(config: Dict[str, Any]) -> bool:
-    return config.get("generator_type") == "StyleMelGANGenerator"
+    """StyleMelGAN and the token StyleMelGAN (the JAX step's branch)."""
+    return "StyleMelGAN" in config.get("generator_type", "")
 
 
 def _is_style_discriminator(config: Dict[str, Any]) -> bool:
@@ -116,6 +127,25 @@ def is_vqvae(config: Dict[str, Any]) -> bool:
 
 def is_uhifigan(config: Dict[str, Any]) -> bool:
     return config.get("generator_type") == "UHiFiGANGenerator"
+
+
+def is_duration(config: Dict[str, Any]) -> bool:
+    return "Duration" in config.get("generator_type", "")
+
+
+def is_discrete_f0(config: Dict[str, Any]) -> bool:
+    return config.get("generator_type") == "DiscreteSymbolF0Generator"
+
+
+def token_ids(generator, batch: Dict[str, torch.Tensor]
+              ) -> Dict[str, torch.Tensor]:
+    """``batch`` with a token generator's c as int64 ids (a float batch of
+    ids is exact below 2^24), so that no dtype cast reaches them; any
+    other batch as it is."""
+    if getattr(generator, "token_inputs", False) \
+            and batch["c"].dtype != torch.int64:
+        return dict(batch, c=batch["c"].long())
+    return batch
 
 
 def vq_restarts(config: Dict[str, Any]) -> bool:
@@ -161,28 +191,26 @@ def make_generator_forward(config: Dict[str, Any], generator
                            ) -> Callable[..., Tuple[torch.Tensor, Params]]:
     """Adapter (params, batch, masks=None) -> (y_hat, aux). ``params`` are
     the generator's named parameters or copies of them (cast, detached).
-    ``aux`` holds a VQ-VAE's latents ``z_e`` and ``z_q``, and is empty for
-    the other families. ``masks`` are UHiFiGAN's dropout keep masks of a
-    training forward (``draw_dropout_masks``), None for a deterministic
-    one; the other families have no dropout and are given None.
+    ``aux`` holds a VQ-VAE's latents ``z_e`` and ``z_q``, a duration
+    generator's predicted log-durations ``ds_out``, and is empty for the
+    other families. ``masks`` are the dropout keep masks of a training
+    forward (UHiFiGAN's, the duration predictor's: the generator's
+    ``batch_dropout_masks``), None for a deterministic one; the other
+    families have no dropout and are given None.
 
     As in the JAX step, a VQ-VAE takes the batch's ``x_vq`` (the PQMF
     subbands of y that ``prepare_batch`` adds at ``in_channels`` > 1) or
     else y, with its conditions ``l`` and ``g`` where the batch has them;
     Parallel WaveGAN and any generator with ``use_noise_input: true`` take
-    (z, c), StyleMelGAN (c, z) with the z that ``with_noise`` puts in the
-    batch, UHiFiGAN (c, f0, excitation), every other generator c alone. A
-    Parallel WaveGAN generator on CUDA takes the fused path (the WaveNet
+    (z, c), StyleMelGAN and the token StyleMelGAN (c, z) with the z that
+    ``with_noise`` puts in the batch, UHiFiGAN (c, f0, excitation), a
+    duration generator (c, ds), the F0 generator (c, f0), every other
+    generator c alone. A Parallel WaveGAN generator on CUDA takes the fused path (the WaveNet
     stack kernels, trainable grouping) unless ``fused_wavenet`` is false;
     there a config the kernels lack raises, it does not fall back. On the
     CPU the per-layer forward runs.
     """
     gen_type = config.get("generator_type", "ParallelWaveGANGenerator")
-    for family in _NOT_PORTED_FAMILIES:
-        if family in gen_type:
-            raise NotImplementedError(
-                f"{gen_type}: the {family} family's train step is not "
-                "ported yet")
     if is_vqvae(config):
         def forward_vq(params: Params, batch: Batch, masks=None):
             y_, z_e, z_q = functional_call(
@@ -191,6 +219,14 @@ def make_generator_forward(config: Dict[str, Any], generator
             return y_, {"z_e": z_e, "z_q": z_q}
 
         return forward_vq
+    if is_duration(config):
+        def forward_d(params: Params, batch: Batch, masks=None):
+            y_, ds_out = functional_call(
+                generator, params, (batch["c"], batch["ds"]),
+                {"deterministic": masks is None, "masks": masks})
+            return y_, {"ds_out": ds_out}
+
+        return forward_d
     if is_uhifigan(config):
         def forward_u(params: Params, batch: Batch, masks=None):
             return functional_call(
@@ -205,6 +241,12 @@ def make_generator_forward(config: Dict[str, Any], generator
                                    (batch["c"], batch["z"])), {}
 
         return forward_style
+    if is_discrete_f0(config):
+        def forward_f0(params: Params, batch: Batch, masks=None):
+            return functional_call(generator, params,
+                                   (batch["c"], batch.get("f0"))), {}
+
+        return forward_f0
     if not uses_noise(config):
         def forward_c(params: Params, batch: Batch, masks=None):
             return functional_call(generator, params, (batch["c"],)), {}
@@ -290,11 +332,12 @@ def build_steps(config: Dict[str, Any], generator, discriminator,
 
     ``batch`` holds tensors on the models' device: y (B, T, 1), c, z, a
     VQ-VAE's conditions l (B, T', C) and g (B,), UHiFiGAN's f0 (B, T', 1)
-    and excitation (B, T, 1). ``rng`` is the step's random source
+    and excitation (B, T, 1), a duration generator's ds (B, T'). ``rng`` is the step's random source
     (``step_generator``), which StyleMelGAN needs, and the dead-code
     restart with ``shared_rng`` (``step_generator(seed, steps,
     SHARED_STREAM)``, the stream data-parallel ranks would share);
-    UHiFiGAN's dropout draws its masks from ``dropout_rng``
+    the dropout (UHiFiGAN's, the duration predictor's) draws its masks
+    from ``dropout_rng``
     (``step_generator(seed, steps, DROPOUT_STREAM, device)``). Metrics are
     detached 0-d tensors on the device.
     """
@@ -337,7 +380,9 @@ def build_steps(config: Dict[str, Any], generator, discriminator,
 
     def prepare_batch(batch: Batch) -> Batch:
         """A VQ-VAE at ``in_channels`` > 1 encodes the PQMF subbands of y
-        (``x_vq``), as the JAX step's ``prepare_batch``."""
+        (``x_vq``), as the JAX step's ``prepare_batch``; a token
+        generator's ids become int64 (``token_ids``)."""
+        batch = token_ids(generator, batch)
         if vq_subbands:
             return dict(batch, x_vq=criterion["pqmf"].analysis(batch["y"]))
         return batch
@@ -346,9 +391,9 @@ def build_steps(config: Dict[str, Any], generator, discriminator,
     ema_decay = float(config.get("generator_ema_decay", 0.0) or 0.0)
 
     def dropout_masks(batch: Batch, dropout_rng: Optional[torch.Generator]):
-        """The keep masks of one training forward of UHiFiGAN (its
-        ``draw_dropout_masks`` on ``dropout_rng``), None for the families
-        without dropout."""
+        """The keep masks of one training forward of ``batch`` (the
+        generator's ``batch_dropout_masks`` on ``dropout_rng``), None for
+        the families without dropout."""
         if not dropout:
             return None
         if dropout_rng is None:
@@ -356,8 +401,7 @@ def build_steps(config: Dict[str, Any], generator, discriminator,
                 f"{config.get('generator_type')} draws dropout masks in "
                 "training: pass dropout_rng=step_generator(seed, steps, "
                 "DROPOUT_STREAM, device)")
-        B, T = batch["excitation"].shape[:2]
-        return generator.draw_dropout_masks(B, T, dropout_rng)
+        return generator.batch_dropout_masks(batch, dropout_rng)
 
     f32, bf16 = torch.float32, torch.bfloat16
     if config.get("mixed_precision", False):
@@ -397,6 +441,10 @@ def build_steps(config: Dict[str, Any], generator, discriminator,
             metrics["quantization_loss"] = quant
             metrics["commitment_loss"] = commit
             gen_loss = gen_loss + (quant + lambda_commit * commit)
+        if "ds_out" in aux:
+            d_loss = criterion["duration"](aux["ds_out"], batch["ds"])
+            metrics["duration_loss"] = d_loss
+            gen_loss = gen_loss + d_loss
         if "stft" in criterion:
             sc_loss, mag_loss = criterion["stft"](y_[..., 0], y[..., 0])
             metrics["spectral_convergence_loss"] = sc_loss

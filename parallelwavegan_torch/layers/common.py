@@ -1,5 +1,6 @@
 """Core modules: the channels-last Conv1d, ConvTranspose1d and Conv2d,
-initializers, activations, instance norm.
+the token table ``Embed``, the ``Dense`` layer and the channel
+``ChannelLayerNorm``, initializers, activations, instance norm.
 
 Counterpart of ``parallelwavegan_tpu/layers/common.py``. Kernels keep the
 JAX package's (K..., Cin, Cout) layout. Initializers draw from an explicit
@@ -298,3 +299,68 @@ class ConvTranspose1d(WeightNormedConv):
         return conv_ops.conv_transpose1d(
             x, self.folded_kernel(), self.bias, self.stride, self.padding,
             self.output_padding)
+
+
+class Embed(nn.Module):
+    """flax's ``nn.Embed``: the table ``embedding`` (N, D), N(0, 1) at
+    init, looked up by integer ids. An id outside [0, N) raises a
+    ``ValueError`` before the lookup is launched (a CUDA index assert would
+    end the process's context; flax's ``take`` gives NaN rows there)."""
+
+    def __init__(self, num_embeddings: int, features: int, *,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.embedding = nn.Parameter(
+            torch.randn((num_embeddings, features), generator=generator))
+
+    def forward(self, ids: torch.Tensor) -> torch.Tensor:
+        ids = ids.long()
+        n = self.embedding.shape[0]
+        if ids.numel() and bool(((ids < 0) | (ids >= n)).any()):
+            raise ValueError(
+                f"token ids must lie in [0, {n}); got "
+                f"[{int(ids.min())}, {int(ids.max())}]")
+        return F.embedding(ids, self.embedding)
+
+
+class Dense(nn.Module):
+    """The JAX package's ``Dense``: y = x @ kernel + bias over the last
+    axis, ``kernel`` (in, out) at torch's U(+-1/sqrt(in)), the bias
+    likewise."""
+
+    def __init__(self, in_features: int, features: int, bias: bool = True,
+                 *, generator: Optional[torch.Generator] = None):
+        super().__init__()
+        shape = (in_features, features)
+        self.kernel = nn.Parameter(torch_conv_default_init(shape, generator))
+        if bias:
+            self.bias = nn.Parameter(
+                uniform_bias_init_for(shape)((features,), generator))
+        else:
+            self.register_parameter("bias", None)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = x @ self.kernel
+        return y if self.bias is None else y + self.bias
+
+
+class ChannelLayerNorm(nn.Module):
+    """LayerNorm over the channel axis of (B, T, C) with ``scale`` (ones)
+    and ``bias`` (zeros), eps 1e-12, the reference's dim-selectable
+    LayerNorm. The statistics of a bf16 input are taken in f32 and rounded
+    to bf16, as ``jnp.mean`` and ``jnp.var`` take them; the rest runs in
+    the input's dtype."""
+
+    def __init__(self, features: int, eps: float = 1e-12):
+        super().__init__()
+        self.eps = eps
+        self.scale = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xf = x.float() if x.dtype in (torch.bfloat16, torch.float16) else x
+        mean = xf.mean(dim=-1, keepdim=True)
+        var = xf.var(dim=-1, unbiased=False, keepdim=True)
+        mean, var = mean.to(x.dtype), var.to(x.dtype)
+        return (x - mean) * torch.rsqrt(var + self.eps) * self.scale \
+            + self.bias

@@ -1,8 +1,12 @@
-"""Training losses (the Parallel WaveGAN and HiFi-GAN sets)."""
+"""Training losses (the Parallel WaveGAN and HiFi-GAN sets, and the
+duration predictor's)."""
 
 from parallelwavegan_torch.losses.adversarial import (  # noqa: F401
     DiscriminatorAdversarialLoss,
     GeneratorAdversarialLoss,
+)
+from parallelwavegan_torch.losses.duration import (  # noqa: F401
+    DurationPredictorLoss,
 )
 from parallelwavegan_torch.losses.feat_match import (  # noqa: F401
     FeatureMatchLoss,

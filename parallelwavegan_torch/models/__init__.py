@@ -1,6 +1,12 @@
 """Model families and the config-name registry (Parallel WaveGAN, HiFi-GAN,
-MelGAN, StyleMelGAN, VQ-VAE, UHiFiGAN)."""
+MelGAN, StyleMelGAN, VQ-VAE, UHiFiGAN and the discrete-symbol generators)."""
 
+from parallelwavegan_torch.models.discrete import (  # noqa: F401
+    DiscreteSymbolDurationGenerator,
+    DiscreteSymbolF0Generator,
+    DiscreteSymbolHiFiGANGenerator,
+    DiscreteSymbolStyleMelGANGenerator,
+)
 from parallelwavegan_torch.models.hifigan import (  # noqa: F401
     HiFiGANGenerator,
     HiFiGANMultiPeriodDiscriminator,
@@ -29,6 +35,10 @@ from parallelwavegan_torch.models.uhifigan import (  # noqa: F401
 from parallelwavegan_torch.models.vqvae import VQVAE  # noqa: F401
 
 _REGISTRY = {
+    "DiscreteSymbolHiFiGANGenerator": DiscreteSymbolHiFiGANGenerator,
+    "DiscreteSymbolDurationGenerator": DiscreteSymbolDurationGenerator,
+    "DiscreteSymbolF0Generator": DiscreteSymbolF0Generator,
+    "DiscreteSymbolStyleMelGANGenerator": DiscreteSymbolStyleMelGANGenerator,
     "HiFiGANGenerator": HiFiGANGenerator,
     "HiFiGANPeriodDiscriminator": HiFiGANPeriodDiscriminator,
     "HiFiGANMultiPeriodDiscriminator": HiFiGANMultiPeriodDiscriminator,

@@ -178,6 +178,14 @@ class UHiFiGANGenerator(nn.Module):
                 < 1.0 - self.dropout
                 for shape in self.dropout_shapes(batch, samples)]
 
+    def batch_dropout_masks(self, batch: Dict[str, torch.Tensor],
+                            generator: Optional[torch.Generator] = None
+                            ) -> List[torch.Tensor]:
+        """``draw_dropout_masks`` for a training forward of ``batch`` (its
+        excitation (B, T, 1))."""
+        B, T = batch["excitation"].shape[:2]
+        return self.draw_dropout_masks(B, T, generator)
+
     def _drop(self, x: torch.Tensor, masks: Optional[List[torch.Tensor]],
               i: int) -> torch.Tensor:
         if masks is None or self.dropout == 0.0:

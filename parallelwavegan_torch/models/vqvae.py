@@ -19,10 +19,13 @@ from __future__ import annotations
 from typing import Any, Dict, Optional, Tuple
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
-from parallelwavegan_torch.layers.common import Conv1d, torch_conv_default_init
+from parallelwavegan_torch.layers.common import (
+    Conv1d,
+    Embed,
+    torch_conv_default_init,
+)
 from parallelwavegan_torch.layers.vq import VQCodebook
 from parallelwavegan_torch.models.melgan import (
     MelGANDiscriminator,
@@ -33,20 +36,6 @@ _ENCODER_CONF = {"out_channels": 256, "downsample_scales": [4, 4, 2, 2],
                  "max_downsample_channels": 1024}
 _DECODER_CONF = {"in_channels": 256, "upsample_scales": [4, 4, 2, 2],
                  "channels": 512, "stacks": 3}
-
-
-class Embed(nn.Module):
-    """flax's ``nn.Embed``: the table ``embedding`` (N, D), N(0, 1) at
-    init, looked up by integer ids."""
-
-    def __init__(self, num_embeddings: int, features: int, *,
-                 generator: Optional[torch.Generator] = None):
-        super().__init__()
-        self.embedding = nn.Parameter(
-            torch.randn((num_embeddings, features), generator=generator))
-
-    def forward(self, ids: torch.Tensor) -> torch.Tensor:
-        return F.embedding(ids.long(), self.embedding)
 
 
 class VQVAE(nn.Module):

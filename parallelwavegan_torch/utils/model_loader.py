@@ -21,7 +21,15 @@ VQ-VAE serves wav2wav, one utterance a call: ``vq_encode`` (audio -> code
 indices) and ``vq_decode`` (codes and conditions -> audio, merged by PQMF
 at ``out_channels`` > 1), in float32 only. UHiFiGAN serves one utterance a
 call through ``inference(c, f0=..., excitation=...)``, at its exact shape,
-as the JAX package's single-utterance path does.
+as the JAX package's single-utterance path does, and so do the
+discrete-symbol generators, from token ids (T', 1|2) (int64, exact in any
+dtype; the JAX path casts float ids to the serving dtype): the token
+HiFi-GAN as it is; a duration generator at ``max_reg_len`` frames on its
+predicted durations, the wave cut to sum(clip(round(exp(d) - offset), 0))
+x the upsample factor, computed in numpy as there; the F0 generator with
+its f0 (T',); the token StyleMelGAN on ids edge-padded to its noise grid
+and noise z drawn from the caller's ``torch.Generator``, the wave cut to
+T' x the upsample factor.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
 """
@@ -35,6 +43,7 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from parallelwavegan_torch.layers.duration import durations_from_log
 from parallelwavegan_torch.layers.pqmf import PQMF
 from parallelwavegan_torch.models import get_model_class
 from parallelwavegan_torch.ops.cuda.pwg_infer import (
@@ -56,6 +65,11 @@ from parallelwavegan_torch.ops.hifigan_infer import (
 )
 from parallelwavegan_torch.utils.io import load_config, read_hdf5
 from parallelwavegan_torch.utils.params import convert_jax_params
+
+
+DISCRETE_GENERATORS = (
+    "DiscreteSymbolHiFiGANGenerator", "DiscreteSymbolDurationGenerator",
+    "DiscreteSymbolF0Generator", "DiscreteSymbolStyleMelGANGenerator")
 
 
 def resolve_device(device: Any = "cuda") -> torch.device:
@@ -355,6 +369,9 @@ class InferenceModel:
         if self.gen_type == "UHiFiGANGenerator":
             raise ValueError("UHiFiGAN serves one utterance a call through "
                              "inference(c, f0=..., excitation=...)")
+        if self.gen_type in DISCRETE_GENERATORS:
+            raise ValueError(f"{self.gen_type} serves one utterance a call "
+                             "through inference(c, ...)")
         cs = [np.asarray(c, dtype=np.float32) for c in cs]
         if normalize_before:
             if self.mean is None:
@@ -409,9 +426,13 @@ class InferenceModel:
         """Mel (T', C) -> wave (T, out_channels), no bucket padding.
         UHiFiGAN takes the utterance's excitation (T samples, or
         (T', hop)) and its f0 (T' frames, unused by the generator); the
-        other families ignore both."""
+        F0 generator its f0; the other families ignore both. A discrete
+        generator takes token ids (T', 1|2) or (T',) (``generator`` draws
+        the token StyleMelGAN's noise, a fresh one seeded 0 by default)."""
         if self.gen_type == "UHiFiGANGenerator":
             return self._inference_excitation(c, f0, excitation)
+        if self.gen_type in DISCRETE_GENERATORS:
+            return self._inference_tokens(c, f0, generator)
         return self.synthesize_batch([c], normalize_before, generator,
                                      bucket_size=1)[0]
 
@@ -435,6 +456,76 @@ class InferenceModel:
         f0_in = None if f0 is None else tensor(f0, (1, -1, 1))
         y = self.generator(c_in, f0_in, tensor(excitation, (1, -1, 1)))
         return y[0].float().cpu().numpy()
+
+    def _token_input(self, c: np.ndarray) -> torch.Tensor:
+        """One utterance's ids (T', 1|2) or (T',) as (1, T', 1|2) int64 on
+        the device; the float features of ``use_embedding_feats`` in the
+        parameters' dtype."""
+        c = np.asarray(c)
+        if c.ndim == 1:
+            c = c[:, None]
+        if getattr(self.generator, "token_inputs", True):
+            return torch.from_numpy(c.astype(np.int64)[None]).to(self.device)
+        return torch.from_numpy(np.asarray(c, np.float32)[None]).to(
+            self.device, self.dtype)
+
+    @torch.inference_mode()
+    def _log_durations(self, c: np.ndarray) -> torch.Tensor:
+        if self.gen_type != "DiscreteSymbolDurationGenerator":
+            raise ValueError(f"{self.gen_type} predicts no durations")
+        return self.generator.log_durations(self._token_input(c))[0]
+
+    def predicted_log_durations(self, c: np.ndarray) -> np.ndarray:
+        """A duration generator's predicted log-durations (T',) of one
+        utterance's ids, float32: the deterministic duration predictor (the
+        wave's length is sum(clip(round(exp(d) - offset), 0)) x the
+        upsample factor of these, in numpy)."""
+        return self._log_durations(c).float().cpu().numpy()
+
+    def predicted_durations(self, c: np.ndarray) -> np.ndarray:
+        """The integer durations (T',) the generator regulates the tokens
+        by, rounded in the parameters' dtype (in bf16 they may differ from
+        the numpy rounding of ``predicted_log_durations``, as in the JAX
+        package)."""
+        return durations_from_log(self._log_durations(c),
+                                  self.generator.duration_offset
+                                  ).cpu().numpy()
+
+    @torch.inference_mode()
+    def _inference_tokens(self, c: np.ndarray, f0: Optional[np.ndarray],
+                          generator: Optional[torch.Generator]
+                          ) -> np.ndarray:
+        """The discrete generators' single-utterance path (``inference``),
+        the JAX package's ``_inference_special``: batch 1 at the exact
+        shape, a float32 wave back; neither ``normalize_before`` nor
+        ``pcm16`` applies."""
+        gen, c_in = self.generator, self._token_input(c)
+        T = c_in.shape[1]
+        if self.gen_type == "DiscreteSymbolDurationGenerator":
+            y, ds_out = gen(c_in)
+            ds = np.clip(np.round(np.exp(ds_out.float().cpu().numpy())
+                                  - gen.duration_offset), 0, None)
+            n = int(ds.astype(np.int64).sum()) * self.upsample_factor
+            return y[0, :n].float().cpu().numpy()
+        if self.gen_type == "DiscreteSymbolF0Generator":
+            f0_in = None if f0 is None else torch.from_numpy(
+                np.asarray(f0, np.float32).reshape(1, -1, 1)).to(
+                    self.device, self.dtype)
+            return gen(c_in, f0_in)[0].float().cpu().numpy()
+        if self.gen_type == "DiscreteSymbolStyleMelGANGenerator":
+            # the ids edge-padded to the noise grid, one noise frame per
+            # noise_upsample_factor ids
+            frames = gen.noise_frames(T)
+            pad = frames * gen.noise_upsample_factor - T
+            c_in = torch.cat([c_in, c_in[:, -1:].expand(-1, pad, -1)], dim=1)
+            if generator is None:
+                generator = torch.Generator(device=self.device).manual_seed(0)
+            # drawn in f32, so that every serving dtype gets this noise
+            z = _randn((1, frames, gen.in_channels), generator, self.device,
+                       torch.float32).to(self.dtype)
+            return gen(c_in, z)[0, :T * self.upsample_factor].float() \
+                .cpu().numpy()
+        return gen(c_in)[0].float().cpu().numpy()
 
     @torch.inference_mode()
     def vq_encode(self, audio: np.ndarray) -> np.ndarray:

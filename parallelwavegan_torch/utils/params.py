@@ -10,7 +10,11 @@ into a ``state_dict`` for the port's modules, whose parameter names are the
 tree's paths: folded (``...kernel``, the serving form) or, with
 ``fold=False``, as it is (``...kernel_v`` / ``...kernel_g``, the training
 form). Kernels of any rank fold alike (a ``Conv2d``'s (KH, KW, Cin, Cout)
-with ``kernel_g`` (1, 1, 1, Cout)). A discriminator's flax ``spectral``
+with ``kernel_g`` (1, 1, 1, Cout)). Leaves that are not kernels carry over by name under their
+path: a token table's ``embedding``, a ``Dense`` layer's ``kernel`` and
+``bias``, a LayerNorm's ``scale`` and ``bias``, a bare top-level
+parameter (the F0 generator's ``weights``). A discriminator's flax
+``spectral``
 collection (the power-iteration vectors ``u``) has the parameters' paths,
 so it converts with them into the modules' ``u`` buffers, and
 ``nested_buffers`` turns those back into the collection.

@@ -2,7 +2,7 @@
 
 Counterpart of ``parallelwavegan_tpu/utils/torch_export.py`` for the
 generators the port has (Parallel WaveGAN, MelGAN, HiFi-GAN, StyleMelGAN,
-VQ-VAE, UHiFiGAN): the inverse of ``utils/torch_import.py``. The reference
+VQ-VAE, UHiFiGAN and the four discrete-symbol generators): the inverse of ``utils/torch_import.py``. The reference
 toolkit (or ESPnet) loads the ``.pkl`` through its ``utils.load_model``,
 which reads ``ckpt["model"]["generator"]`` and the config beside it. The
 tree is flax-style, nested dicts of numpy arrays or tensors: a converted
@@ -16,6 +16,10 @@ Layout conversions (flax -> torch) invert the importer's:
   a folded kernel under use_weight_norm -> weight_v = w, weight_g = ||w||
     (torch folds w = g v / ||v||, so that pair gives w back)
   embedding (N, D)              -> Embedding weight (N, D)  as it is
+  Dense kernel (I, O)           -> Linear weight (O, I)   (never weight-normed)
+  LayerNorm scale, bias         -> weight, bias
+  the F0 generator's input conv -> a plain ``weight`` (the reference never
+    weight-norms it); a bare top-level ``weights`` stays at the top
 """
 
 from __future__ import annotations
@@ -170,6 +174,73 @@ def _uhifigan_generator_inverse(config: Dict[str, Any]):
     return rule
 
 
+def _token_embed_inverse(config: Dict[str, Any]):
+    def rule(path: str):
+        if path in ("emb", "spk_emb"):
+            return path, "embedding"
+        m = re.match(r"^emb_(\d+)$", path)
+        if m:
+            return f"emb.{m.group(1)}", "embedding"
+        return None
+
+    return rule
+
+
+def _with_trunk(token_rule, trunk_rule):
+    """The token tables, then the trunk's paths under ``trunk/``."""
+    def rule(path: str):
+        sub = token_rule(path)
+        if sub:
+            return sub
+        if path.startswith("trunk/"):
+            return trunk_rule(path[len("trunk/"):])
+        return None
+
+    return rule
+
+
+def _discrete_hifigan_inverse(config: Dict[str, Any]):
+    return _with_trunk(_token_embed_inverse(config),
+                       _hifigan_generator_inverse(config))
+
+
+def _discrete_duration_inverse(config: Dict[str, Any]):
+    base = _discrete_hifigan_inverse(config)
+
+    def rule(path: str):
+        m = re.match(r"^duration_predictor/conv_(\d+)$", path)
+        if m:
+            return f"duration_predictor.conv.{m.group(1)}.0", "conv1d"
+        m = re.match(r"^duration_predictor/norm_(\d+)$", path)
+        if m:
+            return f"duration_predictor.conv.{m.group(1)}.2", "norm"
+        if path == "duration_predictor/linear":
+            return "duration_predictor.linear", "dense"
+        return base(path)
+
+    return rule
+
+
+def _discrete_f0_inverse(config: Dict[str, Any]):
+    base = _discrete_hifigan_inverse(config)
+
+    def rule(path: str):
+        if path == "f0_embedding":
+            return "f0_embedding", "dense"
+        if path == "weights":
+            return "weights", "param"
+        if path == "trunk/input_conv":
+            return "input_conv", "conv1d_plain"
+        return base(path)
+
+    return rule
+
+
+def _discrete_style_melgan_inverse(config: Dict[str, Any]):
+    return _with_trunk(_token_embed_inverse(config),
+                       _style_melgan_generator_inverse(config))
+
+
 _INVERSE_RULES = {
     "ParallelWaveGANGenerator": _pwg_generator_inverse,
     "MelGANGenerator": _melgan_generator_inverse,
@@ -177,9 +248,13 @@ _INVERSE_RULES = {
     "StyleMelGANGenerator": _style_melgan_generator_inverse,
     "VQVAE": _vqvae_inverse,
     "UHiFiGANGenerator": _uhifigan_generator_inverse,
+    "DiscreteSymbolHiFiGANGenerator": _discrete_hifigan_inverse,
+    "DiscreteSymbolDurationGenerator": _discrete_duration_inverse,
+    "DiscreteSymbolF0Generator": _discrete_f0_inverse,
+    "DiscreteSymbolStyleMelGANGenerator": _discrete_style_melgan_inverse,
 }
 _INV_PERMS = {"conv1d": (2, 1, 0), "convt1d": (1, 2, 0),
-              "conv2d": (3, 2, 0, 1)}
+              "conv2d": (3, 2, 0, 1), "dense": (1, 0)}
 
 
 def _array(x: Any) -> np.ndarray:
@@ -201,6 +276,15 @@ def _leaf_to_torch(kind: str, leaves: Dict[str, np.ndarray],
     out: Dict[str, np.ndarray] = {}
     if kind == "embedding":  # flax's nn.Embed table, as nn.Embedding's
         return {"weight": leaves["embedding"]}
+    if kind == "norm":  # the dim-selectable LayerNorm: scale -> weight
+        out = {"weight": leaves["scale"]}
+        if "bias" in leaves:
+            out["bias"] = leaves["bias"]
+        return out
+    if kind in ("conv1d_plain", "dense"):
+        # a conv the reference never weight-norms; a Linear
+        kind = "conv1d" if kind == "conv1d_plain" else kind
+        use_weight_norm = False
     perm = _INV_PERMS[kind]
     if "kernel_v" in leaves:
         out["weight_v"] = leaves["kernel_v"].transpose(perm)
@@ -255,6 +339,16 @@ def export_generator_state_dict(
     use_wn = gen_params.get("use_weight_norm", True)
     state: Dict[str, np.ndarray] = {}
     for path, leaves in sorted(_flatten(params).items()):
+        if path == "":
+            # bare top-level parameters (the F0 generator's ``weights``)
+            for leaf, value in leaves.items():
+                mapped = rule(leaf)
+                if mapped is None or mapped[1] != "param":
+                    raise KeyError(f"torch-export: no reference location "
+                                   f"for top-level param '{leaf}' of "
+                                   f"{model_name}")
+                state[mapped[0]] = np.asarray(value, dtype=np.float32)
+            continue
         mapped = rule(path)
         if mapped is None:
             raise KeyError(f"torch-export: no reference location for param "

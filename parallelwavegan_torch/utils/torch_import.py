@@ -14,6 +14,9 @@ Layout conversions (torch -> flax):
   weight_g (O, 1, ...)          -> kernel_g (1, ..., O)   [ConvT1d: (1, I, 1)]
   spectral-norm weight_orig     -> kernel; weight_u -> the spectral collection
   Embedding weight (N, D)       -> embedding (N, D)       as it is
+  Linear  weight (O, I)         -> kernel (I, O)          transpose(1, 0)
+  LayerNorm weight, bias        -> scale, bias
+  a bare top-level parameter    -> the same name at the tree's top
 """
 
 from __future__ import annotations
@@ -25,13 +28,6 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import numpy as np
 
 Rule = Callable[[str], Optional[Tuple[str, str]]]
-
-# families the JAX importer knows and the port does not have yet
-_NOT_PORTED = (
-    "DiscreteSymbolHiFiGANGenerator", "DiscreteSymbolDurationGenerator",
-    "DiscreteSymbolF0Generator", "DiscreteSymbolStyleMelGANGenerator",
-)
-
 
 def _melgan_sequential_map(config: Dict[str, Any]
                            ) -> Dict[str, Tuple[str, str]]:
@@ -216,6 +212,82 @@ def _style_melgan_generator_rule(config) -> Rule:
     return rule
 
 
+def _token_embed_rule(config) -> Rule:
+    """The token tables of the discrete generators: ``emb``, ``spk_emb``
+    (only where ``num_spk_embs`` > 0: the reference builds it whatever the
+    config says) and the layer-sum tables ``emb.<i>`` -> ``emb_<i>``."""
+    num_spk = config.get("num_spk_embs", 128)
+
+    def rule(key):
+        if key == "emb":
+            return "emb", "embedding"
+        if key == "spk_emb":
+            return ("spk_emb", "embedding") if num_spk > 0 else None
+        m = re.match(r"^emb\.(\d+)$", key)
+        if m:
+            return f"emb_{m.group(1)}", "embedding"
+        return None
+
+    return rule
+
+
+def _with_trunk(token: Rule, trunk: Rule) -> Rule:
+    """The token tables, then the trunk's keys under ``trunk/``."""
+    def rule(key):
+        sub = token(key)
+        if sub:
+            return sub
+        sub = trunk(key)
+        if sub:
+            return f"trunk/{sub[0]}", sub[1]
+        return None
+
+    return rule
+
+
+def _discrete_hifigan_rule(config) -> Rule:
+    return _with_trunk(_token_embed_rule(config),
+                       _hifigan_generator_rule(config))
+
+
+def _discrete_duration_rule(config) -> Rule:
+    """+ the duration predictor: its Sequential(conv, ReLU, LayerNorm,
+    Dropout) blocks (``conv.<i>.0`` and ``.2``) and its ``linear``."""
+    base = _discrete_hifigan_rule(config)
+
+    def rule(key):
+        m = re.match(r"^duration_predictor\.conv\.(\d+)\.0$", key)
+        if m:
+            return f"duration_predictor/conv_{m.group(1)}", "conv1d"
+        m = re.match(r"^duration_predictor\.conv\.(\d+)\.2$", key)
+        if m:
+            return f"duration_predictor/norm_{m.group(1)}", "norm"
+        if key == "duration_predictor.linear":
+            return "duration_predictor/linear", "dense"
+        return base(key)
+
+    return rule
+
+
+def _discrete_f0_rule(config) -> Rule:
+    """+ the f0's Linear and the layer-sum logits ``weights``."""
+    base = _discrete_hifigan_rule(config)
+
+    def rule(key):
+        if key == "f0_embedding":
+            return "f0_embedding", "dense"
+        if key == "weights":
+            return "weights", "param"
+        return base(key)
+
+    return rule
+
+
+def _discrete_style_melgan_rule(config) -> Rule:
+    return _with_trunk(_token_embed_rule(config),
+                       _style_melgan_generator_rule(config))
+
+
 def _vqvae_rule(config) -> Rule:
     """VQVAE: the codebook and the speaker table (embeddings), the local
     condition's 1x1 conv, the encoder as a MelGAN discriminator tower and
@@ -328,13 +400,19 @@ def _rule_for(model_name: str, config: Dict[str, Any]) -> Rule:
         return _vqvae_rule(config)
     if model_name == "UHiFiGANGenerator":
         return _uhifigan_generator_rule(config)
-    if model_name in _NOT_PORTED:
-        raise NotImplementedError(
-            f"reference checkpoints of {model_name} are not ported yet")
+    if model_name == "DiscreteSymbolHiFiGANGenerator":
+        return _discrete_hifigan_rule(config)
+    if model_name == "DiscreteSymbolDurationGenerator":
+        return _discrete_duration_rule(config)
+    if model_name == "DiscreteSymbolF0Generator":
+        return _discrete_f0_rule(config)
+    if model_name == "DiscreteSymbolStyleMelGANGenerator":
+        return _discrete_style_melgan_rule(config)
     raise KeyError(f"no importer rules for {model_name}")
 
 
-_PERMS = {"conv1d": (2, 1, 0), "convt1d": (2, 0, 1), "conv2d": (2, 3, 1, 0)}
+_PERMS = {"conv1d": (2, 1, 0), "convt1d": (2, 0, 1), "conv2d": (2, 3, 1, 0),
+          "dense": (1, 0)}
 
 
 def _convert(kind: str, name: str, w: np.ndarray) -> Tuple[str, np.ndarray]:
@@ -345,6 +423,8 @@ def _convert(kind: str, name: str, w: np.ndarray) -> Tuple[str, np.ndarray]:
         if name == "weight":  # nn.Embedding's table, as flax's nn.Embed
             return "embedding", w
         raise ValueError(f"unsupported leaf {name} of an embedding")
+    if kind == "norm":  # the dim-selectable LayerNorm: weight -> scale
+        return ("scale" if name == "weight" else name), w
     if name in ("weight", "weight_orig"):
         return "kernel", w.transpose(_PERMS[kind])
     if name == "weight_v":
@@ -384,6 +464,12 @@ def import_model_params(
         w = np.array(tensor.detach().cpu().float().numpy()
                      if hasattr(tensor, "detach") else tensor,
                      dtype=np.float32, copy=True)
+        if "." not in key:
+            # a bare top-level parameter (the F0 generator's weights)
+            direct = rule(key)
+            if direct is not None and direct[1] == "param":
+                params[direct[0]] = w
+                continue
         prefix, leaf = key.rsplit(".", 1) if "." in key else ("", key)
         if leaf in ("analysis_filter", "synthesis_filter", "updown_filter",
                     "window", "melmat") or (

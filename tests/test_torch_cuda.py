@@ -1403,3 +1403,80 @@ def test_avg_pool1d_gradient_on_card_matches_float64(cuda_device, shape,
         errs = [((got[r][i] - e).abs().max() / (1 + e.abs().max())).item()
                 for r in "kp"]
         assert errs[0] <= 2 * errs[1] + 1e-6, (i, errs)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("max_len", [64, 300, 2048])
+def test_length_regulator_on_card_matches_cpu(cuda_device, max_len):
+    """The static-length regulator (an all-zero row, sums past max_len and
+    short of it, the zero fill) equal on the card and the CPU, bit for
+    bit, and its mask with it."""
+    from parallelwavegan_torch.layers.duration import length_regulator
+
+    g = torch.Generator().manual_seed(4)
+    x = torch.randn((4, 115, 8), generator=g)
+    ds = torch.randint(0, 7, (4, 115), generator=g)
+    ds[1] = 0
+    ds[2] = 40
+    want, want_mask = length_regulator(x, ds, max_len)
+    got, mask = length_regulator(x.to(cuda_device), ds.to(cuda_device),
+                                 max_len)
+    assert torch.equal(got.cpu(), want) and torch.equal(mask.cpu(), want_mask)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dim", [1, 384, 512])
+def test_embedding_backward_on_card_matches_float64(cuda_device, dim):
+    """F.embedding's backward on the card (a scatter-add over the ids) with
+    ids repeated thousands of times: the table's gradient as close to
+    float64 as the CPU's f32, at most 2 x + 1e-6 (of 1 + max)."""
+    import torch.nn.functional as F
+
+    g = torch.Generator().manual_seed(5)
+    table = torch.randn((1025, dim), generator=g)
+    ids = torch.randint(0, 40, (16, 2048), generator=g)
+    ids[:, ::3] = 7  # one id a third of the time
+    cot = torch.randn((16, 2048, dim), generator=g)
+    got = {}
+    for route, (device, dtype) in (("k", (cuda_device, torch.float32)),
+                                   ("p", ("cpu", torch.float32)),
+                                   ("e", ("cpu", torch.float64))):
+        w = table.to(device, dtype).requires_grad_()
+        y = F.embedding(ids.to(device), w)
+        (dw,) = torch.autograd.grad(y, w, cot.to(device, dtype))
+        got[route] = dw.cpu().double()
+    e = got["e"]
+    errs = [((got[r] - e).abs().max() / (1 + e.abs().max())).item()
+            for r in "kp"]
+    assert errs[0] <= 2 * errs[1] + 1e-6, errs
+    assert (got["k"][40:] == 0).all()
+
+
+@pytest.mark.cuda
+def test_duration_inference_near_ties_on_card_matches_cpu(cuda_device):
+    """DurationPredictor.inference on the card against the CPU: log
+    durations whose exp(d) - offset lie at k + 1/2 (up to the predictor's
+    rounding) may round to either side; every other duration is the
+    CPU's, and the flips stay within 1e-4 of a tie in float64."""
+    from parallelwavegan_torch.layers.duration import DurationPredictor
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    pred = DurationPredictor(64, 2, 384, 3, 0.5,
+                             generator=torch.Generator().manual_seed(6))
+    g = torch.Generator().manual_seed(7)
+    x = torch.randn((8, 200, 64), generator=g)
+    with torch.no_grad():
+        log_d = pred(x)
+        # move the output bias so that one position sits at a tie, k + 1/2
+        shift = float(torch.log(torch.tensor(3.5 + 1.0)) - log_d[0, 0])
+        pred.linear.bias += shift
+        cpu = pred.inference(x)
+        log_cpu = pred(x).double()
+        card = pred.to(cuda_device).inference(x.to(cuda_device)).cpu()
+    flips = torch.nonzero(card != cpu)
+    v = torch.exp(log_cpu) - 1.0
+    tie = (v - (torch.floor(v) + 0.5)).abs()
+    assert all(tie[i, j] < 1e-4 for i, j in flips.tolist()), flips
+    assert len(flips) <= 0.01 * cpu.numel()
+    assert cpu.max() > 2

@@ -103,3 +103,49 @@ def test_hold_to_float64_allows_twice_the_plain_error(factor, raises):
         k, p = hold_to_float64("dx", kernel, plain, exact)
         assert k == pytest.approx(factor * p, rel=0.1)
         assert rel_err(plain, exact) == p
+
+
+def test_gate_decides_discriminator_kinks_by_float64():
+    """chip_smoke's gate takes each discriminator LeakyReLU's branch from
+    the first route that reaches the call (float64): on that route the
+    module computes what it computes alone; on another route an input that
+    its own rounding put on the other side of 0 takes the decided slope;
+    each call of a term is keyed by its order, and the module's own
+    activations come back after."""
+    import chip_smoke
+    from parallelwavegan_torch.models import HiFiGANPeriodDiscriminator
+
+    dis = HiFiGANPeriodDiscriminator(period=2, channels=4, kernel_sizes=(3, 3),
+                                     downsample_scales=(2, 1),
+                                     max_downsample_channels=8,
+                                     generator=torch.Generator().manual_seed(0))
+    own = [m.act for m in dis.modules() if hasattr(m, "act")]
+    x = torch.randn((1, 64, 1), generator=torch.Generator().manual_seed(1))
+    want = dis(x)
+    decided = {}
+    first = chip_smoke._DecidedDiscriminator(dis, decided)
+    got = first.at("adversarial")(x)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert list(decided) == [("adversarial", 0)]
+    assert len(decided[("adversarial", 0)]) == 2  # two convs, two acts
+    first.restore()
+    assert [m.act for m in dis.modules() if hasattr(m, "act")] == own
+    # another route: the first conv's outputs flipped in sign take the
+    # decided slope, so its first activation equals the deciding route's
+    # negated; the second call of the term is a new key
+    other = chip_smoke._DecidedDiscriminator(dis, decided)
+    conv = dis.convs[0]
+    h = conv(x.reshape(1, 32, 2, 1))
+    mask = decided[("adversarial", 0)][0]
+    act = [m.act for m in dis.modules() if hasattr(m, "act")][0]
+    other.state.update(key=("adversarial", 0), i=0)
+    np.testing.assert_allclose(act(-h).detach().numpy(),
+                               -torch.where(mask, h, 0.1 * h).detach().numpy(),
+                               rtol=1e-6)
+    call = other.at("feature matching")
+    call(x)
+    call(2 * x)
+    assert ("feature matching", 1) in decided
+    other.restore()
+    assert [m.act for m in dis.modules() if hasattr(m, "act")] == own

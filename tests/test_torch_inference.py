@@ -169,9 +169,10 @@ def test_pcm16_matches_jax_within_one_lsb(tmp_path):
 
 
 def test_load_model_rejects_what_the_slice_lacks(tmp_path):
-    """What the port lacked before, a reference .pkl and the MelGAN family,
-    now loads (the .pkl serves as the JAX load_model serves it); a family
-    the port still lacks raises NotImplementedError naming it."""
+    """What the port lacked before, a reference .pkl, the MelGAN family
+    and the discrete-symbol families, now loads (a .pkl serves as the JAX
+    load_model serves it); a family the port lacks raises
+    NotImplementedError naming it."""
     from parallelwavegan_tpu.utils.model_loader import (
         load_model as jax_load_model,
     )
@@ -200,10 +201,31 @@ def test_load_model_rejects_what_the_slice_lacks(tmp_path):
     port_save_gckpt(gpath, gen)
     assert load_model(gpath, melgan, device="cpu").inference(
         mels[0]).shape == (9 * 4, 1)
-    other = dict(config, generator_type="DiscreteSymbolHiFiGANGenerator")
-    with pytest.raises(NotImplementedError,
-                       match="DiscreteSymbolHiFiGANGenerator"):
-        load_model(path, other, device="cpu")
+    # the discrete-symbol families load as the JAX load_model loads them
+    from parallelwavegan_tpu.models.discrete import (
+        DiscreteSymbolHiFiGANGenerator,
+    )
+
+    gp = {"in_channels": 8, "channels": 16, "num_embs": 10,
+          "num_spk_embs": 2, "spk_emb_dim": 8, "upsample_scales": (2, 2),
+          "upsample_kernel_sizes": (4, 4), "resblock_kernel_sizes": (3,),
+          "resblock_dilations": ((1,),)}
+    token = {"generator_type": "DiscreteSymbolHiFiGANGenerator",
+             "generator_params": gp}
+    ids = np.array([[1, 0], [3, 0], [9, 1], [9, 1]])
+    tv = DiscreteSymbolHiFiGANGenerator(**gp).init(jax.random.key(0),
+                                                   ids[None])
+    tpkl = str(tmp_path / "checkpoint-1steps.pkl")
+    save_reference_checkpoint(tpkl, jax.tree.map(np.asarray, tv["params"]),
+                              token)
+    want = jax_load_model(tpkl, token).inference(ids.astype(np.float32))
+    got = load_model(tpkl, token, device="cpu").inference(ids)
+    assert got.shape == want.shape == (4 * 4, 1)
+    assert np.abs(got - want).max() <= 1e-5 * (1 + np.abs(want).max())
+    # a family the port lacks raises, naming it
+    with pytest.raises(NotImplementedError, match="NoSuchGenerator"):
+        load_model(path, dict(config, generator_type="NoSuchGenerator"),
+                   device="cpu")
 
 
 def test_default_device_is_cuda(tmp_path):
@@ -267,11 +289,12 @@ def test_port_imports_no_jax():
         "'utils.torch_import', 'utils.torch_export', 'utils.kaldiio_lite', "
         "'datasets.scp_dataset', 'layers.tade', 'models.style_melgan', "
         "'layers.vq', 'models.vqvae', 'ops.sine', 'models.uhifigan', "
-        "'datasets.audio_mel_dataset', 'bin.decode']\n"
+        "'datasets.audio_mel_dataset', 'bin.decode', 'layers.duration', "
+        "'losses.duration', 'models.discrete', 'bin.decode_from_text']\n"
         "missing = [w for w in want if 'parallelwavegan_torch.' + w "
         "not in names]\n"
         "assert not missing, missing\n"
-        "assert len(names) >= 56, names\n"
+        "assert len(names) >= 60, names\n"
         "print(len(names))\n"
     )
     env = dict(os.environ, PYTHONPATH=REPO)

@@ -417,11 +417,45 @@ def test_fuse_real_fake_default_follows_jax(dis_type):
     "DiscreteSymbolStyleMelGANGenerator", "DiscreteSymbolF0Generator",
     "DiscreteSymbolHiFiGANGenerator", "DiscreteSymbolDurationGenerator"])
 def test_unported_generator_families_raise_naming_the_family(gen_type):
+    """The discrete-symbol families, once refused, take what the JAX step
+    gives them: a duration generator (c, ds), the F0 generator (c, f0),
+    the token StyleMelGAN c and its noise (the port's z from the batch,
+    drawn by the step; None in the JAX step, which draws it inside), the
+    token HiFi-GAN c alone."""
     config = {"generator_type": gen_type}
-    family = next(f for f in ("DiscreteSymbol", "Duration")
-                  if f in gen_type)
-    with pytest.raises(NotImplementedError, match=family):
-        make_generator_forward(config, _Recorder())
+    batch = {"c": np.full((1, 2, 1), 3.0, np.float32),
+             "ds": np.full((1, 2), 5, np.int32),
+             "f0": np.full((1, 2, 1), 7.0, np.float32),
+             "z": np.full((1, 1, 4), 2.0, np.float32)}
+    pair = "Duration" in gen_type
+
+    class Port(_Recorder):
+        def forward(self, *args, **kwargs):
+            y = super().forward(*args, **kwargs)
+            return (y, args[1]) if pair else y
+
+    class Jax(_JaxRecorder):
+        def apply(self, variables, *args, **kwargs):
+            y = super().apply(variables, *args, **kwargs)
+            return (y, args[1]) if pair else y
+
+    port, ref = Port(), Jax()
+    make_generator_forward(config, port)(dict(port.named_parameters()),
+                                         as_torch(batch))
+    jax_make_generator_forward(config, ref)({}, as_jax(batch),
+                                            jax.random.key(0), True)
+    want = {"DiscreteSymbolDurationGenerator": ["c", "ds"],
+            "DiscreteSymbolF0Generator": ["c", "f0"],
+            "DiscreteSymbolStyleMelGANGenerator": ["c", "z"],
+            "DiscreteSymbolHiFiGANGenerator": ["c"]}[gen_type]
+    assert [float(np.asarray(a).max()) for a in port.args] == [
+        float(batch[k].max()) for k in want]
+    got_jax = ref.args[:len(want)]
+    if gen_type == "DiscreteSymbolStyleMelGANGenerator":
+        assert got_jax[1] is None
+        got_jax = got_jax[:1]
+    assert [float(np.asarray(a).max()) for a in got_jax] == [
+        float(batch[k].max()) for k in want[:len(got_jax)]]
 
 
 def test_trained_multi_band_config_serves_with_the_old_pqmf_prototype():

@@ -119,9 +119,10 @@ def test_generator_init_is_seeded_and_registry_names_family():
     assert get_model_class("MelGANGenerator").__name__ == "MelGANGenerator"
     assert get_model_class("UHiFiGANGenerator").__name__ == \
         "UHiFiGANGenerator"
-    with pytest.raises(NotImplementedError,
-                       match="DiscreteSymbolHiFiGANGenerator"):
-        get_model_class("DiscreteSymbolHiFiGANGenerator")
+    assert get_model_class("DiscreteSymbolHiFiGANGenerator").__name__ == \
+        "DiscreteSymbolHiFiGANGenerator"
+    with pytest.raises(NotImplementedError, match="NoSuchGenerator"):
+        get_model_class("NoSuchGenerator")
 
 
 def test_fused_path_names_what_it_does_not_support():

@@ -322,16 +322,49 @@ def test_port_written_pkl_reads_back_through_jax(tmp_path, which):
                                    rtol=1e-6, atol=1e-7, err_msg=key)
 
 
-@pytest.mark.parametrize("family", [
-    "DiscreteSymbolStyleMelGANGenerator", "DiscreteSymbolHiFiGANGenerator",
-    "DiscreteSymbolF0Generator", "DiscreteSymbolDurationGenerator",
-])
+_DISCRETE_TRUNK = {"in_channels": 8, "channels": 16, "num_embs": 10,
+                   "upsample_scales": (2, 2), "upsample_kernel_sizes": (4, 4),
+                   "resblock_kernel_sizes": (3,), "resblock_dilations": ((1,),)}
+_DISCRETE = {
+    "DiscreteSymbolStyleMelGANGenerator": {
+        "in_channels": 4, "aux_channels": 8, "channels": 8, "num_embs": 10,
+        "num_spk_embs": 2, "spk_emb_dim": 8, "noise_upsample_scales": (2,),
+        "upsample_scales": (2, 1)},
+    "DiscreteSymbolHiFiGANGenerator": dict(_DISCRETE_TRUNK, num_spk_embs=2,
+                                           spk_emb_dim=8),
+    "DiscreteSymbolF0Generator": dict(_DISCRETE_TRUNK, num_spk_embs=0,
+                                      linear_channel=4, use_weight_sum=True,
+                                      layer_num=2),
+    "DiscreteSymbolDurationGenerator": dict(_DISCRETE_TRUNK, num_spk_embs=0,
+                                            duration_chans=8, max_reg_len=8),
+}
+
+
+@pytest.mark.parametrize("family", sorted(_DISCRETE))
 def test_unported_family_raises_naming_it(tmp_path, family):
-    with pytest.raises(NotImplementedError, match=family):
-        torch_import.import_model_params({}, family, {})
-    with pytest.raises(NotImplementedError, match=family):
-        torch_export.export_generator_state_dict({}, family, {})
+    """The discrete-symbol families, once unported, now carry across: the
+    port's exporter gives the JAX exporter's state_dict, the port's
+    importer the JAX importer's tree, and load_model builds from a .pkl;
+    a family neither package knows still raises naming it."""
+    gp = _DISCRETE[family]
+    config = {"generator_type": family, "generator_params": gp}
+    gen = get_model_class(family)(**gp, folded=False,
+                                  generator=torch.Generator().manual_seed(0))
+    params = nested({k: v.detach().numpy()
+                     for k, v in gen.state_dict().items()})
+    state = torch_export.export_generator_state_dict(params, family, config)
+    want = jax_export.export_generator_state_dict(params, family, config)
+    assert sorted(state) == sorted(want)
+    for key in state:
+        np.testing.assert_array_equal(state[key], want[key], err_msg=key)
+    tensors = {k: torch.from_numpy(v) for k, v in state.items()}
+    assert_trees_equal(torch_import.import_model_params(tensors, family, gp),
+                       jax_import.import_model_params(tensors, family, gp))
     path = str(tmp_path / "checkpoint-1steps.pkl")
-    torch.save({"model": {"generator": {}}, "steps": 1}, path)
-    with pytest.raises(NotImplementedError, match=family):
-        load_model(path, {"generator_type": family}, device="cpu")
+    torch_export.save_reference_checkpoint(path, params, config, steps=1)
+    model = load_model(path, config, device="cpu")
+    assert type(model.generator).__name__ == family
+    with pytest.raises(KeyError, match="NoSuchGenerator"):
+        torch_import.import_model_params({}, "NoSuchGenerator", {})
+    with pytest.raises(NotImplementedError, match="NoSuchGenerator"):
+        torch_export.export_generator_state_dict({}, "NoSuchGenerator", {})

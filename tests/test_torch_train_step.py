@@ -420,20 +420,45 @@ def test_build_names_what_is_not_ported():
     assert "msd.discriminators_1.layer_0.kernel_v" in keys
     assert "mpd.discriminators_1.convs_0.kernel_g" in keys
     # the MelGAN family, StyleMelGAN, VQ-VAE, UHiFiGAN, the residual
-    # discriminator and the subband loss are ported; the discrete-symbol
-    # families and the duration loss are not (every discriminator family
-    # is ported: an unported model name stands in the discriminator's
-    # place)
-    for key, value in (("generator_type", "DiscreteSymbolF0Generator"),
-                       ("discriminator_type",
-                        "DiscreteSymbolHiFiGANGenerator")):
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            build_models(dict(config, **{key: value}))
+    # discriminator, the subband loss, the discrete-symbol families and the
+    # duration loss are ported: the F0 generator builds flax's tree, the
+    # token generator's example batch is the JAX one, the duration loss is
+    # the JAX criterion's; a name the registry lacks raises
+    from parallelwavegan_tpu.engine.build import (
+        build_models as jax_build_models,
+    )
+    from parallelwavegan_tpu.engine.criterion import (
+        build_criterion as jax_build_criterion,
+    )
+
+    f0 = dict(config, generator_type="DiscreteSymbolF0Generator",
+              generator_params={
+                  "in_channels": 8, "channels": 16, "num_embs": 10,
+                  "num_spk_embs": 2, "spk_emb_dim": 8, "linear_channel": 4,
+                  "upsample_scales": (4, 4), "upsample_kernel_sizes": (8, 8),
+                  "resblock_kernel_sizes": (3,), "resblock_dilations": ((1,),)})
+    gen_f0, _ = build_models(f0, torch.Generator().manual_seed(0))
+    batch = example_batch(f0)
+    flax_f0, _ = jax_build_models(f0)
+    shapes = jax.eval_shape(lambda: flax_f0.init(
+        jax.random.key(0), batch["c"], batch["f0"], True))["params"]
+    assert sorted(nested(gen_f0.state_dict())) == sorted(shapes)
+    assert gen_f0.f0_embedding.kernel.shape == \
+        shapes["f0_embedding"]["kernel"].shape
+    token = dict(f0, generator_type="DiscreteSymbolHiFiGANGenerator")
+    token["generator_params"] = {k: v for k, v in f0[
+        "generator_params"].items() if k != "linear_channel"}
+    a, b = example_batch(token), jax_example_batch(token)
+    assert sorted(a) == sorted(b) == ["c", "y"]
+    for key in a:
+        np.testing.assert_array_equal(a[key], b[key])
+    assert "f0" in batch and "f0" not in jax_example_batch(f0)
     with pytest.raises(NotImplementedError, match="not ported yet"):
-        example_batch(dict(config,
-                           generator_type="DiscreteSymbolF0Generator"))
-    with pytest.raises(NotImplementedError, match="use_duration_loss"):
-        build_criterion(dict(config, use_duration_loss=True))
+        build_models(dict(config, discriminator_type="NoSuchDiscriminator"))
+    duration = dict(config, use_duration_loss=True,
+                    duration_loss_params={"offset": 0.5})
+    assert build_criterion(duration)["duration"].offset == \
+        jax_build_criterion(duration)["duration"].offset == 0.5
     melgan = dict(config, generator_type="MelGANGenerator",
                   generator_params={"in_channels": 80, "channels": 32,
                                     "upsample_scales": [4, 4]},

@@ -155,14 +155,17 @@ def both_train_states(config, seed=0):
     return state, jax_steps, t_state, steps
 
 
-def port_first_train_states(config, seed=0):
+def port_first_train_states(config, seed=0, unit_g=False):
     """What ``both_train_states`` returns, with both states built from the
     port's init: the JAX state holds the port's parameters (perturbed as
     there) under the flax names, its spectral vectors, its EMA copies, and
     the optimizer states the JAX optimizers' own ``init`` makes. The JAX
     package's ``init_train_state`` runs flax's init op by op, compiling
     each parameter shape apart: about 40 s for the small UHiFiGAN recipe,
-    whose U-Net has many conv shapes."""
+    whose U-Net has many conv shapes. ``unit_g`` sets the generator's
+    weight-norm g to 1 before the perturbation (kernels of unit norm a
+    channel: at the init's N(0, 0.01) a HiFi-GAN trunk's wave sits near
+    1e-3, where the mel loss's clamps decide its gradients)."""
     import jax
     import jax.numpy as jnp
 
@@ -182,6 +185,13 @@ def port_first_train_states(config, seed=0):
 
     t_state, t_gen, t_dis, t_opt_g, t_opt_d = init_train_state(
         config, seed, device="cpu")
+    if unit_g:
+        import torch
+
+        with torch.no_grad():
+            for name, p in t_gen.named_parameters():
+                if name.endswith("kernel_g"):
+                    p.fill_(1.0)
     rng = np.random.default_rng(seed)
 
     def tree(named):
