@@ -245,8 +245,9 @@
    the CPU port's f32 (the duration model's CPU reference at max_reg_len
    512, DURATION_CPU_REG_LEN); the duration generator's predicted
    durations card vs CPU (a flip allowed only within 1e-4 of a rounding tie in float64,
-   on at most 1 % of the tokens), the waves held where they agree, each
-   sum(ds) x 320 samples; (b) 32 x 512 tokens through the token generator
+   on at most 1 % of the tokens), every wave held to the CPU's f32 wave
+   teacher-forced on the integer durations its route regulated by (bf16
+   rounds them in bf16), 8 of each dtype, each sum(ds) x 320 samples; (b) 32 x 512 tokens through the token generator
    in f32 and bf16, timed with CUDA events, with its FLOP count, bound, a
    profile and the peak memory, and the duration generator's batch-1
    wall (its 2,048-frame trunk forward) and audio-s/s on the cut output;
@@ -4923,6 +4924,18 @@ def duration_flips(card: np.ndarray, cpu: np.ndarray, offset: float) -> tuple:
     return len(flips), far
 
 
+def teacher_forced(model, c: np.ndarray, ds: np.ndarray) -> np.ndarray:
+    """A duration model's wave (float32) for ids c (T', 1|2) regulated by
+    the integer durations ds (T',) (teacher forcing): the reference that a
+    route's wave is held to on the durations that route's generator
+    regulated by, whatever durations the reference would predict."""
+    with torch.inference_mode():
+        y, _ = model.generator(
+            torch.from_numpy(c[None]).to(model.device),
+            torch.from_numpy(np.asarray(ds, np.int64)[None]).to(model.device))
+    return y[0].float().cpu().numpy()
+
+
 def discrete_serving(dev, smi: str, tmp: str) -> dict:
     """Step 15 (a)-(c) of the module docstring; the .pkl files and their
     JSON configs stay in ``tmp`` for (c)."""
@@ -4959,7 +4972,8 @@ def discrete_serving(dev, smi: str, tmp: str) -> dict:
         if m32.device.type != dev.type or hop != DISCRETE_HOP:
             raise AssertionError(f"{name} did not load as configured")
         worst = {"f32": 0.0, "bf16": 0.0}
-        walls, flips, far, n_ds, bf16_flips, held = [], 0, 0, 0, 0, 0
+        held = {"f32": 0, "bf16": 0}
+        walls, flips, far, n_ds, bf16_flips = [], 0, 0, 0, 0
         for i, frames in enumerate((40, 57, 64, 80, 93, 100, 111, 115)):
             c, f0 = discrete_inputs(rng, config, frames)
             g = lambda: torch.Generator().manual_seed(i)  # noqa: E731
@@ -4968,9 +4982,11 @@ def discrete_serving(dev, smi: str, tmp: str) -> dict:
             y32 = m32.inference(c, f0=f0, generator=g())
             walls.append(time.perf_counter() - t0)
             y16 = m16.inference(c, f0=f0, generator=g())
-            ref = cpu.inference(c, f0=f0, generator=g())
             want = {"f32": frames * hop, "bf16": frames * hop}
-            if name == "duration":
+            if name != "duration":
+                ref = cpu.inference(c, f0=f0, generator=g())
+                refs = {"f32": ref, "bf16": ref}
+            else:
                 d32, d16, dcpu = (m.predicted_log_durations(c)
                                   for m in (m32, m16, cpu))
                 n, bad = duration_flips(d32, dcpu, 1.0)
@@ -4978,29 +4994,39 @@ def discrete_serving(dev, smi: str, tmp: str) -> dict:
                 for what, d in (("f32", d32), ("bf16", d16)):
                     ds = np.clip(np.round(np.exp(d) - 1.0), 0, None)
                     want[what] = int(min(ds.sum(), 2048)) * hop
-                if max(want.values()) > (DURATION_CPU_REG_LEN - 64) * hop:
+                # each route's wave follows the integer durations its own
+                # generator rounded (bf16 rounds in bf16): the CPU's f32
+                # wave teacher-forced on those, so that every wave is held
+                ds_of = {"f32": m32.predicted_durations(c),
+                         "bf16": m16.predicted_durations(c)}
+                bf16_flips += int(np.sum(ds_of["bf16"]
+                                         != cpu.predicted_durations(c)))
+                if max(list(want.values()) + [int(d.sum()) * hop for d in
+                       ds_of.values()]) > (DURATION_CPU_REG_LEN - 64) * hop:
                     raise AssertionError("the durations outgrow the CPU "
                                          "reference's max_reg_len")
-                # the bf16 wave follows the durations its generator rounds
-                # in bf16
-                n16 = int(np.sum(m16.predicted_durations(c)
-                                 != cpu.predicted_durations(c)))
-                bf16_flips += n16
+                refs = {"f32": teacher_forced(cpu, c, ds_of["f32"])}
+                refs["bf16"] = refs["f32"] if np.array_equal(
+                    ds_of["f32"], ds_of["bf16"]) else teacher_forced(
+                        cpu, c, ds_of["bf16"])
+                ref = refs["f32"][:want["f32"]]
             for what, y, tol in (("f32", y32, 1e-4), ("bf16", y16, 2e-2)):
                 if y.shape != (want[what], 1) or not np.isfinite(y).all():
                     raise AssertionError(f"{name} (a) utterance {i} {what}: "
                                          f"bad output {y.shape}, want "
                                          f"({want[what]}, 1)")
-                if name == "duration" and (n if what == "f32" else n16):
-                    continue  # the waves of utterances whose ds agree
-                allowed = tol * (1 + float(np.abs(ref).max()))
-                err = float(np.abs(y - ref).max())
+                r = refs[what][:len(y)]
+                allowed = tol * (1 + float(np.abs(r).max()))
+                err = float(np.abs(y - r).max())
                 if err > allowed:
                     raise AssertionError(f"{name} (a) utterance {i}: the "
                                          f"card's {what} wave lies {err:.3e} "
                                          f"from the CPU's f32")
                 worst[what] = max(worst[what], err / allowed)
-                held += 1
+                held[what] += 1
+        if held != {"f32": 8, "bf16": 8}:
+            raise AssertionError(f"{name} (a): waves held {held}, want 8 "
+                                 f"of each dtype")
         line = (f"discrete (a) {name} ({config['generator_type']}, "
                 f"{sum(p.numel() for p in m32.generator.parameters())} "
                 f"parameters) from a reference .pkl: 8 utterances of 40-115 "
@@ -5008,8 +5034,8 @@ def discrete_serving(dev, smi: str, tmp: str) -> dict:
                 f"{config['generator_params']['num_embs']}, card vs the "
                 f"CPU port's f32: f32 within "
                 f"{worst['f32']:.3f} of 1e-4 (1 + max), bf16 within "
-                f"{worst['bf16']:.3f} of 2e-2 (1 + max) on {held} of 16 "
-                f"waves; "
+                f"{worst['bf16']:.3f} of 2e-2 (1 + max), every wave held "
+                f"({held['f32']} f32, {held['bf16']} bf16); "
                 f"max |y| {float(np.abs(ref).max()):.3f}; f32 batch-1 wall "
                 f"(host clock) {', '.join(f'{w * 1e3:.1f}' for w in walls)} "
                 f"ms")
@@ -5020,12 +5046,14 @@ def discrete_serving(dev, smi: str, tmp: str) -> dict:
             share = flips / n_ds
             line += (f"; predicted durations card vs CPU: {flips} of {n_ds} "
                      f"flipped ({far} not near a tie), bf16 {bf16_flips} "
-                     f"flipped (its waves held where none did)")
+                     f"flipped; each wave held to the CPU teacher-forced on "
+                     f"its route's own durations")
             if far or share > DURATION_FLIP_SHARE:
                 raise AssertionError(f"duration flips: {flips} of {n_ds}, "
                                      f"{far} not near a tie")
             out.update(duration_flips=flips, duration_tokens=n_ds,
-                       duration_bf16_flips=bf16_flips)
+                       duration_bf16_flips=bf16_flips,
+                       duration_waves_held=held)
         print(line)
         if name == "duration":
             # the 2,048-frame trunk forward of each call, cut to sum(ds)

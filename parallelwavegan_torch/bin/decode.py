@@ -55,11 +55,10 @@ from parallelwavegan_torch.datasets.audio_mel_dataset import (
     MelF0ExcitationDataset,
 )
 from parallelwavegan_torch.datasets.scp_dataset import MelSCPDataset
+from parallelwavegan_torch.engine.step import uses_f0
+from parallelwavegan_torch.models import DISCRETE_GENERATORS
 from parallelwavegan_torch.utils.io import load_config, read_hdf5, write_wav
-from parallelwavegan_torch.utils.model_loader import (
-    DISCRETE_GENERATORS,
-    load_model,
-)
+from parallelwavegan_torch.utils.model_loader import load_model
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -153,9 +152,9 @@ def main(argv=None):
     if gen_type == "VQVAE":
         return _decode_vq(args, config)
     use_excitation = gen_type == "UHiFiGANGenerator"
-    use_f0 = args.use_f0 or (
-        gen_type == "DiscreteSymbolF0Generator"
-        and config.get("generator_params", {}).get("use_f0", True))
+    # the flag sets use_f0, as in bin/train (the JAX CLI reads no use_f0
+    # key from the config here)
+    use_f0 = uses_f0(dict(config, use_f0=args.use_f0))
     single = use_f0 or use_excitation or gen_type in DISCRETE_GENERATORS
     hdf5 = config.get("format", "hdf5") == "hdf5"
 

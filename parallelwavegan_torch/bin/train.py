@@ -50,10 +50,10 @@ from parallelwavegan_torch.datasets.collater import Collater
 from parallelwavegan_torch.datasets.loader import DataLoader
 from parallelwavegan_torch.datasets.scp_dataset import AudioMelSCPDataset
 from parallelwavegan_torch.engine.step import (
-    is_discrete_f0,
     is_duration,
     is_uhifigan,
     is_vqvae,
+    uses_f0,
     uses_noise,
 )
 from parallelwavegan_torch.utils.io import load_config, read_hdf5, save_config
@@ -89,14 +89,6 @@ def build_scp_dataset(config: Dict[str, Any], wav_scp: str, feats_scp: str,
         mel_length_threshold=_mel_length_threshold(config),
         allow_cache=config.get("allow_cache", False),
     )
-
-
-def uses_f0(config: Dict[str, Any]) -> bool:
-    """Whether the batches carry the f0: ``use_f0``, or the F0 generator
-    with its ``use_f0`` (default true), as the JAX CLI decides."""
-    return bool(config.get("use_f0", False)) or (
-        is_discrete_f0(config)
-        and config.get("generator_params", {}).get("use_f0", True))
 
 
 def _side_load_fn(config: Dict[str, Any], name: str):

@@ -14,9 +14,8 @@ wav2wav (a VQ-VAE: ``use_aux_input`` off, or a local or global condition)
 {"y": (B, T, 1)} with {"l": (B, T' + 2 ctx, C)} and {"g": (B,)} as the
 conditions ask; with ``use_duration`` (items (audio, token ids (T', 1|2)
 or (T',))) the window's ids collapsed into runs of equal rows, {"c": (B, N,
-1|2) int32 ids of the runs, padded with ``pad_value`` to the longest (or
-to ``max_num_frames``, cut there), "ds": (B, N) int32 run lengths,
-zero-padded}. The random source is an explicit ``np.random.Generator``,
+1|2) int32 ids of the runs, zero-padded to the longest, "ds": (B, N)
+int32 run lengths, zero-padded}. The random source is an explicit ``np.random.Generator``,
 drawn in the JAX collater's order, so that one seed gives both packages
 the same crops.
 """
@@ -41,8 +40,6 @@ class Collater:
         use_duration: bool = False,
         use_global_condition: bool = False,
         use_local_condition: bool = False,
-        pad_value: int = 0,
-        max_num_frames: Optional[int] = None,
         rng: Optional[np.random.Generator] = None,
     ):
         if hop_size is not None:
@@ -56,7 +53,6 @@ class Collater:
         self.use_f0_and_excitation = use_f0_and_excitation
         self.use_aux_input = use_aux_input
         self.use_duration = use_duration
-        self.pad_value, self.max_num_frames = pad_value, max_num_frames
         self.use_global_condition = use_global_condition
         self.use_local_condition = use_local_condition
         self.rng = rng or np.random.default_rng()
@@ -173,14 +169,13 @@ class Collater:
             starts = np.flatnonzero(np.concatenate([[True], change]))
             codes.append(window[starts])
             durs.append(np.diff(np.concatenate([starts, [len(window)]])))
-        max_len = self.max_num_frames or max(len(c) for c in codes)
-        c_batch = np.full((len(codes), max_len, codes[0].shape[-1]),
-                          self.pad_value, dtype=np.int32)
+        max_len = max(len(c) for c in codes)
+        c_batch = np.zeros((len(codes), max_len, codes[0].shape[-1]),
+                           dtype=np.int32)
         d_batch = np.zeros((len(codes), max_len), dtype=np.int32)
         for i, (code, d) in enumerate(zip(codes, durs)):
-            n = min(len(code), max_len)
-            c_batch[i, :n] = code[:n]
-            d_batch[i, :n] = d[:n]
+            c_batch[i, :len(code)] = code
+            d_batch[i, :len(d)] = d
         return {"y": y, "c": c_batch, "ds": d_batch}
 
     def _adjust_length(self, x, c, *rest):

@@ -20,17 +20,15 @@ import numpy as np
 import torch
 
 from parallelwavegan_torch.engine.state import GANTrainState
-from parallelwavegan_torch.engine.step import uses_noise
-from parallelwavegan_torch.models import get_model_class
+from parallelwavegan_torch.engine.step import uses_f0, uses_noise
+from parallelwavegan_torch.models import DISCRETE_GENERATORS, get_model_class
 from parallelwavegan_torch.optimizers import Optimizer, build_optimizer
 from parallelwavegan_torch.utils.model_loader import resolve_device
 
 
 _GENERATORS = ("ParallelWaveGANGenerator", "HiFiGANGenerator",
                "MelGANGenerator", "StyleMelGANGenerator", "VQVAE",
-               "UHiFiGANGenerator", "DiscreteSymbolHiFiGANGenerator",
-               "DiscreteSymbolDurationGenerator", "DiscreteSymbolF0Generator",
-               "DiscreteSymbolStyleMelGANGenerator")
+               "UHiFiGANGenerator") + DISCRETE_GENERATORS
 
 
 def build_models(config: Dict[str, Any], generator: torch.Generator = None):
@@ -94,7 +92,7 @@ def example_batch(config: Dict[str, Any], batch_size: int = 2
         batch["c"] = np.ones((batch_size, frames, cols), np.int32)
         if "Duration" in gen_type:
             batch["ds"] = np.ones((batch_size, frames), np.int32)
-        if gen_type == "DiscreteSymbolF0Generator" and gp.get("use_f0", True):
+        if uses_f0(config):
             batch["f0"] = np.abs(rng.standard_normal(
                 (batch_size, frames, 1))).astype(f32)
         return batch

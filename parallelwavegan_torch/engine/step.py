@@ -137,6 +137,15 @@ def is_discrete_f0(config: Dict[str, Any]) -> bool:
     return config.get("generator_type") == "DiscreteSymbolF0Generator"
 
 
+def uses_f0(config: Dict[str, Any]) -> bool:
+    """Whether the batches (and a decoded utterance) carry the f0: the
+    ``use_f0`` key (the CLIs' ``--use-f0``), or the F0 generator with its
+    ``use_f0`` (default true), as the JAX CLIs decide."""
+    return bool(config.get("use_f0", False)) or (
+        is_discrete_f0(config)
+        and config.get("generator_params", {}).get("use_f0", True))
+
+
 def token_ids(generator, batch: Dict[str, torch.Tensor]
               ) -> Dict[str, torch.Tensor]:
     """``batch`` with a token generator's c as int64 ids (a float batch of

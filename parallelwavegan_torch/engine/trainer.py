@@ -102,6 +102,10 @@ class Trainer:
 
     def _to_device(self, batch: Dict[str, np.ndarray]
                    ) -> Dict[str, torch.Tensor]:
+        """The batch on the models' device; a token generator's ids are
+        checked against its tables first, on the host."""
+        if hasattr(self.generator, "check_ids"):
+            self.generator.check_ids(batch["c"])
         return {k: torch.as_tensor(v).to(self.device, non_blocking=True)
                 for k, v in batch.items()}
 

@@ -303,9 +303,8 @@ class ConvTranspose1d(WeightNormedConv):
 
 class Embed(nn.Module):
     """flax's ``nn.Embed``: the table ``embedding`` (N, D), N(0, 1) at
-    init, looked up by integer ids. An id outside [0, N) raises a
-    ``ValueError`` before the lookup is launched (a CUDA index assert would
-    end the process's context; flax's ``take`` gives NaN rows there)."""
+    init, looked up by integer ids (``models.discrete.check_ids`` checks
+    them on the host)."""
 
     def __init__(self, num_embeddings: int, features: int, *,
                  generator: Optional[torch.Generator] = None):
@@ -314,13 +313,7 @@ class Embed(nn.Module):
             torch.randn((num_embeddings, features), generator=generator))
 
     def forward(self, ids: torch.Tensor) -> torch.Tensor:
-        ids = ids.long()
-        n = self.embedding.shape[0]
-        if ids.numel() and bool(((ids < 0) | (ids >= n)).any()):
-            raise ValueError(
-                f"token ids must lie in [0, {n}); got "
-                f"[{int(ids.min())}, {int(ids.max())}]")
-        return F.embedding(ids, self.embedding)
+        return F.embedding(ids.long(), self.embedding)
 
 
 class Dense(nn.Module):

@@ -58,6 +58,9 @@ _REGISTRY = {
     "UHiFiGANGenerator": UHiFiGANGenerator,
     "VQVAE": VQVAE,
 }
+# the discrete-symbol (token) generators, served one utterance a call
+DISCRETE_GENERATORS = tuple(name for name in _REGISTRY
+                            if name.startswith("DiscreteSymbol"))
 
 
 def get_model_class(name: str):

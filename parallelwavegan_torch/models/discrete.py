@@ -27,8 +27,10 @@ HiFi-GAN trunk or a StyleMelGAN trunk.
 The HiFi-GAN trunk pads its transposed convs by (k - s) // 2 with no
 output padding (an odd scale such as 5 with kernel 10 gives 5 T + 1
 samples), and ends in LeakyReLU(0.01), a conv and tanh. Ids become int64
-at the module boundary; an id outside its table raises ``ValueError``
-before any lookup (``layers.common.Embed``). Submodules carry the flax
+at the module boundary. ``check_ids`` raises ``ValueError`` for an id
+outside its table on the host: the serving and training entry points call
+it on each utterance or batch before it goes to the device, so the lookup
+itself costs no device-to-host sync. Submodules carry the flax
 names, so a converted tree loads with ``strict=True``; ``folded=True``
 (the serving form) holds every kernel with weight norm applied,
 ``folded=False`` holds ``kernel_v``/``kernel_g``.
@@ -39,6 +41,7 @@ from __future__ import annotations
 import math
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -148,6 +151,17 @@ class _HiFiGANTrunk(nn.Module):
         return torch.tanh(self.output_conv(x))
 
 
+def check_ids(ids: np.ndarray, n: int) -> None:
+    """Raise ``ValueError`` unless every id of the host array ``ids`` lies
+    in [0, n). The entry points check a batch here, before it goes to the
+    card: a lookup out of range there is a device-side assert that ends the
+    process's CUDA context (flax's ``take`` gives NaN rows)."""
+    ids = np.asarray(ids)
+    if ids.size and (ids.min() < 0 or ids.max() >= n):
+        raise ValueError(f"token ids must lie in [0, {n}); got "
+                         f"[{ids.min()}, {ids.max()}]")
+
+
 def _speaker_ids(c: torch.Tensor) -> torch.Tensor:
     """The speaker id of each utterance: column 1 of its first frame."""
     return c[:, 0, 1].long()
@@ -185,6 +199,17 @@ class _TokenEmbed(nn.Module):
             self.emb = Embed(num_embs + emb_pad, features,
                              generator=generator)
         return features
+
+    def check_ids(self, c: np.ndarray) -> None:
+        """``check_ids`` on a batch's ids c (B, T, 2|1), a host array: the
+        token column against ``emb``, the first frame's speaker id against
+        ``spk_emb`` (float features pass)."""
+        if not self.token_inputs:
+            return
+        c = np.asarray(c)
+        check_ids(c[..., 0], self.emb.embedding.shape[0])
+        if self.num_spk_embs > 0:
+            check_ids(c[:, 0, 1], self.num_spk_embs)
 
     def _embed_tokens(self, c: torch.Tensor) -> torch.Tensor:
         """c (B, T, 2|1) ids (or (B, T, C) features) -> (B, T, C')."""
@@ -355,6 +380,11 @@ class DiscreteSymbolF0Generator(DiscreteSymbolHiFiGANGenerator):
             self.weights = nn.Parameter(torch.ones(layer_num))
         if use_f0:
             self.f0_embedding = Dense(1, linear_channel, generator=generator)
+
+    def check_ids(self, c: np.ndarray) -> None:
+        if not self.weight_sum:
+            return super().check_ids(c)
+        check_ids(c, self.num_embs)  # every layer's ids, one table each
 
     def forward(self, c: torch.Tensor, f0: Optional[torch.Tensor] = None
                 ) -> torch.Tensor:

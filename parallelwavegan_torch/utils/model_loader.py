@@ -45,7 +45,7 @@ import torch
 
 from parallelwavegan_torch.layers.duration import durations_from_log
 from parallelwavegan_torch.layers.pqmf import PQMF
-from parallelwavegan_torch.models import get_model_class
+from parallelwavegan_torch.models import DISCRETE_GENERATORS, get_model_class
 from parallelwavegan_torch.ops.cuda.pwg_infer import (
     pwg_fused_forward,
     unsupported_fused_settings,
@@ -65,11 +65,6 @@ from parallelwavegan_torch.ops.hifigan_infer import (
 )
 from parallelwavegan_torch.utils.io import load_config, read_hdf5
 from parallelwavegan_torch.utils.params import convert_jax_params
-
-
-DISCRETE_GENERATORS = (
-    "DiscreteSymbolHiFiGANGenerator", "DiscreteSymbolDurationGenerator",
-    "DiscreteSymbolF0Generator", "DiscreteSymbolStyleMelGANGenerator")
 
 
 def resolve_device(device: Any = "cuda") -> torch.device:
@@ -459,12 +454,13 @@ class InferenceModel:
 
     def _token_input(self, c: np.ndarray) -> torch.Tensor:
         """One utterance's ids (T', 1|2) or (T',) as (1, T', 1|2) int64 on
-        the device; the float features of ``use_embedding_feats`` in the
-        parameters' dtype."""
+        the device, checked against the tables on the host first; the float
+        features of ``use_embedding_feats`` in the parameters' dtype."""
         c = np.asarray(c)
         if c.ndim == 1:
             c = c[:, None]
         if getattr(self.generator, "token_inputs", True):
+            self.generator.check_ids(c[None])
             return torch.from_numpy(c.astype(np.int64)[None]).to(self.device)
         return torch.from_numpy(np.asarray(c, np.float32)[None]).to(
             self.device, self.dtype)

@@ -18,6 +18,7 @@ import functools
 import json
 import os
 import sys
+import types
 
 import jax
 import jax.numpy as jnp
@@ -45,6 +46,7 @@ from parallelwavegan_tpu.utils.model_loader import (
 from parallelwavegan_torch.bin import decode as decode_cli
 from parallelwavegan_torch.bin import decode_from_text
 from parallelwavegan_torch.engine.checkpoint import save_generator_checkpoint
+from parallelwavegan_torch.engine.trainer import Trainer
 from parallelwavegan_torch.layers.common import ChannelLayerNorm, Dense
 from parallelwavegan_torch.layers.duration import (
     DurationPredictor,
@@ -388,15 +390,28 @@ def test_flax_tree_is_the_ports(case):
 
 
 def test_ids_outside_the_table_raise_before_the_lookup():
-    """An id at or past the table (or negative) raises ValueError on the
-    host; the JAX lookup returns NaN rows there (a deviation)."""
-    gen = _port("token")
+    """An id at or past the table (or a negative one, or a speaker past
+    spk_emb, or a layer id past its table) raises ValueError on the host,
+    before anything goes to the device: in the generator's check_ids, in
+    InferenceModel.inference and in the trainer's copy of a batch to the
+    device; the JAX lookup returns NaN rows there (a deviation)."""
+    model, _ = _serving_pair("token", torch.float32)
     c, _ = _inputs("token")
+    trainer = types.SimpleNamespace(generator=model.generator,
+                                    device=torch.device("cpu"))
     for bad, where in ((300, 0), (-1, 0), (4, 1)):
         c2 = c.copy()
         c2[0, 0, where] = bad
-        with pytest.raises(ValueError, match="token ids"):
-            gen(torch.from_numpy(c2))
+        for call in (model.generator.check_ids, lambda x: model.inference(
+                x[0]), lambda x: Trainer._to_device(trainer, {"c": x})):
+            with pytest.raises(ValueError, match="token ids"):
+                call(c2)
+    model.generator.check_ids(c.astype(np.float32))  # a mel2wav batch
+    layers, _ = _inputs("f0_sum")
+    _port("f0_sum").check_ids(layers)
+    layers[1, 3, 2] = 300
+    with pytest.raises(ValueError, match="token ids"):
+        _port("f0_sum").check_ids(layers)
     c2 = c.copy()
     c2[0, 2, 0] = 300
     want = np.asarray(_flax_module("token").apply(_flax("token")[1], c2))
