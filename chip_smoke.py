@@ -119,11 +119,13 @@
    discriminator loss and every gradient on the card in f32 (k), on the
    CPU in f32 (p) and in float64 (e), each gradient held to
    |k - e| <= max(2 |p - e|, a) (no hand-written kernel: this holds cuDNN
-   and the port's modules): G's own gradients, the loss's cotangents at
-   G's outputs (its backward through D alone), G's gradients on float64's
-   cotangents (the network's backward alone) and D's gradients, the
-   loss's kinks and the branches of D's LeakyReLUs decided by float64
-   (gate_gradients), then the pooling's
+   and the port's modules): G's outputs (float64_gate), G's own
+   gradients (each route's e float64's gradient at that route's own
+   outputs), the loss's cotangents at G's outputs (its backward through D
+   alone), G's gradients on float64's cotangents (the network's backward
+   alone) and D's gradients, the loss's kinks and the branches of D's
+   LeakyReLUs decided by float64 (gate_gradients, hold_gate), then the
+   pooling's
    input gradient on the card against float64 beside F.avg_pool1d's
    (check_pooling_backward); (c) Parallel WaveGAN v3
    (parallel_wavegan.v3.yaml: kernel size 5, the multi-scale MelGAN
@@ -2320,9 +2322,11 @@ class _DecidedDiscriminator:
 
 
 def gate_gradients(routes: dict, forward, terms: dict, d_loss) -> dict:
-    """Per route of ``gate_routes``: G's loss (the sum of ``terms``) and
-    its parameters' gradients through the route's own forward and loss
-    (``own``); each term's cotangents at float64's outputs of G (``cot``:
+    """Per route of ``gate_routes``: G's outputs (``outs``), G's loss (the
+    sum of ``terms``) and its parameters' gradients through the route's own
+    forward and loss (``own``), and float64's at the route's outputs
+    (``own_ref``: float64's loss and network, G's outputs swapped for the
+    route's); each term's cotangents at float64's outputs of G (``cot``:
     the loss's backward alone, through D into G's outputs, term by term);
     G's gradients through the route's network on float64's cotangents
     (``held``: the network's backward alone); D's loss on the route's own
@@ -2364,20 +2368,35 @@ def gate_gradients(routes: dict, forward, terms: dict, d_loss) -> dict:
         held_cot = [sum(c for key, c in cots["e"].items()
                         if key.endswith(f"output {i}")) for i in range(
                             len(outs_e))]
-        got = {}
-        for r, (gen, dis, b) in routes.items():
+        got, graph_e = {}, None
+        for r in "ekp":  # float64 first: its graph gives each route's
+            gen, dis, b = routes[r]  # reference at that route's outputs
             names = [n for n, _ in gen.named_parameters()]
             params = list(gen.parameters())
             outs = forward(gen, b)
             loss_g = g_loss(outs, r, b)
             own = torch.autograd.grad(loss_g, params, retain_graph=True)
             held = torch.autograd.grad(outs, params, [
-                c.to(o.device, o.dtype) for c, o in zip(held_cot, outs)])
+                c.to(o.device, o.dtype) for c, o in zip(held_cot, outs)],
+                retain_graph=r == "e")
+            if r == "e":
+                graph_e, own_ref = (outs, params), own
+            else:  # float64's gradient at this route's own outputs: its
+                # loss's cotangents there, through float64's network
+                at = [o.detach().to(be["y"].device, be["y"].dtype)
+                      .requires_grad_() for o in outs]
+                cot_at = torch.autograd.grad(g_loss(at, "e", be), at,
+                                             allow_unused=True)
+                own_ref = torch.autograd.grad(graph_e[0], graph_e[1], [
+                    torch.zeros_like(o) if c is None else c
+                    for c, o in zip(cot_at, graph_e[0])], retain_graph=True)
             loss_d = d_loss([o.detach() for o in outs],
                             dis_of[r].at("d_loss"), b)
             grads_d = torch.autograd.grad(loss_d, list(dis.parameters()))
             got[r] = {"loss_g": loss_g.item(), "loss_d": loss_d.item(),
+                      "outs": [o.detach().cpu() for o in outs],
                       "own": {n: t.cpu() for n, t in zip(names, own)},
+                      "own_ref": {n: t for n, t in zip(names, own_ref)},
                       "cot": {k: t.cpu() for k, t in cots[r].items()},
                       "held": {n: t.cpu() for n, t in zip(names, held)},
                       "d": {n: t.cpu() for (n, _), t in zip(
@@ -2389,20 +2408,45 @@ def gate_gradients(routes: dict, forward, terms: dict, d_loss) -> dict:
 
 
 def hold_gate(tag: str, got: dict, T: int, B: int = 2) -> dict:
-    """``gradient_gate`` on each set of ``gate_gradients`` (G's own
-    gradients, the loss's cotangents at G's outputs, G's gradients on
-    float64's cotangents, D's gradients), and G's and D's losses within
-    max(2 |p - e|, 1e-4 |e|) of float64 on the card. Returns the gates."""
+    """G's outputs on the card held to float64 (``float64_gate``), then
+    ``gradient_gate`` on each set of ``gate_gradients``: G's own
+    gradients, each route's held to float64's gradient at that route's own
+    outputs (the loss's curvature would otherwise turn each route's forward
+    rounding into a gradient difference, and one ill-conditioned sum, the
+    output conv's bias, part the card from float64 by up to 1.5 a where
+    the plain route lay 0.5 a from it); the loss's cotangents at G's
+    outputs; G's gradients on float64's cotangents; D's gradients. G's and
+    D's losses within max(2 |p - e|, 1e-4 |e|) of float64 on the card.
+    Every set is printed (G's own gradients also against float64 at its
+    own outputs, for reference, not a gate) before the first failure is
+    raised. Returns the gates."""
     from parallelwavegan_torch.tools.float64_check import gradient_gate
 
-    out = {}
+    out, failed = {}, []
+    for i, (k, p, e) in enumerate(zip(*(got[r]["outs"] for r in "kpe"))):
+        float64_gate(f"{tag} generator output {i} on {B} x {T}", k, p, e)
+    try:
+        ratio = gradient_gate(*(got[r]["own"] for r in "kpe"))["gate"]
+        ratio = f"{ratio[0]:.3f} (on {ratio[1]})"
+    except AssertionError as err:
+        ratio = f"past 1: {err}"
+    print(f"{tag} generator gradient against float64 at float64's outputs "
+          f"(not a gate): |k - e| / max(2 |p - e|, a) {ratio}")
     for key, what in (
-            ("own", "generator gradient"),
+            ("own", "generator gradient (float64 at each route's outputs)"),
             ("cot", "generator loss's cotangent at G's outputs"),
             ("held", "generator gradient on float64's cotangents"),
             ("d", "discriminator gradient")):
-        gate = gradient_gate(*(got[r][key] for r in "kpe"),
-                             what=f"{tag} {what}")
+        refs = ({"grads_e_p": got["p"]["own_ref"]} if key == "own" else {})
+        try:
+            gate = gradient_gate(
+                got["k"][key], got["p"][key],
+                got["k"]["own_ref"] if key == "own" else got["e"][key],
+                what=f"{tag} {what}", **refs)
+        except AssertionError as err:
+            print(f"FAILED: {err}")
+            failed.append(err)
+            continue
         print(f"{tag} {what} on {B} x {T}, {gate['parameters']} tensors in "
               f"allowances a: k - p {gate['kp'][0]:.3f} (on "
               f"{gate['kp'][1]}), p - e {gate['pe'][0]:.3f} "
@@ -2419,6 +2463,8 @@ def hold_gate(tag: str, got: dict, T: int, B: int = 2) -> dict:
                           1e-4 * abs(losses["e"])):
             raise AssertionError(f"{tag} {what} loss on the card lies "
                                  f"{err:.3e} from float64")
+    if failed:
+        raise failed[0]
     return out
 
 

@@ -18,7 +18,11 @@ float64, decides. Two rules, each raising ``AssertionError``:
     the largest |p| of any parameter is the allowance the kernel route was
     once held to against the plain route alone. The plain f32 route itself
     can lie several allowances from float64 (the STFT loss divides by small
-    magnitudes and takes logs), so k - p alone cannot gate.
+    magnitudes and takes logs), so k - p alone cannot gate. Where each route
+    computes the gradient at its own point (its own forward outputs), e is
+    float64's gradient at that point, one for k and one for p: the loss's
+    curvature then does not turn each route's forward rounding into a
+    gradient difference that neither route's backward made.
 
 Pure torch: ``chip_smoke.py`` applies both on the card, the CPU tests hold
 the rules themselves.
@@ -59,9 +63,13 @@ def _inf_norm(a: torch.Tensor, b: Optional[torch.Tensor] = None) -> float:
 def gradient_gate(grads_k: Dict[str, Optional[torch.Tensor]],
                   grads_p: Dict[str, Optional[torch.Tensor]],
                   grads_e: Dict[str, Optional[torch.Tensor]],
-                  what: str = "generator gradient") -> dict:
+                  what: str = "generator gradient",
+                  grads_e_p: Optional[Dict[str, Optional[torch.Tensor]]] = None
+                  ) -> dict:
     """Apply the gradient rule of the module docstring to every parameter
     (name -> gradient; None where the loss does not reach it, in all three).
+    ``grads_e_p`` is float64's gradient at the plain route's point where it
+    differs from the kernel route's (``grads_e``); by default ``grads_e``.
 
     Returns the worst ratios with the parameter each is on: ``kp``
     (||k - p|| / a, reported, not a gate), ``pe`` (||p - e|| / a) with
@@ -69,10 +77,11 @@ def gradient_gate(grads_k: Dict[str, Optional[torch.Tensor]],
     a), ``ke`` (||k - e|| / a) and ``gate`` (||k - e|| / max(2 ||p - e||,
     a), which must stay <= 1). Raises AssertionError on the first
     parameter past it, naming ``what``."""
+    grads_e_p = grads_e if grads_e_p is None else grads_e_p
     present = [n for n, g in grads_p.items() if g is not None]
     for name in grads_p:
-        if (grads_k[name] is None, grads_e[name] is None) != (
-                grads_p[name] is None,) * 2:
+        if (grads_k[name] is None, grads_e[name] is None,
+                grads_e_p[name] is None) != (grads_p[name] is None,) * 3:
             raise AssertionError(f"{name}: a gradient is missing from one "
                                  f"route only")
     largest = max(_inf_norm(grads_p[n]) for n in present)
@@ -82,7 +91,8 @@ def gradient_gate(grads_k: Dict[str, Optional[torch.Tensor]],
     for name in present:
         k, p, e = grads_k[name], grads_p[name], grads_e[name]
         a = 2e-3 * _inf_norm(p) + 2e-5 * largest
-        kp, pe, ke = _inf_norm(k, p), _inf_norm(p, e), _inf_norm(k, e)
+        kp, pe, ke = (_inf_norm(k, p), _inf_norm(p, grads_e_p[name]),
+                      _inf_norm(k, e))
         gate = ke / max(2 * pe, a)
         for key, ratio in (("kp", kp / a), ("pe", pe / a), ("ke", ke / a),
                            ("gate", gate)):

@@ -81,6 +81,26 @@ def test_gate_raises_when_one_parameter_is_off_by_ten_allowances(name):
     assert gradient_gate(k, p, e)["gate"][0] <= 1.0
 
 
+@pytest.mark.parametrize("own_point", [True, False],
+                         ids=["each_its_own_point", "float64s_point"])
+def test_gate_holds_each_route_to_float64_at_its_own_point(own_point):
+    """k computed at another point than p, whose float64 gradient lies 10
+    allowances from p's (a loss's curvature times the routes' forward
+    rounding), and k as far from it as p from its own: held each to its
+    own point the routes pass; held to p's point k fails."""
+    p, e, a = _routes(0.3)
+    e_k = {n: None if v is None else v + 10 * a[n] for n, v in e.items()}
+    k = {n: None if v is None else (e_k[n] + p[n].double() - e[n]).float()
+         for n, v in p.items()}
+    if own_point:
+        out = gradient_gate(k, p, e_k, grads_e_p=e)
+        assert out["gate"][0] <= 0.5 + 1e-4
+        assert out["ke"][0] == pytest.approx(out["pe"][0], rel=1e-3)
+    else:
+        with pytest.raises(AssertionError, match="generator gradient on"):
+            gradient_gate(k, p, e)
+
+
 def test_gate_refuses_a_gradient_missing_from_one_route():
     p, e, _ = _routes(0.3)
     k = dict(p, **{"first_conv.kernel_v": None})
