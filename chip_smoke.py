@@ -123,8 +123,9 @@
    gradients (each route's e float64's gradient at that route's own
    outputs), the loss's cotangents at G's outputs (its backward through D
    alone), G's gradients on float64's cotangents (the network's backward
-   alone) and D's gradients, the loss's kinks and the branches of D's
-   LeakyReLUs decided by float64 (gate_gradients, hold_gate), then the
+   alone) and D's gradients, the loss's kinks and the branches of G's and
+   D's LeakyReLUs (and G's ReLUs) decided by float64 (gate_gradients,
+   hold_gate), then the
    pooling's
    input gradient on the card against float64 beside F.avg_pool1d's
    (check_pooling_backward); (c) Parallel WaveGAN v3
@@ -137,7 +138,7 @@
    and load_model with PQMF on cuda against the CPU at 1 x 200 frames,
    printing the PQMF prototypes training and serving chose;
 11. prints a JSON line of the five kernels, the card line, and as the last
-   line {"ok": true, "device": {...}}, after steps 12 to 15;
+   line {"ok": true, "device": {...}}, after steps 12 to 16;
 12. serves and trains StyleMelGAN v1 at full width
    (egs/ljspeech/voc1/conf/style_melgan.v1.yaml: the TADE generator on a
    noise grid of 88 frames, the random-window discriminator with PQMF at
@@ -222,7 +223,8 @@
    and D parameters, a .ckpt that loads back; step times, a profile of
    each precision, the peak memory; the dropout masks of a step drawn on
    the host and copied against drawn on the card, timed; (e) on the
-   loader's batch cut to 1 x 8,400, with one set of dropout masks handed
+   loader's batch cut to 1 x 4,200 (UHIFIGAN_GATE_SAMPLES, cut from 8,400
+   to make room for step 16), with one set of dropout masks handed
    to every route and D in eval mode, every G and D gradient on the card
    in f32 (k) and on the CPU in f32 (p) and float64 (e), the kinks of the
    STFT loss, the mel loss (kinked_mel: its power and mel clamps and its
@@ -268,11 +270,36 @@
    step 1; (e) on the duration batch cut to 1 x 10,240, with one set of
    dropout masks handed to every route and D in eval mode, every G and D
    gradient on the card in f32 (k) and on the CPU in f32 (p) and float64
-   (e), the mel loss's and feature matching's kinks and D's LeakyReLU
-   branches decided by float64, the duration term's cotangent included, held to |k - e| <= max(2 |p -
-   e|, a) (the first gate through F.embedding's CUDA backward, a
-   scatter-add); (f) the launches of the five kernels counted over
-   (a)-(e): 0.
+   (e), the mel loss's and feature matching's kinks and the branches of
+   G's LeakyReLUs and ReLUs (the predictor's) and D's LeakyReLUs decided
+   by float64, the duration term's cotangent included, held to
+   |k - e| <= max(2 |p - e|, a) (the first gate through F.embedding's
+   CUDA backward, a scatter-add); (f) the launches of the five kernels
+   counted over (a)-(e): 0;
+16. trains data-parallel through the port's launcher
+   (parallelwavegan_torch.distributed.launch, which starts this script
+   again as ``chip_smoke.py --dp-worker DIR`` on every rank; two launches
+   started together, one of two ranks on this one card, so through gloo,
+   for (a), (c) and (d), one of one rank through NCCL for (b)): (a) two
+   ranks train PWG v1 at the
+   training path's 6 x 25,600 samples (3 a rank from the per-rank loader
+   of step 5's corpus), f32, three (G, adv, D) steps from one seeded state
+   through the stack kernels, each rank counting its launches of both
+   (added to the kernels line as data_parallel_launches); after every
+   step every rank's parameters, buffers and optimizer moments are bit-equal
+   to rank 0's, and after the last the state is bit-equal to a one-process
+   emulation (tools/dp_emulation: the ranks as threads, the two
+   half-batches' gradients averaged in memory) on the ranks' batches, with
+   cuDNN deterministic in both; (b) one rank through NCCL on the whole
+   batch, bit-equal to the plain single-process step on its batches; (c)
+   StyleMelGAN v1 on two ranks given the same example (1 x 22,528 a rank,
+   two steps, cut from 32 x 22,528): the noise and the discriminator's
+   windows differ across the ranks, the replicas stay bit-equal, and a
+   rerun draws and trains bit for bit the same; (d) the VQ-VAE of step 13
+   with restarts on two ranks of one example each (1 x 8,192, two steps,
+   cut from 16 x 8,192): the codebook, restarted from the ranks' mean rows
+   where no rank's latent chose a code, is bit-equal on both ranks. Each
+   launch's and check's wall time is printed.
 
 Exits non-zero, printing no result, on any failure or without a GPU.
 """
@@ -804,6 +831,9 @@ UHIFIGAN_V1_TRAIN = {
 # step 2: the recipe's gates, strict), one evaluation, one checkpoint
 UHIFIGAN_V1_TRAIN_CUT = dict(train_max_steps=3, save_interval_steps=3,
                              eval_interval_steps=3, log_interval_steps=1)
+# step 14 (e)'s gate window: 4,200 samples (14 frames), cut from the
+# recipe's 8,400 to make room for step 16
+UHIFIGAN_GATE_SAMPLES = 4200
 UHIFIGAN_LOSS_NAMES = ("spectral_convergence_loss", "log_stft_magnitude_loss",
                        "mel_loss", "adversarial_loss", "feature_matching_loss",
                        "generator_loss", "real_loss", "fake_loss",
@@ -1683,7 +1713,10 @@ def training_phase(dev, smi: str) -> dict:
 
 def profile_step(trainer, batch, what: str) -> None:
     """Where one (G, adv, D) step's device time goes: torch.profiler over
-    two steps, device time by kernel name. Printed, never a failure."""
+    one step (the step is warm: the callers time it first), device time
+    by kernel name. Printed, never a failure. One step, not two: over two
+    the profiler's processing took about 30 s a call, and this runs
+    fifteen times."""
     from parallelwavegan_torch.engine.step import (
         DROPOUT_STREAM,
         SHARED_STREAM,
@@ -1696,7 +1729,7 @@ def profile_step(trainer, batch, what: str) -> None:
         trainer.state, batch, step_generator(0, trainer.state.steps),
         step_generator(0, trainer.state.steps, SHARED_STREAM),
         step_generator(0, trainer.state.steps, DROPOUT_STREAM,
-                       trainer.device)), top=14)
+                       trainer.device)), n=1, top=14)
     busy = prof["device_busy_ms"]
     if busy <= 0:
         print(f"step profile {what}: the profiler shows no device time")
@@ -2271,8 +2304,9 @@ def gate_routes(gen, dis, b: dict) -> dict:
 
 
 class _DecidedLeakyReLU:
-    """A discriminator's LeakyReLU in the gate: its branch (input > 0) is
-    the sign pattern that the first route to reach this call recorded in
+    """A LeakyReLU (or a ReLU, slope 0) of G or D in the gate: its branch
+    (input > 0) is the
+    sign pattern that the first route to reach this call recorded in
     ``state["decided"][state["key"]]`` (float64: ``gate_gradients`` runs
     it first), so that a pre-activation within rounding of 0 takes one
     slope on every route."""
@@ -2291,10 +2325,14 @@ class _DecidedLeakyReLU:
 
 
 class _DecidedDiscriminator:
-    """A route's discriminator with its LeakyReLUs' branches decided by
-    float64: ``at(name)`` is the discriminator as the loss term ``name``
-    calls it, its n-th call keyed (name, n); ``restore`` puts the module's
-    own activations back."""
+    """A route's discriminator (or generator) with its LeakyReLUs' and
+    ReLUs' branches decided by float64: ``at(name)`` is the discriminator
+    as the
+    loss term ``name`` calls it, its n-th call keyed (name, n);
+    ``keyed(name)`` keys the module's next forward (name,) wherever it is
+    called from; ``restore`` puts the module's own activations back. The
+    activations held in an ``act`` attribute are decided; one called
+    inside a forward (``F.leaky_relu``) stays the route's."""
 
     def __init__(self, dis, decided: dict):
         self.dis = dis
@@ -2303,9 +2341,13 @@ class _DecidedDiscriminator:
         for m in dis.modules():
             act = getattr(m, "act", None)
             if getattr(act, "func", None) is F.leaky_relu:
-                self.saved.append((m, act))
-                m.act = _DecidedLeakyReLU(act.keywords["negative_slope"],
-                                          self.state)
+                slope = act.keywords["negative_slope"]
+            elif act is F.relu:
+                slope = 0.0
+            else:
+                continue
+            self.saved.append((m, act))
+            m.act = _DecidedLeakyReLU(slope, self.state)
 
     def at(self, name: str):
         calls = iter(range(1 << 30))
@@ -2315,6 +2357,9 @@ class _DecidedDiscriminator:
             return self.dis(*args, **kwargs)
 
         return call
+
+    def keyed(self, name: str) -> None:
+        self.state.update(key=(name,), i=0)
 
     def restore(self) -> None:
         for m, act in self.saved:
@@ -2333,25 +2378,35 @@ def gate_gradients(routes: dict, forward, terms: dict, d_loss) -> dict:
     prediction and its parameters' gradients (``d``). The loss's kinks
     (``kinked_stft``, ``kinked_feature_match``) and the branches of D's
     LeakyReLUs (``_DecidedDiscriminator``, each D call of each term keyed
-    by its order) are decided once, by float64 at its outputs: an input
-    within rounding of a kink would otherwise take another slope on each
-    route, and one term of an ill-conditioned sum, a bias gradient of D,
-    then parts the routes by up to 2.5 a. forward(G, b) -> G's
+    by its order) and of G's LeakyReLUs and ReLUs (each forward keyed
+    alike) are decided once, by float64 at its outputs: an input within
+    rounding of a kink would otherwise take another slope on each route,
+    and one term of an ill-conditioned sum, a bias gradient of D, then
+    parts the routes by up to 2.5 a; in G a frame of the duration trunk's
+    32 into its input conv's weight gradient, 9.5 a, and a token of the
+    duration predictor's ReLUs into the token table's, 1.3 a (ROADMAP
+    C-4). forward(G, b) -> G's
     outputs (a tuple); term(outs, D, b, kinks) and d_loss(outs, D, b) -> a
     loss."""
-    decided = {}  # D's branches, by float64
+    decided = {}  # G's and D's branches, by float64
     dis_of = {r: _DecidedDiscriminator(dis, decided)
               for r, (_, dis, _) in routes.items()}
+    gen_of = {r: _DecidedDiscriminator(gen, decided)
+              for r, (gen, _, _) in routes.items()}
+
+    def g_forward(r, b):
+        gen_of[r].keyed("generator")
+        return forward(routes[r][0], b)
 
     def g_loss(outs, r, b):
         return sum(term(outs, dis_of[r].at(name), b, kinks)
                    for name, term in terms.items())
 
-    ge, _, be = routes["e"]
+    be = routes["e"][2]
     kinks = {}  # decided on float64, at its outputs
     try:
         with torch.no_grad():
-            outs_e = forward(ge, be)
+            outs_e = g_forward("e", be)
             g_loss(outs_e, "e", be)
             d_loss(list(outs_e), dis_of["e"].at("d_loss"), be)
         cots = {}
@@ -2373,7 +2428,7 @@ def gate_gradients(routes: dict, forward, terms: dict, d_loss) -> dict:
             gen, dis, b = routes[r]  # reference at that route's outputs
             names = [n for n, _ in gen.named_parameters()]
             params = list(gen.parameters())
-            outs = forward(gen, b)
+            outs = g_forward(r, b)
             loss_g = g_loss(outs, r, b)
             own = torch.autograd.grad(loss_g, params, retain_graph=True)
             held = torch.autograd.grad(outs, params, [
@@ -2402,7 +2457,7 @@ def gate_gradients(routes: dict, forward, terms: dict, d_loss) -> dict:
                       "d": {n: t.cpu() for (n, _), t in zip(
                           dis.named_parameters(), grads_d)}}
     finally:
-        for wrapped in dis_of.values():
+        for wrapped in (*dis_of.values(), *gen_of.values()):
             wrapped.restore()
     return got
 
@@ -4862,22 +4917,27 @@ def uhifigan_training(dev, smi: str) -> dict:
               f"{time.perf_counter() - t_start:.1f} s wall")
         t_start = time.perf_counter()
 
-        # (e) the loader's batch cut to 1 x 8,400 with one set of dropout
-        # masks handed to every route: every G and D gradient on the card
-        # in f32 (k) and on the CPU in f32 (p) and float64 (e), the loss's
-        # kinks decided by float64, held by gate_gradients and hold_gate.
-        # The STFT and mel losses on their framed products on every route
-        # (the card's own method: "auto" is the framed product on CUDA)
-        b = {k: v[:1] for k, v in batch.items()}
+        # (e) the loader's batch cut to 1 x 4,200 (UHIFIGAN_GATE_SAMPLES)
+        # with one set of dropout masks handed to every route: every G and
+        # D gradient on the card in f32 (k) and on the CPU in f32 (p) and
+        # float64 (e), the loss's kinks decided by float64, held by
+        # gate_gradients and hold_gate. The STFT and mel losses on their
+        # framed products on every route (the card's own method: "auto" is
+        # the framed product on CUDA)
+        gate_t = UHIFIGAN_GATE_SAMPLES
+        hop = config["hop_size"]
+        b = {k: v[:1, :gate_t if v.shape[1] == T else gate_t // hop]
+             for k, v in batch.items()}
         g = torch.Generator().manual_seed(15)
-        for i, m in enumerate(gen.draw_dropout_masks(1, T, g)):
+        for i, m in enumerate(gen.draw_dropout_masks(1, gate_t, g)):
             b[f"mask_{i}"] = m.to(dev)
         crit = dict(trainer.criterion)
         for name in ("stft", "mel"):
             crit[name] = dataclasses.replace(crit[name], method="matmul")
         dis = trainer.discriminator.eval()  # u stays put
         out.update(hold_gate("uhifigan (e)", gate_gradients(
-            gate_routes(gen, dis, b), *uhifigan_gate_losses(crit)), T, B=1))
+            gate_routes(gen, dis, b), *uhifigan_gate_losses(crit)), gate_t,
+            B=1))
         print(f"uhifigan (e) {time.perf_counter() - t_start:.1f} s wall")
     return out
 
@@ -5473,6 +5533,385 @@ def discrete_phase(dev, smi: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# 16. data-parallel training through the port's launcher
+
+
+# (a) PWG v1 at the training path's 6 x 25,600 on two ranks (3 a rank), f32,
+# three (G, adv, D) steps from one seeded state; (b) the same on one rank
+# through NCCL; (c) StyleMelGAN v1 and (d) the VQ-VAE with restarts, one
+# example a rank and two steps each (cut from their recipes' 32 and 16)
+DP_STEPS = 3
+DP_PWG = dict(PWG_V1, discriminator_train_start_steps=0)
+DP_STYLE = dict(STYLE_MELGAN_V1_TRAIN, **STYLE_MELGAN_V1_TRAIN_CUT,
+                batch_size=2)
+DP_VQ = dict(VQVAE_V3_TRAIN, **VQVAE_V3_TRAIN_CUT, **VQVAE_V3_HOP_CUT,
+             batch_size=2)
+DP_CUT_STEPS = 2
+
+
+def dp_rngs(seed: int, steps: int, dev, rank: int, world: int) -> tuple:
+    """The step's three sources as ``Trainer._train_step`` seeds them."""
+    from parallelwavegan_torch.engine.step import (
+        DROPOUT_STREAM,
+        SHARED_STREAM,
+        step_generator,
+    )
+
+    return (step_generator(seed, steps, rank=rank, world=world),
+            step_generator(seed, steps, SHARED_STREAM),
+            step_generator(seed, steps, DROPOUT_STREAM, dev, rank=rank,
+                           world=world))
+
+
+def state_bits(state) -> dict:
+    """Every tensor of a train state on the host, by name."""
+    return {k: v.detach().cpu().clone() for k, v in state.tensors().items()}
+
+
+def replicas_equal(group, state) -> bool:
+    """Whether every rank holds rank 0's state bit for bit (each rank
+    compares its tensors with rank 0's broadcast; the verdicts summed)."""
+    tensors = [t.detach() for t in state.tensors().values()]
+    own = [t.clone() for t in tensors]
+    group.broadcast_tensors_(own)
+    bad = torch.tensor([float(sum(not torch.equal(a, b)
+                                  for a, b in zip(own, tensors)))],
+                       device=tensors[0].device)
+    group.sum_(bad)
+    return float(bad) == 0.0
+
+
+def dp_worker(job_dir: str) -> int:
+    """One rank of step 16, started by ``distributed/launch.py``
+    (``python3 chip_smoke.py --dp-worker DIR``): the phases that
+    ``DIR/job.json`` names, each rank writing what it drew, its batches,
+    its launches and its state under DIR."""
+    from parallelwavegan_torch.bin.train import build_dataset, build_loader
+    from parallelwavegan_torch.engine.trainer import Trainer
+    from parallelwavegan_torch.ops.cuda.wavenet_stack import wavenet_stack
+    from parallelwavegan_torch.ops.cuda.wavenet_stack_train import (
+        wavenet_stack_backward,
+    )
+    from parallelwavegan_torch.parallel import dist
+
+    with open(os.path.join(job_dir, "job.json")) as f:
+        job = json.load(f)
+    dev = dist.init_distributed("cuda")
+    rank, world = dist.rank(), dist.world_size()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    out = {}
+
+    def save(name, obj):
+        torch.save(obj, os.path.join(job_dir, f"{name}_rank{rank}.pt"))
+
+    if "pwg" in job["phases"]:
+        # (a) / (b): the training path's corpus through the per-rank loader
+        config = DP_PWG
+        loader = build_loader(config, build_dataset(config, job["dump"]), 0,
+                              world, rank)
+        trainer = Trainer(config, loader, None, seed=0,
+                          outdir=os.path.join(job_dir, "exp"), device=dev)
+        step = trainer.train_step_factory(True, True, True)
+        batches, equal = [], []
+        torch.cuda.synchronize()
+        wavenet_stack.launches = wavenet_stack_backward.launches = 0
+        for epoch in range(DP_STEPS):  # a batch an epoch or more
+            loader.set_epoch(epoch)
+            for batch in loader:
+                if len(batches) == DP_STEPS:
+                    break
+                batch = trainer._to_device(batch)
+                batches.append({k: v.cpu() for k, v in batch.items()})
+                step(trainer.state, batch,
+                     *dp_rngs(0, trainer.state.steps, dev, rank, world))
+                equal.append(replicas_equal(trainer.group, trainer.state))
+        torch.cuda.synchronize()
+        out["pwg"] = {"fwd_launches": wavenet_stack.launches,
+                      "bwd_launches": wavenet_stack_backward.launches,
+                      "replicas_equal": equal,
+                      "batch": list(batches[0]["y"].shape)}
+        save("pwg", {"batches": batches, "state": state_bits(trainer.state)})
+        del trainer
+    for phase, config in (("style", DP_STYLE), ("vq", DP_VQ)):
+        if phase not in job["phases"]:
+            continue
+        runs = []
+        for _ in range(2 if phase == "style" else 1):  # (c) runs twice
+            trainer = Trainer(config, None, None, seed=0,
+                              outdir=os.path.join(job_dir, "exp"),
+                              device=dev)
+            drawn = {"z": [], "starts": []}
+            T = config["batch_max_steps"]
+            if phase == "style":
+                gen, dis = trainer.generator, trainer.discriminator
+                noise, starts = gen.draw_noise, dis.draw_window_starts
+
+                def draw_noise(*a, _f=noise, **k):
+                    z = _f(*a, **k)
+                    drawn["z"].append(z.cpu())
+                    return z
+
+                def draw_starts(*a, _f=starts, **k):
+                    s = _f(*a, **k)
+                    drawn["starts"].append(list(s))
+                    return s
+
+                gen.draw_noise = draw_noise
+                dis.draw_window_starts = draw_starts
+                # the same example on every rank
+                ex = np.random.default_rng(16)
+                batch = {"y": torch.from_numpy(
+                    0.1 * ex.standard_normal((1, T, 1)).astype(np.float32)),
+                    "c": torch.from_numpy(ex.standard_normal(
+                        (1, T // HOP, 80)).astype(np.float32))}
+            else:  # each rank its own example and speaker
+                y = vq_audio(np.random.default_rng(160 + rank), 1, T)
+                batch = {"y": torch.from_numpy(y[..., None]),
+                         "g": torch.tensor([3 + rank])}
+            batch = {k: v.to(dev) for k, v in batch.items()}
+            step = trainer.train_step_factory(True, True, True)
+            metrics, equal = [], []
+            for _ in range(DP_CUT_STEPS):
+                _, m = step(trainer.state, batch,
+                            *dp_rngs(0, trainer.state.steps, dev, rank,
+                                     world))
+                metrics.append({k: float(v) for k, v in m.items()})
+                equal.append(replicas_equal(trainer.group, trainer.state))
+            runs.append({"drawn": drawn, "metrics": metrics, "equal": equal,
+                         "state": state_bits(trainer.state)})
+            del trainer
+        save(phase, runs)
+    with open(os.path.join(job_dir, f"out_rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    dist.shutdown_distributed()
+    return 0
+
+
+def launch_ranks(jobs: list, dump: str, timeout: float = 600.0) -> list:
+    """``distributed/launch.py`` once per job (nproc, job_dir, phases),
+    all started together, each with its ranks of ``dp_worker`` on this
+    card and in a session of its own, so that every process it started
+    ends with it; returns each launcher's wall time."""
+    import signal
+    import socket
+
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [REPO] + [p for p in os.environ.get("PYTHONPATH", "").split(
+            os.pathsep) if p]))
+    procs = []
+    t0 = time.perf_counter()
+    try:
+        for nproc, job_dir, phases in jobs:
+            with open(os.path.join(job_dir, "job.json"), "w") as f:
+                json.dump({"phases": phases, "dump": dump}, f)
+            with socket.socket() as sock:
+                sock.bind(("127.0.0.1", 0))
+                port = sock.getsockname()[1]
+            procs.append(subprocess.Popen(
+                [sys.executable, "-m",
+                 "parallelwavegan_torch.distributed.launch",
+                 "--nproc_per_node", str(nproc), "--master_port", str(port),
+                 os.path.abspath(__file__), "--dp-worker", job_dir],
+                cwd=REPO, env=env, start_new_session=True))
+        walls = [None] * len(procs)
+        while None in walls:
+            if time.perf_counter() - t0 > timeout:
+                raise AssertionError("the launchers did not end in time")
+            for i, proc in enumerate(procs):
+                if walls[i] is None and proc.poll() is not None:
+                    walls[i] = time.perf_counter() - t0
+                    if proc.returncode != 0:
+                        raise AssertionError(
+                            f"the launcher of {jobs[i][0]} ranks ended with "
+                            f"{proc.returncode}")
+            time.sleep(0.1)
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                os.killpg(proc.pid, signal.SIGKILL)
+                proc.wait()
+    return walls
+
+
+def state_diff(a: dict, b: dict) -> tuple:
+    """(tensors that differ, the largest difference) between two states."""
+    names = [k for k in a if not torch.equal(a[k], b[k])]
+    worst = max((float((a[k].double() - b[k].double()).abs().max())
+                 for k in names), default=0.0)
+    return len(names), worst
+
+
+def emulate_pwg(dev, world: int, batches: list) -> dict:
+    """The one-process emulation of (a) (``tools/dp_emulation``: the ranks
+    as threads, the gradients averaged in memory) or, at world 1, the plain
+    single-process step, on the ranks' batches; rank 0's state."""
+    from parallelwavegan_torch.engine.build import init_train_state
+    from parallelwavegan_torch.engine.criterion import build_criterion
+    from parallelwavegan_torch.engine.step import build_steps
+    from parallelwavegan_torch.tools.dp_emulation import (
+        ThreadGroup,
+        run_ranks,
+    )
+
+    group = ThreadGroup(world) if world > 1 else None
+
+    def one(rank):
+        state, gen, dis, opt_g, opt_d = init_train_state(DP_PWG, 0, dev)
+        factory, _ = build_steps(DP_PWG, gen, dis, build_criterion(DP_PWG),
+                                 opt_g, opt_d, group=group)
+        step = factory(True, True, True)
+        for batch in batches[rank]:
+            step(state, {k: v.to(dev) for k, v in batch.items()},
+                 *dp_rngs(0, state.steps, dev, rank, world))
+        torch.cuda.synchronize()
+        return state_bits(state)
+
+    with torch.backends.cudnn.flags(enabled=True, benchmark=False,
+                                    deterministic=True, allow_tf32=False):
+        if group is None:
+            return one(0)
+        return run_ranks(group, one)[0]
+
+
+def data_parallel_phase(dev, smi: str) -> dict:
+    """Step 16 of the module docstring."""
+    from parallelwavegan_torch.ops.cuda.wavenet_stack import stack_launch_plan
+    from parallelwavegan_torch.ops.cuda.wavenet_stack_train import (
+        backward_launch_plan,
+    )
+
+    L = PWG_V1["generator_params"]["layers"]
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    out = {}
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        dump = os.path.join(tmp, "dump")
+        write_corpus(dump, np.random.default_rng(1))
+        jobs = [(2, os.path.join(tmp, "world2"), ["pwg", "style", "vq"]),
+                (1, os.path.join(tmp, "world1"), ["pwg"])]
+        for _, job, _ in jobs:
+            os.makedirs(job)
+        walls = dict(zip((2, 1), launch_ranks(jobs, dump)))
+        print(f"data-parallel launches, started together: 2 ranks (a, c, d) "
+              f"{walls[2]:.1f} s wall, 1 rank (b) {walls[1]:.1f} s wall")
+
+        def load(world, name, rank):
+            return torch.load(os.path.join(tmp, f"world{world}",
+                                           f"{name}_rank{rank}.pt"),
+                              weights_only=False)
+
+        def ranks_out(world):
+            outs = []
+            for rank in range(world):
+                with open(os.path.join(tmp, f"world{world}",
+                                       f"out_rank{rank}.json")) as f:
+                    outs.append(json.load(f))
+            return outs
+
+        # (a) two ranks against the one-process emulation
+        t0 = time.perf_counter()
+        per_rank = TRAIN_BATCH // 2
+        fwd_per_forward = 3 * stack_launch_plan(
+            per_rank, TRAIN_SAMPLES, 80, L // 3, torch.float32)["launches"]
+        bwd_per_step = 3 * backward_launch_plan(
+            per_rank, TRAIN_SAMPLES, 80, L // 3, torch.float32,
+            sms)["launches"]
+        outs = ranks_out(2)
+        got = [load(2, "pwg", r) for r in range(2)]
+        for rank, o in enumerate(outs):
+            p = o["pwg"]
+            print(f"data-parallel (a) rank {rank} of 2 (gloo, {dev}): PWG v1 "
+                  f"f32 {p['batch'][0]} x {p['batch'][1]} a rank, "
+                  f"{DP_STEPS} (G, adv, D) steps: wavenet_stack launches "
+                  f"{p['fwd_launches']}, backward launches "
+                  f"{p['bwd_launches']}; replicas bit-equal after each "
+                  f"step: {p['replicas_equal']}")
+            if p["batch"] != [per_rank, TRAIN_SAMPLES, 1] \
+                    or not all(p["replicas_equal"]) \
+                    or len(p["replicas_equal"]) != DP_STEPS:
+                raise AssertionError("the ranks' states parted")
+            if p["fwd_launches"] != 2 * DP_STEPS * fwd_per_forward or \
+                    p["bwd_launches"] != DP_STEPS * bwd_per_step:
+                raise AssertionError(
+                    f"rank {rank}: expected {2 * DP_STEPS * fwd_per_forward}"
+                    f" forward and {DP_STEPS * bwd_per_step} backward "
+                    f"launches")
+        out["launches"] = {
+            "wavenet_stack": [o["pwg"]["fwd_launches"] for o in outs],
+            "wavenet_stack_backward": [o["pwg"]["bwd_launches"]
+                                       for o in outs]}
+        emulated = emulate_pwg(dev, 2, [g["batches"] for g in got])
+        n, worst = state_diff(emulated, got[0]["state"])
+        print(f"data-parallel (a) the ranks' state against the one-process "
+              f"emulation (the two half-batches' gradients averaged in "
+              f"memory, cuDNN deterministic): {n} of {len(emulated)} "
+              f"tensors differ (largest {worst:.3e}); "
+              f"{time.perf_counter() - t0:.1f} s wall")
+        if n:
+            raise AssertionError("two ranks differ from the emulation")
+
+        # (b) one rank through NCCL against the plain single-process step
+        t0 = time.perf_counter()
+        one = ranks_out(1)[0]["pwg"]
+        got1 = load(1, "pwg", 0)
+        plain = emulate_pwg(dev, 1, [got1["batches"]])
+        n, worst = state_diff(plain, got1["state"])
+        print(f"data-parallel (b) one rank (NCCL): PWG v1 f32 "
+              f"{one['batch'][0]} x {one['batch'][1]}, {DP_STEPS} steps, "
+              f"launches {one['fwd_launches']} / {one['bwd_launches']}, "
+              f"against today's single-process step on its batches: {n} "
+              f"tensors differ (largest {worst:.3e}); "
+              f"{time.perf_counter() - t0:.1f} s wall")
+        if n or one["batch"] != [TRAIN_BATCH, TRAIN_SAMPLES, 1]:
+            raise AssertionError("one NCCL rank differs from one process")
+
+        # (c) StyleMelGAN: different draws on each rank, a rerun bit-equal
+        style = [load(2, "style", r) for r in range(2)]
+        for rank, runs in enumerate(style):
+            first, again = runs
+            if not all(first["equal"] + again["equal"]):
+                raise AssertionError("StyleMelGAN replicas parted")
+            if state_diff(first["state"], again["state"])[0] or \
+                    first["drawn"]["starts"] != again["drawn"]["starts"] or \
+                    not all(torch.equal(a, b) for a, b in zip(
+                        first["drawn"]["z"], again["drawn"]["z"])):
+                raise AssertionError("a StyleMelGAN rerun differs")
+        d0, d1 = (s[0]["drawn"] for s in style)
+        z_same = sum(torch.equal(a, b) for a, b in zip(d0["z"], d1["z"]))
+        starts_same = sum(a == b for a, b in zip(d0["starts"],
+                                                 d1["starts"]))
+        print(f"data-parallel (c) StyleMelGAN v1, 2 ranks on one example of "
+              f"{DP_STYLE['batch_max_steps']} samples, {DP_CUT_STEPS} steps:"
+              f" {len(d0['z'])} noise draws and {len(d0['starts'])} window "
+              f"draws a rank, {z_same} and {starts_same} equal across the "
+              f"ranks; replicas bit-equal; a rerun bit-equal in draws and "
+              f"state; losses {style[0][0]['metrics'][-1]}")
+        if z_same or starts_same or not d0["z"] or not d0["starts"]:
+            raise AssertionError("the ranks drew the same noise or windows")
+
+        # (d) the VQ-VAE's restarts keep the codebook replicated
+        vq = [load(2, "vq", r) for r in range(2)]
+        k = DP_VQ["generator_params"]["num_embeds"]
+        if not all(runs[0]["equal"] for runs in vq) or state_diff(
+                vq[0][0]["state"], vq[1][0]["state"])[0]:
+            raise AssertionError("VQ-VAE replicas parted")
+        used = [m["vq_codes_used"] for m in vq[0][0]["metrics"]]
+        book = [v[0]["state"]["G.codebook.embedding"] for v in vq]
+        print(f"data-parallel (d) VQ-VAE, 2 ranks of one example each, "
+              f"{DP_CUT_STEPS} steps with restarts: codes used {used} of "
+              f"{k} (the rest restarted from the ranks' mean rows), "
+              f"codebook bit-equal on both ranks: "
+              f"{torch.equal(book[0], book[1])}")
+        if not torch.equal(book[0], book[1]) or not all(u < k for u in used):
+            raise AssertionError("the VQ-VAE's codebook parted, or no code "
+                                 "was dead")
+    out["walls"] = walls
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -5685,9 +6124,15 @@ def run_phases(dev, smi: str, pool) -> int:
     t0 = time.perf_counter()
     disc = discrete_phase(dev, smi)
     print(f"step 15: {time.perf_counter() - t0:.1f} s wall")
+    # 16. data-parallel training through the launcher
+    t0 = time.perf_counter()
+    dp = data_parallel_phase(dev, smi)
+    print(f"step 16: {time.perf_counter() - t0:.1f} s wall")
     if min(launches, launches32, train["fwd_launches"], train["bwd_launches"],
            hifi["launches"], mm["launches"], variant["launches"],
-           chunked["pwg_launches"], chunked["mrf_launches"]) < 1:
+           chunked["pwg_launches"], chunked["mrf_launches"],
+           *dp["launches"]["wavenet_stack"],
+           *dp["launches"]["wavenet_stack_backward"]) < 1:
         raise AssertionError("a kernel of a main path was never launched")
 
     # no single PyTorch call computes the stack or its backward: library_ms
@@ -5837,6 +6282,8 @@ def run_phases(dev, smi: str, pool) -> int:
         entry["vqvae_launches"] = vq["launches"][entry["name"]]
         entry["uhifigan_launches"] = uh["launches"][entry["name"]]
         entry["discrete_launches"] = disc["launches"][entry["name"]]
+        # step 16 (a): each rank's launches on the data-parallel PWG v1 path
+        entry["data_parallel_launches"] = dp["launches"].get(entry["name"])
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
@@ -5847,4 +6294,6 @@ def run_phases(dev, smi: str, pool) -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--dp-worker"]:
+        sys.exit(dp_worker(sys.argv[2]))
     sys.exit(main())

@@ -14,7 +14,11 @@ lengths; the F0 generator reads ``-f0.npy``) on one device,
 with ``--resume`` / ``--pretrain`` (a ``.ckpt``, a generator ``.gckpt`` or
 a reference ``.pkl``) and the ``config.yml`` dump. Each split reads a dump directory
 or Kaldi-style lists (a wav.scp and a feats.scp, optionally segments).
-Runs on CUDA by default (``--device cpu`` for the host):
+Runs on CUDA by default (``--device cpu`` for the host). Under
+``distributed/launch.py`` it trains data-parallel: each rank loads its
+shard of every batch (``batch_size`` / world, the collater's rng at seed +
+1000 x rank) and the whole dev set, and rank 0 alone writes ``config.yml``,
+the logs and the checkpoints (as the JAX CLI under several processes):
 
     python -m parallelwavegan_torch.bin.train --train-dumpdir dump/train \
         --dev-dumpdir dump/dev --outdir exp --config conf.yaml
@@ -22,6 +26,8 @@ Runs on CUDA by default (``--device cpu`` for the host):
         --train-wav-scp train/wav.scp --train-feats-scp train/feats.scp \
         --dev-wav-scp dev/wav.scp --dev-feats-scp dev/feats.scp \
         --outdir exp --config conf/multi_band_melgan.v2.yaml
+    python -m parallelwavegan_torch.distributed.launch --nproc_per_node 2 \
+        -c python -m parallelwavegan_torch.bin.train ... --device cpu
 
 ``run`` is the same entry with the config as a dict; a split given as a
 dict ``{"wav_scp": ..., "feats_scp": ..., "segments": ...}`` instead of a
@@ -56,6 +62,7 @@ from parallelwavegan_torch.engine.step import (
     uses_f0,
     uses_noise,
 )
+from parallelwavegan_torch.parallel import dist
 from parallelwavegan_torch.utils.io import load_config, read_hdf5, save_config
 
 VERSION = "parallelwavegan_torch-0.1.0"
@@ -160,7 +167,11 @@ def _split_dataset(config: Dict[str, Any], split: Split):
     return build_dataset(config, split)
 
 
-def build_loader(config: Dict[str, Any], dataset, seed: int) -> DataLoader:
+def build_loader(config: Dict[str, Any], dataset, seed: int,
+                 num_shards: int = 1, shard_index: int = 0) -> DataLoader:
+    """Shard ``shard_index`` of ``num_shards``: batches of ``batch_size`` /
+    ``num_shards`` from its part of each epoch's permutation, cropped by
+    the collater's rng seeded at seed + 1000 x ``shard_index``."""
     # z for the generators the step feeds it to (the JAX CLI gives it to
     # Parallel WaveGAN alone, so a use_noise_input run there lacks it); a
     # VQ-VAE takes audio windows and its conditions
@@ -178,10 +189,12 @@ def build_loader(config: Dict[str, Any], dataset, seed: int) -> DataLoader:
         use_global_condition=vq and config.get("use_global_condition",
                                                False),
         use_local_condition=vq and config.get("use_local_condition", False),
-        rng=np.random.default_rng(seed),
+        rng=np.random.default_rng(seed + 1000 * shard_index),
     )
     return DataLoader(
-        dataset, collater, batch_size=config["batch_size"], seed=seed,
+        dataset, collater,
+        batch_size=dist.per_rank_batch(config["batch_size"], num_shards),
+        seed=seed, num_shards=num_shards, shard_index=shard_index,
         # the reference's num_workers maps onto the prefetch-queue depth
         prefetch=max(2, min(int(config.get("num_workers", 2) or 0), 8)),
     )
@@ -192,8 +205,13 @@ def run(config: Dict[str, Any], train: Split, dev: Split,
         device: Any = "cuda", dump_config: bool = True):
     """Train from a config dict; returns the Trainer when training ends.
     ``train`` and ``dev`` are dump directories or scp lists (``Split``).
-    ``dump_config`` writes ``outdir/config.yml`` (needs ``yaml``)."""
+    ``dump_config`` writes ``outdir/config.yml`` (needs ``yaml``). Under
+    the launcher the process joins its group first and trains on its
+    rank's device and shard."""
     from parallelwavegan_torch.engine.trainer import Trainer
+
+    rank_device = dist.init_distributed(device)
+    rank, world = dist.rank(), dist.world_size()
 
     config = dict(config, outdir=outdir, resume=resume, pretrain=pretrain,
                   seed=seed, version=VERSION)
@@ -203,7 +221,7 @@ def run(config: Dict[str, Any], train: Split, dev: Split,
         else:
             config[f"{name}_dumpdir"] = split
     os.makedirs(outdir, exist_ok=True)
-    if dump_config:
+    if dump_config and rank == 0:
         save_config(os.path.join(outdir, "config.yml"), config)
     for key, value in config.items():
         logging.info(f"{key} = {value}")
@@ -212,9 +230,9 @@ def run(config: Dict[str, Any], train: Split, dev: Split,
     logging.info(f"The number of training files = {len(train_dataset)}.")
     logging.info(f"The number of development files = {len(dev_dataset)}.")
     trainer = Trainer(
-        config, build_loader(config, train_dataset, seed),
+        config, build_loader(config, train_dataset, seed, world, rank),
         build_loader(config, dev_dataset, seed + 1), seed=seed,
-        outdir=outdir, device=device,
+        outdir=outdir, device=rank_device,
     )
     if pretrain:
         trainer.load_checkpoint(pretrain, load_only_params=True)
@@ -268,16 +286,22 @@ def main(argv: Optional[list] = None):
         splits[split] = dumpdir if dumpdir is not None else {
             "wav_scp": wav_scp, "feats_scp": feats_scp,
             "segments": getattr(args, f"{split}_segments")}
+    # join the launcher's group first: ranks other than 0 log errors only
+    dist.init_distributed(args.device)
     logging.basicConfig(
-        level=logging.INFO if args.verbose else logging.WARN,
+        level=(logging.ERROR if dist.rank() != 0 else
+               logging.INFO if args.verbose else logging.WARN),
         stream=sys.stdout,
         format="%(asctime)s (%(module)s:%(lineno)d) %(levelname)s: %(message)s",
     )
     # the flag sets use_f0, as the JAX CLI's config takes its arguments
     config = dict(load_config(args.config), use_f0=args.use_f0)
-    return run(config, splits["train"], splits["dev"],
-               args.outdir, args.resume or "",
-               args.pretrain or "", args.seed, args.device)
+    try:
+        return run(config, splits["train"], splits["dev"],
+                   args.outdir, args.resume or "",
+                   args.pretrain or "", args.seed, args.device)
+    finally:
+        dist.shutdown_distributed()
 
 
 if __name__ == "__main__":

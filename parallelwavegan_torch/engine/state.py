@@ -13,7 +13,7 @@ of the generator's parameters under their names when
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, Optional
+from typing import Any, Dict, Optional
 
 import torch
 from torch import nn
@@ -45,3 +45,27 @@ class GANTrainState:
     def seed_ema(self) -> None:
         """Start the EMA stream from copies of the generator's parameters."""
         self.ema_g = {k: v.detach().clone() for k, v in self.params_g.items()}
+
+    def tensors(self) -> Dict[str, torch.Tensor]:
+        """Every tensor of the state by name: both networks' parameters and
+        buffers, both optimizers' moments and the EMA; what data-parallel
+        ranks hold alike (``Trainer.replicate`` broadcasts it)."""
+        out: Dict[str, torch.Tensor] = {}
+        for tag, module in (("G", self.generator), ("D", self.discriminator)):
+            for name, t in module.named_parameters():
+                out[f"{tag}.{name}"] = t
+            for name, t in module.named_buffers():
+                out[f"{tag}.{name}"] = t
+
+        def walk(prefix: str, node: Any) -> None:
+            if isinstance(node, torch.Tensor):
+                out[prefix] = node
+            elif isinstance(node, dict):
+                for key, value in node.items():
+                    walk(f"{prefix}.{key}", value)
+
+        walk("opt_g", self.opt_g.state)
+        walk("opt_d", self.opt_d.state)
+        for name, t in (self.ema_g or {}).items():
+            out[f"ema_g.{name}"] = t
+        return out

@@ -18,8 +18,22 @@ times ``lambda_aux``, plus ``lambda_adv`` times the adversarial loss, to
 which feature matching adds ``lambda_feat_match`` times its value;
 gradient clipping, the optimizers and the schedules live in
 ``optimizers``. Differences that PyTorch brings: the parameters are updated
-in place in the state's modules; the ``shard_map`` data-parallel path is not
-ported yet.
+in place in the state's modules.
+
+Data parallelism (``build_steps(..., group=)``, the JAX step's
+``shard_map`` branch): each rank runs the step on its shard of the batch,
+and the step all-reduces G's gradients before G's update and D's before
+D's (a mean in one bucket per dtype, JAX's ``pmean``), and the metrics at
+the end. The dead-code restart sums the code counts over the ranks (JAX's
+``psum``) and averages the restart rows (``pmean``) before the write, its
+gate drawn from the shared stream; so the codebook, like every parameter
+and optimizer moment, stays the same on each rank. The spectral-norm
+vectors ``u`` and ``ema_g`` depend on the parameters alone and stay
+replicated with no collective (JAX's note on ``shard_map``'s outputs).
+Each rank's ``step_generator`` folds in its rank (``fold_step_rng``), so
+the ranks draw different noise, windows, restart rows and dropout masks;
+``SHARED_STREAM`` is never folded. A global batch the ranks cannot share
+equally raises ``ValueError``, where the JAX step falls back to GSPMD.
 
 Random draws: Parallel WaveGAN (and any generator with ``use_noise_input``)
 takes its noise z from the batch. StyleMelGAN's generator noise and its
@@ -100,14 +114,21 @@ DROPOUT_STREAM = 0xD50
 
 
 def step_generator(seed: int = 0, steps: int = 0, stream: int = 0,
-                   device: Any = "cpu") -> torch.Generator:
+                   device: Any = "cpu", rank: int = 0, world: int = 1
+                   ) -> torch.Generator:
     """The step's random source: a ``torch.Generator`` on ``device`` (the
     CPU by default) seeded from (``seed``, ``steps``, ``stream``), so that a
     run resumed at a step draws what an unbroken run draws there. The step
     hands it to the modules' ``draw_noise``, ``draw_window_starts`` and
     ``draw_dropout_masks``. A generator on another device draws other
-    numbers from the same seed."""
-    state = np.random.SeedSequence([int(seed), int(steps), int(stream)])
+    numbers from the same seed. At a ``world`` above 1 the ``rank`` is
+    folded into the seed, as the JAX step folds the device index under
+    ``shard_map`` (``fold_step_rng``), except into ``SHARED_STREAM``,
+    which every rank shares; one process draws what it always drew."""
+    key = [int(seed), int(steps), int(stream)]
+    if world > 1 and stream != SHARED_STREAM:
+        key.append(int(rank))
+    state = np.random.SeedSequence(key)
     return torch.Generator(device=device).manual_seed(
         int(state.generate_state(1, np.uint64)[0]))
 
@@ -331,7 +352,7 @@ def _tree_map(fn: Callable[[torch.Tensor], torch.Tensor], outputs):
 
 
 def build_steps(config: Dict[str, Any], generator, discriminator,
-                criterion: Dict[str, Any], opt_g, opt_d):
+                criterion: Dict[str, Any], opt_g, opt_d, group=None):
     """Return (train_step_factory, eval_step).
 
     train_step_factory(train_g, use_adv, train_d) -> step
@@ -349,7 +370,17 @@ def build_steps(config: Dict[str, Any], generator, discriminator,
     from ``dropout_rng``
     (``step_generator(seed, steps, DROPOUT_STREAM, device)``). Metrics are
     detached 0-d tensors on the device.
+
+    ``group`` (a ``parallel.dist.Group``, None for one process) makes the
+    train step data-parallel: ``batch`` is this rank's shard of a global
+    batch of ``batch_size``, and the gradients, the metrics and the
+    restart's counts and rows are all-reduced (the module docstring). The
+    eval step runs no collective.
     """
+    if group is not None:
+        from parallelwavegan_torch.parallel.dist import per_rank_batch
+
+        per_rank_batch(config.get("batch_size", 0), group.size())
     gen_forward_raw = make_generator_forward(config, generator)
     dis_forward_raw = make_discriminator_forward(config, discriminator)
     lambda_aux = config.get("lambda_aux", 1.0)
@@ -541,7 +572,9 @@ def build_steps(config: Dict[str, Any], generator, discriminator,
         row of z_e, where a gate uniform < ``vq_restart_prob`` lets it. The
         rows come from ``rng``, the gate from ``shared_rng``; Adam's
         moments of the restarted rows stay. Returns the number of codes
-        used."""
+        used. Data-parallel, a code is dead when no latent of any rank
+        chose it (the counts summed), and the ranks write the mean of
+        their rows, so the codebook stays the same on each."""
         emb = params_g["codebook.embedding"]
         k = emb.shape[0]
         flat = z_e.detach().reshape(-1, emb.shape[-1])
@@ -549,10 +582,13 @@ def build_steps(config: Dict[str, Any], generator, discriminator,
         used.index_add_(0, torch.argmin(code_distances(flat, emb), dim=-1),
                         torch.ones(flat.shape[0], device=emb.device))
         rows = torch.randint(0, flat.shape[0], (k,), generator=rng)
+        repl = flat[rows.to(flat.device)]
+        if group is not None:
+            used, = group.all_reduce_sum([used])
+            repl, = group.all_reduce_mean([repl])
         gate = torch.rand(k, generator=shared_rng) < restart_prob
         dead = (used == 0.0) & gate.to(emb.device)
-        emb.copy_(torch.where(dead[:, None],
-                              flat[rows.to(flat.device)].to(emb.dtype), emb))
+        emb.copy_(torch.where(dead[:, None], repl.to(emb.dtype), emb))
         return torch.sum(used > 0.0).to(torch.float32)
 
     @functools.lru_cache(maxsize=8)
@@ -577,6 +613,8 @@ def build_steps(config: Dict[str, Any], generator, discriminator,
                     params_g, params_d, batch, use_adv, rng,
                     dropout_masks(batch, dropout_rng))
                 grads = _grads(gen_loss, params_g)
+                if group is not None:
+                    grads = group.all_reduce_mean(grads)
                 y_hat = y_hat.detach()
                 metrics.update(_detached(m))
                 del gen_loss, m
@@ -602,9 +640,13 @@ def build_steps(config: Dict[str, Any], generator, discriminator,
                 dis_loss, m = dis_losses(params_d, batch["y"], y_hat, True,
                                          rng)
                 grads_d = _grads(dis_loss, params_d)
+                if group is not None:
+                    grads_d = group.all_reduce_mean(grads_d)
                 metrics.update(_detached(m))
                 opt_d.step(params_d, grads_d)
             state.steps += 1
+            if group is not None:
+                metrics = group.mean_metrics(metrics)
             return state, metrics
 
         return step

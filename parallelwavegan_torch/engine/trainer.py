@@ -14,6 +14,15 @@ restart's gate comes from the stream ``SHARED_STREAM`` of the same seed
 and step, UHiFiGAN's dropout masks from the stream ``DROPOUT_STREAM``,
 seeded on the models' device.
 
+Data-parallel (started by ``distributed/launch.py``, the process group
+joined by ``parallel.dist.init_distributed``): every rank builds the same
+seeded state and takes rank 0's by broadcast (``replicate``: after the
+init, ``--pretrain`` and ``--resume``), its step all-reduces (the step's
+``group``), each rank's step generators fold in its rank (``SHARED_STREAM``
+excepted), and only rank 0 logs, writes checkpoints and dumps intermediate
+results, as the JAX trainer's ``process_index() == 0``. Every rank runs
+the evaluation on the whole dev loader, so the ranks stay in step.
+
 Not carried over from the JAX trainer: ``dispatch_queue_depth`` and the
 ``jax.profiler`` hook. Both work around that package's accelerator runtime
 (an unbounded asynchronous dispatch queue; its own trace format) and have
@@ -44,6 +53,11 @@ from parallelwavegan_torch.engine.step import (
     step_generator,
     with_noise,
 )
+from parallelwavegan_torch.parallel.dist import (
+    default_group,
+    rank,
+    world_size,
+)
 
 
 class Trainer:
@@ -65,11 +79,15 @@ class Trainer:
             init_train_state(config, seed, device)
         )
         self.device = next(self.generator.parameters()).device
+        self.group = default_group()
+        self.rank, self.world = rank(), world_size()
+        self.is_main = self.rank == 0
         self.criterion = build_criterion(config)
         self.train_step_factory, self.eval_step = build_steps(
             config, self.generator, self.discriminator, self.criterion,
-            opt_g, opt_d,
+            opt_g, opt_d, group=self.group,
         )
+        self.replicate()
         self.gen_forward = make_generator_forward(config, self.generator)
 
         self.steps = 0
@@ -82,7 +100,7 @@ class Trainer:
         self._accum_steps = 0
         self.tic = self._log_tic = time.time()
         self.writer = None
-        if self.outdir:
+        if self.outdir and self.is_main:
             os.makedirs(self.outdir, exist_ok=True)
             try:
                 from tensorboardX import SummaryWriter
@@ -99,6 +117,13 @@ class Trainer:
         use_adv = self.steps > d_start
         train_d = self.steps > d_start
         return train_g, use_adv, train_d
+
+    def replicate(self) -> None:
+        """Every rank takes rank 0's state (``GANTrainState.tensors``), as
+        the reference's DDP broadcasts at its start; nothing for one
+        process."""
+        if self.group is not None:
+            self.group.broadcast_tensors_(list(self.state.tensors().values()))
 
     def _to_device(self, batch: Dict[str, np.ndarray]
                    ) -> Dict[str, torch.Tensor]:
@@ -118,11 +143,13 @@ class Trainer:
             return
         step_fn = self.train_step_factory(train_g, use_adv, train_d)
         steps = self.state.steps
+        ranks = dict(rank=self.rank, world=self.world)
         self.state, metrics = step_fn(
             self.state, self._to_device(batch),
-            step_generator(self.seed, steps),
+            step_generator(self.seed, steps, **ranks),
             step_generator(self.seed, steps, SHARED_STREAM),
-            step_generator(self.seed, steps, DROPOUT_STREAM, self.device))
+            step_generator(self.seed, steps, DROPOUT_STREAM, self.device,
+                           **ranks))
         for k, v in metrics.items():
             self.total_train_loss[f"train/{k}"] += v  # stays on the device
         self._accum_steps += 1
@@ -159,9 +186,9 @@ class Trainer:
             while not self.finish_train:
                 self._train_epoch()
         finally:
-            self.save_checkpoint(
-                os.path.join(self.outdir, f"checkpoint-{self.steps}steps.ckpt")
-            )
+            if self.is_main:
+                self.save_checkpoint(os.path.join(
+                    self.outdir, f"checkpoint-{self.steps}steps.ckpt"))
         logging.info(f"Finished training ({self.steps} steps).")
 
     # ------------------------------------------------------------------
@@ -175,6 +202,7 @@ class Trainer:
         else:
             ckpt_lib.load_checkpoint(path, self.state)
             self.steps = self.state.steps
+        self.replicate()
 
     # ------------------------------------------------------------------
     def _check_log_interval(self):
@@ -187,10 +215,9 @@ class Trainer:
                 self.total_train_loss[key] = (
                     float(self.total_train_loss[key]) / n_accum
                 )
-                logging.info(
-                    f"(Steps: {self.steps}) {key} = "
-                    f"{self.total_train_loss[key]:.4f}."
-                )
+                if self.is_main:
+                    logging.info(f"(Steps: {self.steps}) {key} = "
+                                 f"{self.total_train_loss[key]:.4f}.")
             if self.writer:
                 for k, v in self.total_train_loss.items():
                     self.writer.add_scalar(k, v, self.steps)
@@ -206,7 +233,7 @@ class Trainer:
 
     def _check_save_interval(self):
         interval = self.config.get("save_interval_steps", 10000)
-        if self.steps % interval == 0:
+        if self.steps % interval == 0 and self.is_main:
             self.save_checkpoint(
                 os.path.join(self.outdir, f"checkpoint-{self.steps}steps.ckpt")
             )
@@ -233,12 +260,14 @@ class Trainer:
                 totals[f"eval/{k}"] += v  # on the device; read back below
         for k in totals:
             totals[k] = float(totals[k]) / max(n_batches, 1)
-            logging.info(f"(Steps: {self.steps}) {k} = {totals[k]:.4f}.")
+            if self.is_main:
+                logging.info(
+                    f"(Steps: {self.steps}) {k} = {totals[k]:.4f}.")
         if self.writer:
             for k, v in totals.items():
                 self.writer.add_scalar(k, v, self.steps)
         self.last_eval_loss = dict(totals)
-        if first_batch is not None:
+        if first_batch is not None and self.is_main:
             self._generate_and_save_intermediate_result(first_batch)
 
     def _generate_and_save_intermediate_result(self, batch):

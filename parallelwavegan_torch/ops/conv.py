@@ -60,6 +60,23 @@ def conv1d(
     return y.transpose(1, 2)
 
 
+def conv1d_product(x: torch.Tensor, kernel: torch.Tensor,
+                   bias: Optional[torch.Tensor] = None, padding: int = 0
+                   ) -> torch.Tensor:
+    """``conv1d`` at stride 1, dilation 1 and one group as one matrix
+    product: the K shifted frames of the zero-padded x side by side,
+    (B, T', K * Cin), times the kernel as (K * Cin, Cout). On the card
+    this is cuBLAS's f32 product, which lies from float64 as the CPU's
+    conv does; cuDNN's f32 algorithm for a few dozen frames of 384
+    channels (the duration predictor on tokens) lay 2-5 x further
+    (ROADMAP C-5)."""
+    K = kernel.shape[0]
+    frames = pad1d(x, (padding, padding)).unfold(1, K, 1)  # (B, T', C, K)
+    y = frames.transpose(2, 3).reshape(*frames.shape[:2], -1) @ \
+        kernel.reshape(-1, kernel.shape[-1])
+    return y if bias is None else y + bias
+
+
 def conv2d(
     x: torch.Tensor,
     kernel: torch.Tensor,

@@ -8,6 +8,7 @@ without them; there, run it without the JAX conftest:
 Without a GPU every test here skips.
 """
 
+import copy
 import hashlib
 
 import numpy as np
@@ -1450,6 +1451,41 @@ def test_embedding_backward_on_card_matches_float64(cuda_device, dim):
             for r in "kp"]
     assert errs[0] <= 2 * errs[1] + 1e-6, errs
     assert (got["k"][40:] == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tokens", [30, 120])
+def test_duration_predictor_on_card_is_as_close_to_float64_as_the_cpu(
+        cuda_device, tokens):
+    """The duration predictor (512 -> 384 -> 384, kernel 3, dropout on
+    given masks) on the card: its log-durations and its input's gradient
+    as close to float64 as the CPU's f32, at most 2 x + 1e-6, on six
+    seeded inputs. Its convs are matrix products on both devices; cuDNN's
+    f32 conv lay up to 5 x the CPU's distance there (ROADMAP C-5)."""
+    from parallelwavegan_torch.layers.duration import DurationPredictor
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    pred = DurationPredictor(512, 2, 384, 3, 0.5,
+                             generator=torch.Generator().manual_seed(8))
+    for seed in range(6):
+        g = torch.Generator().manual_seed(100 + seed)
+        x = torch.randn((1, tokens, 512), generator=g)
+        masks = pred.draw_dropout_masks(1, tokens, g)
+        cot = torch.randn((1, tokens), generator=g)
+        got = {}
+        for route, (device, dtype) in (("k", (cuda_device, torch.float32)),
+                                       ("p", ("cpu", torch.float32)),
+                                       ("e", ("cpu", torch.float64))):
+            m = copy.deepcopy(pred).to(device, dtype)
+            xr = x.to(device, dtype).requires_grad_()
+            y = m(xr, False, [mk.to(device) for mk in masks])
+            (dx,) = torch.autograd.grad(y, xr, cot.to(device, dtype))
+            got[route] = (y.detach().cpu().double(), dx.cpu().double())
+        for i, what in enumerate(("log-durations", "input gradient")):
+            e = got["e"][i]
+            k, p = ((got[r][i] - e).abs().max().item() for r in "kp")
+            assert k <= 2 * p + 1e-6, (seed, what, k, p)
 
 
 @pytest.mark.cuda

@@ -169,3 +169,63 @@ def test_gate_decides_discriminator_kinks_by_float64():
     assert ("feature matching", 1) in decided
     other.restore()
     assert [m.act for m in dis.modules() if hasattr(m, "act")] == own
+
+
+@pytest.mark.parametrize("slope", [0.1, 0.0], ids=["leaky_relu", "relu"])
+def test_gate_decides_generator_kinks_by_float64(slope):
+    """chip_smoke's gate takes the branches of G's LeakyReLUs and ReLUs
+    from float64 as it takes D's (ROADMAP C-4): a pre-activation that f32
+    rounds to 0 (1 + 2^-24 x 0.75 - 1, summed in order) takes the negative
+    slope on the f32 routes alone, which scales their gradient of the
+    first weights by the slope; decided by float64, every route takes its
+    slope, and G's own activation comes back after."""
+    from functools import partial
+
+    import chip_smoke
+    import torch.nn.functional as F
+    from torch import nn
+
+    class Tiny(nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.w1 = nn.Parameter(torch.ones(3))
+            self.w2 = nn.Parameter(torch.full((1,), 2.0))
+            self.act = (partial(F.leaky_relu, negative_slope=slope)
+                        if slope else F.relu)
+
+        def forward(self, x):
+            pre = x[..., 0] * self.w1[0] + x[..., 1] * self.w1[1] \
+                + x[..., 2] * self.w1[2]
+            return (self.act(pre)[..., None] * self.w2,)
+
+    class Critic(nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.w = nn.Parameter(torch.ones(1))
+
+        def forward(self, y):
+            return (y * self.w).sum()
+
+    gen, dis = Tiny(), Critic()
+    own = gen.act
+    x = torch.tensor([[[1.0, 0.75 * 2.0 ** -24, -1.0]]])
+    b = {"x": x, "y": torch.zeros(1, 1, 1)}
+    routes = chip_smoke.gate_routes(gen, dis, b)
+    # undecided, f32 and float64 part at the kink
+    for r, taken in (("p", slope), ("e", 1.0)):
+        g, _, rb = routes[r]
+        grad = torch.autograd.grad(g(rb["x"])[0].sum(), g.w1)[0]
+        torch.testing.assert_close(grad.double(), taken * 2.0 * rb["x"][
+            0, 0].double(), rtol=1e-6, atol=0)
+    got = chip_smoke.gate_gradients(
+        routes, lambda g, rb: g(rb["x"]),
+        {"sum": lambda outs, d, rb, kinks: outs[0].sum()},
+        lambda outs, d, rb: d(outs[0]))
+    for r in "kp":
+        torch.testing.assert_close(got[r]["own"]["w1"].double(),
+                                   got["e"]["own"]["w1"], rtol=1e-6, atol=0)
+        torch.testing.assert_close(got[r]["held"]["w1"].double(),
+                                   got["e"]["held"]["w1"], rtol=1e-6, atol=0)
+    assert gen.act is own
+    assert all(getattr(g.act, "func", g.act) is getattr(own, "func", own)
+               for g, _, _ in routes.values())

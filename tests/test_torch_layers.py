@@ -89,6 +89,34 @@ def test_conv1d_matches_flax(kernel_size, dilation, padding, bias):
                                atol=1e-5)
 
 
+@pytest.mark.parametrize("kernel_size,padding,bias",
+                         [(1, 0, True), (3, 1, True), (5, 2, False),
+                          (3, 0, True)])
+def test_conv1d_product_matches_flax(kernel_size, padding, bias):
+    """``ops.conv.conv1d_product`` (the duration predictor's convs)
+    against the flax conv on the same folded kernel, and its
+    gradients against ``conv1d``'s."""
+    from parallelwavegan_torch.ops.conv import conv1d, conv1d_product
+
+    rng = np.random.default_rng(2)
+    x = rng.standard_normal((2, 29, 6)).astype(np.float32)
+    flax_conv = FlaxConv1d(8, kernel_size, padding=padding, bias=bias,
+                           use_weight_norm=False, kernel_init=flax_kaiming)
+    v = _perturb(flax_conv.init(jax.random.key(0), jnp.asarray(x)), 3)
+    y_ref = flax_conv.apply(v, jnp.asarray(x))
+    kernel = torch.from_numpy(np.asarray(v["params"]["kernel"]))
+    b = torch.from_numpy(np.asarray(v["params"]["bias"])) if bias else None
+    xt = torch.from_numpy(x).requires_grad_()
+    y = conv1d_product(xt, kernel, b, padding)
+    np.testing.assert_allclose(y.detach().numpy(), np.asarray(y_ref),
+                               atol=1e-5)
+    xc = torch.from_numpy(x).requires_grad_()
+    cot = torch.from_numpy(rng.standard_normal(y.shape).astype(np.float32))
+    (g,) = torch.autograd.grad(y, xt, cot)
+    (g_ref,) = torch.autograd.grad(conv1d(xc, kernel, b, padding), xc, cot)
+    torch.testing.assert_close(g, g_ref, rtol=1e-5, atol=1e-5)
+
+
 def test_conv1d_init_draws_from_generator():
     """Kaiming-normal (relu) kernel from the given generator, zero bias."""
     a = Conv1d(40, 80, 3, generator=torch.Generator().manual_seed(5))

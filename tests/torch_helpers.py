@@ -118,9 +118,10 @@ def load_jax_state(state, generator, discriminator):
         strict=True)
 
 
-def both_train_states(config, seed=0):
+def both_train_states(config, seed=0, mesh=None):
     """(JAX state, JAX (factory, eval_step), port state, port (factory,
-    eval_step)) on the same perturbed parameters; the port on the CPU."""
+    eval_step)) on the same perturbed parameters; the port on the CPU. A
+    ``mesh`` builds the JAX steps data-parallel over it (``shard_map``)."""
     import jax
 
     from parallelwavegan_tpu.engine.build import (
@@ -144,7 +145,7 @@ def both_train_states(config, seed=0):
     if state.ema_g is not None:
         state = state.replace(ema_g=jax.tree.map(lambda a: a + 0, params_g))
     jax_steps = jax_build_steps(config, gen, dis, jax_build_criterion(config),
-                                opt_g, opt_d)
+                                opt_g, opt_d, mesh=mesh)
     t_state, t_gen, t_dis, t_opt_g, t_opt_d = init_train_state(
         config, seed, device="cpu")
     load_jax_state(state, t_gen, t_dis)
