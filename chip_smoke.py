@@ -299,7 +299,27 @@
    with restarts on two ranks of one example each (1 x 8,192, two steps,
    cut from 16 x 8,192): the codebook, restarted from the ranks' mean rows
    where no rank's latent chose a code, is bit-equal on both ranks. Each
-   launch's and check's wall time is printed.
+   launch's and check's wall time is printed;
+17. runs a recipe's front end on the card from the files users run, with
+   neither PyYAML nor h5py (utils/yaml_lite.py, utils/hdf5_lite.py): (a)
+   reads every egs/**/conf/*.yaml and assets/quality/config.yml; (b)
+   bin.preprocess of a wav.scp of the 24 shipped ground-truth wavs with
+   egs/ljspeech/voc1/conf/parallel_wavegan.v1.yaml (hdf5 dumps, the log-mel
+   on the card in float64) against the same CLI with --device cpu (feats
+   within RECIPE_FEATS_TOL, waves bit-equal, len(wave) == len(feats) x hop
+   on every file), then bin.compute_statistics and bin.normalize; (c)
+   bin.train --config of that yaml with its step counts and intervals cut
+   (RECIPE_CUT, written by yaml_lite) on 20 normalized dumps: 3 steps at 6
+   x 25,600 in f32 (G steps: step 0 trains nothing, the discriminator
+   starts at 100,000) through B1 and B2, both counted from 0 around the
+   run and above 0, G's parameters moved, the config.yml it writes loads
+   back equal; (d) bin.decode of the 4 dev dumps with the checkpoint's
+   config.yml on B1 (counted), then bin.evaluate_mcd and bin.evaluate_f0
+   against the ground truth in 4 processes each (printed, not gated),
+   started beside (e): bin.convert_checkpoint takes the trained .ckpt to a
+   .pkl, back to a .ckpt and to a .pkl again, bit-equal to the first, and
+   bin.decode serves step 13's conditioned VQ-VAE (.pkl, yaml config) from
+   an hdf5 dump with its speaker id, equal to vq_decode(vq_encode(x), g).
 
 Exits non-zero, printing no result, on any failure or without a GPU.
 """
@@ -5912,6 +5932,284 @@ def data_parallel_phase(dev, smi: str) -> dict:
     return out
 
 
+# step 17: the recipe front end on the card
+RECIPE_YAML = os.path.join(REPO, "egs", "ljspeech", "voc1", "conf",
+                           "parallel_wavegan.v1.yaml")
+# step 17 (c): the recipe with its step counts and intervals cut
+RECIPE_CUT = dict(train_max_steps=3, save_interval_steps=3,
+                  eval_interval_steps=3, log_interval_steps=1)
+RECIPE_DEV = 4        # utterances of the 24 held out for decoding and scores
+# the card's log-mel against the CPU route's (both float64 to the f32
+# cast: a few float32 roundings at |log10 mel| <= 10)
+RECIPE_FEATS_TOL = 1e-5
+
+
+def read_dumps(dumpdir: str) -> dict:
+    """{utt: {key: array}} of a directory of hdf5 dumps."""
+    from parallelwavegan_torch.utils.io import hdf5_keys, read_hdf5
+
+    out = {}
+    for path in sorted(glob.glob(os.path.join(dumpdir, "*.h5"))):
+        utt = os.path.basename(path)[:-3]
+        out[utt] = {k: read_hdf5(path, k) for k in hdf5_keys(path)}
+    return out
+
+
+def recipe_phase(dev) -> dict:
+    """Step 17 of the module docstring."""
+    from parallelwavegan_torch.bin import (
+        compute_statistics,
+        convert_checkpoint,
+        decode,
+        normalize,
+        preprocess,
+        train,
+    )
+    from parallelwavegan_torch.engine.build import init_train_state
+    from parallelwavegan_torch.utils import yaml_lite
+    from parallelwavegan_torch.utils.io import read_wav, write_hdf5
+    from parallelwavegan_torch.utils.model_loader import load_model
+    from parallelwavegan_torch.utils.params import nested
+    from parallelwavegan_torch.utils.torch_export import (
+        save_reference_checkpoint,
+    )
+
+    counters = kernel_launch_counters()
+    walls = {}
+    t0 = time.perf_counter()
+    # (a) every recipe file through yaml_lite
+    recipes = sorted(glob.glob(os.path.join(REPO, "egs", "**", "conf",
+                                            "*.yaml"), recursive=True))
+    recipes.append(os.path.join(ASSET_DIR, "config.yml"))
+    loaded = {path: yaml_lite.load_file(path) for path in recipes}
+    if len(loaded) < 111 or not all(isinstance(c, dict) and
+                                    "sampling_rate" in c
+                                    for c in loaded.values()):
+        raise AssertionError("a recipe file did not load as a config")
+    config = loaded[RECIPE_YAML]
+    hop = config["hop_size"]
+    walls["a"] = time.perf_counter() - t0
+    print(f"recipe (a) {len(loaded)} recipe files read by yaml_lite, "
+          f"{walls['a']:.2f} s wall")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # (b) preprocess the shipped 24 ground-truth wavs on the card and on
+        # the CPU route; statistics and normalization of the card's dumps
+        t0 = time.perf_counter()
+        gts = sorted(glob.glob(os.path.join(ASSET_DIR, "eval_utt*-gt.wav")))
+        scp = os.path.join(tmp, "wav.scp")
+        with open(scp, "w") as f:
+            f.writelines(f"{os.path.basename(p)[:-4]} {p}\n" for p in gts)
+        d = {k: os.path.join(tmp, k) for k in ("raw", "raw_cpu", "stats",
+                                               "norm", "dev", "exp", "out",
+                                               "ref", "back", "ref2", "vq")}
+        common = ["--config", RECIPE_YAML, "--verbose", "0"]
+        t1 = time.perf_counter()
+        preprocess.main(["--wav-scp", scp, "--dumpdir", d["raw"]] + common)
+        walls["preprocess"] = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        preprocess.main(["--wav-scp", scp, "--dumpdir", d["raw_cpu"],
+                         "--device", "cpu"] + common)
+        walls["preprocess_cpu"] = time.perf_counter() - t1
+        card, cpu = read_dumps(d["raw"]), read_dumps(d["raw_cpu"])
+        if len(card) != len(gts) or sorted(card) != sorted(cpu):
+            raise AssertionError("preprocess did not dump every utterance")
+        worst = 0.0
+        for utt, arrays in card.items():
+            if sorted(arrays) != ["feats", "wave"] or \
+                    arrays["feats"].shape[1] != config["num_mels"] or \
+                    len(arrays["wave"]) != len(arrays["feats"]) * hop:
+                raise AssertionError(f"{utt}: a bad dump")
+            if not np.array_equal(arrays["wave"], cpu[utt]["wave"]):
+                raise AssertionError(f"{utt}: the card's wave is not the "
+                                     "CPU route's")
+            worst = max(worst, float(np.abs(arrays["feats"]
+                                            - cpu[utt]["feats"]).max()))
+        frames = sum(len(a["feats"]) for a in card.values())
+        print(f"recipe (b) bin.preprocess ({os.path.relpath(RECIPE_YAML, REPO)}"
+              f", hdf5) on {dev}: {len(card)} utterances, {frames} frames, "
+              f"{walls['preprocess']:.2f} s wall (CPU route "
+              f"{walls['preprocess_cpu']:.2f} s); feats vs the CPU route "
+              f"max_abs_err {worst:.3e} (allowed {RECIPE_FEATS_TOL:.0e}), "
+              f"waves bit-equal, len(wave) == len(feats) x {hop} on every "
+              "file")
+        if worst > RECIPE_FEATS_TOL:
+            raise AssertionError("the card's log-mel disagrees with the CPU "
+                                 "route")
+        compute_statistics.main(["--rootdir", d["raw"], "--dumpdir",
+                                 d["stats"]] + common)
+        normalize.main(["--rootdir", d["raw"], "--dumpdir", d["norm"],
+                        "--stats", os.path.join(d["stats"], "stats.h5")]
+                       + common)
+        norm = read_dumps(d["norm"])
+        mean = np.mean(np.concatenate([a["feats"] for a in norm.values()]),
+                       axis=0)
+        if len(norm) != len(gts) or np.abs(mean).max() > 1e-4 or \
+                any(not np.array_equal(a["wave"], card[u]["wave"])
+                    for u, a in norm.items()):
+            raise AssertionError("normalize did not standardize the feats")
+        os.makedirs(d["dev"])
+        dev_utts = sorted(norm)[-RECIPE_DEV:]
+        for utt in dev_utts:
+            os.rename(os.path.join(d["norm"], f"{utt}.h5"),
+                      os.path.join(d["dev"], f"{utt}.h5"))
+        walls["b"] = time.perf_counter() - t0
+        print(f"  compute_statistics + normalize: feats mean {np.abs(mean).max():.2e}"
+              f" at most; {walls['b']:.1f} s wall for (b)")
+
+        # (c) bin.train from the recipe's yaml (step counts cut, written by
+        # yaml_lite) on the normalized hdf5 dumps, through B1 and B2
+        t0 = time.perf_counter()
+        train_yaml = os.path.join(tmp, "train.yaml")
+        with open(train_yaml, "w") as f:
+            f.write(yaml_lite.dump(dict(config, **RECIPE_CUT)))
+        initial = init_train_state(dict(config, **RECIPE_CUT), 0, dev)[0]
+        torch.cuda.synchronize()
+        for fn in counters.values():
+            fn.launches = 0
+        trainer = train.main(["--train-dumpdir", d["norm"], "--dev-dumpdir",
+                              d["dev"], "--outdir", d["exp"], "--config",
+                              train_yaml, "--verbose", "0"])
+        torch.cuda.synchronize()
+        train_launches = {k: fn.launches for k, fn in counters.items()}
+        walls["c"] = time.perf_counter() - t0
+        saved_path = os.path.join(d["exp"], "config.yml")
+        saved = yaml_lite.load_file(saved_path)
+        want = dict(config, **RECIPE_CUT, use_f0=False, outdir=d["exp"],
+                    resume="", pretrain="", seed=0, version=train.VERSION,
+                    train_dumpdir=d["norm"], dev_dumpdir=d["dev"])
+        with open(saved_path) as f:
+            if saved != want or f.read() != yaml_lite.dump(saved):
+                raise AssertionError("config.yml does not load back equal")
+        losses = trainer.last_train_loss
+        print(f"recipe (c) bin.train --config {os.path.basename(train_yaml)}"
+              f" ({RECIPE_CUT['train_max_steps']} steps at "
+              f"{config['batch_size']} x {config['batch_max_steps']}, f32) "
+              f"on {len(norm) - RECIPE_DEV} normalized hdf5 dumps: "
+              f"{walls['c']:.1f} s wall; losses "
+              + ", ".join(f"{k.split('/')[-1]} {v:.4f}"
+                          for k, v in sorted(losses.items()))
+              + f"; launches {train_launches}; config.yml loads back equal")
+        if trainer.steps != RECIPE_CUT["train_max_steps"] or not all(
+                np.isfinite(v) for v in losses.values()):
+            raise AssertionError("the recipe's training did not finish")
+        check_moved("G", trainer.generator, initial.generator, 4)
+        if min(train_launches["wavenet_stack"],
+               train_launches["wavenet_stack_backward"]) < 1:
+            raise AssertionError("the recipe's training did not run B1 and "
+                                 "B2")
+        del trainer, initial
+        torch.cuda.empty_cache()
+
+        # (d) bin.decode of the dev dumps with the checkpoint's config.yml,
+        # then both scores in processes of their own beside (e)
+        t0 = time.perf_counter()
+        ckpt = os.path.join(d["exp"], "checkpoint-3steps.ckpt")
+        torch.cuda.synchronize()
+        for fn in counters.values():
+            fn.launches = 0
+        decode.main(["--dumpdir", d["dev"], "--checkpoint", ckpt, "--outdir",
+                     d["out"], "--verbose", "0"])
+        torch.cuda.synchronize()
+        decode_launches = {k: fn.launches for k, fn in counters.items()}
+        for utt in dev_utts:
+            wave, sr = read_wav(os.path.join(d["out"], f"{utt}_gen.wav"))
+            if sr != config["sampling_rate"] or \
+                    len(wave) != len(card[utt]["wave"]) or \
+                    not np.isfinite(wave).all():
+                raise AssertionError(f"{utt}: a bad decoded wave")
+        walls["decode"] = time.perf_counter() - t0
+        print(f"recipe (d) bin.decode of {RECIPE_DEV} dev dumps with "
+              f"exp/config.yml: {walls['decode']:.1f} s wall, launches "
+              f"{decode_launches}")
+        if decode_launches["wavenet_stack"] < 1:
+            raise AssertionError("bin.decode did not run B1")
+        scorers = [subprocess.Popen(
+            [sys.executable, "-m", f"parallelwavegan_torch.bin.{name}",
+             "--outdir", d["out"], "--gt-wavdir", ASSET_DIR, "--n-jobs",
+             str(RECIPE_DEV)], cwd=REPO, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True)
+            for name in ("evaluate_mcd", "evaluate_f0")]
+        try:
+            # (e) .ckpt -> .pkl -> .ckpt -> .pkl through
+            # bin.convert_checkpoint, the two .pkl files bit-equal
+            t0 = time.perf_counter()
+            first = convert_checkpoint.main([
+                "--checkpoint", ckpt, "--outdir", d["ref"], "--to-reference",
+                "--verbose", "0"])
+            again = convert_checkpoint.main([
+                "--checkpoint", first, "--outdir", d["back"], "--verbose",
+                "0"])
+            second = convert_checkpoint.main([
+                "--checkpoint", again, "--outdir", d["ref2"],
+                "--to-reference", "--verbose", "0"])
+            a, b = (torch.load(p, weights_only=False) for p in (first,
+                                                                second))
+            ga, gb = a["model"]["generator"], b["model"]["generator"]
+            if a["steps"] != 3 or b["steps"] != 3 or sorted(ga) != sorted(gb) \
+                    or not all(torch.equal(ga[k], gb[k]) for k in ga):
+                raise AssertionError("the .pkl did not round-trip bit-equal")
+            walls["convert"] = time.perf_counter() - t0
+            print(f"recipe (e) bin.convert_checkpoint .ckpt -> .pkl -> .ckpt"
+                  f" -> .pkl: {len(ga)} tensors bit-equal, steps 3, "
+                  f"{walls['convert']:.1f} s wall")
+            # the conditioned VQ-VAE of step 13 from an hdf5 dump with its
+            # speaker id, through bin.decode
+            t0 = time.perf_counter()
+            os.makedirs(d["vq"])
+            pkl = os.path.join(d["vq"], "checkpoint-1steps.pkl")
+            save_reference_checkpoint(pkl, nested(seeded_vqvae(
+                VQVAE_V3, 3, dev).state_dict()), VQVAE_V3, steps=1)
+            vq_yaml = os.path.join(d["vq"], "config.yml")
+            with open(vq_yaml, "w") as f:
+                f.write(yaml_lite.dump(dict(VQVAE_V3, format="hdf5")))
+            wave = vq_audio(np.random.default_rng(17), 1, 2 * VQ_SR + 77)[0]
+            dump = os.path.join(d["vq"], "dump", "vq_utt.h5")
+            write_hdf5(dump, "wave", wave)
+            write_hdf5(dump, "global", np.array([5], dtype=np.int64))
+            decode.main(["--dumpdir", os.path.dirname(dump), "--checkpoint",
+                         pkl, "--outdir", os.path.join(d["vq"], "out"),
+                         "--verbose", "0"])
+            served = load_model(pkl, VQVAE_V3, device=dev)
+            codes = served.vq_encode(wave)
+            want_wave = served.vq_decode(codes, g=5)[:, 0]
+            got_wave, _ = read_wav(os.path.join(d["vq"], "out",
+                                                "vq_utt_gen.wav"))
+            with open(os.path.join(d["vq"], "out", "text")) as f:
+                line = f.read().split()
+            pcm = np.clip(want_wave.astype(np.float64), -1, 1) * 32767.0
+            if line != ["vq_utt"] + [str(c) for c in codes] or \
+                    not np.array_equal((got_wave * 2**15).astype(np.int64),
+                                       pcm.astype(np.int16).astype(np.int64)):
+                raise AssertionError("bin.decode of the conditioned VQ-VAE "
+                                     "is not vq_decode(vq_encode, g)")
+            walls["vq"] = time.perf_counter() - t0
+            print(f"  conditioned_melgan_vae.v3 (.pkl, yaml config) decoded "
+                  f"by bin.decode from an hdf5 dump with global id 5: "
+                  f"{len(codes)} codes and the wave equal to "
+                  f"vq_decode(vq_encode(x), g=5), {walls['vq']:.1f} s wall")
+        finally:
+            t0 = time.perf_counter()
+            logs = [p.communicate(timeout=300)[0] for p in scorers]
+        walls["scores_wait"] = time.perf_counter() - t0
+        for p, log in zip(scorers, logs):
+            if p.returncode != 0:
+                raise AssertionError(f"a scorer failed:\n{log[-2000:]}")
+        mcd = [ln for ln in logs[0].splitlines() if ln.startswith("Mean MCD")]
+        f0 = [ln for ln in logs[1].splitlines()
+              if ln.startswith("Mean log-F0")]
+        print(f"recipe (d) scores of the {RECIPE_DEV} decoded dev utterances "
+              f"after {RECIPE_CUT['train_max_steps'] - 1} G steps (printed, "
+              f"not gated): {mcd[0] if mcd else '?'}; "
+              f"{f0[0] if f0 else '?'}; waited {walls['scores_wait']:.1f} s")
+        if not mcd or not f0:
+            raise AssertionError("a scorer printed no mean")
+    return {"launches": {k: {"train": train_launches[k],
+                             "decode": decode_launches[k]}
+                         for k in counters},
+            "walls": walls}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -6128,11 +6426,19 @@ def run_phases(dev, smi: str, pool) -> int:
     t0 = time.perf_counter()
     dp = data_parallel_phase(dev, smi)
     print(f"step 16: {time.perf_counter() - t0:.1f} s wall")
+    # 17. the recipe front end: yaml and hdf5 on the card, preprocess to
+    # decode
+    t0 = time.perf_counter()
+    recipe = recipe_phase(dev)
+    print(f"step 17: {time.perf_counter() - t0:.1f} s wall")
+    rl = recipe["launches"]
     if min(launches, launches32, train["fwd_launches"], train["bwd_launches"],
            hifi["launches"], mm["launches"], variant["launches"],
            chunked["pwg_launches"], chunked["mrf_launches"],
            *dp["launches"]["wavenet_stack"],
-           *dp["launches"]["wavenet_stack_backward"]) < 1:
+           *dp["launches"]["wavenet_stack_backward"],
+           rl["wavenet_stack"]["train"], rl["wavenet_stack"]["decode"],
+           rl["wavenet_stack_backward"]["train"]) < 1:
         raise AssertionError("a kernel of a main path was never launched")
 
     # no single PyTorch call computes the stack or its backward: library_ms
@@ -6284,6 +6590,8 @@ def run_phases(dev, smi: str, pool) -> int:
         entry["discrete_launches"] = disc["launches"][entry["name"]]
         # step 16 (a): each rank's launches on the data-parallel PWG v1 path
         entry["data_parallel_launches"] = dp["launches"].get(entry["name"])
+        # step 17: bin.train and bin.decode of the recipe front end
+        entry["recipe_launches"] = rl[entry["name"]]
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

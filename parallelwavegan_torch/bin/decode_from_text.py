@@ -10,7 +10,7 @@ second column (generators with ``num_spk_embs`` > 0). The ids reach the
 generator as int64 (the JAX CLI passes them as float32, which its bf16
 serving rounds above 256). Runs on CUDA by default (``--device cpu`` for
 the host); the config is YAML (``config.yml`` beside the checkpoint by
-default) or JSON, which needs no ``yaml``:
+default) or JSON:
 
     python -m parallelwavegan_torch.bin.decode_from_text --text text \
         --checkpoint exp/checkpoint-250000steps.pkl --config conf.json \

@@ -205,7 +205,7 @@ def run(config: Dict[str, Any], train: Split, dev: Split,
         device: Any = "cuda", dump_config: bool = True):
     """Train from a config dict; returns the Trainer when training ends.
     ``train`` and ``dev`` are dump directories or scp lists (``Split``).
-    ``dump_config`` writes ``outdir/config.yml`` (needs ``yaml``). Under
+    ``dump_config`` writes ``outdir/config.yml``. Under
     the launcher the process joins its group first and trains on its
     rank's device and shard."""
     from parallelwavegan_torch.engine.trainer import Trainer

@@ -5,7 +5,7 @@ Counterpart of ``AudioMelDataset``, ``AudioMelF0Dataset``,
 ``MelF0ExcitationDataset``, ``AudioDataset``, ``AudioGlobalDataset`` and
 ``AudioLocalDataset`` in ``parallelwavegan_tpu/datasets/audio_mel_dataset.py``:
 ``*-wave.npy`` / ``*-feats.npy`` files (or ``*.h5`` with "wave" / "feats"
-datasets, read through a lazy ``h5py`` import). The F0 datasets add the
+datasets, read through ``utils/hdf5_lite.py``). The F0 datasets add the
 per-frame f0 and the excitation (a (frames, hop) dump), the wav2wav
 datasets a speaker id ("global") and a frame-rate condition ("local"),
 each read by a load function of the audio file's path (of the mel file's
@@ -34,6 +34,15 @@ def _utt_id(path: str) -> str:
     return base
 
 
+def _item(parts: tuple, utt_id: str, return_utt_id: bool):
+    """An item of one part is that part, as the load function returned it
+    (a (wave, rate) pair of ``read_wav`` too); the utterance id goes
+    first."""
+    if return_utt_id:
+        return (utt_id,) + parts
+    return parts if len(parts) > 1 else parts[0]
+
+
 class MelDataset:
     """Sequence of mels (or (utt_id, mel) pairs), sorted by file name."""
 
@@ -55,15 +64,12 @@ class MelDataset:
     def __len__(self) -> int:
         return len(self.mel_files)
 
-    def _load(self, idx: int):
-        return self.mel_load_fn(self.mel_files[idx])
+    def _load(self, idx: int) -> tuple:
+        """The item's parts: (mel,) here, more in the subclasses."""
+        return (self.mel_load_fn(self.mel_files[idx]),)
 
     def __getitem__(self, idx):
-        item = self._load(idx)
-        if not self.return_utt_id:
-            return item
-        return (self.utt_ids[idx],) + (
-            item if isinstance(item, tuple) else (item,))
+        return _item(self._load(idx), self.utt_ids[idx], self.return_utt_id)
 
 
 class MelF0Dataset(MelDataset):
@@ -75,7 +81,7 @@ class MelF0Dataset(MelDataset):
         super().__init__(root_dir, **kwargs)
         self.f0_load_fn = f0_load_fn
 
-    def _load(self, idx: int):
+    def _load(self, idx: int) -> tuple:
         f = self.mel_files[idx]
         return (self.mel_load_fn(f), self.f0_load_fn(f))
 
@@ -222,16 +228,14 @@ class AudioDataset:
     def __len__(self) -> int:
         return len(self.audio_files)
 
-    def _load(self, idx: int):
-        return self.audio_load_fn(self.audio_files[idx])
+    def _load(self, idx: int) -> tuple:
+        """The item's parts: (audio,) here, more in the subclasses."""
+        return (self.audio_load_fn(self.audio_files[idx]),)
 
     def __getitem__(self, idx):
         if self.caches is not None and self.caches[idx] is not None:
             return self.caches[idx]
-        item = self._load(idx)
-        if self.return_utt_id:
-            item = (self.utt_ids[idx],) + (
-                item if isinstance(item, tuple) else (item,))
+        item = _item(self._load(idx), self.utt_ids[idx], self.return_utt_id)
         if self.caches is not None:
             self.caches[idx] = item
         return item

@@ -1,16 +1,61 @@
-"""Host-side audio utilities: the YIN f0 estimator that the evaluation
-metrics use.
+"""Host-side audio utilities for preprocessing and evaluation: silence
+trimming, resampling, YIN f0 and the f0 features of the dumps.
 
-The port's own copy of ``yin_f0`` from ``parallelwavegan_tpu/ops/audio.py``
-(numpy only). Silence trimming, resampling and the f0 feature extractors of
-that file belong to preprocessing and are not ported yet.
+The port's own copy of ``parallelwavegan_tpu/ops/audio.py`` (numpy and
+scipy): numpy versions of what the reference preprocessing takes from
+librosa (``effects.trim``, ``feature.rms``) and torchyin.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
+
+
+def _frame_rms(x: np.ndarray, frame_length: int, hop_length: int) -> np.ndarray:
+    """Centered per-frame RMS (librosa.feature.rms semantics)."""
+    pad = frame_length // 2
+    xp = np.pad(x, (pad, pad))
+    n_frames = 1 + (len(xp) - frame_length) // hop_length
+    idx = (
+        np.arange(n_frames)[:, None] * hop_length
+        + np.arange(frame_length)[None, :]
+    )
+    frames = xp[idx]
+    return np.sqrt(np.mean(frames**2, axis=1))
+
+
+def trim_silence(
+    audio: np.ndarray,
+    top_db: float = 60.0,
+    frame_length: int = 2048,
+    hop_length: int = 512,
+) -> Tuple[np.ndarray, Tuple[int, int]]:
+    """Trim leading/trailing silence (librosa.effects.trim semantics):
+    frames quieter than max - top_db are silence."""
+    rms = _frame_rms(audio, frame_length, hop_length)
+    db = 20.0 * np.log10(np.maximum(rms, 1e-10) / max(rms.max(), 1e-10))
+    non_silent = np.flatnonzero(db > -top_db)
+    if len(non_silent) == 0:
+        return audio[:0], (0, 0)
+    start = int(non_silent[0] * hop_length)
+    end = int(min(len(audio), (non_silent[-1] + 1) * hop_length))
+    return audio[start:end], (start, end)
+
+
+def resample(audio: np.ndarray, orig_sr: int, target_sr: int) -> np.ndarray:
+    """Polyphase resampling (scipy)."""
+    if orig_sr == target_sr:
+        return audio
+    from math import gcd
+
+    from scipy.signal import resample_poly
+
+    g = gcd(orig_sr, target_sr)
+    return resample_poly(audio, target_sr // g, orig_sr // g).astype(
+        audio.dtype
+    )
 
 
 def yin_f0(
@@ -81,3 +126,74 @@ def yin_f0(
             tau_f = float(tau)
         f0[i] = sampling_rate / tau_f
     return f0
+
+
+def log_f0(
+    audio: np.ndarray,
+    sampling_rate: int,
+    hop_size: int = 256,
+    frame_length: Optional[int] = None,
+    pitch_min: float = 40.0,
+    pitch_max: float = 10000.0,
+) -> np.ndarray:
+    """Log-domain YIN f0 with the reference's torchyin dump contract:
+    unvoiced frames are 0, voiced frames carry
+    log(f0); when `frame_length` is given, pitch_min = sr/(frame_length/2)
+    (the reference passes win_length); pitch_max defaults to 10000 Hz.
+    Integer-period YIN (no parabolic refinement), matching torchyin's
+    discretization."""
+    if frame_length is not None:
+        pitch_min = sampling_rate / (frame_length / 2)
+    f0 = yin_f0(
+        audio, sampling_rate, hop_size,
+        pitch_min=pitch_min, pitch_max=pitch_max,
+        frame_length=frame_length, parabolic=False,
+    )
+    out = f0.astype(np.float32)
+    nz = out != 0
+    out[nz] = np.log(out[nz])
+    return out
+
+
+def interpolate_continuous_f0(f0: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    """Continuous log-f0 + voiced/unvoiced flags (the reference's pyreaper
+    continuous-f0 path)."""
+    vuv = (f0 > 0).astype(np.float32)
+    if vuv.sum() == 0:
+        return np.zeros_like(f0), vuv
+    voiced_idx = np.flatnonzero(f0 > 0)
+    cont = np.interp(np.arange(len(f0)), voiced_idx, f0[voiced_idx])
+    return np.log(np.maximum(cont, 1e-10)).astype(np.float32), vuv
+
+
+def logf0_and_vuv(
+    audio: np.ndarray,
+    sampling_rate: int,
+    hop_size: int = 256,
+    pitch_min: float = 40.0,
+    pitch_max: float = 500.0,
+) -> Optional[np.ndarray]:
+    """Continuous log-f0 + voiced/unvoiced local features (#frames, 2).
+
+    Role parity with the reference's pyreaper path: f0 from YIN, unvoiced
+    gaps linearly
+    interpolated, start/end padded with the first/last voiced value,
+    log-domain; column 1 is the binary V/UV flag. Returns None when every
+    frame is unvoiced (the reference skips such utterances).
+    """
+    f0 = yin_f0(
+        np.pad(audio, (0, hop_size * 2)), sampling_rate, hop_size,
+        pitch_min=pitch_min, pitch_max=pitch_max,
+    )
+    vuv = (f0 > 0).astype(np.float32)
+    if vuv.sum() == 0:
+        return None
+    voiced = np.flatnonzero(f0 > 0)
+    f0 = f0.astype(np.float64)
+    f0[: voiced[0]] = f0[voiced[0]]
+    f0[voiced[-1]:] = f0[voiced[-1]]
+    unvoiced = np.flatnonzero(f0 <= 0)
+    if len(unvoiced) > 0:
+        f0[unvoiced] = np.interp(unvoiced, voiced, f0[voiced])
+    lf0 = np.log(f0).astype(np.float32)
+    return np.stack([lf0, vuv], axis=-1)

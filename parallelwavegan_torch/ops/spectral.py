@@ -12,13 +12,18 @@ float32 whatever ``torch.backends.cuda.matmul.allow_tf32`` says, in the
 backward too, as the JAX package asks for ``Precision.HIGHEST``; so does
 the mel product (TF32 there would move a log-mel L1 that the HiFi-GAN recipe
 multiplies by 45).
+
+``preprocess_log_mel`` is the preprocessing's log-mel (the JAX package's
+``log_mel_spectrogram_numpy``) on a device the caller names: the windowed
+float32 frames go through a float64 FFT, the mel product and the log in
+float64, and are rounded to float32 once, as numpy computes it.
 """
 
 from __future__ import annotations
 
 import functools
 import math
-from typing import Optional
+from typing import Any, Optional
 
 import numpy as np
 import torch
@@ -195,3 +200,44 @@ def log_mel_spectrogram(
     if log_base is None:
         return torch.log(mel)
     return torch.log(mel) / math.log(log_base)
+
+
+def preprocess_log_mel(
+    audio: np.ndarray,
+    sampling_rate: int,
+    fft_size: int = 1024,
+    hop_size: int = 256,
+    win_length: Optional[int] = None,
+    window: str = "hann",
+    num_mels: int = 80,
+    fmin: Optional[float] = None,
+    fmax: Optional[float] = None,
+    eps: float = 1e-10,
+    log_base: Optional[float] = 10.0,
+    device: Any = "cuda",
+) -> np.ndarray:
+    """Log-mel (n_frames, num_mels) float32 of a 1-D wave, for the feature
+    dumps: the amplitude unclamped, the mel clamped at ``eps``.
+
+    The float32 frames times the float32 window are transformed in float64
+    (an FFT in float32 moves the quiet bins, whose mel lies near the clamp,
+    by decades of log10), the mel product and the log too. The reflect pad
+    is numpy's, on the host (it reflects again past the wave's length, and
+    an empty wave raises numpy's ``ValueError``), as in the JAX function.
+    """
+    if win_length is None:
+        win_length = fft_size
+    x = np.asarray(audio, dtype=np.float32)
+    p = fft_size // 2
+    x = torch.from_numpy(np.pad(x, (p, p), mode="reflect")).to(device)
+    w = pad_center(get_window(window, win_length, np.float32), fft_size)
+    frames = x.unfold(0, fft_size, hop_size) * torch.from_numpy(w).to(device)
+    amp = torch.fft.rfft(frames.double(), dim=-1).abs()
+    fmin = 0.0 if fmin is None else fmin
+    fmax = sampling_rate / 2.0 if fmax is None else fmax
+    melmat = _mel_basis_on(sampling_rate, fft_size, num_mels, float(fmin),
+                           float(fmax), amp.device, torch.float64)
+    mel = torch.clamp(amp @ melmat, min=eps).log()
+    if log_base is not None:
+        mel = mel / math.log(log_base)
+    return mel.float().cpu().numpy()

@@ -1,10 +1,10 @@
-"""File IO: feature files, WAV input and 16-bit PCM output, YAML (or JSON)
-configs.
+"""File IO: hdf5 and npy feature files, WAV input and 16-bit PCM output,
+YAML (or JSON) configs.
 
-Counterpart of the serving and training part of
-``parallelwavegan_tpu/utils/io.py``. ``yaml`` and ``h5py`` are imported
-inside the functions that need them, so the port runs where neither is
-installed.
+Counterpart of ``parallelwavegan_tpu/utils/io.py``. Configs go through
+``utils/yaml_lite.py`` and hdf5 files through ``utils/hdf5_lite.py`` on
+every machine, so the port needs neither PyYAML nor h5py (the tests hold
+both modules to those libraries).
 """
 
 from __future__ import annotations
@@ -12,33 +12,61 @@ from __future__ import annotations
 import fnmatch
 import json
 import os
-from typing import Any, Dict, List
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 
+from parallelwavegan_torch.utils import hdf5_lite, yaml_lite
 
-def find_files(root_dir: str, query: str = "*.wav") -> List[str]:
-    """Recursively collect files matching `query` (sorted)."""
+
+def find_files(root_dir: str, query: str = "*.wav",
+               include_root_dir: bool = True) -> List[str]:
+    """Recursively collect files matching `query` (sorted); without
+    ``include_root_dir`` the paths are relative to ``root_dir``."""
     files = []
     for root, _, filenames in os.walk(root_dir, followlinks=True):
         for filename in fnmatch.filter(filenames, query):
             files.append(os.path.join(root, filename))
-    return sorted(files)
+    files = sorted(files)
+    if not include_root_dir:
+        files = [f.replace(root_dir + "/", "") for f in files]
+    return files
 
 
 def read_hdf5(hdf5_name: str, hdf5_path: str) -> np.ndarray:
     """Read a dataset from an hdf5 file."""
-    import h5py
-
     if not os.path.exists(hdf5_name):
         raise FileNotFoundError(f"There is no such a hdf5 file ({hdf5_name}).")
-    with h5py.File(hdf5_name, "r") as f:
-        if hdf5_path not in f:
-            raise KeyError(
-                f"There is no such a data in hdf5 file ({hdf5_path} in "
-                f"{hdf5_name})."
-            )
-        return f[hdf5_path][()]
+    try:
+        return hdf5_lite.read(hdf5_name, hdf5_path)
+    except KeyError:
+        raise KeyError(
+            f"There is no such a data in hdf5 file ({hdf5_path} in "
+            f"{hdf5_name})."
+        ) from None
+
+
+def hdf5_keys(hdf5_name: str) -> List[str]:
+    """The names in an hdf5 file's root group."""
+    return hdf5_lite.keys(hdf5_name)
+
+
+def write_hdf5(hdf5_name: str, hdf5_path: str, write_data,
+               is_overwrite: bool = True) -> None:
+    """Write a dataset into an hdf5 file, creating parents as needed; the
+    file's other datasets stay (it is read and written anew)."""
+    write_data = np.asarray(write_data)
+    folder = os.path.dirname(hdf5_name)
+    if folder and not os.path.exists(folder):
+        os.makedirs(folder, exist_ok=True)
+    datasets = (hdf5_lite.read_all(hdf5_name) if os.path.exists(hdf5_name)
+                else {})
+    if hdf5_path in datasets and not is_overwrite:
+        raise RuntimeError(
+            f"Dataset {hdf5_path} already exists in {hdf5_name}."
+        )
+    datasets[hdf5_path] = write_data
+    hdf5_lite.write(hdf5_name, datasets)
 
 
 def read_wav(path):
@@ -74,23 +102,23 @@ def write_wav(path: str, wave: np.ndarray, sampling_rate: int) -> None:
     wavfile.write(path, sampling_rate, (data * 32767.0).astype(np.int16))
 
 
-def load_config(path: str) -> Dict[str, Any]:
-    """Load a (reference-compatible) YAML experiment config; a ``.json``
-    file (JSON is a subset of YAML) is read without ``yaml``."""
-    with open(path) as f:
-        if path.endswith(".json"):
-            return json.load(f)
-        import yaml
-
-        return yaml.load(f, Loader=yaml.SafeLoader)
+def load_config(path: str, overrides: Optional[Dict[str, Any]] = None
+                ) -> Dict[str, Any]:
+    """Load a (reference-compatible) YAML experiment config, or a ``.json``
+    one; ``overrides`` replace its top-level keys."""
+    with open(path, encoding="utf-8") as f:
+        text = f.read()
+    config = json.loads(text) if path.endswith(".json") else \
+        yaml_lite.load(text)
+    if overrides:
+        config.update(overrides)
+    return config
 
 
 def save_config(path: str, config: Dict[str, Any]) -> None:
     """Dump an experiment config as YAML (config.yml beside checkpoints)."""
-    import yaml
-
     folder = os.path.dirname(path)
     if folder:
         os.makedirs(folder, exist_ok=True)
-    with open(path, "w") as f:
-        yaml.dump(config, f, Dumper=yaml.SafeDumper)
+    with open(path, "w", encoding="utf-8") as f:
+        f.write(yaml_lite.dump(config))

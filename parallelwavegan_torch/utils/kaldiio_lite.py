@@ -3,8 +3,8 @@
 Counterpart of ``parallelwavegan_tpu/utils/kaldiio_lite.py``: what the scp
 datasets need, binary float/double matrices and vectors addressed as
 "path.ark:offset", wav rxfiles (a path or a command pipe "... |"), and the
-hdf5/npy scp variants ("file.h5:path", "file.npy"). ``h5py`` is imported
-by ``utils.io.read_hdf5`` only when an hdf5 entry is read.
+hdf5/npy scp variants ("file.h5:path", "file.npy"), hdf5 through
+``utils.io.read_hdf5``.
 """
 
 from __future__ import annotations

@@ -1516,3 +1516,22 @@ def test_duration_inference_near_ties_on_card_matches_cpu(cuda_device):
     assert all(tie[i, j] < 1e-4 for i, j in flips.tolist()), flips
     assert len(flips) <= 0.01 * cpu.numel()
     assert cpu.max() > 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 300, 66150])
+def test_preprocess_log_mel_on_card_matches_the_cpu_route(cuda_device, n):
+    """The preprocessing log-mel (float64 FFT, mel product and log) on the
+    card against the CPU route on the same wave, digital silence included:
+    within a few float32 roundings (4e-6 at |log10 mel| <= 10)."""
+    from parallelwavegan_torch.ops.spectral import preprocess_log_mel
+
+    rng = np.random.default_rng(n)
+    x = (0.1 * rng.standard_normal(n)).astype(np.float32)
+    x[: n // 3] = 0.0
+    got = preprocess_log_mel(x, 22050, 1024, 256, None, "hann", 80, 80, 7600,
+                             device=cuda_device)
+    want = preprocess_log_mel(x, 22050, 1024, 256, None, "hann", 80, 80,
+                              7600, device="cpu")
+    assert got.dtype == np.float32 and got.shape == want.shape
+    np.testing.assert_allclose(got, want, rtol=0, atol=4e-6)

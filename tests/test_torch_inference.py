@@ -264,7 +264,8 @@ def test_decode_cli_writes_wavs(tmp_path):
 def test_port_imports_no_jax():
     """Every module of the port (the training modules included) and
     chip_smoke.py, imported in a fresh interpreter, load no jax, flax,
-    optax or parallelwavegan_tpu module."""
+    optax or parallelwavegan_tpu module, and neither yaml nor h5py (the
+    GPU machine has neither)."""
     code = (
         "import pkgutil, importlib, sys\n"
         "import parallelwavegan_torch as p\n"
@@ -273,7 +274,8 @@ def test_port_imports_no_jax():
         "for n in names: importlib.import_module(n)\n"
         "import chip_smoke\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'optax', 'parallelwavegan_tpu')]\n"
+        "('jax', 'jaxlib', 'flax', 'optax', 'parallelwavegan_tpu', "
+        "'yaml', 'h5py')]\n"
         "assert not bad, bad\n"
         "want = ['bin.train', 'datasets.collater', 'datasets.loader', "
         "'engine.build', 'engine.criterion', 'engine.state', 'engine.step', "
@@ -291,7 +293,10 @@ def test_port_imports_no_jax():
         "'layers.vq', 'models.vqvae', 'ops.sine', 'models.uhifigan', "
         "'datasets.audio_mel_dataset', 'bin.decode', 'layers.duration', "
         "'losses.duration', 'models.discrete', 'bin.decode_from_text', "
-        "'parallel.dist', 'distributed.launch', 'tools.dp_emulation']\n"
+        "'parallel.dist', 'distributed.launch', 'tools.dp_emulation', "
+        "'utils.yaml_lite', 'utils.hdf5_lite', 'bin.preprocess', "
+        "'bin.compute_statistics', 'bin.normalize', 'bin.preprocess_tokens', "
+        "'bin.evaluate_mcd', 'bin.evaluate_f0', 'bin.convert_checkpoint']\n"
         "missing = [w for w in want if 'parallelwavegan_torch.' + w "
         "not in names]\n"
         "assert not missing, missing\n"
