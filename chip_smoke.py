@@ -300,26 +300,45 @@
    cut from 16 x 8,192): the codebook, restarted from the ranks' mean rows
    where no rank's latent chose a code, is bit-equal on both ranks. Each
    launch's and check's wall time is printed;
-17. runs a recipe's front end on the card from the files users run, with
-   neither PyYAML nor h5py (utils/yaml_lite.py, utils/hdf5_lite.py): (a)
-   reads every egs/**/conf/*.yaml and assets/quality/config.yml; (b)
-   bin.preprocess of a wav.scp of the 24 shipped ground-truth wavs with
-   egs/ljspeech/voc1/conf/parallel_wavegan.v1.yaml (hdf5 dumps, the log-mel
-   on the card in float64) against the same CLI with --device cpu (feats
-   within RECIPE_FEATS_TOL, waves bit-equal, len(wave) == len(feats) x hop
-   on every file), then bin.compute_statistics and bin.normalize; (c)
-   bin.train --config of that yaml with its step counts and intervals cut
-   (RECIPE_CUT, written by yaml_lite) on 20 normalized dumps: 3 steps at 6
-   x 25,600 in f32 (G steps: step 0 trains nothing, the discriminator
-   starts at 100,000) through B1 and B2, both counted from 0 around the
-   run and above 0, G's parameters moved, the config.yml it writes loads
-   back equal; (d) bin.decode of the 4 dev dumps with the checkpoint's
-   config.yml on B1 (counted), then bin.evaluate_mcd and bin.evaluate_f0
-   against the ground truth in 4 processes each (printed, not gated),
-   started beside (e): bin.convert_checkpoint takes the trained .ckpt to a
-   .pkl, back to a .ckpt and to a .pkl again, bit-equal to the first, and
-   bin.decode serves step 13's conditioned VQ-VAE (.pkl, yaml config) from
-   an hdf5 dump with its speaker id, equal to vq_decode(vq_encode(x), g).
+17. runs a recipe on the card through the port's stage runner
+   (bin/run_stages.py) from the files users run, with neither PyYAML nor
+   h5py (utils/yaml_lite.py, utils/hdf5_lite.py): (a) reads every
+   egs/**/conf/*.yaml and assets/quality/config.yml; (b) in a recipe
+   directory whose data/{train,dev,eval}/wav.scp hold the 24 shipped
+   ground-truth wavs (20 train, the last RECIPE_DEV as dev and eval), its
+   stage 1 with egs/ljspeech/voc1/conf/parallel_wavegan.v1.yaml
+   (its step counts and intervals cut, RECIPE_CUT, written by yaml_lite;
+   hdf5 dumps, the log-mel on the card in float64; RECIPE_JOBS feature jobs
+   a set, all started together), against bin.preprocess with --device cpu
+   (feats within RECIPE_FEATS_TOL, waves bit-equal, len(wave) == len(feats)
+   x hop on every file), its statistics and normalization standardizing
+   the train feats; (c) its stage 2, bin.train in this process: 3
+   steps at 6 x 25,600 in f32 (G steps: step 0 trains nothing, the
+   discriminator starts at 100,000) through B1 and B2, both counted from 0
+   around the stage and above 0, G's parameters moved, the config.yml it
+   writes loads back equal, exp/<tag>/train.log written; (d) its stage
+   3, bin.decode of the eval dumps with the newest checkpoint in this
+   process on B1 (counted), and its stage 4, the ground truth from the raw
+   dumps and bin.evaluate_mcd and bin.evaluate_f0 in RECIPE_JOBS processes
+   each (printed, not gated); (e) bin.convert_checkpoint takes the trained
+   .ckpt to a .pkl, back to a .ckpt and to a .pkl again, bit-equal to the
+   first, and bin.decode serves step 13's conditioned VQ-VAE (.pkl, yaml
+   config) from an hdf5 dump with its speaker id, equal to
+   vq_decode(vq_encode(x), g);
+18. (a) the stage runner's stage 1 of an npy copy of the same recipe
+   (format: npy; one feature job a set); (b) bin.train.run on its dumps, 3
+   steps at 6 x 25,600 each: on the native C++ loader (use_native_loader
+   auto, asserted to be the loader used; B1 and B2 counted around the run)
+   with the profiler hook on steps 1 and 2 (profile_dir, NATIVE_PROFILE),
+   again unprofiled (the profiler's start takes seconds of step 1), and on
+   the PyTorch loader (use_native_loader: false), printing for each run how
+   long each batch kept the loop waiting and the wall from batch to batch,
+   beside the card's name and power limit; (c) rank 0's trace file
+   (rank0-steps1-2.pt.trace.json) exists and names B1's and B2's kernels;
+   (d) the shipped HiFi-GAN v1 (assets/quality/) exported by
+   utils/export.export_generator at 1 x EXPORT_FRAMES frames on the card
+   and loaded back: the program's wave within EXPORT_TOL (1 + max) of
+   InferenceModel's module forward on the same mel, both timed.
 
 Exits non-zero, printing no result, on any failure or without a GPU.
 """
@@ -331,6 +350,7 @@ import glob
 import json
 import multiprocessing
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -5939,6 +5959,7 @@ RECIPE_YAML = os.path.join(REPO, "egs", "ljspeech", "voc1", "conf",
 RECIPE_CUT = dict(train_max_steps=3, save_interval_steps=3,
                   eval_interval_steps=3, log_interval_steps=1)
 RECIPE_DEV = 4        # utterances of the 24 held out for decoding and scores
+RECIPE_JOBS = 4       # the stage runner's --n-jobs: jobs a set, scorers
 # the card's log-mel against the CPU route's (both float64 to the f32
 # cast: a few float32 roundings at |log10 mel| <= 10)
 RECIPE_FEATS_TOL = 1e-5
@@ -5955,13 +5976,39 @@ def read_dumps(dumpdir: str) -> dict:
     return out
 
 
+def write_recipe_data(root: str, gts: list) -> dict:
+    """A recipe directory's data/{train,dev,eval}/wav.scp (what a recipe's
+    stage 0 writes) over the shipped ground-truth wavs: the last
+    RECIPE_DEV for dev and eval, the others for train. Returns {set:
+    utterance ids}."""
+    utts = [os.path.basename(p)[:-4] for p in gts]
+    sets = {"train": list(zip(utts, gts))[:-RECIPE_DEV],
+            "dev": list(zip(utts, gts))[-RECIPE_DEV:]}
+    sets["eval"] = sets["dev"]
+    for name, pairs in sets.items():
+        os.makedirs(os.path.join(root, "data", name))
+        with open(os.path.join(root, "data", name, "wav.scp"), "w") as f:
+            f.writelines(f"{u} {p}\n" for u, p in pairs)
+    return {name: [u for u, _ in pairs] for name, pairs in sets.items()}
+
+
+def run_recipe(root: str, **kw) -> dict:
+    """bin.run_stages.run in the recipe directory ``root``."""
+    from parallelwavegan_torch.bin import run_stages
+
+    cwd = os.getcwd()
+    os.chdir(root)
+    try:
+        return run_stages.run(**kw)
+    finally:
+        os.chdir(cwd)
+
+
 def recipe_phase(dev) -> dict:
     """Step 17 of the module docstring."""
     from parallelwavegan_torch.bin import (
-        compute_statistics,
         convert_checkpoint,
         decode,
-        normalize,
         preprocess,
         train,
     )
@@ -5993,27 +6040,44 @@ def recipe_phase(dev) -> dict:
           f"{walls['a']:.2f} s wall")
 
     with tempfile.TemporaryDirectory() as tmp:
-        # (b) preprocess the shipped 24 ground-truth wavs on the card and on
-        # the CPU route; statistics and normalization of the card's dumps
+        # (b) the stage runner's stage 1 over the shipped 24 ground-truth
+        # wavs on the card (4 feature jobs a set), against bin.preprocess on
+        # the CPU
         t0 = time.perf_counter()
         gts = sorted(glob.glob(os.path.join(ASSET_DIR, "eval_utt*-gt.wav")))
+        root = os.path.join(tmp, "recipe")
+        sets = write_recipe_data(root, gts)
+        d = {k: os.path.join(tmp, k) for k in ("raw_cpu", "ref", "back",
+                                               "ref2", "vq")}
+        conf = os.path.join(root, "conf", "parallel_wavegan.v1.yaml")
+        os.makedirs(os.path.dirname(conf))
+        with open(conf, "w") as f:
+            f.write(yaml_lite.dump(dict(config, **RECIPE_CUT)))
+        drive = dict(conf=conf, n_jobs=RECIPE_JOBS, device="cuda",
+                     in_process=("train", "decode"))
+        t1 = time.perf_counter()
+        run_recipe(root, stage=1, stop_stage=1, **drive)
+        walls["stage1"] = time.perf_counter() - t1
+        dump = os.path.join(root, "dump")
         scp = os.path.join(tmp, "wav.scp")
         with open(scp, "w") as f:
             f.writelines(f"{os.path.basename(p)[:-4]} {p}\n" for p in gts)
-        d = {k: os.path.join(tmp, k) for k in ("raw", "raw_cpu", "stats",
-                                               "norm", "dev", "exp", "out",
-                                               "ref", "back", "ref2", "vq")}
-        common = ["--config", RECIPE_YAML, "--verbose", "0"]
-        t1 = time.perf_counter()
-        preprocess.main(["--wav-scp", scp, "--dumpdir", d["raw"]] + common)
-        walls["preprocess"] = time.perf_counter() - t1
         t1 = time.perf_counter()
         preprocess.main(["--wav-scp", scp, "--dumpdir", d["raw_cpu"],
-                         "--device", "cpu"] + common)
+                         "--config", RECIPE_YAML, "--verbose", "0",
+                         "--device", "cpu"])
         walls["preprocess_cpu"] = time.perf_counter() - t1
-        card, cpu = read_dumps(d["raw"]), read_dumps(d["raw_cpu"])
-        if len(card) != len(gts) or sorted(card) != sorted(cpu):
-            raise AssertionError("preprocess did not dump every utterance")
+        card = {**read_dumps(os.path.join(dump, "train", "raw")),
+                **read_dumps(os.path.join(dump, "dev", "raw"))}
+        cpu = read_dumps(d["raw_cpu"])
+        shards = sorted(glob.glob(os.path.join(dump, "*", "raw",
+                                               "wav.*.scp")))
+        if len(card) != len(gts) or sorted(card) != sorted(cpu) or \
+                len(shards) != 3 * RECIPE_JOBS or \
+                sorted(read_dumps(os.path.join(dump, "eval", "raw"))) != \
+                sorted(sets["eval"]):
+            raise AssertionError("the stage runner's stage 1 did not dump "
+                                 "every utterance of every set")
         worst = 0.0
         for utt, arrays in card.items():
             if sorted(arrays) != ["feats", "wave"] or \
@@ -6026,9 +6090,11 @@ def recipe_phase(dev) -> dict:
             worst = max(worst, float(np.abs(arrays["feats"]
                                             - cpu[utt]["feats"]).max()))
         frames = sum(len(a["feats"]) for a in card.values())
-        print(f"recipe (b) bin.preprocess ({os.path.relpath(RECIPE_YAML, REPO)}"
-              f", hdf5) on {dev}: {len(card)} utterances, {frames} frames, "
-              f"{walls['preprocess']:.2f} s wall (CPU route "
+        print(f"recipe (b) bin.run_stages stage 1 "
+              f"({os.path.relpath(RECIPE_YAML, REPO)}, hdf5, --n-jobs "
+              f"{RECIPE_JOBS}: {len(shards)} feature jobs) on {dev}: "
+              f"{len(card)} utterances, {frames} frames, "
+              f"{walls['stage1']:.2f} s wall (bin.preprocess on the CPU "
               f"{walls['preprocess_cpu']:.2f} s); feats vs the CPU route "
               f"max_abs_err {worst:.3e} (allowed {RECIPE_FEATS_TOL:.0e}), "
               f"waves bit-equal, len(wave) == len(feats) x {hop} on every "
@@ -6036,60 +6102,55 @@ def recipe_phase(dev) -> dict:
         if worst > RECIPE_FEATS_TOL:
             raise AssertionError("the card's log-mel disagrees with the CPU "
                                  "route")
-        compute_statistics.main(["--rootdir", d["raw"], "--dumpdir",
-                                 d["stats"]] + common)
-        normalize.main(["--rootdir", d["raw"], "--dumpdir", d["norm"],
-                        "--stats", os.path.join(d["stats"], "stats.h5")]
-                       + common)
-        norm = read_dumps(d["norm"])
+        norm = read_dumps(os.path.join(dump, "train", "norm"))
         mean = np.mean(np.concatenate([a["feats"] for a in norm.values()]),
                        axis=0)
-        if len(norm) != len(gts) or np.abs(mean).max() > 1e-4 or \
-                any(not np.array_equal(a["wave"], card[u]["wave"])
-                    for u, a in norm.items()):
+        if len(norm) != len(sets["train"]) or np.abs(mean).max() > 1e-4 or \
+                not os.path.exists(os.path.join(dump, "train", "stats.h5")) \
+                or any(not np.array_equal(a["wave"], card[u]["wave"])
+                       for u, a in norm.items()):
             raise AssertionError("normalize did not standardize the feats")
-        os.makedirs(d["dev"])
-        dev_utts = sorted(norm)[-RECIPE_DEV:]
-        for utt in dev_utts:
-            os.rename(os.path.join(d["norm"], f"{utt}.h5"),
-                      os.path.join(d["dev"], f"{utt}.h5"))
         walls["b"] = time.perf_counter() - t0
-        print(f"  compute_statistics + normalize: feats mean {np.abs(mean).max():.2e}"
-              f" at most; {walls['b']:.1f} s wall for (b)")
+        print(f"  compute_statistics + normalize: train feats mean "
+              f"{np.abs(mean).max():.2e} at most; {walls['b']:.1f} s wall "
+              "for (b)")
 
-        # (c) bin.train from the recipe's yaml (step counts cut, written by
-        # yaml_lite) on the normalized hdf5 dumps, through B1 and B2
+        # (c) the stage runner's stage 2: bin.train (in this process, so
+        # that its launches are counted) from the cut yaml on the normalized
+        # hdf5 dumps, through B1 and B2
         t0 = time.perf_counter()
-        train_yaml = os.path.join(tmp, "train.yaml")
-        with open(train_yaml, "w") as f:
-            f.write(yaml_lite.dump(dict(config, **RECIPE_CUT)))
         initial = init_train_state(dict(config, **RECIPE_CUT), 0, dev)[0]
         torch.cuda.synchronize()
         for fn in counters.values():
             fn.launches = 0
-        trainer = train.main(["--train-dumpdir", d["norm"], "--dev-dumpdir",
-                              d["dev"], "--outdir", d["exp"], "--config",
-                              train_yaml, "--verbose", "0"])
+        trainer = run_recipe(root, stage=2, stop_stage=2, **drive)["train"]
         torch.cuda.synchronize()
         train_launches = {k: fn.launches for k, fn in counters.items()}
         walls["c"] = time.perf_counter() - t0
-        saved_path = os.path.join(d["exp"], "config.yml")
+        exp = os.path.join(root, "exp", "parallel_wavegan.v1")
+        saved_path = os.path.join(exp, "config.yml")
         saved = yaml_lite.load_file(saved_path)
-        want = dict(config, **RECIPE_CUT, use_f0=False, outdir=d["exp"],
-                    resume="", pretrain="", seed=0, version=train.VERSION,
-                    train_dumpdir=d["norm"], dev_dumpdir=d["dev"])
+        want = dict(config, **RECIPE_CUT, use_f0=False,
+                    outdir=os.path.relpath(exp, root), resume="",
+                    pretrain="", seed=0, version=train.VERSION,
+                    train_dumpdir=os.path.join("dump", "train", "norm"),
+                    dev_dumpdir=os.path.join("dump", "dev", "norm"))
         with open(saved_path) as f:
             if saved != want or f.read() != yaml_lite.dump(saved):
                 raise AssertionError("config.yml does not load back equal")
+        with open(os.path.join(exp, "train.log")) as f:
+            if "Finished training" not in f.read():
+                raise AssertionError("exp/<tag>/train.log lacks the run")
         losses = trainer.last_train_loss
-        print(f"recipe (c) bin.train --config {os.path.basename(train_yaml)}"
-              f" ({RECIPE_CUT['train_max_steps']} steps at "
+        print(f"recipe (c) bin.run_stages stage 2 (bin.train, "
+              f"{RECIPE_CUT['train_max_steps']} steps at "
               f"{config['batch_size']} x {config['batch_max_steps']}, f32) "
-              f"on {len(norm) - RECIPE_DEV} normalized hdf5 dumps: "
+              f"on {len(norm)} normalized hdf5 dumps: "
               f"{walls['c']:.1f} s wall; losses "
               + ", ".join(f"{k.split('/')[-1]} {v:.4f}"
                           for k, v in sorted(losses.items()))
-              + f"; launches {train_launches}; config.yml loads back equal")
+              + f"; launches {train_launches}; config.yml loads back equal;"
+              " exp/<tag>/train.log written")
         if trainer.steps != RECIPE_CUT["train_max_steps"] or not all(
                 np.isfinite(v) for v in losses.values()):
             raise AssertionError("the recipe's training did not finish")
@@ -6101,113 +6162,321 @@ def recipe_phase(dev) -> dict:
         del trainer, initial
         torch.cuda.empty_cache()
 
-        # (d) bin.decode of the dev dumps with the checkpoint's config.yml,
-        # then both scores in processes of their own beside (e)
+        # (d) the stage runner's stage 3 (bin.decode of the eval dumps with
+        # the newest checkpoint, in this process: counted) and stage 4 (the
+        # ground truth from the raw dumps, both scores in 4 processes each)
         t0 = time.perf_counter()
-        ckpt = os.path.join(d["exp"], "checkpoint-3steps.ckpt")
         torch.cuda.synchronize()
         for fn in counters.values():
             fn.launches = 0
-        decode.main(["--dumpdir", d["dev"], "--checkpoint", ckpt, "--outdir",
-                     d["out"], "--verbose", "0"])
+        ckpt = os.path.join(root, run_recipe(root, stage=3, stop_stage=3,
+                                             **drive)["checkpoint"])
         torch.cuda.synchronize()
         decode_launches = {k: fn.launches for k, fn in counters.items()}
-        for utt in dev_utts:
-            wave, sr = read_wav(os.path.join(d["out"], f"{utt}_gen.wav"))
+        for utt in sets["eval"]:
+            wave, sr = read_wav(os.path.join(exp, "wav", f"{utt}_gen.wav"))
             if sr != config["sampling_rate"] or \
                     len(wave) != len(card[utt]["wave"]) or \
                     not np.isfinite(wave).all():
                 raise AssertionError(f"{utt}: a bad decoded wave")
         walls["decode"] = time.perf_counter() - t0
-        print(f"recipe (d) bin.decode of {RECIPE_DEV} dev dumps with "
-              f"exp/config.yml: {walls['decode']:.1f} s wall, launches "
-              f"{decode_launches}")
-        if decode_launches["wavenet_stack"] < 1:
-            raise AssertionError("bin.decode did not run B1")
-        scorers = [subprocess.Popen(
-            [sys.executable, "-m", f"parallelwavegan_torch.bin.{name}",
-             "--outdir", d["out"], "--gt-wavdir", ASSET_DIR, "--n-jobs",
-             str(RECIPE_DEV)], cwd=REPO, stdout=subprocess.PIPE,
-            stderr=subprocess.STDOUT, text=True)
-            for name in ("evaluate_mcd", "evaluate_f0")]
-        try:
-            # (e) .ckpt -> .pkl -> .ckpt -> .pkl through
-            # bin.convert_checkpoint, the two .pkl files bit-equal
-            t0 = time.perf_counter()
-            first = convert_checkpoint.main([
-                "--checkpoint", ckpt, "--outdir", d["ref"], "--to-reference",
-                "--verbose", "0"])
-            again = convert_checkpoint.main([
-                "--checkpoint", first, "--outdir", d["back"], "--verbose",
-                "0"])
-            second = convert_checkpoint.main([
-                "--checkpoint", again, "--outdir", d["ref2"],
-                "--to-reference", "--verbose", "0"])
-            a, b = (torch.load(p, weights_only=False) for p in (first,
-                                                                second))
-            ga, gb = a["model"]["generator"], b["model"]["generator"]
-            if a["steps"] != 3 or b["steps"] != 3 or sorted(ga) != sorted(gb) \
-                    or not all(torch.equal(ga[k], gb[k]) for k in ga):
-                raise AssertionError("the .pkl did not round-trip bit-equal")
-            walls["convert"] = time.perf_counter() - t0
-            print(f"recipe (e) bin.convert_checkpoint .ckpt -> .pkl -> .ckpt"
-                  f" -> .pkl: {len(ga)} tensors bit-equal, steps 3, "
-                  f"{walls['convert']:.1f} s wall")
-            # the conditioned VQ-VAE of step 13 from an hdf5 dump with its
-            # speaker id, through bin.decode
-            t0 = time.perf_counter()
-            os.makedirs(d["vq"])
-            pkl = os.path.join(d["vq"], "checkpoint-1steps.pkl")
-            save_reference_checkpoint(pkl, nested(seeded_vqvae(
-                VQVAE_V3, 3, dev).state_dict()), VQVAE_V3, steps=1)
-            vq_yaml = os.path.join(d["vq"], "config.yml")
-            with open(vq_yaml, "w") as f:
-                f.write(yaml_lite.dump(dict(VQVAE_V3, format="hdf5")))
-            wave = vq_audio(np.random.default_rng(17), 1, 2 * VQ_SR + 77)[0]
-            dump = os.path.join(d["vq"], "dump", "vq_utt.h5")
-            write_hdf5(dump, "wave", wave)
-            write_hdf5(dump, "global", np.array([5], dtype=np.int64))
-            decode.main(["--dumpdir", os.path.dirname(dump), "--checkpoint",
-                         pkl, "--outdir", os.path.join(d["vq"], "out"),
-                         "--verbose", "0"])
-            served = load_model(pkl, VQVAE_V3, device=dev)
-            codes = served.vq_encode(wave)
-            want_wave = served.vq_decode(codes, g=5)[:, 0]
-            got_wave, _ = read_wav(os.path.join(d["vq"], "out",
-                                                "vq_utt_gen.wav"))
-            with open(os.path.join(d["vq"], "out", "text")) as f:
-                line = f.read().split()
-            pcm = np.clip(want_wave.astype(np.float64), -1, 1) * 32767.0
-            if line != ["vq_utt"] + [str(c) for c in codes] or \
-                    not np.array_equal((got_wave * 2**15).astype(np.int64),
-                                       pcm.astype(np.int16).astype(np.int64)):
-                raise AssertionError("bin.decode of the conditioned VQ-VAE "
-                                     "is not vq_decode(vq_encode, g)")
-            walls["vq"] = time.perf_counter() - t0
-            print(f"  conditioned_melgan_vae.v3 (.pkl, yaml config) decoded "
-                  f"by bin.decode from an hdf5 dump with global id 5: "
-                  f"{len(codes)} codes and the wave equal to "
-                  f"vq_decode(vq_encode(x), g=5), {walls['vq']:.1f} s wall")
-        finally:
-            t0 = time.perf_counter()
-            logs = [p.communicate(timeout=300)[0] for p in scorers]
-        walls["scores_wait"] = time.perf_counter() - t0
-        for p, log in zip(scorers, logs):
-            if p.returncode != 0:
-                raise AssertionError(f"a scorer failed:\n{log[-2000:]}")
+        print(f"recipe (d) bin.run_stages stage 3 (bin.decode of "
+              f"{RECIPE_DEV} eval dumps with {os.path.basename(ckpt)}): "
+              f"{walls['decode']:.1f} s wall, launches {decode_launches}")
+        if decode_launches["wavenet_stack"] < 1 or \
+                os.path.basename(ckpt) != "checkpoint-3steps.ckpt":
+            raise AssertionError("bin.decode did not run B1 on the trained "
+                                 "checkpoint")
+        t0 = time.perf_counter()
+        run_recipe(root, stage=4, stop_stage=4, **drive)
+        walls["scores"] = time.perf_counter() - t0
+        gt_wavs = sorted(os.listdir(os.path.join(exp, "gt_wav")))
+        logs = []
+        for name in ("evaluate_mcd", "evaluate_f0"):
+            with open(os.path.join(exp, f"{name}.log")) as f:
+                logs.append(f.read())
         mcd = [ln for ln in logs[0].splitlines() if ln.startswith("Mean MCD")]
         f0 = [ln for ln in logs[1].splitlines()
               if ln.startswith("Mean log-F0")]
-        print(f"recipe (d) scores of the {RECIPE_DEV} decoded dev utterances "
-              f"after {RECIPE_CUT['train_max_steps'] - 1} G steps (printed, "
-              f"not gated): {mcd[0] if mcd else '?'}; "
-              f"{f0[0] if f0 else '?'}; waited {walls['scores_wait']:.1f} s")
+        print(f"recipe (d) bin.run_stages stage 4 (ground truth from "
+              f"dump/eval/raw: {len(gt_wavs)} wavs; bin.evaluate_mcd and "
+              f"bin.evaluate_f0 in {RECIPE_JOBS} processes each) after "
+              f"{RECIPE_CUT['train_max_steps'] - 1} G steps (printed, not "
+              f"gated): {mcd[0] if mcd else '?'}; {f0[0] if f0 else '?'}; "
+              f"{walls['scores']:.1f} s wall")
+        if gt_wavs != sorted(f"{u}.wav" for u in sets["eval"]):
+            raise AssertionError("stage 4 did not write the ground truth")
         if not mcd or not f0:
             raise AssertionError("a scorer printed no mean")
+
+        # (e) .ckpt -> .pkl -> .ckpt -> .pkl through bin.convert_checkpoint,
+        # the two .pkl files bit-equal
+        t0 = time.perf_counter()
+        first = convert_checkpoint.main([
+            "--checkpoint", ckpt, "--outdir", d["ref"], "--to-reference",
+            "--verbose", "0"])
+        again = convert_checkpoint.main([
+            "--checkpoint", first, "--outdir", d["back"], "--verbose", "0"])
+        second = convert_checkpoint.main([
+            "--checkpoint", again, "--outdir", d["ref2"], "--to-reference",
+            "--verbose", "0"])
+        a, b = (torch.load(p, weights_only=False) for p in (first, second))
+        ga, gb = a["model"]["generator"], b["model"]["generator"]
+        if a["steps"] != 3 or b["steps"] != 3 or sorted(ga) != sorted(gb) \
+                or not all(torch.equal(ga[k], gb[k]) for k in ga):
+            raise AssertionError("the .pkl did not round-trip bit-equal")
+        walls["convert"] = time.perf_counter() - t0
+        print(f"recipe (e) bin.convert_checkpoint .ckpt -> .pkl -> .ckpt"
+              f" -> .pkl: {len(ga)} tensors bit-equal, steps 3, "
+              f"{walls['convert']:.1f} s wall")
+        # the conditioned VQ-VAE of step 13 from an hdf5 dump with its
+        # speaker id, through bin.decode
+        t0 = time.perf_counter()
+        os.makedirs(d["vq"])
+        pkl = os.path.join(d["vq"], "checkpoint-1steps.pkl")
+        save_reference_checkpoint(pkl, nested(seeded_vqvae(
+            VQVAE_V3, 3, dev).state_dict()), VQVAE_V3, steps=1)
+        vq_yaml = os.path.join(d["vq"], "config.yml")
+        with open(vq_yaml, "w") as f:
+            f.write(yaml_lite.dump(dict(VQVAE_V3, format="hdf5")))
+        wave = vq_audio(np.random.default_rng(17), 1, 2 * VQ_SR + 77)[0]
+        vq_dump = os.path.join(d["vq"], "dump", "vq_utt.h5")
+        write_hdf5(vq_dump, "wave", wave)
+        write_hdf5(vq_dump, "global", np.array([5], dtype=np.int64))
+        decode.main(["--dumpdir", os.path.dirname(vq_dump), "--checkpoint",
+                     pkl, "--outdir", os.path.join(d["vq"], "out"),
+                     "--verbose", "0"])
+        served = load_model(pkl, VQVAE_V3, device=dev)
+        codes = served.vq_encode(wave)
+        want_wave = served.vq_decode(codes, g=5)[:, 0]
+        got_wave, _ = read_wav(os.path.join(d["vq"], "out",
+                                            "vq_utt_gen.wav"))
+        with open(os.path.join(d["vq"], "out", "text")) as f:
+            line = f.read().split()
+        pcm = np.clip(want_wave.astype(np.float64), -1, 1) * 32767.0
+        if line != ["vq_utt"] + [str(c) for c in codes] or \
+                not np.array_equal((got_wave * 2**15).astype(np.int64),
+                                   pcm.astype(np.int16).astype(np.int64)):
+            raise AssertionError("bin.decode of the conditioned VQ-VAE "
+                                 "is not vq_decode(vq_encode, g)")
+        walls["vq"] = time.perf_counter() - t0
+        print(f"  conditioned_melgan_vae.v3 (.pkl, yaml config) decoded "
+              f"by bin.decode from an hdf5 dump with global id 5: "
+              f"{len(codes)} codes and the wave equal to "
+              f"vq_decode(vq_encode(x), g=5), {walls['vq']:.1f} s wall")
     return {"launches": {k: {"train": train_launches[k],
                              "decode": decode_launches[k]}
                          for k in counters},
             "walls": walls}
+
+
+# step 18: the native loader, the trainer's profiler hook and the export
+NATIVE_PROFILE = dict(profile_start_step=1, profile_num_steps=2)
+# the kernels' names in a torch.profiler trace: B1's layer bodies and B2's
+# data and weight bodies (csrc/wavenet_stack.cu, wavenet_tc_layer.cuh,
+# wavenet_stack_bwd.cu)
+B1_TRACE_NAME = re.compile(r"wavenet_layer_\w*kernel")
+B2_TRACE_NAME = re.compile(r"bwd_\w+_kernel")
+EXPORT_FRAMES = 512
+EXPORT_TOL = 1e-5     # |program - module forward| <= EXPORT_TOL (1 + max)
+
+
+class TimedLoader:
+    """A training loader whose batches are timed: for each, when the loop
+    asked for it and how long it waited for it."""
+
+    def __init__(self, inner):
+        self.inner = inner
+        self.asked, self.waits = [], []
+
+    def set_epoch(self, epoch: int) -> None:
+        self.inner.set_epoch(epoch)
+
+    def __len__(self) -> int:
+        return len(self.inner)
+
+    def __iter__(self):
+        batches = iter(self.inner)
+        while True:
+            t0 = time.perf_counter()
+            try:
+                batch = next(batches)
+            except StopIteration:
+                return
+            self.asked.append(t0)
+            self.waits.append(time.perf_counter() - t0)
+            yield batch
+
+
+def trace_kernels(path: str) -> dict:
+    """{kernel name: launches} of the device kernels in a Chrome trace."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    out: dict = {}
+    for e in events:
+        if e.get("cat") == "kernel":
+            out[e["name"]] = out.get(e["name"], 0) + 1
+    return out
+
+
+def native_loader_phase(dev, smi: str) -> dict:
+    """Step 18 of the module docstring."""
+    from parallelwavegan_torch.bin import train
+    from parallelwavegan_torch.datasets.native_loader import (
+        NativeMelWavLoader,
+    )
+    from parallelwavegan_torch.datasets.loader import DataLoader
+    from parallelwavegan_torch.utils import yaml_lite
+    from parallelwavegan_torch.utils.export import (
+        export_generator,
+        load_exported,
+    )
+    from parallelwavegan_torch.utils.model_loader import load_model
+
+    counters = kernel_launch_counters()
+    config = dict(yaml_lite.load_file(RECIPE_YAML), **RECIPE_CUT,
+                  format="npy")
+    out: dict = {"walls": {}}
+    with tempfile.TemporaryDirectory() as tmp:
+        # (a) an npy copy of the recipe through the stage runner's stage 1
+        t0 = time.perf_counter()
+        gts = sorted(glob.glob(os.path.join(ASSET_DIR, "eval_utt*-gt.wav")))
+        root = os.path.join(tmp, "recipe")
+        sets = write_recipe_data(root, gts)
+        conf = os.path.join(root, "conf", "parallel_wavegan.v1.npy.yaml")
+        os.makedirs(os.path.dirname(conf))
+        with open(conf, "w") as f:
+            f.write(yaml_lite.dump(config))
+        # one feature job a set: step 17 ran the sharded jobs
+        run_recipe(root, conf=conf, stage=1, stop_stage=1, n_jobs=1,
+                   device="cuda")
+        dump = os.path.join(root, "dump")
+        norm = sorted(glob.glob(os.path.join(dump, "train", "norm",
+                                             "*-feats.npy")))
+        if len(norm) != len(sets["train"]) or not os.path.exists(
+                os.path.join(dump, "train", "stats.npy")):
+            raise AssertionError("the npy recipe's stage 1 did not dump")
+        out["walls"]["stage1"] = time.perf_counter() - t0
+        print(f"native (a) bin.run_stages stage 1 of "
+              f"{os.path.basename(conf)} (format: npy): {len(norm)} train "
+              f"dumps and stats.npy, {out['walls']['stage1']:.1f} s wall")
+
+        # (b) bin.train.run on those dumps: the native loader (auto, the
+        # default) with the profiler hook on steps 1-2, then unprofiled
+        # (the profiler's start takes seconds of step 1), then the PyTorch
+        # loader (use_native_loader: false); every training batch is timed
+        build = train.build_loader
+        loaders: list = []
+
+        def timed_build(config, dataset, seed, *args):
+            # run() builds the training loader first, then the dev loader
+            loaders.append(build(config, dataset, seed, *args))
+            return TimedLoader(loaders[-1]) if len(loaders) % 2 \
+                else loaders[-1]
+
+        runs = {}
+        train.build_loader = timed_build
+        try:
+            for name, extra in (
+                    ("native_profiled",
+                     dict(profile_dir=os.path.join(tmp, "prof"),
+                          **NATIVE_PROFILE)),
+                    ("native", {}),
+                    ("pytorch", dict(use_native_loader=False))):
+                torch.cuda.synchronize()
+                for fn in counters.values():
+                    fn.launches = 0
+                t0 = time.perf_counter()
+                trainer = train.run(
+                    dict(config, **extra), os.path.join(dump, "train", "norm"),
+                    os.path.join(dump, "dev", "norm"),
+                    os.path.join(tmp, f"exp_{name}"), device=dev)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                timed = trainer.train_loader
+                runs[name] = {
+                    "wall_s": wall,
+                    "launches": {k: fn.launches for k, fn in counters.items()},
+                    "loader": type(timed.inner).__name__,
+                    "batch_wait_ms": [w * 1e3 for w in timed.waits],
+                    "step_wall_ms": [(b - a) * 1e3 for a, b in
+                                     zip(timed.asked, timed.asked[1:])],
+                    "losses": trainer.last_train_loss,
+                    "trace": trainer.profile_trace,
+                }
+                del trainer
+                torch.cuda.empty_cache()
+        finally:
+            train.build_loader = build
+        native, plain = runs["native"], runs["pytorch"]
+        profiled = runs["native_profiled"]
+        for name, run in runs.items():
+            print(f"native (b) bin.train.run ({name} loader: {run['loader']}"
+                  f", {RECIPE_CUT['train_max_steps']} steps at "
+                  f"{config['batch_size']} x {config['batch_max_steps']}, "
+                  f"f32) on {smi}: {run['wall_s']:.2f} s wall; each batch's "
+                  "wait for the loader "
+                  + ", ".join(f"{w:.2f}" for w in run["batch_wait_ms"])
+                  + " ms; step walls (batch to batch) "
+                  + ", ".join(f"{w:.1f}" for w in run["step_wall_ms"])
+                  + f" ms; launches {run['launches']}")
+        if {native["loader"], profiled["loader"]} != {
+                NativeMelWavLoader.__name__} or \
+                plain["loader"] != DataLoader.__name__:
+            raise AssertionError("the loaders were not the ones asked for")
+        for run in runs.values():
+            if len(run["batch_wait_ms"]) != RECIPE_CUT["train_max_steps"] \
+                    or not all(np.isfinite(v) for v in run["losses"].values()):
+                raise AssertionError("a loader's training did not finish")
+        if min(native["launches"]["wavenet_stack"],
+               native["launches"]["wavenet_stack_backward"]) < 1:
+            raise AssertionError("the native loader's run did not launch "
+                                 "B1 and B2")
+        want = os.path.join(tmp, "prof", "rank0-steps1-2.pt.trace.json")
+        if profiled["trace"] != want or not os.path.exists(want) or \
+                native["trace"] is not None:
+            raise AssertionError(f"no trace at {want}")
+        kernels = trace_kernels(want)
+        b1 = {k: n for k, n in kernels.items() if B1_TRACE_NAME.search(k)}
+        b2 = {k: n for k, n in kernels.items() if B2_TRACE_NAME.search(k)}
+        print(f"native (c) profile_dir with steps [1, 3): "
+              f"{os.path.basename(want)} holds {sum(kernels.values())} "
+              f"kernel launches of {len(kernels)} kernels; B1 "
+              + ", ".join(f"{k[:48]} x {n}" for k, n in b1.items())
+              + "; B2 " + ", ".join(f"{k[:48]} x {n}" for k, n in b2.items()))
+        if not b1 or not b2:
+            raise AssertionError("the profiler trace does not name B1's and "
+                                 "B2's kernels")
+        out["runs"] = runs
+
+    # (d) the shipped HiFi-GAN v1 exported at 1 x 512 frames on the card
+    t0 = time.perf_counter()
+    model = load_model(os.path.join(ASSET_DIR, "generator.gckpt"), HIFIGAN_V1,
+                       dtype=torch.float32, device=dev)
+    mel = np.concatenate(asset_mels()[0])[:EXPORT_FRAMES]
+    blob = export_generator(model, batch_size=1, num_frames=EXPORT_FRAMES)
+    program = load_exported(blob)
+    out["walls"]["export"] = time.perf_counter() - t0
+    x = torch.from_numpy(mel[None]).to(dev)
+    with torch.no_grad():
+        want = model.generator(x)
+        got = program(x)
+        program_ms = time_ms(lambda: program(x), reps=5)
+        module_ms = time_ms(lambda: model.generator(x), reps=5)
+    err = float((got - want).abs().max())
+    allowed = EXPORT_TOL * (1 + float(want.abs().max()))
+    print(f"native (d) export_generator(HiFi-GAN v1 asset, 1 x "
+          f"{EXPORT_FRAMES} frames) on {dev}: {len(blob)} bytes, "
+          f"{out['walls']['export']:.1f} s wall to export and load; the "
+          f"program against the module forward max_abs_err {err:.3e} "
+          f"(allowed {allowed:.3e}); {program_ms:.2f} ms a call, the module "
+          f"forward {module_ms:.2f} ms ({smi})")
+    if tuple(got.shape) != (1, EXPORT_FRAMES * 256, 1) or err > allowed:
+        raise AssertionError("the exported program disagrees with the "
+                             "module forward")
+    out["export"] = {"err": err, "allowed": allowed, "ms": program_ms,
+                     "module_ms": module_ms}
+    return out
 
 
 def main() -> int:
@@ -6432,13 +6701,20 @@ def run_phases(dev, smi: str, pool) -> int:
     recipe = recipe_phase(dev)
     print(f"step 17: {time.perf_counter() - t0:.1f} s wall")
     rl = recipe["launches"]
+    # 18. the native loader against the PyTorch loader, the profiler hook,
+    # the serving export
+    t0 = time.perf_counter()
+    native = native_loader_phase(dev, smi)
+    print(f"step 18: {time.perf_counter() - t0:.1f} s wall")
+    nl = native["runs"]["native"]["launches"]
     if min(launches, launches32, train["fwd_launches"], train["bwd_launches"],
            hifi["launches"], mm["launches"], variant["launches"],
            chunked["pwg_launches"], chunked["mrf_launches"],
            *dp["launches"]["wavenet_stack"],
            *dp["launches"]["wavenet_stack_backward"],
            rl["wavenet_stack"]["train"], rl["wavenet_stack"]["decode"],
-           rl["wavenet_stack_backward"]["train"]) < 1:
+           rl["wavenet_stack_backward"]["train"], nl["wavenet_stack"],
+           nl["wavenet_stack_backward"]) < 1:
         raise AssertionError("a kernel of a main path was never launched")
 
     # no single PyTorch call computes the stack or its backward: library_ms
@@ -6590,8 +6866,10 @@ def run_phases(dev, smi: str, pool) -> int:
         entry["discrete_launches"] = disc["launches"][entry["name"]]
         # step 16 (a): each rank's launches on the data-parallel PWG v1 path
         entry["data_parallel_launches"] = dp["launches"].get(entry["name"])
-        # step 17: bin.train and bin.decode of the recipe front end
+        # step 17: bin.train and bin.decode through the stage runner
         entry["recipe_launches"] = rl[entry["name"]]
+        # step 18: bin.train.run on the native loader
+        entry["native_loader_launches"] = nl[entry["name"]]
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

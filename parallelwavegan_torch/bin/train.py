@@ -167,11 +167,58 @@ def _split_dataset(config: Dict[str, Any], split: Split):
     return build_dataset(config, split)
 
 
+# the generator families whose batches the native loader assembles (JAX
+# bin/train.py:171-176)
+NATIVE_LOADER_FAMILIES = ("ParallelWaveGANGenerator", "MelGANGenerator",
+                          "HiFiGANGenerator", "StyleMelGANGenerator")
+
+
+def native_loader_for(config: Dict[str, Any], dataset, seed: int,
+                      num_shards: int = 1, shard_index: int = 0):
+    """The C++ loader (``datasets/native_loader.py``) where the config's
+    ``use_native_loader`` (``auto``, the default, ``true`` or ``false``)
+    asks for it, as the JAX CLI decides: ``auto`` takes it for npy dumps of
+    the four mel2wav families without f0 when the library builds, ``true``
+    takes it whatever (and raises where it cannot build or read the
+    dumps), ``false`` never. Returns None for the PyTorch loader."""
+    from parallelwavegan_torch.datasets import native_loader
+
+    setting = config.get("use_native_loader", "auto")
+    if not setting:
+        return None
+    if setting == "auto" and not (
+            config.get("format", "hdf5") == "npy"
+            and config.get("generator_type", "ParallelWaveGANGenerator")
+            in NATIVE_LOADER_FAMILIES
+            and not uses_f0(config)
+            and hasattr(dataset, "audio_files")
+            and native_loader.is_available()):
+        return None
+    return native_loader.NativeMelWavLoader(
+        list(zip(dataset.audio_files, dataset.mel_files)),
+        batch_size=dist.per_rank_batch(config["batch_size"], num_shards),
+        batch_max_steps=config["batch_max_steps"],
+        hop_size=config["hop_size"],
+        aux_context_window=config.get("generator_params", {}).get(
+            "aux_context_window", 0),
+        use_noise_input=uses_noise(config),
+        seed=seed, num_shards=num_shards, shard_index=shard_index,
+    )
+
+
 def build_loader(config: Dict[str, Any], dataset, seed: int,
-                 num_shards: int = 1, shard_index: int = 0) -> DataLoader:
+                 num_shards: int = 1, shard_index: int = 0):
     """Shard ``shard_index`` of ``num_shards``: batches of ``batch_size`` /
-    ``num_shards`` from its part of each epoch's permutation, cropped by
-    the collater's rng seeded at seed + 1000 x ``shard_index``."""
+    ``num_shards`` from its part of each epoch's permutation. The native
+    loader where ``native_loader_for`` takes it, else the PyTorch
+    ``DataLoader``, its windows cropped by the collater's rng seeded at
+    seed + 1000 x ``shard_index``; the choice is logged."""
+    native = native_loader_for(config, dataset, seed, num_shards,
+                               shard_index)
+    if native is not None:
+        logging.info("Using the native (C++) data loader.")
+        return native
+    logging.info("Using the PyTorch data loader.")
     # z for the generators the step feeds it to (the JAX CLI gives it to
     # Parallel WaveGAN alone, so a use_noise_input run there lacks it); a
     # VQ-VAE takes audio windows and its conditions

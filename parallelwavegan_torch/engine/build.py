@@ -37,7 +37,7 @@ def build_models(config: Dict[str, Any], generator: torch.Generator = None):
     gen_type = config.get("generator_type", "ParallelWaveGANGenerator")
     dis_type = config.get("discriminator_type", "ParallelWaveGANDiscriminator")
     if gen_type not in _GENERATORS:
-        raise NotImplementedError(f"{gen_type}: not ported yet")
+        raise NotImplementedError(f"unknown generator: {gen_type}")
     gen_params = dict(config.get("generator_params", {}))
     # reference back-compat: the upsample_kernal_sizes typo
     if "upsample_kernal_sizes" in gen_params:
@@ -75,7 +75,7 @@ def example_batch(config: Dict[str, Any], batch_size: int = 2
     JAX batch returns before its f0, so its init builds no f0_embedding)."""
     gen_type = config.get("generator_type", "ParallelWaveGANGenerator")
     if gen_type not in _GENERATORS:
-        raise NotImplementedError(f"{gen_type}: not ported yet")
+        raise NotImplementedError(f"unknown generator: {gen_type}")
     gp = config.get("generator_params", {})
     hop = config.get("hop_size", 256)
     steps = config.get("batch_max_steps", 8192)

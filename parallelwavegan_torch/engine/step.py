@@ -299,8 +299,9 @@ def make_generator_forward(config: Dict[str, Any], generator
     kwargs = {"fused": fused, "trainable": fused} if is_pwg else {}
 
     def forward(params: Params, batch: Batch, masks=None):
+        kw = kwargs if masks is None else dict(kwargs, masks=masks)
         return functional_call(generator, params, (batch["z"], batch["c"]),
-                               kwargs), {}
+                               kw), {}
 
     return forward
 
@@ -318,18 +319,22 @@ def fuse_real_fake_default(discriminator_type: str) -> bool:
 
 def make_discriminator_forward(config: Dict[str, Any], discriminator
                                ) -> Callable[..., Any]:
-    """Adapter (params, x, train, buffers=None, *, window_starts=None) ->
-    discriminator outputs (a tensor, or a list of lists of tensors).
-    ``train`` selects the module's mode for the call: in training mode the
-    spectral-norm vectors advance. ``buffers`` are stand-ins for the
-    module's own buffers (read, and in training mode advanced, in their
-    place). ``window_starts`` go to StyleMelGAN's discriminator."""
+    """Adapter (params, x, train, buffers=None, *, window_starts=None,
+    masks=None) -> discriminator outputs (a tensor, or a list of lists of
+    tensors). ``train`` selects the module's mode for the call: in training
+    mode the spectral-norm vectors advance. ``buffers`` are stand-ins for
+    the module's own buffers (read, and in training mode advanced, in their
+    place). ``window_starts`` go to StyleMelGAN's discriminator, dropout
+    keep ``masks`` to the residual Parallel WaveGAN discriminator's."""
     def forward(params: Params, x: torch.Tensor, train: bool,
                 buffers: Optional[Params] = None, *,
-                window_starts: Optional[List[int]] = None):
+                window_starts: Optional[List[int]] = None,
+                masks: Optional[List[torch.Tensor]] = None):
         was_training = discriminator.training
         discriminator.train(train)
         args = (x,) if window_starts is None else (x, window_starts)
+        if masks is not None:
+            args = (x, masks)
         try:
             return functional_call(discriminator,
                                    {**params, **(buffers or {})}, args)
@@ -366,8 +371,9 @@ def build_steps(config: Dict[str, Any], generator, discriminator,
     (``step_generator``), which StyleMelGAN needs, and the dead-code
     restart with ``shared_rng`` (``step_generator(seed, steps,
     SHARED_STREAM)``, the stream data-parallel ranks would share);
-    the dropout (UHiFiGAN's, the duration predictor's) draws its masks
-    from ``dropout_rng``
+    the dropout (UHiFiGAN's, the duration predictor's, the WaveNet blocks'
+    of Parallel WaveGAN and of the residual PWG discriminator, the last in
+    the discriminator update only) draws its masks from ``dropout_rng``
     (``step_generator(seed, steps, DROPOUT_STREAM, device)``). Metrics are
     detached 0-d tensors on the device.
 
@@ -399,6 +405,7 @@ def build_steps(config: Dict[str, Any], generator, discriminator,
     restart = vq_restarts(config)
     restart_prob = float(config.get("vq_restart_prob", 1.0))
     dropout = getattr(generator, "dropout", 0.0) > 0.0
+    d_dropout = getattr(discriminator, "dropout", 0.0) > 0.0
 
     def starts(x: torch.Tensor, rng: Optional[torch.Generator]):
         """One pass's window starts (StyleMelGAN), else None."""
@@ -451,11 +458,13 @@ def build_steps(config: Dict[str, Any], generator, discriminator,
             return y_.to(f32), _cast(aux, bf16, f32)
 
         def dis_forward(params: Params, x: torch.Tensor, train: bool, *,
-                        window_starts: Optional[List[int]] = None):
+                        window_starts: Optional[List[int]] = None,
+                        masks: Optional[List[torch.Tensor]] = None):
             buffers = dict(discriminator.named_buffers())
             half = _cast(buffers, f32, bf16)
             outs = dis_forward_raw(_cast(params, f32, bf16), x.to(bf16),
-                                   train, half, window_starts=window_starts)
+                                   train, half, window_starts=window_starts,
+                                   masks=masks)
             if train:  # the carried power-iteration state back to f32
                 with torch.no_grad():
                     for key, value in buffers.items():
@@ -532,19 +541,38 @@ def build_steps(config: Dict[str, Any], generator, discriminator,
         metrics["generator_loss"] = gen_loss
         return gen_loss, metrics, y_, aux
 
+    def d_masks(x: torch.Tensor, train: bool,
+                dropout_rng: Optional[torch.Generator]):
+        """The keep masks of one training pass of the discriminator over x
+        (the residual PWG discriminator's dropout), else None."""
+        if not (train and d_dropout):
+            return None
+        if dropout_rng is None:
+            raise ValueError(
+                f"{dis_type} draws dropout masks in training: pass "
+                "dropout_rng=step_generator(seed, steps, DROPOUT_STREAM, "
+                "device)")
+        return discriminator.draw_dropout_masks(x.shape[0], x.shape[1],
+                                                dropout_rng)
+
     def dis_losses(params_d: Params, y: torch.Tensor, y_hat: torch.Tensor,
-                   train: bool, rng: Optional[torch.Generator]):
+                   train: bool, rng: Optional[torch.Generator],
+                   dropout_rng: Optional[torch.Generator] = None):
         y_hat = y_hat.detach()
         if fuse_rf:
             nb = y.shape[0]
-            p_all = dis_forward(params_d, torch.cat([y, y_hat], dim=0), train,
-                                window_starts=starts(y, rng))
+            both = torch.cat([y, y_hat], dim=0)
+            p_all = dis_forward(params_d, both, train,
+                                window_starts=starts(y, rng),
+                                masks=d_masks(both, train, dropout_rng))
             p = _tree_map(lambda t: t[:nb], p_all)
             p_ = _tree_map(lambda t: t[nb:], p_all)
         else:
-            p = dis_forward(params_d, y, train, window_starts=starts(y, rng))
+            p = dis_forward(params_d, y, train, window_starts=starts(y, rng),
+                            masks=d_masks(y, train, dropout_rng))
             p_ = dis_forward(params_d, y_hat, train,
-                             window_starts=starts(y_hat, rng))
+                             window_starts=starts(y_hat, rng),
+                             masks=d_masks(y_hat, train, dropout_rng))
         real_loss, fake_loss = criterion["dis_adv"](p_, p)
         dis_loss = real_loss + fake_loss
         metrics = {"real_loss": real_loss, "fake_loss": fake_loss,
@@ -638,7 +666,7 @@ def build_steps(config: Dict[str, Any], generator, discriminator,
                             params_g, with_noise(generator, batch, rng),
                             dropout_masks(batch, dropout_rng))[0])
                 dis_loss, m = dis_losses(params_d, batch["y"], y_hat, True,
-                                         rng)
+                                         rng, dropout_rng)
                 grads_d = _grads(dis_loss, params_d)
                 if group is not None:
                     grads_d = group.all_reduce_mean(grads_d)

@@ -23,16 +23,27 @@ excepted), and only rank 0 logs, writes checkpoints and dumps intermediate
 results, as the JAX trainer's ``process_index() == 0``. Every rank runs
 the evaluation on the whole dev loader, so the ranks stay in step.
 
-Not carried over from the JAX trainer: ``dispatch_queue_depth`` and the
-``jax.profiler`` hook. Both work around that package's accelerator runtime
-(an unbounded asynchronous dispatch queue; its own trace format) and have
-no counterpart here; the CUDA runtime bounds its own launch queue.
+The profiler hook of the JAX trainer: a config with ``profile_dir``
+traces the steps [``profile_start_step``, ``profile_start_step`` +
+``profile_num_steps``) (defaults 10 and 5) that run a step function (a
+warm-up step that trains nothing is skipped, and a window that starts on
+one never opens, as in JAX), on ``torch.profiler`` with the CPU and, on a
+card, the CUDA activities; rank 0 alone traces and writes the Chrome trace
+``<profile_dir>/rank0-steps<first>-<last>.pt.trace.json``, each traced step
+under a ``train_step <n>`` range. If the run ends inside the window the
+trace of the steps run so far is still written, where the JAX trace is
+never stopped. There is no ``--profile-dir`` flag (the JAX CLI has none).
+
+Not carried over from the JAX trainer: ``dispatch_queue_depth``, which
+bounds that package's unbounded asynchronous dispatch queue; the CUDA
+runtime bounds its own launch queue.
 
 Runs on ``cuda`` unless the caller passes ``device="cpu"``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import logging
 import os
 import time
@@ -99,6 +110,10 @@ class Trainer:
         self.last_eval_loss: Dict[str, float] = {}
         self._accum_steps = 0
         self.tic = self._log_tic = time.time()
+        # the open torch.profiler of the profile window, and the trace file
+        # written when it closed
+        self.profiler = None
+        self.profile_trace: Optional[str] = None
         self.writer = None
         if self.outdir and self.is_main:
             os.makedirs(self.outdir, exist_ok=True)
@@ -144,12 +159,14 @@ class Trainer:
         step_fn = self.train_step_factory(train_g, use_adv, train_d)
         steps = self.state.steps
         ranks = dict(rank=self.rank, world=self.world)
-        self.state, metrics = step_fn(
-            self.state, self._to_device(batch),
-            step_generator(self.seed, steps, **ranks),
-            step_generator(self.seed, steps, SHARED_STREAM),
-            step_generator(self.seed, steps, DROPOUT_STREAM, self.device,
-                           **ranks))
+        self._maybe_profile()
+        with self._step_range():
+            self.state, metrics = step_fn(
+                self.state, self._to_device(batch),
+                step_generator(self.seed, steps, **ranks),
+                step_generator(self.seed, steps, SHARED_STREAM),
+                step_generator(self.seed, steps, DROPOUT_STREAM, self.device,
+                               **ranks))
         for k, v in metrics.items():
             self.total_train_loss[f"train/{k}"] += v  # stays on the device
         self._accum_steps += 1
@@ -186,10 +203,57 @@ class Trainer:
             while not self.finish_train:
                 self._train_epoch()
         finally:
+            self._stop_profile()
             if self.is_main:
                 self.save_checkpoint(os.path.join(
                     self.outdir, f"checkpoint-{self.steps}steps.ckpt"))
         logging.info(f"Finished training ({self.steps} steps).")
+
+    # ------------------------------------------------------------------
+    def _maybe_profile(self) -> None:
+        """Open the trace before step ``profile_start_step`` and close it
+        before step ``profile_start_step + profile_num_steps``, as the JAX
+        trainer's hook (called before each step function)."""
+        profile_dir = self.config.get("profile_dir")
+        if not profile_dir or not self.is_main:
+            return
+        start = int(self.config.get("profile_start_step", 10))
+        n = int(self.config.get("profile_num_steps", 5))
+        if self.profiler is None and self.steps == start:
+            from torch.profiler import ProfilerActivity, profile
+
+            activities = [ProfilerActivity.CPU]
+            if self.device.type == "cuda":
+                activities.append(ProfilerActivity.CUDA)
+            self.profiler = profile(activities=activities)
+            self.profiler.__enter__()
+            self._profile_first = self.steps
+            logging.info(f"profiler trace started -> {profile_dir}")
+        elif self.profiler is not None and self.steps >= start + n:
+            self._stop_profile()
+
+    def _step_range(self):
+        """A ``train_step <n>`` range around a traced step's call."""
+        if self.profiler is None:
+            return contextlib.nullcontext()
+        return torch.profiler.record_function(f"train_step {self.steps}")
+
+    def _stop_profile(self) -> None:
+        """Close an open trace and write it; the path is kept in
+        ``profile_trace``."""
+        if self.profiler is None:
+            return
+        prof, self.profiler = self.profiler, None
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        prof.__exit__(None, None, None)
+        profile_dir = self.config["profile_dir"]
+        os.makedirs(profile_dir, exist_ok=True)
+        self.profile_trace = os.path.join(
+            profile_dir, f"rank{self.rank}-steps{self._profile_first}-"
+            f"{self.steps - 1}.pt.trace.json")
+        prof.export_chrome_trace(self.profile_trace)
+        logging.info(f"profiler trace stopped -> {self.profile_trace}")
 
     # ------------------------------------------------------------------
     def save_checkpoint(self, path: str):

@@ -104,7 +104,11 @@ def spectral_normalize(kernel: torch.Tensor, u: torch.Tensor,
 
 def get_activation(name: Optional[str], params: Optional[dict] = None):
     """Map a torch.nn activation class name (as configs spell it) to a
-    function; the slice covers None, ReLU and LeakyReLU."""
+    function, as the JAX package's registry does: None, LeakyReLU, ReLU,
+    ELU(alpha), GELU (flax's ``nn.gelu``, the tanh approximation, where
+    torch's default is the exact erf form), Tanh, Sigmoid, Softmax (over the
+    last axis: the channels of the (B, T, C) layout, torch's dim 1) and
+    SiLU / Swish."""
     params = dict(params or {})
     if name is None:
         return lambda x: x
@@ -113,7 +117,43 @@ def get_activation(name: Optional[str], params: Optional[dict] = None):
                        negative_slope=params.get("negative_slope", 0.01))
     if name == "ReLU":
         return F.relu
-    raise NotImplementedError(f"activation {name} is not ported yet")
+    if name == "ELU":
+        return partial(F.elu, alpha=params.get("alpha", 1.0))
+    if name == "GELU":
+        return partial(F.gelu, approximate="tanh")
+    if name == "Tanh":
+        return torch.tanh
+    if name == "Sigmoid":
+        return torch.sigmoid
+    if name == "Softmax":
+        return partial(torch.softmax, dim=-1)
+    if name in ("SiLU", "Swish"):
+        return F.silu
+    raise ValueError(f"unsupported activation: {name}")
+
+
+def apply_dropout_mask(x: torch.Tensor, mask: torch.Tensor,
+                       rate: float) -> torch.Tensor:
+    """flax's ``nn.Dropout`` on a given keep mask (bool, x's shape): a kept
+    entry is x / keep, with keep = 1 - rate rounded to x's dtype as flax
+    divides by a weakly typed scalar; a dropped one is 0."""
+    mask = mask.to(x.device)
+    if mask.shape != x.shape:
+        raise ValueError(f"dropout mask {tuple(mask.shape)} for an input of "
+                         f"{tuple(x.shape)}")
+    keep = torch.tensor(1.0 - rate, dtype=x.dtype, device=x.device)
+    return torch.where(mask, x / keep, torch.zeros_like(x))
+
+
+def draw_keep_masks(shapes: Sequence[Tuple[int, ...]], rate: float,
+                    generator: Optional[torch.Generator]) -> list:
+    """Keep masks (bool, on ``generator``'s device) of the given shapes, in
+    order: uniform < 1 - rate. An empty list when the rate is 0."""
+    if rate == 0.0:
+        return []
+    device = generator.device if generator is not None else None
+    return [torch.rand(shape, generator=generator, device=device) < 1.0 - rate
+            for shape in shapes]
 
 
 # torch pad-module name (as configs spell it) -> pad1d mode

@@ -35,20 +35,11 @@ from parallelwavegan_torch.layers.common import (
     ChannelLayerNorm,
     Conv1d,
     Dense,
+    apply_dropout_mask,
+    draw_keep_masks,
     torch_conv_default_init,
 )
 from parallelwavegan_torch.ops.conv import conv1d_product
-
-
-def apply_dropout(x: torch.Tensor, mask: torch.Tensor,
-                  rate: float) -> torch.Tensor:
-    """flax's Dropout on a given keep mask: x / keep where kept, else 0."""
-    mask = mask.to(x.device)
-    if mask.shape != x.shape:
-        raise ValueError(f"dropout mask is {tuple(mask.shape)}, its input "
-                         f"{tuple(x.shape)}")
-    keep = torch.tensor(1.0 - rate, dtype=x.dtype, device=x.device)
-    return torch.where(mask, x / keep, torch.zeros_like(x))
 
 
 class _ConvNormStack(nn.Module):
@@ -86,12 +77,8 @@ class _ConvNormStack(nn.Module):
         """Keep masks (bool, on ``generator``'s device) of the dropout
         layers for an input of (batch, length, C), in layer order: uniform
         < 1 - rate. An empty list when the rate is 0."""
-        if self.dropout_rate == 0.0:
-            return []
-        device = generator.device if generator is not None else None
-        return [torch.rand((batch, length, self.n_chans), generator=generator,
-                           device=device) < 1.0 - self.dropout_rate
-                for _ in range(self.n_layers)]
+        return draw_keep_masks([(batch, length, self.n_chans)]
+                               * self.n_layers, self.dropout_rate, generator)
 
     def forward(self, x: torch.Tensor, deterministic: bool = True,
                 masks: Optional[Sequence[torch.Tensor]] = None
@@ -105,7 +92,7 @@ class _ConvNormStack(nn.Module):
                                conv.padding)
             x = norm(self.act(h))
             if drop:
-                x = apply_dropout(x, masks[i], self.dropout_rate)
+                x = apply_dropout_mask(x, masks[i], self.dropout_rate)
         return self.linear(x)[..., 0]
 
 

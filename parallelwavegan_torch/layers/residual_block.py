@@ -2,7 +2,13 @@
 
 Counterparts of ``WaveNetResidualBlock`` and ``HiFiGANResidualBlock`` in
 ``parallelwavegan_tpu/layers/residual_block.py``: the per-layer (unfused)
-forwards that the plain generators run. Non-causal, no dropout.
+forwards that the plain generators run. ``use_causal_conv`` pads the
+dilated convs on the left only (the WaveNet block's conv by (K - 1) d
+frames, the HiFi-GAN block's through ``CausalConv1d`` under
+``convs1_<i>.conv`` / ``convs2_<i>.conv``, as in the flax tree). The
+WaveNet block's dropout (on its input, before the dilated conv) takes a
+keep mask from the caller (``apply_dropout_mask``), never drawn inside the
+forward.
 """
 
 from __future__ import annotations
@@ -13,9 +19,11 @@ from typing import List, Optional, Sequence, Tuple
 import torch
 from torch import nn
 
+from parallelwavegan_torch.layers.causal_conv import CausalConv1d
 from parallelwavegan_torch.layers.common import (
     Conv1d,
     Initializer,
+    apply_dropout_mask,
     get_activation,
     kaiming_normal_relu_init,
     uniform_bias_init_for,
@@ -43,16 +51,17 @@ class WaveNetResidualBlock(nn.Module):
     ):
         super().__init__()
         if use_causal_conv:
-            raise NotImplementedError("causal WaveNet blocks are not ported yet")
-        if dropout > 0.0:
-            raise NotImplementedError("dropout is not ported yet")
-        if (kernel_size - 1) % 2:
+            padding = ((kernel_size - 1) * dilation, 0)
+        elif (kernel_size - 1) % 2:
             raise ValueError("kernel_size must be odd")
+        else:
+            padding = (kernel_size - 1) // 2 * dilation
+        self.dropout = float(dropout)
         gate_out = gate_channels // 2
         self.conv = Conv1d(
             residual_channels, gate_channels, kernel_size, dilation=dilation,
-            bias=bias, padding=(kernel_size - 1) // 2 * dilation,
-            use_weight_norm=use_weight_norm, generator=generator,
+            bias=bias, padding=padding, use_weight_norm=use_weight_norm,
+            generator=generator,
         )
         self.conv1x1_aux = (
             Conv1d(aux_channels, gate_channels, 1, bias=False,
@@ -66,9 +75,14 @@ class WaveNetResidualBlock(nn.Module):
                                   use_weight_norm=use_weight_norm,
                                   generator=generator)
 
-    def forward(self, x: torch.Tensor, c: Optional[torch.Tensor] = None
+    def forward(self, x: torch.Tensor, c: Optional[torch.Tensor] = None,
+                mask: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """``mask``: the keep mask (bool, x's shape) of a training forward
+        with dropout; None for a deterministic one."""
         residual = x
+        if mask is not None and self.dropout > 0.0:
+            x = apply_dropout_mask(x, mask, self.dropout)
         x = self.conv(x)
         gate_out = x.shape[-1] // 2
         if c is not None:
@@ -100,9 +114,6 @@ class HiFiGANResidualBlock(nn.Module):
         generator: Optional[torch.Generator] = None,
     ):
         super().__init__()
-        if use_causal_conv:
-            raise NotImplementedError(
-                "causal HiFi-GAN blocks are not ported yet")
         if kernel_size % 2 != 1:
             raise ValueError("kernel_size must be odd")
         self.dilations = tuple(dilations)
@@ -111,19 +122,27 @@ class HiFiGANResidualBlock(nn.Module):
             nonlinear_activation_params or {"negative_slope": 0.1},
         )
         bias_init = uniform_bias_init_for((kernel_size, channels, channels))
-        self.convs1: List[Conv1d] = []
-        self.convs2: List[Conv1d] = []
+        self.convs1: List[nn.Module] = []
+        self.convs2: List[nn.Module] = []
         for i, d in enumerate(self.dilations):
             for name, dil, convs in (("convs1", d, self.convs1),
                                      ("convs2", 1, self.convs2)):
                 if name == "convs2" and not use_additional_convs:
                     continue
-                conv = Conv1d(
-                    channels, channels, kernel_size, dilation=dil, bias=bias,
-                    padding=(kernel_size - 1) // 2 * dil,
-                    kernel_init=kernel_init, bias_init=bias_init,
-                    use_weight_norm=use_weight_norm, generator=generator,
-                )
+                if use_causal_conv:
+                    # CausalConv1d's inner conv takes torch's uniform bias,
+                    # as the JAX module's
+                    conv = CausalConv1d(
+                        channels, channels, kernel_size, dilation=dil,
+                        bias=bias, use_weight_norm=use_weight_norm,
+                        kernel_init=kernel_init, generator=generator)
+                else:
+                    conv = Conv1d(
+                        channels, channels, kernel_size, dilation=dil,
+                        bias=bias, padding=(kernel_size - 1) // 2 * dil,
+                        kernel_init=kernel_init, bias_init=bias_init,
+                        use_weight_norm=use_weight_norm, generator=generator,
+                    )
                 self.add_module(f"{name}_{i}", conv)
                 convs.append(conv)
 

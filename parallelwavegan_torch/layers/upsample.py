@@ -8,6 +8,9 @@ the conv taps that land on coarse frame u+j-1 at phase p. A stage is then
 3 multiply-adds per freq tap over (B, T0, s, C), without building the
 (B, 1, C, T) image the reference convolves. The parameter keeps the
 Conv2d's (freq_k, 2s+1, 1, 1) layout, so checkpoints map one to one.
+``use_causal_conv`` shifts the smoothing conv onto the past (coarse frames
+u-2, u-1, u), and ``ConvInUpsampleNetwork``'s context conv then spans
+aux_context_window + 1 frames, its last aux_context_window outputs cut.
 """
 
 from __future__ import annotations
@@ -27,7 +30,6 @@ from parallelwavegan_torch.layers.common import (
 )
 
 _N_TAPS = 3
-_J_START = -1  # non-causal: coarse frames u-1, u, u+1
 
 
 def _polyphase_matrix(scale: int, kt: int, tp: int, n_taps: int,
@@ -56,17 +58,18 @@ class _PolyphaseSmoothingConv(WeightNormedConv):
                  use_weight_norm: bool = False, *,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        if use_causal_conv:
-            raise NotImplementedError("causal upsampling is not ported yet")
         self.scale = scale
         self.freq_axis_kernel_size = freq_axis_kernel_size
+        # the coarse frames an output sees: u-1, u, u+1, or causal u-2..u
+        self.j_start = -2 if use_causal_conv else -1
         kt = 2 * scale + 1
         self.init_kernel((freq_axis_kernel_size, kt, 1, 1), mean_filter_init,
                          use_weight_norm, generator)
         self.register_buffer(
             "phase_matrix",
-            torch.from_numpy(_polyphase_matrix(scale, kt, scale, _N_TAPS,
-                                               _J_START)),
+            torch.from_numpy(_polyphase_matrix(
+                scale, kt, 2 * scale if use_causal_conv else scale, _N_TAPS,
+                self.j_start)),
             persistent=False,
         )
 
@@ -77,7 +80,7 @@ class _PolyphaseSmoothingConv(WeightNormedConv):
         W = (kernel @ M.T).reshape(fk, s, _N_TAPS)
         B, T0, C = c.shape
         fp = (fk - 1) // 2
-        cpad = F.pad(c, (fp, fp, -_J_START, _N_TAPS - 1 + _J_START))
+        cpad = F.pad(c, (fp, fp, -self.j_start, _N_TAPS - 1 + self.j_start))
         out = torch.zeros((B, T0, s, C), dtype=c.dtype, device=c.device)
         for df in range(fk):
             for j in range(_N_TAPS):
@@ -95,6 +98,7 @@ class UpsampleNetwork(nn.Module):
         upsample_scales: Sequence[int],
         nonlinear_activation: Optional[str] = None,
         nonlinear_activation_params: Optional[dict] = None,
+        interpolate_mode: str = "nearest",
         freq_axis_kernel_size: int = 1,
         use_causal_conv: bool = False,
         use_weight_norm: bool = False,
@@ -102,6 +106,9 @@ class UpsampleNetwork(nn.Module):
         generator: Optional[torch.Generator] = None,
     ):
         super().__init__()
+        if interpolate_mode != "nearest":
+            raise ValueError("interpolate_mode must be nearest, as the JAX "
+                             f"package asserts, not {interpolate_mode}")
         if (freq_axis_kernel_size - 1) % 2:
             raise ValueError("freq_axis_kernel_size must be odd")
         self.act = (
@@ -135,6 +142,7 @@ class ConvInUpsampleNetwork(nn.Module):
         upsample_scales: Sequence[int],
         nonlinear_activation: Optional[str] = None,
         nonlinear_activation_params: Optional[dict] = None,
+        interpolate_mode: str = "nearest",
         freq_axis_kernel_size: int = 1,
         aux_channels: int = 80,
         aux_context_window: int = 0,
@@ -144,15 +152,20 @@ class ConvInUpsampleNetwork(nn.Module):
         generator: Optional[torch.Generator] = None,
     ):
         super().__init__()
+        self.cut = aux_context_window if use_causal_conv else 0
         self.conv_in = Conv1d(aux_channels, aux_channels,
-                              2 * aux_context_window + 1, bias=False,
+                              (aux_context_window + 1 if use_causal_conv
+                               else 2 * aux_context_window + 1), bias=False,
                               use_weight_norm=use_weight_norm,
                               generator=generator)
         self.upsample = UpsampleNetwork(
             upsample_scales, nonlinear_activation, nonlinear_activation_params,
-            freq_axis_kernel_size, use_causal_conv, use_weight_norm,
-            generator=generator,
+            interpolate_mode, freq_axis_kernel_size, use_causal_conv,
+            use_weight_norm, generator=generator,
         )
 
     def forward(self, c: torch.Tensor) -> torch.Tensor:
-        return self.upsample(self.conv_in(c))
+        c = self.conv_in(c)
+        if self.cut:
+            c = c[:, :-self.cut]
+        return self.upsample(c)

@@ -67,7 +67,6 @@ def get_model_class(name: str):
     """Resolve a config model name to the port's module class."""
     if name not in _REGISTRY:
         raise NotImplementedError(
-            f"model family {name} is not ported yet; available: "
-            f"{sorted(_REGISTRY)}"
+            f"unknown model: {name}; available: {sorted(_REGISTRY)}"
         )
     return _REGISTRY[name]

@@ -1,9 +1,11 @@
 """HiFi-GAN generator and discriminators, channels-last (B, T, C).
 
 Counterpart of ``parallelwavegan_tpu/models/hifigan.py``. The generator:
-Conv7 -> per scale [LeakyReLU,
-transposed conv (k = 2 s), the mean of the multi-receptive-field residual
-blocks] -> LeakyReLU(0.01), Conv7, tanh. Submodule names follow the flax
+Conv7 -> per scale [LeakyReLU, transposed conv (k = 2 s), the mean of the
+multi-receptive-field residual blocks] -> LeakyReLU(0.01), Conv7, tanh;
+with ``use_causal_conv`` the convs are ``CausalConv1d`` and the transposed
+convs ``CausalConvTranspose1d`` (``input_conv.conv``,
+``upsamples_<i>.deconv`` in the flax tree). Submodule names follow the flax
 tree (``input_conv``, ``upsamples_<i>``, ``blocks_<i * n + j>``,
 ``output_conv``), so a converted tree loads with ``strict=True``.
 
@@ -33,6 +35,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from parallelwavegan_torch.layers.causal_conv import (
+    CausalConv1d,
+    CausalConvTranspose1d,
+)
 from parallelwavegan_torch.layers.common import (
     Conv1d,
     Conv2d,
@@ -71,9 +77,6 @@ class HiFiGANGenerator(nn.Module):
         generator: Optional[torch.Generator] = None,
     ):
         super().__init__()
-        if use_causal_conv:
-            raise NotImplementedError(
-                "the causal HiFi-GAN generator is not ported yet")
         if kernel_size % 2 != 1:
             raise ValueError("kernel_size must be odd")
         if len(upsample_scales) != len(upsample_kernel_sizes):
@@ -99,11 +102,17 @@ class HiFiGANGenerator(nn.Module):
         conv_kw = dict(bias=bias, kernel_init=kinit,
                        use_weight_norm=weight_norm, generator=generator)
         pad = (kernel_size - 1) // 2
-        self.input_conv = Conv1d(
-            in_channels, channels, kernel_size, padding=pad,
-            bias_init=uniform_bias_init_for(
-                (kernel_size, in_channels, channels)), **conv_kw)
-        self.upsamples: List[ConvTranspose1d] = []
+
+        def conv7(cin: int, cout: int) -> nn.Module:
+            # the causal convs take torch's uniform bias, as the JAX module's
+            if use_causal_conv:
+                return CausalConv1d(cin, cout, kernel_size, **conv_kw)
+            return Conv1d(cin, cout, kernel_size, padding=pad,
+                          bias_init=uniform_bias_init_for(
+                              (kernel_size, cin, cout)), **conv_kw)
+
+        self.input_conv = conv7(in_channels, channels)
+        self.upsamples: List[nn.Module] = []
         self.blocks: List[HiFiGANResidualBlock] = []
         num_blocks = len(self.resblock_kernel_sizes)
         for i, (s, k_up) in enumerate(zip(self.upsample_scales,
@@ -112,9 +121,13 @@ class HiFiGANGenerator(nn.Module):
                 raise ValueError("upsample kernel sizes must be twice the "
                                  "scales")
             out_ch = channels // (2 ** (i + 1))
-            up = ConvTranspose1d(
-                channels // (2 ** i), out_ch, k_up, stride=s,
-                padding=s // 2 + s % 2, output_padding=s % 2, **conv_kw)
+            if use_causal_conv:
+                up = CausalConvTranspose1d(channels // (2 ** i), out_ch, k_up,
+                                           stride=s, **conv_kw)
+            else:
+                up = ConvTranspose1d(
+                    channels // (2 ** i), out_ch, k_up, stride=s,
+                    padding=s // 2 + s % 2, output_padding=s % 2, **conv_kw)
             self.add_module(f"upsamples_{i}", up)
             self.upsamples.append(up)
             for j, (k_res, dils) in enumerate(zip(
@@ -125,16 +138,14 @@ class HiFiGANGenerator(nn.Module):
                     nonlinear_activation=nonlinear_activation,
                     nonlinear_activation_params=(
                         self.nonlinear_activation_params),
+                    use_causal_conv=use_causal_conv,
                     use_weight_norm=weight_norm, kernel_init=kinit,
                     generator=generator,
                 )
                 self.add_module(f"blocks_{i * num_blocks + j}", block)
                 self.blocks.append(block)
-        last = channels // (2 ** len(self.upsample_scales))
-        self.output_conv = Conv1d(
-            last, out_channels, kernel_size, padding=pad,
-            bias_init=uniform_bias_init_for((kernel_size, last, out_channels)),
-            **conv_kw)
+        self.output_conv = conv7(
+            channels // (2 ** len(self.upsample_scales)), out_channels)
 
     @property
     def upsample_factor(self) -> int:

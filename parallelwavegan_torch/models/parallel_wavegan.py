@@ -16,13 +16,19 @@ serving form) holds every kernel with weight norm already applied, whatever
 
 The generator's plain forward runs every layer unfused; ``fused=True``
 routes it through ``ops/cuda/pwg_infer.pwg_fused_forward`` (the CUDA
-kernels).
+kernels). Its ``upsample_net`` is ``ConvInUpsampleNetwork`` (the default),
+``UpsampleNetwork`` or a ``MelGANGenerator`` (no weight norm, no final
+activation, ``aux_context_window`` 0), as in the JAX package. Dropout in
+the WaveNet blocks (the generator's and the residual discriminator's)
+takes keep masks from the caller, one (B, T, residual_channels) mask a
+layer in layer order (``draw_dropout_masks``), never drawn inside the
+forward: the train step draws them from its dropout source.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -30,11 +36,15 @@ from torch import nn
 
 from parallelwavegan_torch.layers.common import (
     Conv1d,
+    draw_keep_masks,
     get_activation,
     kaiming_normal_relu_init,
 )
 from parallelwavegan_torch.layers.residual_block import WaveNetResidualBlock
-from parallelwavegan_torch.layers.upsample import ConvInUpsampleNetwork
+from parallelwavegan_torch.layers.upsample import (
+    ConvInUpsampleNetwork,
+    UpsampleNetwork,
+)
 
 _DEFAULT_UPSAMPLE = {"upsample_scales": [4, 4, 4, 4]}
 
@@ -58,6 +68,7 @@ class ParallelWaveGANGenerator(nn.Module):
         bias: bool = True,
         use_weight_norm: bool = True,
         use_causal_conv: bool = False,
+        upsample_conditional_features: bool = True,
         upsample_net: str = "ConvInUpsampleNetwork",
         upsample_params: Optional[Dict[str, Any]] = None,
         *,
@@ -82,14 +93,11 @@ class ParallelWaveGANGenerator(nn.Module):
         up_params["use_causal_conv"] = use_causal_conv
         self.upsample_scales: List[int] = list(up_params["upsample_scales"])
 
-        if upsample_net != "ConvInUpsampleNetwork":
-            raise NotImplementedError(
-                f"upsample_net {upsample_net} is not ported yet"
-            )
-        self.upsample_net = ConvInUpsampleNetwork(
-            aux_channels=aux_channels, aux_context_window=aux_context_window,
-            use_weight_norm=weight_norm, generator=generator, **up_params,
-        )
+        # without upsample_conditional_features c comes at the sample rate
+        self.upsample_net = _upsample_net(
+            upsample_net, up_params, aux_channels, aux_context_window,
+            weight_norm, folded, generator
+        ) if upsample_conditional_features else None
         self.first_conv = Conv1d(in_channels, residual_channels, 1,
                                  use_weight_norm=weight_norm,
                                  generator=generator)
@@ -120,6 +128,8 @@ class ParallelWaveGANGenerator(nn.Module):
 
     @property
     def upsample_factor(self) -> int:
+        if self.upsample_net is None:
+            return 1
         return math.prod(self.upsample_scales)
 
     @property
@@ -127,13 +137,39 @@ class ParallelWaveGANGenerator(nn.Module):
         lpc = self.layers // self.stacks
         return [2 ** (i % lpc) for i in range(self.layers)]
 
+    def dropout_shapes(self, batch: int, samples: int
+                       ) -> List[Tuple[int, int, int]]:
+        """The dropout layers' input shapes, in call order, for noise of
+        (batch, samples, in_channels)."""
+        return [(batch, samples, self.residual_channels)] * self.layers
+
+    def draw_dropout_masks(self, batch: int, samples: int,
+                           generator: Optional[torch.Generator] = None
+                           ) -> List[torch.Tensor]:
+        """Keep masks (bool, on ``generator``'s device) of every layer's
+        dropout, in layer order: uniform < 1 - dropout. An empty list when
+        the rate is 0."""
+        return draw_keep_masks(self.dropout_shapes(batch, samples),
+                               self.dropout, generator)
+
+    def batch_dropout_masks(self, batch: Dict[str, torch.Tensor],
+                            generator: Optional[torch.Generator] = None
+                            ) -> List[torch.Tensor]:
+        """``draw_dropout_masks`` for a training forward of ``batch`` (its
+        noise z (B, T, in_channels))."""
+        B, T = batch["z"].shape[:2]
+        return self.draw_dropout_masks(B, T, generator)
+
     def forward(self, z: torch.Tensor, c: Optional[torch.Tensor],
-                fused: bool = False, trainable: bool = False) -> torch.Tensor:
+                fused: bool = False, trainable: bool = False,
+                masks: Optional[Sequence[torch.Tensor]] = None
+                ) -> torch.Tensor:
         """z (B, T, in_channels) noise; c (B, T'(+2*ctx), aux) mel.
 
         Returns (B, T, out_channels). ``fused`` takes the fused path
         (``pwg_fused_forward``, with its ``trainable`` grouping and
-        backward kernel) instead of the per-layer one below.
+        backward kernel) instead of the per-layer one below. ``masks``
+        (``draw_dropout_masks``'s list) turns the dropout on.
         """
         if fused:
             from parallelwavegan_torch.ops.cuda.pwg_infer import (
@@ -142,14 +178,15 @@ class ParallelWaveGANGenerator(nn.Module):
 
             return pwg_fused_forward(self, z, c, trainable=trainable)
         if c is not None:
-            c = self.upsample_net(c)
+            if self.upsample_net is not None:
+                c = self.upsample_net(c)
             if c.shape[1] != z.shape[1]:
                 raise ValueError(f"upsampled c {tuple(c.shape)} vs z "
                                  f"{tuple(z.shape)}")
         x = self.first_conv(z)
         skips = 0.0
-        for block in self.conv_layers:
-            x, h = block(x, c)
+        for i, block in enumerate(self.conv_layers):
+            x, h = block(x, c, masks[i] if masks else None)
             skips = skips + h
         x = F.relu(skips * math.sqrt(1.0 / self.layers))
         x = F.relu(self.last_conv_0(x))
@@ -181,6 +218,31 @@ class ParallelWaveGANGenerator(nn.Module):
             z = torch.randn((1, T, self.in_channels), generator=generator,
                             device=c.device, dtype=c.dtype)
         return self.forward(z, c)[0]
+
+
+def _upsample_net(kind: str, up_params: Dict[str, Any], aux_channels: int,
+                  aux_context_window: int, weight_norm: bool, folded: bool,
+                  generator: Optional[torch.Generator]) -> nn.Module:
+    """The generator's ``upsample_net`` of the config's type, as the JAX
+    package's ``make_upsample_module`` builds it."""
+    if kind == "ConvInUpsampleNetwork":
+        return ConvInUpsampleNetwork(
+            aux_channels=aux_channels, aux_context_window=aux_context_window,
+            use_weight_norm=weight_norm, generator=generator, **up_params)
+    if kind == "UpsampleNetwork":
+        return UpsampleNetwork(use_weight_norm=weight_norm,
+                               generator=generator, **up_params)
+    if kind == "MelGANGenerator":
+        from parallelwavegan_torch.models.melgan import MelGANGenerator
+
+        if aux_context_window != 0:
+            raise ValueError("a MelGANGenerator upsample_net takes "
+                             "aux_context_window 0")
+        return MelGANGenerator(
+            **dict(up_params, use_weight_norm=False,
+                   use_final_nonlinear_activation=False),
+            folded=folded, generator=generator)
+    raise ValueError(f"unknown upsample_net: {kind}")
 
 
 class ParallelWaveGANDiscriminator(nn.Module):
@@ -294,12 +356,27 @@ class ResidualParallelWaveGANDiscriminator(nn.Module):
             self.conv_layers.append(block)
         self.last_conv_0 = Conv1d(skip_channels, skip_channels, 1, **kw)
         self.last_conv_1 = Conv1d(skip_channels, out_channels, 1, **kw)
+        self.dropout = float(dropout)
+        self.residual_channels = residual_channels
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def draw_dropout_masks(self, batch: int, samples: int,
+                           generator: Optional[torch.Generator] = None
+                           ) -> List[torch.Tensor]:
+        """Keep masks of every layer's dropout for an input of (batch,
+        samples, in_channels), in layer order, as the generator's."""
+        return draw_keep_masks(
+            [(batch, samples, self.residual_channels)]
+            * len(self.conv_layers), self.dropout, generator)
+
+    def forward(self, x: torch.Tensor,
+                masks: Optional[Sequence[torch.Tensor]] = None
+                ) -> torch.Tensor:
+        """``masks`` (``draw_dropout_masks``'s list) turns the dropout
+        on."""
         x = self.act(self.first_conv(x))
         skips = 0.0
-        for block in self.conv_layers:
-            x, h = block(x)
+        for i, block in enumerate(self.conv_layers):
+            x, h = block(x, None, masks[i] if masks else None)
             skips = skips + h
         x = self.act(skips * math.sqrt(1.0 / len(self.conv_layers)))
         return self.last_conv_1(self.act(self.last_conv_0(x)))

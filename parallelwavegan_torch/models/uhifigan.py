@@ -39,6 +39,8 @@ from torch import nn
 from parallelwavegan_torch.layers.common import (
     Conv1d,
     ConvTranspose1d,
+    apply_dropout_mask,
+    draw_keep_masks,
     get_activation,
     normal_init,
 )
@@ -171,12 +173,8 @@ class UHiFiGANGenerator(nn.Module):
         """Keep masks (bool, on ``generator``'s device) of the five dropout
         layers for an excitation of (batch, samples, 1), in call order:
         uniform < 1 - dropout. An empty list when the rate is 0."""
-        if self.dropout == 0.0:
-            return []
-        device = generator.device if generator is not None else None
-        return [torch.rand(shape, generator=generator, device=device)
-                < 1.0 - self.dropout
-                for shape in self.dropout_shapes(batch, samples)]
+        return draw_keep_masks(self.dropout_shapes(batch, samples),
+                               self.dropout, generator)
 
     def batch_dropout_masks(self, batch: Dict[str, torch.Tensor],
                             generator: Optional[torch.Generator] = None
@@ -190,13 +188,7 @@ class UHiFiGANGenerator(nn.Module):
               i: int) -> torch.Tensor:
         if masks is None or self.dropout == 0.0:
             return x
-        mask = masks[i].to(x.device)
-        if mask.shape != x.shape:
-            raise ValueError(f"dropout mask {i} is {tuple(mask.shape)}, its "
-                             f"input {tuple(x.shape)}")
-        keep = torch.tensor(1.0 - self.dropout, dtype=x.dtype,
-                            device=x.device)
-        return torch.where(mask, x / keep, torch.zeros_like(x))
+        return apply_dropout_mask(x, masks[i], self.dropout)
 
     @staticmethod
     def _mrf(blocks: List[nn.Module], x: torch.Tensor) -> torch.Tensor:

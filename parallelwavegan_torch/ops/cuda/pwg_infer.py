@@ -80,7 +80,8 @@ def pwg_fused_forward(gen, z: torch.Tensor, c: torch.Tensor,
         raise NotImplementedError(
             "the fused path does not support " + ", ".join(bad)
         )
-    c = gen.upsample_net(c)
+    if gen.upsample_net is not None:
+        c = gen.upsample_net(c)
     if c.shape[1] != z.shape[1]:
         raise ValueError(f"upsampled c {tuple(c.shape)} vs z "
                          f"{tuple(z.shape)}")

@@ -201,8 +201,9 @@ class InferenceModel:
             bad = unsupported_fused_settings(gen)
             if bad:
                 raise NotImplementedError(
-                    f"{self.gen_type} with {', '.join(bad)} has no fused path"
-                )
+                    f"{self.gen_type} with {', '.join(bad)} has no fused "
+                    "path; set inference_fused_wavenet: false for the "
+                    "per-layer one")
             if self.device.type == "cuda":
                 check_kernel_channels(gen.residual_channels,
                                       gen.gate_channels, gen.skip_channels)
@@ -255,7 +256,8 @@ class InferenceModel:
             elif self.gen_type == "StyleMelGANGenerator":
                 y = gen(c, z)
             else:
-                if self.gen_type == "HiFiGANGenerator":
+                if self.gen_type == "HiFiGANGenerator" \
+                        and supports_fast_inference(gen):
                     y = hifigan_fast_forward(gen, c, scales=scales,
                                              qweights=qweights,
                                              mrf_packs=packs)
@@ -581,8 +583,9 @@ class InferenceModel:
         if self.gen_type not in ("ParallelWaveGANGenerator",
                                  "MelGANGenerator", "HiFiGANGenerator",
                                  "StyleMelGANGenerator"):
+            # the JAX package asserts the same four families
             raise NotImplementedError(
-                f"chunked synthesis of {self.gen_type} is not ported")
+                f"chunked synthesis not supported for {self.gen_type}")
         c = np.asarray(c, dtype=np.float32)
         if normalize_before:
             if self.mean is None:

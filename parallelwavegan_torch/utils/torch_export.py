@@ -332,7 +332,7 @@ def export_generator_state_dict(
     ``generator_params``."""
     if model_name not in _INVERSE_RULES:
         raise NotImplementedError(
-            f"exporting {model_name} is not ported; exportable: "
+            f"no torch-export rules for {model_name}; exportable: "
             f"{sorted(_INVERSE_RULES)}")
     gen_params = config.get("generator_params", config) or {}
     rule = _INVERSE_RULES[model_name](gen_params)

@@ -336,6 +336,58 @@ def test_inference_model_on_card_rejects_what_the_kernel_lacks(tmp_path,
             load_model(path, config, device=cuda_device)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("override,match", [
+    ({"use_causal_conv": True}, "use_causal_conv=True"),
+    ({"dropout": 0.1}, "dropout=0.1"),
+], ids=["causal", "dropout"])
+def test_fused_paths_on_card_refuse_causal_and_dropout(tmp_path, cuda_device,
+                                                       override, match):
+    """Causal and dropout generators have no fused path: on the card
+    ``InferenceModel`` and the train step refuse them, naming the setting
+    that selects the per-layer path, and serve and train with it."""
+    from parallelwavegan_torch.engine.step import (
+        DROPOUT_STREAM,
+        step_generator,
+    )
+
+    kwargs = dict(PWG_V1_KWARGS, layers=3, **override)
+    config = {"generator_type": "ParallelWaveGANGenerator",
+              "generator_params": kwargs, "hop_size": 256,
+              "batch_max_steps": 2560,
+              "discriminator_params": {"layers": 4, "conv_channels": 16},
+              "stft_loss_params": {"fft_sizes": [256], "hop_sizes": [64],
+                                   "win_lengths": [128]}}
+    path = str(tmp_path / "g.gckpt")
+    save_generator_checkpoint(path, ParallelWaveGANGenerator(
+        **kwargs, generator=torch.Generator().manual_seed(0)))
+    with pytest.raises(NotImplementedError,
+                       match=f"{match}.*inference_fused_wavenet: false"):
+        load_model(path, config, device=cuda_device)
+    wave = load_model(path, dict(config, inference_fused_wavenet=False),
+                      device=cuda_device).inference(
+        np.zeros((7, 80), np.float32))
+    assert wave.shape == (7 * 256, 1) and np.isfinite(wave).all()
+    batch = {k: torch.from_numpy(v).to(cuda_device)
+             for k, v in example_batch(config, batch_size=2).items()}
+    for fused in (True, False):
+        cfg = dict(config, fused_wavenet=fused)
+        state, gen, dis, opt_g, opt_d = init_train_state(cfg, seed=0,
+                                                         device=cuda_device)
+        if fused:
+            with pytest.raises(NotImplementedError,
+                               match=f"{match}.*fused_wavenet: false"):
+                build_steps(cfg, gen, dis, build_criterion(cfg), opt_g,
+                            opt_d)
+            continue
+        factory, _ = build_steps(cfg, gen, dis, build_criterion(cfg), opt_g,
+                                 opt_d)
+        _, metrics = factory(True, True, True)(
+            state, batch, dropout_rng=step_generator(
+                0, 0, DROPOUT_STREAM, cuda_device))
+        assert all(torch.isfinite(v) for v in metrics.values())
+
+
 def _stack_grads(fn, x, c, w, dils, ux, us):
     x = x.detach().requires_grad_()
     c = c.detach().requires_grad_()

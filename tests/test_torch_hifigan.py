@@ -26,6 +26,7 @@ from parallelwavegan_torch.layers.common import (
 from parallelwavegan_torch.layers.residual_block import HiFiGANResidualBlock
 from parallelwavegan_torch.models import HiFiGANGenerator, get_model_class
 from parallelwavegan_torch.ops.conv import conv_transpose1d
+from parallelwavegan_torch.ops.hifigan_infer import hifigan_fast_forward
 from parallelwavegan_torch.utils.params import (
     convert_jax_params,
     fold_weight_norm,
@@ -136,10 +137,15 @@ def test_residual_block_matches_flax(fold, additional):
 
 
 def test_residual_block_rejects_causal():
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        HiFiGANResidualBlock(use_causal_conv=True)
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        HiFiGANGenerator(use_causal_conv=True)
+    """Causal blocks and generators build (tests/test_torch_settings.py
+    holds them to flax); the fast forward, which serving's int8 and MRF
+    modes run, rejects them, as the JAX package's int8 path does."""
+    block = HiFiGANResidualBlock(channels=8, use_causal_conv=True)
+    assert type(block.convs1[0]).__name__ == "CausalConv1d"
+    gen = HiFiGANGenerator(in_channels=4, channels=16, upsample_scales=(2,),
+                           upsample_kernel_sizes=(4,), use_causal_conv=True)
+    with pytest.raises(NotImplementedError, match="non-causal"):
+        hifigan_fast_forward(gen, torch.zeros((1, 5, 4)))
 
 
 @pytest.mark.parametrize("fold", [True, False], ids=["folded", "trainable"])

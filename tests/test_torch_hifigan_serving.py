@@ -216,11 +216,19 @@ def test_int8_refusals(tmp_path):
         model.quantize_int8([mel])
     with pytest.raises(ValueError, match="multi-band"):
         model.use_mrf_kernel(quant=False)
-    config = dict(asset_config())
-    config["generator_params"] = dict(asset_config()["generator_params"],
-                                      use_causal_conv=True)
-    with pytest.raises(NotImplementedError, match="causal"):
-        load_model(CKPT, config, device="cpu")
+    # a causal HiFi-GAN serves by its module forward; the int8 mode
+    # refuses it, as in the JAX package
+    from parallelwavegan_torch.models import HiFiGANGenerator
+
+    causal_gp = dict(gp, out_channels=1, use_causal_conv=True)
+    causal_path = str(tmp_path / "causal.gckpt")
+    save_generator_checkpoint(causal_path, HiFiGANGenerator(**causal_gp))
+    causal = load_model(causal_path, {"generator_type": "HiFiGANGenerator",
+                                      "generator_params": causal_gp},
+                        device="cpu")
+    assert causal.inference(mel).shape == (14 * 8, 1)
+    with pytest.raises(ValueError, match="non-causal"):
+        causal.quantize_int8([mel])
 
 
 @pytest.mark.parametrize("int8", [False, True], ids=["exact", "int8"])

@@ -296,7 +296,9 @@ def test_port_imports_no_jax():
         "'parallel.dist', 'distributed.launch', 'tools.dp_emulation', "
         "'utils.yaml_lite', 'utils.hdf5_lite', 'bin.preprocess', "
         "'bin.compute_statistics', 'bin.normalize', 'bin.preprocess_tokens', "
-        "'bin.evaluate_mcd', 'bin.evaluate_f0', 'bin.convert_checkpoint']\n"
+        "'bin.evaluate_mcd', 'bin.evaluate_f0', 'bin.convert_checkpoint', "
+        "'datasets.native_loader', 'utils.export', 'utils.pretrained', "
+        "'bin.run_stages']\n"
         "missing = [w for w in want if 'parallelwavegan_torch.' + w "
         "not in names]\n"
         "assert not missing, missing\n"

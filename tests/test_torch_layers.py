@@ -183,8 +183,11 @@ def test_get_activation_covers_the_slice():
     np.testing.assert_allclose(
         get_activation("LeakyReLU", {"negative_slope": 0.2})(x).numpy(),
         [-0.4, 0.5])
-    with pytest.raises(NotImplementedError, match="ELU"):
-        get_activation("ELU")
+    np.testing.assert_allclose(
+        get_activation("ELU", {"alpha": 0.5})(x).numpy(),
+        [0.5 * np.expm1(-2.0), 0.5], rtol=1e-6)
+    with pytest.raises(ValueError, match="unsupported activation"):
+        get_activation("Hardswish")
 
 
 @pytest.mark.parametrize("stride,groups,kernel_size,padding", [

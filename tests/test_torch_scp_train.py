@@ -129,9 +129,11 @@ def test_train_cli_from_scp_matches_npy_dumps_and_decodes(tmp_path, kind):
     corpus, for each recipe shape: the same losses (relative 1e-6) after 4
     steps across the discriminator's start (for multi-band MelGAN the
     subband terms among them); the trainer's predictions are full-band;
-    bin.decode serves the .ckpt (multi-band MelGAN through PQMF)."""
+    bin.decode serves the .ckpt (multi-band MelGAN through PQMF). Both runs
+    take the PyTorch loader (npy dumps would take the native one by
+    default, whose crops come from its own stream)."""
     wav_scp, feats_scp, dump = _write_corpus(str(tmp_path))
-    config, conf = _cli_config(tmp_path, kind)
+    config, conf = _cli_config(tmp_path, kind, use_native_loader=False)
     common = ["--config", conf, "--device", "cpu", "--seed", "3",
               "--verbose", "0"]
     scp = train_cli.main([

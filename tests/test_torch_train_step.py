@@ -453,7 +453,8 @@ def test_build_names_what_is_not_ported():
     for key in a:
         np.testing.assert_array_equal(a[key], b[key])
     assert "f0" in batch and "f0" not in jax_example_batch(f0)
-    with pytest.raises(NotImplementedError, match="not ported yet"):
+    with pytest.raises(NotImplementedError,
+                       match="unknown model: NoSuchDiscriminator"):
         build_models(dict(config, discriminator_type="NoSuchDiscriminator"))
     duration = dict(config, use_duration_loss=True,
                     duration_loss_params={"offset": 0.5})
