@@ -53,13 +53,15 @@
    losses under every name, changed G and D parameters and a .ckpt that
    loads back; then two resumed steps with mixed_precision (the backward
    on its bf16 tensor-core body);
-6. holds the generator loss and gradient at that shape, on 5 batches of
-   the loader, through the kernels (k) against the same through their
-   plain versions (p) and through the plain versions in float64 (e): per
+6. holds the generator and discriminator loss and every gradient on 5
+   batches of the loader, each cut to GATE_BATCH x GATE_SAMPLES
+   (gate_window), on the card through the kernels in f32 (k) against the
+   CPU through their plain versions in f32 (p) and in float64 (e): per
    parameter |k - e| <= max(2 |p - e|, a), a = 2e-3 of the gradient's
-   largest entry + 2e-5 of the largest gradient, printing |k - p| / a,
-   |p - e| / a and the gate's ratio with their worst parameters
-   (tools/float64_check.py); the loss within 1e-4; times the (G, adv, D)
+   largest entry + 2e-5 of the largest gradient (tools/float64_check.py),
+   with the STFT loss's kinks and the branches of G's ReLUs and D's
+   LeakyReLUs decided once, by float64 (gate_gradients, hold_gate, as in
+   step 10 (b)), printing the worst gate of each batch; times the (G, adv, D)
    step, both kernels at the training shape (each on the body its launch
    plan names, in f32 both on split-TF32 tensor cores; the forward's x and
    skip and all seven outputs of the backward held against float64, at
@@ -138,7 +140,7 @@
    and load_model with PQMF on cuda against the CPU at 1 x 200 frames,
    printing the PQMF prototypes training and serving chose;
 11. prints a JSON line of the five kernels, the card line, and as the last
-   line {"ok": true, "device": {...}}, after steps 12 to 16;
+   line {"ok": true, "device": {...}}, after steps 12 to 19;
 12. serves and trains StyleMelGAN v1 at full width
    (egs/ljspeech/voc1/conf/style_melgan.v1.yaml: the TADE generator on a
    noise grid of 88 frames, the random-window discriminator with PQMF at
@@ -338,7 +340,23 @@
    (d) the shipped HiFi-GAN v1 (assets/quality/) exported by
    utils/export.export_generator at 1 x EXPORT_FRAMES frames on the card
    and loaded back: the program's wave within EXPORT_TOL (1 + max) of
-   InferenceModel's module forward on the same mel, both timed.
+   InferenceModel's module forward on the same mel, both timed;
+19. the op census (parallelwavegan_torch/tools/op_census.py): one f32
+   (G, adv, D) step of each of CENSUS_RECIPES (PWG v1, HiFi-GAN v1,
+   MB-MelGAN v2, PWG v3, StyleMelGAN v1, the VQ-VAE, UHiFiGAN, the
+   duration token HiFi-GAN) at its width and batch under a
+   TorchDispatchMode that records every distinct aten call, forward and
+   backward, but the pointwise ones, copies, views, factories and draws;
+   each key replayed on the card in f32, on the CPU in f32 and in
+   float64 (the CPU routes on the process pool of step 2h), the tensors
+   derived from the batch cut to batch 2 and time max(2,048, 4 receptive
+   fields) with the recorded layout, and once at its recorded shape on
+   the card (every output that depends on the first batch element alone
+   held there too); per key and output the card's error from float64 at
+   most 2 x the CPU f32 error + 1e-6 (of 1 + max) or counted past that
+   rule; one line per op kind (keys, worst card-over-CPU factor, worst
+   error, their recipes) and a total; raises on a key past 1e-4 (of 1 +
+   max). op_census_on_card.py beside this script runs the step alone.
 
 Exits non-zero, printing no result, on any failure or without a GPU.
 """
@@ -1092,6 +1110,19 @@ DURATION_FLIP_SHARE = 0.01
 # past the sum is the same, so the valid samples are the same function;
 # the CPU's 2,048-frame forward takes about 8 s an utterance
 DURATION_CPU_REG_LEN = 512
+# step 19: one f32 (G, adv, D) step of each recipe this script trains, at
+# its width and batch as the training steps cut it, under the op census
+# (parallelwavegan_torch/tools/op_census.py)
+CENSUS_RECIPES = {
+    "PWG v1": PWG_V1,
+    "HiFi-GAN v1": HIFIGAN_V1_TRAIN,
+    "MB-MelGAN v2": dict(MB_MELGAN_V2_TRAIN, **MB_MELGAN_V2_TRAIN_CUT),
+    "PWG v3": dict(PWG_V3_TRAIN, **PWG_V3_TRAIN_CUT),
+    "StyleMelGAN v1": dict(STYLE_MELGAN_V1_TRAIN, **STYLE_MELGAN_V1_TRAIN_CUT),
+    "VQ-VAE": dict(VQVAE_V3_TRAIN, **VQVAE_V3_TRAIN_CUT, **VQVAE_V3_HOP_CUT),
+    "UHiFiGAN": dict(UHIFIGAN_V1_TRAIN, **UHIFIGAN_V1_TRAIN_CUT),
+    "duration": dict(DISCRETE_RECIPES["duration"], **DURATION_TRAIN_CUT),
+}
 N_SCORED = 8       # utterances scored on the host (about 20 s each)
 N_CALIB = 8        # utterances the int8 scales are calibrated on
 # the scored numbers against the committed CPU reference of the JAX package
@@ -1371,6 +1402,12 @@ def check_trainer(trainer, what: str, names=LOSS_NAMES,
 
 # batches of the loader the generator gradient is held on (step 6)
 GRAD_BATCHES = 5
+# step 6's gate: GATE_BATCH windows of a batch cut to GATE_SAMPLES samples
+# (32 frames, more than PWG v1's receptive field of 6,139 samples, so that
+# samples away from the edges are held), other windows and another offset
+# for each of the GRAD_BATCHES (gate_window); the CPU's float64 route at
+# 6 x 25,600 would take minutes a batch
+GATE_BATCH, GATE_SAMPLES = 1, 8192
 # stack_grads' keys -> the backward's output names in the kernels line
 BWD_OUTPUT_NAMES = {"dx": "dx", "dc": "dc", "w_tap": "dWt", "b_tap": "dbt",
                     "w_aux": "dWa", "w_so": "dWso", "b_so": "dbso"}
@@ -1395,10 +1432,7 @@ def training_phase(dev, smi: str) -> dict:
         wavenet_stack_train,
         wavenet_stack_train_reference,
     )
-    from parallelwavegan_torch.tools.float64_check import (
-        gradient_gate,
-        hold_to_float64,
-    )
+    from parallelwavegan_torch.tools.float64_check import hold_to_float64
 
     rng = np.random.default_rng(1)
     L = PWG_V1["generator_params"]["layers"]
@@ -1487,67 +1521,48 @@ def training_phase(dev, smi: str) -> dict:
         if any(p.dtype != torch.float32 for p in mixed.generator.parameters()):
             raise AssertionError("master parameters left float32")
 
-        # 6. the generator loss and gradient at the training shape on
-        # GRAD_BATCHES batches of the loader, through the kernels (k),
-        # through their plain versions (p) and through the plain versions
-        # in float64 (e: float64 copies of the generator, discriminator and
-        # batch; the criterion holds no state and follows its input's
-        # type). Both f32 routes lie some way from float64, p at times
-        # several allowances: e decides (tools/float64_check.py)
-        gen, dis, crit = trainer.generator, trainer.discriminator, \
-            trainer.criterion
-        gen64, dis64 = copy.deepcopy(gen).double(), copy.deepcopy(dis).double()
-        names = [n for n, _ in gen.named_parameters()]
-
-        def loss_and_grads(g, d, b):
-            y_ = g(b["z"], b["c"], fused=True, trainable=True)
-            sc, mag = crit["stft"](y_[..., 0], b["y"][..., 0])
-            loss = sc + mag + 4.0 * crit["gen_adv"](d(y_))
-            grads = torch.autograd.grad(loss, list(g.parameters()),
-                                        allow_unused=True)
-            return loss.item(), dict(zip(names, grads))
-
-        worst = {"kp": (0.0, None), "pe": (0.0, None), "ke": (0.0, None),
-                 "gate": (0.0, None), "plain_outside": 0}
-        kernel_route = pwg_infer.wavenet_stack_train
+        # 6. the generator and discriminator loss and every gradient on
+        # GRAD_BATCHES batches of the loader, each cut to GATE_BATCH x
+        # GATE_SAMPLES at its own windows and offset (gate_window): through
+        # the kernels on the card in f32 (k), through their plain versions
+        # on the CPU in f32 (p) and in float64 (e), the STFT loss's kinks
+        # and the branches of G's ReLUs and D's LeakyReLUs decided once, by
+        # float64, each set held to |k - e| <= max(2 |p - e|, a)
+        # (gate_gradients, hold_gate: tools/float64_check.py)
+        gen, dis = trainer.generator, trainer.discriminator
+        losses = pwg_gate_losses(trainer.criterion)
+        worst, gate_launches = {}, {"wavenet_stack": 0,
+                                    "wavenet_stack_backward": 0}
+        t_gate = time.perf_counter()
         for n in range(GRAD_BATCHES):
             b = mixed._to_device(next(iter(mixed.train_loader)))
             if n == 0:  # the timed steps below take the first batch
                 batch = b
-            loss_k, grads_k = loss_and_grads(gen, dis, b)
-            pwg_infer.wavenet_stack_train = wavenet_stack_train_reference
-            try:
-                loss_p, grads_p = loss_and_grads(gen, dis, b)
-                loss_e, grads_e = loss_and_grads(
-                    gen64, dis64, {k: v.double() for k, v in b.items()})
-            finally:
-                pwg_infer.wavenet_stack_train = kernel_route
-            gate = gradient_gate(grads_k, grads_p, grads_e)
-            print(f"generator loss at the training shape, batch {n}: "
-                  f"kernels {loss_k:.6f}, plain {loss_p:.6f}, float64 "
-                  f"{loss_e:.6f}; gradients of {gate['parameters']} "
-                  f"parameters in allowances a: k - p {gate['kp'][0]:.3f} "
-                  f"(on {gate['kp'][1]}), p - e {gate['pe'][0]:.3f} (on "
-                  f"{gate['pe'][1]}; {gate['plain_outside']} outside a), "
-                  f"k - e {gate['ke'][0]:.3f} (on {gate['ke'][1]}), gate "
-                  f"|k - e| / max(2 |p - e|, a) {gate['gate'][0]:.3f} "
-                  f"(on {gate['gate'][1]}): within")
-            for key in ("kp", "pe", "ke", "gate"):
-                worst[key] = max(worst[key], gate[key],
-                                 key=lambda v: v[0])
-            worst["plain_outside"] = max(worst["plain_outside"],
-                                         gate["plain_outside"])
-            if not abs(loss_k - loss_p) <= 1e-4 * abs(loss_p):
-                raise AssertionError("generator loss differs from the plain "
-                                     "one")
-            del grads_k, grads_p, grads_e
+            before = (wavenet_stack.launches, wavenet_stack_backward.launches)
+            got = gate_gradients(gate_routes(gen, dis, gate_window(b, n)),
+                                 *losses)
+            gate_launches["wavenet_stack"] += \
+                wavenet_stack.launches - before[0]
+            gate_launches["wavenet_stack_backward"] += \
+                wavenet_stack_backward.launches - before[1]
+            gate = hold_gate(f"pwg v1 batch {n}", got, GATE_SAMPLES,
+                             GATE_BATCH)
+            print(f"pwg v1 gate, batch {n}: worst "
+                  + ", ".join(f"{k} {v:.3f}" for k, v in gate.items()))
+            for key, value in gate.items():
+                worst[key] = max(worst.get(key, 0.0), value)
+            del got
         out["grad_gate"] = worst
-        print(f"generator gradient over {GRAD_BATCHES} batches: worst k - p "
-              f"{worst['kp'][0]:.3f} a, p - e {worst['pe'][0]:.3f} a (at most "
-              f"{worst['plain_outside']} gradients outside a), k - e "
-              f"{worst['ke'][0]:.3f} a, gate "
-              f"{worst['gate'][0]:.3f} on {worst['gate'][1]} on {smi}")
-        del gen64, dis64
+        print(f"pwg v1 gradients over {GRAD_BATCHES} batches of "
+              f"{GATE_BATCH} x {GATE_SAMPLES}, k through B1/B2 "
+              f"({gate_launches['wavenet_stack']} forward and "
+              f"{gate_launches['wavenet_stack_backward']} backward "
+              f"launches): worst gate "
+              + ", ".join(f"{k} {v:.3f}" for k, v in worst.items())
+              + f" on {smi}; {time.perf_counter() - t_gate:.1f} s wall")
+        if min(gate_launches.values()) < 1:
+            raise AssertionError("the gate's k route did not run through "
+                                 "the kernels")
 
         # timing: the (G, adv, D) step in f32 and in mixed precision
         for what, t in (("f32", trainer), ("mixed", mixed)):
@@ -2618,6 +2633,45 @@ def check_pooling_backward(dev) -> dict:
                                      f"the card lies far from float64")
             out[f"{setting}, {layout}"] = errs
     return out
+
+
+def gate_window(b: dict, n: int) -> dict:
+    """Step 6's gate input n of a PWG v1 loader batch: GATE_BATCH of its
+    windows (the n-th group of them, cycling) cut to GATE_SAMPLES samples
+    at the n-th such offset, and the mel frames that condition them (with
+    the aux context on both sides)."""
+    ctx = PWG_V1["generator_params"]["aux_context_window"]
+    frames = GATE_SAMPLES // HOP
+    groups = TRAIN_BATCH // GATE_BATCH
+    rows = slice(GATE_BATCH * (n % groups), GATE_BATCH * (n % groups + 1))
+    t0 = n * GATE_SAMPLES % (TRAIN_SAMPLES - GATE_SAMPLES + 1)
+    f0 = t0 // HOP
+    return {k: v[rows, f0:f0 + frames + 2 * ctx] if k == "c"
+            else v[rows, t0:t0 + GATE_SAMPLES] for k, v in b.items()}
+
+
+def pwg_gate_losses(crit):
+    """(forward, terms, d_loss) of PWG v1's gate (step 6): G on the fused
+    training path (B1/B2 on the card, their plain versions on the CPU),
+    the multi-resolution STFT loss and lambda_adv x the adversarial loss
+    as the step forms them, and the discriminator loss on the
+    prediction."""
+    def stft(outs, dis, b, kinks):
+        sc, mag = kinked_stft(crit["stft"], outs[0][..., 0], b["y"][..., 0],
+                              kinks, "stft")
+        return sc + mag
+
+    def adversarial(outs, dis, b, kinks):
+        return PWG_V1["lambda_adv"] * crit["gen_adv"](dis(outs[0]))
+
+    def d_loss(outs, dis, b):
+        real, fake = crit["dis_adv"](dis(outs[0]), dis(b["y"]))
+        return real + fake
+
+    def forward(gen, b):
+        return (gen(b["z"], b["c"], fused=True, trainable=True),)
+
+    return forward, {"stft": stft, "adversarial": adversarial}, d_loss
 
 
 def mb_melgan_gate_losses(crit):
@@ -6479,17 +6533,37 @@ def native_loader_phase(dev, smi: str) -> dict:
     return out
 
 
+def op_census_phase(dev, smi: str, pool) -> None:
+    """Step 19: the op census (tools/op_census.py) of one f32 (G, adv, D)
+    step of each of CENSUS_RECIPES at its width and batch, the CPU routes
+    on ``pool``. Prints the table by op kind and the total; raises on a
+    wrong key."""
+    from parallelwavegan_torch.tools.op_census import report, run_census
+
+    report(run_census(CENSUS_RECIPES, dev, pool), smi)
+
+
+# worker processes of the pool that step 2h's host scoring and step 19's
+# CPU routes run on
+POOL_WORKERS = 6
+
+
+def card_line() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     from parallelwavegan_torch.ops.cuda.build import build_libraries
 
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip().splitlines()[0]
+    smi = card_line()
     print(f"card: {smi}; torch {torch.__version__}, CUDA {torch.version.cuda}")
     dev = torch.device("cuda", 0)
 
@@ -6512,7 +6586,8 @@ def main() -> int:
     # device work that follows it; they are joined before the training
     # path, whose step time depends on the host
     pool = ProcessPoolExecutor(
-        max_workers=6, mp_context=multiprocessing.get_context("spawn"))
+        max_workers=POOL_WORKERS,
+        mp_context=multiprocessing.get_context("spawn"))
     try:
         return run_phases(dev, smi, pool)
     finally:
@@ -6658,7 +6733,9 @@ def run_phases(dev, smi: str, pool) -> int:
     mm = matmul_phase(dev, smi)
 
     # 5, 6. the training path
+    t0 = time.perf_counter()
     train = training_phase(dev, smi)
+    print(f"steps 5-6: {time.perf_counter() - t0:.1f} s wall")
     # 7. the gate and int8 experiment; 8. HiFi-GAN v1 training
     variant = variant_phase(dev, smi)
     hifigan_training_phase(dev, smi)
@@ -6707,6 +6784,10 @@ def run_phases(dev, smi: str, pool) -> int:
     native = native_loader_phase(dev, smi)
     print(f"step 18: {time.perf_counter() - t0:.1f} s wall")
     nl = native["runs"]["native"]["launches"]
+    # 19. every card op of the training steps held to float64
+    t0 = time.perf_counter()
+    op_census_phase(dev, smi, pool)
+    print(f"step 19: {time.perf_counter() - t0:.1f} s wall")
     if min(launches, launches32, train["fwd_launches"], train["bwd_launches"],
            hifi["launches"], mm["launches"], variant["launches"],
            chunked["pwg_launches"], chunked["mrf_launches"],

@@ -19,7 +19,6 @@ import math
 from typing import Dict, List, Optional
 
 import torch
-import torch.nn.functional as F
 
 from parallelwavegan_torch.layers.common import Conv1d
 from parallelwavegan_torch.ops.cuda.wavenet_stack import (
@@ -100,6 +99,6 @@ def pwg_fused_forward(gen, z: torch.Tensor, c: torch.Tensor,
             skip = sk if skip is None else skip + sk
     else:
         _, skip = wavenet_stack(x, c, w, gen.dilations)
-    x = F.relu((skip * math.sqrt(1.0 / gen.layers)).to(x.dtype))
-    x = F.relu(_conv1x1(gen.last_conv_0, x))
+    x = gen.act((skip * math.sqrt(1.0 / gen.layers)).to(x.dtype))
+    x = gen.act(_conv1x1(gen.last_conv_0, x))
     return _conv1x1(gen.last_conv_1, x)

@@ -52,7 +52,7 @@ from parallelwavegan_torch.ops.cuda.wavenet_stack import (
     check_kernel_channels,
     tc_smem_bytes,
 )
-from parallelwavegan_torch.ops.spectral import _no_tf32
+from parallelwavegan_torch.ops.spectral import _full_f32
 
 GATES = ("tanh", "mul")
 # layer bodies of csrc/wavenet_variant.cu, by tap type
@@ -187,7 +187,7 @@ def variant_stack_reference(
         if int8_taps:
             xcat = torch.cat([_shift(h, d), h, _shift(h, -d)], dim=-1)
             xq = torch.clamp(torch.round(xcat * s_tap[i, 0]), -127, 127)
-            with _no_tf32():
+            with _full_f32():
                 z = (xq @ p["w_tap"][i].to(f32)) * s_tap[i, 1]
         else:
             hm = h.to(bf16).to(f32)

@@ -8,10 +8,10 @@ numbers: "matmul" frames the signal and multiplies by a window-folded
 real-DFT basis (one large product, the GPU default), "fft" uses
 ``torch.fft.rfft`` (the CPU default). The framed product is a plain matrix
 product outside any kernel and stays ``torch.matmul``; it runs in full
-float32 whatever ``torch.backends.cuda.matmul.allow_tf32`` says, in the
-backward too, as the JAX package asks for ``Precision.HIGHEST``; so does
-the mel product (TF32 there would move a log-mel L1 that the HiFi-GAN recipe
-multiplies by 45).
+float32 whatever the process set (TF32 on the card, bf16 or TF32 through
+oneDNN on the CPU: ``_full_f32``), in the backward too, as the JAX package
+asks for ``Precision.HIGHEST``; so does the mel product (TF32 there would
+move a log-mel L1 that the HiFi-GAN recipe multiplies by 45).
 
 ``preprocess_log_mel`` is the preprocessing's log-mel (the JAX package's
 ``log_mel_spectrogram_numpy``) on a device the caller names: the windowed
@@ -23,6 +23,7 @@ from __future__ import annotations
 
 import functools
 import math
+import threading
 from typing import Any, Optional
 
 import numpy as np
@@ -87,30 +88,66 @@ def frame_signal(x: torch.Tensor, frame_length: int, hop_size: int
     return x.unfold(-1, frame_length, hop_size)
 
 
-class _no_tf32:
-    """Full-float32 matrix products on CUDA inside the block."""
+_FULL_F32_LOCK = threading.Lock()
+_full_f32_state = {"depth": 0, "saved": None}
+_MATMULS = (torch.backends.cuda.matmul, torch.backends.mkldnn.matmul)
+
+
+class _full_f32:
+    """Full-float32 matrix products inside the block on every backend,
+    whatever the process has set: cuBLAS without TF32 (what ``allow_tf32``,
+    ``torch.backends.cuda.matmul.fp32_precision`` and
+    ``torch.set_float32_matmul_precision`` lower) and oneDNN without bf16
+    or TF32 (what ``torch.backends.mkldnn.matmul.fp32_precision`` and a
+    "medium" or "high" float32 matmul precision lower on the CPU).
+
+    PyTorch holds the setting twice, as the legacy float32 matmul precision
+    and per backend (``fp32_precision``), and its cuBLAS TF32 check raises
+    where the two disagree. So the block sets both, to "highest" and to
+    "ieee" for cuBLAS and oneDNN, and puts both back on exit. The legacy
+    value is read with both backends at "ieee", where its getter never
+    raises, so that a process that mixed the two APIs gets its own back.
+    The settings are process-wide and threads share them (the ranks of
+    ``tools/dp_emulation.py``): the first block to enter sets them, the
+    last to leave restores them."""
 
     def __enter__(self):
-        self.previous = torch.backends.cuda.matmul.allow_tf32
-        torch.backends.cuda.matmul.allow_tf32 = False
+        with _FULL_F32_LOCK:
+            state = _full_f32_state
+            if state["depth"] == 0:
+                backends = [m.fp32_precision for m in _MATMULS]
+                for m in _MATMULS:
+                    m.fp32_precision = "ieee"
+                state["saved"] = (torch.get_float32_matmul_precision(),
+                                  backends)
+                torch.set_float32_matmul_precision("highest")
+            state["depth"] += 1
 
     def __exit__(self, *exc):
-        torch.backends.cuda.matmul.allow_tf32 = self.previous
+        with _FULL_F32_LOCK:
+            state = _full_f32_state
+            state["depth"] -= 1
+            if state["depth"] == 0:
+                legacy, backends = state["saved"]
+                torch.set_float32_matmul_precision(legacy)
+                for m, saved in zip(_MATMULS, backends):
+                    m.fp32_precision = saved
 
 
 class _MatmulHighest(torch.autograd.Function):
-    """a @ b with a constant b, never in TF32, forward or backward."""
+    """a @ b with a constant b in full float32 (``_full_f32``), forward and
+    backward: the JAX package's ``Precision.HIGHEST``."""
 
     @staticmethod
     def forward(ctx, a, b):
         ctx.save_for_backward(b)
-        with _no_tf32():
+        with _full_f32():
             return torch.matmul(a, b)
 
     @staticmethod
     def backward(ctx, grad):
         (b,) = ctx.saved_tensors
-        with _no_tf32():
+        with _full_f32():
             return torch.matmul(grad, b.t()), None
 
 

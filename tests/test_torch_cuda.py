@@ -1587,3 +1587,240 @@ def test_preprocess_log_mel_on_card_matches_the_cpu_route(cuda_device, n):
                               7600, device="cpu")
     assert got.dtype == np.float32 and got.shape == want.shape
     np.testing.assert_allclose(got, want, rtol=0, atol=4e-6)
+
+
+def _raises_or(read):
+    try:
+        return read()
+    except RuntimeError:
+        return "raises"
+
+
+def _tf32_settings():
+    matmul = torch.backends.cuda.matmul
+    return (_raises_or(torch.get_float32_matmul_precision),
+            _raises_or(lambda: matmul.allow_tf32), matmul.fp32_precision,
+            torch.backends.mkldnn.matmul.fp32_precision)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("switch", ["set_float32_matmul_precision high",
+                                    "allow_tf32", "fp32_precision tf32"])
+def test_spectral_products_on_card_are_full_f32_under_tf32(
+        cuda_device, switch, monkeypatch):
+    """ROADMAP.md C-7 on the card: with TF32 switched on by each of the
+    process's three switches, the STFT magnitude, the log-mel, and the
+    STFT loss and its gradient (the products' backward) run without an
+    error and stay within their CPU tests' tolerances of the port's float64
+    on the CPU: 2e-5 of the largest magnitude and 2e-5 absolute at 4 x
+    16,384 samples (fft 1,024), the loss to 1e-5 relative and its gradient
+    to 1e-4 of its largest entry at the CPU test's 3 x 700 (fft 128; at
+    the larger shape the log magnitude's gradient leaves f32 on the CPU
+    too). The magnitude with ``_full_f32`` made a no-op lies past its
+    tolerance under the same switch (TF32 is on), and every setting reads
+    as before after."""
+    import contextlib
+
+    from parallelwavegan_torch.losses import STFTLoss
+    from parallelwavegan_torch.ops import spectral
+
+    rng = np.random.default_rng(22)
+    x = (0.3 * rng.standard_normal((4, 16384))).astype(np.float32)
+    t = np.arange(700) / 8000.0
+    y_small = np.stack([0.4 * np.sin(2 * np.pi * (200 + 150 * i) * t)
+                        for i in range(3)])
+    x_small = (y_small + 0.1 * rng.standard_normal((3, 700))).astype(
+        np.float32)
+    y_small = y_small.astype(np.float32)
+    stft = dict(fft_size=1024, hop_size=256, win_length=1024,
+                method="matmul")
+    mel = dict(stft, num_mels=80, fmin=80, fmax=7600)
+    x64 = torch.from_numpy(x).double()
+    want_mag = spectral.stft_magnitude(x64, **stft)
+    want_mel = spectral.log_mel_spectrogram(x64, 22050, **mel)
+    xe = torch.from_numpy(x_small).double().requires_grad_()
+    loss64 = sum(STFTLoss(128, 32, 64, "hann", "matmul")(
+        xe, torch.from_numpy(y_small).double()))
+    (want_grad,) = torch.autograd.grad(loss64, xe)
+
+    matmul = torch.backends.cuda.matmul
+    saved = _tf32_settings()
+    backends = (matmul.fp32_precision,
+                torch.backends.mkldnn.matmul.fp32_precision)
+    try:
+        if switch == "allow_tf32":
+            matmul.allow_tf32 = True
+        elif switch == "fp32_precision tf32":
+            matmul.fp32_precision = "tf32"
+        else:
+            torch.set_float32_matmul_precision("high")
+        before = _tf32_settings()
+        xc = torch.from_numpy(x).to(cuda_device)
+        mag = spectral.stft_magnitude(xc, **stft)
+        log_mel = spectral.log_mel_spectrogram(xc, 22050, **mel)
+        xk = torch.from_numpy(x_small).to(cuda_device).requires_grad_()
+        loss = sum(STFTLoss(128, 32, 64, "hann", "matmul")(
+            xk, torch.from_numpy(y_small).to(cuda_device)))
+        (grad,) = torch.autograd.grad(loss, xk)
+        after = _tf32_settings()
+        with monkeypatch.context() as m:
+            m.setattr(spectral, "_full_f32", contextlib.nullcontext)
+            lowered = spectral.stft_magnitude(xc, **stft)
+    finally:
+        torch.set_float32_matmul_precision(
+            saved[0] if saved[0] != "raises" else "highest")
+        matmul.fp32_precision = backends[0]
+        torch.backends.mkldnn.matmul.fp32_precision = backends[1]
+    assert after == before
+    assert _tf32_settings() == saved
+    tol = 2e-5 * want_mag.max()
+    assert (lowered.double().cpu() - want_mag).abs().max() > tol
+    assert (mag.double().cpu() - want_mag).abs().max() <= tol
+    assert (log_mel.double().cpu() - want_mel).abs().max() <= 2e-5
+    assert abs(loss.item() - loss64.item()) <= 1e-5 * abs(loss64.item())
+    grad_err = (grad.double().cpu() - want_grad).abs().max()
+    assert grad_err <= 1e-4 * want_grad.abs().max()
+
+
+def _card_as_close_to_float64_as_the_cpu(cuda_device, fn, shapes, layouts,
+                                         seed=0, excess=()):
+    """fn(*tensors) and the gradient of a seeded cotangent with respect to
+    each tensor, on the card in f32 (k), on the CPU in f32 (p) and in
+    float64 (e), the tensors drawn from ``seed`` at ``shapes`` and laid
+    out as ``layouts`` says ("contiguous", or "from (B, C, T)": the port's
+    (B, T, C) view of a channels-first tensor); every output held to the
+    rule of ``test_avg_pool1d_gradient_on_card_matches_float64``, the
+    card's error from float64 at most 2 x the CPU f32's + 1e-6 (of 1 +
+    max). The outputs listed in ``excess`` (0 the result, i the gradient
+    of tensor i - 1), whose rounding excess ROADMAP.md § C records from
+    the op census, are held to the census's wrong-result limit instead:
+    past that rule only within 1e-4 (of 1 + max). Returns the errors."""
+    g = torch.Generator().manual_seed(seed)
+    base = [torch.randn(s, generator=g) for s in shapes]
+    got, cot = {}, None
+    for route, (device, dtype) in (("k", (cuda_device, torch.float32)),
+                                   ("p", ("cpu", torch.float32)),
+                                   ("e", ("cpu", torch.float64))):
+        xs = []
+        for b, layout in zip(base, layouts):
+            x = b.to(device, dtype)
+            if layout != "contiguous":
+                x = x.transpose(1, 2).contiguous().transpose(1, 2)
+            xs.append(x.requires_grad_())
+        y = fn(*xs)
+        if cot is None:
+            cot = torch.randn(y.shape, generator=g)
+        grads = torch.autograd.grad(y, xs, cot.to(device, dtype))
+        got[route] = [t.detach().cpu().double() for t in (y, *grads)]
+    errs = []
+    for i, e in enumerate(got["e"]):
+        k, p = (((got[r][i] - e).abs().max() / (1 + e.abs().max())).item()
+                for r in "kp")
+        if i in excess:
+            assert k <= max(2 * p + 1e-6, 1e-4), (i, k, p)
+        else:
+            assert k <= 2 * p + 1e-6, (i, k, p)
+        errs.append((k, p))
+    return errs
+
+
+def _census_case(name):
+    """(fn, shapes, layouts, excess) of one op kind of the op census at one
+    recipe shape, through the port's own functions; ``excess`` names the
+    outputs past the 2 x rule on an H100 (ROADMAP.md § C, C-11: cuDNN's
+    f32 transposed conv's input gradient, 7.6 x the CPU's error)."""
+    from parallelwavegan_torch.layers.common import instance_norm_1d
+    from parallelwavegan_torch.ops import conv, pqmf
+    from parallelwavegan_torch.ops.spectral import stft_magnitude
+    from parallelwavegan_torch.utils.params import fold_weight_norm
+
+    if name == "conv_transpose1d":  # HiFi-GAN v1's first upsample
+        return ((lambda x, w, b: conv.conv_transpose1d(x, w, b, 8, 4)),
+                [(2, 32, 512), (16, 512, 256), (256,)],
+                ["from (B, C, T)", "contiguous", "contiguous"], (1,))
+    if name == "grouped strided conv1d":  # the MelGAN discriminator's
+        return ((lambda x, w, b: conv.conv1d(x, w, b, 20, stride=4,
+                                             groups=16)),
+                [(2, 4096, 64), (41, 4, 256), (256,)],
+                ["from (B, C, T)", "contiguous", "contiguous"], ())
+    if name == "period conv2d":  # the period discriminator's (5, 1)
+        return ((lambda x, w, b: conv.conv2d(x, w, b, (3, 1), (2, 0))),
+                [(2, 1366, 3, 32), (5, 1, 32, 128), (128,)],
+                ["contiguous"] * 3, ())
+    if name == "instance norm of nearest upsampling":  # StyleMelGAN's TADE
+        return ((lambda x: instance_norm_1d(conv.upsample_nearest_time(x, 2))),
+                [(2, 2048, 64)], ["from (B, C, T)"], ())
+    if name == "reflect pad":  # the MelGAN generator's first pad
+        return ((lambda x: conv.pad1d(x, (3, 3), "reflect")),
+                [(2, 512, 80)], ["contiguous"], ())
+    if name == "token table":  # the duration recipe's F.embedding
+        ids = torch.randint(0, 1025, (2, 64),
+                            generator=torch.Generator().manual_seed(5))
+        ids[:, :8] = 7  # a token taken many times
+
+        def lookup(table):
+            return torch.nn.functional.embedding(ids.to(table.device), table)
+        return lookup, [(1025, 512)], ["contiguous"], ()
+    if name == "pqmf analysis":  # MB-MelGAN's subbands
+        return ((lambda x: pqmf.pqmf_analysis(x)), [(2, 16384, 1)],
+                ["contiguous"], ())
+    if name == "weight norm":  # linalg.vector_norm of a kernel
+        return ((lambda v, g: fold_weight_norm(v, g)),
+                [(41, 4, 256), (1, 1, 256)], ["contiguous"] * 2, ())
+    if name == "stft product":  # the STFT loss on the card: a matmul
+        return ((lambda x: stft_magnitude(x, 1024, 120, 600,
+                                          method="matmul")),
+                [(2, 8192)], ["contiguous"], ())
+    raise ValueError(name)
+
+
+CENSUS_CASES = ["conv_transpose1d", "grouped strided conv1d",
+                "period conv2d", "instance norm of nearest upsampling",
+                "reflect pad", "token table", "pqmf analysis", "weight norm",
+                "stft product"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", CENSUS_CASES)
+def test_census_op_on_card_is_as_close_to_float64_as_the_cpu(cuda_device,
+                                                             name):
+    """One op kind of the op census (tools/op_census.py) at a recipe's
+    shape and the port's layout: forward and every gradient on the card
+    as close to float64 as the CPU's f32, the avg_pool1d test's rule; an
+    output whose rounding excess the census recorded within 1e-4."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    fn, shapes, layouts, excess = _census_case(name)
+    _card_as_close_to_float64_as_the_cpu(cuda_device, fn, shapes, layouts,
+                                         excess=excess)
+
+
+@pytest.mark.cuda
+def test_op_census_replays_a_recipe_step_on_card(cuda_device):
+    """The census's machinery on the card: a small MelGAN step recorded,
+    every key replayed on the three routes and at its recorded shape, no
+    key wrong."""
+    from parallelwavegan_torch.tools import op_census
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    config = {
+        "sampling_rate": 16000, "hop_size": 64, "num_mels": 16,
+        "batch_max_steps": 4096, "batch_size": 4,
+        "generator_type": "MelGANGenerator",
+        "generator_params": {"in_channels": 16, "out_channels": 1,
+                             "channels": 64, "upsample_scales": [4, 4, 4],
+                             "stacks": 2},
+        "discriminator_type": "MelGANMultiScaleDiscriminator",
+        "discriminator_params": {"scales": 2, "channels": 16,
+                                 "max_downsample_channels": 64,
+                                 "downsample_scales": [4, 4]},
+        "stft_loss_params": {"fft_sizes": [256], "hop_sizes": [64],
+                             "win_lengths": [128]},
+        "use_feat_match_loss": True,
+    }
+    result = op_census.run_census({"melgan": config}, cuda_device)
+    op_census.report(result)
+    kinds = result["kinds"]
+    assert "mm" in kinds and "convolution_backward (1d, grouped, strided)" \
+        in kinds

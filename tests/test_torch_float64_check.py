@@ -229,3 +229,57 @@ def test_gate_decides_generator_kinks_by_float64(slope):
     assert gen.act is own
     assert all(getattr(g.act, "func", g.act) is getattr(own, "func", own)
                for g, _, _ in routes.values())
+
+
+def test_pwg_gate_decides_kinks_and_branches_by_float64(monkeypatch):
+    """chip_smoke's step 6 gate (PWG v1) on gate_gradients: the STFT loss's
+    kinks, G's two tail ReLUs (the generator's ``act``) and D's
+    LeakyReLUs are decided by float64 and handed to every route, each
+    gate_window is its own pair of windows and offset of the loader's
+    batch, and hold_gate passes; narrow widths, 2,048-sample windows, the
+    recipe's losses, all routes on the CPU."""
+    import chip_smoke
+
+    monkeypatch.setattr(chip_smoke, "GATE_SAMPLES", 2048)
+    from parallelwavegan_torch.engine.build import init_train_state
+    from parallelwavegan_torch.engine.criterion import build_criterion
+
+    config = dict(chip_smoke.PWG_V1)
+    config["generator_params"] = dict(
+        config["generator_params"], layers=3, stacks=3, residual_channels=8,
+        gate_channels=16, skip_channels=8)
+    config["discriminator_params"] = dict(
+        config["discriminator_params"], layers=3, conv_channels=8)
+    _, gen, dis, _, _ = init_train_state(config, 0, "cpu")
+    g = torch.Generator().manual_seed(2)
+    B, T = chip_smoke.TRAIN_BATCH, chip_smoke.TRAIN_SAMPLES
+    frames = T // chip_smoke.HOP + 4
+    batch = {"y": 0.1 * torch.randn((B, T, 1), generator=g),
+             "z": torch.randn((B, T, 1), generator=g),
+             "c": torch.randn((B, frames, 80), generator=g)}
+    windows = [chip_smoke.gate_window(batch, n) for n in range(3)]
+    assert all(w["y"].shape == (chip_smoke.GATE_BATCH,
+                                chip_smoke.GATE_SAMPLES, 1) for w in windows)
+    assert not torch.equal(windows[0]["y"], windows[1]["y"])
+    routes = chip_smoke.gate_routes(gen, dis, windows[1])
+    decided = []
+    real = chip_smoke._DecidedDiscriminator.__init__
+
+    def spy(self, module, table):
+        real(self, module, table)
+        decided.append((module, table))
+
+    chip_smoke._DecidedDiscriminator.__init__ = spy
+    try:
+        got = chip_smoke.gate_gradients(
+            routes, *chip_smoke.pwg_gate_losses(build_criterion(config)))
+    finally:
+        chip_smoke._DecidedDiscriminator.__init__ = real
+    table = decided[0][1]
+    assert len(table[("generator",)]) == 2  # the tail's two ReLUs
+    assert any(key[0] in ("adversarial", "d_loss") for key in table
+               if key != ("generator",))
+    assert gen.act is torch.nn.functional.relu
+    gate = chip_smoke.hold_gate("pwg small", got, chip_smoke.GATE_SAMPLES,
+                                chip_smoke.GATE_BATCH)
+    assert set(gate) == {"own_gate", "cot_gate", "held_gate", "d_gate"}

@@ -262,8 +262,9 @@ def test_decode_cli_writes_wavs(tmp_path):
 
 
 def test_port_imports_no_jax():
-    """Every module of the port (the training modules included) and
-    chip_smoke.py, imported in a fresh interpreter, load no jax, flax,
+    """Every module of the port (the training modules included),
+    chip_smoke.py and op_census_on_card.py beside it, imported in a fresh
+    interpreter, load no jax, flax,
     optax or parallelwavegan_tpu module, and neither yaml nor h5py (the
     GPU machine has neither)."""
     code = (
@@ -272,7 +273,7 @@ def test_port_imports_no_jax():
         "names = [m.name for m in pkgutil.walk_packages(p.__path__, "
         "p.__name__ + '.')]\n"
         "for n in names: importlib.import_module(n)\n"
-        "import chip_smoke\n"
+        "import chip_smoke, op_census_on_card\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'parallelwavegan_tpu', "
         "'yaml', 'h5py')]\n"
@@ -298,7 +299,7 @@ def test_port_imports_no_jax():
         "'bin.compute_statistics', 'bin.normalize', 'bin.preprocess_tokens', "
         "'bin.evaluate_mcd', 'bin.evaluate_f0', 'bin.convert_checkpoint', "
         "'datasets.native_loader', 'utils.export', 'utils.pretrained', "
-        "'bin.run_stages']\n"
+        "'bin.run_stages', 'tools.op_census']\n"
         "missing = [w for w in want if 'parallelwavegan_torch.' + w "
         "not in names]\n"
         "assert not missing, missing\n"
