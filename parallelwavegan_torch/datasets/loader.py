@@ -4,7 +4,10 @@ Counterpart of ``parallelwavegan_tpu/datasets/loader.py``; this package
 keeps its own copy. Each shard iterates a disjoint part of a permutation
 that is reshuffled every epoch from a seeded generator, collates fixed-shape
 numpy batches on a worker thread, and keeps a small queue so that device
-steps overlap the host's cropping.
+steps overlap the host's cropping. Spans (``utils/tracing.py``):
+``data.collate`` around each batch's collation (the worker's thread; its
+request is the batch's number in the epoch) and ``data.wait`` around the
+consumer's wait for the queue.
 """
 
 from __future__ import annotations
@@ -14,6 +17,8 @@ import threading
 from typing import Callable, Iterator
 
 import numpy as np
+
+from parallelwavegan_torch.utils import tracing
 
 
 class DataLoader:
@@ -74,7 +79,9 @@ class DataLoader:
                 self.dataset[int(i)]
                 for i in idx[b * self.batch_size : (b + 1) * self.batch_size]
             ]
-            yield self.collate_fn(items)
+            with tracing.span("data.collate", b):
+                batch = self.collate_fn(items)
+            yield batch
 
     def __iter__(self) -> Iterator:
         if self.prefetch <= 0:
@@ -95,7 +102,8 @@ class DataLoader:
 
         threading.Thread(target=worker, daemon=True).start()
         while True:
-            item = q.get()
+            with tracing.span("data.wait"):
+                item = q.get()
             if item is sentinel:
                 break
             yield item

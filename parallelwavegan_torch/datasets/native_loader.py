@@ -12,7 +12,8 @@ The shared library is built with ``g++`` at first use into
 ``ops/cuda/build.py``; the file name carries a hash of the source and the
 flags). ``is_available()`` says whether it builds and loads; ``bin/train``
 falls back to the PyTorch loader where it does not, or where the batches
-are not mel2wav ones (hdf5 dumps, f0, the other families).
+are not mel2wav ones (hdf5 dumps, f0, the other families). The wait for
+each batch is a ``data.wait`` span (``utils/tracing.py``).
 """
 
 from __future__ import annotations
@@ -26,6 +27,8 @@ from pathlib import Path
 from typing import Iterator, List, Optional, Tuple
 
 import numpy as np
+
+from parallelwavegan_torch.utils import tracing
 
 PACKAGE_DIR = Path(__file__).resolve().parents[1]
 SOURCE = PACKAGE_DIR / "native" / "data_loader.cc"
@@ -162,9 +165,10 @@ class NativeMelWavLoader:
             c = np.empty((self.batch_size, frames + 2 * self.ctx,
                           self.mel_dim), np.float32)
             z = np.empty_like(y) if self.use_noise_input else None
-            rc = self._lib.pwg_loader_next(
-                self._h, y.ctypes.data_as(fp), c.ctypes.data_as(fp),
-                z.ctypes.data_as(fp) if z is not None else fp())
+            with tracing.span("data.wait"):
+                rc = self._lib.pwg_loader_next(
+                    self._h, y.ctypes.data_as(fp), c.ctypes.data_as(fp),
+                    z.ctypes.data_as(fp) if z is not None else fp())
             if rc < 0:
                 raise RuntimeError("native loader read error")
             if rc == 0:

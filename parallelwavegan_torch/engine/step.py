@@ -85,10 +85,19 @@ before PQMF and the losses, which run in float32, the gradients arrive in
 float32, and the stored ``u`` is the bfloat16 result widened again. A
 VQ-VAE's code distances and argmin run in bfloat16 there, as in the JAX
 step.
+
+The train step's phases are spans (``utils/tracing.py``): ``step.g_forward``
+(the generator's forward and the PQMF merge), ``step.g_loss`` (the losses,
+the discriminator's forward among them), ``step.g_backward``,
+``step.g_update`` (the optimizer, the restart, the EMA),
+``step.d_recompute``, ``step.d_loss``, ``step.d_backward``,
+``step.d_update``, and ``step.all_reduce`` around each collective.
+``eval_step`` opens none.
 """
 
 from __future__ import annotations
 
+import contextlib
 import functools
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
@@ -100,6 +109,7 @@ from parallelwavegan_torch.engine.state import GANTrainState
 from parallelwavegan_torch.layers.vq import code_distances
 from parallelwavegan_torch.ops.cuda.pwg_infer import unsupported_fused_settings
 from parallelwavegan_torch.ops.cuda.wavenet_stack import check_kernel_channels
+from parallelwavegan_torch.utils import tracing
 
 Params = Dict[str, torch.Tensor]
 Batch = Dict[str, torch.Tensor]
@@ -131,6 +141,14 @@ def step_generator(seed: int = 0, steps: int = 0, stream: int = 0,
     state = np.random.SeedSequence(key)
     return torch.Generator(device=device).manual_seed(
         int(state.generate_state(1, np.uint64)[0]))
+
+
+_NO_SPAN = contextlib.nullcontext()
+
+
+def _no_phase(name: str):
+    """The eval step's phases: no spans."""
+    return _NO_SPAN
 
 
 def _is_style_generator(config: Dict[str, Any]) -> bool:
@@ -475,70 +493,75 @@ def build_steps(config: Dict[str, Any], generator, discriminator,
 
     def gen_losses(params_g: Params, params_d: Params, batch: Batch,
                    use_adv: bool, rng: Optional[torch.Generator],
-                   masks: Optional[List[torch.Tensor]] = None):
+                   masks: Optional[List[torch.Tensor]] = None,
+                   phase: Callable[[str], Any] = _no_phase):
         metrics = {}
-        batch = with_noise(generator, batch, rng)
-        y = batch["y"]
-        # y_mb_ (B, T / S, S) when multi-band
-        y_mb_, aux = gen_forward(params_g, batch, masks)
-        y_ = full_band(y_mb_)
-        gen_loss = 0.0
-        if vq:
-            z_e, z_q = aux["z_e"], aux["z_q"]
-            quant = torch.mean((z_q - z_e.detach()) ** 2)
-            commit = torch.mean((z_e - z_q.detach()) ** 2)
-            metrics["quantization_loss"] = quant
-            metrics["commitment_loss"] = commit
-            gen_loss = gen_loss + (quant + lambda_commit * commit)
-        if "ds_out" in aux:
-            d_loss = criterion["duration"](aux["ds_out"], batch["ds"])
-            metrics["duration_loss"] = d_loss
-            gen_loss = gen_loss + d_loss
-        if "stft" in criterion:
-            sc_loss, mag_loss = criterion["stft"](y_[..., 0], y[..., 0])
-            metrics["spectral_convergence_loss"] = sc_loss
-            metrics["log_stft_magnitude_loss"] = mag_loss
-            gen_loss = gen_loss + (sc_loss + mag_loss)
-        if "sub_stft" in criterion:
-            gen_loss = gen_loss * 0.5  # full band and subbands weigh alike
-            y_mb = pqmf.analysis(y)
-            sub_sc, sub_mag = criterion["sub_stft"](y_mb_.transpose(1, 2),
-                                                    y_mb.transpose(1, 2))
-            metrics["sub_spectral_convergence_loss"] = sub_sc
-            metrics["sub_log_stft_magnitude_loss"] = sub_mag
-            gen_loss = gen_loss + 0.5 * (sub_sc + sub_mag)
-        if "mel" in criterion:
-            mel_loss = criterion["mel"](y_[..., 0], y[..., 0])
-            metrics["mel_loss"] = mel_loss
-            gen_loss = gen_loss + mel_loss
-        gen_loss = gen_loss * lambda_aux
-        if use_adv:
-            # the discriminator in eval mode, and no gradient with respect
-            # to its parameters
-            fixed_d = {k: v.detach() for k, v in params_d.items()}
-            feat_match = criterion.get("feat_match")
-            p = None
-            if fuse_rf and feat_match is not None:
-                nb = y_.shape[0]
-                p_all = dis_forward(fixed_d, torch.cat([y_, y], dim=0), False,
-                                    window_starts=starts(y_, rng))
-                p_ = _tree_map(lambda t: t[:nb], p_all)
-                p = _tree_map(lambda t: t[nb:], p_all)
-            else:
-                p_ = dis_forward(fixed_d, y_, False,
-                                 window_starts=starts(y_, rng))
-            adv_loss = criterion["gen_adv"](p_)
-            metrics["adversarial_loss"] = adv_loss
-            if feat_match is not None:
-                if p is None:
-                    with torch.no_grad():  # the real features are constants
-                        p = dis_forward(fixed_d, y, False,
-                                        window_starts=starts(y, rng))
-                fm_loss = feat_match(p_, p)
-                metrics["feature_matching_loss"] = fm_loss
-                adv_loss = adv_loss + lambda_fm * fm_loss
-            gen_loss = gen_loss + lambda_adv * adv_loss
-        metrics["generator_loss"] = gen_loss
+        with phase("step.g_forward"):
+            batch = with_noise(generator, batch, rng)
+            # y_mb_ (B, T / S, S) when multi-band
+            y_mb_, aux = gen_forward(params_g, batch, masks)
+            y_ = full_band(y_mb_)
+        with phase("step.g_loss"):
+            y = batch["y"]
+            gen_loss = 0.0
+            if vq:
+                z_e, z_q = aux["z_e"], aux["z_q"]
+                quant = torch.mean((z_q - z_e.detach()) ** 2)
+                commit = torch.mean((z_e - z_q.detach()) ** 2)
+                metrics["quantization_loss"] = quant
+                metrics["commitment_loss"] = commit
+                gen_loss = gen_loss + (quant + lambda_commit * commit)
+            if "ds_out" in aux:
+                d_loss = criterion["duration"](aux["ds_out"], batch["ds"])
+                metrics["duration_loss"] = d_loss
+                gen_loss = gen_loss + d_loss
+            if "stft" in criterion:
+                sc_loss, mag_loss = criterion["stft"](y_[..., 0], y[..., 0])
+                metrics["spectral_convergence_loss"] = sc_loss
+                metrics["log_stft_magnitude_loss"] = mag_loss
+                gen_loss = gen_loss + (sc_loss + mag_loss)
+            if "sub_stft" in criterion:
+                # full band and subbands weigh alike
+                gen_loss = gen_loss * 0.5
+                y_mb = pqmf.analysis(y)
+                sub_sc, sub_mag = criterion["sub_stft"](
+                    y_mb_.transpose(1, 2), y_mb.transpose(1, 2))
+                metrics["sub_spectral_convergence_loss"] = sub_sc
+                metrics["sub_log_stft_magnitude_loss"] = sub_mag
+                gen_loss = gen_loss + 0.5 * (sub_sc + sub_mag)
+            if "mel" in criterion:
+                mel_loss = criterion["mel"](y_[..., 0], y[..., 0])
+                metrics["mel_loss"] = mel_loss
+                gen_loss = gen_loss + mel_loss
+            gen_loss = gen_loss * lambda_aux
+            if use_adv:
+                # the discriminator in eval mode, and no gradient with
+                # respect to its parameters
+                fixed_d = {k: v.detach() for k, v in params_d.items()}
+                feat_match = criterion.get("feat_match")
+                p = None
+                if fuse_rf and feat_match is not None:
+                    nb = y_.shape[0]
+                    p_all = dis_forward(fixed_d, torch.cat([y_, y], dim=0),
+                                        False, window_starts=starts(y_, rng))
+                    p_ = _tree_map(lambda t: t[:nb], p_all)
+                    p = _tree_map(lambda t: t[nb:], p_all)
+                else:
+                    p_ = dis_forward(fixed_d, y_, False,
+                                     window_starts=starts(y_, rng))
+                adv_loss = criterion["gen_adv"](p_)
+                metrics["adversarial_loss"] = adv_loss
+                if feat_match is not None:
+                    if p is None:
+                        # the real features are constants
+                        with torch.no_grad():
+                            p = dis_forward(fixed_d, y, False,
+                                            window_starts=starts(y, rng))
+                    fm_loss = feat_match(p_, p)
+                    metrics["feature_matching_loss"] = fm_loss
+                    adv_loss = adv_loss + lambda_fm * fm_loss
+                gen_loss = gen_loss + lambda_adv * adv_loss
+            metrics["generator_loss"] = gen_loss
         return gen_loss, metrics, y_, aux
 
     def d_masks(x: torch.Tensor, train: bool,
@@ -612,8 +635,9 @@ def build_steps(config: Dict[str, Any], generator, discriminator,
         rows = torch.randint(0, flat.shape[0], (k,), generator=rng)
         repl = flat[rows.to(flat.device)]
         if group is not None:
-            used, = group.all_reduce_sum([used])
-            repl, = group.all_reduce_mean([repl])
+            with tracing.span("step.all_reduce"):
+                used, = group.all_reduce_sum([used])
+                repl, = group.all_reduce_mean([repl])
         gate = torch.rand(k, generator=shared_rng) < restart_prob
         dead = (used == 0.0) & gate.to(emb.device)
         emb.copy_(torch.where(dead[:, None], repl.to(emb.dtype), emb))
@@ -635,46 +659,55 @@ def build_steps(config: Dict[str, Any], generator, discriminator,
             batch = prepare_batch(batch)
             metrics: Dict[str, torch.Tensor] = {}
             params_g, params_d = state.params_g, state.params_d
+            span = tracing.span
             y_hat = None
             if train_g:
                 gen_loss, m, y_hat, aux = gen_losses(
                     params_g, params_d, batch, use_adv, rng,
-                    dropout_masks(batch, dropout_rng))
-                grads = _grads(gen_loss, params_g)
+                    dropout_masks(batch, dropout_rng), span)
+                with span("step.g_backward"):
+                    grads = _grads(gen_loss, params_g)
                 if group is not None:
-                    grads = group.all_reduce_mean(grads)
+                    with span("step.all_reduce"):
+                        grads = group.all_reduce_mean(grads)
                 y_hat = y_hat.detach()
                 metrics.update(_detached(m))
                 del gen_loss, m
-                opt_g.step(params_g, grads)
-                if restart:
-                    metrics["vq_codes_used"] = dead_code_restart(
-                        params_g, aux["z_e"], rng, shared_rng)
-                del aux
-                if ema_decay > 0.0 and state.ema_g is not None:
-                    with torch.no_grad():
-                        ema = [state.ema_g[k] for k in params_g]
-                        torch._foreach_mul_(ema, ema_decay)
-                        torch._foreach_add_(ema, list(params_g.values()),
-                                            alpha=1.0 - ema_decay)
+                with span("step.g_update"):
+                    opt_g.step(params_g, grads)
+                    if restart:
+                        metrics["vq_codes_used"] = dead_code_restart(
+                            params_g, aux["z_e"], rng, shared_rng)
+                    del aux
+                    if ema_decay > 0.0 and state.ema_g is not None:
+                        with torch.no_grad():
+                            ema = [state.ema_g[k] for k in params_g]
+                            torch._foreach_mul_(ema, ema_decay)
+                            torch._foreach_add_(ema, list(params_g.values()),
+                                                alpha=1.0 - ema_decay)
             if train_d:
                 if recompute or y_hat is None:
                     # a second forward with the updated generator; nothing
                     # is saved for a backward
-                    with torch.no_grad():
+                    with span("step.d_recompute"), torch.no_grad():
                         y_hat = full_band(gen_forward(
                             params_g, with_noise(generator, batch, rng),
                             dropout_masks(batch, dropout_rng))[0])
-                dis_loss, m = dis_losses(params_d, batch["y"], y_hat, True,
-                                         rng, dropout_rng)
-                grads_d = _grads(dis_loss, params_d)
+                with span("step.d_loss"):
+                    dis_loss, m = dis_losses(params_d, batch["y"], y_hat,
+                                             True, rng, dropout_rng)
+                with span("step.d_backward"):
+                    grads_d = _grads(dis_loss, params_d)
                 if group is not None:
-                    grads_d = group.all_reduce_mean(grads_d)
+                    with span("step.all_reduce"):
+                        grads_d = group.all_reduce_mean(grads_d)
                 metrics.update(_detached(m))
-                opt_d.step(params_d, grads_d)
+                with span("step.d_update"):
+                    opt_d.step(params_d, grads_d)
             state.steps += 1
             if group is not None:
-                metrics = group.mean_metrics(metrics)
+                with span("step.all_reduce"):
+                    metrics = group.mean_metrics(metrics)
             return state, metrics
 
         return step

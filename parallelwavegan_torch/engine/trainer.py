@@ -29,10 +29,22 @@ traces the steps [``profile_start_step``, ``profile_start_step`` +
 warm-up step that trains nothing is skipped, and a window that starts on
 one never opens, as in JAX), on ``torch.profiler`` with the CPU and, on a
 card, the CUDA activities; rank 0 alone traces and writes the Chrome trace
-``<profile_dir>/rank0-steps<first>-<last>.pt.trace.json``, each traced step
-under a ``train_step <n>`` range. If the run ends inside the window the
+``<profile_dir>/rank0-steps<first>-<last>.pt.trace.json``, each step under
+a ``train_step <n>`` range. If the run ends inside the window the
 trace of the steps run so far is still written, where the JAX trace is
 never stopped. There is no ``--profile-dir`` flag (the JAX CLI has none).
+Inside each ``train_step <n>`` range the trace holds the loop's spans
+(``utils/tracing.py``; they record under any profiler open in the
+process): ``train.rng`` (the step's three random sources), ``train.h2d``
+(the batch's copy to the device), the step function's phases
+``step.g_forward``, ``step.g_loss``, ``step.g_backward``,
+``step.g_update``, ``step.d_recompute``, ``step.d_loss``,
+``step.d_backward``, ``step.d_update`` (those the step variant runs, and
+``step.all_reduce`` around each data-parallel collective), then
+``train.accumulate`` and, where an interval falls, ``train.log``,
+``train.eval`` and ``train.save``; the loader's ``data.wait`` lies before
+the range, its worker's ``data.collate`` on its own thread, and Python's
+collections are ``host.gc`` ranges wherever they fall.
 
 Not carried over from the JAX trainer: ``dispatch_queue_depth``, which
 bounds that package's unbounded asynchronous dispatch queue; the CUDA
@@ -43,7 +55,6 @@ Runs on ``cuda`` unless the caller passes ``device="cpu"``.
 
 from __future__ import annotations
 
-import contextlib
 import logging
 import os
 import time
@@ -69,6 +80,7 @@ from parallelwavegan_torch.parallel.dist import (
     rank,
     world_size,
 )
+from parallelwavegan_torch.utils import tracing
 
 
 class Trainer:
@@ -109,7 +121,7 @@ class Trainer:
         self.last_train_loss: Dict[str, float] = {}
         self.last_eval_loss: Dict[str, float] = {}
         self._accum_steps = 0
-        self.tic = self._log_tic = time.time()
+        self._log_tic = time.time()
         # the open torch.profiler of the profile window, and the trace file
         # written when it closed
         self.profiler = None
@@ -146,8 +158,12 @@ class Trainer:
         checked against its tables first, on the host."""
         if hasattr(self.generator, "check_ids"):
             self.generator.check_ids(batch["c"])
-        return {k: torch.as_tensor(v).to(self.device, non_blocking=True)
-                for k, v in batch.items()}
+        out = {}
+        for k, v in batch.items():
+            v = torch.as_tensor(v)
+            tracing.count_transfer(v, self.device)
+            out[k] = v.to(self.device, non_blocking=True)
+        return out
 
     def _train_step(self, batch):
         train_g, use_adv, train_d = self._flags()
@@ -160,20 +176,25 @@ class Trainer:
         steps = self.state.steps
         ranks = dict(rank=self.rank, world=self.world)
         self._maybe_profile()
-        with self._step_range():
-            self.state, metrics = step_fn(
-                self.state, self._to_device(batch),
-                step_generator(self.seed, steps, **ranks),
-                step_generator(self.seed, steps, SHARED_STREAM),
-                step_generator(self.seed, steps, DROPOUT_STREAM, self.device,
-                               **ranks))
-        for k, v in metrics.items():
-            self.total_train_loss[f"train/{k}"] += v  # stays on the device
-        self._accum_steps += 1
-        self.steps += 1
-        self._check_log_interval()
-        self._check_eval_interval()
-        self._check_save_interval()
+        n = self.steps
+        with tracing.span("train.step", n, f"train_step {n}"):
+            with tracing.span("train.rng"):
+                rngs = (step_generator(self.seed, steps, **ranks),
+                        step_generator(self.seed, steps, SHARED_STREAM),
+                        step_generator(self.seed, steps, DROPOUT_STREAM,
+                                       self.device, **ranks))
+            with tracing.span("train.h2d"):
+                batch = self._to_device(batch)
+            self.state, metrics = step_fn(self.state, batch, *rngs)
+            with tracing.span("train.accumulate"):
+                for k, v in metrics.items():
+                    # stays on the device
+                    self.total_train_loss[f"train/{k}"] += v
+            self._accum_steps += 1
+            self.steps += 1
+            self._check_log_interval()
+            self._check_eval_interval()
+            self._check_save_interval()
         if self.steps >= self.config["train_max_steps"]:
             self.finish_train = True
 
@@ -198,7 +219,7 @@ class Trainer:
     def run(self):
         """Train until ``train_max_steps``; always leaves a final
         checkpoint in ``outdir``."""
-        self.tic = self._log_tic = time.time()
+        self._log_tic = time.time()
         try:
             while not self.finish_train:
                 self._train_epoch()
@@ -231,12 +252,6 @@ class Trainer:
             logging.info(f"profiler trace started -> {profile_dir}")
         elif self.profiler is not None and self.steps >= start + n:
             self._stop_profile()
-
-    def _step_range(self):
-        """A ``train_step <n>`` range around a traced step's call."""
-        if self.profiler is None:
-            return contextlib.nullcontext()
-        return torch.profiler.record_function(f"train_step {self.steps}")
 
     def _stop_profile(self) -> None:
         """Close an open trace and write it; the path is kept in
@@ -272,40 +287,42 @@ class Trainer:
     def _check_log_interval(self):
         interval = self.config.get("log_interval_steps", 100)
         if self.steps % interval == 0 and self.total_train_loss:
-            # divide by the steps that contributed: after warm-up ends or a
-            # resume lands mid-interval, fewer than `interval` accumulated
-            n_accum = max(self._accum_steps, 1)
-            for key in sorted(self.total_train_loss):
-                self.total_train_loss[key] = (
-                    float(self.total_train_loss[key]) / n_accum
-                )
-                if self.is_main:
-                    logging.info(f"(Steps: {self.steps}) {key} = "
-                                 f"{self.total_train_loss[key]:.4f}.")
-            if self.writer:
-                for k, v in self.total_train_loss.items():
-                    self.writer.add_scalar(k, v, self.steps)
-                self.writer.add_scalar(
-                    "train/steps_per_sec",
-                    n_accum / max(time.time() - self._log_tic, 1e-6),
-                    self.steps,
-                )
-            self._log_tic = time.time()
-            self.last_train_loss = dict(self.total_train_loss)
-            self.total_train_loss = defaultdict(float)
-            self._accum_steps = 0
+            with tracing.span("train.log"):
+                # divide by the steps that contributed: after warm-up ends or a
+                # resume lands mid-interval, fewer than `interval` accumulated
+                n_accum = max(self._accum_steps, 1)
+                for key in sorted(self.total_train_loss):
+                    self.total_train_loss[key] = (
+                        float(self.total_train_loss[key]) / n_accum
+                    )
+                    if self.is_main:
+                        logging.info(f"(Steps: {self.steps}) {key} = "
+                                     f"{self.total_train_loss[key]:.4f}.")
+                if self.writer:
+                    for k, v in self.total_train_loss.items():
+                        self.writer.add_scalar(k, v, self.steps)
+                    self.writer.add_scalar(
+                        "train/steps_per_sec",
+                        n_accum / max(time.time() - self._log_tic, 1e-6),
+                        self.steps,
+                    )
+                self._log_tic = time.time()
+                self.last_train_loss = dict(self.total_train_loss)
+                self.total_train_loss = defaultdict(float)
+                self._accum_steps = 0
 
     def _check_save_interval(self):
         interval = self.config.get("save_interval_steps", 10000)
         if self.steps % interval == 0 and self.is_main:
-            self.save_checkpoint(
-                os.path.join(self.outdir, f"checkpoint-{self.steps}steps.ckpt")
-            )
+            with tracing.span("train.save"):
+                self.save_checkpoint(os.path.join(
+                    self.outdir, f"checkpoint-{self.steps}steps.ckpt"))
 
     def _check_eval_interval(self):
         interval = self.config.get("eval_interval_steps", 1000)
         if self.steps % interval == 0 and self.eval_loader is not None:
-            self._eval_epoch()
+            with tracing.span("train.eval"):
+                self._eval_epoch()
 
     # ------------------------------------------------------------------
     def _eval_epoch(self):

@@ -31,11 +31,18 @@ its f0 (T',); the token StyleMelGAN on ids edge-padded to its noise grid
 and noise z drawn from the caller's ``torch.Generator``, the wave cut to
 T' x the upsample factor.
 
+Spans (``utils/tracing.py``): each serving entry is one ``serve.call``,
+its request the model's count of calls (``calls``); in a batched call
+``serve.prepare`` (``serve.pad``, ``serve.h2d``, ``serve.noise``),
+``serve.forward`` and ``serve.readback``. The copies to and from the
+device are counted.
+
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
 """
 
 from __future__ import annotations
 
+import functools
 import logging
 import os
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
@@ -65,6 +72,7 @@ from parallelwavegan_torch.ops.hifigan_infer import (
 )
 from parallelwavegan_torch.utils.io import load_config, read_hdf5
 from parallelwavegan_torch.utils.params import convert_jax_params
+from parallelwavegan_torch.utils import tracing
 
 
 def resolve_device(device: Any = "cuda") -> torch.device:
@@ -145,8 +153,10 @@ def _randn(shape, generator: torch.Generator, device: torch.device,
     """N(0, 1) noise drawn on ``generator``'s device, then moved to
     ``device``: a CPU generator gives a CUDA model the noise it gives a CPU
     model."""
-    return torch.randn(shape, generator=generator, device=generator.device,
-                       dtype=dtype).to(device)
+    z = torch.randn(shape, generator=generator, device=generator.device,
+                    dtype=dtype)
+    tracing.count_transfer(z, device)
+    return z.to(device)
 
 
 def fused_wavenet(config: Dict[str, Any], device: torch.device) -> bool:
@@ -161,6 +171,18 @@ def fused_wavenet(config: Dict[str, Any], device: torch.device) -> bool:
     raise ValueError(
         f"inference_fused_wavenet must be true, false or 'auto', not "
         f"{setting!r}")
+
+
+def _served(method: Callable) -> Callable:
+    """``method`` as one call into the serving API: a ``serve.call`` span,
+    whose request is the model's count of calls."""
+    @functools.wraps(method)
+    def call(self, *args, **kwargs):
+        self.calls += 1
+        with tracing.span("serve.call", self.calls):
+            return method(self, *args, **kwargs)
+
+    return call
 
 
 class InferenceModel:
@@ -225,6 +247,8 @@ class InferenceModel:
         # pcm16: convert to int16 PCM on the device (clip to [-1, 1],
         # *32767, truncate), as utils.io.write_wav does on the host
         self.pcm16 = bool(pcm16)
+        # serving calls made: the request id of each ``serve.call`` span
+        self.calls = 0
 
     def register_stats(self, stats: str) -> None:
         """Register mean/scale for de-normalization (h5 or npy)."""
@@ -251,25 +275,28 @@ class InferenceModel:
         @torch.inference_mode()
         def fn(c: torch.Tensor, z: Optional[torch.Tensor] = None
                ) -> torch.Tensor:
-            if self.gen_type == "ParallelWaveGANGenerator":
-                y = gen(z, c) if w is None else pwg_fused_forward(gen, z, c, w)
-            elif self.gen_type == "StyleMelGANGenerator":
-                y = gen(c, z)
-            else:
-                if self.gen_type == "HiFiGANGenerator" \
-                        and supports_fast_inference(gen):
-                    y = hifigan_fast_forward(gen, c, scales=scales,
-                                             qweights=qweights,
-                                             mrf_packs=packs)
+            with tracing.span("serve.forward"):
+                if self.gen_type == "ParallelWaveGANGenerator":
+                    y = (gen(z, c) if w is None
+                         else pwg_fused_forward(gen, z, c, w))
+                elif self.gen_type == "StyleMelGANGenerator":
+                    y = gen(c, z)
                 else:
-                    y = gen(c)
-                if pqmf is not None:
-                    y = pqmf.synthesis(y)
-            if self.pcm16:
-                # f32 before scaling: bf16's 8-bit mantissa would quantize
-                # worse than the 16-bit target format
-                y = (y.float().clamp(-1.0, 1.0) * 32767.0).to(torch.int16)
-            return y
+                    if self.gen_type == "HiFiGANGenerator" \
+                            and supports_fast_inference(gen):
+                        y = hifigan_fast_forward(gen, c, scales=scales,
+                                                 qweights=qweights,
+                                                 mrf_packs=packs)
+                    else:
+                        y = gen(c)
+                    if pqmf is not None:
+                        y = pqmf.synthesis(y)
+                if self.pcm16:
+                    # f32 before scaling: bf16's 8-bit mantissa would
+                    # quantize worse than the 16-bit target format
+                    y = (y.float().clamp(-1.0, 1.0) * 32767.0).to(
+                        torch.int16)
+                return y
 
         return fn
 
@@ -369,38 +396,50 @@ class InferenceModel:
         if self.gen_type in DISCRETE_GENERATORS:
             raise ValueError(f"{self.gen_type} serves one utterance a call "
                              "through inference(c, ...)")
-        cs = [np.asarray(c, dtype=np.float32) for c in cs]
-        if normalize_before:
-            if self.mean is None:
-                raise ValueError("register_stats first")
-            cs = [(c - self.mean) / self.scale for c in cs]
-        lengths = [len(c) for c in cs]
-        bucket = -(-max(lengths) // bucket_size) * bucket_size
-        pwg = self.gen_type == "ParallelWaveGANGenerator"
-        ctx = self.generator.aux_context_window if pwg else 0
-        padded = np.stack([
-            np.pad(c, ((ctx, bucket - len(c) + ctx), (0, 0)), mode="edge")
-            for c in cs
-        ])
-        style = self.gen_type == "StyleMelGANGenerator"
-        if style:
-            # the bucket edge-padded on to the noise grid (the JAX
-            # package's padding: the instance norms see these frames)
-            frames = self.generator.noise_frames(bucket)
-            grid = frames * self.generator.noise_upsample_factor
-            padded = np.pad(padded, ((0, 0), (0, grid - bucket), (0, 0)),
-                            mode="edge")
-        c = torch.from_numpy(padded).to(self.device, self.dtype)
-        z = None
-        if pwg or style:
-            if generator is None:
-                generator = torch.Generator(device=self.device).manual_seed(0)
-            shape = ((len(cs), frames, self.generator.in_channels) if style
-                     else (len(cs), bucket * self.upsample_factor,
-                           self.generator.in_channels))
-            z = _randn(shape, generator, self.device, self.dtype)
-        return self._forward_fn(), (c, z), lengths
+        with tracing.span("serve.prepare"):
+            with tracing.span("serve.pad"):
+                cs = [np.asarray(c, dtype=np.float32) for c in cs]
+                if normalize_before:
+                    if self.mean is None:
+                        raise ValueError("register_stats first")
+                    cs = [(c - self.mean) / self.scale for c in cs]
+                lengths = [len(c) for c in cs]
+                bucket = -(-max(lengths) // bucket_size) * bucket_size
+                pwg = self.gen_type == "ParallelWaveGANGenerator"
+                ctx = self.generator.aux_context_window if pwg else 0
+                padded = np.stack([
+                    np.pad(c, ((ctx, bucket - len(c) + ctx), (0, 0)),
+                           mode="edge")
+                    for c in cs
+                ])
+                style = self.gen_type == "StyleMelGANGenerator"
+                if style:
+                    # the bucket edge-padded on to the noise grid (the JAX
+                    # package's padding: the instance norms see these
+                    # frames)
+                    frames = self.generator.noise_frames(bucket)
+                    grid = frames * self.generator.noise_upsample_factor
+                    padded = np.pad(padded,
+                                    ((0, 0), (0, grid - bucket), (0, 0)),
+                                    mode="edge")
+            with tracing.span("serve.h2d"):
+                c = torch.from_numpy(padded)
+                tracing.count_transfer(c, self.device)
+                c = c.to(self.device, self.dtype)
+            z = None
+            if pwg or style:
+                with tracing.span("serve.noise"):
+                    if generator is None:
+                        generator = torch.Generator(
+                            device=self.device).manual_seed(0)
+                    shape = ((len(cs), frames, self.generator.in_channels)
+                             if style else
+                             (len(cs), bucket * self.upsample_factor,
+                              self.generator.in_channels))
+                    z = _randn(shape, generator, self.device, self.dtype)
+            return self._forward_fn(), (c, z), lengths
 
+    @_served
     def synthesize_batch(
         self,
         cs: Sequence[np.ndarray],
@@ -410,11 +449,20 @@ class InferenceModel:
     ) -> List[np.ndarray]:
         """Batched synthesis cropped to the true lengths: float32 arrays,
         or int16 when the model was built with pcm16=True."""
+        return self._synthesize(cs, normalize_before, generator, bucket_size)
+
+    def _synthesize(self, cs: Sequence[np.ndarray], normalize_before: bool,
+                    generator: Optional[torch.Generator], bucket_size: int
+                    ) -> List[np.ndarray]:
         fn, args, lengths = self.prepare_batch(cs, normalize_before,
                                                generator, bucket_size)
         y = fn(*args)
-        y = (y if self.pcm16 else y.float()).cpu().numpy()
-        return [y[i, : n * self.upsample_factor] for i, n in enumerate(lengths)]
+        with tracing.span("serve.readback"):
+            y = y if self.pcm16 else y.float()
+            tracing.count_transfer(y, "cpu")
+            y = y.cpu().numpy()
+            return [y[i, : n * self.upsample_factor]
+                    for i, n in enumerate(lengths)]
 
     def inference(self, c: np.ndarray, normalize_before: bool = False,
                   generator: Optional[torch.Generator] = None,
@@ -433,6 +481,7 @@ class InferenceModel:
         return self.synthesize_batch([c], normalize_before, generator,
                                      bucket_size=1)[0]
 
+    @_served
     @torch.inference_mode()
     def _inference_excitation(self, c: np.ndarray, f0: Optional[np.ndarray],
                               excitation: Optional[np.ndarray]
@@ -489,6 +538,7 @@ class InferenceModel:
                                   self.generator.duration_offset
                                   ).cpu().numpy()
 
+    @_served
     @torch.inference_mode()
     def _inference_tokens(self, c: np.ndarray, f0: Optional[np.ndarray],
                           generator: Optional[torch.Generator]
@@ -532,6 +582,7 @@ class InferenceModel:
         x = torch.from_numpy(np.asarray(audio, np.float32).reshape(1, -1, 1))
         return self.generator.encode(x.to(self.device))[0].cpu().numpy()
 
+    @_served
     @torch.inference_mode()
     def vq_decode(self, indices: np.ndarray, l: Optional[np.ndarray] = None,
                   g: Optional[int] = None) -> np.ndarray:
@@ -549,6 +600,7 @@ class InferenceModel:
             y = self.pqmf.synthesis(y)
         return y[0].float().cpu().numpy()
 
+    @_served
     def inference_chunked(
         self,
         c: np.ndarray,
@@ -601,8 +653,7 @@ class InferenceModel:
         outs = []
         for lo, hi, a, b in chunk_windows(len(c), chunk_frames,
                                           context_frames):
-            y = self.synthesize_batch([c[lo:hi]], generator=generator,
-                                      bucket_size=1)[0]
+            y = self._synthesize([c[lo:hi]], False, generator, 1)[0]
             outs.append(y[(a - lo) * up: (b - lo) * up])
         return np.concatenate(outs, axis=0)
 
